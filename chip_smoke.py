@@ -12,7 +12,19 @@ Phases, each fatal on failure (non-zero exit, no result line):
   5. the HTTP server of experiments/serve.py on port 0 with random weights at
      full width (DPLM 640/12/10, 100 steps, 32 rows; ESM-2 650M, 32 rows, up
      to 1024 tokens): /healthz, /v1/embed across the 64..1024 buckets,
-     /v1/generate; every launch counter must rise during this phase.
+     /v1/generate; every serving launch counter must rise during this phase;
+  6. the train path's kernels against their plain versions on the card, in
+     bf16 (atol = rtol = 2e-2; gradients summed over the batch relative to
+     their largest entry), forward and every gradient: fused Dense+LN at the
+     two-tower step's four geometries at B=8192 and a ragged B=1000 (dropout
+     masks equal bit for bit), symmetric InfoNCE at B=8192 and B=1000, d=512;
+  7. the two-tower train path at the widths of the repository's bench.py:
+     (a) one train step on the card (kernels) against the same step on the
+     CPU (plain versions) from the same weights and batch, B=256, bf16 both,
+     dropout on: every leaf's gradient before the optimizer, the loss and the
+     update; (b) the train CLI (experiments/train.py --device cuda) for
+     3 epochs at B=256, whose loss must fall; (c) experiments/bench.py at
+     B=8192 (pairs/s, MFU). Every train launch counter must rise in (b)+(c).
 Prints a JSON line of per-kernel results, then as the last line
 {"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}.
 """
@@ -32,14 +44,33 @@ TOL = dict(atol=2e-2, rtol=2e-2)  # the JAX suite's bf16 kernel bound
 # Whole-model bound (bf16 on both sides, different summation orders): 3x the
 # bf16-vs-f32 noise of this model on the CPU (rel L2 0.010, max abs 0.038).
 MODEL_REL_L2, MODEL_MAX_ABS = 3e-2, 0.12
-KERNELS = {  # launch-counter name -> (source, TPU kernel it replaces)
+# Whole-step bound of 7(a): one train step, card (kernels) vs CPU (plain),
+# bf16 both: STEP_NOISE_FACTOR x the bf16-vs-f32 difference of the same
+# step on the CPU (loss, each leaf's gradient, update), measured in the same
+# run (the port may add no more than a few times the rounding noise bf16
+# itself causes).
+STEP_NOISE_FACTOR = 3.0
+SERVE_KERNELS = {  # launch-counter name -> (source, TPU kernel it replaces)
     "short_attention": ("clip_dplm_tpu_torch/csrc/short_attention.cu",
                         "clip_dplm_tpu/ops/short_attention.py:142"),
-    "short_attention_out_proj": ("clip_dplm_tpu_torch/csrc/short_attention.cu",
+    "short_attention_out_proj": ("clip_dplm_tpu_torch/csrc/dense_gemm.cuh",
                                  "clip_dplm_tpu/ops/short_attention.py:142"),
     "flash_attention": ("clip_dplm_tpu_torch/csrc/flash_attention.cu",
                         "clip_dplm_tpu/ops/flash_attention.py:50"),
 }
+TRAIN_KERNELS = {
+    "fused_dense_gemm": ("clip_dplm_tpu_torch/csrc/dense_gemm.cuh",
+                         "clip_dplm_tpu/ops/fused_dense.py:292"),
+    "fused_dense_fwd_rows": ("clip_dplm_tpu_torch/csrc/fused_dense.cu",
+                             "clip_dplm_tpu/ops/fused_dense.py:292"),
+    "fused_dense_bwd_rows": ("clip_dplm_tpu_torch/csrc/fused_dense.cu",
+                             "clip_dplm_tpu/ops/fused_dense.py:517"),
+    "sym_infonce_lse": ("clip_dplm_tpu_torch/csrc/fused_infonce.cu",
+                        "clip_dplm_tpu/ops/fused_infonce.py:1296"),
+    "sym_infonce_grad": ("clip_dplm_tpu_torch/csrc/fused_infonce.cu",
+                         "clip_dplm_tpu/ops/fused_infonce.py:867"),
+}
+KERNELS = {**SERVE_KERNELS, **TRAIN_KERNELS}
 
 
 class SmokeFailure(RuntimeError):
@@ -85,13 +116,38 @@ def compare(torch, name, shape, kernel_fn, plain_fn, results):
     check(bool(torch.isfinite(got).all()), f"{name} {shape}: non-finite output")
     check(torch.allclose(got, want, **TOL),
           f"{name} {shape}: max abs err {err} outside atol=rtol=2e-2")
-    p1, k1, k2, p2 = (cuda_ms(torch, f) for f in (plain_fn, kernel_fn, kernel_fn, plain_fn))
-    ms, plain_ms = min(k1, k2), min(p1, p2)
+    record(results, name, shape, err, *timed_pair(torch, kernel_fn, plain_fn))
+
+
+def record(results, name, shape, err, ms, plain_ms):
     print(f"kernel {name} {shape}: max_abs_err={err:.3e} ms={ms:.4f} plain_ms={plain_ms:.4f}")
     entry = results.setdefault(name, {"max_abs_err": 0.0})
     entry["max_abs_err"] = max(entry["max_abs_err"], err)
     entry.setdefault("ms", ms)  # the first shape listed is the main one
     entry.setdefault("plain_ms", plain_ms)
+
+
+def timed_pair(torch, kernel_fn, plain_fn):
+    """(kernel ms, plain ms), in turns plain, kernel, kernel, plain."""
+    p1, k1, k2, p2 = (cuda_ms(torch, f) for f in (plain_fn, kernel_fn, kernel_fn, plain_fn))
+    return min(k1, k2), min(p1, p2)
+
+
+def check_outputs(torch, what, got, want, names):
+    """Max abs error over outputs; the first is held to TOL as it is, the
+    rest (gradients, several summed over the batch, some of order 1/B)
+    divided by their largest entry first."""
+    worst = 0.0
+    for i, (name, a, b) in enumerate(zip(names, got, want)):
+        a, b = a.float(), b.float()
+        check(a.shape == b.shape, f"{what} {name}: shape {tuple(a.shape)} vs {tuple(b.shape)}")
+        check(bool(torch.isfinite(a).all()), f"{what} {name}: non-finite")
+        scale = 1.0 if i == 0 else max(b.abs().max().item(), 1e-30)
+        err = ((a - b).abs().max().item()) / scale
+        check(torch.allclose(a / scale, b / scale, **TOL),
+              f"{what} {name}: max abs err {err} outside atol=rtol=2e-2")
+        worst = max(worst, err)
+    return worst
 
 
 def phase_kernels(torch, results):
@@ -239,8 +295,206 @@ def phase_server(torch, build):
     for name, rate in rates.items():
         print(f"service {name}: {rate:.2f} seqs/s (one request of 32 sequences)")
     print(f"launches during the server phase: {launches}")
-    for name in KERNELS:
+    for name in SERVE_KERNELS:
         check(launches[name] > 0, f"kernel {name} was not launched by the server path")
+    return launches
+
+
+FD_GEOMETRIES = [  # what, B, K, N, order, act, dropout, skip tail
+    ("tower final", 8192, 1024, 1024, "act_ln", "relu", 0.0, False),
+    ("head fc0", 8192, 1024, 2048, "ln_act", "gelu", 0.1, False),
+    ("head fc1", 8192, 2048, 2048, "ln_act", "gelu", 0.1, False),
+    ("head fc_out", 8192, 2048, 512, "ln_act", "none", 0.0, True),
+    ("head fc0 ragged", 1000, 1024, 2048, "ln_act", "gelu", 0.1, False),
+]
+
+
+def phase_train_kernels(torch, results):
+    from clip_dplm_tpu_torch.ops import fused_dense as fd
+    from clip_dplm_tpu_torch.ops import fused_infonce as fi
+
+    dev = torch.device("cuda")
+    g = torch.Generator(device=dev).manual_seed(3)
+    rnd = lambda *s: torch.randn(*s, generator=g, device=dev)  # noqa: E731
+    for what, B, K, N, order, act, rate, skip in FD_GEOMETRIES:
+        x, w = rnd(B, K).bfloat16(), rnd(N, K) / K ** 0.5
+        b, gm, bt = rnd(N) * 0.1, 1.0 + 0.1 * rnd(N), rnd(N) * 0.1
+        extra = (rnd(B, N).bfloat16(), torch.tensor([0.3], device=dev)) if skip else ()
+        out_dtype = torch.float32 if (skip or order == "act_ln") else torch.bfloat16
+        dy = rnd(B, N).to(out_dtype)
+        kw = dict(order=order, act=act, dropout_rate=rate, dropout_seed=777,
+                  deterministic=rate == 0.0, out_dtype=out_dtype)
+        shape = f"{what} B={B} K={K} N={N} {order} {act}" + (f" dropout {rate}" if rate else "")
+        # forward on the same inputs; then the whole backward (row kernels,
+        # dx GEMM, dW) on the same inputs (dy and the kernel forward's
+        # residuals): a relu whose input rounds to the other side of 0 in one
+        # of two forwards would flip a whole du entry, which is rounding, not
+        # a kernel fault
+        spec = fd._Spec(order, act, rate, 777, torch.bfloat16, out_dtype, False)
+        wc, sk = w.bfloat16(), extra if skip else (None, None)
+        fwd_k = fd._kernel_fwd(spec, x, wc, b, gm, bt, *sk)
+        fwd_p = fd._plain_fwd(spec, x, wc, b, gm, bt, *sk)
+        if rate:
+            check(torch.equal(fwd_k[0] == 0, fwd_p[0] == 0),
+                  f"fused_dense {shape}: dropout masks differ")
+        err = check_outputs(torch, f"fused_dense {shape} forward", fwd_k[:2], fwd_p[:2],
+                            ["y", "saved"])
+        bwd = [fd._backward(spec, dy, x, wc, gm, bt, *fwd_k[1:], None, sk[1], use_kernel=k)
+               for k in (True, False)]
+        names = ["dx", "dW", "db", "dgamma", "dbeta"] + (["dls", "dskip"] if skip else [])
+        berr = check_outputs(torch, f"fused_dense {shape} backward", bwd[0][:len(names)],
+                             bwd[1][:len(names)], names)
+        dx_err = check_outputs(torch, f"fused_dense_gemm {shape} dx", bwd[0][:1], bwd[1][:1],
+                               ["dx"])
+        torch.cuda.synchronize()
+        # forward (GEMM + row epilogue) and backward (row pass + dx GEMM + dW)
+        fkw = dict(kw, skip=extra[0], layer_scale=extra[1]) if skip else kw
+        with torch.no_grad():
+            ms, plain_ms = timed_pair(
+                torch, lambda: fd.fused_dense_norm_act(x, w, b, gm, bt, **fkw),
+                lambda: fd.fused_dense_reference(x, w, b, gm, bt, **fkw))
+        record(results, "fused_dense_fwd_rows", shape + " forward", err, ms, plain_ms)
+        leaves = [t.clone().requires_grad_(True) for t in (x, w, b, gm, bt)]
+        graphs = {k: fn(*leaves, **fkw) for k, fn in
+                  (("kernel", fd.fused_dense_norm_act), ("plain", fd.fused_dense_reference))}
+        ms, plain_ms = timed_pair(
+            torch, lambda: graphs["kernel"].backward(dy, retain_graph=True),
+            lambda: graphs["plain"].backward(dy, retain_graph=True))
+        record(results, "fused_dense_bwd_rows", shape + " backward", berr, ms, plain_ms)
+        del graphs
+        # the GEMM alone against cuBLAS (u = bf16(x W^T) + b)
+        wb, bb = wc.contiguous(), b.bfloat16()
+        got = fd._gemm(x, wb, bb, N, b_row=False)
+        want = (x.float() @ wb.float().t()).bfloat16() + bb
+        gerr = check_outputs(torch, f"fused_dense_gemm {shape}", [got], [want], ["u"])
+        ms, plain_ms = timed_pair(torch, lambda: fd._gemm(x, wb, bb, N, b_row=False),
+                                  lambda: torch.nn.functional.linear(x, wb, bb))
+        record(results, "fused_dense_gemm", f"M={B} N={N} K={K} (x W^T + b)",
+               max(gerr, dx_err), ms, plain_ms)
+    for B in (8192, 1000):
+        d = 512
+        a = torch.nn.functional.normalize(rnd(B, d), dim=-1)
+        bb = torch.nn.functional.normalize(a + 0.5 * rnd(B, d), dim=-1)
+        scale = torch.tensor(14.2857, device=dev)
+        outs, graphs = {}, {}
+        for key, fn in (("kernel", fi.fused_symmetric_infonce),
+                        ("plain", fi.fused_symmetric_infonce_reference)):
+            leaves = [t.clone().requires_grad_(True) for t in (a, bb, scale)]
+            loss = fn(*leaves, torch.bfloat16)
+            loss.backward(retain_graph=True)
+            outs[key] = [loss.detach()] + [t.grad for t in leaves]
+            graphs[key] = loss
+        torch.cuda.synchronize()
+        shape = f"B={B} d={d}"
+        err = check_outputs(torch, f"sym_infonce {shape}", outs["kernel"], outs["plain"],
+                            ["loss", "da", "db", "dscale"])
+        with torch.no_grad():
+            ms, plain_ms = timed_pair(
+                torch, lambda: fi.fused_symmetric_infonce(a, bb, scale, torch.bfloat16),
+                lambda: fi.fused_symmetric_infonce_reference(a, bb, scale, torch.bfloat16))
+        record(results, "sym_infonce_lse", shape + " forward", err, ms, plain_ms)
+        ms, plain_ms = timed_pair(torch, lambda: graphs["kernel"].backward(retain_graph=True),
+                                  lambda: graphs["plain"].backward(retain_graph=True))
+        record(results, "sym_infonce_grad", shape + " backward (two passes + tail)", err, ms,
+               plain_ms)
+        del graphs
+
+
+def _rel(a, b):
+    return ((a - b).norm() / b.norm().clamp(min=1e-30)).item()
+
+
+def phase_train_step(torch):
+    """7(a): one step on the card vs the same step on the CPU: the gradient
+    of every leaf before the optimizer, then the loss and the update."""
+    from clip_dplm_tpu_torch.config import Config, apply_overrides
+    from clip_dplm_tpu_torch.experiments import bench
+    from clip_dplm_tpu_torch.experiments.registry import build_model
+    from clip_dplm_tpu_torch.ops.fused_dense import DropoutSeeds
+    from clip_dplm_tpu_torch.train.state import create_train_state
+    from clip_dplm_tpu_torch.train.trainer import _pair_loss_fn, make_train_step, to_device
+
+    B = 256
+    cfg = apply_overrides(Config(), bench.OVERRIDES + [
+        f"train.batch_size={B}", "train.optim.schedule=constant",
+        "train.optim.learning_rate=1e-3"])
+    gpu = build_model(cfg, device="cuda")
+    create_train_state(gpu, cfg)  # random weights from the seed
+    sd = {k: v.detach().cpu().clone() for k, v in gpu.state_dict().items()}
+    rng = np.random.default_rng(5)
+    batch = {"a": rng.normal(size=(B, 256)).astype(np.float32),
+             "b": rng.normal(size=(B, 1280)).astype(np.float32)}
+    runs = {}
+    for name, device, dtype in (("card", "cuda", torch.bfloat16),
+                                ("cpu", "cpu", torch.bfloat16),
+                                ("cpu_f32", "cpu", torch.float32)):
+        model = gpu if name == "card" else build_model(cfg, device=device, dtype=dtype)
+        model.load_state_dict(sd)
+        state = create_train_state(model, cfg, init=False)
+        dev_batch = to_device(batch, device)
+        # the gradient the step's first micro-batch takes: the same seeds
+        loss, _ = _pair_loss_fn(cfg)(model, dev_batch, DropoutSeeds(state.key, state.step))
+        loss.backward()
+        grads = {k: p.grad.detach().cpu().float() for k, p in model.named_parameters()}
+        state, metrics = make_train_step(cfg)(state, dev_batch)
+        runs[name] = (float(metrics["loss"]), grads, torch.cat([
+            (p.detach().cpu().float() - sd[k]).flatten()
+            for k, p in model.named_parameters()]))
+        del state, model
+    (l_card, g_card, d_card), (l_cpu, g_cpu, d_cpu), (l_f32, g_f32, d_f32) = (
+        runs[k] for k in ("card", "cpu", "cpu_f32"))
+    check(np.isfinite(l_card) and bool(torch.isfinite(d_card).all()), "train step: non-finite")
+    # per leaf: the card's gradient against the CPU's, bounded by the
+    # bf16-vs-f32 noise of that leaf or of the whole gradient, the larger
+    flat = {k: torch.cat([g[k].flatten() for k in g_cpu]) for k, g in
+            (("card", g_card), ("cpu", g_cpu), ("f32", g_f32))}
+    grad_err, grad_noise = _rel(flat["card"], flat["cpu"]), _rel(flat["f32"], flat["cpu"])
+    worst = 0.0
+    for k in g_cpu:
+        check(bool(torch.isfinite(g_card[k]).all()), f"train step grad {k}: non-finite")
+        err, noise = _rel(g_card[k], g_cpu[k]), max(_rel(g_f32[k], g_cpu[k]), grad_noise)
+        worst = max(worst, err / noise)
+        check(err <= STEP_NOISE_FACTOR * noise,
+              f"train step grad {k}: rel L2 {err} > {STEP_NOISE_FACTOR} x noise {noise}")
+    loss_err, loss_noise = abs(l_card - l_cpu) / abs(l_cpu), abs(l_f32 - l_cpu) / abs(l_cpu)
+    upd_err, upd_noise = _rel(d_card, d_cpu), _rel(d_f32, d_cpu)
+    print(f"train step B={B} (bench widths, dropout 0.1): loss card {l_card:.6f} cpu "
+          f"{l_cpu:.6f} cpu_f32 {l_f32:.6f}; loss rel err {loss_err:.3e} (bf16 noise "
+          f"{loss_noise:.3e}); gradient rel L2 {grad_err:.3e} (bf16 noise {grad_noise:.3e}), "
+          f"worst leaf {worst:.3f} x its noise over {len(g_cpu)} leaves; update rel L2 "
+          f"{upd_err:.3e} (bf16 noise {upd_noise:.3e})")
+    check(loss_err <= STEP_NOISE_FACTOR * loss_noise + 1e-6,
+          f"train step loss: rel err {loss_err} > {STEP_NOISE_FACTOR} x noise {loss_noise}")
+    check(upd_err <= STEP_NOISE_FACTOR * upd_noise,
+          f"train step update: rel L2 {upd_err} > {STEP_NOISE_FACTOR} x noise {upd_noise}")
+
+
+def phase_train_path(torch, build):
+    """7(b) the train CLI, 7(c) the benchmark; the launch counts of both."""
+    from clip_dplm_tpu_torch.experiments import bench
+    from clip_dplm_tpu_torch.experiments import train as train_cli
+
+    build.LAUNCHES.reset()
+    overrides = bench.OVERRIDES + ["train.batch_size=256", "train.optim.warmup_steps=5",
+                                   "train.optim.learning_rate=1e-3"]
+    t0 = time.perf_counter()
+    hist = train_cli.main(["--device", "cuda", "--epochs", "3",
+                           *[a for o in overrides for a in ("-o", o)]])
+    cli_s = time.perf_counter() - t0
+    losses = hist["train_loss"]
+    check(all(np.isfinite(losses)) and len(losses) == 3, f"train CLI losses {losses}")
+    check(losses[-1] < losses[0], f"train CLI: loss did not fall: {losses}")
+    print(f"train CLI (bench widths, B=256, 3 epochs of 6 steps): train_loss {losses}, "
+          f"val_loss {hist['val_loss']}, {cli_s:.1f} s")
+    out = bench.main(["--batch", "8192"])
+    torch.cuda.synchronize()
+    launches = build.LAUNCHES.snapshot()
+    print(f"bench B=8192: step {out['step_ms']} ms, {out['value']} pairs/s, "
+          f"{out['model_tflops_per_s_per_chip']} model TFLOP/s, MFU {out['mfu']} of "
+          f"{out['peak_bf16_tflops']} TFLOP/s bf16 peak")
+    print(f"launches during the train phase: {launches}")
+    for name in TRAIN_KERNELS:
+        check(launches[name] > 0, f"kernel {name} was not launched by the train path")
     return launches
 
 
@@ -273,6 +527,10 @@ def main() -> int:
     phase_kernels(torch, results)
     phase_model(torch)
     launches = phase_server(torch, _build)
+    phase_train_kernels(torch, results)
+    phase_train_step(torch)
+    launches.update({k: v for k, v in phase_train_path(torch, _build).items()
+                     if k in TRAIN_KERNELS})
 
     print(json.dumps({"kernels": [
         {"name": name, "route": "cuda", "source": src, "replaces": tpu,

@@ -2,13 +2,15 @@
 
 Module paths mirror `clip_dplm_tpu/`, so each module names its reference:
 
-  ops/         -- attention and its hand-written Hopper kernels (csrc/*.cu),
-                  each with a plain PyTorch version used for CPU tensors
-  models/      -- ESM-2 tower and DPLM trunk + sampler (torch.nn)
-  data/        -- ESM alphabet tokenizer (numpy)
+  ops/         -- attention, fused Dense+LN, InfoNCE and their hand-written
+                  Hopper kernels (csrc/*.cu), each with a plain PyTorch
+                  version used for CPU tensors
+  models/      -- ESM-2 tower, DPLM trunk + sampler, two-tower CLIP (torch.nn)
+  data/        -- ESM alphabet tokenizer, synthetic paired embeddings (numpy)
+  train/       -- train state, fused AdamW, train/eval steps, Trainer
   utils/       -- flax params -> state_dict conversion
   serving.py   -- micro-batched embed / generate services + HTTP server
-  experiments/ -- the serve CLI
+  experiments/ -- the serve, train and bench CLIs, the experiment registry
 
 The package imports torch and numpy, never jax, flax or yaml.
 """

@@ -1,17 +1,25 @@
-"""Model configurations of the serving path: `ESMConfig` and `DPLMConfig`.
+"""Configurations of the port: the serving path (`ESMConfig`, `DPLMConfig`)
+and the two-tower contrastive train path (`Config` and its leaves).
 
 The frozen dataclasses of `clip_dplm_tpu/config.py`, without the yaml loader
 (so the port imports no yaml) and with only the fields the port reads: the
-reference's LoRA, guidance, freezing and `scan_layers` fields are left out
-until the port has what they switch on, so passing one raises instead of
-being ignored. The port's modules are always unrolled; utils/convert.py reads
-both flax param layouts. Defaults are the reference's: the public ESM-2
-geometry and the DPLM sampler's 640/12/10 trunk.
+reference's LoRA, guidance, freezing and `scan_layers` fields, the
+hard-negative cache, the global-batch gather, the materialized-similarity
+switch and the other loss kinds are left out until the port has what they
+switch on, so passing one raises instead of being ignored. The port's
+modules are always unrolled; utils/convert.py reads both flax param layouts.
+Defaults are the reference's.
+
+`apply_overrides(cfg, ["a.b=c", ...])` replaces dotted fields, parsing each
+value by the field's declared type.
 """
 
 from __future__ import annotations
 
-from dataclasses import dataclass
+import dataclasses
+import typing
+from dataclasses import dataclass, field
+from typing import Optional, Sequence
 
 
 @dataclass(frozen=True)
@@ -40,3 +48,139 @@ class DPLMConfig:
     max_len: int = 512
     num_diffusion_steps: int = 100
     layer_norm_eps: float = 1e-5  # matches ESM-2 checkpoints for warm-start
+
+
+@dataclass(frozen=True)
+class TowerConfig:
+    """One encoder tower over a precomputed embedding vector."""
+
+    input_dim: int = 158
+    hidden_size: int = 512
+    num_hidden_layers: int = 3
+    architecture: str = "mlp"  # mlp | resnet (transformer: not ported yet)
+    activation: str = "relu"
+    # the final Dense+act+LayerNorm through the fused kernel (ops/fused_dense.py)
+    fused_dense: bool = False
+
+
+@dataclass(frozen=True)
+class ProjectionConfig:
+    """Projection head into the shared space: `linear`, `base`
+    (Linear-LN-GELU-Dropout-Linear-LN) or `optimized` (skip path + learnable
+    layer scale, hidden = 4x dim by default)."""
+
+    kind: str = "optimized"  # linear | base | optimized
+    dim: int = 512
+    hidden_dim: Optional[int] = None
+    act: str = "gelu"  # gelu (tanh approximation) | gelu_exact | relu
+    dropout: float = 0.1
+    layer_scale_init: float = 1e-4
+    # Dense+LN+GELU+dropout blocks through the fused kernel; act != "gelu"
+    # takes the unfused modules
+    fused_dense: bool = False
+    l2_normalize_output: bool = False
+
+
+@dataclass(frozen=True)
+class ContrastiveConfig:
+    """Symmetric InfoNCE with a learned (clamped) logit scale."""
+
+    loss_kind: str = "infonce"  # the only kind the port has
+    logit_scale_init: float = 2.6592  # == log(1/0.07)
+    logit_scale_max: float = 100.0
+    learned_temperature: bool = True
+    temperature: float = 0.07  # used when not learned
+    label_smoothing: float = 0.0
+    use_fused_kernel: bool = False  # ops/fused_infonce.py
+
+
+@dataclass(frozen=True)
+class OptimConfig:
+    """Fused AdamW + global-norm clip + warmup-cosine / cosine / constant."""
+
+    learning_rate: float = 3e-4
+    weight_decay: float = 0.01
+    beta1: float = 0.9
+    beta2: float = 0.999
+    eps: float = 1e-8
+    warmup_steps: int = 1000
+    total_steps: int = 100_000
+    schedule: str = "warmup_cosine"  # warmup_cosine | cosine | constant
+    min_lr_ratio: float = 0.0
+    grad_clip_norm: float = 1.0
+    grad_accum_steps: int = 1
+    moment_dtype: str = "float32"  # float32 | bfloat16
+    clip_mode: str = "exact"  # exact | stale
+
+
+@dataclass(frozen=True)
+class TrainConfig:
+    batch_size: int = 128
+    num_epochs: int = 100
+    early_stopping_patience: int = 10
+    seed: int = 42
+    log_grad_norm: bool = False
+    optim: OptimConfig = field(default_factory=OptimConfig)
+
+
+@dataclass(frozen=True)
+class DataConfig:
+    path: str = ""
+    dataset: str = "synthetic"  # synthetic | embeddings (.npz with a, b)
+
+
+@dataclass(frozen=True)
+class Config:
+    """The two-tower experiment's configuration."""
+
+    experiment: str = "two_tower"
+    tower_a: TowerConfig = field(default_factory=TowerConfig)
+    tower_b: TowerConfig = field(default_factory=lambda: TowerConfig(input_dim=1280))
+    projection: ProjectionConfig = field(default_factory=ProjectionConfig)
+    contrastive: ContrastiveConfig = field(default_factory=ContrastiveConfig)
+    train: TrainConfig = field(default_factory=TrainConfig)
+    data: DataConfig = field(default_factory=DataConfig)
+
+
+def _parse(value: str, typ):
+    if typ is bool:
+        v = value.strip().lower()
+        if v in ("1", "true", "yes", "on"):
+            return True
+        if v in ("0", "false", "no", "off"):
+            return False
+        raise ValueError(f"not a bool: {value!r}")
+    if typ in (int, float, str):
+        return typ(value)
+    if typing.get_origin(typ) is typing.Union:  # Optional[X]
+        if value.strip().lower() in ("none", "null", ""):
+            return None
+        (inner,) = [a for a in typing.get_args(typ) if a is not type(None)]
+        return _parse(value, inner)
+    raise TypeError(f"cannot parse a value of type {typ}")
+
+
+def replace_path(cfg, dotted: str, value: str):
+    """Copy of `cfg` with the dotted field replaced by `value` (a string,
+    parsed by the field's type). An unknown field raises KeyError."""
+    head, _, rest = dotted.partition(".")
+    hints = typing.get_type_hints(type(cfg))
+    if head not in hints:
+        raise KeyError(f"unknown config key {type(cfg).__name__}.{head}")
+    if rest:
+        sub = replace_path(getattr(cfg, head), rest, value)
+    elif dataclasses.is_dataclass(hints[head]):
+        raise KeyError(f"{dotted} is a section, not a field")
+    else:
+        sub = _parse(value, hints[head])
+    return dataclasses.replace(cfg, **{head: sub})
+
+
+def apply_overrides(cfg, overrides: Sequence[str]):
+    """Apply overrides of the form `a.b.c=value` in order."""
+    for item in overrides:
+        key, sep, value = item.partition("=")
+        if not sep:
+            raise ValueError(f"override {item!r} is not of the form key=value")
+        cfg = replace_path(cfg, key.strip(), value.strip())
+    return cfg

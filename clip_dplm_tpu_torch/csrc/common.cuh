@@ -1,4 +1,4 @@
-// Helpers shared by the attention kernels of clip_dplm_tpu_torch.
+// Helpers shared by the kernels of clip_dplm_tpu_torch.
 #pragma once
 
 #include <cuda_bf16.h>
@@ -108,6 +108,42 @@ __device__ inline void stage_rows(bf16* dst, int ld, const bf16* src, size_t row
   const int pad = Dp - Dh;
   for (int idx = tid; idx < n_rows * pad; idx += nt)
     dst[(idx / pad) * ld + Dh + idx % pad] = __float2bfloat16(0.f);
+}
+
+// bf16 round trip of an f32 value (round to nearest even), as a cast to
+// bf16 and back in the reference.
+__device__ inline float bf16r(float x) { return __bfloat162float(__float2bfloat16(x)); }
+
+// 16-byte asynchronous copy global -> shared; with pred false the 16 bytes
+// are zero-filled and nothing is read.
+__device__ inline void cp_async16(void* smem, const void* gmem, bool pred) {
+  const unsigned s = static_cast<unsigned>(__cvta_generic_to_shared(smem));
+  const int n = pred ? 16 : 0;
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(s), "l"(gmem), "r"(n));
+}
+__device__ inline void cp_async_commit() { asm volatile("cp.async.commit_group;\n" ::); }
+template <int N>
+__device__ inline void cp_async_wait() {
+  asm volatile("cp.async.wait_group %0;\n" ::"n"(N));
+}
+
+// Eight bf16 values at p (16-byte aligned) as f32, and back.
+__device__ inline void load8(const bf16* p, float* v) {
+  const uint4 u = *reinterpret_cast<const uint4*>(p);
+  const __nv_bfloat162* h = reinterpret_cast<const __nv_bfloat162*>(&u);
+#pragma unroll
+  for (int e = 0; e < 4; ++e) {
+    const float2 f = __bfloat1622float2(h[e]);
+    v[2 * e] = f.x;
+    v[2 * e + 1] = f.y;
+  }
+}
+__device__ inline void store8(bf16* p, const float* v) {
+  uint4 u;
+  __nv_bfloat162* h = reinterpret_cast<__nv_bfloat162*>(&u);
+#pragma unroll
+  for (int e = 0; e < 4; ++e) h[e] = __floats2bfloat162_rn(v[2 * e], v[2 * e + 1]);
+  *reinterpret_cast<uint4*>(p) = u;
 }
 
 }  // namespace clip_dplm

@@ -14,8 +14,9 @@
 //     softmax is exact (no online rescaling: all keys are resident), p is
 //     rounded to bf16 for p·V with f32 accumulation, and the row is divided
 //     by max(l, 1e-30). o goes to a (B, S, D) bf16 scratch.
-//   out_proj_kernel: a 64x64-tile GEMM with f32 accumulation and a bias
-//     epilogue, y = o·Wo^T + bo, Wo in (out, in) layout.
+//   dense_gemm_kernel (csrc/dense_gemm.cuh, shared with the fused Dense
+//     block): y = bf16(o·Wo^T + bo) with f32 accumulation, Wo in (out, in)
+//     layout, the bias added before the one rounding.
 //
 // Bounds on the H100: at the serving shapes (S = 128, Dh = 64) a block does
 // 2·64·128·64·2 = 2.1 MFLOP on 16 KB of K/V and 8 KB of q, far below the
@@ -26,14 +27,13 @@
 // that fragment loads do not conflict on banks. Fusing the projection into
 // the attention launch, and cp.async/TMA with wgmma, are later work.
 
-#include "common.cuh"
+#include "dense_gemm.cuh"
 
 using namespace nvcuda;
 
 namespace clip_dplm {
 namespace {
 
-constexpr int kThreads = 128;   // the out-projection GEMM: 4 warps
 constexpr int kAttnThreads = 256;  // the attention kernel: 8 warps
 constexpr int kAttnWarps = kAttnThreads / kWarp;
 
@@ -163,63 +163,6 @@ short_attn_qkv_kernel(const bf16* __restrict__ qkv, const uint8_t* __restrict__ 
   }
 }
 
-constexpr int kBM = 64, kBN = 64, kBK = 32;
-constexpr int kLdAB = kBK + 8;  // bf16 row pitch of the staged tiles
-constexpr int kLdC = kBN + 4;   // f32 row pitch of the epilogue tile
-
-// y[m, n] = sum_k x[m, k] * w[n, k] + bias[n]; x (M, K), w (N, K), y (M, N)
-// row-major bf16, K and N multiples of 8, pointers 16-byte aligned.
-__global__ void __launch_bounds__(kThreads)
-out_proj_kernel(const bf16* __restrict__ x, const bf16* __restrict__ w,
-                const bf16* __restrict__ bias, bf16* __restrict__ y, int M, int N, int K) {
-  __shared__ __align__(128) unsigned char smem_a[kBM * kLdAB * sizeof(bf16)];
-  __shared__ __align__(128) unsigned char smem_b[kBN * kLdAB * sizeof(bf16)];
-  __shared__ __align__(128) float sC[kBM * kLdC];
-  bf16* sA = reinterpret_cast<bf16*>(smem_a);
-  bf16* sB = reinterpret_cast<bf16*>(smem_b);
-  const int m0 = blockIdx.y * kBM, n0 = blockIdx.x * kBN;
-  const int warp = threadIdx.x / kWarp, wm = warp / 2, wn = warp % 2;
-
-  wmma::fragment<wmma::accumulator, 16, 16, 16, float> acc[2][2];
-  for (int i = 0; i < 2; ++i)
-    for (int j = 0; j < 2; ++j) wmma::fill_fragment(acc[i][j], 0.f);
-
-  for (int k0 = 0; k0 < K; k0 += kBK) {
-    // 16-byte chunks: 64 rows x 4 chunks per operand tile
-    for (int c = threadIdx.x; c < kBM * (kBK / 8); c += kThreads) {
-      const int r = c / (kBK / 8), kc = (c % (kBK / 8)) * 8;
-      const int gk = k0 + kc;
-      uint4 va = make_uint4(0, 0, 0, 0), vb = make_uint4(0, 0, 0, 0);
-      if (m0 + r < M && gk < K) va = *reinterpret_cast<const uint4*>(x + size_t(m0 + r) * K + gk);
-      if (n0 + r < N && gk < K) vb = *reinterpret_cast<const uint4*>(w + size_t(n0 + r) * K + gk);
-      *reinterpret_cast<uint4*>(sA + r * kLdAB + kc) = va;
-      *reinterpret_cast<uint4*>(sB + r * kLdAB + kc) = vb;
-    }
-    __syncthreads();
-    for (int kk = 0; kk < kBK; kk += 16) {
-      wmma::fragment<wmma::matrix_a, 16, 16, 16, bf16, wmma::row_major> a[2];
-      wmma::fragment<wmma::matrix_b, 16, 16, 16, bf16, wmma::col_major> bw[2];
-      for (int i = 0; i < 2; ++i)
-        wmma::load_matrix_sync(a[i], sA + (wm * 32 + i * 16) * kLdAB + kk, kLdAB);
-      for (int j = 0; j < 2; ++j)
-        wmma::load_matrix_sync(bw[j], sB + (wn * 32 + j * 16) * kLdAB + kk, kLdAB);
-      for (int i = 0; i < 2; ++i)
-        for (int j = 0; j < 2; ++j) wmma::mma_sync(acc[i][j], a[i], bw[j], acc[i][j]);
-    }
-    __syncthreads();
-  }
-  for (int i = 0; i < 2; ++i)
-    for (int j = 0; j < 2; ++j)
-      wmma::store_matrix_sync(sC + (wm * 32 + i * 16) * kLdC + wn * 32 + j * 16, acc[i][j], kLdC,
-                              wmma::mem_row_major);
-  __syncthreads();
-  for (int idx = threadIdx.x; idx < kBM * kBN; idx += kThreads) {
-    const int r = idx / kBN, c = idx % kBN, gm = m0 + r, gn = n0 + c;
-    if (gm < M && gn < N)
-      y[size_t(gm) * N + gn] = __float2bfloat16(sC[r * kLdC + c] + __bfloat162float(bias[gn]));
-  }
-}
-
 }  // namespace
 }  // namespace clip_dplm
 
@@ -250,10 +193,6 @@ extern "C" int short_attention_qkv_fwd(const void* qkv, const void* mask, const 
 // x (M, K), w (N, K), bias (N), y (M, N), all bf16.
 extern "C" int short_attention_out_proj(const void* x, const void* w, const void* bias, void* y,
                                         int M, int N, int K, void* stream) {
-  dim3 grid((N + kBN - 1) / kBN, (M + kBM - 1) / kBM);
-  if (grid.y > 65535) return static_cast<int>(cudaErrorInvalidValue);
-  out_proj_kernel<<<grid, kThreads, 0, static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const bf16*>(x), static_cast<const bf16*>(w), static_cast<const bf16*>(bias),
-      static_cast<bf16*>(y), M, N, K);
-  return static_cast<int>(cudaGetLastError());
+  return static_cast<int>(launch_dense_gemm<false>(x, w, bias, y, M, N, K, false,
+                                                   static_cast<cudaStream_t>(stream)));
 }

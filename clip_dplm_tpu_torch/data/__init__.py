@@ -1,1 +1,1 @@
-"""Protein tokenization (numpy)."""
+"""Protein tokenization and synthetic paired embeddings (numpy)."""

@@ -1,0 +1,64 @@
+"""Training CLI: `python -m clip_dplm_tpu_torch.experiments.train`.
+
+Counterpart of `clip_dplm_tpu/experiments/train.py` for the two-tower
+experiment: dotted `-o a.b=c` overrides on the default config (no yaml),
+then data -> model -> train state -> Trainer on one device. Prints one JSON
+line per epoch and a final summary line.
+
+  python -m clip_dplm_tpu_torch.experiments.train --device cuda --epochs 3 \\
+      -o tower_a.input_dim=256 -o tower_a.hidden_size=1024 \\
+      -o tower_b.hidden_size=1024 -o train.batch_size=256
+"""
+
+from __future__ import annotations
+
+import argparse
+import json
+from typing import Dict, Optional, Sequence
+
+import numpy as np
+import torch
+
+
+def parse_args(argv: Optional[Sequence[str]] = None) -> argparse.Namespace:
+    p = argparse.ArgumentParser(description=__doc__,
+                                formatter_class=argparse.RawDescriptionHelpFormatter)
+    p.add_argument("--override", "-o", action="append", default=[],
+                   help="dotted config override, e.g. -o train.batch_size=64")
+    p.add_argument("--device", default="cpu", help="cpu or cuda[:i]")
+    p.add_argument("--epochs", type=int, default=None)
+    p.add_argument("--checkpoint-dir", default=None,
+                   help="not ported yet: giving one raises")
+    return p.parse_args(argv)
+
+
+def main(argv: Optional[Sequence[str]] = None) -> Dict[str, list]:
+    args = parse_args(argv)
+    from clip_dplm_tpu_torch.config import Config, apply_overrides
+    from clip_dplm_tpu_torch.experiments.registry import build_data, build_model
+    from clip_dplm_tpu_torch.train.state import create_train_state
+    from clip_dplm_tpu_torch.train.trainer import Trainer
+
+    device = torch.device(args.device)
+    if device.type == "cuda" and not torch.cuda.is_available():
+        raise SystemExit("--device cuda: no CUDA device is available")
+    cfg = apply_overrides(Config(), args.override)
+    model = build_model(cfg, device=device)
+    state = create_train_state(model, cfg)
+    n_params = sum(p.numel() for p in model.parameters())
+    print(json.dumps({"experiment": cfg.experiment, "device": str(device),
+                      "parameters": n_params}), flush=True)
+    train_batches, val_batches = build_data(cfg)
+    trainer = Trainer(cfg, state, checkpoint_dir=args.checkpoint_dir,
+                      log_fn=lambda epoch, m: print(json.dumps({"epoch": epoch, **m}),
+                                                    flush=True))
+    rng = np.random.default_rng(cfg.train.seed)
+    history = trainer.train(lambda: train_batches(seed=int(rng.integers(1 << 31))),
+                            val_batches, num_epochs=args.epochs)
+    print(json.dumps({"done": True, "train_loss": history["train_loss"],
+                      "val_loss": history["val_loss"]}), flush=True)
+    return history
+
+
+if __name__ == "__main__":
+    main()

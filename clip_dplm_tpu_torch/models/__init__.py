@@ -1,1 +1,1 @@
-"""ESM-2 tower and DPLM (torch.nn)."""
+"""ESM-2 tower, DPLM and the two-tower CLIP (torch.nn)."""

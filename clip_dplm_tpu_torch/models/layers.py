@@ -1,4 +1,5 @@
-"""Parameter-holding layers that keep the flax scope and param names.
+"""Parameter-holding layers that keep the flax scope and param names, and
+the two-tower model's encoder towers and projection heads.
 
 `Dense` (the counterpart of `clip_dplm_tpu/models/layers.py::_DenseParams`
 and `nn.Dense`), `LayerNorm` and `Embed` name their parameters `kernel` /
@@ -9,6 +10,15 @@ in), the transpose of flax's (in, out).
 Dtype policy (the JAX package's): parameters are f32; a Dense computes in its
 input's dtype (bf16 in the trunk, f32 for the DPLM head); LayerNorm computes
 and returns f32.
+
+Towers and heads (`MLPTower`, `ResNetTower`, `LinearProjection`,
+`ProjectionHead`, `OptimizedProjectionHead`; counterparts in
+`clip_dplm_tpu/models/layers.py`) declare the same parameter tree on the
+fused and the unfused path. With `fused_dense` a Dense+LN(+act+dropout)
+block goes through `ops/fused_dense.py` (its CUDA kernels on the card, its
+plain version on the CPU); without it the block is Dense / LayerNorm (eps
+1e-6) / act / dropout. Both paths draw dropout masks from the same hash of
+(seed, row, column), one seed per site from `DropoutSeeds` in call order.
 """
 
 from __future__ import annotations
@@ -20,20 +30,41 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
+from clip_dplm_tpu_torch.ops.fused_dense import (
+    DropoutSeeds,
+    fused_dense_norm_act,
+    hash_dropout,
+)
+from clip_dplm_tpu_torch.ops.infonce import l2_normalize
+
+FLAX_LN_EPS = 1e-6  # flax nn.LayerNorm's default, the towers' and heads' LNs
+
 
 class Dense(nn.Module):
-    def __init__(self, in_features: int, features: int, device=None):
+    """`init` picks the kernel's initializer: "lecun" (flax nn.Dense's
+    default family) or "xavier" (xavier-uniform)."""
+
+    def __init__(self, in_features: int, features: int, device=None,
+                 init: str = "lecun"):
         super().__init__()
+        if init not in ("lecun", "xavier"):
+            raise ValueError(f"unknown init {init!r}")
+        self.init = init
         self.kernel = nn.Parameter(
             torch.empty(features, in_features, dtype=torch.float32, device=device))
         self.bias = nn.Parameter(
             torch.zeros(features, dtype=torch.float32, device=device))
 
     def reset_parameters(self, generator: torch.Generator) -> None:
-        """lecun-normal kernel (std 1/sqrt(fan_in)), zero bias."""
+        """lecun-normal (std 1/sqrt(fan_in)) or xavier-uniform kernel, zero
+        bias."""
         with torch.no_grad():
-            self.kernel.normal_(0.0, 1.0 / math.sqrt(self.kernel.shape[1]),
-                                generator=generator)
+            fan_out, fan_in = self.kernel.shape
+            if self.init == "xavier":
+                a = math.sqrt(6.0 / (fan_in + fan_out))
+                self.kernel.uniform_(-a, a, generator=generator)
+            else:
+                self.kernel.normal_(0.0, 1.0 / math.sqrt(fan_in), generator=generator)
             self.bias.zero_()
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
@@ -77,7 +108,215 @@ class Embed(nn.Module):
 
 def init_params(module: nn.Module, generator: torch.Generator) -> None:
     """Random weights for every layer of `module`, drawn from `generator`
-    (which lives on the module's device)."""
+    (which lives on the module's device); modules with parameters of their
+    own (a layer scale, a logit scale) reset them in `reset_own_params`."""
     for m in module.modules():
         if isinstance(m, (Dense, LayerNorm, Embed)):
             m.reset_parameters(generator)
+        elif hasattr(m, "reset_own_params"):
+            m.reset_own_params()
+
+
+# ---------------------------------------------------------------------------
+# encoder towers and projection heads of the two-tower model
+# ---------------------------------------------------------------------------
+
+_ACTS = {
+    "relu": F.relu,
+    "gelu": lambda x: F.gelu(x, approximate="tanh"),  # flax's default gelu
+    "gelu_exact": F.gelu,
+    "silu": F.silu,
+    "tanh": torch.tanh,
+}
+
+
+def _activation(name: str):
+    if name not in _ACTS:
+        raise ValueError(f"unknown activation {name!r}")
+    return _ACTS[name]
+
+
+def _dropout(h: torch.Tensor, rate: float, deterministic: bool,
+             seeds: Optional[DropoutSeeds]) -> torch.Tensor:
+    """The unfused modules' dropout: the fused kernel's hash mask, in h's
+    dtype."""
+    if deterministic or rate <= 0.0:
+        return h
+    return hash_dropout(h, _seed(seeds), rate)
+
+
+def _seed(seeds: Optional[DropoutSeeds]) -> int:
+    if seeds is None:
+        raise ValueError("dropout with deterministic=False needs DropoutSeeds")
+    return seeds.next()
+
+
+def _fused_block(x, dense: Dense, ln: LayerNorm, *, order, act, rate, deterministic,
+                 seeds, out_dtype, dtype, skip=None, layer_scale=None, l2=False):
+    seed = _seed(seeds) if rate > 0.0 and not deterministic else None
+    return fused_dense_norm_act(
+        x, dense.kernel, dense.bias, ln.scale, ln.bias, order=order, act=act,
+        dropout_rate=rate, dropout_seed=seed, deterministic=deterministic,
+        out_dtype=out_dtype, compute_dtype=dtype, skip=skip, layer_scale=layer_scale,
+        l2_normalize_out=l2)
+
+
+class MLPTower(nn.Module):
+    """num_hidden_layers Dense+act layers, then a LayerNorm; with fused_dense
+    the last Dense+act+LN is one fused block (order act_ln)."""
+
+    def __init__(self, cfg, dtype=torch.bfloat16, device=None):
+        super().__init__()
+        self.cfg, self.dtype = cfg, dtype
+        d = cfg.hidden_size
+        for i in range(cfg.num_hidden_layers):
+            self.add_module(f"dense_{i}", Dense(cfg.input_dim if i == 0 else d, d,
+                                                device=device))
+        self.LayerNorm_0 = LayerNorm(d, FLAX_LN_EPS, device=device)
+
+    def forward(self, x, deterministic: bool = True, seeds=None) -> torch.Tensor:
+        act = _activation(self.cfg.activation)
+        n = self.cfg.num_hidden_layers
+        h = x.to(self.dtype)
+        for i in range(n - 1 if self.cfg.fused_dense else n):
+            h = act(getattr(self, f"dense_{i}")(h))
+        if self.cfg.fused_dense:
+            return _fused_block(h, getattr(self, f"dense_{n - 1}"), self.LayerNorm_0,
+                                order="act_ln", act=self.cfg.activation, rate=0.0,
+                                deterministic=deterministic, seeds=seeds,
+                                out_dtype=torch.float32, dtype=self.dtype)
+        return self.LayerNorm_0(h)
+
+
+class ResNetTower(nn.Module):
+    """Residual MLP tower: in_proj, then pre-LN blocks h + fc2(act(fc1(LN(h)))),
+    then a LayerNorm. Plain ops only."""
+
+    def __init__(self, cfg, dtype=torch.bfloat16, device=None):
+        super().__init__()
+        self.cfg, self.dtype = cfg, dtype
+        d = cfg.hidden_size
+        self.in_proj = Dense(cfg.input_dim, d, device=device)
+        for i in range(cfg.num_hidden_layers):
+            self.add_module(f"ln_{i}", LayerNorm(d, FLAX_LN_EPS, device=device))
+            self.add_module(f"fc1_{i}", Dense(d, d, device=device))
+            self.add_module(f"fc2_{i}", Dense(d, d, device=device))
+        self.LayerNorm_0 = LayerNorm(d, FLAX_LN_EPS, device=device)
+
+    def forward(self, x, deterministic: bool = True, seeds=None) -> torch.Tensor:
+        act = _activation(self.cfg.activation)
+        h = self.in_proj(x.to(self.dtype))
+        for i in range(self.cfg.num_hidden_layers):
+            r = getattr(self, f"ln_{i}")(h).to(self.dtype)
+            r = getattr(self, f"fc2_{i}")(act(getattr(self, f"fc1_{i}")(r)))
+            h = h + r
+        return self.LayerNorm_0(h)
+
+
+def make_tower(cfg, dtype=torch.bfloat16, device=None) -> nn.Module:
+    if cfg.architecture == "mlp":
+        return MLPTower(cfg, dtype, device)
+    if cfg.architecture == "resnet":
+        return ResNetTower(cfg, dtype, device)
+    if cfg.architecture == "transformer":
+        raise ValueError("the transformer tower is not ported yet (ROADMAP queue 1, "
+                         "slice 3)")
+    raise ValueError(f"unknown tower architecture {cfg.architecture!r}")
+
+
+class LinearProjection(nn.Module):
+    """One Dense into the shared space."""
+
+    def __init__(self, cfg, in_dim: int, dtype=torch.bfloat16, device=None):
+        super().__init__()
+        self.cfg, self.dtype = cfg, dtype
+        self.Dense_0 = Dense(in_dim, cfg.dim, device=device)
+
+    def forward(self, x, deterministic: bool = True, seeds=None) -> torch.Tensor:
+        out = self.Dense_0(x.to(self.dtype))
+        return l2_normalize(out) if self.cfg.l2_normalize_output else out
+
+
+class ProjectionHead(nn.Module):
+    """Linear -> LN -> act -> dropout -> Linear -> LN; the two blocks are
+    fused (ln_act gelu with dropout, then ln_act none) when fused_dense and
+    act == "gelu" (the fused kernel's gelu is the tanh approximation)."""
+
+    def __init__(self, cfg, in_dim: int, dtype=torch.bfloat16, device=None):
+        super().__init__()
+        self.cfg, self.dtype = cfg, dtype
+        self.fc1 = Dense(in_dim, cfg.dim, device=device)
+        self.ln1 = LayerNorm(cfg.dim, FLAX_LN_EPS, device=device)
+        self.fc2 = Dense(cfg.dim, cfg.dim, device=device)
+        self.ln2 = LayerNorm(cfg.dim, FLAX_LN_EPS, device=device)
+
+    def forward(self, x, deterministic: bool = True, seeds=None) -> torch.Tensor:
+        c, dt = self.cfg, self.dtype
+        if c.fused_dense and c.act == "gelu":
+            h = _fused_block(x.to(dt), self.fc1, self.ln1, order="ln_act", act="gelu",
+                             rate=c.dropout, deterministic=deterministic, seeds=seeds,
+                             out_dtype=dt, dtype=dt)
+            h = _fused_block(h, self.fc2, self.ln2, order="ln_act", act="none", rate=0.0,
+                             deterministic=deterministic, seeds=seeds,
+                             out_dtype=torch.float32, dtype=dt)
+        else:
+            h = self.ln1(self.fc1(x.to(dt))).to(dt)
+            h = _dropout(_activation(c.act)(h), c.dropout, deterministic, seeds)
+            h = self.ln2(self.fc2(h))
+        return l2_normalize(h) if c.l2_normalize_output else h
+
+
+class OptimizedProjectionHead(nn.Module):
+    """skip Dense + layer_scale * deep projection (two Dense+LN+act+dropout
+    blocks, then Dense+LN), xavier-uniform Dense kernels, layer scale
+    initialised to layer_scale_init. With fused_dense and act == "gelu" the
+    three blocks are fused, the last with the skip tail (and L2 normalize)."""
+
+    def __init__(self, cfg, in_dim: int, dtype=torch.bfloat16, device=None):
+        super().__init__()
+        self.cfg, self.dtype = cfg, dtype
+        hidden = cfg.hidden_dim or 4 * cfg.dim
+        self.skip = Dense(in_dim, cfg.dim, device=device, init="xavier")
+        self.fc0 = Dense(in_dim, hidden, device=device, init="xavier")
+        self.ln0 = LayerNorm(hidden, FLAX_LN_EPS, device=device)
+        self.fc1 = Dense(hidden, hidden, device=device, init="xavier")
+        self.ln1 = LayerNorm(hidden, FLAX_LN_EPS, device=device)
+        self.fc_out = Dense(hidden, cfg.dim, device=device, init="xavier")
+        self.ln_out = LayerNorm(cfg.dim, FLAX_LN_EPS, device=device)
+        self.layer_scale = nn.Parameter(torch.full(
+            (1,), float(cfg.layer_scale_init), dtype=torch.float32, device=device))
+
+    def reset_own_params(self) -> None:
+        with torch.no_grad():
+            self.layer_scale.fill_(float(self.cfg.layer_scale_init))
+
+    def forward(self, x, deterministic: bool = True, seeds=None) -> torch.Tensor:
+        c, dt = self.cfg, self.dtype
+        x = x.to(dt)
+        skip = self.skip(x)
+        h = x
+        if c.fused_dense and c.act == "gelu":
+            for i in range(2):
+                h = _fused_block(h, getattr(self, f"fc{i}"), getattr(self, f"ln{i}"),
+                                 order="ln_act", act="gelu", rate=c.dropout,
+                                 deterministic=deterministic, seeds=seeds,
+                                 out_dtype=dt, dtype=dt)
+            return _fused_block(h, self.fc_out, self.ln_out, order="ln_act", act="none",
+                                rate=0.0, deterministic=deterministic, seeds=seeds,
+                                out_dtype=torch.float32, dtype=dt, skip=skip,
+                                layer_scale=self.layer_scale, l2=c.l2_normalize_output)
+        act = _activation(c.act)
+        for i in range(2):
+            h = getattr(self, f"ln{i}")(getattr(self, f"fc{i}")(h)).to(dt)
+            h = _dropout(act(h), c.dropout, deterministic, seeds)
+        h = self.ln_out(self.fc_out(h))
+        out = skip.float() + self.layer_scale * h
+        return l2_normalize(out) if c.l2_normalize_output else out
+
+
+def make_projection(cfg, in_dim: int, dtype=torch.bfloat16, device=None) -> nn.Module:
+    cls = {"linear": LinearProjection, "base": ProjectionHead,
+           "optimized": OptimizedProjectionHead}.get(cfg.kind)
+    if cls is None:
+        raise ValueError(f"unknown projection kind {cfg.kind!r}")
+    return cls(cfg, in_dim, dtype, device)

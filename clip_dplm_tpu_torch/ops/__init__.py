@@ -1,1 +1,1 @@
-"""Attention ops and their CUDA kernels."""
+"""Attention, fused Dense+LN and InfoNCE ops and their CUDA kernels."""

@@ -3,7 +3,8 @@ count their launches.
 
 Every `.cu` file under `clip_dplm_tpu_torch/csrc/` is compiled, on first use,
 into one shared library with a plain C interface (no PyTorch headers, so the
-build takes seconds). The library lands in `build/clip_dplm_tpu_torch/` under
+build takes seconds): one nvcc process per source, all started together,
+then one link. The library lands in `build/clip_dplm_tpu_torch/` under
 the repository root, named by a hash of the sources and flags, so an edited
 source rebuilds and an unchanged one loads the cached file. Each C launcher
 takes raw pointers and the CUDA stream and returns `cudaGetLastError()`; the
@@ -31,10 +32,10 @@ CSRC = Path(__file__).resolve().parent.parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "clip_dplm_tpu_torch"
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
-    "-shared", "-Xcompiler", "-fPIC", "-Xptxas=-v",
+    "-Xcompiler", "-fPIC", "-Xptxas=-v",
 )
 
-_P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
+_P, _I, _U, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_uint32, ctypes.c_float
 # C launchers: name -> argtypes (pointers and the stream as c_void_p)
 _SIGNATURES = {
     # qkv, mask, cos, sin, o, B, S, H, Dh, scale, stream
@@ -43,6 +44,22 @@ _SIGNATURES = {
     "short_attention_out_proj": [_P, _P, _P, _P, _I, _I, _I, _P],
     # q, k, v, mask, out, B, H, S, Sk, Dh, scale, stream
     "flash_attention_fwd": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _F, _P],
+    # A, B, bias, C, M, Nc, Kr, b_row, stream
+    "fused_dense_gemm": [_P, _P, _P, _P, _I, _I, _I, _I, _P],
+    # s_buf, y, mean, rstd, gamma, beta, skip, ls, B, N, ln_act, act,
+    # saves_pre, seed, thresh, keep, l2, y_f32, stream
+    "fused_dense_fwd_rows": [_P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I,
+                             _I, _U, _U, _F, _I, _I, _P],
+    # dy, saved, mean, rstd, gamma, beta, skip, ls, row_stats, du, dskip,
+    # dg_part, dbeta_part, db_part, dls_part, B, N, ln_act, act, saves_pre,
+    # seed, thresh, keep, l2, dy_f32, stream
+    "fused_dense_bwd_rows": [_P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P,
+                             _P, _P, _P, _I, _I, _I, _I, _I, _U, _U, _F, _I,
+                             _I, _P],
+    # x, y, scale, row_lse, colmax, colsum, m, n, dp, stream
+    "sym_infonce_lse": [_P, _P, _P, _P, _P, _P, _I, _I, _I, _P],
+    # x, y, scale, lse_row, lse_col, acc, rowdot, m, n, dp, stream
+    "sym_infonce_grad": [_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _P],
 }
 
 
@@ -68,7 +85,9 @@ class LaunchCounter:
 
 
 LAUNCHES = LaunchCounter(
-    ["short_attention", "short_attention_out_proj", "flash_attention"])
+    ["short_attention", "short_attention_out_proj", "flash_attention",
+     "fused_dense_gemm", "fused_dense_fwd_rows", "fused_dense_bwd_rows",
+     "sym_infonce_lse", "sym_infonce_grad"])
 
 
 class _Library:
@@ -103,16 +122,27 @@ class _Library:
         if out.exists():
             return out
         BUILD_DIR.mkdir(parents=True, exist_ok=True)
-        tmp = out.with_name(f"{out.name}.{os.getpid()}.tmp")
-        cmd = [_nvcc(), *NVCC_FLAGS, "-o", str(tmp), *map(str, sources)]
+        tag = f"{digest.hexdigest()[:16]}.{os.getpid()}"
+        objs = [BUILD_DIR / f"{src.stem}.{tag}.o" for src in sources]
+        nvcc = _nvcc()
         t0 = time.perf_counter()
-        proc = subprocess.run(cmd, capture_output=True, text=True)
+        procs = [(cmd, subprocess.Popen(cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
+                                        text=True))
+                 for cmd in ([nvcc, *NVCC_FLAGS, "-c", "-o", str(o), str(src)]
+                             for src, o in zip(sources, objs))]
+        logs = [(cmd, proc.communicate()[0], proc.returncode) for cmd, proc in procs]
+        tmp = out.with_name(f"{out.name}.{os.getpid()}.tmp")
+        if all(rc == 0 for _, _, rc in logs):
+            cmd = [nvcc, *NVCC_FLAGS[:2], "-shared", "-o", str(tmp), *map(str, objs)]
+            proc = subprocess.run(cmd, capture_output=True, text=True)
+            logs.append((cmd, proc.stdout + proc.stderr, proc.returncode))
         self.build_seconds = time.perf_counter() - t0
-        self.build_log = proc.stdout + proc.stderr
-        if proc.returncode != 0:
-            raise RuntimeError(
-                f"nvcc failed with code {proc.returncode}: {' '.join(cmd)}\n"
-                f"{self.build_log}")
+        self.build_log = "".join(log for _, log, _ in logs)
+        for o in objs:
+            o.unlink(missing_ok=True)
+        for cmd, log, rc in logs:
+            if rc != 0:
+                raise RuntimeError(f"nvcc failed with code {rc}: {' '.join(cmd)}\n{log}")
         os.replace(tmp, out)  # atomic: concurrent builders never load a torn file
         return out
 

@@ -1,0 +1,199 @@
+"""Train state, learning-rate schedules and the fused AdamW.
+
+Counterpart of `clip_dplm_tpu/train/state.py`. `TrainState` holds the model
+(its parameters are the state's parameters), the optimizer, its moments,
+the step and an integer dropout key; the dropout seeds of a step are hashed
+from (key, step, site) on the host (ops/fused_dense.py::DropoutSeeds). The
+hard-negative cache is not ported.
+
+`FusedAdamW` is the reference's `fused_adamw`: AdamW with the global-norm
+clip folded into the one per-tensor update, bias correction, decoupled
+weight decay, moments optionally stored in bf16 (computed in f32), the
+learning rate read at the count before the increment, and a `stale` clip
+mode that clips with the previous step's norm. It updates the parameters in
+place (the reference's state is immutable; here that saves a copy of every
+parameter and moment) and never waits on the device.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+import math
+from typing import Callable, Dict, Optional, Tuple
+
+import torch
+from torch import nn
+
+from clip_dplm_tpu_torch.config import Config, OptimConfig
+from clip_dplm_tpu_torch.models.layers import init_params
+
+Schedule = Callable[[int], float]
+
+
+def _linear(init: float, end: float, steps: int) -> Schedule:
+    if steps <= 0:
+        return lambda count: init
+    return lambda count: (init - end) * (1.0 - min(max(count, 0), steps) / steps) + end
+
+
+def _cosine(init: float, decay_steps: int, alpha: float) -> Schedule:
+    if not decay_steps > 0:
+        raise ValueError(f"cosine decay needs positive decay_steps, got {decay_steps}")
+
+    def schedule(count):
+        c = min(float(count), float(decay_steps))
+        return init * ((1.0 - alpha) * 0.5 * (1.0 + math.cos(math.pi * c / decay_steps)) + alpha)
+
+    return schedule
+
+
+def build_schedule(cfg: OptimConfig) -> Schedule:
+    """optax's warmup_cosine_decay_schedule / cosine_decay_schedule /
+    constant_schedule, evaluated on the host in double precision."""
+    peak = cfg.learning_rate
+    end = peak * cfg.min_lr_ratio
+    if cfg.schedule == "warmup_cosine":
+        warm = cfg.warmup_steps
+        decay = max(cfg.total_steps, warm + 1)
+        first = _linear(0.0, peak, warm)
+        second = _cosine(peak, decay - warm, 0.0 if peak == 0.0 else end / peak)
+        return lambda count: first(count) if count < warm else second(count - warm)
+    if cfg.schedule == "cosine":
+        return _cosine(peak, cfg.total_steps, cfg.min_lr_ratio)
+    if cfg.schedule == "constant":
+        return lambda count: peak
+    raise ValueError(f"unknown schedule {cfg.schedule!r}")
+
+
+@dataclasses.dataclass
+class AdamWState:
+    count: int
+    mu: Dict[str, torch.Tensor]
+    nu: Dict[str, torch.Tensor]
+    prev_norm: torch.Tensor  # previous step's global norm (stale mode); 0 = none yet
+
+
+def global_norm(tensors) -> torch.Tensor:
+    """sqrt of the sum of squares over every tensor, in f32 (on the device)."""
+    norms = torch._foreach_norm([t.float() for t in tensors])
+    return torch.linalg.vector_norm(torch.stack(norms))
+
+
+@dataclasses.dataclass(frozen=True)
+class FusedAdamW:
+    schedule: Schedule
+    b1: float = 0.9
+    b2: float = 0.999
+    eps: float = 1e-8
+    weight_decay: float = 0.01
+    clip_norm: float = 0.0
+    moment_dtype: Optional[torch.dtype] = None
+    clip_mode: str = "exact"
+    # top-level parameter names (`tower_a`, ...) whose updates are zero
+    frozen: Tuple[str, ...] = ()
+
+    def init(self, params: Dict[str, torch.Tensor]) -> AdamWState:
+        zeros = lambda p: torch.zeros_like(p, dtype=self.moment_dtype or p.dtype)  # noqa: E731
+        dev = next(iter(params.values())).device
+        return AdamWState(count=0, mu={k: zeros(p) for k, p in params.items()},
+                          nu={k: zeros(p) for k, p in params.items()},
+                          prev_norm=torch.zeros((), dtype=torch.float32, device=dev))
+
+    @torch.no_grad()
+    def update(self, grads: Dict[str, torch.Tensor], state: AdamWState,
+               params: Dict[str, torch.Tensor]) -> None:
+        """One step: the moments in `state` and the parameters in place."""
+        if self.clip_mode not in ("exact", "stale"):
+            raise ValueError(f"unknown clip_mode {self.clip_mode!r}")
+        dev = state.prev_norm.device
+        clipf = torch.ones((), dtype=torch.float32, device=dev)
+        if self.clip_norm and self.clip_norm > 0:
+            gnorm = global_norm(grads.values())
+            if self.clip_mode == "stale":
+                prev = state.prev_norm
+                clipf = torch.where(prev > 0, torch.clamp(self.clip_norm / prev, max=1.0), clipf)
+                state.prev_norm = gnorm
+            else:
+                clipf = torch.clamp(self.clip_norm / gnorm, max=1.0)
+        count_inc = state.count + 1
+        # f32 bias corrections, as jnp.float32(b) ** count
+        b1c = 1.0 - float(torch.tensor(self.b1, dtype=torch.float32) ** count_inc)
+        b2c = 1.0 - float(torch.tensor(self.b2, dtype=torch.float32) ** count_inc)
+        lr = float(self.schedule(state.count))
+        names = list(params)
+        idx = [i for i, n in enumerate(names) if n.split(".", 1)[0] not in self.frozen]
+        # one multi-tensor op per line (torch._foreach_*), all in f32
+        g = torch._foreach_mul([grads[n].float() for n in names], clipf)
+        m = torch._foreach_mul([state.mu[n].float() for n in names], self.b1)
+        torch._foreach_add_(m, torch._foreach_mul(g, 1.0 - self.b1))
+        v = torch._foreach_mul([state.nu[n].float() for n in names], self.b2)
+        torch._foreach_add_(v, torch._foreach_mul(torch._foreach_mul(g, g), 1.0 - self.b2))
+        if idx:
+            den = torch._foreach_add(torch._foreach_sqrt(
+                torch._foreach_div([v[i] for i in idx], b2c)), self.eps)
+            u = torch._foreach_div(torch._foreach_div([m[i] for i in idx], b1c), den)
+            live = [params[names[i]] for i in idx]
+            torch._foreach_add_(u, torch._foreach_mul([p.float() for p in live],
+                                                      self.weight_decay))
+            torch._foreach_add_(live, torch._foreach_mul(u, -lr))
+        torch._foreach_copy_([state.mu[n] for n in names], m)
+        torch._foreach_copy_([state.nu[n] for n in names], v)
+        state.count = count_inc
+
+
+def fused_adamw(schedule: Schedule, b1: float = 0.9, b2: float = 0.999, eps: float = 1e-8,
+                weight_decay: float = 0.01, clip_norm: float = 0.0,
+                moment_dtype: Optional[torch.dtype] = None,
+                clip_mode: str = "exact") -> FusedAdamW:
+    return FusedAdamW(schedule, b1, b2, eps, weight_decay, clip_norm, moment_dtype, clip_mode)
+
+
+def build_optimizer(cfg: OptimConfig) -> FusedAdamW:
+    """AdamW + global-norm clip + schedule, always the fused update."""
+    if cfg.moment_dtype not in ("float32", "bfloat16"):
+        raise ValueError(f"unknown moment_dtype {cfg.moment_dtype!r}")
+    return fused_adamw(
+        build_schedule(cfg), b1=cfg.beta1, b2=cfg.beta2, eps=cfg.eps,
+        weight_decay=cfg.weight_decay, clip_norm=cfg.grad_clip_norm or 0.0,
+        moment_dtype=torch.bfloat16 if cfg.moment_dtype == "bfloat16" else None,
+        clip_mode=cfg.clip_mode)
+
+
+def freeze_subtrees(tx: FusedAdamW, params: Dict[str, torch.Tensor], frozen_keys) -> FusedAdamW:
+    """Zero the whole update (decay included) of the top-level subtrees in
+    `frozen_keys`: a zero gradient alone would still let weight decay shrink
+    them. Their moments are still kept, as in the reference's chain."""
+    tops = {k.split(".", 1)[0] for k in params}
+    unknown = set(frozen_keys) - tops
+    if unknown:
+        raise KeyError(f"no parameter subtree named {sorted(unknown)}")
+    return dataclasses.replace(tx, frozen=tuple(sorted(set(frozen_keys))))
+
+
+@dataclasses.dataclass
+class TrainState:
+    model: nn.Module
+    tx: FusedAdamW
+    opt_state: AdamWState
+    step: int
+    key: int  # integer dropout key
+
+    def params(self) -> Dict[str, torch.Tensor]:
+        return dict(self.model.named_parameters())
+
+
+def create_train_state(model: nn.Module, cfg: Config, tx: Optional[FusedAdamW] = None,
+                       frozen_keys=(), init: bool = True) -> TrainState:
+    """With `init`, random weights from a generator seeded by
+    cfg.train.seed on the model's device; otherwise the model keeps its
+    weights (loaded from a flax tree, say)."""
+    device = next(model.parameters()).device
+    if init:
+        init_params(model, torch.Generator(device=device).manual_seed(cfg.train.seed))
+    params = dict(model.named_parameters())
+    if tx is None:
+        tx = build_optimizer(cfg.train.optim)
+    if frozen_keys:
+        tx = freeze_subtrees(tx, params, frozen_keys)
+    key = (cfg.train.seed * 0x9E3779B97F4A7C15 + 1) & ((1 << 64) - 1)
+    return TrainState(model=model, tx=tx, opt_state=tx.init(params), step=0, key=key)

@@ -1,0 +1,208 @@
+"""Train and eval steps of the two-tower model, and the Trainer loop.
+
+Counterpart of `clip_dplm_tpu/train/trainer.py` for the pair family with the
+`infonce` loss: `make_train_step` (gradient accumulation over micro-batches,
+the fused AdamW, the optional gradient-norm metric), `make_eval_step` and a
+`Trainer` with the epoch loop, validation and early stopping. PyTorch runs
+eagerly, so there is no jit and no mesh; a step returns its metrics as
+device tensors and never waits on the device. Checkpointing and preemption
+are not ported yet.
+"""
+
+from __future__ import annotations
+
+import math
+import time
+from typing import Callable, Dict, Iterable, Optional, Tuple
+
+import torch
+
+from clip_dplm_tpu_torch.config import Config
+from clip_dplm_tpu_torch.ops import infonce
+from clip_dplm_tpu_torch.ops.fused_dense import DropoutSeeds
+from clip_dplm_tpu_torch.ops.fused_infonce import fused_clip_loss
+from clip_dplm_tpu_torch.train.state import TrainState, global_norm
+
+
+def to_device(batch: Dict, device) -> Dict[str, torch.Tensor]:
+    """numpy (or torch) batch -> tensors on `device`."""
+    return {k: torch.as_tensor(v).to(device, non_blocking=True) for k, v in batch.items()}
+
+
+def _check_loss(cfg: Config) -> None:
+    if cfg.contrastive.loss_kind != "infonce":
+        raise ValueError(f"loss_kind {cfg.contrastive.loss_kind!r} is not ported; "
+                         "the port trains with infonce only")
+
+
+def _logit_scale(cfg: Config, out) -> torch.Tensor:
+    cc = cfg.contrastive
+    if cc.learned_temperature:
+        return out["logit_scale"]
+    return torch.tensor(math.log(1.0 / cc.temperature), device=out["emb_a"].device)
+
+
+def _pair_loss_fn(cfg: Config):
+    """(model, batch, seeds) -> (loss, metrics) of the two-tower families:
+    the fused loss (bf16 similarity operands) or the plain one."""
+    _check_loss(cfg)
+    cc = cfg.contrastive
+
+    def loss_fn(model, batch, seeds: DropoutSeeds):
+        out = model(batch, deterministic=False, seeds=seeds)
+        ls = _logit_scale(cfg, out)
+        if cc.use_fused_kernel:
+            return fused_clip_loss(
+                out["emb_a"], out["emb_b"], ls, max_scale=cc.logit_scale_max,
+                dot_dtype=torch.bfloat16, label_smoothing=cc.label_smoothing,
+                assume_normalized=cfg.projection.l2_normalize_output)
+        return infonce.clip_loss(out["emb_a"], out["emb_b"], ls,
+                                 label_smoothing=cc.label_smoothing,
+                                 max_scale=cc.logit_scale_max)
+
+    return loss_fn
+
+
+def make_train_step(cfg: Config) -> Callable[[TrainState, Dict], Tuple[TrainState, Dict]]:
+    """step(state, batch) -> (state, metrics). With grad_accum_steps > 1 the
+    batch is cut into that many micro-batches whose gradients, losses and
+    metrics are averaged. Dropout seeds: (state.key, step * accum + micro)."""
+    loss_fn = _pair_loss_fn(cfg)
+    accum = max(1, cfg.train.optim.grad_accum_steps)
+    log_grad_norm = cfg.train.log_grad_norm
+
+    def step(state: TrainState, batch: Dict) -> Tuple[TrainState, Dict]:
+        model = state.model
+        params = state.params()
+        for p in params.values():
+            p.grad = None
+        B = next(iter(batch.values())).shape[0]
+        if B % accum:
+            raise ValueError(f"batch {B} is not divisible by grad_accum_steps={accum}")
+        mb = B // accum
+        loss_sum, metrics_sum = None, None
+        for i in range(accum):
+            micro = batch if accum == 1 else {k: v[i * mb:(i + 1) * mb] for k, v in batch.items()}
+            loss, metrics = loss_fn(model, micro, DropoutSeeds(state.key, state.step * accum + i))
+            loss.backward()
+            loss, metrics = loss.detach(), {k: v.detach() for k, v in metrics.items()}
+            if loss_sum is None:
+                loss_sum, metrics_sum = loss, metrics
+            else:
+                loss_sum = loss_sum + loss
+                metrics_sum = {k: metrics_sum[k] + v for k, v in metrics.items()}
+        grads = {k: p.grad if p.grad is not None else torch.zeros_like(p)
+                 for k, p in params.items()}
+        if accum > 1:
+            inv = 1.0 / accum
+            grads = {k: g * inv for k, g in grads.items()}
+            loss_sum = loss_sum * inv
+            metrics_sum = {k: v * inv for k, v in metrics_sum.items()}
+        state.tx.update(grads, state.opt_state, params)
+        state.step += 1
+        metrics = dict(metrics_sum)
+        metrics["loss"] = loss_sum
+        if log_grad_norm:
+            metrics["grad_norm"] = global_norm(grads.values())
+        for p in params.values():
+            p.grad = None
+        return state, metrics
+
+    return step
+
+
+def make_eval_step(cfg: Config) -> Callable[[TrainState, Dict], Dict]:
+    """Deterministic forward and the loss (no label smoothing), pair family."""
+    _check_loss(cfg)
+    cc = cfg.contrastive
+
+    @torch.no_grad()
+    def step(state: TrainState, batch: Dict) -> Dict:
+        out = state.model(batch, deterministic=True)
+        ls = _logit_scale(cfg, out)
+        if cc.use_fused_kernel:
+            loss, metrics = fused_clip_loss(
+                out["emb_a"], out["emb_b"], ls, max_scale=cc.logit_scale_max,
+                dot_dtype=torch.bfloat16,
+                assume_normalized=cfg.projection.l2_normalize_output)
+        else:
+            loss, metrics = infonce.clip_loss(out["emb_a"], out["emb_b"], ls,
+                                              label_smoothing=0.0,
+                                              max_scale=cc.logit_scale_max)
+        metrics = dict(metrics)
+        metrics["loss"] = loss
+        return metrics
+
+    return step
+
+
+class EarlyStopping:
+    """Patience-based early stopping on a value to minimise."""
+
+    def __init__(self, patience: int = 5, min_delta: float = 0.0):
+        self.patience, self.min_delta = patience, min_delta
+        self.best: Optional[float] = None
+        self.counter = 0
+        self.should_stop = False
+
+    def update(self, value: float) -> bool:
+        """True if `value` is a new best."""
+        if self.best is None or value < self.best - self.min_delta:
+            self.best, self.counter = value, 0
+            return True
+        self.counter += 1
+        if self.counter >= self.patience:
+            self.should_stop = True
+        return False
+
+
+class Trainer:
+    """Epoch loop: train steps over fresh batch iterators, the mean train
+    loss (one host read per epoch), validation, early stopping and a log
+    callback (epoch, {train_loss, val_loss, epoch_seconds})."""
+
+    def __init__(self, cfg: Config, state: TrainState,
+                 checkpoint_dir: Optional[str] = None,
+                 log_fn: Optional[Callable[[int, Dict[str, float]], None]] = None):
+        if checkpoint_dir:
+            raise ValueError("checkpointing is not ported yet (ROADMAP queue 1 item 12)")
+        self.cfg, self.state, self.log_fn = cfg, state, log_fn
+        self.device = state.model.device
+        self.train_step = make_train_step(cfg)
+        self.eval_step = make_eval_step(cfg)
+        self.history: Dict[str, list] = {"train_loss": [], "val_loss": []}
+
+    def train(self, train_batches: Callable[[], Iterable],
+              val_batches: Optional[Callable[[], Iterable]] = None,
+              num_epochs: Optional[int] = None) -> Dict[str, list]:
+        num_epochs = num_epochs or self.cfg.train.num_epochs
+        stopper = EarlyStopping(self.cfg.train.early_stopping_patience)
+        for epoch in range(num_epochs):
+            t0 = time.time()
+            losses = []
+            self.state.model.train()
+            for batch in train_batches():
+                self.state, metrics = self.train_step(self.state, to_device(batch, self.device))
+                losses.append(metrics["loss"])
+            if not losses:
+                raise ValueError("the training set gave no batch (batch_size larger than "
+                                 "the set?)")
+            train_loss = float(torch.stack(losses).mean())
+            self.history["train_loss"].append(train_loss)
+            val_loss = None
+            if val_batches is not None:
+                self.state.model.eval()
+                vals = [self.eval_step(self.state, to_device(b, self.device))["loss"]
+                        for b in val_batches()]
+                if vals:
+                    val_loss = float(torch.stack(vals).mean())
+                    self.history["val_loss"].append(val_loss)
+            if self.log_fn:
+                self.log_fn(epoch, {
+                    "train_loss": train_loss,
+                    "val_loss": val_loss if val_loss is not None else float("nan"),
+                    "epoch_seconds": time.time() - t0})
+            stopper.update(val_loss if val_loss is not None else train_loss)
+            if stopper.should_stop:
+                break
+        return self.history

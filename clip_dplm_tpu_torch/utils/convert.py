@@ -1,17 +1,19 @@
 """Carry flax weights into the port's modules.
 
 A flax param tree (nested mappings of arrays, as `model.init(...)["params"]`
-or a checkpoint gives it) becomes a `state_dict` of the port's `DPLM` or
-`ESMTower`: the scope path joins with dots (`layer_0/q/kernel` ->
-`layer_0.q.kernel`), Dense kernels are transposed from flax's (in, out) to the
-port's (out, in), and a stacked `layers/block` tree (the `scan_layers`
-layout) is unstacked to `layer_<i>` first.
+or a checkpoint gives it) becomes a `state_dict` of the port's `DPLM`,
+`ESMTower` or `TwoTowerCLIP`: the scope path joins with dots
+(`layer_0/q/kernel` -> `layer_0.q.kernel`, `proj_a/fc0/kernel` ->
+`proj_a.fc0.kernel`), Dense kernels are transposed from flax's (in, out) to
+the port's (out, in), scalars (the 0-d `logit_scale`) stay 0-d, and a
+stacked `layers/block` tree (the `scan_layers` layout) is unstacked to
+`layer_<i>` first.
 """
 
 from __future__ import annotations
 
 from collections.abc import Mapping
-from typing import Dict
+from typing import Dict, Optional
 
 import numpy as np
 import torch
@@ -26,12 +28,18 @@ def _to_dict(tree):
     return np.asarray(tree, dtype=np.float32)
 
 
-def flax_to_state_dict(params: Mapping, num_layers: int) -> Dict[str, torch.Tensor]:
-    """Flax params of DPLM / ESMTower -> the port's state_dict (f32, CPU)."""
+def flax_to_state_dict(params: Mapping,
+                       num_layers: Optional[int] = None) -> Dict[str, torch.Tensor]:
+    """Flax params of DPLM / ESMTower / TwoTowerCLIP -> the port's
+    state_dict (f32, CPU). `num_layers` unstacks a `layers/block` subtree
+    (read from its leading dim when not given); trees without one need
+    nothing."""
     params = _to_dict(params)
     if "params" in params and len(params) == 1:
         params = params["params"]
     if "layers" in params and "layer_0" not in params:
+        if num_layers is None:
+            num_layers = next(iter(_leaves(params["layers"]))).shape[0]
         params = unstack_esm_layers(params, num_layers)
     sd: Dict[str, torch.Tensor] = {}
 
@@ -41,15 +49,23 @@ def flax_to_state_dict(params: Mapping, num_layers: int) -> Dict[str, torch.Tens
                 walk(val, f"{prefix}{key}.")
             else:
                 arr = val.T if key == "kernel" else val
-                sd[f"{prefix}{key}"] = torch.from_numpy(np.ascontiguousarray(arr))
+                sd[f"{prefix}{key}"] = torch.from_numpy(np.array(arr, order="C"))
 
     walk(params, "")
     return sd
 
 
+def _leaves(tree):
+    for val in tree.values():
+        if isinstance(val, dict):
+            yield from _leaves(val)
+        else:
+            yield val
+
+
 def load_flax_params(module: nn.Module, params: Mapping) -> nn.Module:
-    """Load flax params into a port DPLM / ESMTower in place (strict: every
-    key must match) and return it."""
-    sd = flax_to_state_dict(params, module.cfg.num_layers)
+    """Load flax params into a port DPLM / ESMTower / TwoTowerCLIP in place
+    (strict: every key must match) and return it."""
+    sd = flax_to_state_dict(params, getattr(module.cfg, "num_layers", None))
     module.load_state_dict(sd, strict=True)
     return module

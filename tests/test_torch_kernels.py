@@ -1,6 +1,7 @@
 """The port's CUDA kernels against their plain PyTorch versions on the card,
-in bf16 at the JAX suite's bf16 bound (atol = rtol = 2e-2), with ragged and
-fully masked rows. Every test here needs an NVIDIA GPU and skips without
+in bf16 at the JAX suite's bf16 bound (atol = rtol = 2e-2; gradients
+divided by their largest entry first), with ragged and fully
+masked rows, ragged batches and odd widths, and the dropout mask bit for bit. Every test here needs an NVIDIA GPU and skips without
 one. The file imports no JAX, so on the card, which has none, it runs as
 
     python -m pytest --noconftest -p no:cacheprovider tests/test_torch_kernels.py
@@ -12,6 +13,8 @@ import torch
 
 from clip_dplm_tpu_torch.ops import _build
 from clip_dplm_tpu_torch.ops.attention import attention_reference
+from clip_dplm_tpu_torch.ops import fused_dense as fd
+from clip_dplm_tpu_torch.ops import fused_infonce as fi
 from clip_dplm_tpu_torch.ops.flash_attention import flash_attention
 from clip_dplm_tpu_torch.ops.short_attention import (
     fused_short_attention_qkv_proj,
@@ -106,3 +109,110 @@ def test_cuda_wrappers_refuse_what_the_kernels_do_not_take(cuda_device):
     q = torch.zeros(1, 1, 256, 512, device=cuda_device, dtype=torch.bfloat16)
     with pytest.raises(ValueError, match="Dh <="):
         flash_attention(q, q, q)
+
+
+def _grads_close(got, want, names):
+    for name, a, b in zip(names, got, want):
+        scale = max(b.abs().max().item(), 1e-30)
+        torch.testing.assert_close(a.float() / scale, b.float() / scale, msg=name, **TOL)
+
+
+def _fused_dense_run(fn, x, w, b, g, bt, skip, ls, dy, **kw):
+    leaves = [t.clone().requires_grad_(True) for t in (x, w, b, g, bt)]
+    extra = [] if skip is None else [t.clone().requires_grad_(True) for t in (skip, ls)]
+    kwx = dict(kw, skip=extra[0], layer_scale=extra[1]) if extra else kw
+    y = fn(*leaves, **kwx)
+    y.backward(dy.to(y.dtype))
+    return y.detach(), [t.grad for t in leaves + extra]
+
+
+FD_CASES = [  # B, K, N, order, act, rate, skip, l2
+    (40, 96, 128, "ln_act", "gelu", 0.0, False, False),
+    (1000, 96, 256, "ln_act", "gelu", 0.1, False, False),
+    (40, 3, 128, "ln_act", "none", 0.0, False, False),
+    (333, 200, 256, "ln_act", "relu", 0.0, False, False),
+    (40, 96, 136, "ln_act", "silu", 0.0, False, False),
+    (40, 96, 128, "ln_act", "tanh", 0.0, False, False),
+    (40, 96, 128, "act_ln", "relu", 0.0, False, False),
+    (257, 1024, 1024, "act_ln", "relu", 0.0, False, False),
+    (40, 96, 128, "act_ln", "gelu", 0.0, False, False),
+    (40, 96, 128, "act_ln", "silu", 0.0, False, False),
+    (40, 96, 128, "act_ln", "tanh", 0.0, False, False),
+    (40, 96, 128, "act_ln", "none", 0.0, False, False),
+    (129, 256, 128, "ln_act", "none", 0.0, True, False),
+    (129, 256, 128, "ln_act", "none", 0.0, True, True),
+]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("B,K,N,order,act,rate,skip,l2", FD_CASES)
+def test_fused_dense_matches_plain(cuda_device, np_rng, B, K, N, order, act, rate, skip, l2):
+    f = lambda *s: torch.from_numpy(np_rng.normal(size=s).astype(np.float32)).to(cuda_device)  # noqa: E731
+    x, w = f(B, K), f(N, K) / np.sqrt(K)
+    b, bt = f(N) * 0.1, f(N) * 0.1
+    g = 1.0 + 0.1 * f(N)
+    sk, ls = (f(B, N), torch.tensor([0.3], device=cuda_device)) if skip else (None, None)
+    out_dtype = torch.float32 if (skip or order == "act_ln") else torch.bfloat16
+    dy = f(B, N)
+    kw = dict(order=order, act=act, dropout_rate=rate, dropout_seed=12345,
+              deterministic=rate == 0.0, out_dtype=out_dtype, l2_normalize_out=l2)
+    before = _build.LAUNCHES.snapshot()
+    y, grads = _fused_dense_run(fd.fused_dense_norm_act, x.bfloat16(), w, b, g, bt,
+                                None if sk is None else sk.bfloat16(), ls, dy, **kw)
+    torch.cuda.synchronize()
+    after = _build.LAUNCHES.snapshot()
+    assert after["fused_dense_gemm"] == before["fused_dense_gemm"] + 2  # u, then dx
+    assert after["fused_dense_fwd_rows"] == before["fused_dense_fwd_rows"] + 1
+    assert after["fused_dense_bwd_rows"] == before["fused_dense_bwd_rows"] + 1
+    y_ref, grads_ref = _fused_dense_run(fd.fused_dense_reference, x.bfloat16(), w, b, g, bt,
+                                        None if sk is None else sk.bfloat16(), ls, dy, **kw)
+    assert y.dtype == out_dtype and y.shape == (B, N)
+    if rate > 0.0:
+        assert torch.equal(y == 0, y_ref == 0)  # the same mask, bit for bit
+        keep = fd.dropout_bits(12345, B, N, cuda_device) >= fd.dropout_threshold(rate)
+        assert torch.equal(y != 0, keep)
+    torch.testing.assert_close(y.float(), y_ref.float(), **TOL)
+    _grads_close(grads, grads_ref, ["dx", "dW", "db", "dgamma", "dbeta", "dskip", "dls"])
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("B,d", [(136, 48), (1000, 512), (64, 128), (33, 200)])
+def test_sym_infonce_matches_plain(cuda_device, np_rng, B, d):
+    a, b = (torch.from_numpy(np_rng.normal(size=(B, d)).astype(np.float32)).to(cuda_device)
+            for _ in range(2))
+    a, b = torch.nn.functional.normalize(a, dim=-1), torch.nn.functional.normalize(b, dim=-1)
+    scale = torch.tensor(14.3, device=cuda_device)
+
+    def run(fn):
+        ta, tb, ts = (t.clone().requires_grad_(True) for t in (a, b, scale))
+        loss = fn(ta, tb, ts, torch.bfloat16)
+        loss.backward()
+        return loss.detach(), [ta.grad, tb.grad, ts.grad]
+
+    before = _build.LAUNCHES.snapshot()
+    loss, grads = run(fi.fused_symmetric_infonce)
+    torch.cuda.synchronize()
+    after = _build.LAUNCHES.snapshot()
+    assert after["sym_infonce_lse"] == before["sym_infonce_lse"] + 1
+    assert after["sym_infonce_grad"] == before["sym_infonce_grad"] + 2
+    loss_ref, grads_ref = run(fi.fused_symmetric_infonce_reference)
+    assert torch.isfinite(loss)
+    torch.testing.assert_close(loss, loss_ref, **TOL)
+    _grads_close(grads, grads_ref, ["da", "db", "dscale"])
+
+
+@pytest.mark.cuda
+def test_train_kernel_wrappers_refuse_what_the_kernels_do_not_take(cuda_device):
+    x = torch.zeros(8, 64, device=cuda_device, dtype=torch.bfloat16)
+    w = torch.zeros(128, 64, device=cuda_device)
+    v = torch.zeros(128, device=cuda_device)
+    with pytest.raises(ValueError, match="bf16"):
+        fd.fused_dense_norm_act(x, w, v, v, v, compute_dtype=torch.float32)
+    with pytest.raises(ValueError, match="multiple of 8"):
+        fd.fused_dense_norm_act(x, w[:100], v[:100], v[:100], v[:100])
+    a = torch.zeros(16, 640, device=cuda_device)
+    s = torch.tensor(1.0, device=cuda_device)
+    with pytest.raises(ValueError, match="d <="):
+        fi.fused_symmetric_infonce(a, a, s, torch.bfloat16)
+    with pytest.raises(ValueError, match="bf16"):
+        fi.fused_symmetric_infonce(a[:, :64], a[:, :64], s)

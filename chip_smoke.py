@@ -24,8 +24,24 @@ Phases, each fatal on failure (non-zero exit, no result line):
      dropout on: every leaf's gradient before the optimizer, the loss and the
      update; (b) the train CLI (experiments/train.py --device cuda) for
      3 epochs at B=256, whose loss must fall; (c) experiments/bench.py at
-     B=8192 (pairs/s, MFU). Every train launch counter must rise in (b)+(c).
-Prints a JSON line of per-kernel results, then as the last line
+     B=8192 (pairs/s, MFU). Every train launch counter must rise in (b)+(c);
+  8. the flagship RNA<->RBP token transformer (experiments/bench.py --model
+     rna_rbp widths: towers 120/1280 -> 512, 3 blocks of 8 heads, S = 128):
+     (a) the short-S attention backward, the CLS-query attention forward
+     and backward against their plain versions on the card in bf16 (atol =
+     rtol = 2e-2, gradients relative to their largest entry) at B=1024,
+     with RoPE at DPLM's B=32 D=640, and ragged at B=1000 S=65, each timed
+     beside SDPA (the library call of the same attention, timed only);
+     the forward-only flash kernel must refuse to record a gradient;
+     (b) one flagship train step on the card against the CPU, B=16, dropout
+     on, as 7(a); (c) the train CLI with experiment=rna_rbp at full width,
+     B=256, 3 epochs, whose loss must fall; (d) experiments/bench.py --model
+     rna_rbp at B=1024. The three new launch counters must rise in (c)+(d).
+Prints a JSON line of per-kernel results (each kernel's time at its main
+shape, its plain version's, the library call's where there is one, and the
+bound: the larger of the bytes it must move over 3.35 TB/s and its
+operations over the dense peak of their type, 989 TFLOP/s bf16 or 67 TFLOP/s
+f32), then as the last line
 {"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}.
 """
 
@@ -70,7 +86,17 @@ TRAIN_KERNELS = {
     "sym_infonce_grad": ("clip_dplm_tpu_torch/csrc/fused_infonce.cu",
                          "clip_dplm_tpu/ops/fused_infonce.py:867"),
 }
-KERNELS = {**SERVE_KERNELS, **TRAIN_KERNELS}
+FLAGSHIP_KERNELS = {
+    "short_attention_bwd": ("clip_dplm_tpu_torch/csrc/short_attention.cu",
+                            "clip_dplm_tpu/ops/short_attention.py:583"),
+    "cls_attention_fwd": ("clip_dplm_tpu_torch/csrc/cls_attention.cu",
+                          "clip_dplm_tpu/ops/short_attention.py:950"),
+    "cls_attention_bwd": ("clip_dplm_tpu_torch/csrc/cls_attention.cu",
+                          "clip_dplm_tpu/ops/short_attention.py:973"),
+}
+KERNELS = {**SERVE_KERNELS, **TRAIN_KERNELS, **FLAGSHIP_KERNELS}
+HBM_BYTES_PER_S = 3.35e12  # H100 SXM HBM3 bandwidth
+PEAK_OPS = {"bf16": 989e12, "f32": 67e12}  # dense tensor-core bf16; f32 off the tensor cores
 
 
 class SmokeFailure(RuntimeError):
@@ -105,32 +131,71 @@ def cuda_ms(torch, fn, iters: int = 20) -> float:
     return ms / iters
 
 
-def compare(torch, name, shape, kernel_fn, plain_fn, results):
+def bound(nbytes: float, ops: float, kind: str = "bf16"):
+    """(bound_ms, bound_by): the least time for the work, the larger of the
+    bytes over the memory rate and the operations over the peak of their
+    type."""
+    t_bytes, t_ops = nbytes / HBM_BYTES_PER_S * 1e3, ops / PEAK_OPS[kind] * 1e3
+    return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
+
+
+def compare(torch, name, shape, kernel_fn, plain_fn, results, work=None, library_fn=None,
+            normalize=False):
     """Kernel vs plain on the same inputs: error and both device times
     (timed in turns plain, kernel, kernel, plain; the lower of each pair is
     kept). A time covers all device work of the call, the wrapper's small
-    set-up kernels included."""
+    set-up kernels included. With normalize, the error is relative to the
+    plain output's largest entry (gradients)."""
     got, want = kernel_fn().float(), plain_fn().float()
     torch.cuda.synchronize()
-    err = (got - want).abs().max().item()
+    scale = max(want.abs().max().item(), 1e-30) if normalize else 1.0
+    err = (got - want).abs().max().item() / scale
     check(bool(torch.isfinite(got).all()), f"{name} {shape}: non-finite output")
-    check(torch.allclose(got, want, **TOL),
+    check(torch.allclose(got / scale, want / scale, **TOL),
           f"{name} {shape}: max abs err {err} outside atol=rtol=2e-2")
-    record(results, name, shape, err, *timed_pair(torch, kernel_fn, plain_fn))
+    record(results, name, shape, err, *timed_pair(torch, kernel_fn, plain_fn), work=work,
+           library_ms=library_time(torch, library_fn))
 
 
-def record(results, name, shape, err, ms, plain_ms):
-    print(f"kernel {name} {shape}: max_abs_err={err:.3e} ms={ms:.4f} plain_ms={plain_ms:.4f}")
+def library_time(torch, fn):
+    """Device ms of the library call that computes the same function (the
+    lower of two timings), or None where there is none."""
+    return None if fn is None else min(cuda_ms(torch, fn), cuda_ms(torch, fn))
+
+
+def record(results, name, shape, err, ms, plain_ms, work=None, library_ms=None):
+    """Per-kernel results; the first shape recorded is the main one and
+    gives ms, plain_ms, library_ms and, from `work` = (bytes, ops, kind),
+    the bound."""
+    lib = "" if library_ms is None else f" library_ms={library_ms:.4f}"
+    print(f"kernel {name} {shape}: max_abs_err={err:.3e} ms={ms:.4f} plain_ms={plain_ms:.4f}"
+          + lib)
     entry = results.setdefault(name, {"max_abs_err": 0.0})
     entry["max_abs_err"] = max(entry["max_abs_err"], err)
-    entry.setdefault("ms", ms)  # the first shape listed is the main one
-    entry.setdefault("plain_ms", plain_ms)
+    if "ms" not in entry:
+        check(work is not None, f"{name}: no work count for the main shape")
+        entry.update(ms=ms, plain_ms=plain_ms, library_ms=library_ms)
+        entry["bound_ms"], entry["bound_by"] = bound(*work)
 
 
 def timed_pair(torch, kernel_fn, plain_fn):
     """(kernel ms, plain ms), in turns plain, kernel, kernel, plain."""
     p1, k1, k2, p2 = (cuda_ms(torch, f) for f in (plain_fn, kernel_fn, kernel_fn, plain_fn))
     return min(k1, k2), min(p1, p2)
+
+
+def sdpa_fn(torch, q, k, v, mask):
+    """SDPA forward over (B, H, S, Dh) with a (B, Sk) key mask: the library
+    call of the same attention, timed only (the port never calls it)."""
+    m = mask[:, None, None, :]
+    return lambda: torch.nn.functional.scaled_dot_product_attention(q, k, v, attn_mask=m)
+
+
+def sdpa_bwd_fn(torch, q, k, v, mask, dout):
+    """SDPA's backward alone: one autograd call on a retained graph."""
+    leaves = [t.detach().clone().requires_grad_(True) for t in (q, k, v)]
+    out = sdpa_fn(torch, *leaves, mask)()
+    return lambda: torch.autograd.grad(out, leaves, dout, retain_graph=True)
 
 
 def check_outputs(torch, what, got, want, names):
@@ -174,17 +239,24 @@ def phase_kernels(torch, results):
         qkv = torch.randn(B, S, 3 * D, generator=g, device=dev).to(torch.bfloat16)
         mask, pos = ragged_mask(B, S), torch.arange(S, device=dev)
         shape = f"B={B} S={S} D={D} H={H} rope"
+        main = D == 640  # the first shape is the one PERF.md tracks
+        heads = [t.unflatten(-1, (H, D // H)).transpose(1, 2) for t in qkv.split(D, dim=-1)]
         compare(torch, "short_attention", shape,
                 lambda: short_attention_qkv(qkv, H, mask=mask, rope_positions=pos),
                 lambda: short_attention_qkv_reference(qkv, H, mask=mask,
                                                       rope_positions=pos),
-                results)
+                results, work=(B * S * 4 * D * 2 + B * S + S * 8, 4 * B * S * S * D),
+                library_fn=sdpa_fn(torch, *heads, mask) if main else None)
         o = short_attention_qkv_reference(qkv, H, mask=mask, rope_positions=pos)
         wo = torch.randn(D, D, generator=g, device=dev) / D ** 0.5
         bo = torch.randn(D, generator=g, device=dev) * 0.1
-        compare(torch, "short_attention_out_proj", f"M={B * S} N=K={D}",
+        M = B * S
+        compare(torch, "short_attention_out_proj", f"M={M} N=K={D}",
                 lambda: out_projection(o, wo, bo),
-                lambda: out_projection_reference(o, wo, bo), results)
+                lambda: out_projection_reference(o, wo, bo), results,
+                work=(2 * M * D * 2 + D * D * 4 + D * 4, 2 * M * D * D),
+                library_fn=(lambda: torch.nn.functional.linear(o, wo.bfloat16(), bo.bfloat16()))
+                if main else None)
     # flash kernel: ESM-2 650M embed, the 32-row 1024 bucket, then a ragged
     # last key tile (S=1000) and the smallest flash bucket
     for B, S in ((32, 1024), (8, 1000), (8, 256)):
@@ -192,9 +264,12 @@ def phase_kernels(torch, results):
         q, k, v = (torch.randn(B, H, S, Dh, generator=g, device=dev).to(torch.bfloat16)
                    for _ in range(3))
         mask = ragged_mask(B, S)
+        main = S == 1024
         compare(torch, "flash_attention", f"B={B} H={H} S={S} Dh={Dh}",
                 lambda: flash_attention(q, k, v, mask=mask),
-                lambda: attention_reference(q, k, v, mask=mask), results)
+                lambda: attention_reference(q, k, v, mask=mask), results,
+                work=(4 * B * H * S * Dh * 2 + B * S, 4 * B * H * S * S * Dh),
+                library_fn=sdpa_fn(torch, q, k, v, mask) if main else None)
 
 
 def phase_model(torch):
@@ -353,24 +428,34 @@ def phase_train_kernels(torch, results):
             ms, plain_ms = timed_pair(
                 torch, lambda: fd.fused_dense_norm_act(x, w, b, gm, bt, **fkw),
                 lambda: fd.fused_dense_reference(x, w, b, gm, bt, **fkw))
-        record(results, "fused_dense_fwd_rows", shape + " forward", err, ms, plain_ms)
+        # bytes: x, W (f32), bias/gamma/beta in, y out; ops: the product
+        work = (B * K * 2 + N * K * 4 + 3 * N * 4 + B * N * out_dtype.itemsize, 2 * B * N * K)
+        record(results, "fused_dense_fwd_rows", shape + " forward", err, ms, plain_ms, work=work)
         leaves = [t.clone().requires_grad_(True) for t in (x, w, b, gm, bt)]
         graphs = {k: fn(*leaves, **fkw) for k, fn in
                   (("kernel", fd.fused_dense_norm_act), ("plain", fd.fused_dense_reference))}
         ms, plain_ms = timed_pair(
             torch, lambda: graphs["kernel"].backward(dy, retain_graph=True),
             lambda: graphs["plain"].backward(dy, retain_graph=True))
-        record(results, "fused_dense_bwd_rows", shape + " backward", berr, ms, plain_ms)
+        # bytes: dy, x, W (bf16), the saved pre-LN rows and stats, gamma/beta in;
+        # dx, dW (f32), db/dgamma/dbeta out; ops: the dx and dW products
+        work = (B * N * out_dtype.itemsize + B * K * 2 + N * K * 2 + B * N * 2 + B * 8
+                + 2 * N * 4 + B * K * 2 + N * K * 4 + 3 * N * 4, 4 * B * N * K)
+        record(results, "fused_dense_bwd_rows", shape + " backward", berr, ms, plain_ms,
+               work=work)
         del graphs
         # the GEMM alone against cuBLAS (u = bf16(x W^T) + b)
         wb, bb = wc.contiguous(), b.bfloat16()
         got = fd._gemm(x, wb, bb, N, b_row=False)
         want = (x.float() @ wb.float().t()).bfloat16() + bb
         gerr = check_outputs(torch, f"fused_dense_gemm {shape}", [got], [want], ["u"])
-        ms, plain_ms = timed_pair(torch, lambda: fd._gemm(x, wb, bb, N, b_row=False),
-                                  lambda: torch.nn.functional.linear(x, wb, bb))
+        ms, plain_ms = timed_pair(
+            torch, lambda: fd._gemm(x, wb, bb, N, b_row=False),
+            lambda: (x.float() @ wb.float().t()).bfloat16() + bb)
         record(results, "fused_dense_gemm", f"M={B} N={N} K={K} (x W^T + b)",
-               max(gerr, dx_err), ms, plain_ms)
+               max(gerr, dx_err), ms, plain_ms,
+               work=(B * K * 2 + N * K * 2 + N * 2 + B * N * 2, 2 * B * N * K),
+               library_ms=library_time(torch, lambda: torch.nn.functional.linear(x, wb, bb)))
     for B in (8192, 1000):
         d = 512
         a = torch.nn.functional.normalize(rnd(B, d), dim=-1)
@@ -392,11 +477,13 @@ def phase_train_kernels(torch, results):
             ms, plain_ms = timed_pair(
                 torch, lambda: fi.fused_symmetric_infonce(a, bb, scale, torch.bfloat16),
                 lambda: fi.fused_symmetric_infonce_reference(a, bb, scale, torch.bfloat16))
-        record(results, "sym_infonce_lse", shape + " forward", err, ms, plain_ms)
+        record(results, "sym_infonce_lse", shape + " forward", err, ms, plain_ms,
+               work=(2 * B * d * 4 + 4 + 4, 2 * B * B * d))
         ms, plain_ms = timed_pair(torch, lambda: graphs["kernel"].backward(retain_graph=True),
                                   lambda: graphs["plain"].backward(retain_graph=True))
+        # two recompute passes, each a similarity tile product and a contraction
         record(results, "sym_infonce_grad", shape + " backward (two passes + tail)", err, ms,
-               plain_ms)
+               plain_ms, work=(4 * B * d * 4 + 2 * B * 4, 8 * B * B * d))
         del graphs
 
 
@@ -405,25 +492,33 @@ def _rel(a, b):
 
 
 def phase_train_step(torch):
-    """7(a): one step on the card vs the same step on the CPU: the gradient
-    of every leaf before the optimizer, then the loss and the update."""
+    """7(a): the two-tower step at bench widths, B=256, card vs CPU."""
     from clip_dplm_tpu_torch.config import Config, apply_overrides
     from clip_dplm_tpu_torch.experiments import bench
-    from clip_dplm_tpu_torch.experiments.registry import build_model
-    from clip_dplm_tpu_torch.ops.fused_dense import DropoutSeeds
-    from clip_dplm_tpu_torch.train.state import create_train_state
-    from clip_dplm_tpu_torch.train.trainer import _pair_loss_fn, make_train_step, to_device
 
     B = 256
     cfg = apply_overrides(Config(), bench.OVERRIDES + [
         f"train.batch_size={B}", "train.optim.schedule=constant",
         "train.optim.learning_rate=1e-3"])
-    gpu = build_model(cfg, device="cuda")
-    create_train_state(gpu, cfg)  # random weights from the seed
-    sd = {k: v.detach().cpu().clone() for k, v in gpu.state_dict().items()}
     rng = np.random.default_rng(5)
     batch = {"a": rng.normal(size=(B, 256)).astype(np.float32),
              "b": rng.normal(size=(B, 1280)).astype(np.float32)}
+    step_card_vs_cpu(torch, f"train step B={B} (bench widths, dropout 0.1)", cfg, batch)
+
+
+def step_card_vs_cpu(torch, what, cfg, batch):
+    """One train step on the card vs the same step on the CPU from the same
+    weights and batch (bf16 both, the same dropout masks): the gradient of
+    every leaf before the optimizer, then the loss and the update, each
+    within STEP_NOISE_FACTOR x its bf16-vs-f32 noise on the CPU."""
+    from clip_dplm_tpu_torch.experiments.registry import build_model
+    from clip_dplm_tpu_torch.ops.fused_dense import DropoutSeeds
+    from clip_dplm_tpu_torch.train.state import create_train_state
+    from clip_dplm_tpu_torch.train.trainer import _pair_loss_fn, make_train_step, to_device
+
+    gpu = build_model(cfg, device="cuda")
+    create_train_state(gpu, cfg)  # random weights from the seed
+    sd = {k: v.detach().cpu().clone() for k, v in gpu.state_dict().items()}
     runs = {}
     for name, device, dtype in (("card", "cuda", torch.bfloat16),
                                 ("cpu", "cpu", torch.bfloat16),
@@ -443,7 +538,7 @@ def phase_train_step(torch):
         del state, model
     (l_card, g_card, d_card), (l_cpu, g_cpu, d_cpu), (l_f32, g_f32, d_f32) = (
         runs[k] for k in ("card", "cpu", "cpu_f32"))
-    check(np.isfinite(l_card) and bool(torch.isfinite(d_card).all()), "train step: non-finite")
+    check(np.isfinite(l_card) and bool(torch.isfinite(d_card).all()), f"{what}: non-finite")
     # per leaf: the card's gradient against the CPU's, bounded by the
     # bf16-vs-f32 noise of that leaf or of the whole gradient, the larger
     flat = {k: torch.cat([g[k].flatten() for k in g_cpu]) for k, g in
@@ -451,22 +546,22 @@ def phase_train_step(torch):
     grad_err, grad_noise = _rel(flat["card"], flat["cpu"]), _rel(flat["f32"], flat["cpu"])
     worst = 0.0
     for k in g_cpu:
-        check(bool(torch.isfinite(g_card[k]).all()), f"train step grad {k}: non-finite")
+        check(bool(torch.isfinite(g_card[k]).all()), f"{what} grad {k}: non-finite")
         err, noise = _rel(g_card[k], g_cpu[k]), max(_rel(g_f32[k], g_cpu[k]), grad_noise)
         worst = max(worst, err / noise)
         check(err <= STEP_NOISE_FACTOR * noise,
-              f"train step grad {k}: rel L2 {err} > {STEP_NOISE_FACTOR} x noise {noise}")
+              f"{what} grad {k}: rel L2 {err} > {STEP_NOISE_FACTOR} x noise {noise}")
     loss_err, loss_noise = abs(l_card - l_cpu) / abs(l_cpu), abs(l_f32 - l_cpu) / abs(l_cpu)
     upd_err, upd_noise = _rel(d_card, d_cpu), _rel(d_f32, d_cpu)
-    print(f"train step B={B} (bench widths, dropout 0.1): loss card {l_card:.6f} cpu "
+    print(f"{what}: loss card {l_card:.6f} cpu "
           f"{l_cpu:.6f} cpu_f32 {l_f32:.6f}; loss rel err {loss_err:.3e} (bf16 noise "
           f"{loss_noise:.3e}); gradient rel L2 {grad_err:.3e} (bf16 noise {grad_noise:.3e}), "
           f"worst leaf {worst:.3f} x its noise over {len(g_cpu)} leaves; update rel L2 "
           f"{upd_err:.3e} (bf16 noise {upd_noise:.3e})")
     check(loss_err <= STEP_NOISE_FACTOR * loss_noise + 1e-6,
-          f"train step loss: rel err {loss_err} > {STEP_NOISE_FACTOR} x noise {loss_noise}")
+          f"{what} loss: rel err {loss_err} > {STEP_NOISE_FACTOR} x noise {loss_noise}")
     check(upd_err <= STEP_NOISE_FACTOR * upd_noise,
-          f"train step update: rel L2 {upd_err} > {STEP_NOISE_FACTOR} x noise {upd_noise}")
+          f"{what} update: rel L2 {upd_err} > {STEP_NOISE_FACTOR} x noise {upd_noise}")
 
 
 def phase_train_path(torch, build):
@@ -495,6 +590,116 @@ def phase_train_path(torch, build):
     print(f"launches during the train phase: {launches}")
     for name in TRAIN_KERNELS:
         check(launches[name] > 0, f"kernel {name} was not launched by the train path")
+    return launches
+
+
+def phase_flagship_kernels(torch, results):
+    """8(a): the flagship's three new kernels against their plain versions,
+    each timed beside SDPA at the same shape; and the forward-only flash
+    kernel refusing to record a gradient."""
+    from clip_dplm_tpu_torch.ops import short_attention as sa
+    from clip_dplm_tpu_torch.ops.flash_attention import flash_attention
+
+    dev = torch.device("cuda")
+    g = torch.Generator(device=dev).manual_seed(7)
+    rnd = lambda *s: torch.randn(*s, generator=g, device=dev).to(torch.bfloat16)  # noqa: E731
+
+    def ragged_mask(B, S):
+        lens = torch.randint(S // 2, S + 1, (B,), generator=g, device=dev)
+        lens[0] = S
+        return torch.arange(S, device=dev)[None, :] < lens[:, None]
+
+    def heads(t, H):
+        return t.unflatten(-1, (H, -1)).transpose(1, 2)
+
+    # (B, S, D, H, rope): the flagship block, DPLM's geometry with RoPE, ragged
+    for B, S, D, H, rope in ((1024, 128, 512, 8, False), (32, 128, 640, 10, True),
+                             (1000, 65, 512, 8, False)):
+        main = B == 1024
+        qkv, dout, mask = rnd(B, S, 3 * D), rnd(B, S, D), ragged_mask(B, S)
+        pos = torch.arange(S, device=dev) if rope else None
+        o = sa.short_attention_qkv_reference(qkv, H, mask=mask, rope_positions=pos)
+        q, k, v = (heads(t, H) for t in qkv.split(D, dim=-1))
+        shape = f"B={B} S={S} D={D} H={H}" + (" rope" if rope else "")
+        # bytes: qkv, o, dO, mask in, dqkv out; ops: five (S, S, Dh) products a head
+        compare(torch, "short_attention_bwd", shape + " (on the plain forward's residuals)",
+                lambda: sa.short_attention_qkv_bwd(dout, qkv, o, H, mask=mask,
+                                                   rope_positions=pos),
+                lambda: sa.short_attention_qkv_bwd_reference(dout, qkv, o, H, mask=mask,
+                                                             rope_positions=pos),
+                results, work=(B * S * 8 * D * 2 + B * S, 10 * B * S * S * D),
+                library_fn=sdpa_bwd_fn(torch, q, k, v, mask, heads(dout, H)) if main else None,
+                normalize=True)
+        if rope:
+            continue
+        do1 = rnd(B, 1, D)
+        q0 = q[:, :, :1]
+        with torch.no_grad():
+            # bytes: q row 0, K, V, mask in, (B, 1, D) out; f32 ops: scores and value sum
+            compare(torch, "cls_attention_fwd", shape,
+                    lambda: sa.fused_cls_attention(qkv, H, mask=mask),
+                    lambda: sa.fused_cls_attention_reference(qkv, H, mask=mask), results,
+                    work=(B * D * 2 + 2 * B * S * D * 2 + B * S + B * D * 2, 4 * B * S * D,
+                          "f32"),
+                    library_fn=sdpa_fn(torch, q0, k, v, mask) if main else None)
+        # bytes: q row 0, dO, K, V, mask in, dqkv out; f32 ops: scores, dp, dq, dk, dv
+        compare(torch, "cls_attention_bwd", shape,
+                lambda: sa.fused_cls_attention_bwd(do1, qkv, H, mask=mask),
+                lambda: sa.fused_cls_attention_bwd_reference(do1, qkv, H, mask=mask),
+                results, work=(2 * B * D * 2 + 2 * B * S * D * 2 + B * S + B * S * 3 * D * 2,
+                               8 * B * S * D, "f32"),
+                library_fn=sdpa_bwd_fn(torch, q0, k, v, mask, heads(do1, H)) if main else None,
+                normalize=True)
+    x = rnd(2, 2, 256, 64).requires_grad_(True)
+    try:
+        flash_attention(x, x, x)
+        check(False, "flash_attention recorded a CUDA forward without a backward")
+    except NotImplementedError as e:
+        check("ROADMAP queue 2 item 6" in str(e), f"flash_attention refused with: {e}")
+    print("flash_attention with requires_grad on the card: refused "
+          "(no backward kernel; ROADMAP queue 2 item 6)")
+
+
+def phase_flagship_step(torch):
+    """8(b): one flagship step at full width, S=128, B=16, card vs CPU."""
+    from clip_dplm_tpu_torch.config import Config, apply_overrides
+    from clip_dplm_tpu_torch.experiments import bench
+
+    B = 16
+    cfg = apply_overrides(Config(), bench.RNA_RBP_OVERRIDES + [
+        f"train.batch_size={B}", "train.optim.schedule=constant",
+        "train.optim.learning_rate=1e-3"])
+    batch = bench.rna_rbp_batch(cfg, B, np.random.default_rng(5))
+    step_card_vs_cpu(torch, f"flagship train step B={B} S=128 (full widths, dropout 0.1)",
+                     cfg, batch)
+
+
+def phase_flagship_path(torch, build):
+    """8(c) the rna_rbp train CLI, 8(d) the flagship benchmark; the launch
+    counts of both."""
+    from clip_dplm_tpu_torch.experiments import bench
+    from clip_dplm_tpu_torch.experiments import train as train_cli
+
+    build.LAUNCHES.reset()
+    overrides = bench.RNA_RBP_OVERRIDES + ["train.batch_size=256", "train.optim.warmup_steps=5",
+                                           "train.optim.learning_rate=1e-3"]
+    t0 = time.perf_counter()
+    hist = train_cli.main(["--epochs", "3", *[a for o in overrides for a in ("-o", o)]])
+    cli_s = time.perf_counter() - t0
+    losses = hist["train_loss"]
+    check(all(np.isfinite(losses)) and len(losses) == 3, f"flagship train CLI losses {losses}")
+    check(losses[-1] < losses[0], f"flagship train CLI: loss did not fall: {losses}")
+    print(f"flagship train CLI (full widths, B=256, 3 epochs of 3 steps, S=65/129): "
+          f"train_loss {losses}, {cli_s:.1f} s")
+    out = bench.main(["--model", "rna_rbp", "--batch", "1024"])
+    torch.cuda.synchronize()
+    launches = build.LAUNCHES.snapshot()
+    print(f"bench rna_rbp B=1024: step {out['step_ms']} ms, {out['value']} pairs/s, "
+          f"{out['model_tflops_per_s_per_chip']} model TFLOP/s, MFU {out['mfu']} of "
+          f"{out['peak_bf16_tflops']} TFLOP/s bf16 peak")
+    print(f"launches during the flagship phase: {launches}")
+    for name in list(FLAGSHIP_KERNELS) + ["short_attention", "short_attention_out_proj"]:
+        check(launches[name] > 0, f"kernel {name} was not launched by the flagship path")
     return launches
 
 
@@ -531,11 +736,15 @@ def main() -> int:
     phase_train_step(torch)
     launches.update({k: v for k, v in phase_train_path(torch, _build).items()
                      if k in TRAIN_KERNELS})
+    phase_flagship_kernels(torch, results)
+    phase_flagship_step(torch)
+    launches.update({k: v for k, v in phase_flagship_path(torch, _build).items()
+                     if k in FLAGSHIP_KERNELS})
 
+    keys = ("max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by", "library_ms")
     print(json.dumps({"kernels": [
         {"name": name, "route": "cuda", "source": src, "replaces": tpu,
-         "launches": launches[name], "max_abs_err": results[name]["max_abs_err"],
-         "ms": results[name]["ms"], "plain_ms": results[name]["plain_ms"]}
+         "launches": launches[name], **{k: results[name][k] for k in keys}}
         for name, (src, tpu) in KERNELS.items()]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

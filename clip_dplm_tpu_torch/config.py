@@ -1,12 +1,14 @@
 """Configurations of the port: the serving path (`ESMConfig`, `DPLMConfig`)
-and the two-tower contrastive train path (`Config` and its leaves).
+and the contrastive train paths (`Config` and its leaves): the two-tower
+model (`experiment="two_tower"`) and the RNA<->RBP token transformer
+(`experiment="rna_rbp"`).
 
 The frozen dataclasses of `clip_dplm_tpu/config.py`, without the yaml loader
 (so the port imports no yaml) and with only the fields the port reads: the
 reference's LoRA, guidance, freezing and `scan_layers` fields, the
 hard-negative cache, the global-batch gather, the materialized-similarity
-switch and the other loss kinds are left out until the port has what they
-switch on, so passing one raises instead of being ignored. The port's
+switch, the other loss kinds and `precision.remat` are left out until the
+port has what they switch on, so passing one raises instead of being ignored. The port's
 modules are always unrolled; utils/convert.py reads both flax param layouts.
 Defaults are the reference's.
 
@@ -57,7 +59,7 @@ class TowerConfig:
     input_dim: int = 158
     hidden_size: int = 512
     num_hidden_layers: int = 3
-    architecture: str = "mlp"  # mlp | resnet (transformer: not ported yet)
+    architecture: str = "mlp"  # mlp | resnet (transformer: not ported yet, slice 4)
     activation: str = "relu"
     # the final Dense+act+LayerNorm through the fused kernel (ops/fused_dense.py)
     fused_dense: bool = False
@@ -92,6 +94,24 @@ class ContrastiveConfig:
     temperature: float = 0.07  # used when not learned
     label_smoothing: float = 0.0
     use_fused_kernel: bool = False  # ops/fused_infonce.py
+
+
+@dataclass(frozen=True)
+class TransformerTowerConfig:
+    """Token-level transformer tower (rna_clip_codes.ipynb cell 28
+    semantics): pre-LN blocks, 4x FFN, CLS or masked-mean pooling over padded
+    variable-length token embeddings."""
+
+    input_dim: int = 120
+    d_model: int = 512
+    num_layers: int = 3
+    num_heads: int = 8
+    ffn_mult: int = 4
+    dropout: float = 0.1
+    max_len: int = 512
+    pooling: str = "cls"  # cls | first | mean
+    # the blocks' LayerNorm output dtype; the stats are f32 either way
+    ln_dtype: str = "float32"  # float32 | bfloat16
 
 
 @dataclass(frozen=True)
@@ -131,12 +151,16 @@ class DataConfig:
 
 @dataclass(frozen=True)
 class Config:
-    """The two-tower experiment's configuration."""
+    """The contrastive experiments' configuration: `two_tower` reads
+    tower_a/tower_b, `rna_rbp` the token towers rna_tower/rbp_tower."""
 
-    experiment: str = "two_tower"
+    experiment: str = "two_tower"  # two_tower | rna_rbp
     tower_a: TowerConfig = field(default_factory=TowerConfig)
     tower_b: TowerConfig = field(default_factory=lambda: TowerConfig(input_dim=1280))
     projection: ProjectionConfig = field(default_factory=ProjectionConfig)
+    rna_tower: TransformerTowerConfig = field(default_factory=TransformerTowerConfig)
+    rbp_tower: TransformerTowerConfig = field(
+        default_factory=lambda: TransformerTowerConfig(input_dim=1280))
     contrastive: ContrastiveConfig = field(default_factory=ContrastiveConfig)
     train: TrainConfig = field(default_factory=TrainConfig)
     data: DataConfig = field(default_factory=DataConfig)

@@ -1,16 +1,22 @@
-"""Timing of the two-tower contrastive train step on one CUDA device:
-`python -m clip_dplm_tpu_torch.experiments.bench [--batch 8192]`.
+"""Timing of a contrastive train step on one CUDA device:
+`python -m clip_dplm_tpu_torch.experiments.bench [--model two_tower|rna_rbp]
+[--batch B] [--iters N] [-o a.b=c ...]`.
 
-Counterpart of the two-tower leg of the repository's `bench.py`: the same
-configuration (towers 256/1280 -> 1024, 3 layers, relu; optimized
-projection 512 / 2048, tanh-GELU, dropout 0.1; every Dense+LN block and the
-InfoNCE loss fused; bf16 Adam moments, exact clip 1.0, warmup-cosine), a
-fixed random batch made with numpy from a seed, warm-up steps, then
-`--iters` chained train steps timed with CUDA events. The last line of
-output is one JSON object with bench.py's keys: pairs/s, the model FLOP/s
-from bench.py's analytic count (matmuls only, backward = 2x forward) and
-the MFU against the card's dense bf16 peak, read from its name (H100 only:
-another card raises rather than guess). Needs CUDA.
+Counterpart of the repository's `bench.py` legs:
+- `two_tower` (default, B=8192): towers 256/1280 -> 1024, 3 layers, relu;
+  optimized projection 512 / 2048, tanh-GELU, dropout 0.1; every Dense+LN
+  block and the InfoNCE loss fused;
+- `rna_rbp` (B=1024, `BENCH_MODEL=rna_rbp`): the flagship token transformer,
+  towers 120/1280 -> 512, 3 blocks of 8 heads over 127 tokens plus the CLS
+  token (S = 128), ragged lengths in [63, 127); fused projection blocks and
+  fused InfoNCE.
+Both with bf16 Adam moments, exact clip 1.0, warmup-cosine. A fixed random
+batch made with numpy from a seed, warm-up steps, then `--iters` chained
+train steps timed with CUDA events. The last line of output is one JSON
+object with bench.py's keys: pairs/s, the model FLOP/s from bench.py's
+analytic count (matmuls only, backward = 2x forward) and the MFU against
+the card's dense bf16 peak, read from its name (H100 only: another card
+raises rather than guess). Needs CUDA.
 """
 
 from __future__ import annotations
@@ -22,8 +28,8 @@ from typing import Dict, Optional, Sequence
 import numpy as np
 import torch
 
-# the slice's configuration: bench.py's two-tower overrides, without the
-# JAX PRNG choice (train.rng_impl), which has no torch meaning
+# bench.py's two-tower overrides, without the JAX PRNG choice
+# (train.rng_impl), which has no torch meaning
 OVERRIDES = [
     "tower_a.input_dim=256",
     "tower_a.hidden_size=1024",
@@ -37,6 +43,24 @@ OVERRIDES = [
     "train.optim.moment_dtype=bfloat16",
     "tower_a.fused_dense=true",
     "tower_b.fused_dense=true",
+    "projection.fused_dense=true",
+]
+
+# bench.py's flagship overrides (`run_flagship`), without train.rng_impl and
+# train.optim.fused_update (the port's AdamW is always the fused update)
+TOKENS = 127  # per tower; the CLS token makes S = 128
+RNA_RBP_OVERRIDES = [
+    "experiment=rna_rbp",
+    "rna_tower.input_dim=120", "rna_tower.d_model=512",
+    "rna_tower.num_layers=3", "rna_tower.num_heads=8",
+    f"rna_tower.max_len={TOKENS + 1}",
+    "rbp_tower.input_dim=1280", "rbp_tower.d_model=512",
+    "rbp_tower.num_layers=3", "rbp_tower.num_heads=8",
+    f"rbp_tower.max_len={TOKENS + 1}",
+    "projection.dim=512",
+    "train.optim.total_steps=1000",
+    "train.optim.moment_dtype=bfloat16",
+    "contrastive.use_fused_kernel=true",
     "projection.fused_dense=true",
 ]
 
@@ -76,38 +100,98 @@ def two_tower_step_flops(cfg, batch: int) -> float:
     return 3.0 * fwd
 
 
+def token_clip_step_flops(cfg, B: int, sa: int, sb: int) -> float:
+    """bench.py's analytic matmul FLOPs (fwd+bwd ~= 3x fwd) of the RNA<->RBP
+    token transformer CLIP step; attention's backward recompute is not
+    credited."""
+
+    def tower(tc, S, extra_cls=1):
+        S = S + extra_cls
+        f = 2.0 * B * S * tc.input_dim * tc.d_model  # input proj
+        per_layer = 24.0 * B * S * tc.d_model**2 + 4.0 * B * S * S * tc.d_model
+        return f + tc.num_layers * per_layer
+
+    def proj(in_dim, pcfg):
+        hidden = pcfg.hidden_dim or 4 * pcfg.dim
+        f = 2.0 * B * pcfg.dim * in_dim
+        f += 2.0 * B * (hidden * in_dim + hidden * hidden + pcfg.dim * hidden)
+        return f
+
+    fwd = tower(cfg.rna_tower, sa) + tower(cfg.rbp_tower, sb)
+    fwd += proj(cfg.rna_tower.d_model, cfg.projection)
+    fwd += proj(cfg.rbp_tower.d_model, cfg.projection)
+    fwd += 2.0 * B * B * cfg.projection.dim
+    return 3.0 * fwd
+
+
+def _two_tower_batch(cfg, B: int, rng) -> Dict[str, np.ndarray]:
+    return {"a": rng.normal(size=(B, cfg.tower_a.input_dim)).astype(np.float32),
+            "b": rng.normal(size=(B, cfg.tower_b.input_dim)).astype(np.float32)}
+
+
+def rna_rbp_batch(cfg, B: int, rng) -> Dict[str, np.ndarray]:
+    """bench.py's flagship batch: lengths in [63, 127) per side, then the
+    token embeddings, drawn in that order."""
+    la = rng.integers(TOKENS // 2, TOKENS, B)
+    lb = rng.integers(TOKENS // 2, TOKENS, B)
+    return {
+        "rna_tokens": rng.normal(size=(B, TOKENS, cfg.rna_tower.input_dim)).astype(np.float32),
+        "rna_mask": np.arange(TOKENS)[None, :] < la[:, None],
+        "rbp_tokens": rng.normal(size=(B, TOKENS, cfg.rbp_tower.input_dim)).astype(np.float32),
+        "rbp_mask": np.arange(TOKENS)[None, :] < lb[:, None],
+    }
+
+
+# --model -> (overrides, default batch, metric, batch maker, step FLOPs)
+MODELS = {
+    "two_tower": (OVERRIDES, 8192, "contrastive_pairs_per_sec_per_chip", _two_tower_batch,
+                  two_tower_step_flops),
+    "rna_rbp": (RNA_RBP_OVERRIDES, 1024, "rna_rbp_pairs_per_sec_per_chip", rna_rbp_batch,
+                lambda cfg, B: token_clip_step_flops(cfg, B, TOKENS, TOKENS)),
+}
+
+
 def parse_args(argv: Optional[Sequence[str]] = None) -> argparse.Namespace:
     p = argparse.ArgumentParser(description=__doc__,
                                 formatter_class=argparse.RawDescriptionHelpFormatter)
-    p.add_argument("--batch", type=int, default=8192)
+    p.add_argument("--model", choices=sorted(MODELS), default="two_tower")
+    p.add_argument("--batch", type=int, default=None,
+                   help="default: 8192 for two_tower, 1024 for rna_rbp")
     p.add_argument("--iters", type=int, default=20)
     p.add_argument("--override", "-o", action="append", default=[])
     return p.parse_args(argv)
+
+
+def build_step(model: str, B: int, overrides: Sequence[str], device: torch.device):
+    """The `--model` configuration at batch B with extra overrides, its
+    train state, the seeded batch on `device` and the train step, after
+    WARMUP_STEPS untimed steps: (cfg, state, batch, step)."""
+    from clip_dplm_tpu_torch.config import Config, apply_overrides
+    from clip_dplm_tpu_torch.experiments.registry import build_model
+    from clip_dplm_tpu_torch.train.state import create_train_state
+    from clip_dplm_tpu_torch.train.trainer import make_train_step, to_device
+
+    base, _, _, make_batch, _ = MODELS[model]
+    cfg = apply_overrides(Config(), base + [f"train.batch_size={B}"] + list(overrides))
+    state = create_train_state(build_model(cfg, device=device), cfg)
+    batch = to_device(make_batch(cfg, B, np.random.default_rng(0)), device)
+    step = make_train_step(cfg)
+    for _ in range(WARMUP_STEPS):
+        state, _ = step(state, batch)
+    torch.cuda.synchronize(device)
+    return cfg, state, batch, step
 
 
 def main(argv: Optional[Sequence[str]] = None) -> Dict:
     args = parse_args(argv)
     if not torch.cuda.is_available():
         raise SystemExit("the benchmark times the CUDA kernels: it needs a CUDA device")
-    from clip_dplm_tpu_torch.config import Config, apply_overrides
-    from clip_dplm_tpu_torch.experiments.registry import build_model
-    from clip_dplm_tpu_torch.train.state import create_train_state
-    from clip_dplm_tpu_torch.train.trainer import make_train_step, to_device
-
     device = torch.device("cuda", torch.cuda.current_device())
     name = torch.cuda.get_device_name(device)
     peak = peak_bf16_flops(name)
-    B = args.batch
-    cfg = apply_overrides(Config(), OVERRIDES + [f"train.batch_size={B}"] + args.override)
-    state = create_train_state(build_model(cfg, device=device), cfg)
-    rng = np.random.default_rng(0)
-    batch = to_device({
-        "a": rng.normal(size=(B, cfg.tower_a.input_dim)).astype(np.float32),
-        "b": rng.normal(size=(B, cfg.tower_b.input_dim)).astype(np.float32)}, device)
-    step = make_train_step(cfg)
-    for _ in range(WARMUP_STEPS):
-        state, metrics = step(state, batch)
-    torch.cuda.synchronize(device)
+    _, default_batch, metric, _, step_flops = MODELS[args.model]
+    B = args.batch or default_batch
+    cfg, state, batch, step = build_step(args.model, B, args.override, device)
     start, end = (torch.cuda.Event(enable_timing=True) for _ in range(2))
     start.record()
     for _ in range(args.iters):
@@ -118,9 +202,9 @@ def main(argv: Optional[Sequence[str]] = None) -> Dict:
     loss = float(metrics["loss"])
     if not np.isfinite(loss):
         raise RuntimeError(f"non-finite loss {loss}")
-    fps = two_tower_step_flops(cfg, B) / dt
+    fps = step_flops(cfg, B) / dt
     out = {
-        "metric": "contrastive_pairs_per_sec_per_chip",
+        "metric": metric,
         "value": round(B / dt, 2),
         "unit": "pairs/s/chip",
         "vs_baseline": round(fps / (0.95 * peak), 4),
@@ -128,6 +212,7 @@ def main(argv: Optional[Sequence[str]] = None) -> Dict:
         "mfu": round(fps / peak, 6),
         "peak_bf16_tflops": round(peak / 1e12, 1),
         "step_ms": round(dt * 1e3, 4),
+        "model": args.model,
         "batch": B,
         "loss": loss,
         "device": name,

@@ -1,0 +1,108 @@
+"""Where the time of one train step goes on the card:
+`python -m clip_dplm_tpu_torch.experiments.profile_step [--model
+two_tower|rna_rbp] [-o a.b=c ...]`.
+
+Builds the configuration, batch and warmed-up step of
+`experiments/bench.py` (`build_step`, at the model's default batch), then:
+- times STEPS steps one by one on the host clock, each ended by a
+  synchronize, with the host's enqueue time (the step's return, before the
+  synchronize) beside it;
+- profiles as many steps with torch.profiler (CPU and CUDA activities) and
+  prints the device busy share (the kernels' summed device time over the
+  profiled wall time) and the TOP operators and kernels that take the most
+  device time, per step.
+Prints JSON lines; the last is the summary. Needs CUDA.
+"""
+
+from __future__ import annotations
+
+import argparse
+import json
+import time
+from typing import Dict, Optional, Sequence
+
+import numpy as np
+import torch
+
+STEPS = 5  # steps timed one by one, then as many profiled
+TOP = 25  # operators and kernels listed
+
+
+def _device_us(evt) -> float:
+    """Self device time of a profiler event, in microseconds, under either
+    of torch's attribute names."""
+    for name in ("self_device_time_total", "self_cuda_time_total"):
+        if hasattr(evt, name):
+            return float(getattr(evt, name))
+    return 0.0
+
+
+def parse_args(argv: Optional[Sequence[str]] = None) -> argparse.Namespace:
+    from clip_dplm_tpu_torch.experiments.bench import MODELS
+
+    p = argparse.ArgumentParser(description=__doc__,
+                                formatter_class=argparse.RawDescriptionHelpFormatter)
+    p.add_argument("--model", choices=sorted(MODELS), default="two_tower")
+    p.add_argument("--override", "-o", action="append", default=[])
+    return p.parse_args(argv)
+
+
+def main(argv: Optional[Sequence[str]] = None) -> Dict:
+    args = parse_args(argv)
+    if not torch.cuda.is_available():
+        raise SystemExit("the profile runs the CUDA kernels: it needs a CUDA device")
+    from torch.profiler import ProfilerActivity, profile
+
+    from clip_dplm_tpu_torch.experiments.bench import MODELS, build_step
+
+    device = torch.device("cuda", torch.cuda.current_device())
+    B = MODELS[args.model][1]
+    _, state, batch, step = build_step(args.model, B, args.override, device)
+
+    walls, enqueues = [], []
+    for _ in range(STEPS):
+        t0 = time.perf_counter()
+        state, _ = step(state, batch)
+        enqueues.append((time.perf_counter() - t0) * 1e3)
+        torch.cuda.synchronize(device)
+        walls.append((time.perf_counter() - t0) * 1e3)
+
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        for _ in range(STEPS):
+            state, _ = step(state, batch)
+        torch.cuda.synchronize(device)
+        prof_wall_ms = (time.perf_counter() - t0) * 1e3
+    events = prof.key_averages()
+    kernels = [e for e in prof.events() if e.device_type == torch.autograd.DeviceType.CUDA]
+    busy_ms = sum(e.time_range.elapsed_us() for e in kernels) / 1e3
+    per_step = lambda us: round(us / 1e3 / STEPS, 4)  # noqa: E731
+    ops = sorted((e for e in events if e.key.startswith("aten::") and _device_us(e) > 0),
+                 key=_device_us, reverse=True)[:TOP]
+    for e in ops:
+        print(json.dumps({"op": e.key, "device_ms_per_step": per_step(_device_us(e)),
+                          "calls_per_step": e.count / STEPS}))
+    by_kernel: Dict[str, list] = {}
+    for e in kernels:
+        entry = by_kernel.setdefault(e.name[:120], [0.0, 0])
+        entry[0] += e.time_range.elapsed_us()
+        entry[1] += 1
+    for name, (us, n) in sorted(by_kernel.items(), key=lambda kv: -kv[1][0])[:TOP]:
+        print(json.dumps({"kernel": name, "device_ms_per_step": per_step(us),
+                          "launches_per_step": n / STEPS}))
+    out = {
+        "model": args.model, "batch": B, "steps": STEPS,
+        "step_ms_median": float(np.median(walls)), "step_ms": walls,
+        "enqueue_ms_median": float(np.median(enqueues)),
+        "profiled_wall_ms_per_step": round(prof_wall_ms / STEPS, 4),
+        "device_busy_ms_per_step": round(busy_ms / STEPS, 4),
+        "device_busy_share": round(busy_ms / prof_wall_ms, 4),
+        "kernel_launches_per_step": len(kernels) / STEPS,
+        "device": torch.cuda.get_device_name(device),
+    }
+    print(json.dumps(out), flush=True)
+    return out
+
+
+if __name__ == "__main__":
+    main()

@@ -1,13 +1,16 @@
 """Training CLI: `python -m clip_dplm_tpu_torch.experiments.train`.
 
-Counterpart of `clip_dplm_tpu/experiments/train.py` for the two-tower
-experiment: dotted `-o a.b=c` overrides on the default config (no yaml),
-then data -> model -> train state -> Trainer on one device. Prints one JSON
-line per epoch and a final summary line.
+Counterpart of `clip_dplm_tpu/experiments/train.py` for the experiments the
+port has (two_tower, rna_rbp): dotted `-o a.b=c` overrides on the default
+config (no yaml), then data -> model -> train state -> Trainer on one
+device, the card unless `--device cpu` is given. Prints one JSON line per
+epoch and a final summary line.
 
-  python -m clip_dplm_tpu_torch.experiments.train --device cuda --epochs 3 \\
+  python -m clip_dplm_tpu_torch.experiments.train --epochs 3 \\
       -o tower_a.input_dim=256 -o tower_a.hidden_size=1024 \\
       -o tower_b.hidden_size=1024 -o train.batch_size=256
+  python -m clip_dplm_tpu_torch.experiments.train --epochs 3 \\
+      -o experiment=rna_rbp -o train.batch_size=256
 """
 
 from __future__ import annotations
@@ -25,7 +28,7 @@ def parse_args(argv: Optional[Sequence[str]] = None) -> argparse.Namespace:
                                 formatter_class=argparse.RawDescriptionHelpFormatter)
     p.add_argument("--override", "-o", action="append", default=[],
                    help="dotted config override, e.g. -o train.batch_size=64")
-    p.add_argument("--device", default="cpu", help="cpu or cuda[:i]")
+    p.add_argument("--device", default="cuda", help="cuda[:i] (default) or cpu")
     p.add_argument("--epochs", type=int, default=None)
     p.add_argument("--checkpoint-dir", default=None,
                    help="not ported yet: giving one raises")
@@ -41,7 +44,8 @@ def main(argv: Optional[Sequence[str]] = None) -> Dict[str, list]:
 
     device = torch.device(args.device)
     if device.type == "cuda" and not torch.cuda.is_available():
-        raise SystemExit("--device cuda: no CUDA device is available")
+        raise SystemExit(f"--device {args.device}: no CUDA device is available "
+                         "(pass --device cpu to train on the CPU)")
     cfg = apply_overrides(Config(), args.override)
     model = build_model(cfg, device=device)
     state = create_train_state(model, cfg)

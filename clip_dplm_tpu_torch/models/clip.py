@@ -31,7 +31,7 @@ class TwoTowerCLIP(nn.Module):
         self.logit_scale = nn.Parameter(torch.tensor(
             float(cfg.contrastive.logit_scale_init), dtype=torch.float32, device=device))
 
-    def reset_own_params(self) -> None:
+    def reset_own_params(self, generator: Optional[torch.Generator] = None) -> None:
         with torch.no_grad():
             self.logit_scale.fill_(float(self.cfg.contrastive.logit_scale_init))
 

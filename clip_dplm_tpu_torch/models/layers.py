@@ -1,5 +1,6 @@
-"""Parameter-holding layers that keep the flax scope and param names, and
-the two-tower model's encoder towers and projection heads.
+"""Parameter-holding layers that keep the flax scope and param names, the
+two-tower model's encoder towers and projection heads, and the token
+towers' `TransformerBlock`.
 
 `Dense` (the counterpart of `clip_dplm_tpu/models/layers.py::_DenseParams`
 and `nn.Dense`), `LayerNorm` and `Embed` name their parameters `kernel` /
@@ -19,6 +20,12 @@ block goes through `ops/fused_dense.py` (its CUDA kernels on the card, its
 plain version on the CPU); without it the block is Dense / LayerNorm (eps
 1e-6) / act / dropout. Both paths draw dropout masks from the same hash of
 (seed, row, column), one seed per site from `DropoutSeeds` in call order.
+
+`TransformerBlock` (counterpart of `clip_dplm_tpu/models/layers.py::
+TransformerBlock`) routes its attention through `ops/attention.py`: the
+packed short-S kernel with the out-projection for 64 <= S < 256, the
+CLS-query kernel when only row 0 is kept (`out_rows == 1`), the plain
+formulation otherwise (CPU tensors only below 256 keys).
 """
 
 from __future__ import annotations
@@ -109,12 +116,13 @@ class Embed(nn.Module):
 def init_params(module: nn.Module, generator: torch.Generator) -> None:
     """Random weights for every layer of `module`, drawn from `generator`
     (which lives on the module's device); modules with parameters of their
-    own (a layer scale, a logit scale) reset them in `reset_own_params`."""
+    own (a layer scale, a logit scale, a position table) reset them in
+    `reset_own_params(generator)`."""
     for m in module.modules():
         if isinstance(m, (Dense, LayerNorm, Embed)):
             m.reset_parameters(generator)
         elif hasattr(m, "reset_own_params"):
-            m.reset_own_params()
+            m.reset_own_params(generator)
 
 
 # ---------------------------------------------------------------------------
@@ -138,11 +146,11 @@ def _activation(name: str):
 
 def _dropout(h: torch.Tensor, rate: float, deterministic: bool,
              seeds: Optional[DropoutSeeds]) -> torch.Tensor:
-    """The unfused modules' dropout: the fused kernel's hash mask, in h's
-    dtype."""
+    """The unfused modules' dropout: the fused kernel's hash mask over the
+    rows of h flattened to (rows, last dim), in h's dtype."""
     if deterministic or rate <= 0.0:
         return h
-    return hash_dropout(h, _seed(seeds), rate)
+    return hash_dropout(h.reshape(-1, h.shape[-1]), _seed(seeds), rate).reshape(h.shape)
 
 
 def _seed(seeds: Optional[DropoutSeeds]) -> int:
@@ -220,7 +228,7 @@ def make_tower(cfg, dtype=torch.bfloat16, device=None) -> nn.Module:
         return ResNetTower(cfg, dtype, device)
     if cfg.architecture == "transformer":
         raise ValueError("the transformer tower is not ported yet (ROADMAP queue 1, "
-                         "slice 3)")
+                         "slice 4, with the tiny-S attention kernel)")
     raise ValueError(f"unknown tower architecture {cfg.architecture!r}")
 
 
@@ -286,7 +294,7 @@ class OptimizedProjectionHead(nn.Module):
         self.layer_scale = nn.Parameter(torch.full(
             (1,), float(cfg.layer_scale_init), dtype=torch.float32, device=device))
 
-    def reset_own_params(self) -> None:
+    def reset_own_params(self, generator: Optional[torch.Generator] = None) -> None:
         with torch.no_grad():
             self.layer_scale.fill_(float(self.cfg.layer_scale_init))
 
@@ -320,3 +328,62 @@ def make_projection(cfg, in_dim: int, dtype=torch.bfloat16, device=None) -> nn.M
     if cls is None:
         raise ValueError(f"unknown projection kind {cfg.kind!r}")
     return cls(cfg, in_dim, dtype, device)
+
+
+# ---------------------------------------------------------------------------
+# the token towers' transformer block
+# ---------------------------------------------------------------------------
+
+
+class TransformerBlock(nn.Module):
+    """Pre-LN encoder block: x + dropout(attention(LN(x))), then
+    x + dropout(ffn_out(gelu(ffn_in(LN(x))))), LayerNorm eps 1e-6 with its
+    output in `ln_dtype`, tanh-GELU (flax's default), Dense layers in
+    `dtype`. `qkv` is one Dense of width 3D in [q | k | v] layout.
+
+    `out_rows` keeps only the first rows after the attention core (exact
+    dead-code elimination when the pooling reads just those rows: the FFN
+    half and the LNs are row-local); with `out_rows == 1` the attention
+    itself is the CLS-query kernel, the (S, S) attention never happens."""
+
+    def __init__(self, d_model: int, num_heads: int, ffn_mult: int = 4, dropout: float = 0.1,
+                 dtype=torch.bfloat16, ln_dtype=torch.float32, out_rows: Optional[int] = None,
+                 device=None):
+        super().__init__()
+        self.num_heads, self.dropout, self.out_rows = num_heads, dropout, out_rows
+        self.dtype, self.ln_dtype = dtype, ln_dtype
+        self.ln_attn = LayerNorm(d_model, FLAX_LN_EPS, device=device)
+        self.qkv = Dense(d_model, 3 * d_model, device=device)
+        self.out_proj = Dense(d_model, d_model, device=device)
+        self.ln_ffn = LayerNorm(d_model, FLAX_LN_EPS, device=device)
+        self.ffn_in = Dense(d_model, ffn_mult * d_model, device=device)
+        self.ffn_out = Dense(ffn_mult * d_model, d_model, device=device)
+
+    def _ln(self, ln: LayerNorm, x: torch.Tensor) -> torch.Tensor:
+        return ln(x).to(self.ln_dtype).to(self.dtype)
+
+    def forward(self, x: torch.Tensor, mask: Optional[torch.Tensor] = None,
+                deterministic: bool = True, seeds: Optional[DropoutSeeds] = None):
+        from clip_dplm_tpu_torch.ops.attention import (
+            cls_query_attention,
+            multihead_attention,
+            packed_qkv_attention_proj,
+            short_attn_packed_ok,
+        )
+
+        H, rows = self.num_heads, self.out_rows
+        qkv = self.qkv(self._ln(self.ln_attn, x))
+        if rows == 1:
+            attn = self.out_proj(cls_query_attention(qkv, H, mask=mask))
+        elif short_attn_packed_ok(qkv.shape, H, mask):
+            attn = packed_qkv_attention_proj(qkv, self.out_proj.kernel, self.out_proj.bias, H,
+                                             mask=mask)
+            attn = attn if rows is None else attn[:, :rows]
+        else:
+            attn = multihead_attention(*qkv.chunk(3, dim=-1), H, mask=mask)
+            attn = self.out_proj(attn if rows is None else attn[:, :rows])
+        attn = _dropout(attn, self.dropout, deterministic, seeds)
+        x = (x if rows is None else x[:, :rows]) + attn
+        h = F.gelu(self.ffn_in(self._ln(self.ln_ffn, x)), approximate="tanh")
+        h = _dropout(self.ffn_out(h), self.dropout, deterministic, seeds)
+        return x + h

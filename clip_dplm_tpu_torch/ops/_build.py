@@ -40,8 +40,14 @@ _P, _I, _U, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_uint32, ctypes.c_float
 _SIGNATURES = {
     # qkv, mask, cos, sin, o, B, S, H, Dh, scale, stream
     "short_attention_qkv_fwd": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _F, _P],
+    # qkv, mask, cos, sin, o, dout, dqkv, B, S, H, Dh, scale, stream
+    "short_attention_qkv_bwd": [_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _F, _P],
     # x, w, bias, y, M, N, K, stream
     "short_attention_out_proj": [_P, _P, _P, _P, _I, _I, _I, _P],
+    # qkv, mask, out, B, S, H, Dh, scale, stream
+    "cls_attention_fwd": [_P, _P, _P, _I, _I, _I, _I, _F, _P],
+    # qkv, mask, dout, dqkv, B, S, H, Dh, scale, stream
+    "cls_attention_bwd": [_P, _P, _P, _P, _I, _I, _I, _I, _F, _P],
     # q, k, v, mask, out, B, H, S, Sk, Dh, scale, stream
     "flash_attention_fwd": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _F, _P],
     # A, B, bias, C, M, Nc, Kr, b_row, stream
@@ -87,7 +93,8 @@ class LaunchCounter:
 LAUNCHES = LaunchCounter(
     ["short_attention", "short_attention_out_proj", "flash_attention",
      "fused_dense_gemm", "fused_dense_fwd_rows", "fused_dense_bwd_rows",
-     "sym_infonce_lse", "sym_infonce_grad"])
+     "sym_infonce_lse", "sym_infonce_grad",
+     "short_attention_bwd", "cls_attention_fwd", "cls_attention_bwd"])
 
 
 class _Library:

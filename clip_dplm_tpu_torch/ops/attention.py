@@ -6,9 +6,12 @@ additive -1e30 bias, so a row whose keys are all masked gets uniform weights.
 
 Dispatch is fixed by shape, as the TPU gates are without their backend term:
 the packed short-S kernel for 64 <= S < 256 (`short_attn_packed_ok`), the
-flash kernel for S >= 256 (`attention_dispatch`), and `attention_reference`
+flash kernel for S >= 256 (`attention_dispatch`), the CLS-query kernel for a
+block that keeps only row 0 (`cls_query_attention`), and `attention_reference`
 below 64. Each kernel wrapper runs its plain version for CPU tensors and its
-CUDA kernel for CUDA tensors.
+CUDA kernel for CUDA tensors. Below 64 keys there is no kernel yet (the TPU's
+tiny-S kernel is ROADMAP queue 2 item 8), so `multihead_attention` raises for
+a CUDA tensor there rather than run the plain version on the card.
 """
 
 from __future__ import annotations
@@ -45,6 +48,15 @@ def attention_reference(
     return out.to(v.dtype)
 
 
+def require_no_grad(what: str, why: str, *tensors: torch.Tensor) -> None:
+    """Raise when autograd would record `what`, a kernel launch with no
+    backward of its own: its output would carry no gradient to the inputs."""
+    if torch.is_grad_enabled() and any(t is not None and t.requires_grad for t in tensors):
+        raise NotImplementedError(
+            f"{what} on CUDA records no gradient ({why}); call it under "
+            "torch.no_grad() or torch.inference_mode()")
+
+
 def split_heads(x: torch.Tensor, num_heads: int) -> torch.Tensor:
     B, S, D = x.shape
     return x.reshape(B, S, num_heads, D // num_heads).transpose(1, 2)
@@ -70,6 +82,54 @@ def short_attn_packed_ok(qkv_shape, num_heads: int, mask) -> bool:
         and Dh <= SHORT_MAX_HEAD_DIM
         and (mask is None or mask.dim() == 2)
     )
+
+
+def tiny_attn_ok(qkv_shape, num_heads: int, mask) -> bool:
+    """True for the shapes of the TPU's packed-diagonal tiny-S kernel: 2 <= S
+    < 64, Dh a multiple of 8, a (B, S) mask."""
+    S, D3 = qkv_shape[1], qkv_shape[2]
+    if D3 % 3 or (D3 // 3) % num_heads:
+        return False
+    return (2 <= S < SHORT_MIN_SEQ and (D3 // 3 // num_heads) % 8 == 0
+            and (mask is None or mask.dim() == 2))
+
+
+def cls_query_attention(
+    qkv: torch.Tensor,
+    num_heads: int,
+    mask: Optional[torch.Tensor] = None,
+) -> torch.Tensor:
+    """Attention output for query row 0 only, (B, 1, D), from packed (B, S,
+    3D) qkv, with a (B, S) key mask: `multihead_attention(q, k, v)[:, :1]`,
+    through `ops/short_attention.py::fused_cls_attention` on every device
+    (its kernels for CUDA tensors, up to 128 heads, anything else raises;
+    its plain versions for CPU tensors)."""
+    from clip_dplm_tpu_torch.ops.short_attention import fused_cls_attention
+
+    return fused_cls_attention(qkv, num_heads, mask=mask)
+
+
+def multihead_attention(
+    q: torch.Tensor,
+    k: torch.Tensor,
+    v: torch.Tensor,
+    num_heads: int,
+    mask: Optional[torch.Tensor] = None,
+) -> torch.Tensor:
+    """Multi-head attention over (B, S, D) q, k, v: `attention_dispatch` from
+    256 keys on, the plain formulation below for CPU tensors. A CUDA tensor
+    below 256 keys raises: the TPU kernels of that range that take separate
+    q, k, v are not ported (tiny S: ROADMAP queue 2 item 8; 64 <= S < 256:
+    item 7)."""
+    S, D = k.shape[1], k.shape[2]
+    if S < FLASH_MIN_SEQ and q.device.type != "cpu":
+        tiny = tiny_attn_ok((q.shape[0], S, 3 * D), num_heads, mask)
+        raise NotImplementedError(
+            f"no CUDA kernel for multi-head attention at S={S}: "
+            + ("the tiny-S kernel is ROADMAP queue 2 item 8" if tiny
+               else "the short-S kernel over separate q, k, v is ROADMAP queue 2 item 7"))
+    qh, kh, vh = (split_heads(t, num_heads) for t in (q, k, v))
+    return merge_heads(attention_dispatch(qh, kh, vh, mask=mask))
 
 
 def packed_qkv_attention_proj(

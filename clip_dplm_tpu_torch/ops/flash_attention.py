@@ -2,9 +2,11 @@
 
 Counterpart of `clip_dplm_tpu/ops/flash_attention.py::flash_attention`
 (forward only). For CUDA tensors it runs the online-softmax kernel of
-`csrc/flash_attention.cu`; for CPU tensors it runs `attention_reference`, the
-plain PyTorch version of the same function. Padding never takes weight: a
-row whose keys are all masked gets uniform weights over its Sk keys.
+`csrc/flash_attention.cu`, and raises where autograd would record the call
+(the backward is ROADMAP queue 2 item 6); for CPU tensors it runs
+`attention_reference`, the plain PyTorch version of the same function.
+Padding never takes weight: a row whose keys are all masked gets uniform
+weights over its Sk keys.
 """
 
 from __future__ import annotations
@@ -14,7 +16,11 @@ from typing import Optional
 import torch
 
 from clip_dplm_tpu_torch.ops import _build
-from clip_dplm_tpu_torch.ops.attention import FLASH_MAX_HEAD_DIM, attention_reference
+from clip_dplm_tpu_torch.ops.attention import (
+    FLASH_MAX_HEAD_DIM,
+    attention_reference,
+    require_no_grad,
+)
 
 
 def flash_attention(
@@ -27,7 +33,7 @@ def flash_attention(
     """Attention over (B, H, S, Dh) q and (B, H, Sk, Dh) k/v with a (B, Sk)
     key mask (True = real token); the scale defaults to 1/sqrt(Dh). CPU
     tensors take the plain version; CUDA tensors take the kernel (bf16,
-    Dh <= 256) or raise."""
+    Dh <= 256, no gradient recorded) or raise."""
     B, H, S, Dh = q.shape
     if k.shape != v.shape or k.shape[:2] != (B, H) or k.shape[3] != Dh:
         raise ValueError(f"k/v must be ({B}, {H}, Sk, {Dh}), got "
@@ -41,6 +47,8 @@ def flash_attention(
         raise ValueError(f"no kernel for device {q.device}")
     if not (q.dtype == k.dtype == v.dtype == torch.bfloat16):
         raise ValueError(f"the CUDA kernel takes bf16 q/k/v, got {q.dtype}")
+    require_no_grad("flash_attention", "its backward kernel is ROADMAP queue 2 item 6",
+                    q, k, v)
     if Dh > FLASH_MAX_HEAD_DIM or S < 1 or Sk < 1:
         raise ValueError(f"the flash kernel takes Dh <= {FLASH_MAX_HEAD_DIM} and "
                          f"S, Sk >= 1, got Dh={Dh}, S={S}, Sk={Sk}")

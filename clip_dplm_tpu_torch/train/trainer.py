@@ -1,4 +1,6 @@
-"""Train and eval steps of the two-tower model, and the Trainer loop.
+"""Train and eval steps of the contrastive pair models (TwoTowerCLIP and
+RNARBPCLIP: any model whose forward returns emb_a, emb_b and logit_scale),
+and the Trainer loop.
 
 Counterpart of `clip_dplm_tpu/train/trainer.py` for the pair family with the
 `infonce` loss: `make_train_step` (gradient accumulation over micro-batches,
@@ -25,7 +27,8 @@ from clip_dplm_tpu_torch.train.state import TrainState, global_norm
 
 
 def to_device(batch: Dict, device) -> Dict[str, torch.Tensor]:
-    """numpy (or torch) batch -> tensors on `device`."""
+    """numpy (or torch) batch -> tensors on `device`, dtypes kept (bool
+    masks stay bool)."""
     return {k: torch.as_tensor(v).to(device, non_blocking=True) for k, v in batch.items()}
 
 

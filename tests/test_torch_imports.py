@@ -15,7 +15,7 @@ for name in names:
     importlib.import_module(name)
 leaked = sorted(m for m in ("jax", "flax", "optax", "yaml", "clip_dplm_tpu")
                 if m in sys.modules)
-print(len(names), leaked)
+print(len(names), names, leaked)
 """
 
 
@@ -24,6 +24,10 @@ def test_port_imports_no_jax():
     out = subprocess.run([sys.executable, "-c", _PROBE], cwd=REPO, env=env,
                          capture_output=True, text=True, timeout=120)
     assert out.returncode == 0, out.stderr
-    n, leaked = out.stdout.split(" ", 1)
-    assert int(n) >= 12, out.stdout  # every module was found and imported
+    n, rest = out.stdout.split(" ", 1)
+    names, leaked = rest.rsplit("] ", 1)
+    assert int(n) >= 28, out.stdout  # every module was found and imported
+    for mod in ("models.token_towers", "data.collate", "ops.short_attention",
+                "experiments.bench", "experiments.registry"):
+        assert f"'clip_dplm_tpu_torch.{mod}'" in names, mod
     assert leaked.strip() == "[]", out.stdout

@@ -1,7 +1,9 @@
 """The port's CUDA kernels against their plain PyTorch versions on the card,
 in bf16 at the JAX suite's bf16 bound (atol = rtol = 2e-2; gradients
 divided by their largest entry first), with ragged and fully
-masked rows, ragged batches and odd widths, and the dropout mask bit for bit. Every test here needs an NVIDIA GPU and skips without
+masked rows, ragged batches and odd widths, and the dropout mask bit for bit;
+and the forward-only kernels' refusal to run where autograd would record
+them. Every test here needs an NVIDIA GPU and skips without
 one. The file imports no JAX, so on the card, which has none, it runs as
 
     python -m pytest --noconftest -p no:cacheprovider tests/test_torch_kernels.py
@@ -12,7 +14,8 @@ import pytest
 import torch
 
 from clip_dplm_tpu_torch.ops import _build
-from clip_dplm_tpu_torch.ops.attention import attention_reference
+from clip_dplm_tpu_torch.ops import short_attention as sa
+from clip_dplm_tpu_torch.ops.attention import attention_reference, multihead_attention
 from clip_dplm_tpu_torch.ops import fused_dense as fd
 from clip_dplm_tpu_torch.ops import fused_infonce as fi
 from clip_dplm_tpu_torch.ops.flash_attention import flash_attention
@@ -21,6 +24,7 @@ from clip_dplm_tpu_torch.ops.short_attention import (
     fused_short_attention_qkv_proj_reference,
     out_projection,
     out_projection_reference,
+    short_attention_qkv,
 )
 
 TOL = dict(atol=2e-2, rtol=2e-2)
@@ -216,3 +220,116 @@ def test_train_kernel_wrappers_refuse_what_the_kernels_do_not_take(cuda_device):
         fi.fused_symmetric_infonce(a, a, s, torch.bfloat16)
     with pytest.raises(ValueError, match="bf16"):
         fi.fused_symmetric_infonce(a[:, :64], a[:, :64], s)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("B,S,D,H,rope", [(2, 128, 512, 8, False), (3, 65, 64, 2, True),
+                                          (2, 100, 256, 4, True), (2, 200, 640, 10, False),
+                                          (3, 30, 96, 2, True)])
+def test_short_attention_bwd_matches_plain(cuda_device, np_rng, B, S, D, H, rope):
+    """The backward kernel against its plain version on the same residuals
+    (qkv, the plain forward's o, a random dO)."""
+    f = lambda *s: torch.from_numpy(np_rng.normal(size=s).astype(np.float32)).to(  # noqa: E731
+        cuda_device, torch.bfloat16)
+    qkv, dout = f(B, S, 3 * D), f(B, S, D)
+    mask = torch.from_numpy(_ragged_mask(np_rng, B, S)).to(cuda_device)
+    pos = torch.arange(S, device=cuda_device) if rope else None
+    o = sa.short_attention_qkv_reference(qkv, H, mask=mask, rope_positions=pos)
+    before = _build.LAUNCHES.snapshot()["short_attention_bwd"]
+    got = sa.short_attention_qkv_bwd(dout, qkv, o, H, mask=mask, rope_positions=pos)
+    torch.cuda.synchronize()
+    assert _build.LAUNCHES.snapshot()["short_attention_bwd"] == before + 1
+    want = sa.short_attention_qkv_bwd_reference(dout, qkv, o, H, mask=mask, rope_positions=pos)
+    assert torch.isfinite(got).all()
+    _grads_close([got[..., i * D:(i + 1) * D] for i in range(3)],
+                 [want[..., i * D:(i + 1) * D] for i in range(3)], ["dq", "dk", "dv"])
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("B,S,D,H", [(2, 128, 512, 8), (3, 65, 128, 2)])
+def test_fused_short_attention_proj_grads_match_plain(cuda_device, np_rng, B, S, D, H):
+    """The autograd Function on the card (attention, projection GEMM; dO
+    GEMM, attention backward, f32 dWo/dbo) against autograd of the plain
+    formulation."""
+    qkv = torch.from_numpy(np_rng.normal(size=(B, S, 3 * D)).astype(np.float32)).to(
+        cuda_device, torch.bfloat16)
+    wo = torch.from_numpy((np_rng.normal(size=(D, D)) / np.sqrt(D)).astype(np.float32))
+    bo = torch.from_numpy((np_rng.normal(size=(D,)) * 0.1).astype(np.float32))
+    wo, bo = wo.to(cuda_device), bo.to(cuda_device)
+    mask = torch.from_numpy(_ragged_mask(np_rng, B, S)).to(cuda_device)
+    dy = torch.from_numpy(np_rng.normal(size=(B, S, D)).astype(np.float32)).to(cuda_device)
+
+    def run(fn):
+        leaves = [t.clone().requires_grad_(True) for t in (qkv, wo, bo)]
+        y = fn(*leaves, H, mask=mask)
+        y.backward(dy.to(y.dtype))
+        return y.detach(), [t.grad for t in leaves]
+
+    before = _build.LAUNCHES.snapshot()
+    y, grads = run(fused_short_attention_qkv_proj)
+    torch.cuda.synchronize()
+    after = _build.LAUNCHES.snapshot()
+    for name in ("short_attention", "short_attention_out_proj", "fused_dense_gemm",
+                 "short_attention_bwd"):
+        assert after[name] == before[name] + 1, name
+    y_ref, grads_ref = run(fused_short_attention_qkv_proj_reference)
+    assert grads[1].dtype == grads[2].dtype == torch.float32
+    torch.testing.assert_close(y.float(), y_ref.float(), **TOL)
+    _grads_close(grads, grads_ref, ["dqkv", "dwo", "dbo"])
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("B,S,D,H", [(4, 128, 512, 8), (3, 65, 64, 2), (5, 33, 1280, 20),
+                                     (2, 200, 128, 16), (1000, 65, 512, 8)])
+def test_cls_attention_matches_plain(cuda_device, np_rng, B, S, D, H):
+    qkv = torch.from_numpy(np_rng.normal(size=(B, S, 3 * D)).astype(np.float32)).to(
+        cuda_device, torch.bfloat16)
+    mask = torch.from_numpy(_ragged_mask(np_rng, B, S)).to(cuda_device)
+    dout = torch.from_numpy(np_rng.normal(size=(B, 1, D)).astype(np.float32)).to(
+        cuda_device, torch.bfloat16)
+    before = _build.LAUNCHES.snapshot()
+    leaf = qkv.clone().requires_grad_(True)
+    got = sa.fused_cls_attention(leaf, H, mask=mask)
+    got.backward(dout)
+    torch.cuda.synchronize()
+    after = _build.LAUNCHES.snapshot()
+    assert after["cls_attention_fwd"] == before["cls_attention_fwd"] + 1
+    assert after["cls_attention_bwd"] == before["cls_attention_bwd"] + 1
+    want = sa.fused_cls_attention_reference(qkv, H, mask=mask)
+    assert got.shape == (B, 1, D) and torch.isfinite(got).all()
+    torch.testing.assert_close(got.detach().float(), want.float(), **TOL)
+    want_g = sa.fused_cls_attention_bwd_reference(dout, qkv, H, mask=mask)
+    assert torch.count_nonzero(leaf.grad[:, 1:, :D]) == 0
+    _grads_close([leaf.grad[..., i * D:(i + 1) * D] for i in range(3)],
+                 [want_g[..., i * D:(i + 1) * D] for i in range(3)], ["dq", "dk", "dv"])
+
+
+@pytest.mark.cuda
+def test_forward_only_kernels_refuse_to_drop_gradients(cuda_device):
+    """A CUDA launch that autograd would record without a backward raises;
+    the same calls under no_grad run."""
+    q = torch.zeros(1, 2, 256, 64, device=cuda_device, dtype=torch.bfloat16,
+                    requires_grad=True)
+    with pytest.raises(NotImplementedError, match="ROADMAP queue 2 item 6"):
+        flash_attention(q, q, q)
+    qkv = torch.zeros(2, 64, 3 * 64, device=cuda_device, dtype=torch.bfloat16,
+                      requires_grad=True)
+    with pytest.raises(NotImplementedError, match="fused_short_attention_qkv_proj"):
+        short_attention_qkv(qkv, 2)
+    o = torch.zeros(2, 64, 64, device=cuda_device, dtype=torch.bfloat16, requires_grad=True)
+    w, b = torch.zeros(64, 64, device=cuda_device), torch.zeros(64, device=cuda_device)
+    with pytest.raises(NotImplementedError, match="fused_short_attention_qkv_proj"):
+        out_projection(o, w, b)
+    with torch.no_grad():
+        assert flash_attention(q, q, q).shape == q.shape
+        assert short_attention_qkv(qkv, 2).shape == (2, 64, 64)
+    x = torch.zeros(2, 10, 64, device=cuda_device, dtype=torch.bfloat16)
+    with pytest.raises(NotImplementedError, match="item 8"):
+        multihead_attention(x, x, x, 2)
+    big = torch.zeros(1, 256, 3 * 512, device=cuda_device, dtype=torch.bfloat16,
+                      requires_grad=True)
+    with pytest.raises(ValueError, match="backward kernel does not fit"):
+        fused_short_attention_qkv_proj(big, w.new_zeros(512, 512), w.new_zeros(512), 8)
+    with pytest.raises(ValueError, match="up to 128 heads"):
+        sa.fused_cls_attention(torch.zeros(1, 8, 3 * 8 * 130, device=cuda_device,
+                                           dtype=torch.bfloat16), 130)

@@ -1,0 +1,101 @@
+"""The backward of the port's packed-qkv short-S attention with the fused
+out-projection (clip_dplm_tpu_torch/ops/short_attention.py): value, dqkv,
+dWo and dbo of `fused_short_attention_qkv_proj` on CPU tensors (the plain
+path, through its autograd Function) against the JAX kernel it replaces, run
+in Pallas interpret mode with save_probs=False, at the JAX suite's
+tolerances (f32; gradients atol 5e-5, rtol 2e-3); and the plain backward
+`short_attention_qkv_bwd_reference` against autograd of the plain
+forward."""
+
+import jax
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+from jax.experimental.pallas import tpu as pltpu
+
+from clip_dplm_tpu.ops.short_attention import (
+    fused_short_attention_qkv_proj as jax_qkv_proj,
+)
+from clip_dplm_tpu_torch.ops import _build
+from clip_dplm_tpu_torch.ops import short_attention as sa
+
+
+def _inputs(rng, B, S, D):
+    qkv = rng.normal(size=(B, S, 3 * D)).astype(np.float32)
+    wo = (rng.normal(size=(D, D)) * 0.1).astype(np.float32)  # flax (in, out)
+    bo = (rng.normal(size=(D,)) * 0.1).astype(np.float32)
+    lens = rng.integers(S // 2, S + 1, B)
+    mask = np.arange(S)[None, :] < lens[:, None]
+    return qkv, wo, bo, mask
+
+
+@pytest.mark.parametrize("rope", [False, True])
+@pytest.mark.parametrize("S", [64, 65])
+def test_value_and_grads_match_jax_kernel(rng, rope, S):
+    """B=2, D=64, 2 heads, ragged masks; S=65 pads to 128 rows in the JAX
+    kernel. The loss sin(y)·valid is the JAX suite's."""
+    B, D, H = 2, 64, 2
+    qkv, wo, bo, mask = _inputs(rng, B, S, D)
+    pos = np.arange(S)
+    w = mask[:, :, None].astype(np.float32)
+
+    def jloss(qkv, wo, bo):
+        y = jax_qkv_proj(qkv, wo, bo, H, mask=jnp.asarray(mask), block_b=2, save_probs=False,
+                         rope_positions=jnp.asarray(pos) if rope else None, interpret=True)
+        return jnp.sum(jnp.sin(y * w))
+
+    with pltpu.force_tpu_interpret_mode():
+        l_j, g_j = jax.value_and_grad(jloss, argnums=(0, 1, 2))(
+            jnp.asarray(qkv), jnp.asarray(wo), jnp.asarray(bo))
+    leaves = [torch.from_numpy(a).requires_grad_(True) for a in (qkv, wo.T.copy(), bo)]
+    y = sa.fused_short_attention_qkv_proj(
+        leaves[0], leaves[1], leaves[2], H, mask=torch.from_numpy(mask),
+        rope_positions=torch.from_numpy(pos) if rope else None)
+    loss = torch.sum(torch.sin(y * torch.from_numpy(w)))
+    loss.backward()
+    np.testing.assert_allclose(float(loss.detach()), float(l_j), rtol=1e-5)
+    got = [leaves[0].grad.numpy(), leaves[1].grad.numpy().T, leaves[2].grad.numpy()]
+    for name, a, b in zip(["dqkv", "dwo", "dbo"], got, g_j):
+        np.testing.assert_allclose(a, np.asarray(b), atol=5e-5, rtol=2e-3, err_msg=name)
+
+
+@pytest.mark.parametrize("rope", [False, True])
+@pytest.mark.parametrize("S", [64, 65])
+def test_bwd_reference_matches_autograd_of_plain_forward(rng, rope, S):
+    """The plain backward on the forward's residuals (qkv, o, mask) equals
+    autograd through the plain forward, with a fully masked row."""
+    B, D, H = 2, 64, 2
+    qkv_np, _, _, mask_np = _inputs(rng, B, S, D)
+    mask_np[-1] = False
+    qkv = torch.from_numpy(qkv_np).requires_grad_(True)
+    mask = torch.from_numpy(mask_np)
+    pos = torch.arange(S) if rope else None
+    o = sa.short_attention_qkv_reference(qkv, H, mask=mask, rope_positions=pos)
+    dout = torch.from_numpy(rng.normal(size=(B, S, D)).astype(np.float32))
+    (want,) = torch.autograd.grad(o, qkv, dout)
+    got = sa.short_attention_qkv_bwd_reference(dout, qkv.detach(), o.detach(), H, mask=mask,
+                                               rope_positions=pos)
+    torch.testing.assert_close(got, want, atol=1e-5, rtol=1e-4)
+
+
+def test_cpu_backward_takes_plain_versions_and_counts_nothing(rng):
+    qkv, wo, bo, mask = _inputs(rng, 2, 70, 32)
+    leaves = [torch.from_numpy(a).requires_grad_(True) for a in (qkv, wo.T.copy(), bo)]
+    before = _build.LAUNCHES.snapshot()
+    y = sa.fused_short_attention_qkv_proj(*leaves, 4, mask=torch.from_numpy(mask),
+                                          rope_positions=torch.arange(70))
+    y.sum().backward()
+    assert _build.LAUNCHES.snapshot() == before
+    assert all(t.grad is not None and torch.isfinite(t.grad).all() for t in leaves)
+    assert leaves[1].grad.dtype == torch.float32
+
+
+@pytest.mark.parametrize("S,Dh,fits", [(128, 64, True), (65, 64, True), (208, 64, True),
+                                       (209, 64, False), (255, 32, True), (128, 128, False),
+                                       (96, 128, True)])
+def test_backward_shared_memory_bound(S, Dh, fits):
+    """The backward block holds K, V and f32 dK/dV of one head: at Dh=64 up
+    to S=208 fits the H100's 227 KB (csrc/short_attention.cu::BwdSmem)."""
+    assert sa.short_attention_bwd_fits(S, Dh) is fits
+    assert sa._bwd_smem_bytes(128, 64, 64) == 228096  # the flagship's 64-row tiles

@@ -238,13 +238,14 @@ def test_config_rejects_unported_fields():
         pconfig.apply_overrides(pconfig.Config(), ["contrastive.fused_materialize_raw=auto"])
     with pytest.raises(ValueError):
         build_model(dataclasses.replace(pconfig.Config(), experiment="dplm"))
-    with pytest.raises(ValueError, match="slice 3"):
+    with pytest.raises(ValueError, match="slice 4"):
         build_model(pconfig.apply_overrides(pconfig.Config(),
                                             ["tower_a.architecture=transformer"]))
 
 
 def test_train_cli_one_epoch(capsys):
-    hist = train_cli.main(["--epochs", "1", *sum((["-o", o] for o in SMALL + FUSED), []),
+    hist = train_cli.main(["--device", "cpu", "--epochs", "1",
+                           *sum((["-o", o] for o in SMALL + FUSED), []),
                            "-o", "train.batch_size=128"])
     assert len(hist["train_loss"]) == 1 and np.isfinite(hist["train_loss"][0])
     assert np.isfinite(hist["val_loss"][0])

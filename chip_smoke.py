@@ -32,11 +32,28 @@ Phases, each fatal on failure (non-zero exit, no result line):
      rtol = 2e-2, gradients relative to their largest entry) at B=1024,
      with RoPE at DPLM's B=32 D=640, and ragged at B=1000 S=65, each timed
      beside SDPA (the library call of the same attention, timed only);
-     the forward-only flash kernel must refuse to record a gradient;
+     flash attention with requires_grad records a gradient equal to its
+     plain version's (atol = rtol = 2e-2 of the largest entry);
      (b) one flagship train step on the card against the CPU, B=16, dropout
      on, as 7(a); (c) the train CLI with experiment=rna_rbp at full width,
      B=256, 3 epochs, whose loss must fall; (d) experiments/bench.py --model
-     rna_rbp at B=1024. The three new launch counters must rise in (c)+(d).
+     rna_rbp at B=1024. The three new launch counters must rise in (c)+(d);
+  9. the tf_clip three-way step (experiments/bench.py --model tf_clip
+     widths: three encoders of 3 blocks of 8 heads, d=512; gene_dim 2000 + 1,
+     esm_dim 1280, 10 DEG tokens): (a) the tiny-S attention forward and
+     backward (B=4096 S=10 D=512 H=8; B=1000 S=33 ragged; B=8192 S=8) and
+     the flash backward's dQ and dK/dV kernels ((1, 8, 4096, 64) under a
+     degree-style mask, the cell tower; ESM-2 650M's (32, 20, 1024, 64)
+     ragged; S=300) against their plain versions on the card in bf16
+     (atol = rtol = 2e-2, gradients relative to their largest entry, the
+     backwards on the plain forward's residuals), the flash forward's lse
+     against its plain version, each timed beside SDPA; (b) one tf_clip step
+     on the card against the CPU at full width, B=256 (the cell tower is
+     one sequence of 256 cells: the flash forward and backward), dropout on,
+     as 7(a); (c) the train CLI with experiment=tf_clip, B=256, 3 epochs,
+     whose loss must fall; (d) experiments/bench.py --model tf_clip at
+     B=4096. The four new launch counters and flash_attention's must rise in
+     (c)+(d).
 Prints a JSON line of per-kernel results (each kernel's time at its main
 shape, its plain version's, the library call's where there is one, and the
 bound: the larger of the bytes it must move over 3.35 TB/s and its
@@ -94,7 +111,17 @@ FLAGSHIP_KERNELS = {
     "cls_attention_bwd": ("clip_dplm_tpu_torch/csrc/cls_attention.cu",
                           "clip_dplm_tpu/ops/short_attention.py:973"),
 }
-KERNELS = {**SERVE_KERNELS, **TRAIN_KERNELS, **FLAGSHIP_KERNELS}
+TF_CLIP_KERNELS = {
+    "tiny_attention_fwd": ("clip_dplm_tpu_torch/csrc/tiny_attention.cu",
+                           "clip_dplm_tpu/ops/short_attention.py:1272"),
+    "tiny_attention_bwd": ("clip_dplm_tpu_torch/csrc/tiny_attention.cu",
+                           "clip_dplm_tpu/ops/short_attention.py:1300"),
+    "flash_attention_bwd_dq": ("clip_dplm_tpu_torch/csrc/flash_attention.cu",
+                               "clip_dplm_tpu/ops/flash_attention.py:233"),
+    "flash_attention_bwd_dkv": ("clip_dplm_tpu_torch/csrc/flash_attention.cu",
+                                "clip_dplm_tpu/ops/flash_attention.py:251"),
+}
+KERNELS = {**SERVE_KERNELS, **TRAIN_KERNELS, **FLAGSHIP_KERNELS, **TF_CLIP_KERNELS}
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM HBM3 bandwidth
 PEAK_OPS = {"bf16": 989e12, "f32": 67e12}  # dense tensor-core bf16; f32 off the tensor cores
 
@@ -198,16 +225,16 @@ def sdpa_bwd_fn(torch, q, k, v, mask, dout):
     return lambda: torch.autograd.grad(out, leaves, dout, retain_graph=True)
 
 
-def check_outputs(torch, what, got, want, names):
-    """Max abs error over outputs; the first is held to TOL as it is, the
-    rest (gradients, several summed over the batch, some of order 1/B)
-    divided by their largest entry first."""
+def check_outputs(torch, what, got, want, names, raw_first=True):
+    """Max abs error over outputs; the first is held to TOL as it is (unless
+    raw_first is false), the rest (gradients, several summed over the batch,
+    some of order 1/B) divided by their largest entry first."""
     worst = 0.0
     for i, (name, a, b) in enumerate(zip(names, got, want)):
         a, b = a.float(), b.float()
         check(a.shape == b.shape, f"{what} {name}: shape {tuple(a.shape)} vs {tuple(b.shape)}")
         check(bool(torch.isfinite(a).all()), f"{what} {name}: non-finite")
-        scale = 1.0 if i == 0 else max(b.abs().max().item(), 1e-30)
+        scale = 1.0 if i == 0 and raw_first else max(b.abs().max().item(), 1e-30)
         err = ((a - b).abs().max().item()) / scale
         check(torch.allclose(a / scale, b / scale, **TOL),
               f"{what} {name}: max abs err {err} outside atol=rtol=2e-2")
@@ -514,7 +541,7 @@ def step_card_vs_cpu(torch, what, cfg, batch):
     from clip_dplm_tpu_torch.experiments.registry import build_model
     from clip_dplm_tpu_torch.ops.fused_dense import DropoutSeeds
     from clip_dplm_tpu_torch.train.state import create_train_state
-    from clip_dplm_tpu_torch.train.trainer import _pair_loss_fn, make_train_step, to_device
+    from clip_dplm_tpu_torch.train.trainer import make_loss_fn, make_train_step, to_device
 
     gpu = build_model(cfg, device="cuda")
     create_train_state(gpu, cfg)  # random weights from the seed
@@ -528,7 +555,7 @@ def step_card_vs_cpu(torch, what, cfg, batch):
         state = create_train_state(model, cfg, init=False)
         dev_batch = to_device(batch, device)
         # the gradient the step's first micro-batch takes: the same seeds
-        loss, _ = _pair_loss_fn(cfg)(model, dev_batch, DropoutSeeds(state.key, state.step))
+        loss, _ = make_loss_fn(cfg)(model, dev_batch, DropoutSeeds(state.key, state.step))
         loss.backward()
         grads = {k: p.grad.detach().cpu().float() for k, p in model.named_parameters()}
         state, metrics = make_train_step(cfg)(state, dev_batch)
@@ -544,11 +571,12 @@ def step_card_vs_cpu(torch, what, cfg, batch):
     flat = {k: torch.cat([g[k].flatten() for k in g_cpu]) for k, g in
             (("card", g_card), ("cpu", g_cpu), ("f32", g_f32))}
     grad_err, grad_noise = _rel(flat["card"], flat["cpu"]), _rel(flat["f32"], flat["cpu"])
-    worst = 0.0
+    worst, worst_leaf = 0.0, ""
     for k in g_cpu:
         check(bool(torch.isfinite(g_card[k]).all()), f"{what} grad {k}: non-finite")
         err, noise = _rel(g_card[k], g_cpu[k]), max(_rel(g_f32[k], g_cpu[k]), grad_noise)
-        worst = max(worst, err / noise)
+        if err / noise > worst:
+            worst, worst_leaf = err / noise, k
         check(err <= STEP_NOISE_FACTOR * noise,
               f"{what} grad {k}: rel L2 {err} > {STEP_NOISE_FACTOR} x noise {noise}")
     loss_err, loss_noise = abs(l_card - l_cpu) / abs(l_cpu), abs(l_f32 - l_cpu) / abs(l_cpu)
@@ -556,7 +584,8 @@ def step_card_vs_cpu(torch, what, cfg, batch):
     print(f"{what}: loss card {l_card:.6f} cpu "
           f"{l_cpu:.6f} cpu_f32 {l_f32:.6f}; loss rel err {loss_err:.3e} (bf16 noise "
           f"{loss_noise:.3e}); gradient rel L2 {grad_err:.3e} (bf16 noise {grad_noise:.3e}), "
-          f"worst leaf {worst:.3f} x its noise over {len(g_cpu)} leaves; update rel L2 "
+          f"worst leaf {worst:.3f} x its noise ({worst_leaf}) over {len(g_cpu)} leaves; "
+          f"update rel L2 "
           f"{upd_err:.3e} (bf16 noise {upd_noise:.3e})")
     check(loss_err <= STEP_NOISE_FACTOR * loss_noise + 1e-6,
           f"{what} loss: rel err {loss_err} > {STEP_NOISE_FACTOR} x noise {loss_noise}")
@@ -595,9 +624,10 @@ def phase_train_path(torch, build):
 
 def phase_flagship_kernels(torch, results):
     """8(a): the flagship's three new kernels against their plain versions,
-    each timed beside SDPA at the same shape; and the forward-only flash
-    kernel refusing to record a gradient."""
+    each timed beside SDPA at the same shape; and flash attention recording
+    its gradient."""
     from clip_dplm_tpu_torch.ops import short_attention as sa
+    from clip_dplm_tpu_torch.ops.attention import attention_reference
     from clip_dplm_tpu_torch.ops.flash_attention import flash_attention
 
     dev = torch.device("cuda")
@@ -650,14 +680,21 @@ def phase_flagship_kernels(torch, results):
                                8 * B * S * D, "f32"),
                 library_fn=sdpa_bwd_fn(torch, q0, k, v, mask, heads(do1, H)) if main else None,
                 normalize=True)
-    x = rnd(2, 2, 256, 64).requires_grad_(True)
-    try:
-        flash_attention(x, x, x)
-        check(False, "flash_attention recorded a CUDA forward without a backward")
-    except NotImplementedError as e:
-        check("ROADMAP queue 2 item 6" in str(e), f"flash_attention refused with: {e}")
-    print("flash_attention with requires_grad on the card: refused "
-          "(no backward kernel; ROADMAP queue 2 item 6)")
+    # flash attention records its gradient: the card's (kernels) against
+    # autograd of the plain formulation on the same inputs
+    q, k, v, dout = (rnd(2, 2, 256, 64) for _ in range(4))
+    mask = torch.arange(256, device=dev)[None, :] < torch.tensor([[256], [200]], device=dev)
+    grads = {}
+    for key, fn in (("kernel", flash_attention), ("plain", attention_reference)):
+        leaves = [t.clone().requires_grad_(True) for t in (q, k, v)]
+        out = fn(*leaves, mask=mask)
+        check(out.grad_fn is not None, f"{key} flash_attention recorded no gradient")
+        out.backward(dout)
+        grads[key] = [out.detach()] + [t.grad for t in leaves]
+    err = check_outputs(torch, "flash_attention autograd", grads["kernel"], grads["plain"],
+                        ["out", "dq", "dk", "dv"])
+    print(f"flash_attention with requires_grad on the card: gradient recorded, max err "
+          f"{err:.3e} against the plain backward")
 
 
 def phase_flagship_step(torch):
@@ -703,6 +740,135 @@ def phase_flagship_path(torch, build):
     return launches
 
 
+def phase_tf_clip_kernels(torch, results):
+    """9(a): the tiny-S attention forward and backward and the flash
+    backward's two kernels against their plain versions, at the tf_clip
+    step's shapes and beside SDPA; the backwards on the plain forward's
+    residuals."""
+    from clip_dplm_tpu_torch.ops import flash_attention as fa
+    from clip_dplm_tpu_torch.ops import tiny_attention as ta
+    from clip_dplm_tpu_torch.ops.attention import attention_reference
+
+    dev = torch.device("cuda")
+    g = torch.Generator(device=dev).manual_seed(11)
+    rnd = lambda *s: torch.randn(*s, generator=g, device=dev).to(torch.bfloat16)  # noqa: E731
+
+    def ragged_mask(B, S):
+        lens = torch.randint(S // 2, S + 1, (B,), generator=g, device=dev)
+        lens[0] = S
+        return torch.arange(S, device=dev)[None, :] < lens[:, None]
+
+    def heads(t, H):
+        return t.unflatten(-1, (H, -1)).transpose(1, 2)
+
+    # (B, S, D, H, masked): the perturbation tower, a ragged S=33 (the TPU
+    # kernel's sp=48 geometry), the transformer tower's 8 tokens
+    for B, S, D, H, masked in ((4096, 10, 512, 8, False), (1000, 33, 512, 8, True),
+                               (8192, 8, 512, 8, False)):
+        main = B == 4096
+        qkv, dout = rnd(B, S, 3 * D), rnd(B, S, D)
+        mask = ragged_mask(B, S) if masked else None
+        mbytes = B * S if masked else 0
+        o = ta.tiny_attention_reference(qkv, H, mask=mask)
+        q, k, v = (heads(t, H) for t in qkv.split(D, dim=-1))
+        sdpa_mask = mask if masked else torch.ones(B, S, dtype=torch.bool, device=dev)
+        shape = f"B={B} S={S} D={D} H={H}" + (" ragged" if masked else "")
+        with torch.no_grad():
+            # bytes: qkv, mask in, o out; f32 ops: the two (S, S, Dh) products a head
+            compare(torch, "tiny_attention_fwd", shape + " (SDPA: no out-projection)",
+                    lambda: ta.tiny_attention(qkv, H, mask=mask),
+                    lambda: ta.tiny_attention_reference(qkv, H, mask=mask), results,
+                    work=(B * S * 4 * D * 2 + mbytes, 4 * B * S * S * D, "f32"),
+                    library_fn=sdpa_fn(torch, q, k, v, sdpa_mask) if main else None)
+        # bytes: qkv, o, dO, mask in, dqkv out; f32 ops: five (S, S, Dh) products a head
+        compare(torch, "tiny_attention_bwd", shape + " (on the plain forward's residuals)",
+                lambda: ta.tiny_attention_bwd(dout, qkv, o, H, mask=mask),
+                lambda: ta.tiny_attention_bwd_reference(dout, qkv, o, H, mask=mask), results,
+                work=(B * S * 8 * D * 2 + mbytes, 10 * B * S * S * D, "f32"),
+                library_fn=(sdpa_bwd_fn(torch, q, k, v, sdpa_mask, heads(dout, H))
+                            if main else None),
+                normalize=True)
+    # (B, H, S): the cell tower (one sequence of 4096 cells, a degree-style
+    # mask: ~5 % of the cells without neighbours), ESM-2 650M, a ragged tile
+    for B, H, S, kind in ((1, 8, 4096, "degree"), (32, 20, 1024, "ragged"),
+                          (4, 8, 300, "ragged")):
+        Dh, main = 64, kind == "degree"
+        q, k, v, dout = (rnd(B, H, S, Dh) for _ in range(4))
+        mask = (torch.rand(B, S, generator=g, device=dev) > 0.05 if kind == "degree"
+                else ragged_mask(B, S))
+        out = attention_reference(q, k, v, mask=mask)
+        lse = fa.flash_lse_reference(q, k, mask)
+        with torch.no_grad():
+            _, lse_k = fa._flash_forward(q, k, v, mask, None)
+        lse_err = check_outputs(torch, f"flash_attention lse B={B} H={H} S={S}", [lse_k],
+                                [lse], ["lse"])
+        shape = f"B={B} H={H} S={S} Dh={Dh} {kind} (on the plain forward's residuals)"
+        n = B * H * S * Dh
+        # bytes: q, k, v, dO, lse, delta, mask in; dq (dk, dv) out; ops: the
+        # score, dP and dq products (score, dP, dk, dv)
+        common = 4 * n * 2 + 2 * B * H * S * 4 + B * S
+        lib = sdpa_bwd_fn(torch, q, k, v, mask, dout) if main else None
+        args = (q, k, v, mask, out, lse, dout)
+        compare(torch, "flash_attention_bwd_dq", shape, lambda: fa.flash_bwd_dq(*args),
+                lambda: fa.flash_bwd_dq_reference(*args), results,
+                work=(common + n * 2, 3 * 2 * B * H * S * S * Dh), library_fn=lib,
+                normalize=True)
+        # the kernel's two outputs: dk timed through compare, dv checked beside it
+        compare(torch, "flash_attention_bwd_dkv", f"{shape} dk",
+                lambda: fa.flash_bwd_dkv(*args)[0], lambda: fa.flash_bwd_dkv_reference(*args)[0],
+                results, work=(common + 2 * n * 2, 4 * 2 * B * H * S * S * Dh), library_fn=lib,
+                normalize=True)
+        dv_err = check_outputs(torch, f"flash_attention_bwd_dkv {shape}",
+                               [fa.flash_bwd_dkv(*args)[1]],
+                               [fa.flash_bwd_dkv_reference(*args)[1]], ["dv"], raw_first=False)
+        entry = results["flash_attention_bwd_dkv"]
+        entry["max_abs_err"] = max(entry["max_abs_err"], dv_err)
+        print(f"kernel flash_attention_bwd_dkv {shape} dv: max_abs_err={dv_err:.3e}")
+        print(f"flash_attention lse B={B} H={H} S={S}: max abs err {lse_err:.3e}")
+
+
+def phase_tf_clip_step(torch):
+    """9(b): one tf_clip step at full width, B=256, card vs CPU."""
+    from clip_dplm_tpu_torch.config import Config, apply_overrides
+    from clip_dplm_tpu_torch.experiments import bench
+
+    B = 256
+    cfg = apply_overrides(Config(), bench.TF_CLIP_OVERRIDES + [
+        f"train.batch_size={B}", "train.optim.schedule=constant",
+        "train.optim.learning_rate=1e-3"])
+    batch = bench.tf_clip_batch(cfg, B, np.random.default_rng(5))
+    step_card_vs_cpu(torch, f"tf_clip train step B={B} (full widths, dropout 0.1)", cfg, batch)
+
+
+def phase_tf_clip_path(torch, build):
+    """9(c) the tf_clip train CLI, 9(d) its benchmark; the launch counts of
+    both."""
+    from clip_dplm_tpu_torch.experiments import bench
+    from clip_dplm_tpu_torch.experiments import train as train_cli
+
+    build.LAUNCHES.reset()
+    overrides = bench.TF_CLIP_OVERRIDES + ["train.batch_size=256", "train.optim.warmup_steps=5",
+                                           "train.optim.learning_rate=1e-3"]
+    t0 = time.perf_counter()
+    hist = train_cli.main(["--epochs", "3", *[a for o in overrides for a in ("-o", o)]])
+    cli_s = time.perf_counter() - t0
+    losses = hist["train_loss"]
+    check(all(np.isfinite(losses)) and len(losses) == 3, f"tf_clip train CLI losses {losses}")
+    check(losses[-1] < losses[0], f"tf_clip train CLI: loss did not fall: {losses}")
+    print(f"tf_clip train CLI (full widths, B=256, 3 epochs of 3 steps): train_loss {losses}, "
+          f"{cli_s:.1f} s")
+    out = bench.main(["--model", "tf_clip", "--batch", "4096"])
+    torch.cuda.synchronize()
+    launches = build.LAUNCHES.snapshot()
+    print(f"bench tf_clip B=4096: step {out['step_ms']} ms, {out['value']} cells/s, "
+          f"{out['model_tflops_per_s_per_chip']} model TFLOP/s, MFU {out['mfu']} of "
+          f"{out['peak_bf16_tflops']} TFLOP/s bf16 peak")
+    print(f"launches during the tf_clip phase: {launches}")
+    for name in list(TF_CLIP_KERNELS) + ["flash_attention"]:
+        check(launches[name] > 0, f"kernel {name} was not launched by the tf_clip path")
+    return launches
+
+
 def main() -> int:
     import torch
 
@@ -740,6 +906,10 @@ def main() -> int:
     phase_flagship_step(torch)
     launches.update({k: v for k, v in phase_flagship_path(torch, _build).items()
                      if k in FLAGSHIP_KERNELS})
+    phase_tf_clip_kernels(torch, results)
+    phase_tf_clip_step(torch)
+    launches.update({k: v for k, v in phase_tf_clip_path(torch, _build).items()
+                     if k in TF_CLIP_KERNELS})
 
     keys = ("max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by", "library_ms")
     print(json.dumps({"kernels": [

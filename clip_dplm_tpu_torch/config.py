@@ -1,7 +1,8 @@
 """Configurations of the port: the serving path (`ESMConfig`, `DPLMConfig`)
 and the contrastive train paths (`Config` and its leaves): the two-tower
-model (`experiment="two_tower"`) and the RNA<->RBP token transformer
-(`experiment="rna_rbp"`).
+model (`experiment="two_tower"`), the RNA<->RBP token transformer
+(`experiment="rna_rbp"`) and the three-way cell <-> perturbation <-> protein
+CLIP (`experiment="tf_clip"`).
 
 The frozen dataclasses of `clip_dplm_tpu/config.py`, without the yaml loader
 (so the port imports no yaml) and with only the fields the port reads: the
@@ -59,8 +60,10 @@ class TowerConfig:
     input_dim: int = 158
     hidden_size: int = 512
     num_hidden_layers: int = 3
-    architecture: str = "mlp"  # mlp | resnet (transformer: not ported yet, slice 4)
+    num_attention_heads: int = 8  # transformer only
+    architecture: str = "mlp"  # mlp | transformer | resnet
     activation: str = "relu"
+    dropout: float = 0.1  # transformer only
     # the final Dense+act+LayerNorm through the fused kernel (ops/fused_dense.py)
     fused_dense: bool = False
 
@@ -115,6 +118,17 @@ class TransformerTowerConfig:
 
 
 @dataclass(frozen=True)
+class EncoderConfig:
+    """The widths of tf_clip's inputs: the expression profile (gene_dim
+    genes, plus a pseudotime column), the ESM embedding of each of the
+    n_perturb_genes top-DEG genes and of the TF protein (esm_dim)."""
+
+    gene_dim: int = 2000
+    n_perturb_genes: int = 10
+    esm_dim: int = 1280
+
+
+@dataclass(frozen=True)
 class OptimConfig:
     """Fused AdamW + global-norm clip + warmup-cosine / cosine / constant."""
 
@@ -152,15 +166,18 @@ class DataConfig:
 @dataclass(frozen=True)
 class Config:
     """The contrastive experiments' configuration: `two_tower` reads
-    tower_a/tower_b, `rna_rbp` the token towers rna_tower/rbp_tower."""
+    tower_a/tower_b, `rna_rbp` the token towers rna_tower/rbp_tower,
+    `tf_clip` encoders (its three encoders' depth, heads and dropout are
+    module defaults, as in the reference)."""
 
-    experiment: str = "two_tower"  # two_tower | rna_rbp
+    experiment: str = "two_tower"  # two_tower | rna_rbp | tf_clip
     tower_a: TowerConfig = field(default_factory=TowerConfig)
     tower_b: TowerConfig = field(default_factory=lambda: TowerConfig(input_dim=1280))
     projection: ProjectionConfig = field(default_factory=ProjectionConfig)
     rna_tower: TransformerTowerConfig = field(default_factory=TransformerTowerConfig)
     rbp_tower: TransformerTowerConfig = field(
         default_factory=lambda: TransformerTowerConfig(input_dim=1280))
+    encoders: EncoderConfig = field(default_factory=EncoderConfig)
     contrastive: ContrastiveConfig = field(default_factory=ContrastiveConfig)
     train: TrainConfig = field(default_factory=TrainConfig)
     data: DataConfig = field(default_factory=DataConfig)

@@ -1,6 +1,6 @@
 """Timing of a contrastive train step on one CUDA device:
-`python -m clip_dplm_tpu_torch.experiments.bench [--model two_tower|rna_rbp]
-[--batch B] [--iters N] [-o a.b=c ...]`.
+`python -m clip_dplm_tpu_torch.experiments.bench [--model
+two_tower|rna_rbp|tf_clip] [--batch B] [--iters N] [-o a.b=c ...]`.
 
 Counterpart of the repository's `bench.py` legs:
 - `two_tower` (default, B=8192): towers 256/1280 -> 1024, 3 layers, relu;
@@ -9,11 +9,17 @@ Counterpart of the repository's `bench.py` legs:
 - `rna_rbp` (B=1024, `BENCH_MODEL=rna_rbp`): the flagship token transformer,
   towers 120/1280 -> 512, 3 blocks of 8 heads over 127 tokens plus the CLS
   token (S = 128), ragged lengths in [63, 127); fused projection blocks and
-  fused InfoNCE.
-Both with bf16 Adam moments, exact clip 1.0, warmup-cosine. A fixed random
-batch made with numpy from a seed, warm-up steps, then `--iters` chained
-train steps timed with CUDA events. The last line of output is one JSON
-object with bench.py's keys: pairs/s, the model FLOP/s from bench.py's
+  fused InfoNCE; both with bf16 Adam moments;
+- `tf_clip` (B=4096): the three-way cell <-> perturbation <-> protein model
+  of `scripts/tpu_config_probes.py`'s probe at the default widths (three
+  encoders of 3 blocks, 8 heads, d=512; gene_dim 2000 + 1, esm_dim 1280,
+  10 DEG tokens), its batch (kNN connectivity through the gram identity)
+  and its overrides: the fused InfoNCE, f32 Adam moments. The metric is
+  cells/s: one (cell, perturbation, protein) triple per batch row.
+All with exact clip 1.0, warmup-cosine. A fixed random batch made with
+numpy from a seed, warm-up steps, then `--iters` chained train steps timed
+with CUDA events. The last line of output is one JSON object with
+bench.py's keys: rows (pairs or cells) per second, the model FLOP/s from an
 analytic count (matmuls only, backward = 2x forward) and the MFU against
 the card's dense bf16 peak, read from its name (H100 only: another card
 raises rather than guess). Needs CUDA.
@@ -62,6 +68,14 @@ RNA_RBP_OVERRIDES = [
     "train.optim.moment_dtype=bfloat16",
     "contrastive.use_fused_kernel=true",
     "projection.fused_dense=true",
+]
+
+# the tf_clip probe's overrides (scripts/tpu_config_probes.py::tf_clip_fixture)
+# without its JAX-only ones (train.optim.fused_update, train.rng_impl)
+TF_CLIP_OVERRIDES = [
+    "experiment=tf_clip",
+    "train.optim.total_steps=1000",
+    "contrastive.use_fused_kernel=true",
 ]
 
 # untimed steps before the timed ones: the first builds the kernels
@@ -124,6 +138,50 @@ def token_clip_step_flops(cfg, B: int, sa: int, sb: int) -> float:
     return 3.0 * fwd
 
 
+def tf_clip_step_flops(cfg, B: int) -> float:
+    """Analytic matmul FLOPs (fwd+bwd ~= 3x fwd) of one tf_clip step: every
+    Dense (2·m·n·k), each encoder layer's 24·T·d² over its T tokens plus the
+    attention's 4·N·S²·d over N sequences of S tokens (the cell tower is one
+    sequence of S = B cells, the perturbation tower B of T genes, the
+    protein tower B of one token), the three optimized heads and the three
+    B x B similarities. At the default widths and B=4096: 1.316 TFLOP
+    forward, 3.947 TFLOP a step."""
+    d, enc, pc = cfg.projection.dim, cfg.encoders, cfg.projection
+    T, layers = enc.n_perturb_genes, 3  # tf_clip.py's encoder depth
+
+    def encoder(n_seq, S):
+        return layers * (24.0 * n_seq * S * d * d + 4.0 * n_seq * S * S * d)
+
+    hidden = pc.hidden_dim or 4 * pc.dim
+    head = 2.0 * B * (d * pc.dim + d * hidden + hidden * hidden + hidden * pc.dim)
+    fwd = 2.0 * B * (enc.gene_dim + 1) * d + 2.0 * B * d * d  # cell_in
+    fwd += 2.0 * B * T * (enc.esm_dim + 1) * d + 2.0 * B * enc.esm_dim * d  # token inputs
+    fwd += encoder(1, B) + encoder(B, T) + encoder(B, 1)
+    fwd += 3 * head + 3 * 2.0 * B * B * pc.dim
+    return 3.0 * fwd
+
+
+def tf_clip_batch(cfg, B: int, rng) -> Dict[str, np.ndarray]:
+    """The tf_clip probe's batch (`tpu_config_probes.py::tf_clip_fixture`):
+    cell states, their kNN connectivity through the gram identity (the
+    pairwise broadcast does not scale to B=4096), then the DEG ESM tokens,
+    their values and the protein embedding, drawn in that order."""
+    enc = cfg.encoders
+    x = rng.normal(size=(B, enc.gene_dim + 1)).astype(np.float32)
+    sq = (x * x).sum(-1)
+    d2 = sq[:, None] + sq[None, :] - 2.0 * (x @ x.T)
+    kth = np.partition(d2, 8, axis=1)[:, 8]
+    conn = (d2 <= kth[:, None]).astype(np.float32)
+    np.fill_diagonal(conn, 0.0)
+    return {
+        "cell_state": x,
+        "connectivity": np.maximum(conn, conn.T),
+        "gene_esm": rng.normal(size=(B, enc.n_perturb_genes, enc.esm_dim)).astype(np.float32),
+        "gene_values": rng.uniform(-1, 1, (B, enc.n_perturb_genes)).astype(np.float32),
+        "protein_emb": rng.normal(size=(B, enc.esm_dim)).astype(np.float32),
+    }
+
+
 def _two_tower_batch(cfg, B: int, rng) -> Dict[str, np.ndarray]:
     return {"a": rng.normal(size=(B, cfg.tower_a.input_dim)).astype(np.float32),
             "b": rng.normal(size=(B, cfg.tower_b.input_dim)).astype(np.float32)}
@@ -142,12 +200,14 @@ def rna_rbp_batch(cfg, B: int, rng) -> Dict[str, np.ndarray]:
     }
 
 
-# --model -> (overrides, default batch, metric, batch maker, step FLOPs)
+# --model -> (overrides, default batch, metric, unit, batch maker, step FLOPs)
 MODELS = {
-    "two_tower": (OVERRIDES, 8192, "contrastive_pairs_per_sec_per_chip", _two_tower_batch,
-                  two_tower_step_flops),
-    "rna_rbp": (RNA_RBP_OVERRIDES, 1024, "rna_rbp_pairs_per_sec_per_chip", rna_rbp_batch,
-                lambda cfg, B: token_clip_step_flops(cfg, B, TOKENS, TOKENS)),
+    "two_tower": (OVERRIDES, 8192, "contrastive_pairs_per_sec_per_chip", "pairs/s/chip",
+                  _two_tower_batch, two_tower_step_flops),
+    "rna_rbp": (RNA_RBP_OVERRIDES, 1024, "rna_rbp_pairs_per_sec_per_chip", "pairs/s/chip",
+                rna_rbp_batch, lambda cfg, B: token_clip_step_flops(cfg, B, TOKENS, TOKENS)),
+    "tf_clip": (TF_CLIP_OVERRIDES, 4096, "tf_clip_cells_per_sec_per_chip", "cells/s/chip",
+                tf_clip_batch, tf_clip_step_flops),
 }
 
 
@@ -156,7 +216,7 @@ def parse_args(argv: Optional[Sequence[str]] = None) -> argparse.Namespace:
                                 formatter_class=argparse.RawDescriptionHelpFormatter)
     p.add_argument("--model", choices=sorted(MODELS), default="two_tower")
     p.add_argument("--batch", type=int, default=None,
-                   help="default: 8192 for two_tower, 1024 for rna_rbp")
+                   help="default: 8192 for two_tower, 1024 for rna_rbp, 4096 for tf_clip")
     p.add_argument("--iters", type=int, default=20)
     p.add_argument("--override", "-o", action="append", default=[])
     return p.parse_args(argv)
@@ -171,7 +231,7 @@ def build_step(model: str, B: int, overrides: Sequence[str], device: torch.devic
     from clip_dplm_tpu_torch.train.state import create_train_state
     from clip_dplm_tpu_torch.train.trainer import make_train_step, to_device
 
-    base, _, _, make_batch, _ = MODELS[model]
+    base, _, _, _, make_batch, _ = MODELS[model]
     cfg = apply_overrides(Config(), base + [f"train.batch_size={B}"] + list(overrides))
     state = create_train_state(build_model(cfg, device=device), cfg)
     batch = to_device(make_batch(cfg, B, np.random.default_rng(0)), device)
@@ -189,7 +249,7 @@ def main(argv: Optional[Sequence[str]] = None) -> Dict:
     device = torch.device("cuda", torch.cuda.current_device())
     name = torch.cuda.get_device_name(device)
     peak = peak_bf16_flops(name)
-    _, default_batch, metric, _, step_flops = MODELS[args.model]
+    _, default_batch, metric, unit, _, step_flops = MODELS[args.model]
     B = args.batch or default_batch
     cfg, state, batch, step = build_step(args.model, B, args.override, device)
     start, end = (torch.cuda.Event(enable_timing=True) for _ in range(2))
@@ -206,7 +266,7 @@ def main(argv: Optional[Sequence[str]] = None) -> Dict:
     out = {
         "metric": metric,
         "value": round(B / dt, 2),
-        "unit": "pairs/s/chip",
+        "unit": unit,
         "vs_baseline": round(fps / (0.95 * peak), 4),
         "model_tflops_per_s_per_chip": round(fps / 1e12, 6),
         "mfu": round(fps / peak, 6),

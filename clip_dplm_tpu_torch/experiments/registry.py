@@ -1,10 +1,12 @@
 """Experiment registry: config.experiment -> (model, data source).
 
 Counterpart of `clip_dplm_tpu/experiments/registry.py` for the experiments
-the port has: `two_tower` and `rna_rbp`; every other name raises.
+the port has: `two_tower`, `rna_rbp` and `tf_clip`; every other name raises.
 """
 
 from __future__ import annotations
+
+from typing import Dict
 
 import numpy as np
 import torch
@@ -13,7 +15,8 @@ from clip_dplm_tpu_torch.config import Config
 from clip_dplm_tpu_torch.data.collate import TokenPairDataset
 from clip_dplm_tpu_torch.data.synthetic import PairedEmbeddingDataset
 
-EXPERIMENTS = ("two_tower", "rna_rbp")
+EXPERIMENTS = ("two_tower", "rna_rbp", "tf_clip")
+KNN_ROWS = 16  # rows of the (B, B) kNN distances computed at once
 
 
 def _require_ported(cfg: Config) -> None:
@@ -29,6 +32,10 @@ def build_model(cfg: Config, device=None, dtype: torch.dtype = torch.bfloat16):
         from clip_dplm_tpu_torch.models.token_towers import RNARBPCLIP
 
         return RNARBPCLIP(cfg, dtype=dtype, device=device)
+    if cfg.experiment == "tf_clip":
+        from clip_dplm_tpu_torch.models.tf_clip import TFContrastiveModel
+
+        return TFContrastiveModel(cfg, dtype=dtype, device=device)
     from clip_dplm_tpu_torch.models.clip import TwoTowerCLIP
 
     return TwoTowerCLIP(cfg, dtype=dtype, device=device)
@@ -40,10 +47,12 @@ def build_data(cfg: Config, split_seed: int = 0):
     2048-pair fixture of the reference, `dataset=embeddings` loads an .npz
     with `a` and `b` from data.path; 85/15 split. rna_rbp: {"rna_tokens",
     "rna_mask", "rbp_tokens", "rbp_mask"} from 1024 synthetic token-sequence
-    pairs, the first 85 % for training, padded to 64 / 128 tokens. The
-    ragged tail is dropped."""
+    pairs, the first 85 % for training, padded to 64 / 128 tokens. tf_clip:
+    `_tf_clip_data`. The ragged tail is dropped."""
     _require_ported(cfg)
     B = cfg.train.batch_size
+    if cfg.experiment == "tf_clip":
+        return _tf_clip_data(cfg, split_seed)
     if cfg.experiment == "rna_rbp":
         ds = TokenPairDataset.synthetic(1024, dim_a=cfg.rna_tower.input_dim,
                                         dim_b=cfg.rbp_tower.input_dim, seed=split_seed)
@@ -72,3 +81,65 @@ def build_data(cfg: Config, split_seed: int = 0):
 
     return (lambda seed=0: (strip(b) for b in train.batches(B, seed=seed)),
             lambda: (strip(b) for b in val.batches(B, shuffle=False)))
+
+
+def _batch_iter(arrays: Dict[str, np.ndarray], batch_size: int, seed, shuffle=True):
+    n = len(next(iter(arrays.values())))
+    order = np.random.default_rng(seed).permutation(n) if shuffle else np.arange(n)
+    for s in range(0, n - batch_size + 1, batch_size):
+        sel = order[s:s + batch_size]
+        yield {k: v[sel] for k, v in arrays.items()}
+
+
+def knn_connectivity(x: np.ndarray, k: int = 8) -> np.ndarray:
+    """Symmetric kNN graph of the rows of x, (B, B) f32 with a zero
+    diagonal: j is a neighbour of i when |x_i - x_j|^2 is at most i's
+    (k+1)-th smallest (itself included). The distances are computed
+    KNN_ROWS rows at a time, each as the reference's ((x_i - x_j)**2).sum(-1)
+    so the graph is the reference's bit for bit, without its (B, B, dim)
+    intermediate."""
+    n = len(x)
+    kk = min(k, n - 1)
+    conn = np.empty((n, n), np.float32)
+    for i0 in range(0, n, KNN_ROWS):
+        d2 = ((x[i0:i0 + KNN_ROWS, None] - x[None, :]) ** 2).sum(-1)
+        kth = np.partition(d2, kk, axis=1)[:, kk]
+        conn[i0:i0 + KNN_ROWS] = d2 <= kth[:, None]
+    np.fill_diagonal(conn, 0.0)
+    return np.maximum(conn, conn.T)
+
+
+def _tf_clip_data(cfg: Config, seed: int):
+    """The reference's synthetic 3-way TF data: 1024 samples whose cell
+    state, top-DEG perturbation tokens and TF protein embedding share a
+    16-d latent; an 85/15 split; each batch's dense connectivity is the kNN
+    graph of its cells."""
+    enc = cfg.encoders
+    rng = np.random.default_rng(seed)
+    n, k, T = 1024, 16, enc.n_perturb_genes
+    z = rng.normal(size=(n, k)).astype(np.float32)
+    w_cell = rng.normal(size=(k, enc.gene_dim + 1)).astype(np.float32) / np.sqrt(k)
+    w_esm = rng.normal(size=(k, T * enc.esm_dim)).astype(np.float32) / np.sqrt(k)
+    w_prot = rng.normal(size=(k, enc.esm_dim)).astype(np.float32) / np.sqrt(k)
+
+    def noise(*s):
+        return 0.1 * rng.normal(size=s).astype(np.float32)
+
+    arrays = {
+        "cell_state": z @ w_cell + noise(n, enc.gene_dim + 1),
+        "gene_esm": (z @ w_esm).reshape(n, T, enc.esm_dim) + noise(n, T, enc.esm_dim),
+        "gene_values": rng.uniform(-1, 1, (n, T)).astype(np.float32),
+        "protein_emb": z @ w_prot + noise(n, enc.esm_dim),
+    }
+    cut = int(n * 0.85)
+    train = {key: v[:cut] for key, v in arrays.items()}
+    val = {key: v[cut:] for key, v in arrays.items()}
+    B = cfg.train.batch_size
+
+    def with_connectivity(it):
+        for b in it:
+            b["connectivity"] = knn_connectivity(b["cell_state"])
+            yield b
+
+    return (lambda seed=0: with_connectivity(_batch_iter(train, B, seed)),
+            lambda: with_connectivity(_batch_iter(val, B, 0, shuffle=False)))

@@ -12,10 +12,10 @@ Dtype policy (the JAX package's): parameters are f32; a Dense computes in its
 input's dtype (bf16 in the trunk, f32 for the DPLM head); LayerNorm computes
 and returns f32.
 
-Towers and heads (`MLPTower`, `ResNetTower`, `LinearProjection`,
-`ProjectionHead`, `OptimizedProjectionHead`; counterparts in
-`clip_dplm_tpu/models/layers.py`) declare the same parameter tree on the
-fused and the unfused path. With `fused_dense` a Dense+LN(+act+dropout)
+Towers and heads (`MLPTower`, `ResNetTower`, `VectorTransformerTower`,
+`LinearProjection`, `ProjectionHead`, `OptimizedProjectionHead`;
+counterparts in `clip_dplm_tpu/models/layers.py`) declare the same parameter
+tree on the fused and the unfused path. With `fused_dense` a Dense+LN(+act+dropout)
 block goes through `ops/fused_dense.py` (its CUDA kernels on the card, its
 plain version on the CPU); without it the block is Dense / LayerNorm (eps
 1e-6) / act / dropout. Both paths draw dropout masks from the same hash of
@@ -23,9 +23,11 @@ plain version on the CPU); without it the block is Dense / LayerNorm (eps
 
 `TransformerBlock` (counterpart of `clip_dplm_tpu/models/layers.py::
 TransformerBlock`) routes its attention through `ops/attention.py`: the
-packed short-S kernel with the out-projection for 64 <= S < 256, the
-CLS-query kernel when only row 0 is kept (`out_rows == 1`), the plain
-formulation otherwise (CPU tensors only below 256 keys).
+CLS-query kernel when only row 0 is kept (`out_rows == 1`), else the packed
+short-S kernel with the out-projection for 64 <= S < 256, the packed tiny-S
+kernel with the out-projection for 2 <= S < 64, and `multihead_attention`
+otherwise (the flash kernel from 256 keys on, the plain formulation for
+S = 1).
 """
 
 from __future__ import annotations
@@ -227,8 +229,7 @@ def make_tower(cfg, dtype=torch.bfloat16, device=None) -> nn.Module:
     if cfg.architecture == "resnet":
         return ResNetTower(cfg, dtype, device)
     if cfg.architecture == "transformer":
-        raise ValueError("the transformer tower is not ported yet (ROADMAP queue 1, "
-                         "slice 4, with the tiny-S attention kernel)")
+        return VectorTransformerTower(cfg, dtype, device)
     raise ValueError(f"unknown tower architecture {cfg.architecture!r}")
 
 
@@ -368,16 +369,19 @@ class TransformerBlock(nn.Module):
             cls_query_attention,
             multihead_attention,
             packed_qkv_attention_proj,
+            packed_tiny_attention_proj,
             short_attn_packed_ok,
+            tiny_attn_ok,
         )
 
         H, rows = self.num_heads, self.out_rows
         qkv = self.qkv(self._ln(self.ln_attn, x))
+        short = short_attn_packed_ok(qkv.shape, H, mask)
         if rows == 1:
             attn = self.out_proj(cls_query_attention(qkv, H, mask=mask))
-        elif short_attn_packed_ok(qkv.shape, H, mask):
-            attn = packed_qkv_attention_proj(qkv, self.out_proj.kernel, self.out_proj.bias, H,
-                                             mask=mask)
+        elif short or tiny_attn_ok(qkv.shape, H, mask):
+            packed = packed_qkv_attention_proj if short else packed_tiny_attention_proj
+            attn = packed(qkv, self.out_proj.kernel, self.out_proj.bias, H, mask=mask)
             attn = attn if rows is None else attn[:, :rows]
         else:
             attn = multihead_attention(*qkv.chunk(3, dim=-1), H, mask=mask)
@@ -387,3 +391,35 @@ class TransformerBlock(nn.Module):
         h = F.gelu(self.ffn_in(self._ln(self.ln_ffn, x)), approximate="tanh")
         h = _dropout(self.ffn_out(h), self.dropout, deterministic, seeds)
         return x + h
+
+
+class VectorTransformerTower(nn.Module):
+    """The `transformer` tower over one embedding vector: a Dense into
+    NUM_TOKENS tokens of width hidden_size, a learned (1, NUM_TOKENS, d)
+    position table (normal 0.02 init), num_hidden_layers TransformerBlocks
+    with num_attention_heads heads (no mask: the tiny-S path at 8 tokens),
+    then the LayerNorm of the token mean."""
+
+    NUM_TOKENS = 8
+
+    def __init__(self, cfg, dtype=torch.bfloat16, device=None):
+        super().__init__()
+        self.cfg, self.dtype = cfg, dtype
+        d, n = cfg.hidden_size, self.NUM_TOKENS
+        self.tokenize = Dense(cfg.input_dim, n * d, device=device)
+        self.pos_embed = nn.Parameter(torch.zeros(1, n, d, dtype=torch.float32, device=device))
+        for i in range(cfg.num_hidden_layers):
+            self.add_module(f"block_{i}", TransformerBlock(
+                d, cfg.num_attention_heads, 4, cfg.dropout, dtype=dtype, device=device))
+        self.LayerNorm_0 = LayerNorm(d, FLAX_LN_EPS, device=device)
+
+    def reset_own_params(self, generator: torch.Generator) -> None:
+        with torch.no_grad():
+            self.pos_embed.normal_(0.0, 0.02, generator=generator)
+
+    def forward(self, x, deterministic: bool = True, seeds=None) -> torch.Tensor:
+        h = self.tokenize(x.to(self.dtype)).reshape(x.shape[0], self.NUM_TOKENS, -1)
+        h = h + self.pos_embed.to(self.dtype)
+        for i in range(self.cfg.num_hidden_layers):
+            h = getattr(self, f"block_{i}")(h, None, deterministic, seeds)
+        return self.LayerNorm_0(h.mean(dim=1))

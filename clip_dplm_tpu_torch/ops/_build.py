@@ -48,8 +48,17 @@ _SIGNATURES = {
     "cls_attention_fwd": [_P, _P, _P, _I, _I, _I, _I, _F, _P],
     # qkv, mask, dout, dqkv, B, S, H, Dh, scale, stream
     "cls_attention_bwd": [_P, _P, _P, _P, _I, _I, _I, _I, _F, _P],
-    # q, k, v, mask, out, B, H, S, Sk, Dh, scale, stream
-    "flash_attention_fwd": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _F, _P],
+    # q, k, v, mask, out, lse, B, H, S, Sk, Dh, scale, stream
+    "flash_attention_fwd": [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _F, _P],
+    # q, k, v, mask, dout, lse, delta, dq, B, H, S, Sk, Dh, scale, stream
+    "flash_attention_bwd_dq": [_P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _F, _P],
+    # q, k, v, mask, dout, lse, delta, dk, dv, B, H, S, Sk, Dh, scale, stream
+    "flash_attention_bwd_dkv": [_P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _F,
+                                _P],
+    # qkv, mask, o, B, S, H, Dh, scale, stream
+    "tiny_attention_fwd": [_P, _P, _P, _I, _I, _I, _I, _F, _P],
+    # qkv, mask, o, dout, dqkv, B, S, H, Dh, scale, stream
+    "tiny_attention_bwd": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _F, _P],
     # A, B, bias, C, M, Nc, Kr, b_row, stream
     "fused_dense_gemm": [_P, _P, _P, _P, _I, _I, _I, _I, _P],
     # s_buf, y, mean, rstd, gamma, beta, skip, ls, B, N, ln_act, act,
@@ -94,7 +103,9 @@ LAUNCHES = LaunchCounter(
     ["short_attention", "short_attention_out_proj", "flash_attention",
      "fused_dense_gemm", "fused_dense_fwd_rows", "fused_dense_bwd_rows",
      "sym_infonce_lse", "sym_infonce_grad",
-     "short_attention_bwd", "cls_attention_fwd", "cls_attention_bwd"])
+     "short_attention_bwd", "cls_attention_fwd", "cls_attention_bwd",
+     "tiny_attention_fwd", "tiny_attention_bwd", "flash_attention_bwd_dq",
+     "flash_attention_bwd_dkv"])
 
 
 class _Library:

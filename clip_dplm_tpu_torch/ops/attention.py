@@ -5,13 +5,16 @@ is a boolean (B, S) key-validity array (True = real token), applied as an
 additive -1e30 bias, so a row whose keys are all masked gets uniform weights.
 
 Dispatch is fixed by shape, as the TPU gates are without their backend term:
-the packed short-S kernel for 64 <= S < 256 (`short_attn_packed_ok`), the
-flash kernel for S >= 256 (`attention_dispatch`), the CLS-query kernel for a
-block that keeps only row 0 (`cls_query_attention`), and `attention_reference`
-below 64. Each kernel wrapper runs its plain version for CPU tensors and its
-CUDA kernel for CUDA tensors. Below 64 keys there is no kernel yet (the TPU's
-tiny-S kernel is ROADMAP queue 2 item 8), so `multihead_attention` raises for
-a CUDA tensor there rather than run the plain version on the card.
+from packed qkv, the short-S kernel for 64 <= S < 256 (`short_attn_packed_ok`)
+and the tiny-S kernel for 2 <= S < 64 (`tiny_attn_ok`), both with the
+out-projection; the flash kernel for S >= 256 (`attention_dispatch`); the
+CLS-query kernel for a block that keeps only row 0 (`cls_query_attention`).
+Each kernel wrapper runs its plain version for CPU tensors and its CUDA
+kernel for CUDA tensors. Separate q, k, v below 64 keys take
+`attention_reference` on every device, as the TPU gates send them to plain
+XLA (S = 1 included); at 64 <= S < 256 the TPU's kernel over separate q, k,
+v is not ported (ROADMAP queue 2 item 7), so `multihead_attention` raises
+for a CUDA tensor there rather than run the plain version on the card.
 """
 
 from __future__ import annotations
@@ -116,18 +119,15 @@ def multihead_attention(
     num_heads: int,
     mask: Optional[torch.Tensor] = None,
 ) -> torch.Tensor:
-    """Multi-head attention over (B, S, D) q, k, v: `attention_dispatch` from
-    256 keys on, the plain formulation below for CPU tensors. A CUDA tensor
-    below 256 keys raises: the TPU kernels of that range that take separate
-    q, k, v are not ported (tiny S: ROADMAP queue 2 item 8; 64 <= S < 256:
-    item 7)."""
-    S, D = k.shape[1], k.shape[2]
-    if S < FLASH_MIN_SEQ and q.device.type != "cpu":
-        tiny = tiny_attn_ok((q.shape[0], S, 3 * D), num_heads, mask)
+    """Multi-head attention over (B, S, D) q, k, v: `attention_dispatch` (the
+    flash kernel from 256 keys on, the plain formulation below 64 keys on
+    every device). A CUDA tensor at 64 <= S < 256 raises: the TPU kernel of
+    that range over separate q, k, v is not ported (ROADMAP queue 2 item 7)."""
+    S = k.shape[1]
+    if SHORT_MIN_SEQ <= S < FLASH_MIN_SEQ and q.device.type != "cpu":
         raise NotImplementedError(
-            f"no CUDA kernel for multi-head attention at S={S}: "
-            + ("the tiny-S kernel is ROADMAP queue 2 item 8" if tiny
-               else "the short-S kernel over separate q, k, v is ROADMAP queue 2 item 7"))
+            f"no CUDA kernel for multi-head attention at S={S}: the short-S kernel over "
+            "separate q, k, v is ROADMAP queue 2 item 7")
     qh, kh, vh = (split_heads(t, num_heads) for t in (q, k, v))
     return merge_heads(attention_dispatch(qh, kh, vh, mask=mask))
 
@@ -149,6 +149,20 @@ def packed_qkv_attention_proj(
 
     return fused_short_attention_qkv_proj(
         qkv, wo, bo, num_heads, mask=mask, rope_positions=rope_positions)
+
+
+def packed_tiny_attention_proj(
+    qkv: torch.Tensor,
+    wo: torch.Tensor,
+    bo: torch.Tensor,
+    num_heads: int,
+    mask: Optional[torch.Tensor] = None,
+) -> torch.Tensor:
+    """Tiny-S packed attention with the out-projection (caller must have
+    checked tiny_attn_ok). `wo` is (out, in)."""
+    from clip_dplm_tpu_torch.ops.tiny_attention import fused_tiny_attention_proj
+
+    return fused_tiny_attention_proj(qkv, wo, bo, num_heads, mask=mask)
 
 
 def attention_dispatch(

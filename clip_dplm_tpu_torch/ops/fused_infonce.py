@@ -20,7 +20,8 @@ is the type of the operands of both matmuls; d stays f32.
 
 `fused_symmetric_infonce` runs the kernels for CUDA tensors (bf16 dot dtype,
 d <= 512) and the plain version, which materializes the B x B similarity,
-for CPU tensors. The reference's materialized-raw schedule (int16 raw
+for CPU tensors. `fused_multiway_clip_loss` sums `fused_clip_loss` over
+the modality pairs of tf_clip. The reference's materialized-raw schedule (int16 raw
 tiles) and the cached / mesh paths (`fused_row_ce`) are not ported yet.
 """
 
@@ -31,7 +32,7 @@ from typing import Dict, Optional, Tuple
 import torch
 
 from clip_dplm_tpu_torch.ops import _build
-from clip_dplm_tpu_torch.ops.infonce import effective_scale, l2_normalize
+from clip_dplm_tpu_torch.ops.infonce import effective_scale, l2_normalize, modality_pairs
 
 MAX_DIM = 512  # the grad kernel's accumulator: 32 x d f32 in registers
 _BM = 32  # rows per block of both kernels
@@ -203,3 +204,26 @@ def fused_clip_loss(
         loss = loss + 0.5 * (_smoothing_adjustment(a, b, scale, label_smoothing)
                              + _smoothing_adjustment(b, a, scale, label_smoothing))
     return loss, {"loss_a": loss, "loss_b": loss, "logit_scale": scale}
+
+
+def fused_multiway_clip_loss(
+    embeddings: Dict[str, torch.Tensor],
+    logit_scale: torch.Tensor,
+    max_scale: float = 100.0,
+    dot_dtype: Optional[torch.dtype] = None,
+    label_smoothing: float = 0.0,
+) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
+    """Drop-in for infonce.multiway_clip_loss through `fused_clip_loss`, one
+    pair at a time (no B x B similarity is materialized); the total is the
+    sum. Metrics: each pair's loss and the effective logit scale (no
+    accuracy, as the reference's fused path)."""
+    total = torch.zeros((), device=logit_scale.device)
+    metrics: Dict[str, torch.Tensor] = {}
+    for a, b in modality_pairs(embeddings):
+        loss, _ = fused_clip_loss(embeddings[a], embeddings[b], logit_scale,
+                                  max_scale=max_scale, dot_dtype=dot_dtype,
+                                  label_smoothing=label_smoothing)
+        total = total + loss
+        metrics[f"loss_{a}_{b}"] = loss
+    metrics["logit_scale"] = effective_scale(logit_scale, max_scale)
+    return total, metrics

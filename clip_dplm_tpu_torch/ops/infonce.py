@@ -2,8 +2,8 @@
 target the fused kernel (ops/fused_infonce.py) is held to.
 
 Counterpart of `clip_dplm_tpu/ops/infonce.py` (`l2_normalize`,
-`similarity_logits`, `effective_scale`, `_cross_entropy`, `clip_loss`)
-without the hard-negative cache and the mesh gather, which the port does not
+`similarity_logits`, `effective_scale`, `_cross_entropy`, `clip_loss`,
+`multiway_clip_loss`) without the hard-negative cache and the mesh gather, which the port does not
 have yet. Everything is f32.
 """
 
@@ -74,3 +74,26 @@ def clip_loss(emb_a: torch.Tensor, emb_b: torch.Tensor,
                "accuracy_b": acc_b, "accuracy": 0.5 * (acc_a + acc_b),
                "logit_scale": scale}
     return 0.5 * (loss_a + loss_b), metrics
+
+
+def modality_pairs(names):
+    """Every unordered pair of the names, in order: (0, 1), (0, 2), (1, 2)..."""
+    names = list(names)
+    return [(a, b) for i, a in enumerate(names) for b in names[i + 1:]]
+
+
+def multiway_clip_loss(embeddings: Dict[str, torch.Tensor], logit_scale: torch.Tensor,
+                       max_scale: float = 100.0, label_smoothing: float = 0.0,
+                       ) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
+    """Sum of the symmetric InfoNCE of every pair of modalities (the 3-way
+    TF loss: cell<->pert + cell<->protein + pert<->protein). Metrics: each
+    pair's loss and accuracy."""
+    total = torch.zeros((), device=logit_scale.device)
+    metrics: Dict[str, torch.Tensor] = {}
+    for a, b in modality_pairs(embeddings):
+        loss, m = clip_loss(embeddings[a], embeddings[b], logit_scale,
+                            label_smoothing=label_smoothing, max_scale=max_scale)
+        total = total + loss
+        metrics[f"loss_{a}_{b}"] = loss
+        metrics[f"accuracy_{a}_{b}"] = m["accuracy"]
+    return total, metrics

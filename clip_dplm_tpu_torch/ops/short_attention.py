@@ -361,6 +361,13 @@ def _mm_f32(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
     return torch.mm(a, b, out_dtype=torch.float32)
 
 
+def _proj_param_grads(dy: torch.Tensor, o: torch.Tensor):
+    """(dWo, dbo) of y = o @ Wo^T + bo in f32: dy^T·o, (out, in), and Σ dy."""
+    D = o.shape[-1]
+    dy2 = dy.reshape(-1, D)
+    return _mm_f32(dy2.t(), o.reshape(-1, D)), dy2.float().sum(dim=0)
+
+
 class _ShortAttnProj(torch.autograd.Function):
     @staticmethod
     def forward(ctx, qkv, wo, bo, mask, rope_positions, num_heads, scale):
@@ -373,13 +380,10 @@ class _ShortAttnProj(torch.autograd.Function):
     @staticmethod
     def backward(ctx, dy):
         qkv, o, wo, bo, mask, pos = ctx.saved_tensors
-        D = o.shape[-1]
         dy = dy.to(qkv.dtype)
         dqkv = short_attention_qkv_bwd(_dout(dy, wo.to(qkv.dtype)), qkv, o, ctx.num_heads,
                                        mask=mask, scale=ctx.scale, rope_positions=pos)
-        dy2 = dy.reshape(-1, D)
-        dwo = _mm_f32(dy2.t(), o.reshape(-1, D))  # (out, in) = dy^T o
-        dbo = dy2.float().sum(dim=0)
+        dwo, dbo = _proj_param_grads(dy, o)
         return dqkv, dwo.to(wo.dtype), dbo.to(bo.dtype), None, None, None, None
 
 

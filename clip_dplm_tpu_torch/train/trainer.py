@@ -1,14 +1,15 @@
-"""Train and eval steps of the contrastive pair models (TwoTowerCLIP and
-RNARBPCLIP: any model whose forward returns emb_a, emb_b and logit_scale),
-and the Trainer loop.
+"""Train and eval steps of the contrastive models, and the Trainer loop: the
+pair family (TwoTowerCLIP and RNARBPCLIP: any model whose forward returns
+emb_a, emb_b and logit_scale) and the three-way tf_clip model (cell_embed,
+pert_embed, protein_embed: the sum of the three pairs' losses).
 
-Counterpart of `clip_dplm_tpu/train/trainer.py` for the pair family with the
-`infonce` loss: `make_train_step` (gradient accumulation over micro-batches,
-the fused AdamW, the optional gradient-norm metric), `make_eval_step` and a
-`Trainer` with the epoch loop, validation and early stopping. PyTorch runs
-eagerly, so there is no jit and no mesh; a step returns its metrics as
-device tensors and never waits on the device. Checkpointing and preemption
-are not ported yet.
+Counterpart of `clip_dplm_tpu/train/trainer.py` for those families with the
+`infonce` loss: `make_loss_fn` (the per-family loss), `make_train_step`
+(gradient accumulation over micro-batches, the fused AdamW, the optional
+gradient-norm metric), `make_eval_step` and a `Trainer` with the epoch
+loop, validation and early stopping. PyTorch runs eagerly, so there is no
+jit and no mesh; a step returns its metrics as device tensors and never
+waits on the device. Checkpointing and preemption are not ported yet.
 """
 
 from __future__ import annotations
@@ -22,7 +23,7 @@ import torch
 from clip_dplm_tpu_torch.config import Config
 from clip_dplm_tpu_torch.ops import infonce
 from clip_dplm_tpu_torch.ops.fused_dense import DropoutSeeds
-from clip_dplm_tpu_torch.ops.fused_infonce import fused_clip_loss
+from clip_dplm_tpu_torch.ops.fused_infonce import fused_clip_loss, fused_multiway_clip_loss
 from clip_dplm_tpu_torch.train.state import TrainState, global_norm
 
 
@@ -42,7 +43,7 @@ def _logit_scale(cfg: Config, out) -> torch.Tensor:
     cc = cfg.contrastive
     if cc.learned_temperature:
         return out["logit_scale"]
-    return torch.tensor(math.log(1.0 / cc.temperature), device=out["emb_a"].device)
+    return torch.tensor(math.log(1.0 / cc.temperature), device=out["logit_scale"].device)
 
 
 def _pair_loss_fn(cfg: Config):
@@ -66,11 +67,41 @@ def _pair_loss_fn(cfg: Config):
     return loss_fn
 
 
+def _embeddings(out) -> Dict[str, torch.Tensor]:
+    return {"cell": out["cell_embed"], "pert": out["pert_embed"],
+            "protein": out["protein_embed"]}
+
+
+def _multiway_loss_fn(cfg: Config):
+    """(model, batch, seeds) -> (loss, metrics) of tf_clip: the sum of the
+    pairwise symmetric losses over cell / pert / protein, fused (bf16
+    similarity operands) or plain."""
+    _check_loss(cfg)
+    cc = cfg.contrastive
+
+    def loss_fn(model, batch, seeds: DropoutSeeds):
+        out = model(batch, deterministic=False, seeds=seeds)
+        ls = _logit_scale(cfg, out)
+        if cc.use_fused_kernel:
+            return fused_multiway_clip_loss(
+                _embeddings(out), ls, max_scale=cc.logit_scale_max, dot_dtype=torch.bfloat16,
+                label_smoothing=cc.label_smoothing)
+        return infonce.multiway_clip_loss(_embeddings(out), ls, max_scale=cc.logit_scale_max,
+                                          label_smoothing=cc.label_smoothing)
+
+    return loss_fn
+
+
+def make_loss_fn(cfg: Config):
+    """The experiment family's loss: (model, batch, seeds) -> (loss, metrics)."""
+    return _multiway_loss_fn(cfg) if cfg.experiment == "tf_clip" else _pair_loss_fn(cfg)
+
+
 def make_train_step(cfg: Config) -> Callable[[TrainState, Dict], Tuple[TrainState, Dict]]:
     """step(state, batch) -> (state, metrics). With grad_accum_steps > 1 the
     batch is cut into that many micro-batches whose gradients, losses and
     metrics are averaged. Dropout seeds: (state.key, step * accum + micro)."""
-    loss_fn = _pair_loss_fn(cfg)
+    loss_fn = make_loss_fn(cfg)
     accum = max(1, cfg.train.optim.grad_accum_steps)
     log_grad_norm = cfg.train.log_grad_norm
 
@@ -115,7 +146,8 @@ def make_train_step(cfg: Config) -> Callable[[TrainState, Dict], Tuple[TrainStat
 
 
 def make_eval_step(cfg: Config) -> Callable[[TrainState, Dict], Dict]:
-    """Deterministic forward and the loss (no label smoothing), pair family."""
+    """Deterministic forward and the loss (no label smoothing); tf_clip takes
+    the plain multiway loss, as the reference's eval does."""
     _check_loss(cfg)
     cc = cfg.contrastive
 
@@ -123,7 +155,10 @@ def make_eval_step(cfg: Config) -> Callable[[TrainState, Dict], Dict]:
     def step(state: TrainState, batch: Dict) -> Dict:
         out = state.model(batch, deterministic=True)
         ls = _logit_scale(cfg, out)
-        if cc.use_fused_kernel:
+        if cfg.experiment == "tf_clip":
+            loss, metrics = infonce.multiway_clip_loss(_embeddings(out), ls,
+                                                       max_scale=cc.logit_scale_max)
+        elif cc.use_fused_kernel:
             loss, metrics = fused_clip_loss(
                 out["emb_a"], out["emb_b"], ls, max_scale=cc.logit_scale_max,
                 dot_dtype=torch.bfloat16,

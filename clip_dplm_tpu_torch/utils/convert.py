@@ -2,12 +2,14 @@
 
 A flax param tree (nested mappings of arrays, as `model.init(...)["params"]`
 or a checkpoint gives it) becomes a `state_dict` of the port's `DPLM`,
-`ESMTower`, `TwoTowerCLIP` or `RNARBPCLIP`: the scope path joins with dots
+`ESMTower`, `TwoTowerCLIP` (any tower, the `transformer` one included),
+`RNARBPCLIP` or `TFContrastiveModel`: the scope path joins with dots
 (`layer_0/q/kernel` -> `layer_0.q.kernel`, `rna_tower/block_0/out_proj/kernel`
--> `rna_tower.block_0.out_proj.kernel`), Dense kernels (the packed
-attention's `out_proj` included) are transposed from flax's (in, out) to the
-port's (out, in), every other leaf keeps its shape (the 0-d `logit_scale`,
-the (1, max_len, d) `pos_embed`, the (1, 1, d) `cls_token`), and a stacked
+-> `rna_tower.block_0.out_proj.kernel`, `cell_in/layers_3/kernel` ->
+`cell_in.layers_3.kernel`), Dense kernels (the packed attention's `out_proj`
+included) are transposed from flax's (in, out) to the port's (out, in), every
+other leaf keeps its shape (the 0-d `logit_scale`, the (1, max_len, d) or
+(1, 8, d) `pos_embed`, the (1, 1, d) `cls_token`), and a stacked
 `layers/block` tree (the `scan_layers` layout) is unstacked to `layer_<i>`
 first.
 """
@@ -32,10 +34,10 @@ def _to_dict(tree):
 
 def flax_to_state_dict(params: Mapping,
                        num_layers: Optional[int] = None) -> Dict[str, torch.Tensor]:
-    """Flax params of DPLM / ESMTower / TwoTowerCLIP / RNARBPCLIP -> the
-    port's state_dict (f32, CPU). `num_layers` unstacks a `layers/block`
-    subtree (read from its leading dim when not given); trees without one
-    need nothing."""
+    """Flax params of DPLM / ESMTower / TwoTowerCLIP / RNARBPCLIP /
+    TFContrastiveModel -> the port's state_dict (f32, CPU). `num_layers`
+    unstacks a `layers/block` subtree (read from its leading dim when not
+    given); trees without one need nothing."""
     params = _to_dict(params)
     if "params" in params and len(params) == 1:
         params = params["params"]
@@ -67,7 +69,7 @@ def _leaves(tree):
 
 def load_flax_params(module: nn.Module, params: Mapping) -> nn.Module:
     """Load flax params into a port DPLM / ESMTower / TwoTowerCLIP /
-    RNARBPCLIP in place (strict: every key must match) and return it."""
+    RNARBPCLIP / TFContrastiveModel in place (strict: every key must match) and return it."""
     sd = flax_to_state_dict(params, getattr(module.cfg, "num_layers", None))
     module.load_state_dict(sd, strict=True)
     return module

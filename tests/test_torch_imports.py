@@ -27,7 +27,7 @@ def test_port_imports_no_jax():
     n, rest = out.stdout.split(" ", 1)
     names, leaked = rest.rsplit("] ", 1)
     assert int(n) >= 28, out.stdout  # every module was found and imported
-    for mod in ("models.token_towers", "data.collate", "ops.short_attention",
-                "experiments.bench", "experiments.registry"):
+    for mod in ("models.token_towers", "models.tf_clip", "data.collate", "ops.short_attention",
+                "ops.tiny_attention", "experiments.bench", "experiments.registry"):
         assert f"'clip_dplm_tpu_torch.{mod}'" in names, mod
     assert leaked.strip() == "[]", out.stdout

@@ -1,10 +1,11 @@
 """The port's CUDA kernels against their plain PyTorch versions on the card,
 in bf16 at the JAX suite's bf16 bound (atol = rtol = 2e-2; gradients
-divided by their largest entry first), with ragged and fully
-masked rows, ragged batches and odd widths, and the dropout mask bit for bit;
-and the forward-only kernels' refusal to run where autograd would record
-them. Every test here needs an NVIDIA GPU and skips without
-one. The file imports no JAX, so on the card, which has none, it runs as
+divided by their largest entry first), with ragged and fully masked rows,
+ragged batches and odd widths, and the dropout mask bit for bit; the
+backward kernels on the plain forward's residuals and the autograd
+Functions against autograd of the plain formulation; and the forward-only
+kernels' refusal to run where autograd would record them. Every test here
+needs an NVIDIA GPU and skips without one. The file imports no JAX, so on the card, which has none, it runs as
 
     python -m pytest --noconftest -p no:cacheprovider tests/test_torch_kernels.py
 """
@@ -14,7 +15,9 @@ import pytest
 import torch
 
 from clip_dplm_tpu_torch.ops import _build
+from clip_dplm_tpu_torch.ops import flash_attention as fa
 from clip_dplm_tpu_torch.ops import short_attention as sa
+from clip_dplm_tpu_torch.ops import tiny_attention as ta
 from clip_dplm_tpu_torch.ops.attention import attention_reference, multihead_attention
 from clip_dplm_tpu_torch.ops import fused_dense as fd
 from clip_dplm_tpu_torch.ops import fused_infonce as fi
@@ -307,11 +310,15 @@ def test_cls_attention_matches_plain(cuda_device, np_rng, B, S, D, H):
 @pytest.mark.cuda
 def test_forward_only_kernels_refuse_to_drop_gradients(cuda_device):
     """A CUDA launch that autograd would record without a backward raises;
-    the same calls under no_grad run."""
+    the same calls under no_grad run. flash_attention has its backward now
+    and records the gradient; multi-head attention below 64 keys is the
+    plain formulation on the card."""
     q = torch.zeros(1, 2, 256, 64, device=cuda_device, dtype=torch.bfloat16,
                     requires_grad=True)
-    with pytest.raises(NotImplementedError, match="ROADMAP queue 2 item 6"):
-        flash_attention(q, q, q)
+    out = flash_attention(q, q, q)
+    assert out.grad_fn is not None
+    out.float().sum().backward()
+    assert q.grad is not None and q.grad.shape == q.shape
     qkv = torch.zeros(2, 64, 3 * 64, device=cuda_device, dtype=torch.bfloat16,
                       requires_grad=True)
     with pytest.raises(NotImplementedError, match="fused_short_attention_qkv_proj"):
@@ -320,12 +327,17 @@ def test_forward_only_kernels_refuse_to_drop_gradients(cuda_device):
     w, b = torch.zeros(64, 64, device=cuda_device), torch.zeros(64, device=cuda_device)
     with pytest.raises(NotImplementedError, match="fused_short_attention_qkv_proj"):
         out_projection(o, w, b)
+    with pytest.raises(NotImplementedError, match="fused_tiny_attention_proj"):
+        ta.tiny_attention(qkv[:, :10].contiguous(), 2)
     with torch.no_grad():
         assert flash_attention(q, q, q).shape == q.shape
         assert short_attention_qkv(qkv, 2).shape == (2, 64, 64)
-    x = torch.zeros(2, 10, 64, device=cuda_device, dtype=torch.bfloat16)
-    with pytest.raises(NotImplementedError, match="item 8"):
-        multihead_attention(x, x, x, 2)
+    x = torch.randn(2, 10, 64, device=cuda_device, dtype=torch.bfloat16)
+    heads = x.reshape(2, 10, 2, 32).transpose(1, 2)
+    want = attention_reference(heads, heads, heads).transpose(1, 2).reshape(2, 10, 64)
+    torch.testing.assert_close(multihead_attention(x, x, x, 2), want)
+    with pytest.raises(NotImplementedError, match="item 7"):
+        multihead_attention(o, o, o, 2)
     big = torch.zeros(1, 256, 3 * 512, device=cuda_device, dtype=torch.bfloat16,
                       requires_grad=True)
     with pytest.raises(ValueError, match="backward kernel does not fit"):
@@ -333,3 +345,118 @@ def test_forward_only_kernels_refuse_to_drop_gradients(cuda_device):
     with pytest.raises(ValueError, match="up to 128 heads"):
         sa.fused_cls_attention(torch.zeros(1, 8, 3 * 8 * 130, device=cuda_device,
                                            dtype=torch.bfloat16), 130)
+    wide = torch.zeros(1, 1, 256, 256, device=cuda_device, dtype=torch.bfloat16,
+                       requires_grad=True)
+    with pytest.raises(ValueError, match="Dh <= 128"):
+        flash_attention(wide, wide, wide)
+
+
+def _key_mask(rng, B, S):
+    """A ragged key mask with no fully masked row (the lse of such a row
+    rounds to -1e30 and its backward takes p = 1 per key)."""
+    lens = rng.integers(S // 2, S + 1, B)
+    return np.arange(S)[None, :] < lens[:, None]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("B,S,D,H,masked", [(64, 10, 512, 8, False), (19, 10, 64, 4, True),
+                                            (7, 33, 512, 8, True), (9, 8, 256, 4, False),
+                                            (3, 63, 128, 2, True), (5, 2, 1024, 4, True)])
+def test_tiny_attention_matches_plain(cuda_device, np_rng, B, S, D, H, masked):
+    """Forward, then the backward kernel on the plain forward's residuals."""
+    f = lambda *s: torch.from_numpy(np_rng.normal(size=s).astype(np.float32)).to(  # noqa: E731
+        cuda_device, torch.bfloat16)
+    qkv, dout = f(B, S, 3 * D), f(B, S, D)
+    mask = torch.from_numpy(_key_mask(np_rng, B, S)).to(cuda_device) if masked else None
+    before = _build.LAUNCHES.snapshot()
+    with torch.no_grad():
+        o = ta.tiny_attention(qkv, H, mask=mask)
+    o_ref = ta.tiny_attention_reference(qkv, H, mask=mask)
+    got = ta.tiny_attention_bwd(dout, qkv, o_ref, H, mask=mask)
+    torch.cuda.synchronize()
+    after = _build.LAUNCHES.snapshot()
+    assert after["tiny_attention_fwd"] == before["tiny_attention_fwd"] + 1
+    assert after["tiny_attention_bwd"] == before["tiny_attention_bwd"] + 1
+    torch.testing.assert_close(o.float(), o_ref.float(), **TOL)
+    want = ta.tiny_attention_bwd_reference(dout, qkv, o_ref, H, mask=mask)
+    assert torch.isfinite(got).all()
+    _grads_close([got[..., i * D:(i + 1) * D] for i in range(3)],
+                 [want[..., i * D:(i + 1) * D] for i in range(3)], ["dq", "dk", "dv"])
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("B,S,D,H", [(32, 10, 512, 8), (6, 33, 64, 8)])
+def test_fused_tiny_attention_proj_grads_match_plain(cuda_device, np_rng, B, S, D, H):
+    qkv = torch.from_numpy(np_rng.normal(size=(B, S, 3 * D)).astype(np.float32)).to(
+        cuda_device, torch.bfloat16)
+    wo = torch.from_numpy((np_rng.normal(size=(D, D)) / np.sqrt(D)).astype(np.float32))
+    bo = torch.from_numpy((np_rng.normal(size=(D,)) * 0.1).astype(np.float32))
+    wo, bo = wo.to(cuda_device), bo.to(cuda_device)
+    mask = torch.from_numpy(_key_mask(np_rng, B, S)).to(cuda_device)
+    dy = torch.from_numpy(np_rng.normal(size=(B, S, D)).astype(np.float32)).to(cuda_device)
+
+    def run(fn):
+        leaves = [t.clone().requires_grad_(True) for t in (qkv, wo, bo)]
+        y = fn(*leaves, H, mask=mask)
+        y.backward(dy.to(y.dtype))
+        return y.detach(), [t.grad for t in leaves]
+
+    before = _build.LAUNCHES.snapshot()
+    y, grads = run(ta.fused_tiny_attention_proj)
+    torch.cuda.synchronize()
+    after = _build.LAUNCHES.snapshot()
+    for name in ("tiny_attention_fwd", "short_attention_out_proj", "fused_dense_gemm",
+                 "tiny_attention_bwd"):
+        assert after[name] == before[name] + 1, name
+    y_ref, grads_ref = run(ta.fused_tiny_attention_proj_reference)
+    assert grads[1].dtype == grads[2].dtype == torch.float32
+    torch.testing.assert_close(y.float(), y_ref.float(), **TOL)
+    _grads_close(grads, grads_ref, ["dqkv", "dwo", "dbo"])
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("B,H,S,Dh", [(1, 8, 4096, 64), (2, 3, 300, 40), (1, 2, 333, 128),
+                                      (2, 2, 64, 16), (3, 2, 257, 64)])
+def test_flash_attention_bwd_matches_plain(cuda_device, np_rng, B, H, S, Dh):
+    """The forward's lse and the two backward kernels on the plain forward's
+    residuals (out, lse)."""
+    q, k, v, dout = (torch.from_numpy(np_rng.normal(size=(B, H, S, Dh)).astype(np.float32))
+                     .to(cuda_device, torch.bfloat16) for _ in range(4))
+    mask = torch.from_numpy(_key_mask(np_rng, B, S)).to(cuda_device)
+    with torch.no_grad():
+        _, lse = fa._flash_forward(q, k, v, mask, None)
+    out_ref = attention_reference(q, k, v, mask=mask)
+    lse_ref = fa.flash_lse_reference(q, k, mask)
+    torch.testing.assert_close(lse, lse_ref, **TOL)
+    before = _build.LAUNCHES.snapshot()
+    got = fa.flash_attention_bwd(q, k, v, mask, out_ref, lse_ref, dout)
+    torch.cuda.synchronize()
+    after = _build.LAUNCHES.snapshot()
+    assert after["flash_attention_bwd_dq"] == before["flash_attention_bwd_dq"] + 1
+    assert after["flash_attention_bwd_dkv"] == before["flash_attention_bwd_dkv"] + 1
+    want = fa.flash_attention_bwd_reference(q, k, v, mask, out_ref, lse_ref, dout)
+    assert all(torch.isfinite(t).all() for t in got)
+    _grads_close(got, want, ["dq", "dk", "dv"])
+
+
+@pytest.mark.cuda
+def test_flash_attention_autograd_matches_plain(cuda_device, np_rng):
+    """The autograd Function on the card against autograd of the plain
+    formulation, at the tf_clip cell tower's shape class (one sequence)."""
+    B, H, S, Dh = 1, 8, 512, 64
+    qkv = [torch.from_numpy(np_rng.normal(size=(B, H, S, Dh)).astype(np.float32))
+           .to(cuda_device, torch.bfloat16) for _ in range(3)]
+    mask = torch.from_numpy(_key_mask(np_rng, B, S)).to(cuda_device)
+    dout = torch.from_numpy(np_rng.normal(size=(B, H, S, Dh)).astype(np.float32)).to(
+        cuda_device, torch.bfloat16)
+
+    def run(fn):
+        leaves = [t.clone().requires_grad_(True) for t in qkv]
+        y = fn(*leaves, mask=mask)
+        y.backward(dout)
+        return y.detach(), [t.grad for t in leaves]
+
+    y, grads = run(flash_attention)
+    y_ref, grads_ref = run(attention_reference)
+    torch.testing.assert_close(y.float(), y_ref.float(), **TOL)
+    _grads_close(grads, grads_ref, ["dq", "dk", "dv"])

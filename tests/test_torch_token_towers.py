@@ -85,7 +85,7 @@ def _block_inputs(rng, B=2, S=65, d=32):
 @pytest.mark.parametrize("S,out_rows", [(65, None), (65, 1), (10, None)])
 def test_block_matches_flax(rng, S, out_rows):
     """S=65: the full block takes the packed short-S path (plain version on
-    the CPU), out_rows=1 the CLS-query path; S=10 the plain multi-head path.
+    the CPU), out_rows=1 the CLS-query path; S=10 the packed tiny-S path.
     JAX on the CPU takes its XLA formulations. Values and every gradient,
     f32."""
     x, mask, ct = _block_inputs(rng, S=S)

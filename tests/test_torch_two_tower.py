@@ -238,9 +238,8 @@ def test_config_rejects_unported_fields():
         pconfig.apply_overrides(pconfig.Config(), ["contrastive.fused_materialize_raw=auto"])
     with pytest.raises(ValueError):
         build_model(dataclasses.replace(pconfig.Config(), experiment="dplm"))
-    with pytest.raises(ValueError, match="slice 4"):
-        build_model(pconfig.apply_overrides(pconfig.Config(),
-                                            ["tower_a.architecture=transformer"]))
+    with pytest.raises(ValueError, match="unknown tower architecture"):
+        build_model(pconfig.apply_overrides(pconfig.Config(), ["tower_a.architecture=conv"]))
 
 
 def test_train_cli_one_epoch(capsys):

@@ -53,7 +53,25 @@ Phases, each fatal on failure (non-zero exit, no result line):
      as 7(a); (c) the train CLI with experiment=tf_clip, B=256, 3 epochs,
      whose loss must fall; (d) experiments/bench.py --model tf_clip at
      B=4096. The four new launch counters and flash_attention's must rise in
-     (c)+(d).
+     (c)+(d);
+ 10. the `two_tower_optimized` preset (the hard-negative cache with the
+     fused loss): (a) the row cross-entropy's three kernels (row lse, P y
+     with rowsum(p raw), P^T x) against their plain versions on the card in
+     bf16 (atol = rtol = 2e-2, the backward outputs relative to their
+     largest entry, on the plain lse): the a->b direction x (8192, 512)
+     against [b; cache] (16384, 512) with n_valid = 8192 + 5000 (a partly
+     filled cache) and dy for b's 8192 rows, the b->a direction (8192, 8192),
+     and a ragged m=1000, n=1777, n_valid=1400 whose whole fused_row_ce
+     (loss, dx, dy, dscale; shuffled labels) is held to its plain version;
+     no single library call computes these functions; (b) one cached train
+     step on the card against the CPU at the preset's widths (towers
+     158/1280 -> 512), B=256, from the same weights, batch and warm cache
+     (1024 rows, 640 filled, carried in with utils/convert.py::load_cache),
+     dropout on, as 7(a), with cache_ptr and cache_len equal and the new
+     cache rows within the same noise bound; (c) the train CLI with the
+     preset's two overrides (B=128, cache 8192) for 3 epochs, whose loss
+     must fall; (d) experiments/bench.py --model two_tower_cached at B=8192.
+     The three new launch counters must rise in (c)+(d).
 Prints a JSON line of per-kernel results (each kernel's time at its main
 shape, its plain version's, the library call's where there is one, and the
 bound: the larger of the bytes it must move over 3.35 TB/s and its
@@ -121,7 +139,16 @@ TF_CLIP_KERNELS = {
     "flash_attention_bwd_dkv": ("clip_dplm_tpu_torch/csrc/flash_attention.cu",
                                 "clip_dplm_tpu/ops/flash_attention.py:251"),
 }
-KERNELS = {**SERVE_KERNELS, **TRAIN_KERNELS, **FLAGSHIP_KERNELS, **TF_CLIP_KERNELS}
+CACHE_KERNELS = {
+    "row_ce_lse": ("clip_dplm_tpu_torch/csrc/row_ce.cu",
+                   "clip_dplm_tpu/ops/fused_infonce.py:102"),
+    "row_ce_dx": ("clip_dplm_tpu_torch/csrc/row_ce.cu",
+                  "clip_dplm_tpu/ops/fused_infonce.py:212"),
+    "row_ce_dy": ("clip_dplm_tpu_torch/csrc/row_ce.cu",
+                  "clip_dplm_tpu/ops/fused_infonce.py:236"),
+}
+KERNELS = {**SERVE_KERNELS, **TRAIN_KERNELS, **FLAGSHIP_KERNELS, **TF_CLIP_KERNELS,
+           **CACHE_KERNELS}
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM HBM3 bandwidth
 PEAK_OPS = {"bf16": 989e12, "f32": 67e12}  # dense tensor-core bf16; f32 off the tensor cores
 
@@ -533,35 +560,44 @@ def phase_train_step(torch):
     step_card_vs_cpu(torch, f"train step B={B} (bench widths, dropout 0.1)", cfg, batch)
 
 
-def step_card_vs_cpu(torch, what, cfg, batch):
+def step_card_vs_cpu(torch, what, cfg, batch, cache=None):
     """One train step on the card vs the same step on the CPU from the same
     weights and batch (bf16 both, the same dropout masks): the gradient of
     every leaf before the optimizer, then the loss and the update, each
-    within STEP_NOISE_FACTOR x its bf16-vs-f32 noise on the CPU."""
+    within STEP_NOISE_FACTOR x its bf16-vs-f32 noise on the CPU. With `cache`
+    = (rows, ptr, filled) every run starts from that hard-negative cache;
+    the new cache_ptr and cache_len must then be equal, the untouched rows
+    unchanged and the written rows within the same bound."""
     from clip_dplm_tpu_torch.experiments.registry import build_model
     from clip_dplm_tpu_torch.ops.fused_dense import DropoutSeeds
     from clip_dplm_tpu_torch.train.state import create_train_state
     from clip_dplm_tpu_torch.train.trainer import make_loss_fn, make_train_step, to_device
+    from clip_dplm_tpu_torch.utils.convert import load_cache
 
     gpu = build_model(cfg, device="cuda")
     create_train_state(gpu, cfg)  # random weights from the seed
     sd = {k: v.detach().cpu().clone() for k, v in gpu.state_dict().items()}
-    runs = {}
+    runs, caches = {}, {}
     for name, device, dtype in (("card", "cuda", torch.bfloat16),
                                 ("cpu", "cpu", torch.bfloat16),
                                 ("cpu_f32", "cpu", torch.float32)):
         model = gpu if name == "card" else build_model(cfg, device=device, dtype=dtype)
         model.load_state_dict(sd)
         state = create_train_state(model, cfg, init=False)
+        if cache is not None:
+            load_cache(state, *cache)
         dev_batch = to_device(batch, device)
         # the gradient the step's first micro-batch takes: the same seeds
-        loss, _ = make_loss_fn(cfg)(model, dev_batch, DropoutSeeds(state.key, state.step))
+        loss, _ = make_loss_fn(cfg)(model, dev_batch, DropoutSeeds(state.key, state.step),
+                                    state.cache, state.cache_len)
         loss.backward()
         grads = {k: p.grad.detach().cpu().float() for k, p in model.named_parameters()}
         state, metrics = make_train_step(cfg)(state, dev_batch)
         runs[name] = (float(metrics["loss"]), grads, torch.cat([
             (p.detach().cpu().float() - sd[k]).flatten()
             for k, p in model.named_parameters()]))
+        if cache is not None:
+            caches[name] = (state.cache.cpu(), int(state.cache_ptr), int(state.cache_len))
         del state, model
     (l_card, g_card, d_card), (l_cpu, g_cpu, d_cpu), (l_f32, g_f32, d_f32) = (
         runs[k] for k in ("card", "cpu", "cpu_f32"))
@@ -591,6 +627,24 @@ def step_card_vs_cpu(torch, what, cfg, batch):
           f"{what} loss: rel err {loss_err} > {STEP_NOISE_FACTOR} x noise {loss_noise}")
     check(upd_err <= STEP_NOISE_FACTOR * upd_noise,
           f"{what} update: rel L2 {upd_err} > {STEP_NOISE_FACTOR} x noise {upd_noise}")
+    if cache is not None:
+        rows, ptr, B = cache[0].shape[0], int(cache[1]), next(iter(batch.values())).shape[0]
+        start = 0 if ptr + B > rows else ptr
+        (c_card, p_card, l_card), (c_cpu, p_cpu, l_cpu), (c_f32, _, _) = (
+            caches[k] for k in ("card", "cpu", "cpu_f32"))
+        check((p_card, l_card) == (p_cpu, l_cpu) == ((start + B) % rows,
+                                                     max(int(cache[2]), start + B)),
+              f"{what}: cache_ptr / cache_len card {(p_card, l_card)} cpu {(p_cpu, l_cpu)}")
+        new = slice(start, start + B)
+        kept = torch.ones(rows, dtype=torch.bool)
+        kept[new] = False
+        check(torch.equal(c_card[kept], torch.from_numpy(cache[0])[kept]),
+              f"{what}: cache rows outside the write changed")
+        c_err, c_noise = _rel(c_card[new], c_cpu[new]), _rel(c_f32[new], c_cpu[new])
+        print(f"{what}: cache_ptr {p_card} cache_len {l_card} on both; new cache rows "
+              f"{start}..{start + B - 1} rel L2 {c_err:.3e} (bf16 noise {c_noise:.3e})")
+        check(c_err <= STEP_NOISE_FACTOR * c_noise,
+              f"{what} cache rows: rel L2 {c_err} > {STEP_NOISE_FACTOR} x noise {c_noise}")
 
 
 def phase_train_path(torch, build):
@@ -869,6 +923,119 @@ def phase_tf_clip_path(torch, build):
     return launches
 
 
+def phase_cache_kernels(torch, results):
+    """10(a): the row cross-entropy's three kernels against their plain
+    versions at the cached step's shapes (the backward kernels on the plain
+    lse), and the whole fused_row_ce at a ragged shape with shuffled labels.
+    No single library call computes these functions: library_ms is null."""
+    from clip_dplm_tpu_torch.ops import fused_infonce as fi
+
+    dev = torch.device("cuda")
+    g = torch.Generator(device=dev).manual_seed(13)
+
+    def unit(*s):
+        return torch.nn.functional.normalize(torch.randn(*s, generator=g, device=dev), dim=-1)
+
+    d = 512
+    scale = torch.tensor([14.2857], device=dev)
+    # (what, m, n, n_valid, rows of y whose gradient is formed)
+    for what, m, n, nv, rows in (("a->[b; cache]", 8192, 16384, 8192 + 5000, 8192),
+                                 ("b->a", 8192, 8192, 8192, 8192),
+                                 ("ragged", 1000, 1777, 1400, 1777)):
+        x, y = unit(m, d), unit(n, d)
+        x[: min(m, n)] = torch.nn.functional.normalize(x[: min(m, n)] + y[: min(m, n)], dim=-1)
+        xb, yb = x.bfloat16(), y.bfloat16()
+        nvt = torch.tensor([nv], dtype=torch.int32, device=dev)
+        shape = f"{what} m={m} n={n} n_valid={nv} d={d}"
+        lse = fi._plain_row_lse(xb, yb, scale, nvt)
+        # bytes: x, the valid rows of y (bf16), scale, n_valid in; lse out
+        compare(torch, "row_ce_lse", shape, lambda: fi._kernel_row_lse(xb, yb, scale, nvt),
+                lambda: fi._plain_row_lse(xb, yb, scale, nvt), results,
+                work=((m + nv) * d * 2 + 8 + m * 4, 2.0 * m * nv * d))
+        # bytes: x, y's valid rows, lse in; P y (f32) and rowdot out; ops: the
+        # recomputed raw tile and the contraction
+        compare(torch, "row_ce_dx", shape + " P y (on the plain lse)",
+                lambda: fi._kernel_row_dx(xb, yb, scale, lse, nvt)[0],
+                lambda: fi._plain_row_dx(xb, yb, scale, lse, nvt)[0], results,
+                work=((m + nv) * d * 2 + m * 4 + m * d * 4 + m * 4, 4.0 * m * nv * d),
+                normalize=True)
+        rd_err = check_outputs(torch, f"row_ce_dx {shape}",
+                               [fi._kernel_row_dx(xb, yb, scale, lse, nvt)[1]],
+                               [fi._plain_row_dx(xb, yb, scale, lse, nvt)[1]], ["rowdot"],
+                               raw_first=False)
+        results["row_ce_dx"]["max_abs_err"] = max(results["row_ce_dx"]["max_abs_err"], rd_err)
+        print(f"kernel row_ce_dx {shape} rowdot: max_abs_err={rd_err:.3e}")
+        # bytes: x, y's first `rows` rows, lse in; P^T x (f32) out
+        compare(torch, "row_ce_dy", shape + f" P^T x for y's first {rows} rows (on the plain lse)",
+                lambda: fi._kernel_row_dy(xb, yb, scale, lse, rows),
+                lambda: fi._plain_row_dy(xb, yb, scale, lse, rows), results,
+                work=((m + rows) * d * 2 + m * 4 + rows * d * 4, 4.0 * m * rows * d),
+                normalize=True)
+    # the autograd Function at the ragged shape, shuffled labels
+    labels = torch.randperm(1400, generator=g, device=dev)[:1000]
+    nvt = torch.tensor([1400], dtype=torch.int32, device=dev)
+    outs = {}
+    for key, fn in (("kernel", fi.fused_row_ce), ("plain", fi.fused_row_ce_reference)):
+        leaves = [t.clone().requires_grad_(True) for t in (x, y, scale)]
+        loss = fn(*leaves, labels, nvt, torch.bfloat16)
+        loss.backward()
+        outs[key] = [loss.detach()] + [t.grad for t in leaves]
+    err = check_outputs(torch, "fused_row_ce m=1000 n=1777 n_valid=1400 (shuffled labels)",
+                        outs["kernel"], outs["plain"], ["loss", "dx", "dy", "dscale"])
+    print(f"fused_row_ce m=1000 n=1777 n_valid=1400 shuffled labels, kernels vs plain: "
+          f"max err {err:.3e} (loss, dx, dy, dscale)")
+    print("row_ce kernels: no single library call computes them (library_ms null)")
+
+
+def phase_cache_step(torch):
+    """10(b): one cached step at the preset's widths, B=256, from a warm
+    cache of 1024 rows (640 filled), card vs CPU."""
+    from clip_dplm_tpu_torch.config import Config, apply_overrides
+    from clip_dplm_tpu_torch.experiments import bench
+
+    B, C, filled = 256, 1024, 640
+    cfg = apply_overrides(Config(), bench.PRESET_OVERRIDES + [
+        f"train.batch_size={B}", f"contrastive.cache_size={C}",
+        "train.optim.schedule=constant", "train.optim.learning_rate=1e-3"])
+    rng = np.random.default_rng(5)
+    batch = {"a": rng.normal(size=(B, cfg.tower_a.input_dim)).astype(np.float32),
+             "b": rng.normal(size=(B, cfg.tower_b.input_dim)).astype(np.float32)}
+    rows = np.zeros((C, cfg.projection.dim), np.float32)
+    rows[:filled] = rng.normal(size=(filled, cfg.projection.dim))
+    rows[:filled] /= np.linalg.norm(rows[:filled], axis=1, keepdims=True)
+    step_card_vs_cpu(torch, f"cached train step B={B} C={C} cache_len={filled} (preset "
+                     "widths, dropout 0.1)", cfg, batch, cache=(rows, filled, filled))
+
+
+def phase_cache_path(torch, build):
+    """10(c) the preset's train CLI, 10(d) the cached benchmark; the launch
+    counts of both."""
+    from clip_dplm_tpu_torch.experiments import bench
+    from clip_dplm_tpu_torch.experiments import train as train_cli
+
+    build.LAUNCHES.reset()
+    overrides = bench.PRESET_OVERRIDES + ["train.batch_size=128", "train.optim.warmup_steps=5",
+                                          "train.optim.learning_rate=1e-3"]
+    t0 = time.perf_counter()
+    hist = train_cli.main(["--epochs", "3", *[a for o in overrides for a in ("-o", o)]])
+    cli_s = time.perf_counter() - t0
+    losses = hist["train_loss"]
+    check(all(np.isfinite(losses)) and len(losses) == 3, f"preset train CLI losses {losses}")
+    check(losses[-1] < losses[0], f"preset train CLI: loss did not fall: {losses}")
+    print(f"two_tower_optimized preset train CLI (B=128, cache 8192, 3 epochs of 13 steps): "
+          f"train_loss {losses}, val_loss {hist['val_loss']}, {cli_s:.1f} s")
+    out = bench.main(["--model", "two_tower_cached", "--batch", "8192"])
+    torch.cuda.synchronize()
+    launches = build.LAUNCHES.snapshot()
+    print(f"bench two_tower_cached B=8192 (cache 8192, full): step {out['step_ms']} ms, "
+          f"{out['value']} pairs/s, {out['model_tflops_per_s_per_chip']} model TFLOP/s, MFU "
+          f"{out['mfu']} of {out['peak_bf16_tflops']} TFLOP/s bf16 peak")
+    print(f"launches during the cache phase: {launches}")
+    for name in CACHE_KERNELS:
+        check(launches[name] > 0, f"kernel {name} was not launched by the cached path")
+    return launches
+
+
 def main() -> int:
     import torch
 
@@ -910,6 +1077,10 @@ def main() -> int:
     phase_tf_clip_step(torch)
     launches.update({k: v for k, v in phase_tf_clip_path(torch, _build).items()
                      if k in TF_CLIP_KERNELS})
+    phase_cache_kernels(torch, results)
+    phase_cache_step(torch)
+    launches.update({k: v for k, v in phase_cache_path(torch, _build).items()
+                     if k in CACHE_KERNELS})
 
     keys = ("max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by", "library_ms")
     print(json.dumps({"kernels": [

@@ -7,9 +7,12 @@ CLIP (`experiment="tf_clip"`).
 The frozen dataclasses of `clip_dplm_tpu/config.py`, without the yaml loader
 (so the port imports no yaml) and with only the fields the port reads: the
 reference's LoRA, guidance, freezing and `scan_layers` fields, the
-hard-negative cache, the global-batch gather, the materialized-similarity
-switch, the other loss kinds and `precision.remat` are left out until the
-port has what they switch on, so passing one raises instead of being ignored. The port's
+global-batch gather, the materialized-similarity switch, the other loss
+kinds and `precision.remat` are left out until the port has what they
+switch on, so passing one raises instead of being ignored. The hard-negative
+cache (`contrastive.use_cache`, `cache_size`) is ported: with
+`contrastive.use_fused_kernel` it is the reference's `two_tower_optimized`
+preset. The port's
 modules are always unrolled; utils/convert.py reads both flax param layouts.
 Defaults are the reference's.
 
@@ -97,6 +100,8 @@ class ContrastiveConfig:
     temperature: float = 0.07  # used when not learned
     label_smoothing: float = 0.0
     use_fused_kernel: bool = False  # ops/fused_infonce.py
+    cache_size: int = 8192  # hard-negative embedding cache (rows)
+    use_cache: bool = False
 
 
 @dataclass(frozen=True)

@@ -30,71 +30,10 @@
 // operands in shared memory descriptors is later work). The exps (67 M per
 // pass) ride along.
 
-#include "common.cuh"
-
-using namespace nvcuda;
+#include "infonce_tiles.cuh"
 
 namespace clip_dplm {
 namespace {
-
-constexpr int kThreads = 256;
-constexpr int kWarps = kThreads / kWarp;
-constexpr int kBM = 32;  // rows of x per block
-constexpr int kBN = 64;  // columns of y per tile
-constexpr int kLdS = kBN + 4;  // f32 raw tile
-constexpr int kLdP = kBN + 8;  // bf16 p tile
-
-struct Smem {
-  int ld;  // bf16 row pitch of the x and y tiles
-  size_t x, y, s, p, m, l, rowdot, total;
-  __host__ __device__ explicit Smem(int dp) {
-    ld = dp + 8;
-    size_t off = 0;
-    x = off;      off += align128(size_t(kBM) * ld * sizeof(bf16));
-    y = off;      off += align128(size_t(kBN) * ld * sizeof(bf16));
-    s = off;      off += align128(size_t(kBM) * kLdS * sizeof(float));
-    p = off;      off += align128(size_t(kBM) * kLdP * sizeof(bf16));
-    m = off;      off += align128(kBM * sizeof(float));
-    l = off;      off += align128(kBM * sizeof(float));
-    rowdot = off; off += align128(kBM * sizeof(float));
-    total = off;
-  }
-};
-
-// rows [r0, r0 + rows) of src (n_valid real rows, pitch dp) into dst with
-// pitch ld; rows past n_valid are zero
-__device__ inline void stage(bf16* dst, int ld, const bf16* src, int r0, int rows, int n_valid,
-                             int dp) {
-  const int cpr = dp / 8;
-  for (int c = threadIdx.x; c < rows * cpr; c += kThreads) {
-    const int r = c / cpr, k = (c % cpr) * 8;
-    const bool ok = r0 + r < n_valid;
-    cp_async16(dst + r * ld + k, ok ? src + size_t(r0 + r) * dp + k : src, ok);
-  }
-  cp_async_commit();
-}
-
-// raw tile (kBM x kBN) = x_s · y_s^T into s_s: one 16x16 fragment per warp,
-// its k loop split over two accumulators (two independent mma chains)
-__device__ inline void raw_tile(const bf16* xs, const bf16* ys, int ld, int dp, float* ss) {
-  const int warp = threadIdx.x / kWarp, rf = warp / 4, cf = warp % 4;
-  wmma::fragment<wmma::accumulator, 16, 16, 16, float> c0, c1;
-  wmma::fill_fragment(c0, 0.f);
-  wmma::fill_fragment(c1, 0.f);
-  for (int k = 0; k < dp; k += 32) {
-    wmma::fragment<wmma::matrix_a, 16, 16, 16, bf16, wmma::row_major> a0, a1;
-    wmma::fragment<wmma::matrix_b, 16, 16, 16, bf16, wmma::col_major> b0, b1;
-    wmma::load_matrix_sync(a0, xs + rf * 16 * ld + k, ld);
-    wmma::load_matrix_sync(b0, ys + cf * 16 * ld + k, ld);
-    wmma::load_matrix_sync(a1, xs + rf * 16 * ld + k + 16, ld);
-    wmma::load_matrix_sync(b1, ys + cf * 16 * ld + k + 16, ld);
-    wmma::mma_sync(c0, a0, b0, c0);
-    wmma::mma_sync(c1, a1, b1, c1);
-  }
-#pragma unroll
-  for (int i = 0; i < c0.num_elements; ++i) c0.x[i] += c1.x[i];
-  wmma::store_matrix_sync(ss + rf * 16 * kLdS + cf * 16, c0, kLdS, wmma::mem_row_major);
-}
 
 __global__ void __launch_bounds__(kThreads, 2)
 sym_lse_kernel(const bf16* __restrict__ x, const bf16* __restrict__ y,
@@ -205,18 +144,7 @@ sym_grad_kernel(const bf16* __restrict__ x, const bf16* __restrict__ y,
     }
     __syncthreads();
     // acc += bf16(p) · y_tile
-#pragma unroll
-    for (int t = 0; t < NT; ++t) {
-      const int cf = cf0 + 4 * t;
-#pragma unroll
-      for (int kk = 0; kk < kBN; kk += 16) {
-        wmma::fragment<wmma::matrix_a, 16, 16, 16, bf16, wmma::row_major> a;
-        wmma::fragment<wmma::matrix_b, 16, 16, 16, bf16, wmma::row_major> b;
-        wmma::load_matrix_sync(a, ps + rf * 16 * kLdP + kk, kLdP);
-        wmma::load_matrix_sync(b, ys + kk * ld + cf * 16, ld);
-        wmma::mma_sync(acc[t], a, b, acc[t]);
-      }
-    }
+    accumulate_py<NT>(acc, ps, ys, ld, rf, cf0);
     __syncthreads();
   }
   // acc_out is (round_up(m, 32), dp): whole fragments, padded rows included

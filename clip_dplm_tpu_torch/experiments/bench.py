@@ -1,11 +1,16 @@
 """Timing of a contrastive train step on one CUDA device:
 `python -m clip_dplm_tpu_torch.experiments.bench [--model
-two_tower|rna_rbp|tf_clip] [--batch B] [--iters N] [-o a.b=c ...]`.
+two_tower|two_tower_cached|rna_rbp|tf_clip] [--batch B] [--iters N]
+[-o a.b=c ...]`.
 
 Counterpart of the repository's `bench.py` legs:
 - `two_tower` (default, B=8192): towers 256/1280 -> 1024, 3 layers, relu;
   optimized projection 512 / 2048, tanh-GELU, dropout 0.1; every Dense+LN
   block and the InfoNCE loss fused;
+- `two_tower_cached` (B=8192): `two_tower` with the hard-negative cache of
+  the `two_tower_optimized` preset (8192 rows). The first warm-up step fills
+  the cache, so every timed step's a->b direction sees B + 8192 = 16384
+  columns (the fused row cross-entropy, both directions);
 - `rna_rbp` (B=1024, `BENCH_MODEL=rna_rbp`): the flagship token transformer,
   towers 120/1280 -> 512, 3 blocks of 8 heads over 127 tokens plus the CLS
   token (S = 128), ragged lengths in [63, 127); fused projection blocks and
@@ -70,6 +75,11 @@ RNA_RBP_OVERRIDES = [
     "projection.fused_dense=true",
 ]
 
+# the two_tower_optimized preset: configs/two_tower.yaml plus these two lines
+PRESET_OVERRIDES = ["contrastive.use_cache=true", "contrastive.use_fused_kernel=true"]
+# two_tower with the preset's hard-negative cache (8192 rows)
+CACHED_OVERRIDES = OVERRIDES + PRESET_OVERRIDES + ["contrastive.cache_size=8192"]
+
 # the tf_clip probe's overrides (scripts/tpu_config_probes.py::tf_clip_fixture)
 # without its JAX-only ones (train.optim.fused_update, train.rng_impl)
 TF_CLIP_OVERRIDES = [
@@ -112,6 +122,15 @@ def two_tower_step_flops(cfg, batch: int) -> float:
     fwd += proj(cfg.tower_b.hidden_size, cfg.projection, batch)
     fwd += dense(batch, batch, cfg.projection.dim)
     return 3.0 * fwd
+
+
+def two_tower_cached_step_flops(cfg, batch: int) -> float:
+    """two_tower_step_flops with the loss's products taken against the B + C
+    columns of the a->b direction (the b->a direction's B x B similarity is
+    the transpose of its first B columns, counted once as in the symmetric
+    loss)."""
+    return two_tower_step_flops(cfg, batch) + 3.0 * 2.0 * batch * (
+        cfg.contrastive.cache_size * cfg.projection.dim)
 
 
 def token_clip_step_flops(cfg, B: int, sa: int, sb: int) -> float:
@@ -204,6 +223,8 @@ def rna_rbp_batch(cfg, B: int, rng) -> Dict[str, np.ndarray]:
 MODELS = {
     "two_tower": (OVERRIDES, 8192, "contrastive_pairs_per_sec_per_chip", "pairs/s/chip",
                   _two_tower_batch, two_tower_step_flops),
+    "two_tower_cached": (CACHED_OVERRIDES, 8192, "contrastive_cached_pairs_per_sec_per_chip",
+                         "pairs/s/chip", _two_tower_batch, two_tower_cached_step_flops),
     "rna_rbp": (RNA_RBP_OVERRIDES, 1024, "rna_rbp_pairs_per_sec_per_chip", "pairs/s/chip",
                 rna_rbp_batch, lambda cfg, B: token_clip_step_flops(cfg, B, TOKENS, TOKENS)),
     "tf_clip": (TF_CLIP_OVERRIDES, 4096, "tf_clip_cells_per_sec_per_chip", "cells/s/chip",
@@ -216,7 +237,8 @@ def parse_args(argv: Optional[Sequence[str]] = None) -> argparse.Namespace:
                                 formatter_class=argparse.RawDescriptionHelpFormatter)
     p.add_argument("--model", choices=sorted(MODELS), default="two_tower")
     p.add_argument("--batch", type=int, default=None,
-                   help="default: 8192 for two_tower, 1024 for rna_rbp, 4096 for tf_clip")
+                   help="default: 8192 for two_tower(_cached), 1024 for rna_rbp, 4096 for "
+                        "tf_clip")
     p.add_argument("--iters", type=int, default=20)
     p.add_argument("--override", "-o", action="append", default=[])
     return p.parse_args(argv)

@@ -75,6 +75,12 @@ _SIGNATURES = {
     "sym_infonce_lse": [_P, _P, _P, _P, _P, _P, _I, _I, _I, _P],
     # x, y, scale, lse_row, lse_col, acc, rowdot, m, n, dp, stream
     "sym_infonce_grad": [_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _P],
+    # x, y, scale, n_valid, lse, m, n, dp, stream
+    "row_ce_lse": [_P, _P, _P, _P, _P, _I, _I, _I, _P],
+    # x, y, scale, n_valid, lse, py, rowdot, m, n, dp, stream
+    "row_ce_dx": [_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _P],
+    # x, y, scale, lse, ptx, m, n_rows, dp, stream
+    "row_ce_dy": [_P, _P, _P, _P, _P, _I, _I, _I, _P],
 }
 
 
@@ -105,7 +111,7 @@ LAUNCHES = LaunchCounter(
      "sym_infonce_lse", "sym_infonce_grad",
      "short_attention_bwd", "cls_attention_fwd", "cls_attention_bwd",
      "tiny_attention_fwd", "tiny_attention_bwd", "flash_attention_bwd_dq",
-     "flash_attention_bwd_dkv"])
+     "flash_attention_bwd_dkv", "row_ce_lse", "row_ce_dx", "row_ce_dy"])
 
 
 class _Library:

@@ -1,8 +1,11 @@
-"""Fused symmetric InfoNCE: the B x B similarity is never stored.
+"""Fused InfoNCE: the similarity is never stored.
 
-Counterpart of `clip_dplm_tpu/ops/fused_infonce.py::fused_symmetric_infonce`
-and `fused_clip_loss` on the path with no hard-negative cache and no mesh
-axis, with the recompute schedule of the backward (`_sym_grad_pass`):
+Counterpart of `clip_dplm_tpu/ops/fused_infonce.py` on the paths with no
+mesh axis: `fused_symmetric_infonce` with the recompute schedule of the
+backward (`_sym_grad_pass`), and `fused_row_ce`, the row cross-entropy the
+hard-negative cache path runs in both directions.
+
+`fused_symmetric_infonce` (no cache):
 
   loss = 0.5 * (mean_i[lse_row_i - scale d_i] + mean_j[lse_col_j - scale d_j])
 
@@ -15,14 +18,31 @@ rowdot = rowsum(p * raw) (`sym_grad_kernel`). The scalar tail
 
   da = 0.5 (g/B) scale acc_a - (g/B) scale b,   dscale = 0.5 (g/B) sum(rowdot) - (g/B) sum(d)
 
-is plain torch, as in the reference. `dot_dtype` (bf16 on the train path)
-is the type of the operands of both matmuls; d stays f32.
+is plain torch, as in the reference.
 
-`fused_symmetric_infonce` runs the kernels for CUDA tensors (bf16 dot dtype,
-d <= 512) and the plain version, which materializes the B x B similarity,
-for CPU tensors. `fused_multiway_clip_loss` sums `fused_clip_loss` over
-the modality pairs of tf_clip. The reference's materialized-raw schedule (int16 raw
-tiles) and the cached / mesh paths (`fused_row_ce`) are not ported yet.
+`fused_row_ce(x, y, scale, labels, n_valid)` (the cache path):
+
+  loss = mean_i[lse_i - scale <x_i, y_labels_i>]
+
+over the columns of y below n_valid (a device int32: the cache's fill
+level), the rest at -1e30. The forward's row lse (`csrc/row_ce.cu::
+row_ce_lse`), then in the backward P y with rowsum(p * raw) (`row_ce_dx`)
+and P^T x (`row_ce_dy`, no column mask, as the reference's); the tail
+
+  dx = (g/m) scale (P y - y_pos),   dy = (g/m) scale P^T x, minus (g/m) scale x at the labels,
+  dscale = (g/m) (sum(rowdot) - sum(raw_pos))
+
+is plain torch. `fused_clip_loss(cache=..., cache_len=...)` runs it twice: a
+against [b; cache] with n_valid = B + cache_len, whose dy is formed for b's
+rows only (the cache takes no gradient), and b against a.
+
+`dot_dtype` (bf16 on the train path) is the type of the operands of every
+product, p is rounded to it before each contraction; the positive logits,
+rowdot and every sum stay f32. CPU tensors take the plain versions (which
+materialize the similarity); CUDA tensors take the kernels (bf16 dot dtype,
+d <= 512) or raise. `fused_multiway_clip_loss` sums `fused_clip_loss` over
+the modality pairs of tf_clip. The reference's materialized-raw schedule
+(int16 raw tiles) and the mesh paths are not ported yet.
 """
 
 from __future__ import annotations
@@ -32,7 +52,12 @@ from typing import Dict, Optional, Tuple
 import torch
 
 from clip_dplm_tpu_torch.ops import _build
-from clip_dplm_tpu_torch.ops.infonce import effective_scale, l2_normalize, modality_pairs
+from clip_dplm_tpu_torch.ops.infonce import (
+    NEG_INF,
+    effective_scale,
+    l2_normalize,
+    modality_pairs,
+)
 
 MAX_DIM = 512  # the grad kernel's accumulator: 32 x d f32 in registers
 _BM = 32  # rows per block of both kernels
@@ -150,6 +175,26 @@ def fused_symmetric_infonce_reference(a, b, scale, dot_dtype=None) -> torch.Tens
     return _SymInfoNCE.apply(a, b, scale, dot_dtype, False)
 
 
+def _use_kernel(x: torch.Tensor, y: torch.Tensor, dot_dtype, *others: torch.Tensor) -> bool:
+    """False for CPU tensors (the plain version); True for CUDA tensors the
+    kernels take (the operands x and y, the rest on the same device); raises
+    for anything else."""
+    if x.device.type == "cpu":
+        return False
+    if x.device.type != "cuda":
+        raise ValueError(f"no kernel for device {x.device}")
+    if dot_dtype is None and y.dtype != x.dtype:
+        raise ValueError(f"x and y differ in type ({x.dtype}, {y.dtype}): pass dot_dtype")
+    if (dot_dtype or x.dtype) != torch.bfloat16:
+        raise ValueError("the CUDA kernels take bf16 operands (dot_dtype=torch.bfloat16), "
+                         f"got {dot_dtype or x.dtype}")
+    if x.shape[1] > MAX_DIM:
+        raise ValueError(f"the CUDA kernels take d <= {MAX_DIM}, got d={x.shape[1]}")
+    if any(t.device != x.device for t in (y, *others)):
+        raise ValueError("every input must be on the same CUDA device")
+    return True
+
+
 def fused_symmetric_infonce(a: torch.Tensor, b: torch.Tensor, scale: torch.Tensor,
                             dot_dtype: Optional[torch.dtype] = None) -> torch.Tensor:
     """0.5 * (row-CE(scale a b^T, diag) + row-CE(scale b a^T, diag)); a, b
@@ -157,29 +202,163 @@ def fused_symmetric_infonce(a: torch.Tensor, b: torch.Tensor, scale: torch.Tenso
     plain version; CUDA tensors take the kernels (bf16 operands via
     dot_dtype=torch.bfloat16, d <= 512) or raise."""
     _check(a, b, scale)
-    if a.device.type == "cpu":
-        return _SymInfoNCE.apply(a, b, scale, dot_dtype, False)
-    if a.device.type != "cuda":
-        raise ValueError(f"no kernel for device {a.device}")
-    if (dot_dtype or a.dtype) != torch.bfloat16:
-        raise ValueError("the CUDA kernels take bf16 operands (dot_dtype=torch.bfloat16), "
-                         f"got {dot_dtype or a.dtype}")
-    if a.shape[1] > MAX_DIM:
-        raise ValueError(f"the CUDA kernels take d <= {MAX_DIM}, got d={a.shape[1]}")
-    if b.device != a.device or scale.device != a.device:
-        raise ValueError("a, b and scale must be on the same CUDA device")
-    return _SymInfoNCE.apply(a, b, scale, dot_dtype, True)
+    return _SymInfoNCE.apply(a, b, scale, dot_dtype, _use_kernel(a, b, dot_dtype, scale))
 
 
-def _smoothing_adjustment(x, y, scale, smoothing: float) -> torch.Tensor:
+# ---------------------------------------------------------------------------
+# row cross-entropy with a column-validity count (the cache path)
+# ---------------------------------------------------------------------------
+
+
+def _colmask(n: int, n_valid: torch.Tensor, device) -> torch.Tensor:
+    """(n,) f32: 0 below n_valid, -1e30 from it on."""
+    return torch.where(torch.arange(n, device=device) < n_valid, 0.0, NEG_INF)
+
+
+def _plain_row_lse(x, y, scale, n_valid):
+    s = (x.float() @ y.float().t()) * scale + _colmask(y.shape[0], n_valid, x.device)
+    return torch.logsumexp(s, dim=1)
+
+
+def _plain_row_dx(x, y, scale, lse, n_valid):
+    """(P y with p rounded to y's type, rowsum(p * raw))."""
+    raw = x.float() @ y.float().t()
+    p = torch.exp(raw * scale + _colmask(y.shape[0], n_valid, x.device) - lse[:, None])
+    return p.to(y.dtype).float() @ y.float(), torch.sum(p * raw, dim=1)
+
+
+def _plain_row_dy(x, y, scale, lse, rows: int):
+    """P^T x over the first `rows` rows of y, p rounded to x's type; no
+    column mask, as the reference's `_dy_kernel`."""
+    raw = x.float() @ y[:rows].float().t()
+    p = torch.exp(raw * scale - lse[:, None])
+    return p.to(x.dtype).float().t() @ x.float()
+
+
+def _kernel_row_lse(x, y, scale, n_valid):
+    m, n = x.shape[0], y.shape[0]
+    xp, yp = _pad_dim(x), _pad_dim(y)
+    lse = torch.empty(m, dtype=torch.float32, device=x.device)
+    _build.launch("row_ce_lse", xp.data_ptr(), yp.data_ptr(), scale.data_ptr(),
+                  n_valid.data_ptr(), lse.data_ptr(), m, n, xp.shape[1], _build.stream_of(x))
+    _build.LAUNCHES.add("row_ce_lse")
+    return lse
+
+
+def _kernel_row_dx(x, y, scale, lse, n_valid):
+    m, n, d = x.shape[0], y.shape[0], x.shape[1]
+    xp, yp = _pad_dim(x), _pad_dim(y)
+    dp = xp.shape[1]
+    py = torch.empty((-(-m // _BM) * _BM, dp), dtype=torch.float32, device=x.device)
+    rowdot = torch.empty(m, dtype=torch.float32, device=x.device)
+    _build.launch("row_ce_dx", xp.data_ptr(), yp.data_ptr(), scale.data_ptr(),
+                  n_valid.data_ptr(), lse.contiguous().data_ptr(), py.data_ptr(),
+                  rowdot.data_ptr(), m, n, dp, _build.stream_of(x))
+    _build.LAUNCHES.add("row_ce_dx")
+    return py[:m, :d], rowdot
+
+
+def _kernel_row_dy(x, y, scale, lse, rows: int):
+    m, d = x.shape[0], x.shape[1]
+    xp, yp = _pad_dim(x), _pad_dim(y[:rows])
+    dp = xp.shape[1]
+    ptx = torch.empty((-(-rows // _BM) * _BM, dp), dtype=torch.float32, device=x.device)
+    _build.launch("row_ce_dy", xp.data_ptr(), yp.data_ptr(), scale.data_ptr(),
+                  lse.contiguous().data_ptr(), ptx.data_ptr(), m, rows, dp, _build.stream_of(x))
+    _build.LAUNCHES.add("row_ce_dy")
+    return ptx[:rows, :d]
+
+
+class _RowCE(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, y, scale, labels, n_valid, dot_dtype, grad_rows, use_kernel):
+        xd, yd = _cast(x, dot_dtype), _cast(y, dot_dtype)
+        scale32 = scale.float().reshape(1).contiguous()
+        lse = (_kernel_row_lse if use_kernel else _plain_row_lse)(xd, yd, scale32, n_valid)
+        raw_pos = torch.sum(x.float() * y.float()[labels], dim=-1)
+        loss = torch.mean(lse - scale32 * raw_pos)
+        ctx.use_kernel, ctx.grad_rows = use_kernel, grad_rows
+        ctx.scale_shape, ctx.scale_dtype = scale.shape, scale.dtype
+        ctx.save_for_backward(x, y, xd, yd, scale32, labels, n_valid, lse, raw_pos)
+        return loss
+
+    @staticmethod
+    def backward(ctx, g):
+        x, y, xd, yd, scale32, labels, n_valid, lse, raw_pos = ctx.saved_tensors
+        dx_fn, dy_fn = ((_kernel_row_dx, _kernel_row_dy) if ctx.use_kernel
+                        else (_plain_row_dx, _plain_row_dy))
+        py, rowdot = dx_fn(xd, yd, scale32, lse, n_valid)
+        ptx = dy_fn(xd, yd, scale32, lse, ctx.grad_rows)
+        cs = g.float() / x.shape[0] * scale32
+        dx = cs * (py - y.float()[labels])
+        dy = cs * ptx
+        dy.index_add_(0, labels, -cs * x.float())
+        if ctx.grad_rows < y.shape[0]:
+            dy = torch.nn.functional.pad(dy, (0, 0, 0, y.shape[0] - ctx.grad_rows))
+        dscale = g.float() / x.shape[0] * (torch.sum(rowdot) - torch.sum(raw_pos))
+        return (dx.to(x.dtype), dy.to(y.dtype),
+                dscale.reshape(ctx.scale_shape).to(ctx.scale_dtype),
+                None, None, None, None, None)
+
+
+def _row_ce_args(x, y, scale, labels, n_valid, grad_rows):
+    if x.dim() != 2 or y.dim() != 2 or x.shape[1] != y.shape[1]:
+        raise ValueError(f"x and y must be (m, d) and (n, d), got {tuple(x.shape)}, "
+                         f"{tuple(y.shape)}")
+    if labels.shape != (x.shape[0],):
+        raise ValueError(f"labels must be ({x.shape[0]},), got {tuple(labels.shape)}")
+    if scale.numel() != 1:
+        raise ValueError(f"scale must hold one value, got shape {tuple(scale.shape)}")
+    n = y.shape[0]
+    grad_rows = n if grad_rows is None else grad_rows
+    if not 0 < grad_rows <= n:
+        raise ValueError(f"grad_rows must be in [1, {n}], got {grad_rows}")
+    if n_valid is None:
+        n_valid = torch.full((1,), n, dtype=torch.int32, device=x.device)
+    return n_valid.to(torch.int32).reshape(1).contiguous(), grad_rows
+
+
+def fused_row_ce(x: torch.Tensor, y: torch.Tensor, scale: torch.Tensor,
+                 labels: torch.Tensor, n_valid: Optional[torch.Tensor] = None,
+                 dot_dtype: Optional[torch.dtype] = None,
+                 grad_rows: Optional[int] = None) -> torch.Tensor:
+    """mean_i[logsumexp_j(scale <x_i, y_j>) - scale <x_i, y_labels_i>] over
+    the columns j < n_valid (the rest masked with -1e30). x (m, d), y (n, d)
+    L2-normalized; scale a one-element tensor; labels (m,) int64 column
+    indices; n_valid None (all n) or a one-element int tensor on x's device
+    (read there: the host never waits for it). `grad_rows` forms y's
+    gradient for its first rows only (the rest are zero; every label must
+    lie below it). CPU tensors take the plain version; CUDA tensors take the
+    kernels (dot_dtype=torch.bfloat16, d <= 512) or raise."""
+    n_valid, grad_rows = _row_ce_args(x, y, scale, labels, n_valid, grad_rows)
+    use = _use_kernel(x, y, dot_dtype, scale, labels, n_valid)
+    return _RowCE.apply(x, y, scale, labels, n_valid, dot_dtype, grad_rows, use)
+
+
+def fused_row_ce_reference(x, y, scale, labels, n_valid=None, dot_dtype=None,
+                           grad_rows=None) -> torch.Tensor:
+    """Plain version on any device: the m x n similarity materialized, the
+    same rounding points and the same backward."""
+    n_valid, grad_rows = _row_ce_args(x, y, scale, labels, n_valid, grad_rows)
+    return _RowCE.apply(x, y, scale, labels, n_valid, dot_dtype, grad_rows, False)
+
+
+def _smoothing_adjustment(x, y, scale, labels, smoothing: float,
+                          n_valid: Optional[torch.Tensor] = None) -> torch.Tensor:
     """Additive term turning the hard-label CE into the label-smoothed CE:
-    mean_i[s z_pos_i - s/(n-1) (rowsum_z_i - z_pos_i)], z = scale <x, y>;
-    plain ops, so autograd supplies its gradient."""
-    n = float(y.shape[0])
-    z_pos = scale * torch.sum(x * y, dim=-1)
-    rowsum_z = scale * (x @ torch.sum(y, dim=0))
-    adj = smoothing * z_pos - (smoothing / max(n - 1.0, 1.0)) * (rowsum_z - z_pos)
-    return torch.mean(adj)
+    mean_i[s z_pos_i - s/(n-1) (rowsum_z_i - z_pos_i)], z = scale <x, y>
+    over the n valid columns (all of y without n_valid); plain ops, so
+    autograd supplies its gradient."""
+    if n_valid is None:
+        spread = smoothing / max(y.shape[0] - 1.0, 1.0)
+        ysum = torch.sum(y, dim=0)
+    else:
+        spread = smoothing / torch.clamp(n_valid.float().reshape(()) - 1.0, min=1.0)
+        col = torch.arange(y.shape[0], device=x.device)[:, None] < n_valid
+        ysum = torch.sum(torch.where(col, y, 0.0), dim=0)
+    z_pos = scale * torch.sum(x * y[labels], dim=-1)
+    rowsum_z = scale * (x @ ysum)
+    return torch.mean(smoothing * z_pos - spread * (rowsum_z - z_pos))
 
 
 def fused_clip_loss(
@@ -190,20 +369,37 @@ def fused_clip_loss(
     dot_dtype: Optional[torch.dtype] = None,
     label_smoothing: float = 0.0,
     assume_normalized: bool = False,
+    cache: Optional[torch.Tensor] = None,
+    cache_len: Optional[torch.Tensor] = None,
 ) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
-    """Drop-in for infonce.clip_loss through the fused loss. Returns (loss,
-    {loss_a, loss_b, logit_scale}), as the reference's fused path does (no
-    accuracy: nothing materializes the similarity)."""
+    """Drop-in for infonce.clip_loss through the fused loss. Without a cache
+    the symmetric kernels; with `cache` (C, d), normalized rows whose first
+    `cache_len` (a device int32) are filled, the two row cross-entropies: a
+    against [b; cache], b against a. Returns (loss, {loss_a, loss_b,
+    logit_scale}), as the reference's fused path does (no accuracy: nothing
+    materializes the similarity)."""
     if assume_normalized:
         a, b = emb_a.float(), emb_b.float()
     else:
         a, b = l2_normalize(emb_a), l2_normalize(emb_b)
     scale = effective_scale(logit_scale, max_scale)
-    loss = fused_symmetric_infonce(a, b, scale, dot_dtype)
+    B = a.shape[0]
+    labels = torch.arange(B, device=a.device)
+    if cache is None:
+        loss = fused_symmetric_infonce(a, b, scale, dot_dtype)
+        if label_smoothing > 0.0:
+            loss = loss + 0.5 * (_smoothing_adjustment(a, b, scale, labels, label_smoothing)
+                                 + _smoothing_adjustment(b, a, scale, labels, label_smoothing))
+        return loss, {"loss_a": loss, "loss_b": loss, "logit_scale": scale}
+    cols = torch.cat([b, cache.to(b.dtype)])
+    n_valid = None if cache_len is None else (cache_len + B).to(torch.int32).reshape(1)
+    loss_a = fused_row_ce(a, cols, scale, labels, n_valid, dot_dtype, grad_rows=B)
+    loss_b = fused_row_ce(b, a, scale, labels, None, dot_dtype)
     if label_smoothing > 0.0:
-        loss = loss + 0.5 * (_smoothing_adjustment(a, b, scale, label_smoothing)
-                             + _smoothing_adjustment(b, a, scale, label_smoothing))
-    return loss, {"loss_a": loss, "loss_b": loss, "logit_scale": scale}
+        loss_a = loss_a + _smoothing_adjustment(a, cols, scale, labels, label_smoothing,
+                                                n_valid)
+        loss_b = loss_b + _smoothing_adjustment(b, a, scale, labels, label_smoothing)
+    return 0.5 * (loss_a + loss_b), {"loss_a": loss_a, "loss_b": loss_b, "logit_scale": scale}
 
 
 def fused_multiway_clip_loss(

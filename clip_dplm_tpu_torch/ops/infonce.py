@@ -2,14 +2,15 @@
 target the fused kernel (ops/fused_infonce.py) is held to.
 
 Counterpart of `clip_dplm_tpu/ops/infonce.py` (`l2_normalize`,
-`similarity_logits`, `effective_scale`, `_cross_entropy`, `clip_loss`,
-`multiway_clip_loss`) without the hard-negative cache and the mesh gather, which the port does not
-have yet. Everything is f32.
+`similarity_logits`, `effective_scale`, `_cross_entropy`, `clip_loss` with
+its hard-negative cache columns, `multiway_clip_loss`, `update_cache`)
+without the mesh gather, which the port does not have yet. Everything is
+f32.
 """
 
 from __future__ import annotations
 
-from typing import Dict, Tuple
+from typing import Dict, Optional, Tuple
 
 import torch
 
@@ -58,17 +59,29 @@ def _cross_entropy(logits: torch.Tensor, labels: torch.Tensor,
 def clip_loss(emb_a: torch.Tensor, emb_b: torch.Tensor,
               logit_scale: torch.Tensor, label_smoothing: float = 0.0,
               max_scale: float = 100.0, normalize: bool = True,
+              cache: Optional[torch.Tensor] = None,
+              cache_len: Optional[torch.Tensor] = None,
               ) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
     """Single-device symmetric InfoNCE over the materialized B x B
-    similarity. Returns (loss, metrics)."""
+    similarity. `cache` (C, d) holds hard-negative embeddings appended as
+    extra columns to the a->b direction only; columns at or past `cache_len`
+    (the unfilled tail of the ring) are masked with -1e30. Accuracy is taken
+    over the widened logits. Returns (loss, metrics)."""
     if normalize:
         emb_a, emb_b = l2_normalize(emb_a), l2_normalize(emb_b)
     scale = effective_scale(logit_scale, max_scale)
     sim = similarity_logits(emb_a, emb_b, scale)
     labels = torch.arange(sim.shape[0], device=sim.device)
-    loss_a = _cross_entropy(sim, labels, label_smoothing).mean()
+    logits_a = sim
+    if cache is not None:
+        sim_cache = similarity_logits(emb_a, cache, scale)
+        if cache_len is not None:
+            col = torch.arange(cache.shape[0], device=sim.device)[None, :]
+            sim_cache = torch.where(col < cache_len, sim_cache, NEG_INF)
+        logits_a = torch.cat([sim, sim_cache], dim=1)
+    loss_a = _cross_entropy(logits_a, labels, label_smoothing).mean()
     loss_b = _cross_entropy(sim.t(), labels, label_smoothing).mean()
-    acc_a = (sim.argmax(dim=-1) == labels).float().mean()
+    acc_a = (logits_a.argmax(dim=-1) == labels).float().mean()
     acc_b = (sim.t().argmax(dim=-1) == labels).float().mean()
     metrics = {"loss_a": loss_a, "loss_b": loss_b, "accuracy_a": acc_a,
                "accuracy_b": acc_b, "accuracy": 0.5 * (acc_a + acc_b),
@@ -97,3 +110,25 @@ def multiway_clip_loss(embeddings: Dict[str, torch.Tensor], logit_scale: torch.T
         metrics[f"loss_{a}_{b}"] = loss
         metrics[f"accuracy_{a}_{b}"] = m["accuracy"]
     return total, metrics
+
+
+def update_cache(cache: torch.Tensor, ptr: torch.Tensor, new: torch.Tensor,
+                 filled: Optional[torch.Tensor] = None,
+                 ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """The circular hard-negative cache (old/clip_opt.py:76-81 semantics):
+    if ptr + B would overflow the C rows, ptr resets to 0 first; then the B
+    rows of `new` are written at ptr and ptr advances modulo C. Returns
+    (cache, ptr, filled); `filled` is a high-water mark, so a warm cache keeps
+    its negatives across a wrap. `ptr` and `filled` are int32 device scalars
+    and the write is an in-place `index_copy_` into `cache` (the reference's
+    is a functional update): nothing waits on the device."""
+    C, B = cache.shape[0], new.shape[0]
+    if B > C:
+        raise ValueError(f"a batch of {B} rows does not fit a cache of {C} rows")
+    if filled is None:
+        filled = ptr
+    ptr = torch.where(ptr + B > C, torch.zeros_like(ptr), ptr)
+    rows = ptr.long() + torch.arange(B, device=cache.device)
+    cache.index_copy_(0, rows, new.detach().to(cache.dtype))
+    end = ptr + B
+    return cache, end % C, torch.maximum(filled, end)

@@ -3,8 +3,11 @@
 Counterpart of `clip_dplm_tpu/train/state.py`. `TrainState` holds the model
 (its parameters are the state's parameters), the optimizer, its moments,
 the step and an integer dropout key; the dropout seeds of a step are hashed
-from (key, step, site) on the host (ops/fused_dense.py::DropoutSeeds). The
-hard-negative cache is not ported.
+from (key, step, site) on the host (ops/fused_dense.py::DropoutSeeds). With
+`contrastive.use_cache` it also holds the hard-negative cache: `cache`
+((cache_size, projection.dim) f32, zeros at first) and `cache_ptr` /
+`cache_len`, int32 scalars on the model's device (ops/infonce.py::
+update_cache); without it the three are None.
 
 `FusedAdamW` is the reference's `fused_adamw`: AdamW with the global-norm
 clip folded into the one per-tensor update, bias correction, decoupled
@@ -177,6 +180,10 @@ class TrainState:
     opt_state: AdamWState
     step: int
     key: int  # integer dropout key
+    # the hard-negative ring (contrastive.use_cache), else None
+    cache: Optional[torch.Tensor] = None
+    cache_ptr: Optional[torch.Tensor] = None
+    cache_len: Optional[torch.Tensor] = None
 
     def params(self) -> Dict[str, torch.Tensor]:
         return dict(self.model.named_parameters())
@@ -196,4 +203,10 @@ def create_train_state(model: nn.Module, cfg: Config, tx: Optional[FusedAdamW] =
     if frozen_keys:
         tx = freeze_subtrees(tx, params, frozen_keys)
     key = (cfg.train.seed * 0x9E3779B97F4A7C15 + 1) & ((1 << 64) - 1)
-    return TrainState(model=model, tx=tx, opt_state=tx.init(params), step=0, key=key)
+    state = TrainState(model=model, tx=tx, opt_state=tx.init(params), step=0, key=key)
+    if cfg.contrastive.use_cache:
+        state.cache = torch.zeros((cfg.contrastive.cache_size, cfg.projection.dim),
+                                  dtype=torch.float32, device=device)
+        state.cache_ptr = torch.zeros((), dtype=torch.int32, device=device)
+        state.cache_len = torch.zeros((), dtype=torch.int32, device=device)
+    return state

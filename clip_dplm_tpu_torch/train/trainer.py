@@ -6,10 +6,16 @@ pert_embed, protein_embed: the sum of the three pairs' losses).
 Counterpart of `clip_dplm_tpu/train/trainer.py` for those families with the
 `infonce` loss: `make_loss_fn` (the per-family loss), `make_train_step`
 (gradient accumulation over micro-batches, the fused AdamW, the optional
-gradient-norm metric), `make_eval_step` and a `Trainer` with the epoch
-loop, validation and early stopping. PyTorch runs eagerly, so there is no
-jit and no mesh; a step returns its metrics as device tensors and never
-waits on the device. Checkpointing and preemption are not ported yet.
+gradient-norm metric, the hard-negative cache of the pair family),
+`make_eval_step` and a `Trainer` with the epoch loop, validation and early
+stopping. With `contrastive.use_cache` every micro-batch's a->b direction
+reads the state's cache as extra negative columns (its unfilled tail
+masked), and after the optimizer the cache takes the step's normalized emb_b,
+every micro-batch's in order; tf_clip neither reads nor writes it. PyTorch
+runs eagerly, so there is no jit and no mesh; a step returns its metrics as
+device tensors and never waits on the device (the cache's pointer and fill
+level stay on the device too). Checkpointing and preemption are not ported
+yet.
 """
 
 from __future__ import annotations
@@ -47,22 +53,32 @@ def _logit_scale(cfg: Config, out) -> torch.Tensor:
 
 
 def _pair_loss_fn(cfg: Config):
-    """(model, batch, seeds) -> (loss, metrics) of the two-tower families:
-    the fused loss (bf16 similarity operands) or the plain one."""
+    """(model, batch, seeds, cache, cache_len) -> (loss, (metrics, emb_b))
+    of the two-tower families: the fused loss (bf16 similarity operands) or
+    the plain one, with the hard-negative cache's columns when
+    contrastive.use_cache is set. emb_b is the batch's L2-normalized b
+    embedding, detached, for the cache (None without one)."""
     _check_loss(cfg)
     cc = cfg.contrastive
 
-    def loss_fn(model, batch, seeds: DropoutSeeds):
+    def loss_fn(model, batch, seeds: DropoutSeeds, cache=None, cache_len=None):
+        if not cc.use_cache:
+            cache = cache_len = None
         out = model(batch, deterministic=False, seeds=seeds)
         ls = _logit_scale(cfg, out)
         if cc.use_fused_kernel:
-            return fused_clip_loss(
+            loss, metrics = fused_clip_loss(
                 out["emb_a"], out["emb_b"], ls, max_scale=cc.logit_scale_max,
                 dot_dtype=torch.bfloat16, label_smoothing=cc.label_smoothing,
-                assume_normalized=cfg.projection.l2_normalize_output)
-        return infonce.clip_loss(out["emb_a"], out["emb_b"], ls,
-                                 label_smoothing=cc.label_smoothing,
-                                 max_scale=cc.logit_scale_max)
+                assume_normalized=cfg.projection.l2_normalize_output,
+                cache=cache, cache_len=cache_len)
+        else:
+            loss, metrics = infonce.clip_loss(out["emb_a"], out["emb_b"], ls,
+                                              label_smoothing=cc.label_smoothing,
+                                              max_scale=cc.logit_scale_max,
+                                              cache=cache, cache_len=cache_len)
+        emb_b = infonce.l2_normalize(out["emb_b"].detach()) if cc.use_cache else None
+        return loss, (metrics, emb_b)
 
     return loss_fn
 
@@ -73,39 +89,52 @@ def _embeddings(out) -> Dict[str, torch.Tensor]:
 
 
 def _multiway_loss_fn(cfg: Config):
-    """(model, batch, seeds) -> (loss, metrics) of tf_clip: the sum of the
-    pairwise symmetric losses over cell / pert / protein, fused (bf16
-    similarity operands) or plain."""
+    """(model, batch, seeds, cache, cache_len) -> (loss, (metrics, None)) of
+    tf_clip: the sum of the pairwise symmetric losses over cell / pert /
+    protein, fused (bf16 similarity operands) or plain. The cache is not
+    read, and nothing is given back for it."""
     _check_loss(cfg)
     cc = cfg.contrastive
 
-    def loss_fn(model, batch, seeds: DropoutSeeds):
+    def loss_fn(model, batch, seeds: DropoutSeeds, cache=None, cache_len=None):
+        del cache, cache_len
         out = model(batch, deterministic=False, seeds=seeds)
         ls = _logit_scale(cfg, out)
         if cc.use_fused_kernel:
-            return fused_multiway_clip_loss(
+            loss, metrics = fused_multiway_clip_loss(
                 _embeddings(out), ls, max_scale=cc.logit_scale_max, dot_dtype=torch.bfloat16,
                 label_smoothing=cc.label_smoothing)
-        return infonce.multiway_clip_loss(_embeddings(out), ls, max_scale=cc.logit_scale_max,
-                                          label_smoothing=cc.label_smoothing)
+        else:
+            loss, metrics = infonce.multiway_clip_loss(
+                _embeddings(out), ls, max_scale=cc.logit_scale_max,
+                label_smoothing=cc.label_smoothing)
+        return loss, (metrics, None)
 
     return loss_fn
 
 
 def make_loss_fn(cfg: Config):
-    """The experiment family's loss: (model, batch, seeds) -> (loss, metrics)."""
+    """The experiment family's loss: (model, batch, seeds, cache=None,
+    cache_len=None) -> (loss, (metrics, emb_b for the cache or None))."""
     return _multiway_loss_fn(cfg) if cfg.experiment == "tf_clip" else _pair_loss_fn(cfg)
 
 
 def make_train_step(cfg: Config) -> Callable[[TrainState, Dict], Tuple[TrainState, Dict]]:
     """step(state, batch) -> (state, metrics). With grad_accum_steps > 1 the
     batch is cut into that many micro-batches whose gradients, losses and
-    metrics are averaged. Dropout seeds: (state.key, step * accum + micro)."""
+    metrics are averaged. Dropout seeds: (state.key, step * accum + micro).
+    With contrastive.use_cache every micro-batch reads the cache as it was
+    before the step, which then takes every micro-batch's normalized emb_b,
+    in order, after the optimizer (ops/infonce.py::update_cache)."""
     loss_fn = make_loss_fn(cfg)
     accum = max(1, cfg.train.optim.grad_accum_steps)
     log_grad_norm = cfg.train.log_grad_norm
+    use_cache = cfg.contrastive.use_cache
 
     def step(state: TrainState, batch: Dict) -> Tuple[TrainState, Dict]:
+        if use_cache and state.cache is None:
+            raise ValueError("contrastive.use_cache is set but the state has no cache "
+                             "(create it with create_train_state from this config)")
         model = state.model
         params = state.params()
         for p in params.values():
@@ -114,10 +143,14 @@ def make_train_step(cfg: Config) -> Callable[[TrainState, Dict], Tuple[TrainStat
         if B % accum:
             raise ValueError(f"batch {B} is not divisible by grad_accum_steps={accum}")
         mb = B // accum
-        loss_sum, metrics_sum = None, None
+        loss_sum, metrics_sum, new_b = None, None, []
         for i in range(accum):
             micro = batch if accum == 1 else {k: v[i * mb:(i + 1) * mb] for k, v in batch.items()}
-            loss, metrics = loss_fn(model, micro, DropoutSeeds(state.key, state.step * accum + i))
+            loss, (metrics, emb_b) = loss_fn(
+                model, micro, DropoutSeeds(state.key, state.step * accum + i),
+                state.cache, state.cache_len)
+            if emb_b is not None:
+                new_b.append(emb_b)
             loss.backward()
             loss, metrics = loss.detach(), {k: v.detach() for k, v in metrics.items()}
             if loss_sum is None:
@@ -134,6 +167,9 @@ def make_train_step(cfg: Config) -> Callable[[TrainState, Dict], Tuple[TrainStat
             metrics_sum = {k: v * inv for k, v in metrics_sum.items()}
         state.tx.update(grads, state.opt_state, params)
         state.step += 1
+        if use_cache and new_b:
+            state.cache, state.cache_ptr, state.cache_len = infonce.update_cache(
+                state.cache, state.cache_ptr, torch.cat(new_b), state.cache_len)
         metrics = dict(metrics_sum)
         metrics["loss"] = loss_sum
         if log_grad_norm:

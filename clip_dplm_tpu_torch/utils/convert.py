@@ -11,7 +11,8 @@ included) are transposed from flax's (in, out) to the port's (out, in), every
 other leaf keeps its shape (the 0-d `logit_scale`, the (1, max_len, d) or
 (1, 8, d) `pos_embed`, the (1, 1, d) `cls_token`), and a stacked
 `layers/block` tree (the `scan_layers` layout) is unstacked to `layer_<i>`
-first.
+first. `load_cache` carries a train state's hard-negative cache (`cache`,
+`cache_ptr`, `cache_len`, as numpy) into the port's `TrainState`.
 """
 
 from __future__ import annotations
@@ -73,3 +74,21 @@ def load_flax_params(module: nn.Module, params: Mapping) -> nn.Module:
     sd = flax_to_state_dict(params, getattr(module.cfg, "num_layers", None))
     module.load_state_dict(sd, strict=True)
     return module
+
+
+def load_cache(state, cache, cache_ptr, cache_len):
+    """Copy a hard-negative cache into the port's TrainState in place, onto
+    its device: `cache` (cache_size, dim), `cache_ptr` and `cache_len`
+    scalars, any array-likes (a JAX TrainState's fields through np.asarray,
+    say). The state must have a cache of the same shape
+    (contrastive.use_cache). Returns the state."""
+    if state.cache is None:
+        raise ValueError("the state has no hard-negative cache (contrastive.use_cache is off)")
+    cache = np.array(cache, dtype=np.float32)
+    if cache.shape != tuple(state.cache.shape):
+        raise ValueError(f"cache of shape {cache.shape} does not fit the state's "
+                         f"{tuple(state.cache.shape)}")
+    state.cache.copy_(torch.from_numpy(cache))
+    state.cache_ptr.fill_(int(np.asarray(cache_ptr)))
+    state.cache_len.fill_(int(np.asarray(cache_len)))
+    return state

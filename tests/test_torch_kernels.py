@@ -460,3 +460,79 @@ def test_flash_attention_autograd_matches_plain(cuda_device, np_rng):
     y_ref, grads_ref = run(attention_reference)
     torch.testing.assert_close(y.float(), y_ref.float(), **TOL)
     _grads_close(grads, grads_ref, ["dq", "dk", "dv"])
+
+
+def _row_ce_inputs(rng, device, m, n, d=512):
+    f = lambda *s: torch.nn.functional.normalize(  # noqa: E731
+        torch.from_numpy(rng.normal(size=s).astype(np.float32)).to(device), dim=-1)
+    return f(m, d), f(n, d), torch.tensor(14.3, device=device)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("m,n,n_valid,rows", [(1024, 2048, 1024 + 700, 1024), (512, 512, None, 512),
+                                              (1000, 1777, 1400, 1777), (40, 136, 100, 64),
+                                              (33, 200, 1, 200)])
+def test_row_ce_kernels_match_plain(cuda_device, np_rng, m, n, n_valid, rows):
+    """The row lse, P y with rowsum(p raw), and P^T x over the first `rows`
+    rows of y, each against its plain version on the same inputs (the
+    backward kernels on the plain lse); n_valid = 1 masks all but one column."""
+    x, y, s = _row_ce_inputs(np_rng, cuda_device, m, n)
+    xb, yb, s32 = x.bfloat16(), y.bfloat16(), s.reshape(1)
+    nv = torch.tensor([n if n_valid is None else n_valid], dtype=torch.int32, device=cuda_device)
+    before = _build.LAUNCHES.snapshot()
+    lse = fi._kernel_row_lse(xb, yb, s32, nv)
+    lse_ref = fi._plain_row_lse(xb, yb, s32, nv)
+    got = fi._kernel_row_dx(xb, yb, s32, lse_ref, nv) + (fi._kernel_row_dy(xb, yb, s32, lse_ref,
+                                                                           rows),)
+    torch.cuda.synchronize()
+    after = _build.LAUNCHES.snapshot()
+    for name in ("row_ce_lse", "row_ce_dx", "row_ce_dy"):
+        assert after[name] == before[name] + 1, name
+    torch.testing.assert_close(lse, lse_ref, **TOL)
+    want = fi._plain_row_dx(xb, yb, s32, lse_ref, nv) + (fi._plain_row_dy(xb, yb, s32, lse_ref,
+                                                                          rows),)
+    assert all(torch.isfinite(t).all() for t in got)
+    _grads_close(got, want, ["P y", "rowdot", "P^T x"])
+
+
+@pytest.mark.cuda
+def test_fused_row_ce_matches_plain(cuda_device, np_rng):
+    """The autograd Function on the card (three kernels and the tail) against
+    its plain version: a ragged shape, shuffled labels, a partly valid y, dy
+    formed for the first 1500 rows."""
+    x, y, s = _row_ce_inputs(np_rng, cuda_device, 1000, 1777)
+    labels = torch.from_numpy(np_rng.permutation(1400)[:1000]).to(cuda_device)
+    nv = torch.tensor([1400], dtype=torch.int32, device=cuda_device)
+
+    def run(fn):
+        leaves = [t.clone().requires_grad_(True) for t in (x, y, s)]
+        loss = fn(*leaves, labels, nv, torch.bfloat16, grad_rows=1500)
+        loss.backward()
+        return loss.detach(), [t.grad for t in leaves]
+
+    loss, grads = run(fi.fused_row_ce)
+    loss_ref, grads_ref = run(fi.fused_row_ce_reference)
+    torch.testing.assert_close(loss, loss_ref, **TOL)
+    assert not grads[1][1500:].any()
+    _grads_close(grads, grads_ref, ["dx", "dy", "dscale"])
+
+
+@pytest.mark.cuda
+def test_cached_fused_clip_loss_matches_plain(cuda_device, np_rng):
+    """fused_clip_loss with a partly filled cache on the card against its CPU
+    route on the same inputs."""
+    a, b, _ = _row_ce_inputs(np_rng, cuda_device, 256, 256)
+    cache, _, _ = _row_ce_inputs(np_rng, cuda_device, 1024, 1)
+    ls = torch.tensor(2.6592, device=cuda_device)
+    cache_len = torch.tensor(640, dtype=torch.int32, device=cuda_device)
+    out = {}
+    for dev in (cuda_device, torch.device("cpu")):
+        leaves = [t.to(dev).clone().requires_grad_(True) for t in (a, b, ls)]
+        loss, m = fi.fused_clip_loss(*leaves, dot_dtype=torch.bfloat16, cache=cache.to(dev),
+                                     cache_len=cache_len.to(dev))
+        loss.backward()
+        out[dev.type] = [loss.detach().cpu(), m["loss_a"].detach().cpu()] + [
+            t.grad.cpu() for t in leaves]
+    torch.testing.assert_close(out["cuda"][0], out["cpu"][0], **TOL)
+    torch.testing.assert_close(out["cuda"][1], out["cpu"][1], **TOL)
+    _grads_close(out["cuda"][2:], out["cpu"][2:], ["da", "db", "dls"])

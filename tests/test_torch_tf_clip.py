@@ -172,8 +172,9 @@ def test_three_train_steps_match_jax(monkeypatch):
     jloss = jtrainer._multiway_loss_fn(jcfg)
     want = flax_to_state_dict(jax.jit(jax.grad(lambda p, b: jloss(
         p, jm.apply, b, jax.random.PRNGKey(0), None, None)[0]))(params, _jnp(batches[0])))
-    loss, metrics = ptrainer.make_loss_fn(pcfg)(port, to_device(batches[0], "cpu"),
-                                                DropoutSeeds(0, 0))
+    loss, (metrics, emb_b) = ptrainer.make_loss_fn(pcfg)(port, to_device(batches[0], "cpu"),
+                                                         DropoutSeeds(0, 0))
+    assert emb_b is None  # tf_clip gives nothing to the hard-negative cache
     assert set(metrics) == {f"{k}_{a}_{b}" for k in ("loss", "accuracy")
                             for a, b in (("cell", "pert"), ("cell", "protein"),
                                          ("pert", "protein"))}

@@ -20,11 +20,16 @@ Phases, each fatal on failure (non-zero exit, no result line):
      masks equal bit for bit), symmetric InfoNCE at B=8192 and B=1000, d=512;
   7. the two-tower train path at the widths of the repository's bench.py:
      (a) one train step on the card (kernels) against the same step on the
-     CPU (plain versions) from the same weights and batch, B=256, bf16 both,
+     CPU (plain versions) from the same weights and batch, bf16 both,
      dropout on: every leaf's gradient before the optimizer, the loss and the
-     update; (b) the train CLI (experiments/train.py --device cuda) for
+     update; at B=256 (the merged from-raw kernel) and B=512 (the two
+     passes), each launching that schedule's kernels and not the other's; (b) the train CLI (experiments/train.py --device cuda) for
      3 epochs at B=256, whose loss must fall; (c) experiments/bench.py at
-     B=8192 (pairs/s, MFU). Every train launch counter must rise in (b)+(c);
+     B=8192 (pairs/s, MFU). Every train launch counter must rise in (b)+(c),
+     the InfoNCE's as the default `fused_materialize_raw="auto"` has it: the
+     saving forward and the from-raw schedule the port's shape rule picks
+     (the eval step's forward saves nothing), the recompute pass not at all;
+     then one CLI epoch with "never" must launch the recompute pass;
   8. the flagship RNA<->RBP token transformer (experiments/bench.py --model
      rna_rbp widths: towers 120/1280 -> 512, 3 blocks of 8 heads, S = 128):
      (a) the short-S attention backward, the CLS-query attention forward
@@ -37,7 +42,8 @@ Phases, each fatal on failure (non-zero exit, no result line):
      (b) one flagship train step on the card against the CPU, B=16, dropout
      on, as 7(a); (c) the train CLI with experiment=rna_rbp at full width,
      B=256, 3 epochs, whose loss must fall; (d) experiments/bench.py --model
-     rna_rbp at B=1024. The three new launch counters must rise in (c)+(d);
+     rna_rbp at B=1024. The three new launch counters must rise in (c)+(d),
+     and the saved-raw InfoNCE's as in 7;
   9. the tf_clip three-way step (experiments/bench.py --model tf_clip
      widths: three encoders of 3 blocks of 8 heads, d=512; gene_dim 2000 + 1,
      esm_dim 1280, 10 DEG tokens): (a) the tiny-S attention forward and
@@ -53,7 +59,7 @@ Phases, each fatal on failure (non-zero exit, no result line):
      as 7(a); (c) the train CLI with experiment=tf_clip, B=256, 3 epochs,
      whose loss must fall; (d) experiments/bench.py --model tf_clip at
      B=4096. The four new launch counters and flash_attention's must rise in
-     (c)+(d);
+     (c)+(d), and the saved-raw InfoNCE's as in 7;
  10. the `two_tower_optimized` preset (the hard-negative cache with the
      fused loss): (a) the row cross-entropy's three kernels (row lse, P y
      with rowsum(p raw), P^T x) against their plain versions on the card in
@@ -71,7 +77,25 @@ Phases, each fatal on failure (non-zero exit, no result line):
      cache rows within the same noise bound; (c) the train CLI with the
      preset's two overrides (B=128, cache 8192) for 3 epochs, whose loss
      must fall; (d) experiments/bench.py --model two_tower_cached at B=8192.
-     The three new launch counters must rise in (c)+(d).
+     The three new launch counters must rise in (c)+(d);
+ 11. the saved-raw InfoNCE (JAX's default on the three train paths): the
+     saving forward (row and column lse, the int16 raw with |dq| <= 1), pass
+     A (P y, rowdot), pass B (P^T x) and the merged kernel (all three in one
+     pass over the raw) against their plain versions on the card in bf16
+     (atol = rtol = 2e-2, the backward outputs relative to their largest
+     entry, on the same raw and the plain lse) at B=8192 and 4096, d=512, a
+     ragged B=1000 (partial tiles and clusters), B=256 and a ragged 200 (one
+     cluster of the merged kernel, as the train CLIs run it); two launches
+     of each kernel equal byte for byte; the whole fused_symmetric_infonce
+     with materialize_raw=True: its backward against the plain backward on
+     the raw and lse its own forward saved (da, db, dscale) at B=8192 and
+     1000 on independent unit rows and at B=8192 and 256 on aligned pairs,
+     and against its plain version end to end (loss, da, db, dscale) on the
+     independent rows; its backward timed beside the recompute backward at
+     B=8192; the merged and two-pass schedules timed in five alternating
+     rounds, device and host-and-device time, at B=8192, 4096, 1024, 512,
+     256, 200 and 128 beside the choice of the port's shape rule.
+     No single library call computes these functions.
 Prints a JSON line of per-kernel results (each kernel's time at its main
 shape, its plain version's, the library call's where there is one, and the
 bound: the larger of the bytes it must move over 3.35 TB/s and its
@@ -147,8 +171,18 @@ CACHE_KERNELS = {
     "row_ce_dy": ("clip_dplm_tpu_torch/csrc/row_ce.cu",
                   "clip_dplm_tpu/ops/fused_infonce.py:236"),
 }
+SAVED_RAW_KERNELS = {
+    "sym_infonce_lse_save": ("clip_dplm_tpu_torch/csrc/fused_infonce.cu",
+                             "clip_dplm_tpu/ops/fused_infonce.py:1220"),
+    "sym_infonce_grad_merged": ("clip_dplm_tpu_torch/csrc/fused_infonce.cu",
+                                "clip_dplm_tpu/ops/fused_infonce.py:665"),
+    "sym_infonce_grad_raw": ("clip_dplm_tpu_torch/csrc/fused_infonce.cu",
+                             "clip_dplm_tpu/ops/fused_infonce.py:754"),
+    "sym_infonce_grad_rawT": ("clip_dplm_tpu_torch/csrc/fused_infonce.cu",
+                              "clip_dplm_tpu/ops/fused_infonce.py:782"),
+}
 KERNELS = {**SERVE_KERNELS, **TRAIN_KERNELS, **FLAGSHIP_KERNELS, **TF_CLIP_KERNELS,
-           **CACHE_KERNELS}
+           **CACHE_KERNELS, **SAVED_RAW_KERNELS}
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM HBM3 bandwidth
 PEAK_OPS = {"bf16": 989e12, "f32": 67e12}  # dense tensor-core bf16; f32 off the tensor cores
 
@@ -541,23 +575,51 @@ def phase_train_kernels(torch, results):
         del graphs
 
 
+def loss_kernels(*batches):
+    """The InfoNCE launch counters a default ("auto") train path at these
+    batch sizes must raise: the saving forward and the from-raw schedule the
+    port's shape rule picks for each batch."""
+    from clip_dplm_tpu_torch.ops import fused_infonce as fi
+
+    names = {"sym_infonce_lse_save"}
+    for B in batches:
+        names.update(["sym_infonce_grad_merged"] if fi._from_raw_merged(B)
+                     else ["sym_infonce_grad_raw", "sym_infonce_grad_rawT"])
+    return sorted(names)
+
+
+def check_saved_raw_path(launches, what, *batches):
+    for name in loss_kernels(*batches):
+        check(launches[name] > 0, f"kernel {name} was not launched by the {what} path")
+    check(launches["sym_infonce_grad"] == 0,
+          f"the {what} path ran the recompute pass under fused_materialize_raw=auto")
+
+
 def _rel(a, b):
     return ((a - b).norm() / b.norm().clamp(min=1e-30)).item()
 
 
-def phase_train_step(torch):
-    """7(a): the two-tower step at bench widths, B=256, card vs CPU."""
+def phase_train_step(torch, build):
+    """7(a): the two-tower step at bench widths, card vs CPU, at B=256 and
+    512: the two from-raw schedules of the port's shape rule."""
     from clip_dplm_tpu_torch.config import Config, apply_overrides
     from clip_dplm_tpu_torch.experiments import bench
 
-    B = 256
-    cfg = apply_overrides(Config(), bench.OVERRIDES + [
-        f"train.batch_size={B}", "train.optim.schedule=constant",
-        "train.optim.learning_rate=1e-3"])
     rng = np.random.default_rng(5)
-    batch = {"a": rng.normal(size=(B, 256)).astype(np.float32),
-             "b": rng.normal(size=(B, 1280)).astype(np.float32)}
-    step_card_vs_cpu(torch, f"train step B={B} (bench widths, dropout 0.1)", cfg, batch)
+    for B in (256, 512):
+        cfg = apply_overrides(Config(), bench.OVERRIDES + [
+            f"train.batch_size={B}", "train.optim.schedule=constant",
+            "train.optim.learning_rate=1e-3"])
+        batch = {"a": rng.normal(size=(B, 256)).astype(np.float32),
+                 "b": rng.normal(size=(B, 1280)).astype(np.float32)}
+        build.LAUNCHES.reset()
+        step_card_vs_cpu(torch, f"train step B={B} (bench widths, dropout 0.1)", cfg, batch)
+        torch.cuda.synchronize()
+        launches = build.LAUNCHES.snapshot()
+        check_saved_raw_path(launches, f"B={B} step", B)
+        other = [k for k in SAVED_RAW_KERNELS if k not in loss_kernels(B) and launches[k]]
+        check(not other, f"train step B={B}: the other from-raw schedule ran too ({other})")
+        print(f"train step B={B}: InfoNCE kernels {', '.join(loss_kernels(B))}")
 
 
 def step_card_vs_cpu(torch, what, cfg, batch, cache=None):
@@ -672,7 +734,22 @@ def phase_train_path(torch, build):
           f"{out['peak_bf16_tflops']} TFLOP/s bf16 peak")
     print(f"launches during the train phase: {launches}")
     for name in TRAIN_KERNELS:
-        check(launches[name] > 0, f"kernel {name} was not launched by the train path")
+        if name != "sym_infonce_grad":
+            check(launches[name] > 0, f"kernel {name} was not launched by the train path")
+    check_saved_raw_path(launches, "train", 256, 8192)
+    # the recompute pass is what "never" runs: one CLI epoch with it
+    build.LAUNCHES.reset()
+    never = ["-o", "contrastive.fused_materialize_raw=never"]
+    hist = train_cli.main(["--device", "cuda", "--epochs", "1", *never,
+                           *[a for o in overrides for a in ("-o", o)]])
+    torch.cuda.synchronize()
+    counts = build.LAUNCHES.snapshot()
+    check(np.isfinite(hist["train_loss"][0]), f"train CLI (never) loss {hist['train_loss']}")
+    check(counts["sym_infonce_grad"] > 0 and counts["sym_infonce_lse_save"] == 0,
+          f"train CLI with fused_materialize_raw=never: launches {counts}")
+    print(f"train CLI with fused_materialize_raw=never (B=256, 1 epoch): train_loss "
+          f"{hist['train_loss']}, sym_infonce_grad launched {counts['sym_infonce_grad']} times")
+    launches["sym_infonce_grad"] = counts["sym_infonce_grad"]
     return launches
 
 
@@ -791,6 +868,7 @@ def phase_flagship_path(torch, build):
     print(f"launches during the flagship phase: {launches}")
     for name in list(FLAGSHIP_KERNELS) + ["short_attention", "short_attention_out_proj"]:
         check(launches[name] > 0, f"kernel {name} was not launched by the flagship path")
+    check_saved_raw_path(launches, "flagship", 256, 1024)
     return launches
 
 
@@ -920,6 +998,7 @@ def phase_tf_clip_path(torch, build):
     print(f"launches during the tf_clip phase: {launches}")
     for name in list(TF_CLIP_KERNELS) + ["flash_attention"]:
         check(launches[name] > 0, f"kernel {name} was not launched by the tf_clip path")
+    check_saved_raw_path(launches, "tf_clip", 256, 4096)
     return launches
 
 
@@ -1036,6 +1115,168 @@ def phase_cache_path(torch, build):
     return launches
 
 
+def phase_saved_raw_kernels(torch, results):
+    """11: the saved-raw InfoNCE's four kernels against their plain versions
+    (the backward ones on the same raw and the plain lse), bit-for-bit
+    repeats, the whole autograd Function, and the two from-raw schedules
+    timed at the train paths' shapes."""
+    from clip_dplm_tpu_torch.ops import fused_infonce as fi
+
+    dev = torch.device("cuda")
+    g = torch.Generator(device=dev).manual_seed(17)
+
+    def unit(*s):
+        return torch.nn.functional.normalize(torch.randn(*s, generator=g, device=dev), dim=-1)
+
+    d = 512
+    scale = torch.tensor([14.2857], device=dev)
+    # 256 and a ragged 200: one cluster of the merged kernel (no partials),
+    # the launch the train CLIs' B=256 steps make
+    for what, B in (("two-tower", 8192), ("tf_clip pair", 4096), ("ragged", 1000),
+                    ("train CLI", 256), ("ragged one cluster", 200)):
+        x = unit(B, d)
+        y = torch.nn.functional.normalize(x + 0.5 * unit(B, d), dim=-1)
+        xb, yb = x.bfloat16(), y.bfloat16()
+        shape = f"{what} B={B} d={d}"
+        got, want = fi._kernel_lse_save(xb, yb, scale), fi._plain_lse_save(xb, yb, scale)
+        err = max(check_outputs(torch, f"sym_infonce_lse_save {shape}", [got[i]], [want[i]],
+                                [name]) for i, name in enumerate(("lse_row", "lse_col")))
+        dq = (got[2].int() - want[2].int()).abs().max().item()
+        check(got[2].shape == want[2].shape and dq <= 1,
+              f"sym_infonce_lse_save {shape}: raw_q off by {dq} (bound 1)")
+        print(f"sym_infonce_lse_save {shape}: raw_q max |dq| {dq}, "
+              f"{int((got[2] != want[2]).sum())} of {B * B} entries differ by 1")
+        ms, plain_ms = timed_pair(torch, lambda: fi._kernel_lse_save(xb, yb, scale),
+                                  lambda: fi._plain_lse_save(xb, yb, scale))
+        # bytes: x, y (bf16), scale in; both lse and the int16 raw out; ops: the raw product
+        record(results, "sym_infonce_lse_save", shape + " (lse and int16 raw)", err, ms, plain_ms,
+               work=(2 * B * d * 2 + 4 + 2 * B * 4 + B * B * 2, 2 * B * B * d))
+        args = (got[2], xb, yb, scale, *want[:2])
+        raw_in = B * B * 2 + 2 * B * 4 + 4  # raw_q, both lse, scale
+        passes = (  # name, kernel, plain, outputs, bytes, ops
+            ("sym_infonce_grad_raw", fi._kernel_grad_raw, fi._plain_grad_raw,
+             ["acc_a", "rowdot"], raw_in + B * d * 2 + B * d * 4 + B * 4, 2 * B * B * d),
+            ("sym_infonce_grad_rawT", lambda *a: (fi._kernel_grad_rawT(*a),),
+             lambda *a: (fi._plain_grad_rawT(*a),), ["acc_b"], raw_in + B * d * 2 + B * d * 4,
+             2 * B * B * d),
+            ("sym_infonce_grad_merged", fi._kernel_grad_merged, fi._plain_grad_from_raw,
+             ["acc_a", "rowdot", "acc_b"], raw_in + 2 * B * d * 2 + 2 * B * d * 4 + B * 4,
+             4 * B * B * d))
+        for name, kfn, pfn, outs, nbytes, ops in passes:
+            err = check_outputs(torch, f"{name} {shape}", kfn(*args), pfn(*args), outs,
+                                raw_first=False)
+            ms, plain_ms = timed_pair(torch, lambda: kfn(*args), lambda: pfn(*args))
+            record(results, name, f"{shape} {', '.join(outs)} (on the plain lse)", err, ms,
+                   plain_ms, work=(nbytes, ops))
+        err = check_outputs(torch, f"merged vs two-pass {shape}", fi._kernel_grad_merged(*args),
+                            fi._kernel_grad_two_pass(*args), ["acc_a", "rowdot", "acc_b"],
+                            raw_first=False)
+        print(f"sym_infonce_grad_merged {shape}: against the two passes, max err {err:.3e}")
+        for name, fn in (("sym_infonce_lse_save", lambda: fi._kernel_lse_save(xb, yb, scale)),
+                         ("sym_infonce_grad_raw", lambda: fi._kernel_grad_raw(*args)),
+                         ("sym_infonce_grad_rawT", lambda: (fi._kernel_grad_rawT(*args),)),
+                         ("sym_infonce_grad_merged", lambda: fi._kernel_grad_merged(*args))):
+            first, second = fn(), fn()
+            check(all(torch.equal(u, v) for u, v in zip(first, second)),
+                  f"{name} {shape}: two launches differ")
+        print(f"saved-raw kernels {shape}: two launches of each equal byte for byte")
+    # the whole autograd Function with the saved raw. Its backward is held
+    # to the plain backward run on the residuals the kernel forward saved
+    # (its raw_q and lse): with aligned pairs (b near a) 0.5 acc_a nearly
+    # cancels b in da, so a wrong acc_a or acc_b moves da by many times its
+    # largest entry. Two forwards' lse differ by ~1e-5, and where one diagonal
+    # p's bf16 rounding flips, a whole row of da moves by ~10 % of that entry:
+    # so kernels against plain end to end only on independent unit rows.
+    for B, aligned in ((8192, False), (1000, False), (8192, True), (256, True)):
+        a = unit(B, d)
+        b = torch.nn.functional.normalize(a + 0.5 * unit(B, d), dim=-1) if aligned else unit(B, d)
+        outs, graphs = {}, {}
+        for key, fn, mat in (("kernel", fi.fused_symmetric_infonce, True),
+                             ("plain", fi.fused_symmetric_infonce_reference, True),
+                             ("recompute", fi.fused_symmetric_infonce, False)):
+            leaves = [t.clone().requires_grad_(True) for t in (a, b, scale)]
+            loss = fn(*leaves, torch.bfloat16, materialize_raw=mat)
+            loss.backward(retain_graph=True)
+            outs[key] = [loss.detach()] + [t.grad for t in leaves]
+            graphs[key] = loss
+        torch.cuda.synchronize()
+        what = f"fused_symmetric_infonce(materialize_raw=True) B={B} d={d}" + (
+            " aligned pairs" if aligned else "")
+        rel = [_rel(u.float(), v.float()) for u, v in zip(outs["kernel"][1:],
+                                                           outs["recompute"][1:])]
+        print(f"{what}: loss saved vs recompute {outs['kernel'][0].item():.7f} vs "
+              f"{outs['recompute'][0].item():.7f}; gradients saved vs recompute rel L2 "
+              f"{', '.join(f'{r:.2e}' for r in rel)} (da, db, dscale)")
+        a_, b_, ad, bd, s32, lse_a, lse_b, diag, raw_q = graphs["kernel"].grad_fn.saved_tensors
+        check(raw_q.dtype == torch.int16 and raw_q.shape == (B, B),
+              f"{what}: the forward saved no int16 raw")
+        plain = fi._sym_tail(torch.ones((), device=dev), a_, b_, s32, diag,
+                             *fi._plain_grad_from_raw(raw_q, ad, bd, s32, lse_a, lse_b))
+        err = check_outputs(torch, f"{what} backward on its saved residuals",
+                            outs["kernel"][1:], [plain[0], plain[1], plain[2].reshape(1)],
+                            ["da", "db", "dscale"], raw_first=False)
+        print(f"{what}, backward kernels vs plain on the saved raw and lse: max err "
+              f"{err:.3e} (da, db, dscale)")
+        if aligned and B == 8192:
+            saved_ms, recompute_ms = timed_pair(
+                torch, lambda: graphs["kernel"].backward(retain_graph=True),
+                lambda: graphs["recompute"].backward(retain_graph=True))
+            print(f"InfoNCE backward B={B} d={d}: from the saved raw {saved_ms:.4f} ms, "
+                  f"recompute {recompute_ms:.4f} ms (kernels and tail)")
+        if not aligned:
+            err = check_outputs(torch, what, outs["kernel"], outs["plain"],
+                                ["loss", "da", "db", "dscale"])
+            print(f"{what}, kernels vs plain: max err {err:.3e} (loss, da, db, dscale)")
+        del graphs
+    phase_from_raw_schedules(torch, fi, unit, scale, d)
+    print("saved-raw kernels: no single library call computes them (library_ms null)")
+
+
+def wall_ms(torch, fn, iters: int = 50) -> float:
+    """Host-and-device ms per call of fn called back to back: the larger of
+    the host's time to issue a call and the device's to run it, what a
+    host-bound step pays."""
+    fn()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(iters):
+        fn()
+    torch.cuda.synchronize()
+    return (time.perf_counter() - t0) * 1e3 / iters
+
+
+def phase_from_raw_schedules(torch, fi, unit, scale, d):
+    """The merged and two-pass from-raw schedules at the train paths' shapes,
+    in five alternating rounds (merged, two-pass, two-pass, merged): device
+    ms (cuda_ms) and host-and-device ms (wall_ms), beside the port's shape
+    rule. Where the device times differ by 1.5x (B=8192, 4096) the rule must
+    take the faster."""
+    for B in (8192, 4096, 1024, 512, 256, 200, 128):
+        x = unit(B, d).bfloat16()
+        y = unit(B, d).bfloat16()
+        lse_row, lse_col, raw_q = fi._kernel_lse_save(x, y, scale)
+        args = (raw_q, x, y, scale, lse_row, lse_col)
+        fns = {"merged": lambda: fi._kernel_grad_merged(*args),
+               "two-pass": lambda: fi._kernel_grad_two_pass(*args)}
+        dev = {k: [] for k in fns}
+        wall = {k: [] for k in fns}
+        for _ in range(5):
+            for k in ("merged", "two-pass", "two-pass", "merged"):
+                dev[k].append(cuda_ms(torch, fns[k]))
+                wall[k].append(wall_ms(torch, fns[k]))
+        pick = "merged" if fi._from_raw_merged(B) else "two-pass"
+        med = {k: (float(np.median(dev[k])), float(np.median(wall[k]))) for k in fns}
+        print(f"from-raw schedule B={B} d={d}: device ms merged {dev['merged']}, two-pass "
+              f"{dev['two-pass']}; host-and-device ms merged {wall['merged']}, two-pass "
+              f"{wall['two-pass']}; medians merged {med['merged'][0]:.4f} / "
+              f"{med['merged'][1]:.4f}, two-pass {med['two-pass'][0]:.4f} / "
+              f"{med['two-pass'][1]:.4f}; the port's rule takes {pick}")
+        other = "two-pass" if pick == "merged" else "merged"
+        if max(dev[other]) * 1.5 < min(dev[pick]) or max(dev[pick]) * 1.5 < min(dev[other]):
+            check(max(dev[pick]) < min(dev[other]),
+                  f"from-raw schedule B={B}: the rule takes {pick}, the slower by 1.5x")
+
+
 def main() -> int:
     import torch
 
@@ -1058,7 +1299,7 @@ def main() -> int:
     print(f"build: {time.perf_counter() - t0:.1f} s (nvcc {_build.LIBRARY.build_seconds:.1f} s) "
           f"-> {_build.LIBRARY.path}")
     for line in _build.LIBRARY.build_log.splitlines():
-        if "Used" in line or "Compiling entry" in line:
+        if "Used" in line or "Compiling entry" in line or "spill" in line:
             print("ptxas:", line.strip())
 
     results = {}
@@ -1066,21 +1307,28 @@ def main() -> int:
     phase_model(torch)
     launches = phase_server(torch, _build)
     phase_train_kernels(torch, results)
-    phase_train_step(torch)
-    launches.update({k: v for k, v in phase_train_path(torch, _build).items()
-                     if k in TRAIN_KERNELS})
+    phase_train_step(torch, _build)
+    # the saved-raw kernels' launches: their sum over the three train paths
+    saved = dict.fromkeys(SAVED_RAW_KERNELS, 0)
+
+    def keep(counts, names):
+        launches.update({k: v for k, v in counts.items() if k in names})
+        for k in saved:
+            saved[k] += counts[k]
+
+    keep(phase_train_path(torch, _build), TRAIN_KERNELS)
     phase_flagship_kernels(torch, results)
     phase_flagship_step(torch)
-    launches.update({k: v for k, v in phase_flagship_path(torch, _build).items()
-                     if k in FLAGSHIP_KERNELS})
+    keep(phase_flagship_path(torch, _build), FLAGSHIP_KERNELS)
     phase_tf_clip_kernels(torch, results)
     phase_tf_clip_step(torch)
-    launches.update({k: v for k, v in phase_tf_clip_path(torch, _build).items()
-                     if k in TF_CLIP_KERNELS})
+    keep(phase_tf_clip_path(torch, _build), TF_CLIP_KERNELS)
     phase_cache_kernels(torch, results)
     phase_cache_step(torch)
     launches.update({k: v for k, v in phase_cache_path(torch, _build).items()
                      if k in CACHE_KERNELS})
+    phase_saved_raw_kernels(torch, results)
+    launches.update(saved)
 
     keys = ("max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by", "library_ms")
     print(json.dumps({"kernels": [

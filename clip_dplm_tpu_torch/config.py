@@ -7,9 +7,10 @@ CLIP (`experiment="tf_clip"`).
 The frozen dataclasses of `clip_dplm_tpu/config.py`, without the yaml loader
 (so the port imports no yaml) and with only the fields the port reads: the
 reference's LoRA, guidance, freezing and `scan_layers` fields, the
-global-batch gather, the materialized-similarity switch, the other loss
-kinds and `precision.remat` are left out until the port has what they
-switch on, so passing one raises instead of being ignored. The hard-negative
+global-batch gather, the other loss kinds and `precision.remat` are left
+out until the port has what they switch on, so passing one raises instead
+of being ignored. The fused loss's saved raw similarity
+(`contrastive.fused_materialize_raw`) is ported. The hard-negative
 cache (`contrastive.use_cache`, `cache_size`) is ported: with
 `contrastive.use_fused_kernel` it is the reference's `two_tower_optimized`
 preset. The port's
@@ -100,6 +101,9 @@ class ContrastiveConfig:
     temperature: float = 0.07  # used when not learned
     label_smoothing: float = 0.0
     use_fused_kernel: bool = False  # ops/fused_infonce.py
+    # materialize the raw similarity (int16 fixed-point) in the fused forward
+    # so the backward skips its recompute matmuls: "auto" | "always" | "never"
+    fused_materialize_raw: str = "auto"
     cache_size: int = 8192  # hard-negative embedding cache (rows)
     use_cache: bool = False
 

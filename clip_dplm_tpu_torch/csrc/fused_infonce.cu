@@ -1,44 +1,141 @@
-// Symmetric InfoNCE over scale·a·b^T, forward (row and column logsumexp)
-// and the gradient pass, for Hopper (sm_90a).
+// Symmetric InfoNCE over scale·a·b^T, forward (row and column logsumexp,
+// optionally saving the raw similarity as int16) and the backward, both
+// the recompute pass and the passes from the saved raw, for Hopper (sm_90a).
 //
-// Replaces clip_dplm_tpu/ops/fused_infonce.py: `_sym_lse_kernel` (the
-// shared-raw forward, pallas_call in `_sym_row_col_lse`) and
-// `_sym_grad_kernel` (pallas_call in `_sym_grad_pass`, the recompute
-// schedule of the backward). Neither kernel stores the B x B similarity.
+// Replaces clip_dplm_tpu/ops/fused_infonce.py: `_sym_lse_kernel` and
+// `_sym_lse_save_kernel` (the shared-raw forward, pallas_call in
+// `_sym_row_col_lse`), `_sym_grad_kernel` (pallas_call in `_sym_grad_pass`,
+// the recompute schedule of the backward), and the backward from the saved
+// raw: `_sym_grad_merged_kernel` (pallas_call in `_sym_grad_merged`) and
+// `_sym_grad_raw_kernel` / `_sym_grad_rawT_kernel` (the two pallas_calls in
+// `_sym_grad_passes_from_raw`).
 //
-//   sym_lse_kernel: one block per 32 rows of x. The rows stay in shared
-//     memory while the block walks the columns of y in 64-wide tiles: each
-//     raw tile x·y^T (bf16 operands, f32 accumulation, WMMA) is scaled, its
-//     rows update an online max / sum (exact row lse at the end), and its
+//   sym_lse_kernel<kSave>: one block per 32 rows of x. The rows stay in
+//     shared memory while the block walks the columns of y in 64-wide tiles:
+//     each raw tile x·y^T (bf16 operands, f32 accumulation, WMMA) is scaled,
+//     its rows update an online max / sum (exact row lse at the end), and its
 //     columns give one partial (max over the block's rows, sum of exp below
 //     it) per row block. The caller combines the column partials with
 //     torch.logsumexp, as the reference combines its own with
 //     jax.nn.logsumexp. Padded columns are -inf; padded rows never weigh.
+//     With kSave the f32 raw tile, before the scale, is also stored as
+//     q = rint(raw · kRawQScale) in int16 (round half to even, as jnp.round),
+//     one 16-byte store a thread; the lse are the same bit for bit.
 //   sym_grad_kernel: the same walk; it recomputes each raw tile, forms
 //     p = exp(s - lse_row) + exp(s - lse_col), rounds p to bf16 and
 //     accumulates acc += p·y (f32) in registers, and rowdot += sum(p·raw).
 //     The caller runs it twice, (a, b) and (b, a), and does the scalar tail.
+//   sym_grad_raw_kernel (pass A): sym_grad_kernel with the raw tile read
+//     from the saved int16 (cp.async, 16-byte chunks) instead of recomputed:
+//     s = q · (scale / kRawQScale), rowdot = sum(p·q) / kRawQScale.
+//   sym_grad_rawT_kernel (pass B): a block owns 32 columns of raw (rows of
+//     y) and walks the row tiles of x, 64 rows at a time, reading the
+//     (64 x 32) int16 tile of its columns (four 16-byte chunks a row); p is
+//     stored as it lies (walked row, own column) and read as a column-major
+//     WMMA operand, so acc_b = p^T·x needs no transpose. It writes once: no
+//     atomics, so runs repeat bit for bit.
+//   sym_grad_merged_kernel: each raw tile is read once and contracted both
+//     ways. A cluster of 8 blocks (32 rows each, 256 rows) walks the column
+//     tiles in step. Each block forms its p tile and adds p·y to its acc_a
+//     (registers), as pass A; after one cluster barrier every block gathers
+//     the 8 p tiles of the cluster over distributed shared memory and forms
+//     its share of the cluster's (64 x dp) p^T·x tile: the 16-column
+//     d-fragments k, k + 8, ... for the block of rank k, over the cluster's
+//     256 rows, whose x columns it keeps in shared memory for the whole walk.
+//     The tile is written to the cluster's partial (one per 256 rows), and
+//     sum_partials_kernel adds the ceil(m / 256) partials in a fixed order:
+//     no atomics anywhere; up to 256 rows the one partial is acc_b itself.
+//     The TPU kernel keeps the whole (n, d) f32 sum in VMEM; no on-chip
+//     store of the H100 holds 16 MB, so the partials go through device
+//     memory (at B = 8192, d = 512: 32 partials, 512 MB written and read
+//     once).
 //
 // The caller pads d to a multiple of 64 with zero columns (no change to any
-// dot product); the grad kernel's accumulator covers 32 x d in registers
-// (d <= 512: at most 64 f32 per thread).
+// dot product); the grad kernels' accumulator covers 32 x d in registers
+// (d <= 512: at most 64 f32 per thread). The saved raw is (m, ldq) int16
+// with ldq a multiple of 64 (>= n): whole tiles are stored and read, the
+// columns past n are masked.
 //
 // Bounds on the H100: at B = 8192, d = 512 the forward is 69 GFLOP and the
-// grad pass 137 GFLOP per call, against 8 MB of operands: compute-bound.
-// WMMA fragments are loaded from shared memory for every product, so the
-// shared-memory bandwidth, not the tensor cores, sets the rate (wgmma with
-// operands in shared memory descriptors is later work). The exps (67 M per
-// pass) ride along.
+// recompute pass 137 GFLOP per call, against 8 MB of operands: compute-bound.
+// From the saved raw each contraction is 69 GFLOP against the 128 MB int16
+// raw (0.04 ms at 3.35 TB/s): still bound by operations. WMMA fragments are
+// loaded from shared memory for every product, so the shared-memory
+// bandwidth, not the tensor cores, sets the rate (wgmma with operands in
+// shared memory descriptors is later work). The exps (67 M per pass) ride
+// along.
+
+#include <cooperative_groups.h>
 
 #include "infonce_tiles.cuh"
 
 namespace clip_dplm {
 namespace {
 
+namespace cg = cooperative_groups;
+
+// int16 fixed point of the saved raw: the reference's RAW_QSCALE (cosines of
+// bf16-rounded unit vectors stay below ~1.008) and its reciprocal, each
+// rounded once from double, as the reference's f32 arithmetic sees them.
+constexpr float kRawQScale = static_cast<float>(32767.0 / 1.01);
+constexpr float kRawQInv = static_cast<float>(1.0 / (32767.0 / 1.01));
+constexpr int kLdQ = kBN + 8;   // int16 pitch of a 32 x 64 raw tile
+constexpr int kLdQT = kBM + 8;  // int16 / bf16 pitch of pass B's 64 x 32 tiles
+constexpr int kCluster = 8;     // blocks of the merged kernel's cluster
+constexpr int kCRows = kCluster * kBM;
+static_assert(kThreads == kBM * kBN / 8, "one 8-entry chunk of the raw tile a thread");
+
+__device__ inline uint32_t quantize_pair(float lo, float hi) {
+  const int a = max(-32768, min(32767, __float2int_rn(lo * kRawQScale)));
+  const int b = max(-32768, min(32767, __float2int_rn(hi * kRawQScale)));
+  return uint32_t(uint16_t(int16_t(a))) | (uint32_t(uint16_t(int16_t(b))) << 16);
+}
+
+// rows [r0, r0 + rows_tile) x columns [c0, c0 + cols_tile) of the saved raw
+// (pitch ldq) into dst (pitch ldd) with 16-byte cp.async; rows past n_rows
+// are zero
+__device__ inline void stage_q(int16_t* dst, int ldd, const int16_t* src, int ldq, int r0,
+                               int rows_tile, int c0, int cols_tile, int n_rows) {
+  const int cpr = cols_tile / 8;
+  for (int c = threadIdx.x; c < rows_tile * cpr; c += kThreads) {
+    const int r = c / cpr, k = (c % cpr) * 8;
+    const bool ok = r0 + r < n_rows;
+    cp_async16(dst + r * ldd + k, ok ? src + size_t(r0 + r) * ldq + c0 + k : src, ok);
+  }
+  cp_async_commit();
+}
+
+// p tile (kBM x kBN, bf16, pitch kLdP) from the int16 raw tile qs of rows
+// [r0, r0 + rows) and columns [j0, n): p = exp(s - lse_row) + exp(s -
+// lse_col), s = q·sq, 0 on padding; rd[r] += sum(p·q)
+__device__ inline void p_from_raw(const int16_t* qs, bf16* ps, float* rd, float sq,
+                                  const float* lse_row, const float* lse_col, int r0, int rows,
+                                  int j0, int n) {
+  const int warp = threadIdx.x / kWarp, lane = threadIdx.x % kWarp;
+  for (int r = warp; r < kBM; r += kWarps) {
+    float dot = 0.f;
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      const int c = lane + 32 * h;
+      float p = 0.f;
+      if (r < rows && j0 + c < n) {
+        const float qf = qs[r * kLdQ + c], s = qf * sq;
+        p = expf(s - lse_row[r0 + r]) + expf(s - lse_col[j0 + c]);
+        dot += p * qf;
+      }
+      ps[r * kLdP + c] = __float2bfloat16(p);
+    }
+    dot = warp_sum(dot);
+    if (lane == 0) rd[r] += dot;
+  }
+}
+
+template <bool kSave>
 __global__ void __launch_bounds__(kThreads, 2)
 sym_lse_kernel(const bf16* __restrict__ x, const bf16* __restrict__ y,
                const float* __restrict__ scale_p, float* __restrict__ row_lse,
-               float* __restrict__ colmax, float* __restrict__ colsum, int m, int n, int dp) {
+               float* __restrict__ colmax, float* __restrict__ colsum,
+               int16_t* __restrict__ raw_q, int ldq, int m, int n, int dp) {
   extern __shared__ __align__(128) unsigned char smem[];
   const Smem lay(dp);
   bf16* xs = reinterpret_cast<bf16*>(smem + lay.x);
@@ -60,10 +157,20 @@ sym_lse_kernel(const bf16* __restrict__ x, const bf16* __restrict__ y,
     __syncthreads();
     raw_tile(xs, ys, lay.ld, dp, ss);
     __syncthreads();
-    // scaled scores, -inf past the last column
-    for (int i = threadIdx.x; i < kBM * kBN; i += kThreads) {
-      const int r = i / kBN, c = i % kBN;
-      ss[r * kLdS + c] = j0 + c < n ? ss[r * kLdS + c] * scale : -INFINITY;
+    // scaled scores, -inf past the last column; with kSave the raw tile is
+    // stored first. Each thread owns 8 adjacent entries of one row.
+    {
+      const int r = threadIdx.x / 8, c0 = threadIdx.x % 8 * 8;
+      float* v = ss + r * kLdS + c0;
+      if (kSave && r < rows) {
+        uint4 u;
+        uint32_t* w = reinterpret_cast<uint32_t*>(&u);
+#pragma unroll
+        for (int e = 0; e < 4; ++e) w[e] = quantize_pair(v[2 * e], v[2 * e + 1]);
+        *reinterpret_cast<uint4*>(raw_q + size_t(r0 + r) * ldq + j0 + c0) = u;
+      }
+#pragma unroll
+      for (int e = 0; e < 8; ++e) v[e] = j0 + c0 + e < n ? v[e] * scale : -INFINITY;
     }
     __syncthreads();
     // rows: online max / sum
@@ -155,14 +262,273 @@ sym_grad_kernel(const bf16* __restrict__ x, const bf16* __restrict__ y,
   if (threadIdx.x < rows) rowdot[r0 + threadIdx.x] = rd[threadIdx.x];
 }
 
+// Shared memory of pass A: the y tile, the int16 raw tile, the p tile.
+struct RawSmem {
+  int ld;
+  size_t y, q, p, rowdot, total;
+  __host__ __device__ explicit RawSmem(int dp) {
+    ld = dp + 8;
+    size_t off = 0;
+    y = off;      off += align128(size_t(kBN) * ld * sizeof(bf16));
+    q = off;      off += align128(size_t(kBM) * kLdQ * sizeof(int16_t));
+    p = off;      off += align128(size_t(kBM) * kLdP * sizeof(bf16));
+    rowdot = off; off += align128(kBM * sizeof(float));
+    total = off;
+  }
+};
+
+template <int NT>
+__global__ void __launch_bounds__(kThreads, 2)
+sym_grad_raw_kernel(const int16_t* __restrict__ raw_q, int ldq, const bf16* __restrict__ y,
+                    const float* __restrict__ scale_p, const float* __restrict__ lse_row,
+                    const float* __restrict__ lse_col, float* __restrict__ acc_out,
+                    float* __restrict__ rowdot, int m, int n, int dp) {
+  extern __shared__ __align__(128) unsigned char smem[];
+  const RawSmem lay(dp);
+  const int ld = lay.ld;
+  bf16* ys = reinterpret_cast<bf16*>(smem + lay.y);
+  int16_t* qs = reinterpret_cast<int16_t*>(smem + lay.q);
+  bf16* ps = reinterpret_cast<bf16*>(smem + lay.p);
+  float* rd = reinterpret_cast<float*>(smem + lay.rowdot);
+  const int r0 = blockIdx.x * kBM, rows = min(kBM, m - r0);
+  const int warp = threadIdx.x / kWarp;
+  const int rf = warp & 1, cf0 = warp >> 1;
+  const float sq = *scale_p * kRawQInv;  // dequantization and scale in one multiply
+  if (threadIdx.x < kBM) rd[threadIdx.x] = 0.f;
+
+  wmma::fragment<wmma::accumulator, 16, 16, 16, float> acc[NT];
+#pragma unroll
+  for (int t = 0; t < NT; ++t) wmma::fill_fragment(acc[t], 0.f);
+
+  for (int j0 = 0; j0 < n; j0 += kBN) {
+    stage_q(qs, kLdQ, raw_q, ldq, r0, kBM, j0, kBN, m);
+    stage(ys, ld, y, j0, kBN, n, dp);
+    cp_async_wait<0>();
+    __syncthreads();
+    p_from_raw(qs, ps, rd, sq, lse_row, lse_col, r0, rows, j0, n);
+    __syncthreads();
+    accumulate_py<NT>(acc, ps, ys, ld, rf, cf0);
+    __syncthreads();
+  }
+#pragma unroll
+  for (int t = 0; t < NT; ++t)
+    wmma::store_matrix_sync(acc_out + size_t(r0 + rf * 16) * dp + (cf0 + 4 * t) * 16, acc[t], dp,
+                            wmma::mem_row_major);
+  if (threadIdx.x < rows) rowdot[r0 + threadIdx.x] = rd[threadIdx.x] * kRawQInv;
+}
+
+// Shared memory of pass B: the x tile (64 walked rows), the 64 x 32 int16
+// raw tile of the block's columns and its p tile.
+struct RawTSmem {
+  int ld;
+  size_t x, q, p, total;
+  __host__ __device__ explicit RawTSmem(int dp) {
+    ld = dp + 8;
+    size_t off = 0;
+    x = off; off += align128(size_t(kBN) * ld * sizeof(bf16));
+    q = off; off += align128(size_t(kBN) * kLdQT * sizeof(int16_t));
+    p = off; off += align128(size_t(kBN) * kLdQT * sizeof(bf16));
+    total = off;
+  }
+};
+
+template <int NT>
+__global__ void __launch_bounds__(kThreads, 2)
+sym_grad_rawT_kernel(const int16_t* __restrict__ raw_q, int ldq, const bf16* __restrict__ x,
+                     const float* __restrict__ scale_p, const float* __restrict__ lse_row,
+                     const float* __restrict__ lse_col, float* __restrict__ acc_out, int m, int n,
+                     int dp) {
+  extern __shared__ __align__(128) unsigned char smem[];
+  const RawTSmem lay(dp);
+  const int ld = lay.ld;
+  bf16* xs = reinterpret_cast<bf16*>(smem + lay.x);
+  int16_t* qs = reinterpret_cast<int16_t*>(smem + lay.q);
+  bf16* ps = reinterpret_cast<bf16*>(smem + lay.p);
+  const int c0 = blockIdx.x * kBM, cols = min(kBM, n - c0);
+  const int warp = threadIdx.x / kWarp, lane = threadIdx.x % kWarp;
+  const int rf = warp & 1, cf0 = warp >> 1;
+  const float sq = *scale_p * kRawQInv;
+  const float lse_c = lane < cols ? lse_col[c0 + lane] : 0.f;  // the lane's own column
+
+  wmma::fragment<wmma::accumulator, 16, 16, 16, float> acc[NT];
+#pragma unroll
+  for (int t = 0; t < NT; ++t) wmma::fill_fragment(acc[t], 0.f);
+
+  for (int i0 = 0; i0 < m; i0 += kBN) {
+    stage_q(qs, kLdQT, raw_q, ldq, i0, kBN, c0, kBM, m);
+    stage(xs, ld, x, i0, kBN, m, dp);
+    cp_async_wait<0>();
+    __syncthreads();
+    // p (walked row r, own column = lane), 0 on padding
+    for (int r = warp; r < kBN; r += kWarps) {
+      float p = 0.f;
+      if (i0 + r < m && lane < cols) {
+        const float s = qs[r * kLdQT + lane] * sq;
+        p = expf(s - lse_row[i0 + r]) + expf(s - lse_c);
+      }
+      ps[r * kLdQT + lane] = __float2bfloat16(p);
+    }
+    __syncthreads();
+    accumulate_ptx<NT>(acc, ps, kLdQT, xs, ld, rf, cf0);
+    __syncthreads();
+  }
+  // acc_out is (round_up(n, 32), dp)
+#pragma unroll
+  for (int t = 0; t < NT; ++t)
+    wmma::store_matrix_sync(acc_out + size_t(c0 + rf * 16) * dp + (cf0 + 4 * t) * 16, acc[t], dp,
+                            wmma::mem_row_major);
+}
+
+// Shared memory of the merged kernel: the y tile, the int16 raw tile, the
+// block's p tile (two, by step parity: the cluster reads one while the next
+// is formed), the cluster's 8 gathered p tiles (256 x 64) and the cluster's
+// x rows in the block's d-fragments (256 x nef·16).
+struct MergedSmem {
+  int ld, nef, xld;
+  size_t y, q, p, pg, x, rowdot, total;
+  __host__ __device__ explicit MergedSmem(int dp) {
+    ld = dp + 8;
+    nef = (dp / 16 + kCluster - 1) / kCluster;  // d-fragments a block owns, at most
+    xld = nef * 16 + 8;
+    size_t off = 0;
+    y = off;      off += align128(size_t(kBN) * ld * sizeof(bf16));
+    q = off;      off += align128(size_t(kBM) * kLdQ * sizeof(int16_t));
+    p = off;      off += align128(size_t(2) * kBM * kLdP * sizeof(bf16));
+    pg = off;     off += align128(size_t(kCRows) * kLdP * sizeof(bf16));
+    x = off;      off += align128(size_t(kCRows) * xld * sizeof(bf16));
+    rowdot = off; off += align128(kBM * sizeof(float));
+    total = off;
+  }
+};
+
+template <int NT>
+__global__ void __cluster_dims__(kCluster, 1, 1) __launch_bounds__(kThreads, 1)
+sym_grad_merged_kernel(const int16_t* __restrict__ raw_q, int ldq, const bf16* __restrict__ x,
+                       const bf16* __restrict__ y, const float* __restrict__ scale_p,
+                       const float* __restrict__ lse_row, const float* __restrict__ lse_col,
+                       float* __restrict__ acc_out, float* __restrict__ rowdot,
+                       float* __restrict__ part, int m, int n, int dp) {
+  extern __shared__ __align__(128) unsigned char smem[];
+  const MergedSmem lay(dp);
+  const int ld = lay.ld, xld = lay.xld;
+  bf16* ys = reinterpret_cast<bf16*>(smem + lay.y);
+  int16_t* qs = reinterpret_cast<int16_t*>(smem + lay.q);
+  bf16* ps = reinterpret_cast<bf16*>(smem + lay.p);
+  bf16* pg = reinterpret_cast<bf16*>(smem + lay.pg);
+  bf16* xs = reinterpret_cast<bf16*>(smem + lay.x);
+  float* rd = reinterpret_cast<float*>(smem + lay.rowdot);
+  cg::cluster_group cluster = cg::this_cluster();
+  const int rank = static_cast<int>(cluster.block_rank());
+  const int cl = blockIdx.x / kCluster, R0 = cl * kCRows;
+  const int r0 = blockIdx.x * kBM, rows = max(0, min(kBM, m - r0));
+  const int warp = threadIdx.x / kWarp;
+  const int rf = warp & 1, cf0 = warp >> 1;
+  const float sq = *scale_p * kRawQInv;
+  // this block's d-fragments of p^T·x: ef = rank + kCluster·u, u < nef
+  const int nef = max(0, (dp / 16 - rank + kCluster - 1) / kCluster);
+  float* part_cl = part + size_t(cl) * ldq * dp;
+
+  // the cluster's x rows in this block's d-fragments, once
+  for (int c = threadIdx.x; c < kCRows * nef * 2; c += kThreads) {
+    const int r = c / (nef * 2), u = c % (nef * 2) / 2, h = c % 2;
+    const bool ok = R0 + r < m;
+    const int col = (rank + kCluster * u) * 16 + h * 8;
+    cp_async16(xs + r * xld + u * 16 + h * 8, ok ? x + size_t(R0 + r) * dp + col : x, ok);
+  }
+  cp_async_commit();
+  if (threadIdx.x < kBM) rd[threadIdx.x] = 0.f;
+
+  wmma::fragment<wmma::accumulator, 16, 16, 16, float> acc[NT];
+#pragma unroll
+  for (int t = 0; t < NT; ++t) wmma::fill_fragment(acc[t], 0.f);
+
+  for (int j0 = 0, step = 0; j0 < n; j0 += kBN, ++step) {
+    bf16* pc = ps + (step & 1) * kBM * kLdP;
+    stage_q(qs, kLdQ, raw_q, ldq, r0, kBM, j0, kBN, m);
+    stage(ys, ld, y, j0, kBN, n, dp);
+    cp_async_wait<0>();
+    __syncthreads();
+    p_from_raw(qs, pc, rd, sq, lse_row, lse_col, r0, rows, j0, n);
+    __syncthreads();
+    accumulate_py<NT>(acc, pc, ys, ld, rf, cf0);
+    cluster.sync();  // every p tile of the cluster is complete
+    // gather the cluster's p tiles: rows 32·k .. 32·k + 31 from rank k
+    for (int k = 0; k < kCluster; ++k) {
+      const bf16* src = cluster.map_shared_rank(pc, k);
+      const int r = threadIdx.x / 8, c = threadIdx.x % 8 * 8;
+      *reinterpret_cast<uint4*>(pg + (k * kBM + r) * kLdP + c) =
+          *reinterpret_cast<const uint4*>(src + r * kLdP + c);
+    }
+    __syncthreads();
+    // this block's fragments (cf, u) of the cluster's 64 x dp tile p^T·x
+    for (int f = warp; f < 4 * nef; f += kWarps) {
+      const int cf = f % 4, u = f / 4;
+      wmma::fragment<wmma::accumulator, 16, 16, 16, float> o;
+      wmma::fill_fragment(o, 0.f);
+      for (int kk = 0; kk < kCRows; kk += 16) {
+        wmma::fragment<wmma::matrix_a, 16, 16, 16, bf16, wmma::col_major> a;
+        wmma::fragment<wmma::matrix_b, 16, 16, 16, bf16, wmma::row_major> b;
+        wmma::load_matrix_sync(a, pg + kk * kLdP + cf * 16, kLdP);
+        wmma::load_matrix_sync(b, xs + kk * xld + u * 16, xld);
+        wmma::mma_sync(o, a, b, o);
+      }
+      wmma::store_matrix_sync(part_cl + size_t(j0 + cf * 16) * dp + (rank + kCluster * u) * 16, o,
+                              dp, wmma::mem_row_major);
+    }
+  }
+  cluster.sync();  // no block leaves while another may still read its p tiles
+  if (r0 < m) {
+#pragma unroll
+    for (int t = 0; t < NT; ++t)
+      wmma::store_matrix_sync(acc_out + size_t(r0 + rf * 16) * dp + (cf0 + 4 * t) * 16, acc[t],
+                              dp, wmma::mem_row_major);
+  }
+  if (threadIdx.x < rows) rowdot[r0 + threadIdx.x] = rd[threadIdx.x] * kRawQInv;
+}
+
+// out = sum over c of part[c] (nparts partials of n4 float4 each), in the
+// order c = 0, 1, ...
+__global__ void sum_partials_kernel(const float4* __restrict__ part, float4* __restrict__ out,
+                                    int n4, int nparts) {
+  for (int i = blockIdx.x * blockDim.x + threadIdx.x; i < n4; i += gridDim.x * blockDim.x) {
+    float4 s = part[i];
+    for (int c = 1; c < nparts; ++c) {
+      const float4 v = part[size_t(c) * n4 + i];
+      s.x += v.x;
+      s.y += v.y;
+      s.z += v.z;
+      s.w += v.w;
+    }
+    out[i] = s;
+  }
+}
+
+template <typename Kernel>
+cudaError_t prepare(Kernel kernel, size_t bytes) {
+  return cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                              static_cast<int>(bytes));
+}
+
+template <bool kSave>
+cudaError_t launch_lse(const void* x, const void* y, const void* scale, void* row_lse,
+                       void* colmax, void* colsum, void* raw_q, int ldq, int m, int n, int dp,
+                       cudaStream_t stream) {
+  const size_t bytes = Smem(dp).total;
+  cudaError_t err = prepare(sym_lse_kernel<kSave>, bytes);
+  if (err != cudaSuccess) return err;
+  sym_lse_kernel<kSave><<<(m + kBM - 1) / kBM, kThreads, bytes, stream>>>(
+      static_cast<const bf16*>(x), static_cast<const bf16*>(y), static_cast<const float*>(scale),
+      static_cast<float*>(row_lse), static_cast<float*>(colmax), static_cast<float*>(colsum),
+      static_cast<int16_t*>(raw_q), ldq, m, n, dp);
+  return cudaGetLastError();
+}
+
 template <int NT>
 cudaError_t launch_grad(const void* x, const void* y, const void* scale, const void* lse_row,
                         const void* lse_col, void* acc, void* rowdot, int m, int n, int dp,
                         cudaStream_t stream) {
   const size_t bytes = Smem(dp).total;
-  cudaError_t err = cudaFuncSetAttribute(sym_grad_kernel<NT>,
-                                         cudaFuncAttributeMaxDynamicSharedMemorySize,
-                                         static_cast<int>(bytes));
+  cudaError_t err = prepare(sym_grad_kernel<NT>, bytes);
   if (err != cudaSuccess) return err;
   sym_grad_kernel<NT><<<(m + kBM - 1) / kBM, kThreads, bytes, stream>>>(
       static_cast<const bf16*>(x), static_cast<const bf16*>(y), static_cast<const float*>(scale),
@@ -170,6 +536,84 @@ cudaError_t launch_grad(const void* x, const void* y, const void* scale, const v
       static_cast<float*>(acc), static_cast<float*>(rowdot), m, n, dp);
   return cudaGetLastError();
 }
+
+// The from-raw kernels' arguments, as the C entries take them.
+struct FromRaw {
+  const int16_t* raw_q;
+  int ldq;
+  const bf16 *x, *y;
+  const float *scale, *lse_row, *lse_col;
+  float *acc_a, *rowdot, *part, *acc_b;
+  int m, n, dp;
+  cudaStream_t stream;
+};
+
+template <int NT>
+cudaError_t launch_raw(const FromRaw& a) {
+  const size_t bytes = RawSmem(a.dp).total;
+  cudaError_t err = prepare(sym_grad_raw_kernel<NT>, bytes);
+  if (err != cudaSuccess) return err;
+  sym_grad_raw_kernel<NT><<<(a.m + kBM - 1) / kBM, kThreads, bytes, a.stream>>>(
+      a.raw_q, a.ldq, a.y, a.scale, a.lse_row, a.lse_col, a.acc_a, a.rowdot, a.m, a.n, a.dp);
+  return cudaGetLastError();
+}
+
+template <int NT>
+cudaError_t launch_rawT(const FromRaw& a) {
+  const size_t bytes = RawTSmem(a.dp).total;
+  cudaError_t err = prepare(sym_grad_rawT_kernel<NT>, bytes);
+  if (err != cudaSuccess) return err;
+  sym_grad_rawT_kernel<NT><<<(a.n + kBM - 1) / kBM, kThreads, bytes, a.stream>>>(
+      a.raw_q, a.ldq, a.x, a.scale, a.lse_row, a.lse_col, a.acc_b, a.m, a.n, a.dp);
+  return cudaGetLastError();
+}
+
+template <int NT>
+cudaError_t launch_merged(const FromRaw& a) {
+  const size_t bytes = MergedSmem(a.dp).total;
+  cudaError_t err = prepare(sym_grad_merged_kernel<NT>, bytes);
+  if (err != cudaSuccess) return err;
+  // one cluster's partial is the whole of acc_b: no sum to take
+  const int clusters = (a.m + kCRows - 1) / kCRows;
+  sym_grad_merged_kernel<NT><<<clusters * kCluster, kThreads, bytes, a.stream>>>(
+      a.raw_q, a.ldq, a.x, a.y, a.scale, a.lse_row, a.lse_col, a.acc_a, a.rowdot,
+      clusters > 1 ? a.part : a.acc_b, a.m, a.n, a.dp);
+  err = cudaGetLastError();
+  if (err != cudaSuccess || clusters == 1) return err;
+  const int n4 = a.ldq * a.dp / 4, blocks = (n4 + kThreads - 1) / kThreads;
+  sum_partials_kernel<<<blocks < 132 * 8 ? blocks : 132 * 8, kThreads, 0, a.stream>>>(
+      reinterpret_cast<const float4*>(a.part), reinterpret_cast<float4*>(a.acc_b), n4, clusters);
+  return cudaGetLastError();
+}
+
+// One launcher for each dp = 64·NT, NT = 1..8
+template <template <int> class L>
+int dispatch(const FromRaw& a) {
+  if (a.dp % 64 || a.dp > 512 || a.m < 1 || a.n < 1 || a.ldq % 64 || a.ldq < a.n)
+    return static_cast<int>(cudaErrorInvalidValue);
+  switch (a.dp / 64) {
+    case 1: return static_cast<int>(L<1>::run(a));
+    case 2: return static_cast<int>(L<2>::run(a));
+    case 3: return static_cast<int>(L<3>::run(a));
+    case 4: return static_cast<int>(L<4>::run(a));
+    case 5: return static_cast<int>(L<5>::run(a));
+    case 6: return static_cast<int>(L<6>::run(a));
+    case 7: return static_cast<int>(L<7>::run(a));
+    default: return static_cast<int>(L<8>::run(a));
+  }
+}
+template <int NT>
+struct RawL {
+  static cudaError_t run(const FromRaw& a) { return launch_raw<NT>(a); }
+};
+template <int NT>
+struct RawTL {
+  static cudaError_t run(const FromRaw& a) { return launch_rawT<NT>(a); }
+};
+template <int NT>
+struct MergedL {
+  static cudaError_t run(const FromRaw& a) { return launch_merged<NT>(a); }
+};
 
 }  // namespace
 }  // namespace clip_dplm
@@ -181,16 +625,19 @@ using namespace clip_dplm;
 extern "C" int sym_infonce_lse(const void* x, const void* y, const void* scale, void* row_lse,
                                void* colmax, void* colsum, int m, int n, int dp, void* stream) {
   if (dp % 64 || dp > 512 || m < 1 || n < 1) return static_cast<int>(cudaErrorInvalidValue);
-  const size_t bytes = Smem(dp).total;
-  cudaError_t err = cudaFuncSetAttribute(sym_lse_kernel,
-                                         cudaFuncAttributeMaxDynamicSharedMemorySize,
-                                         static_cast<int>(bytes));
-  if (err != cudaSuccess) return static_cast<int>(err);
-  sym_lse_kernel<<<(m + kBM - 1) / kBM, kThreads, bytes, static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const bf16*>(x), static_cast<const bf16*>(y), static_cast<const float*>(scale),
-      static_cast<float*>(row_lse), static_cast<float*>(colmax), static_cast<float*>(colsum), m,
-      n, dp);
-  return static_cast<int>(cudaGetLastError());
+  return static_cast<int>(launch_lse<false>(x, y, scale, row_lse, colmax, colsum, nullptr, 0, m,
+                                            n, dp, static_cast<cudaStream_t>(stream)));
+}
+
+// sym_infonce_lse, and raw_q (m, ldq) int16 = rint(x·y^T · RAW_QSCALE) over
+// whole 64-column tiles (ldq % 64 == 0, ldq >= n; zero past n).
+extern "C" int sym_infonce_lse_save(const void* x, const void* y, const void* scale,
+                                    void* row_lse, void* colmax, void* colsum, void* raw_q,
+                                    int ldq, int m, int n, int dp, void* stream) {
+  if (dp % 64 || dp > 512 || m < 1 || n < 1 || ldq % 64 || ldq < n)
+    return static_cast<int>(cudaErrorInvalidValue);
+  return static_cast<int>(launch_lse<true>(x, y, scale, row_lse, colmax, colsum, raw_q, ldq, m,
+                                           n, dp, static_cast<cudaStream_t>(stream)));
 }
 
 // acc (round_up(m, 32), dp) f32 = (P_row + P_col^T)·y with bf16 p; rowdot
@@ -212,4 +659,47 @@ extern "C" int sym_infonce_grad(const void* x, const void* y, const void* scale,
     default: return static_cast<int>(cudaErrorInvalidValue);
   }
   return static_cast<int>(err);
+}
+
+// From the saved raw_q (m, ldq) int16, lse_row (m), lse_col (n) f32, with
+// p = exp(s - lse_row) + exp(s - lse_col), s = raw_q · scale / RAW_QSCALE,
+// bf16 p in the products. Pass A: acc_a (round_up(m, 32), dp) f32 = P·y and
+// rowdot (m) = rowsum(p·raw_q) / RAW_QSCALE.
+extern "C" int sym_infonce_grad_raw(const void* raw_q, int ldq, const void* y, const void* scale,
+                                    const void* lse_row, const void* lse_col, void* acc_a,
+                                    void* rowdot, int m, int n, int dp, void* stream) {
+  FromRaw a{static_cast<const int16_t*>(raw_q), ldq, nullptr, static_cast<const bf16*>(y),
+            static_cast<const float*>(scale), static_cast<const float*>(lse_row),
+            static_cast<const float*>(lse_col), static_cast<float*>(acc_a),
+            static_cast<float*>(rowdot), nullptr, nullptr, m, n, dp,
+            static_cast<cudaStream_t>(stream)};
+  return dispatch<RawL>(a);
+}
+
+// Pass B: acc_b (round_up(n, 32), dp) f32 = P^T·x.
+extern "C" int sym_infonce_grad_rawT(const void* raw_q, int ldq, const void* x,
+                                     const void* scale, const void* lse_row, const void* lse_col,
+                                     void* acc_b, int m, int n, int dp, void* stream) {
+  FromRaw a{static_cast<const int16_t*>(raw_q), ldq, static_cast<const bf16*>(x), nullptr,
+            static_cast<const float*>(scale), static_cast<const float*>(lse_row),
+            static_cast<const float*>(lse_col), nullptr, nullptr, nullptr,
+            static_cast<float*>(acc_b), m, n, dp, static_cast<cudaStream_t>(stream)};
+  return dispatch<RawTL>(a);
+}
+
+// Both in one pass over raw_q, and the sum of the per-256-row partials:
+// acc_a and rowdot as pass A; part (ceil(m / 256), ldq, dp) f32 scratch
+// (unread, and may be null, for m <= 256: the one partial is acc_b);
+// acc_b (ldq, dp) f32 = P^T·x.
+extern "C" int sym_infonce_grad_merged(const void* raw_q, int ldq, const void* x, const void* y,
+                                       const void* scale, const void* lse_row,
+                                       const void* lse_col, void* acc_a, void* rowdot,
+                                       void* part, void* acc_b, int m, int n, int dp,
+                                       void* stream) {
+  FromRaw a{static_cast<const int16_t*>(raw_q), ldq, static_cast<const bf16*>(x),
+            static_cast<const bf16*>(y), static_cast<const float*>(scale),
+            static_cast<const float*>(lse_row), static_cast<const float*>(lse_col),
+            static_cast<float*>(acc_a), static_cast<float*>(rowdot), static_cast<float*>(part),
+            static_cast<float*>(acc_b), m, n, dp, static_cast<cudaStream_t>(stream)};
+  return dispatch<MergedL>(a);
 }

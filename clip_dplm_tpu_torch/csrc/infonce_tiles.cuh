@@ -90,5 +90,26 @@ __device__ inline void accumulate_py(wmma::fragment<wmma::accumulator, 16, 16, 1
   }
 }
 
+// The same product with the p tile stored transposed: pt is kBN x kBM
+// (row = walked row, column = own row, pitch ldp), read as a column-major
+// A operand, so acc (32 x dp) += pt^T · x tile (kBN x dp).
+template <int NT>
+__device__ inline void accumulate_ptx(wmma::fragment<wmma::accumulator, 16, 16, 16, float>* acc,
+                                      const bf16* pt, int ldp, const bf16* xs, int ld, int rf,
+                                      int cf0) {
+#pragma unroll
+  for (int t = 0; t < NT; ++t) {
+    const int cf = cf0 + 4 * t;
+#pragma unroll
+    for (int kk = 0; kk < kBN; kk += 16) {
+      wmma::fragment<wmma::matrix_a, 16, 16, 16, bf16, wmma::col_major> a;
+      wmma::fragment<wmma::matrix_b, 16, 16, 16, bf16, wmma::row_major> b;
+      wmma::load_matrix_sync(a, pt + kk * ldp + rf * 16, ldp);
+      wmma::load_matrix_sync(b, xs + kk * ld + cf * 16, ld);
+      wmma::mma_sync(acc[t], a, b, acc[t]);
+    }
+  }
+}
+
 }  // namespace
 }  // namespace clip_dplm

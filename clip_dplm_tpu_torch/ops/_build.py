@@ -75,6 +75,15 @@ _SIGNATURES = {
     "sym_infonce_lse": [_P, _P, _P, _P, _P, _P, _I, _I, _I, _P],
     # x, y, scale, lse_row, lse_col, acc, rowdot, m, n, dp, stream
     "sym_infonce_grad": [_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _P],
+    # x, y, scale, row_lse, colmax, colsum, raw_q, ldq, m, n, dp, stream
+    "sym_infonce_lse_save": [_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _P],
+    # raw_q, ldq, y, scale, lse_row, lse_col, acc_a, rowdot, m, n, dp, stream
+    "sym_infonce_grad_raw": [_P, _I, _P, _P, _P, _P, _P, _P, _I, _I, _I, _P],
+    # raw_q, ldq, x, scale, lse_row, lse_col, acc_b, m, n, dp, stream
+    "sym_infonce_grad_rawT": [_P, _I, _P, _P, _P, _P, _P, _I, _I, _I, _P],
+    # raw_q, ldq, x, y, scale, lse_row, lse_col, acc_a, rowdot, part, acc_b,
+    # m, n, dp, stream
+    "sym_infonce_grad_merged": [_P, _I, _P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _P],
     # x, y, scale, n_valid, lse, m, n, dp, stream
     "row_ce_lse": [_P, _P, _P, _P, _P, _I, _I, _I, _P],
     # x, y, scale, n_valid, lse, py, rowdot, m, n, dp, stream
@@ -111,7 +120,9 @@ LAUNCHES = LaunchCounter(
      "sym_infonce_lse", "sym_infonce_grad",
      "short_attention_bwd", "cls_attention_fwd", "cls_attention_bwd",
      "tiny_attention_fwd", "tiny_attention_bwd", "flash_attention_bwd_dq",
-     "flash_attention_bwd_dkv", "row_ce_lse", "row_ce_dx", "row_ce_dy"])
+     "flash_attention_bwd_dkv", "row_ce_lse", "row_ce_dx", "row_ce_dy",
+     "sym_infonce_lse_save", "sym_infonce_grad_raw", "sym_infonce_grad_rawT",
+     "sym_infonce_grad_merged"])
 
 
 class _Library:

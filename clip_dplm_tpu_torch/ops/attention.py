@@ -12,9 +12,13 @@ CLS-query kernel for a block that keeps only row 0 (`cls_query_attention`).
 Each kernel wrapper runs its plain version for CPU tensors and its CUDA
 kernel for CUDA tensors. Separate q, k, v below 64 keys take
 `attention_reference` on every device, as the TPU gates send them to plain
-XLA (S = 1 included); at 64 <= S < 256 the TPU's kernel over separate q, k,
-v is not ported (ROADMAP queue 2 item 7), so `multihead_attention` raises
-for a CUDA tensor there rather than run the plain version on the card.
+XLA (S = 1 included). At 64 <= S < 256 the TPU runs its short-S kernel over
+separate q, k, v where `short_attn_separate_ok` holds (one shape for q, k
+and v, Dh a multiple of 8, no mask or a (B, S) one): that kernel is not
+ported (ROADMAP queue 2 item 7), so `multihead_attention` and
+`attention_dispatch` raise for a CUDA tensor there rather than run the
+plain version on the card; everywhere else in that range they compute what
+the TPU computes, the plain formulation.
 """
 
 from __future__ import annotations
@@ -87,6 +91,26 @@ def short_attn_packed_ok(qkv_shape, num_heads: int, mask) -> bool:
     )
 
 
+def short_attn_separate_ok(q_shape, k_shape, v_shape, head_dim: int, mask) -> bool:
+    """True where the TPU takes its short-S kernel over separate q, k, v
+    (`multihead_attention`'s and `attention_dispatch`'s gates without their
+    backend term): 64 <= S < 256 keys, one shape for q, k and v ((B, S, D)
+    or (B, H, S, Dh): S is the second-to-last), Dh a multiple of 8, no mask
+    or a (B, S) one."""
+    return (
+        SHORT_MIN_SEQ <= k_shape[-2] < FLASH_MIN_SEQ
+        and tuple(q_shape) == tuple(k_shape) == tuple(v_shape)
+        and head_dim % 8 == 0
+        and (mask is None or mask.dim() == 2)
+    )
+
+
+def _refuse_separate_short(S: int) -> None:
+    raise NotImplementedError(
+        f"no CUDA kernel for multi-head attention at S={S}: the short-S kernel over "
+        "separate q, k, v is ROADMAP queue 2 item 7")
+
+
 def tiny_attn_ok(qkv_shape, num_heads: int, mask) -> bool:
     """True for the shapes of the TPU's packed-diagonal tiny-S kernel: 2 <= S
     < 64, Dh a multiple of 8, a (B, S) mask."""
@@ -121,13 +145,13 @@ def multihead_attention(
 ) -> torch.Tensor:
     """Multi-head attention over (B, S, D) q, k, v: `attention_dispatch` (the
     flash kernel from 256 keys on, the plain formulation below 64 keys on
-    every device). A CUDA tensor at 64 <= S < 256 raises: the TPU kernel of
-    that range over separate q, k, v is not ported (ROADMAP queue 2 item 7)."""
-    S = k.shape[1]
-    if SHORT_MIN_SEQ <= S < FLASH_MIN_SEQ and q.device.type != "cpu":
-        raise NotImplementedError(
-            f"no CUDA kernel for multi-head attention at S={S}: the short-S kernel over "
-            "separate q, k, v is ROADMAP queue 2 item 7")
+    every device). A CUDA tensor raises where the TPU would take its short-S
+    kernel over separate q, k, v (`short_attn_separate_ok`), which is not
+    ported (ROADMAP queue 2 item 7); other shapes at 64 <= S < 256 take the
+    plain formulation, as on the TPU."""
+    if q.device.type != "cpu" and short_attn_separate_ok(
+            q.shape, k.shape, v.shape, q.shape[-1] // num_heads, mask):
+        _refuse_separate_short(k.shape[1])
     qh, kh, vh = (split_heads(t, num_heads) for t in (q, k, v))
     return merge_heads(attention_dispatch(qh, kh, vh, mask=mask))
 
@@ -173,7 +197,12 @@ def attention_dispatch(
     scale: Optional[float] = None,
 ) -> torch.Tensor:
     """Head-level dispatch over (B, H, S, Dh): the flash kernel from 256 keys
-    on, the plain formulation below."""
+    on, the plain formulation below. A CUDA tensor raises where the TPU would
+    take its short-S kernel over the heads (`short_attn_separate_ok`, ROADMAP
+    queue 2 item 7)."""
+    if qh.device.type != "cpu" and short_attn_separate_ok(qh.shape, kh.shape, vh.shape,
+                                                          qh.shape[-1], mask):
+        _refuse_separate_short(kh.shape[2])
     if (
         kh.shape[2] >= FLASH_MIN_SEQ
         and qh.shape[-1] <= FLASH_MAX_HEAD_DIM

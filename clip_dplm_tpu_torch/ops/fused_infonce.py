@@ -1,9 +1,10 @@
-"""Fused InfoNCE: the similarity is never stored.
+"""Fused InfoNCE: the f32 similarity is never stored.
 
 Counterpart of `clip_dplm_tpu/ops/fused_infonce.py` on the paths with no
-mesh axis: `fused_symmetric_infonce` with the recompute schedule of the
-backward (`_sym_grad_pass`), and `fused_row_ce`, the row cross-entropy the
-hard-negative cache path runs in both directions.
+mesh axis: `fused_symmetric_infonce` with both schedules of its backward
+(recompute, `_sym_grad_pass`, and from the int16 raw the forward saved,
+`_sym_grad_merged` / `_sym_grad_passes_from_raw`), and `fused_row_ce`, the
+row cross-entropy the hard-negative cache path runs in both directions.
 
 `fused_symmetric_infonce` (no cache):
 
@@ -11,14 +12,32 @@ hard-negative cache path runs in both directions.
 
 over s = scale * a b^T with d = rowsum(a * b). The forward takes the row
 logsumexp and the column logsumexp (the row lse of b a^T) in one pass
-(`csrc/fused_infonce.cu::sym_lse_kernel`); the backward runs the gradient
-pass twice, (a, b) and (b, a), each recomputing the raw tiles and forming
-acc = (P_row + P_col^T) y with p rounded to the dot dtype, and
-rowdot = rowsum(p * raw) (`sym_grad_kernel`). The scalar tail
+(`csrc/fused_infonce.cu::sym_lse_kernel`). The backward has two schedules,
+as the reference's:
+
+- recompute (`materialize_raw=False`): the gradient pass runs twice, (a, b)
+  and (b, a), each recomputing the raw tiles and forming
+  acc = (P_row + P_col^T) y with p rounded to the dot dtype, and
+  rowdot = rowsum(p * raw) (`sym_grad_kernel`);
+- saved raw (`materialize_raw=True`): the forward also stores the raw
+  similarity before the scale as int16, q = round(raw * RAW_QSCALE)
+  (`sym_lse_kernel<kSave>`; the lse, so the loss, are the same bit for
+  bit), and the backward reads it instead of recomputing: s = q * (scale /
+  RAW_QSCALE), acc_a = P y, acc_b = P^T x and rowdot = rowsum(p * q) /
+  RAW_QSCALE, either in one pass over q (`sym_grad_merged_kernel`, a
+  cluster of 8 blocks sharing its p tiles, then a fixed-order sum of the
+  per-256-row partials of acc_b) or in two (`sym_grad_raw_kernel`, pass A:
+  acc_a and rowdot; `sym_grad_rawT_kernel`, pass B: acc_b). Which one is
+  fixed by shape (`_from_raw_merged`), by what the H100 runs faster.
+
+The scalar tail
 
   da = 0.5 (g/B) scale acc_a - (g/B) scale b,   dscale = 0.5 (g/B) sum(rowdot) - (g/B) sum(d)
 
-is plain torch, as in the reference.
+is plain torch, as in the reference. `fused_clip_loss` and
+`fused_multiway_clip_loss` take `materialize_raw="auto"` (the reference's
+default: save while the int16 raw is at most MATERIALIZE_BYTES_LIMIT, that
+is up to B = 18,317 square), "always", "never" or a bool.
 
 `fused_row_ce(x, y, scale, labels, n_valid)` (the cache path):
 
@@ -41,8 +60,8 @@ product, p is rounded to it before each contraction; the positive logits,
 rowdot and every sum stay f32. CPU tensors take the plain versions (which
 materialize the similarity); CUDA tensors take the kernels (bf16 dot dtype,
 d <= 512) or raise. `fused_multiway_clip_loss` sums `fused_clip_loss` over
-the modality pairs of tf_clip. The reference's materialized-raw schedule
-(int16 raw tiles) and the mesh paths are not ported yet.
+the modality pairs of tf_clip. The reference's mesh paths are not ported
+yet.
 """
 
 from __future__ import annotations
@@ -61,6 +80,14 @@ from clip_dplm_tpu_torch.ops.infonce import (
 
 MAX_DIM = 512  # the grad kernel's accumulator: 32 x d f32 in registers
 _BM = 32  # rows per block of both kernels
+_BN = 64  # columns per tile: the saved raw's row pitch is a multiple of it
+_MERGED_ROWS = 256  # rows of one cluster of the merged kernel: one acc_b partial each
+# The saved raw is int16 fixed point: cosines of (bf16-rounded) unit vectors
+# stay below ~1.008, so q = round(raw * RAW_QSCALE) keeps an absolute error
+# of ~1.5e-5, the reference's constant.
+RAW_QSCALE = 32767.0 / 1.01
+# "auto" saves the raw while rows * cols * 2 bytes stay at or below this
+MATERIALIZE_BYTES_LIMIT = 640 * 1024 * 1024
 
 
 def _cast(t: torch.Tensor, dot_dtype) -> torch.Tensor:
@@ -77,12 +104,50 @@ def _plain_lse(x, y, scale):
     return torch.logsumexp(s, dim=1), torch.logsumexp(s, dim=0)
 
 
+def _plain_lse_save(x, y, scale):
+    """The row and column lse of `_plain_lse` (the same bits) and the raw
+    similarity before the scale as int16, round(raw * RAW_QSCALE), rounding
+    half to even as the reference's jnp.round (clamped to int16, which unit
+    rows never reach)."""
+    raw = x.float() @ y.float().t()
+    s = scale * raw
+    q = torch.round(raw * RAW_QSCALE).clamp(-32768, 32767).to(torch.int16)
+    return torch.logsumexp(s, dim=1), torch.logsumexp(s, dim=0), q
+
+
 def _plain_grad(x, y, scale, lse_row, lse_col):
     raw = x.float() @ y.float().t()
     s = raw * scale
     p = torch.exp(s - lse_row[:, None]) + torch.exp(s - lse_col[None, :])
     acc = p.to(y.dtype).float() @ y.float()
     return acc, torch.sum(p * raw, dim=1)
+
+
+def _plain_p_from_raw(raw_q, scale, lse_row, lse_col):
+    """(q as f32, p) from the saved raw, with the reference's rounding
+    points: the dequantization and the scale in one multiply."""
+    qf = raw_q.float()
+    s = qf * (scale * (1.0 / RAW_QSCALE))
+    return qf, torch.exp(s - lse_row[:, None]) + torch.exp(s - lse_col[None, :])
+
+
+def _plain_grad_raw(raw_q, x, y, scale, lse_row, lse_col):
+    """Pass A from the saved raw (m, n): (P y, rowsum(p * raw)), rowdot from
+    the quantized raw divided once, p rounded to y's type for the product."""
+    qf, p = _plain_p_from_raw(raw_q, scale, lse_row, lse_col)
+    return p.to(y.dtype).float() @ y.float(), torch.sum(p * qf, dim=1) * (1.0 / RAW_QSCALE)
+
+
+def _plain_grad_rawT(raw_q, x, y, scale, lse_row, lse_col):
+    """Pass B from the saved raw: P^T x, p rounded to x's type."""
+    _, p = _plain_p_from_raw(raw_q, scale, lse_row, lse_col)
+    return p.to(x.dtype).float().t() @ x.float()
+
+
+def _plain_grad_from_raw(raw_q, x, y, scale, lse_row, lse_col):
+    """(P y, rowsum(p * raw), P^T x) from the saved raw: both passes."""
+    return (*_plain_grad_raw(raw_q, x, y, scale, lse_row, lse_col),
+            _plain_grad_rawT(raw_q, x, y, scale, lse_row, lse_col))
 
 
 # ---------------------------------------------------------------------------
@@ -99,19 +164,36 @@ def _pad_dim(t: torch.Tensor) -> torch.Tensor:
     return t if t.data_ptr() % 16 == 0 else t.clone()
 
 
-def _kernel_lse(x, y, scale):
+def _raw_pitch(n: int) -> int:
+    return -(-n // _BN) * _BN
+
+
+def _kernel_lse(x, y, scale, save: bool = False):
+    """(row lse, column lse), and with `save` the int16 raw: an (m, n) view
+    of an (m, round_up(n, 64)) buffer, as the from-raw kernels read it."""
     m, n = x.shape[0], y.shape[0]
     xp, yp = _pad_dim(x), _pad_dim(y)
     nm = -(-m // _BM)
     row_lse = torch.empty(m, dtype=torch.float32, device=x.device)
     part = torch.empty((2, nm, n), dtype=torch.float32, device=x.device)
-    _build.launch("sym_infonce_lse", xp.data_ptr(), yp.data_ptr(), scale.data_ptr(),
-                  row_lse.data_ptr(), part[0].data_ptr(), part[1].data_ptr(), m, n,
-                  xp.shape[1], _build.stream_of(x))
-    _build.LAUNCHES.add("sym_infonce_lse")
+    ptrs = (xp.data_ptr(), yp.data_ptr(), scale.data_ptr(), row_lse.data_ptr(),
+            part[0].data_ptr(), part[1].data_ptr())
+    if save:
+        raw_q = torch.empty((m, _raw_pitch(n)), dtype=torch.int16, device=x.device)
+        _build.launch("sym_infonce_lse_save", *ptrs, raw_q.data_ptr(), raw_q.shape[1], m, n,
+                      xp.shape[1], _build.stream_of(x))
+        _build.LAUNCHES.add("sym_infonce_lse_save")
+    else:
+        _build.launch("sym_infonce_lse", *ptrs, m, n, xp.shape[1], _build.stream_of(x))
+        _build.LAUNCHES.add("sym_infonce_lse")
     # exact combine of the per-row-block column partials
     log_part = part[0] + torch.log(torch.clamp(part[1], min=1e-30))
-    return row_lse, torch.logsumexp(log_part, dim=0)
+    lse = row_lse, torch.logsumexp(log_part, dim=0)
+    return (*lse, raw_q[:, :n]) if save else lse
+
+
+def _kernel_lse_save(x, y, scale):
+    return _kernel_lse(x, y, scale, save=True)
 
 
 def _kernel_grad(x, y, scale, lse_row, lse_col):
@@ -127,6 +209,91 @@ def _kernel_grad(x, y, scale, lse_row, lse_col):
     return acc[:m, :d], rowdot
 
 
+def _raw_pitch_of(raw_q: torch.Tensor) -> int:
+    """The row pitch of the saved raw as the from-raw kernels read it: the
+    saving forward's (m, n) int16 view of rows of round_up(n, 64) entries,
+    16-byte aligned; anything else raises."""
+    ldq = _raw_pitch(raw_q.shape[1])
+    if raw_q.dtype != torch.int16 or raw_q.stride() != (ldq, 1) or raw_q.data_ptr() % 16:
+        raise ValueError("raw_q must be the saving forward's int16 (m, n) view of rows of "
+                         f"{ldq} entries, got {raw_q.dtype} with strides {raw_q.stride()}")
+    return ldq
+
+
+def _from_raw_args(raw_q, x, y, scale, lse_row, lse_col):
+    return (raw_q, _raw_pitch_of(raw_q), _pad_dim(x), _pad_dim(y), scale.data_ptr(),
+            lse_row.contiguous(), lse_col.contiguous())
+
+
+def _kernel_grad_raw(raw_q, x, y, scale, lse_row, lse_col):
+    """Pass A from the saved raw: (P y, rowdot)."""
+    m, n, d = x.shape[0], y.shape[0], x.shape[1]
+    q, ldq, _, yp, sp, lr, lc = _from_raw_args(raw_q, x, y, scale, lse_row, lse_col)
+    dp = yp.shape[1]
+    acc_a = torch.empty((-(-m // _BM) * _BM, dp), dtype=torch.float32, device=x.device)
+    rowdot = torch.empty(m, dtype=torch.float32, device=x.device)
+    _build.launch("sym_infonce_grad_raw", q.data_ptr(), ldq, yp.data_ptr(), sp, lr.data_ptr(),
+                  lc.data_ptr(), acc_a.data_ptr(), rowdot.data_ptr(), m, n, dp,
+                  _build.stream_of(x))
+    _build.LAUNCHES.add("sym_infonce_grad_raw")
+    return acc_a[:m, :d], rowdot
+
+
+def _kernel_grad_rawT(raw_q, x, y, scale, lse_row, lse_col):
+    """Pass B from the saved raw: P^T x."""
+    m, n, d = x.shape[0], y.shape[0], x.shape[1]
+    q, ldq, xp, _, sp, lr, lc = _from_raw_args(raw_q, x, y, scale, lse_row, lse_col)
+    dp = xp.shape[1]
+    acc_b = torch.empty((-(-n // _BM) * _BM, dp), dtype=torch.float32, device=x.device)
+    _build.launch("sym_infonce_grad_rawT", q.data_ptr(), ldq, xp.data_ptr(), sp, lr.data_ptr(),
+                  lc.data_ptr(), acc_b.data_ptr(), m, n, dp, _build.stream_of(x))
+    _build.LAUNCHES.add("sym_infonce_grad_rawT")
+    return acc_b[:n, :d]
+
+
+def _kernel_grad_two_pass(raw_q, x, y, scale, lse_row, lse_col):
+    """(acc_a, rowdot, acc_b) from the saved raw: pass A, then pass B."""
+    return (*_kernel_grad_raw(raw_q, x, y, scale, lse_row, lse_col),
+            _kernel_grad_rawT(raw_q, x, y, scale, lse_row, lse_col))
+
+
+def _kernel_grad_merged(raw_q, x, y, scale, lse_row, lse_col):
+    """(acc_a, rowdot, acc_b) from the saved raw in one pass over it, then
+    the fixed-order sum of acc_b's per-256-row partials (one launcher)."""
+    m, n, d = x.shape[0], y.shape[0], x.shape[1]
+    q, ldq, xp, yp, sp, lr, lc = _from_raw_args(raw_q, x, y, scale, lse_row, lse_col)
+    dp, dev = xp.shape[1], x.device
+    acc_a = torch.empty((-(-m // _BM) * _BM, dp), dtype=torch.float32, device=dev)
+    rowdot = torch.empty(m, dtype=torch.float32, device=dev)
+    clusters = -(-m // _MERGED_ROWS)  # one: its partial is acc_b, no scratch
+    part = (torch.empty((clusters, ldq, dp), dtype=torch.float32, device=dev)
+            if clusters > 1 else None)
+    acc_b = torch.empty((ldq, dp), dtype=torch.float32, device=dev)
+    _build.launch("sym_infonce_grad_merged", q.data_ptr(), ldq, xp.data_ptr(), yp.data_ptr(), sp,
+                  lr.data_ptr(), lc.data_ptr(), acc_a.data_ptr(), rowdot.data_ptr(),
+                  None if part is None else part.data_ptr(), acc_b.data_ptr(), m, n, dp,
+                  _build.stream_of(x))
+    _build.LAUNCHES.add("sym_infonce_grad_merged")
+    return acc_a[:m, :d], rowdot, acc_b[:n, :d]
+
+
+def _from_raw_merged(m: int) -> bool:
+    """The port's choice of the from-raw schedule for m rows, fixed by shape,
+    by what the H100 ran faster at d=512 in alternating rounds (chip_smoke.py
+    phase 11; PERF.md, section 6): the merged kernel while one cluster covers
+    the rows (m <= 256: its partial is acc_b, no sum; device time within
+    5 % of the two passes, and one launch where they make two, so less time
+    a call when the host issues the step), the two passes above (the merged
+    kernel's one block an SM and its partials cost it 5 % at B=512 and 1024,
+    1.7x at 4096, 2.3x at 8192)."""
+    return m <= _MERGED_ROWS
+
+
+def _kernel_grad_from_raw(raw_q, x, y, scale, lse_row, lse_col):
+    fn = _kernel_grad_merged if _from_raw_merged(x.shape[0]) else _kernel_grad_two_pass
+    return fn(raw_q, x, y, scale, lse_row, lse_col)
+
+
 # ---------------------------------------------------------------------------
 # autograd
 # ---------------------------------------------------------------------------
@@ -134,30 +301,57 @@ def _kernel_grad(x, y, scale, lse_row, lse_col):
 
 class _SymInfoNCE(torch.autograd.Function):
     @staticmethod
-    def forward(ctx, a, b, scale, dot_dtype, use_kernel):
+    def forward(ctx, a, b, scale, dot_dtype, use_kernel, materialize_raw):
         ad, bd = _cast(a, dot_dtype), _cast(b, dot_dtype)
         scale32 = scale.float().reshape(1).contiguous()
-        lse = _kernel_lse if use_kernel else _plain_lse
-        lse_a, lse_b = lse(ad, bd, scale32)
+        raw_q = None
+        if materialize_raw:
+            lse = _kernel_lse_save if use_kernel else _plain_lse_save
+            lse_a, lse_b, raw_q = lse(ad, bd, scale32)
+        else:
+            lse = _kernel_lse if use_kernel else _plain_lse
+            lse_a, lse_b = lse(ad, bd, scale32)
         diag = torch.sum(a.float() * b.float(), dim=-1)
         loss = 0.5 * (torch.mean(lse_a - scale32 * diag) + torch.mean(lse_b - scale32 * diag))
-        ctx.use_kernel = use_kernel
-        ctx.save_for_backward(a, b, ad, bd, scale32, lse_a, lse_b, diag)
+        ctx.use_kernel, ctx.materialize_raw = use_kernel, materialize_raw
+        # autograd drops the saved raw when this node's backward has run
+        # (unless the graph is retained): tf_clip's three buffers go one by one
+        ctx.save_for_backward(a, b, ad, bd, scale32, lse_a, lse_b, diag, raw_q)
         ctx.scale_shape, ctx.scale_dtype = scale.shape, scale.dtype
         return loss
 
     @staticmethod
     def backward(ctx, g):
-        a, b, ad, bd, scale32, lse_a, lse_b, diag = ctx.saved_tensors
-        grad = _kernel_grad if ctx.use_kernel else _plain_grad
-        acc_a, rowdot = grad(ad, bd, scale32, lse_a, lse_b)
-        acc_b, _ = grad(bd, ad, scale32, lse_b, lse_a)
-        coef = g.float() / a.shape[0]
-        da = 0.5 * coef * scale32 * acc_a - coef * scale32 * b.float()
-        db = 0.5 * coef * scale32 * acc_b - coef * scale32 * a.float()
-        dscale = 0.5 * coef * torch.sum(rowdot) - coef * torch.sum(diag)
+        a, b, ad, bd, scale32, lse_a, lse_b, diag, raw_q = ctx.saved_tensors
+        if ctx.materialize_raw:
+            grad = _kernel_grad_from_raw if ctx.use_kernel else _plain_grad_from_raw
+            acc_a, rowdot, acc_b = grad(raw_q, ad, bd, scale32, lse_a, lse_b)
+        else:
+            grad = _kernel_grad if ctx.use_kernel else _plain_grad
+            acc_a, rowdot = grad(ad, bd, scale32, lse_a, lse_b)
+            acc_b, _ = grad(bd, ad, scale32, lse_b, lse_a)
+        da, db, dscale = _sym_tail(g, a, b, scale32, diag, acc_a, rowdot, acc_b)
         return (da.to(a.dtype), db.to(b.dtype),
-                dscale.reshape(ctx.scale_shape).to(ctx.scale_dtype), None, None)
+                dscale.reshape(ctx.scale_shape).to(ctx.scale_dtype), None, None, None)
+
+
+def _sym_tail(g, a, b, scale32, diag, acc_a, rowdot, acc_b):
+    """(da, db, dscale) in f32 from the backward's contractions."""
+    coef = g.float() / a.shape[0]
+    da = 0.5 * coef * scale32 * acc_a - coef * scale32 * b.float()
+    db = 0.5 * coef * scale32 * acc_b - coef * scale32 * a.float()
+    return da, db, 0.5 * coef * torch.sum(rowdot) - coef * torch.sum(diag)
+
+
+def _resolve_materialize(materialize_raw, rows: int, cols: int) -> bool:
+    """'auto' saves the raw while the int16 buffer stays at or below
+    MATERIALIZE_BYTES_LIMIT; 'always' saves it, any other string does not;
+    a bool is taken as given."""
+    if materialize_raw == "auto":
+        return rows * cols * 2 <= MATERIALIZE_BYTES_LIMIT
+    if isinstance(materialize_raw, str):
+        return materialize_raw == "always"
+    return bool(materialize_raw)
 
 
 def _check(a, b, scale):
@@ -168,11 +362,12 @@ def _check(a, b, scale):
         raise ValueError(f"scale must hold one value, got shape {tuple(scale.shape)}")
 
 
-def fused_symmetric_infonce_reference(a, b, scale, dot_dtype=None) -> torch.Tensor:
+def fused_symmetric_infonce_reference(a, b, scale, dot_dtype=None,
+                                      materialize_raw: bool = False) -> torch.Tensor:
     """Plain version on any device: the B x B similarity materialized, the
     same rounding points and the same backward."""
     _check(a, b, scale)
-    return _SymInfoNCE.apply(a, b, scale, dot_dtype, False)
+    return _SymInfoNCE.apply(a, b, scale, dot_dtype, False, bool(materialize_raw))
 
 
 def _use_kernel(x: torch.Tensor, y: torch.Tensor, dot_dtype, *others: torch.Tensor) -> bool:
@@ -196,13 +391,17 @@ def _use_kernel(x: torch.Tensor, y: torch.Tensor, dot_dtype, *others: torch.Tens
 
 
 def fused_symmetric_infonce(a: torch.Tensor, b: torch.Tensor, scale: torch.Tensor,
-                            dot_dtype: Optional[torch.dtype] = None) -> torch.Tensor:
+                            dot_dtype: Optional[torch.dtype] = None,
+                            materialize_raw: bool = False) -> torch.Tensor:
     """0.5 * (row-CE(scale a b^T, diag) + row-CE(scale b a^T, diag)); a, b
-    (B, d) L2-normalized, scale a one-element tensor. CPU tensors take the
-    plain version; CUDA tensors take the kernels (bf16 operands via
+    (B, d) L2-normalized, scale a one-element tensor. `materialize_raw`
+    saves the raw similarity as int16 in the forward so that the backward
+    reads it instead of recomputing it (B x B x 2 bytes). CPU tensors take
+    the plain version; CUDA tensors take the kernels (bf16 operands via
     dot_dtype=torch.bfloat16, d <= 512) or raise."""
     _check(a, b, scale)
-    return _SymInfoNCE.apply(a, b, scale, dot_dtype, _use_kernel(a, b, dot_dtype, scale))
+    return _SymInfoNCE.apply(a, b, scale, dot_dtype, _use_kernel(a, b, dot_dtype, scale),
+                             bool(materialize_raw))
 
 
 # ---------------------------------------------------------------------------
@@ -371,13 +570,16 @@ def fused_clip_loss(
     assume_normalized: bool = False,
     cache: Optional[torch.Tensor] = None,
     cache_len: Optional[torch.Tensor] = None,
+    materialize_raw="auto",
 ) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
     """Drop-in for infonce.clip_loss through the fused loss. Without a cache
-    the symmetric kernels; with `cache` (C, d), normalized rows whose first
-    `cache_len` (a device int32) are filled, the two row cross-entropies: a
-    against [b; cache], b against a. Returns (loss, {loss_a, loss_b,
-    logit_scale}), as the reference's fused path does (no accuracy: nothing
-    materializes the similarity)."""
+    the symmetric kernels, saving the int16 raw as `materialize_raw` says
+    ("auto": while B x B x 2 bytes <= MATERIALIZE_BYTES_LIMIT; "always",
+    "never" or a bool); with `cache` (C, d), normalized rows whose first
+    `cache_len` (a device int32) are filled, the two row cross-entropies,
+    which never save it: a against [b; cache], b against a. Returns (loss,
+    {loss_a, loss_b, logit_scale}), as the reference's fused path does (no
+    accuracy: nothing materializes the f32 similarity)."""
     if assume_normalized:
         a, b = emb_a.float(), emb_b.float()
     else:
@@ -386,7 +588,8 @@ def fused_clip_loss(
     B = a.shape[0]
     labels = torch.arange(B, device=a.device)
     if cache is None:
-        loss = fused_symmetric_infonce(a, b, scale, dot_dtype)
+        mat = _resolve_materialize(materialize_raw, a.shape[0], b.shape[0])
+        loss = fused_symmetric_infonce(a, b, scale, dot_dtype, mat)
         if label_smoothing > 0.0:
             loss = loss + 0.5 * (_smoothing_adjustment(a, b, scale, labels, label_smoothing)
                                  + _smoothing_adjustment(b, a, scale, labels, label_smoothing))
@@ -408,17 +611,20 @@ def fused_multiway_clip_loss(
     max_scale: float = 100.0,
     dot_dtype: Optional[torch.dtype] = None,
     label_smoothing: float = 0.0,
+    materialize_raw="auto",
 ) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
     """Drop-in for infonce.multiway_clip_loss through `fused_clip_loss`, one
-    pair at a time (no B x B similarity is materialized); the total is the
-    sum. Metrics: each pair's loss and the effective logit scale (no
-    accuracy, as the reference's fused path)."""
+    pair at a time (no f32 B x B similarity is materialized; each pair saves
+    its int16 raw as `materialize_raw` says); the total is the sum. Metrics:
+    each pair's loss and the effective logit scale (no accuracy, as the
+    reference's fused path)."""
     total = torch.zeros((), device=logit_scale.device)
     metrics: Dict[str, torch.Tensor] = {}
     for a, b in modality_pairs(embeddings):
         loss, _ = fused_clip_loss(embeddings[a], embeddings[b], logit_scale,
                                   max_scale=max_scale, dot_dtype=dot_dtype,
-                                  label_smoothing=label_smoothing)
+                                  label_smoothing=label_smoothing,
+                                  materialize_raw=materialize_raw)
         total = total + loss
         metrics[f"loss_{a}_{b}"] = loss
     metrics["logit_scale"] = effective_scale(logit_scale, max_scale)

@@ -71,7 +71,7 @@ def _pair_loss_fn(cfg: Config):
                 out["emb_a"], out["emb_b"], ls, max_scale=cc.logit_scale_max,
                 dot_dtype=torch.bfloat16, label_smoothing=cc.label_smoothing,
                 assume_normalized=cfg.projection.l2_normalize_output,
-                cache=cache, cache_len=cache_len)
+                cache=cache, cache_len=cache_len, materialize_raw=cc.fused_materialize_raw)
         else:
             loss, metrics = infonce.clip_loss(out["emb_a"], out["emb_b"], ls,
                                               label_smoothing=cc.label_smoothing,
@@ -103,7 +103,7 @@ def _multiway_loss_fn(cfg: Config):
         if cc.use_fused_kernel:
             loss, metrics = fused_multiway_clip_loss(
                 _embeddings(out), ls, max_scale=cc.logit_scale_max, dot_dtype=torch.bfloat16,
-                label_smoothing=cc.label_smoothing)
+                label_smoothing=cc.label_smoothing, materialize_raw=cc.fused_materialize_raw)
         else:
             loss, metrics = infonce.multiway_clip_loss(
                 _embeddings(out), ls, max_scale=cc.logit_scale_max,
@@ -183,7 +183,8 @@ def make_train_step(cfg: Config) -> Callable[[TrainState, Dict], Tuple[TrainStat
 
 def make_eval_step(cfg: Config) -> Callable[[TrainState, Dict], Dict]:
     """Deterministic forward and the loss (no label smoothing); tf_clip takes
-    the plain multiway loss, as the reference's eval does."""
+    the plain multiway loss, as the reference's eval does. The fused loss
+    saves no raw similarity here: no backward would read it."""
     _check_loss(cfg)
     cc = cfg.contrastive
 
@@ -198,7 +199,7 @@ def make_eval_step(cfg: Config) -> Callable[[TrainState, Dict], Dict]:
             loss, metrics = fused_clip_loss(
                 out["emb_a"], out["emb_b"], ls, max_scale=cc.logit_scale_max,
                 dot_dtype=torch.bfloat16,
-                assume_normalized=cfg.projection.l2_normalize_output)
+                assume_normalized=cfg.projection.l2_normalize_output, materialize_raw=False)
         else:
             loss, metrics = infonce.clip_loss(out["emb_a"], out["emb_b"], ls,
                                               label_smoothing=0.0,

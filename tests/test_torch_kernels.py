@@ -536,3 +536,87 @@ def test_cached_fused_clip_loss_matches_plain(cuda_device, np_rng):
     torch.testing.assert_close(out["cuda"][0], out["cpu"][0], **TOL)
     torch.testing.assert_close(out["cuda"][1], out["cpu"][1], **TOL)
     _grads_close(out["cuda"][2:], out["cpu"][2:], ["da", "db", "dls"])
+
+
+SAVED_RAW_KERNELS = ("sym_infonce_lse_save", "sym_infonce_grad_raw", "sym_infonce_grad_rawT",
+                     "sym_infonce_grad_merged")
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("m,n,d", [(1000, 1000, 512), (4096, 4096, 512), (300, 700, 96),
+                                   (136, 136, 48), (520, 33, 200), (256, 256, 512),
+                                   (200, 200, 512)])
+def test_saved_raw_kernels_match_plain(cuda_device, np_rng, m, n, d):
+    """The saving forward (lse and the int16 raw, |dq| <= 1 where the f32
+    sums round differently), pass A, pass B and the merged kernel from the
+    same raw and the plain lse, each against its plain version; merged
+    against the two passes; two launches of each kernel equal byte for
+    byte (no atomics)."""
+    x, y, s = _row_ce_inputs(np_rng, cuda_device, m, n, d)
+    xb, yb, s32 = x.bfloat16(), y.bfloat16(), s.reshape(1)
+    before = _build.LAUNCHES.snapshot()
+    *lse, raw_q = fi._kernel_lse_save(xb, yb, s32)
+    *lse_ref, raw_ref = fi._plain_lse_save(xb, yb, s32)
+    two = fi._kernel_grad_two_pass(raw_q, xb, yb, s32, *lse_ref)
+    merged = fi._kernel_grad_merged(raw_q, xb, yb, s32, *lse_ref)
+    torch.cuda.synchronize()
+    after = _build.LAUNCHES.snapshot()
+    for name in SAVED_RAW_KERNELS:
+        assert after[name] == before[name] + 1, name
+    torch.testing.assert_close(lse[0], lse_ref[0], **TOL)
+    torch.testing.assert_close(lse[1], lse_ref[1], **TOL)
+    assert raw_q.shape == (m, n) and raw_q.dtype == torch.int16
+    assert (raw_q.int() - raw_ref.int()).abs().max().item() <= 1
+    want = fi._plain_grad_from_raw(raw_q, xb, yb, s32, *lse_ref)
+    for got in (two, merged):
+        assert all(torch.isfinite(t).all() for t in got)
+        _grads_close(got, want, ["acc_a", "rowdot", "acc_b"])
+    _grads_close(merged, two, ["acc_a", "rowdot", "acc_b"])
+    again = (fi._kernel_lse_save(xb, yb, s32),
+             fi._kernel_grad_two_pass(raw_q, xb, yb, s32, *lse_ref),
+             fi._kernel_grad_merged(raw_q, xb, yb, s32, *lse_ref))
+    for first, second in zip(((*lse, raw_q), two, merged), again):
+        assert all(torch.equal(u, v) for u, v in zip(first, second))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("B,d", [(1000, 512), (256, 512), (136, 48), (64, 128)])
+def test_saved_raw_sym_infonce_matches_plain(cuda_device, np_rng, B, d):
+    """fused_symmetric_infonce(materialize_raw=True) on the card (the saving
+    forward, the from-raw schedule the shape rule picks, no recompute pass)
+    against its plain version: the loss, da, db and dscale."""
+    a, b, s = _row_ce_inputs(np_rng, cuda_device, B, B, d)
+
+    def run(fn):
+        ta, tb, ts = (t.clone().requires_grad_(True) for t in (a, b, s))
+        loss = fn(ta, tb, ts, torch.bfloat16, materialize_raw=True)
+        loss.backward()
+        return loss.detach(), [ta.grad, tb.grad, ts.grad]
+
+    before = _build.LAUNCHES.snapshot()
+    loss, grads = run(fi.fused_symmetric_infonce)
+    torch.cuda.synchronize()
+    after = _build.LAUNCHES.snapshot()
+    merged = fi._from_raw_merged(B)
+    assert after["sym_infonce_lse_save"] == before["sym_infonce_lse_save"] + 1
+    assert after["sym_infonce_grad_merged"] == before["sym_infonce_grad_merged"] + merged
+    assert after["sym_infonce_grad_raw"] == before["sym_infonce_grad_raw"] + (not merged)
+    assert after["sym_infonce_grad_rawT"] == before["sym_infonce_grad_rawT"] + (not merged)
+    assert after["sym_infonce_grad"] == before["sym_infonce_grad"]
+    assert after["sym_infonce_lse"] == before["sym_infonce_lse"]
+    loss_ref, grads_ref = run(fi.fused_symmetric_infonce_reference)
+    assert torch.isfinite(loss)
+    torch.testing.assert_close(loss, loss_ref, **TOL)
+    _grads_close(grads, grads_ref, ["da", "db", "dscale"])
+
+
+@pytest.mark.cuda
+def test_saved_raw_refuses_what_the_kernels_do_not_take(cuda_device):
+    a = torch.zeros(16, 640, device=cuda_device)
+    s = torch.tensor(1.0, device=cuda_device)
+    with pytest.raises(ValueError, match="d <="):
+        fi.fused_symmetric_infonce(a, a, s, torch.bfloat16, materialize_raw=True)
+    with pytest.raises(ValueError, match="bf16"):
+        fi.fused_symmetric_infonce(a[:, :64], a[:, :64], s, materialize_raw=True)
+    with pytest.raises(ValueError, match="d <="):
+        fi.fused_clip_loss(a, a, s, dot_dtype=torch.bfloat16, materialize_raw="always")

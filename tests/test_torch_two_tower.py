@@ -235,7 +235,7 @@ def test_convert_loads_jax_two_tower_init_strict():
 
 def test_config_rejects_unported_fields():
     with pytest.raises(KeyError):
-        pconfig.apply_overrides(pconfig.Config(), ["contrastive.fused_materialize_raw=auto"])
+        pconfig.apply_overrides(pconfig.Config(), ["contrastive.gather_global_batch=true"])
     with pytest.raises(ValueError):
         build_model(dataclasses.replace(pconfig.Config(), experiment="dplm"))
     with pytest.raises(ValueError, match="unknown tower architecture"):

@@ -43,7 +43,14 @@ Phases, each fatal on failure (non-zero exit, no result line):
      on, as 7(a); (c) the train CLI with experiment=rna_rbp at full width,
      B=256, 3 epochs, whose loss must fall; (d) experiments/bench.py --model
      rna_rbp at B=1024. The three new launch counters must rise in (c)+(d),
-     and the saved-raw InfoNCE's as in 7;
+     and the saved-raw InfoNCE's as in 7; the packed attention's as the
+     JAX package's size rule picks its mode there (saved at every shape of
+     (c) and (d): the saving forward and the backward from the
+     probabilities, the recompute backward not at all); (e) experiments/
+     bench.py --model rna_rbp at B=2304, past the rule's 512 MiB (JAX's
+     count: 604 MB a packed call), must launch the recompute backward (its
+     one-block-a-head kernel at S=128) and neither saved-mode kernel; the
+     kernels line takes the recompute backward's launches from (e);
   9. the tf_clip three-way step (experiments/bench.py --model tf_clip
      widths: three encoders of 3 blocks of 8 heads, d=512; gene_dim 2000 + 1,
      esm_dim 1280, 10 DEG tokens): (a) the tiny-S attention forward and
@@ -95,7 +102,23 @@ Phases, each fatal on failure (non-zero exit, no result line):
      B=8192; the merged and two-pass schedules timed in five alternating
      rounds, device and host-and-device time, at B=8192, 4096, 1024, 512,
      256, 200 and 128 beside the choice of the port's shape rule.
-     No single library call computes these functions.
+     No single library call computes these functions;
+ 12. DPLM training (experiment=dplm, DPLM 640/12/10): (a) the packed
+     attention's saving forward (o and the bf16 probabilities) and its
+     backward from the probabilities against their plain versions on the
+     card in bf16 (atol = rtol = 2e-2, the backward outputs relative to
+     their largest entry, on the plain forward's residuals) at DPLM's B=256,
+     S=128, D=640, H=10 with RoPE, the flagship's B=1024, S=128, D=512, H=8,
+     S=64, a ragged B=1000, S=65, and S=255 at Dh=64 and Dh=128, where the
+     recompute backward is held to its plain version too; two launches of
+     each equal byte for byte; each timed beside the recompute backward and
+     SDPA (timed only); (b) one DPLM train step on the card against the CPU
+     at full width, B=8, S=64, the same weights and the same hash-drawn
+     corruption, as 7(a); (c) one step at S=300 (the flash path: forward,
+     dQ and dK/dV) with a finite loss; (d) the train CLI with
+     experiment=dplm (S=64, B=128) for 3 epochs, whose loss must fall; (e)
+     experiments/bench.py --model dplm at B=256, S=128. The two new launch
+     counters must rise in (d)+(e), the recompute backward's not at all.
 Prints a JSON line of per-kernel results (each kernel's time at its main
 shape, its plain version's, the library call's where there is one, and the
 bound: the larger of the bytes it must move over 3.35 TB/s and its
@@ -123,8 +146,13 @@ MODEL_REL_L2, MODEL_MAX_ABS = 3e-2, 0.12
 # bf16 both: STEP_NOISE_FACTOR x the bf16-vs-f32 difference of the same
 # step on the CPU (loss, each leaf's gradient, update), measured in the same
 # run (the port may add no more than a few times the rounding noise bf16
-# itself causes).
+# itself causes). The loss is held over LOSS_DRAWS draws of the step's
+# random numbers (dropout masks; DPLM's corruption), each with the gradient
+# enabled as the step's own forward: error and noise are the RMS of the
+# per-draw relative differences, since one draw's bf16-vs-f32 difference of
+# a loss averaged over many tokens can fall near 0 by chance.
 STEP_NOISE_FACTOR = 3.0
+LOSS_DRAWS = 8
 SERVE_KERNELS = {  # launch-counter name -> (source, TPU kernel it replaces)
     "short_attention": ("clip_dplm_tpu_torch/csrc/short_attention.cu",
                         "clip_dplm_tpu/ops/short_attention.py:142"),
@@ -181,8 +209,14 @@ SAVED_RAW_KERNELS = {
     "sym_infonce_grad_rawT": ("clip_dplm_tpu_torch/csrc/fused_infonce.cu",
                               "clip_dplm_tpu/ops/fused_infonce.py:782"),
 }
+DPLM_KERNELS = {
+    "short_attention_save": ("clip_dplm_tpu_torch/csrc/short_attention.cu",
+                             "clip_dplm_tpu/ops/short_attention.py:537"),
+    "short_attention_bwd_probs": ("clip_dplm_tpu_torch/csrc/short_attention.cu",
+                                  "clip_dplm_tpu/ops/short_attention.py:583"),
+}
 KERNELS = {**SERVE_KERNELS, **TRAIN_KERNELS, **FLAGSHIP_KERNELS, **TF_CLIP_KERNELS,
-           **CACHE_KERNELS, **SAVED_RAW_KERNELS}
+           **CACHE_KERNELS, **SAVED_RAW_KERNELS, **DPLM_KERNELS}
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM HBM3 bandwidth
 PEAK_OPS = {"bf16": 989e12, "f32": 67e12}  # dense tensor-core bf16; f32 off the tensor cores
 
@@ -629,7 +663,10 @@ def step_card_vs_cpu(torch, what, cfg, batch, cache=None):
     within STEP_NOISE_FACTOR x its bf16-vs-f32 noise on the CPU. With `cache`
     = (rows, ptr, filled) every run starts from that hard-negative cache;
     the new cache_ptr and cache_len must then be equal, the untouched rows
-    unchanged and the written rows within the same bound."""
+    unchanged and the written rows within the same bound. The loss is
+    compared over LOSS_DRAWS seeds (the step's and the next ones, forward
+    only, with the gradient enabled), error and noise as the RMS of the
+    per-seed relative differences."""
     from clip_dplm_tpu_torch.experiments.registry import build_model
     from clip_dplm_tpu_torch.ops.fused_dense import DropoutSeeds
     from clip_dplm_tpu_torch.train.state import create_train_state
@@ -639,7 +676,7 @@ def step_card_vs_cpu(torch, what, cfg, batch, cache=None):
     gpu = build_model(cfg, device="cuda")
     create_train_state(gpu, cfg)  # random weights from the seed
     sd = {k: v.detach().cpu().clone() for k, v in gpu.state_dict().items()}
-    runs, caches = {}, {}
+    runs, caches, draws = {}, {}, {}
     for name, device, dtype in (("card", "cuda", torch.bfloat16),
                                 ("cpu", "cpu", torch.bfloat16),
                                 ("cpu_f32", "cpu", torch.float32)):
@@ -654,6 +691,11 @@ def step_card_vs_cpu(torch, what, cfg, batch, cache=None):
                                     state.cache, state.cache_len)
         loss.backward()
         grads = {k: p.grad.detach().cpu().float() for k, p in model.named_parameters()}
+        # the next seeds' losses through the step's graph mode (the packed
+        # attention's saved mode where the rule picks it)
+        draws[name] = [float(loss)] + [float(make_loss_fn(cfg)(
+            model, dev_batch, DropoutSeeds(state.key, state.step + i), state.cache,
+            state.cache_len)[0].detach()) for i in range(1, LOSS_DRAWS)]
         state, metrics = make_train_step(cfg)(state, dev_batch)
         runs[name] = (float(metrics["loss"]), grads, torch.cat([
             (p.detach().cpu().float() - sd[k]).flatten()
@@ -677,11 +719,16 @@ def step_card_vs_cpu(torch, what, cfg, batch, cache=None):
             worst, worst_leaf = err / noise, k
         check(err <= STEP_NOISE_FACTOR * noise,
               f"{what} grad {k}: rel L2 {err} > {STEP_NOISE_FACTOR} x noise {noise}")
-    loss_err, loss_noise = abs(l_card - l_cpu) / abs(l_cpu), abs(l_f32 - l_cpu) / abs(l_cpu)
+    ref = np.array(draws["cpu"])
+    per_draw = {k: (np.array(draws[k]) - ref) / ref for k in ("card", "cpu_f32")}
+    loss_err, loss_noise = (float(np.sqrt(np.mean(per_draw[k] ** 2))) for k in per_draw)
     upd_err, upd_noise = _rel(d_card, d_cpu), _rel(d_f32, d_cpu)
     print(f"{what}: loss card {l_card:.6f} cpu "
           f"{l_cpu:.6f} cpu_f32 {l_f32:.6f}; loss rel err {loss_err:.3e} (bf16 noise "
-          f"{loss_noise:.3e}); gradient rel L2 {grad_err:.3e} (bf16 noise {grad_noise:.3e}), "
+          f"{loss_noise:.3e}, RMS over {LOSS_DRAWS} seeds; per seed: err "
+          f"{' '.join(f'{x:.1e}' for x in per_draw['card'])}, noise "
+          f"{' '.join(f'{x:.1e}' for x in per_draw['cpu_f32'])}); "
+          f"gradient rel L2 {grad_err:.3e} (bf16 noise {grad_noise:.3e}), "
           f"worst leaf {worst:.3f} x its noise ({worst_leaf}) over {len(g_cpu)} leaves; "
           f"update rel L2 "
           f"{upd_err:.3e} (bf16 noise {upd_noise:.3e})")
@@ -866,10 +913,60 @@ def phase_flagship_path(torch, build):
           f"{out['model_tflops_per_s_per_chip']} model TFLOP/s, MFU {out['mfu']} of "
           f"{out['peak_bf16_tflops']} TFLOP/s bf16 peak")
     print(f"launches during the flagship phase: {launches}")
-    for name in list(FLAGSHIP_KERNELS) + ["short_attention", "short_attention_out_proj"]:
+    for name in ["cls_attention_fwd", "cls_attention_bwd", "short_attention_out_proj"]:
         check(launches[name] > 0, f"kernel {name} was not launched by the flagship path")
+    # the CLI's towers (S = 65 and 129 at B=256) and the bench's (S = 128 at
+    # B=1024), 8 heads
+    check_attention_path(launches, "flagship", (256, 65, 8), (256, 129, 8), (1024, 128, 8))
     check_saved_raw_path(launches, "flagship", 256, 1024)
+    # 8(e): the recompute backward's launches come from the path that runs it
+    launches["short_attention_bwd"] = flagship_past_the_rule(torch, build)["short_attention_bwd"]
     return launches
+
+
+def attention_kernels(*shapes):
+    """(must run, must not run): the packed attention's launch counters a
+    train path over these (B, S, H) shapes raises, by the JAX package's rule
+    (`short_attention.saves_probs`)."""
+    from clip_dplm_tpu_torch.ops.short_attention import saves_probs
+
+    modes = {saves_probs(*s) for s in shapes}
+    on = (["short_attention_save", "short_attention_bwd_probs"] if True in modes else []) + (
+        ["short_attention_bwd"] if False in modes else [])
+    off = [k for k in ("short_attention_save", "short_attention_bwd_probs",
+                       "short_attention_bwd") if k not in on]
+    return on, off
+
+
+def check_attention_path(launches, what, *shapes):
+    on, off = attention_kernels(*shapes)
+    for name in on:
+        check(launches[name] > 0, f"kernel {name} was not launched by the {what} path")
+    for name in off:
+        check(launches[name] == 0, f"the {what} path ran {name}, which the mode rule does not "
+                                   f"pick at {shapes}")
+    print(f"{what} path: packed attention in the rule's mode at {shapes}: {', '.join(on)}")
+
+
+def flagship_past_the_rule(torch, build):
+    """8(e): experiments/bench.py --model rna_rbp at B=2304, S=128, H=8
+    (JAX's count a packed attention call: 2304·8·128²·2 = 604 MB, past
+    512 MiB): the rule picks recompute, and the path launches the recompute
+    backward and neither saved-mode kernel. Returns the launch counts of
+    that run alone."""
+    from clip_dplm_tpu_torch.experiments import bench
+    from clip_dplm_tpu_torch.ops.short_attention import saves_probs
+
+    B, S, H = 2304, 128, 8
+    check(not saves_probs(B, S, H), f"the rule saves at B={B} S={S} H={H}")
+    build.LAUNCHES.reset()
+    out = bench.main(["--model", "rna_rbp", "--batch", str(B)])
+    torch.cuda.synchronize()
+    counts = build.LAUNCHES.snapshot()
+    print(f"bench rna_rbp B={B} (604 MB a packed call by JAX's count): step {out['step_ms']} ms, "
+          f"{out['value']} pairs/s, MFU {out['mfu']}")
+    check_attention_path(counts, f"flagship B={B}", (B, S, H))
+    return counts
 
 
 def phase_tf_clip_kernels(torch, results):
@@ -1277,6 +1374,175 @@ def phase_from_raw_schedules(torch, fi, unit, scale, d):
                   f"from-raw schedule B={B}: the rule takes {pick}, the slower by 1.5x")
 
 
+def phase_dplm_kernels(torch, results):
+    """12(a): the saving forward and the backward from the probabilities
+    against their plain versions, on the plain forward's residuals, with the
+    recompute backward beside them (held to its plain version at S=255) and
+    SDPA's backward, timed only."""
+    from clip_dplm_tpu_torch.ops import short_attention as sa
+
+    dev = torch.device("cuda")
+    g = torch.Generator(device=dev).manual_seed(23)
+    rnd = lambda *s: torch.randn(*s, generator=g, device=dev).to(torch.bfloat16)  # noqa: E731
+
+    def ragged_mask(B, S):
+        lens = torch.randint(S // 2, S + 1, (B,), generator=g, device=dev)
+        lens[0] = S
+        return torch.arange(S, device=dev)[None, :] < lens[:, None]
+
+    def heads(t, H):
+        return t.unflatten(-1, (H, -1)).transpose(1, 2)
+
+    # (B, S, D, H, rope): DPLM's bench step, the flagship block, DPLM's CLI
+    # (S=64), ragged S=65, and S=255 at Dh=64 and Dh=128
+    for B, S, D, H, rope in ((256, 128, 640, 10, True), (1024, 128, 512, 8, False),
+                             (256, 64, 640, 10, True), (1000, 65, 512, 8, False),
+                             (32, 255, 640, 10, True), (32, 255, 1024, 8, True)):
+        main = (B, S) == (256, 128)
+        qkv, dout, mask = rnd(B, S, 3 * D), rnd(B, S, D), ragged_mask(B, S)
+        pos = torch.arange(S, device=dev) if rope else None
+        kw = dict(mask=mask, rope_positions=pos)
+        o, probs = sa.short_attention_qkv_reference(qkv, H, return_probs=True, **kw)
+        q, k, v = (heads(t, H) for t in qkv.split(D, dim=-1))
+        shape = f"B={B} S={S} D={D} H={H}" + (" rope" if rope else "")
+        with torch.no_grad():
+            fwd = lambda: sa.short_attention_qkv_save(qkv, H, **kw)  # noqa: E731
+            got, again = fwd(), fwd()
+            err = check_outputs(torch, f"short_attention_save {shape}", got, (o, probs),
+                                ["o", "probs"])
+            check(all(torch.equal(a, b) for a, b in zip(got, again)),
+                  f"short_attention_save {shape}: two launches differ")
+            ms, plain_ms = timed_pair(
+                torch, fwd, lambda: sa.short_attention_qkv_reference(qkv, H, return_probs=True,
+                                                                     **kw))
+        # bytes: qkv, mask, cos/sin in; o and the probabilities out; ops: two
+        # (S, S, Dh) products a head
+        record(results, "short_attention_save", shape + " (o and bf16 probabilities)", err, ms,
+               plain_ms, work=(B * S * 4 * D * 2 + B * H * S * S * 2 + B * S
+                               + (S * D // H * 4 if rope else 0),
+                               4 * B * S * S * D),
+               library_ms=library_time(torch, sdpa_fn(torch, q, k, v, mask)) if main else None)
+        sdpa_bwd = sdpa_bwd_fn(torch, q, k, v, mask, heads(dout, H))
+        bwd = lambda: sa.short_attention_qkv_bwd_probs(dout, qkv, probs, H,  # noqa: E731
+                                                       rope_positions=pos)
+        got, again = bwd(), bwd()
+        err = check_outputs(torch, f"short_attention_bwd_probs {shape}", [got], [
+            sa.short_attention_qkv_bwd_probs_reference(dout, qkv, probs, H, rope_positions=pos)],
+            ["dqkv"], raw_first=False)
+        check(torch.equal(got, again), f"short_attention_bwd_probs {shape}: two launches differ")
+        ms, plain_ms = timed_pair(torch, bwd, lambda: sa.short_attention_qkv_bwd_probs_reference(
+            dout, qkv, probs, H, rope_positions=pos))
+        # bytes: qkv, dO, the probabilities in; dqkv out; ops: the dP, dQ, dK
+        # and dV products
+        record(results, "short_attention_bwd_probs", shape + " (on the plain probabilities)", err,
+               ms, plain_ms, work=(B * S * 7 * D * 2 + B * H * S * S * 2, 8 * B * S * S * D),
+               library_ms=library_time(torch, sdpa_bwd) if main else None)
+        rec = lambda: sa.short_attention_qkv_bwd(dout, qkv, o, H, **kw)  # noqa: E731
+        if S == 255:
+            got, again = rec(), rec()
+            r_err = check_outputs(torch, f"short_attention_bwd {shape}", [got],
+                                  [sa.short_attention_qkv_bwd_reference(dout, qkv, o, H, **kw)],
+                                  ["dqkv"], raw_first=False)
+            check(torch.equal(got, again), f"short_attention_bwd {shape}: two launches differ")
+            results["short_attention_bwd"]["max_abs_err"] = max(
+                results["short_attention_bwd"]["max_abs_err"], r_err)
+            print(f"kernel short_attention_bwd {shape}: max_abs_err={r_err:.3e}")
+        rec_ms, sdpa_ms = library_time(torch, rec), library_time(torch, sdpa_bwd)
+        print(f"packed attention backward {shape}: from the probabilities {ms:.4f} ms, recompute "
+              f"{rec_ms:.4f} ms, SDPA's backward {sdpa_ms:.4f} ms (timed only)")
+        del sdpa_bwd
+
+
+def _dplm_batch(B, S, seed):
+    from clip_dplm_tpu_torch.experiments.registry import motif_proteins
+
+    tokens = motif_proteins(np.random.default_rng(seed), B, S)
+    return {"tokens": tokens, "mask": tokens != 1}
+
+
+def phase_dplm_step(torch):
+    """12(b): one DPLM step at full width (640/12/10), B=8, S=64, card vs
+    CPU; the corruption is the hash draw of the step's seeds on both."""
+    from clip_dplm_tpu_torch.config import Config, apply_overrides
+
+    cfg = apply_overrides(Config(), ["experiment=dplm", "train.batch_size=8",
+                                     "train.optim.schedule=constant",
+                                     "train.optim.learning_rate=1e-3"])
+    step_card_vs_cpu(torch, "DPLM train step B=8 S=64 (640/12/10, hash-drawn corruption)", cfg,
+                     _dplm_batch(8, 64, 5))
+
+
+def phase_dplm_long(torch, build):
+    """12(c): one DPLM step at S=300, B=4: the flash path, forward and
+    backward."""
+    from clip_dplm_tpu_torch.config import Config, apply_overrides
+    from clip_dplm_tpu_torch.experiments.registry import build_model
+    from clip_dplm_tpu_torch.train.state import create_train_state
+    from clip_dplm_tpu_torch.train.trainer import make_train_step, to_device
+
+    cfg = apply_overrides(Config(), ["experiment=dplm", "train.batch_size=4"])
+    state = create_train_state(build_model(cfg, device="cuda"), cfg)
+    build.LAUNCHES.reset()
+    state, metrics = make_train_step(cfg)(state, to_device(_dplm_batch(4, 300, 6), "cuda"))
+    loss = float(metrics["loss"])
+    counts = build.LAUNCHES.snapshot()
+    check(np.isfinite(loss), f"DPLM step S=300: loss {loss}")
+    for name in ("flash_attention", "flash_attention_bwd_dq", "flash_attention_bwd_dkv"):
+        check(counts[name] == 12, f"DPLM step S=300: {name} launched {counts[name]} times")
+    print(f"DPLM train step B=4 S=300 (flash path): loss {loss:.4f}, flash forward / dQ / dK-dV "
+          "launched 12 times each")
+
+
+def phase_dplm_path(torch, build):
+    """12(d) the DPLM train CLI, 12(e) its benchmark; the launch counts of
+    both. The CLI shortens the warmup (5 steps, lr 1e-3): at the default
+    1000 its 18 steps would keep the learning rate under 2e-5."""
+    from clip_dplm_tpu_torch.experiments import bench
+    from clip_dplm_tpu_torch.experiments import train as train_cli
+
+    build.LAUNCHES.reset()
+    overrides = ["experiment=dplm", "train.optim.warmup_steps=5", "train.optim.learning_rate=1e-3"]
+    t0 = time.perf_counter()
+    hist = train_cli.main(["--epochs", "3", *[a for o in overrides for a in ("-o", o)]])
+    cli_s = time.perf_counter() - t0
+    losses = hist["train_loss"]
+    check(all(np.isfinite(losses)) and len(losses) == 3, f"DPLM train CLI losses {losses}")
+    check(losses[-1] < losses[0], f"DPLM train CLI: loss did not fall: {losses}")
+    print(f"DPLM train CLI (640/12/10, B=128, S=64, 3 epochs of 6 steps): train_loss {losses}, "
+          f"val_loss {hist['val_loss']}, {cli_s:.1f} s")
+    out = bench.main(["--model", "dplm"])
+    torch.cuda.synchronize()
+    launches = build.LAUNCHES.snapshot()
+    print(f"bench dplm B=256 S=128: step {out['step_ms']} ms, {out['value']} seqs/s, "
+          f"{out['model_tflops_per_s_per_chip']} model TFLOP/s, MFU {out['mfu']} of "
+          f"{out['peak_bf16_tflops']} TFLOP/s bf16 peak")
+    print(f"launches during the DPLM phase: {launches}")
+    for name in ("short_attention", "short_attention_out_proj", "fused_dense_gemm"):
+        check(launches[name] > 0, f"kernel {name} was not launched by the DPLM path")
+    check_attention_path(launches, "DPLM", (128, 64, 10), (256, 128, 10))
+    return launches
+
+
+def phase_mode_steps(torch):
+    """The flagship and DPLM bench steps in the saved mode (the rule's) and
+    with the rule pinned to recompute, in turns saved, recompute, recompute,
+    saved: what the mode moves end to end."""
+    from clip_dplm_tpu_torch.experiments import bench
+    from clip_dplm_tpu_torch.ops import short_attention as sa
+
+    rule = sa.saves_probs
+    for model in ("rna_rbp", "dplm"):
+        times = {"saved": [], "recompute": []}
+        for mode in ("saved", "recompute", "recompute", "saved"):
+            sa.saves_probs = rule if mode == "saved" else (lambda *a: False)
+            try:
+                times[mode].append(bench.main(["--model", model])["step_ms"])
+            finally:
+                sa.saves_probs = rule
+        print(f"bench {model} step ms by the attention's mode, in turns: saved {times['saved']}, "
+              f"recompute {times['recompute']}")
+
+
 def main() -> int:
     import torch
 
@@ -1329,6 +1595,12 @@ def main() -> int:
                      if k in CACHE_KERNELS})
     phase_saved_raw_kernels(torch, results)
     launches.update(saved)
+    phase_dplm_kernels(torch, results)
+    phase_dplm_step(torch)
+    phase_dplm_long(torch, _build)
+    launches.update({k: v for k, v in phase_dplm_path(torch, _build).items()
+                     if k in DPLM_KERNELS})
+    phase_mode_steps(torch)
 
     keys = ("max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by", "library_ms")
     print(json.dumps({"kernels": [

@@ -1,15 +1,17 @@
 """Configurations of the port: the serving path (`ESMConfig`, `DPLMConfig`)
-and the contrastive train paths (`Config` and its leaves): the two-tower
-model (`experiment="two_tower"`), the RNA<->RBP token transformer
-(`experiment="rna_rbp"`) and the three-way cell <-> perturbation <-> protein
-CLIP (`experiment="tf_clip"`).
+and the train paths (`Config` and its leaves): the two-tower model
+(`experiment="two_tower"`), the RNA<->RBP token transformer
+(`experiment="rna_rbp"`), the three-way cell <-> perturbation <-> protein
+CLIP (`experiment="tf_clip"`) and the DPLM diffusion denoiser
+(`experiment="dplm"`, `Config.dplm`).
 
 The frozen dataclasses of `clip_dplm_tpu/config.py`, without the yaml loader
 (so the port imports no yaml) and with only the fields the port reads: the
 reference's LoRA, guidance, freezing and `scan_layers` fields, the
 global-batch gather, the other loss kinds and `precision.remat` are left
 out until the port has what they switch on, so passing one raises instead
-of being ignored. The fused loss's saved raw similarity
+of being ignored; so are DPLM's guidance, candidate count, LoRA and
+`scan_layers` fields. The fused loss's saved raw similarity
 (`contrastive.fused_materialize_raw`) is ported. The hard-negative
 cache (`contrastive.use_cache`, `cache_size`) is ported: with
 `contrastive.use_fused_kernel` it is the reference's `two_tower_optimized`
@@ -46,7 +48,8 @@ class ESMConfig:
 
 @dataclass(frozen=True)
 class DPLMConfig:
-    """Discrete-diffusion protein LM sampler."""
+    """Discrete-diffusion protein LM: the sampler's and the trainer's trunk
+    (training reads the widths, max_len and layer_norm_eps)."""
 
     vocab_size: int = 33
     d_model: int = 640
@@ -174,12 +177,12 @@ class DataConfig:
 
 @dataclass(frozen=True)
 class Config:
-    """The contrastive experiments' configuration: `two_tower` reads
-    tower_a/tower_b, `rna_rbp` the token towers rna_tower/rbp_tower,
-    `tf_clip` encoders (its three encoders' depth, heads and dropout are
-    module defaults, as in the reference)."""
+    """The experiments' configuration: `two_tower` reads tower_a/tower_b,
+    `rna_rbp` the token towers rna_tower/rbp_tower, `tf_clip` encoders (its
+    three encoders' depth, heads and dropout are module defaults, as in the
+    reference), `dplm` the DPLM trunk."""
 
-    experiment: str = "two_tower"  # two_tower | rna_rbp | tf_clip
+    experiment: str = "two_tower"  # two_tower | rna_rbp | tf_clip | dplm
     tower_a: TowerConfig = field(default_factory=TowerConfig)
     tower_b: TowerConfig = field(default_factory=lambda: TowerConfig(input_dim=1280))
     projection: ProjectionConfig = field(default_factory=ProjectionConfig)
@@ -187,6 +190,7 @@ class Config:
     rbp_tower: TransformerTowerConfig = field(
         default_factory=lambda: TransformerTowerConfig(input_dim=1280))
     encoders: EncoderConfig = field(default_factory=EncoderConfig)
+    dplm: DPLMConfig = field(default_factory=DPLMConfig)
     contrastive: ContrastiveConfig = field(default_factory=ContrastiveConfig)
     train: TrainConfig = field(default_factory=TrainConfig)
     data: DataConfig = field(default_factory=DataConfig)

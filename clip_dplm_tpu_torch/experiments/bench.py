@@ -1,6 +1,6 @@
-"""Timing of a contrastive train step on one CUDA device:
+"""Timing of a train step on one CUDA device:
 `python -m clip_dplm_tpu_torch.experiments.bench [--model
-two_tower|two_tower_cached|rna_rbp|tf_clip] [--batch B] [--iters N]
+two_tower|two_tower_cached|rna_rbp|tf_clip|dplm] [--batch B] [--iters N]
 [-o a.b=c ...]`.
 
 Counterpart of the repository's `bench.py` legs:
@@ -20,7 +20,13 @@ Counterpart of the repository's `bench.py` legs:
   encoders of 3 blocks, 8 heads, d=512; gene_dim 2000 + 1, esm_dim 1280,
   10 DEG tokens), its batch (kNN connectivity through the gram identity)
   and its overrides: the fused InfoNCE, f32 Adam moments. The metric is
-  cells/s: one (cell, perturbation, protein) triple per batch row.
+  cells/s: one (cell, perturbation, protein) triple per batch row;
+- `dplm` (B=256): DPLM 640/12/10 diffusion training at S = 128 (up to 126
+  residues plus cls/eos, the serving path's length), a motif-tiled batch
+  with ragged lengths in [64, 126) (`registry.motif_proteins`), f32 Adam
+  moments. The packed attention takes the saved-probabilities mode there
+  (JAX's padded count: 256·10·128²·2 = 84 MB a call). The metric is
+  sequences/s.
 All with exact clip 1.0, warmup-cosine. A fixed random batch made with
 numpy from a seed, warm-up steps, then `--iters` chained train steps timed
 with CUDA events. The last line of output is one JSON object with
@@ -87,6 +93,9 @@ TF_CLIP_OVERRIDES = [
     "train.optim.total_steps=1000",
     "contrastive.use_fused_kernel=true",
 ]
+
+DPLM_SEQ = 128  # 126 residues + cls/eos
+DPLM_OVERRIDES = ["experiment=dplm", f"dplm.max_len={DPLM_SEQ}", "train.optim.total_steps=1000"]
 
 # untimed steps before the timed ones: the first builds the kernels
 WARMUP_STEPS = 3
@@ -201,6 +210,27 @@ def tf_clip_batch(cfg, B: int, rng) -> Dict[str, np.ndarray]:
     }
 
 
+def dplm_step_flops(cfg, B: int, S: int = DPLM_SEQ) -> float:
+    """Analytic matmul FLOPs (fwd+bwd ~= 3x fwd) of one DPLM train step over
+    T = B·S tokens: each layer's 24·T·d² (qkv, out, the 4x FFN) and its
+    attention's 4·B·S²·d, and the LM head's 2·T·d·vocab. At 640/12/10, B=256,
+    S=128: 11.98 TFLOP a step."""
+    c = cfg.dplm
+    T = B * S
+    fwd = c.num_layers * (24.0 * T * c.d_model ** 2 + 4.0 * B * S * S * c.d_model)
+    fwd += 2.0 * T * c.d_model * c.vocab_size
+    return 3.0 * fwd
+
+
+def dplm_batch(cfg, B: int, rng) -> Dict[str, np.ndarray]:
+    """B motif-tiled rows of DPLM_SEQ tokens (`registry.motif_proteins`)."""
+    from clip_dplm_tpu_torch.experiments.registry import motif_proteins
+    from clip_dplm_tpu_torch.models.dplm import PAD_IDX
+
+    tokens = motif_proteins(rng, B, DPLM_SEQ)
+    return {"tokens": tokens, "mask": tokens != PAD_IDX}
+
+
 def _two_tower_batch(cfg, B: int, rng) -> Dict[str, np.ndarray]:
     return {"a": rng.normal(size=(B, cfg.tower_a.input_dim)).astype(np.float32),
             "b": rng.normal(size=(B, cfg.tower_b.input_dim)).astype(np.float32)}
@@ -229,6 +259,8 @@ MODELS = {
                 rna_rbp_batch, lambda cfg, B: token_clip_step_flops(cfg, B, TOKENS, TOKENS)),
     "tf_clip": (TF_CLIP_OVERRIDES, 4096, "tf_clip_cells_per_sec_per_chip", "cells/s/chip",
                 tf_clip_batch, tf_clip_step_flops),
+    "dplm": (DPLM_OVERRIDES, 256, "dplm_train_seqs_per_sec_per_chip", "seqs/s/chip",
+             dplm_batch, dplm_step_flops),
 }
 
 
@@ -238,7 +270,7 @@ def parse_args(argv: Optional[Sequence[str]] = None) -> argparse.Namespace:
     p.add_argument("--model", choices=sorted(MODELS), default="two_tower")
     p.add_argument("--batch", type=int, default=None,
                    help="default: 8192 for two_tower(_cached), 1024 for rna_rbp, 4096 for "
-                        "tf_clip")
+                        "tf_clip, 256 for dplm")
     p.add_argument("--iters", type=int, default=20)
     p.add_argument("--override", "-o", action="append", default=[])
     return p.parse_args(argv)

@@ -1,7 +1,8 @@
 """Experiment registry: config.experiment -> (model, data source).
 
 Counterpart of `clip_dplm_tpu/experiments/registry.py` for the experiments
-the port has: `two_tower`, `rna_rbp` and `tf_clip`; every other name raises.
+the port has: `two_tower`, `rna_rbp`, `tf_clip` and `dplm`; every other name
+raises.
 """
 
 from __future__ import annotations
@@ -15,7 +16,7 @@ from clip_dplm_tpu_torch.config import Config
 from clip_dplm_tpu_torch.data.collate import TokenPairDataset
 from clip_dplm_tpu_torch.data.synthetic import PairedEmbeddingDataset
 
-EXPERIMENTS = ("two_tower", "rna_rbp", "tf_clip")
+EXPERIMENTS = ("two_tower", "rna_rbp", "tf_clip", "dplm")
 KNN_ROWS = 16  # rows of the (B, B) kNN distances computed at once
 
 
@@ -28,6 +29,10 @@ def _require_ported(cfg: Config) -> None:
 def build_model(cfg: Config, device=None, dtype: torch.dtype = torch.bfloat16):
     """The experiment's model on `device` (the caller's choice)."""
     _require_ported(cfg)
+    if cfg.experiment == "dplm":
+        from clip_dplm_tpu_torch.models.dplm import DPLM
+
+        return DPLM(cfg.dplm, dtype=dtype, device=device)
     if cfg.experiment == "rna_rbp":
         from clip_dplm_tpu_torch.models.token_towers import RNARBPCLIP
 
@@ -48,11 +53,13 @@ def build_data(cfg: Config, split_seed: int = 0):
     with `a` and `b` from data.path; 85/15 split. rna_rbp: {"rna_tokens",
     "rna_mask", "rbp_tokens", "rbp_mask"} from 1024 synthetic token-sequence
     pairs, the first 85 % for training, padded to 64 / 128 tokens. tf_clip:
-    `_tf_clip_data`. The ragged tail is dropped."""
+    `_tf_clip_data`. dplm: `_dplm_data`. The ragged tail is dropped."""
     _require_ported(cfg)
     B = cfg.train.batch_size
     if cfg.experiment == "tf_clip":
         return _tf_clip_data(cfg, split_seed)
+    if cfg.experiment == "dplm":
+        return _dplm_data(cfg, split_seed)
     if cfg.experiment == "rna_rbp":
         ds = TokenPairDataset.synthetic(1024, dim_a=cfg.rna_tower.input_dim,
                                         dim_b=cfg.rbp_tower.input_dim, seed=split_seed)
@@ -143,3 +150,39 @@ def _tf_clip_data(cfg: Config, seed: int):
 
     return (lambda seed=0: with_connectivity(_batch_iter(train, B, seed)),
             lambda: with_connectivity(_batch_iter(val, B, 0, shuffle=False)))
+
+
+def motif_proteins(rng, n: int, S: int) -> np.ndarray:
+    """(n, S) int32 token rows: <cls>, a residue sequence tiled from one of
+    24 random 8-residue motifs (learnable local structure), <eos>, then
+    <pad>; lengths in [S/2, S-2). numpy draws in this order: the motifs, the
+    lengths, then each row's motif."""
+    from clip_dplm_tpu_torch.models.dplm import CLS_IDX, EOS_IDX, PAD_IDX
+
+    n_motifs, motif_len = 24, 8
+    motifs = rng.integers(4, 24, (n_motifs, motif_len))
+    tokens = np.full((n, S), PAD_IDX, np.int32)
+    lens = rng.integers(S // 2, S - 2, n)
+    for i in range(n):
+        seq = np.tile(motifs[rng.integers(n_motifs)], S // motif_len + 1)[: lens[i]]
+        tokens[i, 0] = CLS_IDX
+        tokens[i, 1: 1 + lens[i]] = seq
+        tokens[i, 1 + lens[i]] = EOS_IDX
+    return tokens
+
+
+def _dplm_data(cfg: Config, seed: int):
+    """The reference's synthetic protein corpus for the diffusion denoiser:
+    1024 motif-tiled rows of S = min(64, dplm.max_len) tokens
+    (`motif_proteins`, the reference's draws), {"tokens", "mask"} batches,
+    the first 85 % for training."""
+    from clip_dplm_tpu_torch.models.dplm import PAD_IDX
+
+    tokens = motif_proteins(np.random.default_rng(seed), 1024, min(64, cfg.dplm.max_len))
+    arrays = {"tokens": tokens, "mask": tokens != PAD_IDX}
+    cut = int(len(tokens) * 0.85)
+    train = {k: v[:cut] for k, v in arrays.items()}
+    val = {k: v[cut:] for k, v in arrays.items()}
+    B = cfg.train.batch_size
+    return (lambda seed=0: _batch_iter(train, B, seed),
+            lambda: _batch_iter(val, B, 0, shuffle=False))

@@ -1,7 +1,7 @@
 """Training CLI: `python -m clip_dplm_tpu_torch.experiments.train`.
 
 Counterpart of `clip_dplm_tpu/experiments/train.py` for the experiments the
-port has (two_tower, rna_rbp, tf_clip): dotted `-o a.b=c` overrides on the default
+port has (two_tower, rna_rbp, tf_clip, dplm): dotted `-o a.b=c` overrides on the default
 config (no yaml), then data -> model -> train state -> Trainer on one
 device, the card unless `--device cpu` is given. Prints one JSON line per
 epoch and a final summary line.
@@ -13,6 +13,7 @@ epoch and a final summary line.
       -o experiment=rna_rbp -o train.batch_size=256
   python -m clip_dplm_tpu_torch.experiments.train --epochs 3 \\
       -o experiment=tf_clip -o train.batch_size=256
+  python -m clip_dplm_tpu_torch.experiments.train --epochs 3 -o experiment=dplm
 """
 
 from __future__ import annotations

@@ -1,25 +1,35 @@
-"""DPLM discrete-diffusion protein LM: the trunk and the unguided sampler.
+"""DPLM discrete-diffusion protein LM: the trunk, its training loss, the
+warm start from ESM-2 and the unguided sampler.
 
 Counterpart of `clip_dplm_tpu/models/dplm.py`: an ESM-2-style bidirectional
 trunk (EsmBlock) with an f32 final LayerNorm and LM head over the 33-token
-ESM alphabet, and the confidence-remasking sampler (start fully masked; each
-step Gumbel-samples residues at masked positions, then re-masks the
-lowest-confidence fraction given by a cosine schedule). The reference's
-`lax.scan` is a Python loop here, and `jax.random` keys are a
-`torch.Generator` on the model's device; the loop never waits on the host.
+ESM alphabet; the absorbing-state diffusion loss (`corrupt` masks a t-
+fraction of each row's residues, t ~ U(0.05, 1); `diffusion_loss` is the
+1/t-weighted CE on the masked positions); `init_dplm_from_esm`; and the
+confidence-remasking sampler (start fully masked; each step Gumbel-samples
+residues at masked positions, then re-masks the lowest-confidence fraction
+given by a cosine schedule). The reference's `lax.scan` is a Python loop
+here, and `jax.random` keys are a `torch.Generator` on the model's device;
+the loop never waits on the host. The corruption's t and u cannot be
+JAX's PRNG draws: they come from the dropout's counter hash
+(ops/fused_dense.py::dropout_bits) keyed by the step's `DropoutSeeds`, so
+the draw is a function of (state key, step), equal bit for bit on the CPU
+and the card, and made on the device.
 """
 
 from __future__ import annotations
 
 import math
-from typing import Optional, Tuple
+from typing import Dict, Optional, Tuple
 
+import numpy as np
 import torch
 from torch import nn
 
 from clip_dplm_tpu_torch.config import DPLMConfig
 from clip_dplm_tpu_torch.models.esm import EsmBlock
 from clip_dplm_tpu_torch.models.layers import Dense, Embed, LayerNorm
+from clip_dplm_tpu_torch.ops.fused_dense import DropoutSeeds, dropout_bits
 
 MASK_IDX = 32
 PAD_IDX = 1
@@ -60,6 +70,80 @@ class DPLM(nn.Module):
         for i in range(self.cfg.num_layers):
             h = getattr(self, f"layer_{i}")(h, mask, positions)
         return self.lm_head(self.final_ln(h))
+
+
+# ---------------------------------------------------------------------------
+# training: absorbing-state diffusion loss
+# ---------------------------------------------------------------------------
+
+T_MIN = 0.05  # t ~ U(T_MIN, 1): no t = 0 (nothing to learn), 1/t bounded
+_BELOW_ONE = float(np.nextafter(np.float32(1.0), np.float32(0.0)))
+
+
+def _uniform(bits: torch.Tensor) -> torch.Tensor:
+    """uint32 hash values -> f32 in [0, 1), from their top 24 bits (exact)."""
+    return (bits >> 8).to(torch.float32) * (1.0 / (1 << 24))
+
+
+def corrupt(seeds: DropoutSeeds, tokens: torch.Tensor, valid: torch.Tensor):
+    """Mask a t-fraction of the valid residue positions with <mask>: (x_t,
+    corrupted (B, S) bool, t (B,) f32). t ~ U(0.05, 1) per row and u ~ U(0,
+    1) per position come from the next two seeds of `seeds` through the
+    counter hash of (seed, row, col), on the tokens' device; a position is
+    corrupted where u < t. Special tokens (cls/eos/pad) never are."""
+    B, S = tokens.shape
+    t = T_MIN + (1.0 - T_MIN) * _uniform(dropout_bits(seeds.next(), B, 1, tokens.device)[:, 0])
+    t = t.clamp(max=_BELOW_ONE)
+    u = _uniform(dropout_bits(seeds.next(), B, S, tokens.device))
+    corruptible = valid & (tokens != CLS_IDX) & (tokens != EOS_IDX)
+    corrupted = corruptible & (u < t[:, None])
+    return torch.where(corrupted, MASK_IDX, tokens), corrupted, t
+
+
+def diffusion_loss_from_draw(model: nn.Module, tokens: torch.Tensor, valid: torch.Tensor,
+                             x_t: torch.Tensor, corrupted: torch.Tensor,
+                             t: torch.Tensor) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
+    """The RDM-weighted masked-token CE of one corruption: mean over rows of
+    (Σ CE over the corrupted positions) / max(#corrupted, 1) / t, with the
+    denoising accuracy over all corrupted positions and the mean t."""
+    logits = model(x_t, valid)
+    logp = torch.log_softmax(logits.float(), dim=-1)
+    tok_logp = torch.gather(logp, -1, tokens[..., None].long())[..., 0]
+    per_seq = torch.where(corrupted, -tok_logp, 0.0).sum(dim=-1)
+    n_corrupted = corrupted.sum(dim=-1).clamp(min=1)
+    loss = (per_seq / n_corrupted / t).mean()
+    hit = corrupted & (logits.argmax(dim=-1) == tokens)
+    acc = hit.sum().float() / corrupted.sum().clamp(min=1).float()
+    return loss, {"denoise_accuracy": acc, "mean_t": t.mean()}
+
+
+def diffusion_loss(model: nn.Module, tokens: torch.Tensor, seeds: DropoutSeeds,
+                   valid: Optional[torch.Tensor] = None):
+    """E_t[(1/t) · CE(masked positions)] of one draw from `seeds`."""
+    if valid is None:
+        valid = tokens != PAD_IDX
+    x_t, corrupted, t = corrupt(seeds, tokens, valid)
+    return diffusion_loss_from_draw(model, tokens, valid, x_t, corrupted, t)
+
+
+@torch.no_grad()
+def init_dplm_from_esm(esm: nn.Module, dplm: DPLM, tie_lm_head: bool = True) -> DPLM:
+    """Warm-start the DPLM trunk from an ESMTower, in place: the token
+    embedding, the layers both have and the final LayerNorm take the ESM
+    weights. With tie_lm_head the LM head is tied to the token embedding:
+    its (out, in) kernel is the (vocab, d) embedding itself, its bias zero;
+    otherwise it keeps its weights."""
+    own = dplm.state_dict()
+    for name, value in esm.state_dict().items():
+        if name in own:
+            if own[name].shape != value.shape:
+                raise ValueError(f"{name}: ESM {tuple(value.shape)} vs DPLM "
+                                 f"{tuple(own[name].shape)}")
+            own[name].copy_(value)
+    if tie_lm_head:
+        dplm.lm_head.kernel.copy_(dplm.embed_tokens.embedding)
+        dplm.lm_head.bias.zero_()
+    return dplm
 
 
 def _cosine_keep_schedule(step: float, num_steps: int) -> float:

@@ -38,10 +38,14 @@ NVCC_FLAGS = (
 _P, _I, _U, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_uint32, ctypes.c_float
 # C launchers: name -> argtypes (pointers and the stream as c_void_p)
 _SIGNATURES = {
-    # qkv, mask, cos, sin, o, B, S, H, Dh, scale, stream
-    "short_attention_qkv_fwd": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _F, _P],
-    # qkv, mask, cos, sin, o, dout, dqkv, B, S, H, Dh, scale, stream
-    "short_attention_qkv_bwd": [_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _F, _P],
+    # qkv, mask, cos, sin, o, probs, B, S, H, Dh, scale, stream
+    "short_attention_qkv_fwd": [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _F, _P],
+    # qkv, mask, cos, sin, o, dout, stats, dqkv, B, S, H, Dh, scale, stream
+    "short_attention_qkv_bwd": [_P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _F, _P],
+    # qkv, cos, sin, probs, dout, stats, dqkv, B, S, H, Dh, scale, stream
+    "short_attention_qkv_bwd_probs": [_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _F, _P],
+    # S, Dh, saved, kernel (0: dQ, 1: dK/dV) -> shared memory bytes
+    "short_attention_bwd_smem": [_I, _I, _I, _I],
     # x, w, bias, y, M, N, K, stream
     "short_attention_out_proj": [_P, _P, _P, _P, _I, _I, _I, _P],
     # qkv, mask, out, B, S, H, Dh, scale, stream
@@ -122,7 +126,7 @@ LAUNCHES = LaunchCounter(
      "tiny_attention_fwd", "tiny_attention_bwd", "flash_attention_bwd_dq",
      "flash_attention_bwd_dkv", "row_ce_lse", "row_ce_dx", "row_ce_dy",
      "sym_infonce_lse_save", "sym_infonce_grad_raw", "sym_infonce_grad_rawT",
-     "sym_infonce_grad_merged"])
+     "sym_infonce_grad_merged", "short_attention_save", "short_attention_bwd_probs"])
 
 
 class _Library:

@@ -5,13 +5,18 @@ Counterpart of `clip_dplm_tpu/ops/short_attention.py`:
 
 - `fused_short_attention_qkv_proj`: y = attention(qkv) @ Wo^T + bo from the
   (B, S, 3D) output of one qkv Dense in [q | k | v] layout, with optional
-  rotate-half RoPE on q and k. An autograd Function over three wrappers:
-  `short_attention_qkv` (RoPE + attention -> o), `out_projection` (o @ Wo^T
-  + bo) and, backward, `short_attention_qkv_bwd` (dqkv from dO = dy·Wo, the
-  saved o, qkv and mask; the recompute mode of the TPU kernel). dO is the
-  shared bf16 GEMM (`ops/fused_dense.py::_gemm`); dWo = dy^T·o and dbo = Σ dy
-  are plain f32-output matmuls, as the JAX package leaves them to XLA, so
-  they reach the f32 parameters unrounded.
+  rotate-half RoPE on q and k. An autograd Function over the wrappers
+  `short_attention_qkv` (RoPE + attention -> o) or, where a backward follows
+  in the saved mode, `short_attention_qkv_save` (o and the bf16
+  probabilities), `out_projection` (o @ Wo^T + bo) and, backward,
+  `short_attention_qkv_bwd` (dqkv from dO = dy·Wo, the saved o, qkv and
+  mask: the recompute mode of the TPU kernel) or `short_attention_qkv_bwd_probs`
+  (dqkv from dO, qkv and the saved probabilities: its saved mode). The mode
+  is the JAX package's: saved where its padded probabilities take at most
+  512 MiB (`saves_probs`), fixed by shape on every device. dO is the shared
+  bf16 GEMM (`ops/fused_dense.py::_gemm`); dWo = dy^T·o and dbo = Σ dy are
+  plain f32-output matmuls, as the JAX package leaves them to XLA, so they
+  reach the f32 parameters unrounded.
 - `fused_cls_attention`: attention output of query row 0, (B, 1, D), from
   packed qkv; an autograd Function whose backward recomputes the softmax
   from qkv and the mask (`fused_cls_attention_bwd`).
@@ -19,8 +24,9 @@ Counterpart of `clip_dplm_tpu/ops/short_attention.py`:
 Every wrapper runs its CUDA kernel (`csrc/short_attention.cu`,
 `csrc/cls_attention.cu`) for CUDA tensors and its plain PyTorch version
 (`*_reference`) for CPU tensors; the plain versions keep the kernels'
-rounding points. `short_attention_qkv` and `out_projection` have no backward
-of their own: on CUDA they raise where autograd would record them.
+rounding points. `short_attention_qkv`, `short_attention_qkv_save` and
+`out_projection` have no backward of their own: on CUDA they raise where
+autograd would record them.
 """
 
 from __future__ import annotations
@@ -41,6 +47,9 @@ from clip_dplm_tpu_torch.ops.attention import (
 
 MAX_SEQ = 256  # K and V of a head for the whole sequence sit in shared memory
 MAX_SMEM = 232448  # dynamic shared memory of one block on the H100 (227 KB)
+HALF_SMEM = 115712  # each of two blocks on one SM (228 KB, less 1 KB a block)
+# the JAX package's bound on the saved probabilities of one call
+SAVE_PROBS_MAX_BYTES = 512 * 1024 * 1024
 CLS_MAX_HEADS = 128  # the TPU kernel's head columns; the port keeps its bound
 _NO_GRAD_WHY = "fused_short_attention_qkv_proj is the entry point with a backward"
 
@@ -136,9 +145,58 @@ def _ptr(t: Optional[torch.Tensor]):
     return None if t is None else t.data_ptr()
 
 
+def _round_up(x: int, m: int) -> int:
+    return -(-x // m) * m
+
+
+def _jax_seq_pad(S: int) -> int:
+    """The TPU kernel's padded sequence length (`_seq_pad`): 128-multiples
+    from 64 tokens on, 16-multiples (at least 16) below."""
+    return _round_up(S, 128) if S >= 64 else max(16, _round_up(S, 16))
+
+
+def _jax_rows_per_program(block_b: int, B: int, Sp: int) -> int:
+    """The TPU kernel's batch rows per program (`_rows_per_program`)."""
+    return max(1, min(block_b * max(1, 128 // Sp), B))
+
+
+def saves_probs(B: int, S: int, num_heads: int) -> bool:
+    """The JAX package's default mode of the packed attention's backward:
+    save the bf16 probabilities where its padded buffer, Bp·H·Sp²·2 bytes
+    with its padded counts (Sp = `_jax_seq_pad(S)`, Bp = B rounded up to
+    `_jax_rows_per_program(8, B, Sp)`), takes at most 512 MiB; recompute them
+    above. Fixed by shape, on every device."""
+    Sp = _jax_seq_pad(S)
+    Bp = _round_up(B, _jax_rows_per_program(8, B, Sp))
+    return Bp * num_heads * Sp * Sp * 2 <= SAVE_PROBS_MAX_BYTES
+
+
 # ---------------------------------------------------------------------------
-# attention: qkv (B, S, 3D) -> o (B, S, D)
+# attention: qkv (B, S, 3D) -> o (B, S, D), and in the saved mode the
+# probabilities (B, H, S, S)
 # ---------------------------------------------------------------------------
+
+
+def _heads_rotated(qkv, num_heads, rope_positions):
+    """(q, k, v) heads, (B, H, S, Dh), with q and k rotated in f32 and
+    rounded to qkv's dtype; and the (cos, sin) tables or None."""
+    _, _, D, Dh = _check_qkv(qkv, num_heads, rope_positions)
+    qh, kh, vh = (split_heads(qkv[..., i * D:(i + 1) * D], num_heads) for i in range(3))
+    cs = None
+    if rope_positions is not None:
+        cs = _rope_cos_sin(rope_positions.to(qkv.device), Dh)
+        qh, kh = (_rope_rot(t, *cs).to(qkv.dtype) for t in (qh, kh))
+    return qh, kh, vh, cs
+
+
+def _probs_f32(qh, kh, mask, scale):
+    """The kernels' probabilities in f32: f32 scores · scale + key bias, max,
+    exp, l = max(Σp, 1e-30), prob = p / l."""
+    s = torch.einsum("bhqd,bhkd->bhqk", qh.float(), kh.float()) * scale
+    if mask is not None:
+        s = s + torch.where(mask[:, None, None, :], 0.0, NEG_INF)
+    p = torch.exp(s - s.amax(dim=-1, keepdim=True))
+    return p / p.sum(dim=-1, keepdim=True).clamp(min=1e-30)
 
 
 def short_attention_qkv_reference(
@@ -147,17 +205,31 @@ def short_attention_qkv_reference(
     mask: Optional[torch.Tensor] = None,
     scale: Optional[float] = None,
     rope_positions: Optional[torch.Tensor] = None,
-) -> torch.Tensor:
+    return_probs: bool = False,
+):
     """Plain version: rotate q/k in f32 (rounded back to qkv's dtype), then
-    attention_reference over the heads."""
-    _, _, D, Dh = _check_qkv(qkv, num_heads, rope_positions)
-    qh, kh, vh = (split_heads(qkv[..., i * D:(i + 1) * D], num_heads)
-                  for i in range(3))
-    if rope_positions is not None:
-        cos, sin = _rope_cos_sin(rope_positions, Dh)
-        qh = _rope_rot(qh, cos, sin).to(qkv.dtype)
-        kh = _rope_rot(kh, cos, sin).to(qkv.dtype)
-    return merge_heads(attention_reference(qh, kh, vh, mask=mask, scale=scale))
+    attention_reference over the heads. With return_probs, (o, probs): the
+    (B, H, S, S) probabilities rounded to bf16 whatever qkv's dtype, as the
+    saving kernel writes them."""
+    qh, kh, vh, _ = _heads_rotated(qkv, num_heads, rope_positions)
+    o = merge_heads(attention_reference(qh, kh, vh, mask=mask, scale=scale))
+    if not return_probs:
+        return o
+    prob = _probs_f32(qh, kh, mask, _scale(scale, qh.shape[-1]))
+    return o, prob.to(torch.bfloat16)
+
+
+def _attention_kernel(qkv, num_heads, mask, scale, rope_positions, save: bool):
+    B, S, D, Dh = _check_qkv(qkv, num_heads, rope_positions)
+    mask, cos, sin = _kernel_inputs(qkv, num_heads, mask, rope_positions)
+    o = torch.empty((B, S, D), dtype=torch.bfloat16, device=qkv.device)
+    probs = (torch.empty((B, num_heads, S, S), dtype=torch.bfloat16, device=qkv.device)
+             if save else None)
+    _build.launch(
+        "short_attention_qkv_fwd", qkv.data_ptr(), _ptr(mask), _ptr(cos), _ptr(sin),
+        o.data_ptr(), _ptr(probs), B, S, num_heads, Dh, _scale(scale, Dh),
+        _build.stream_of(qkv))
+    return o, probs
 
 
 def short_attention_qkv(
@@ -174,46 +246,99 @@ def short_attention_qkv(
         return short_attention_qkv_reference(
             qkv, num_heads, mask=mask, scale=scale, rope_positions=rope_positions)
     require_no_grad("short_attention_qkv", _NO_GRAD_WHY, qkv)
-    B, S, D, Dh = _check_qkv(qkv, num_heads, rope_positions)
-    mask, cos, sin = _kernel_inputs(qkv, num_heads, mask, rope_positions)
-    o = torch.empty((B, S, D), dtype=torch.bfloat16, device=qkv.device)
-    _build.launch(
-        "short_attention_qkv_fwd", qkv.data_ptr(), _ptr(mask), _ptr(cos), _ptr(sin),
-        o.data_ptr(), B, S, num_heads, Dh, _scale(scale, Dh), _build.stream_of(qkv))
+    o, _ = _attention_kernel(qkv, num_heads, mask, scale, rope_positions, save=False)
     _build.LAUNCHES.add("short_attention")
     return o
 
 
+def short_attention_qkv_save(
+    qkv: torch.Tensor,
+    num_heads: int,
+    mask: Optional[torch.Tensor] = None,
+    scale: Optional[float] = None,
+    rope_positions: Optional[torch.Tensor] = None,
+):
+    """`short_attention_qkv` that also returns the probabilities, (o (B, S,
+    D), probs (B, H, S, S) bf16): the saved mode's residual. CPU tensors take
+    the plain version; CUDA tensors the kernel (its bounds, no gradient
+    recorded) or raise."""
+    if qkv.device.type == "cpu":
+        return short_attention_qkv_reference(qkv, num_heads, mask=mask, scale=scale,
+                                             rope_positions=rope_positions, return_probs=True)
+    require_no_grad("short_attention_qkv_save", _NO_GRAD_WHY, qkv)
+    out = _attention_kernel(qkv, num_heads, mask, scale, rope_positions, save=True)
+    _build.LAUNCHES.add("short_attention_save")
+    return out
+
+
 # ---------------------------------------------------------------------------
-# its backward: (dO, qkv, o) -> dqkv
+# its backward: (dO, qkv, o or the probabilities) -> dqkv
 # ---------------------------------------------------------------------------
 
 
-def _round16(n: int) -> int:
-    return -(-n // 16) * 16
+def _a128(n: int) -> int:
+    return _round_up(n, 128)
 
 
-def _bwd_smem_bytes(S: int, Dh: int, QT: int) -> int:
-    """Shared memory of one backward block (csrc/short_attention.cu::BwdSmem)."""
-    a = lambda n: -(-n // 128) * 128  # noqa: E731
-    Sp, Dp = _round16(S), _round16(Dh)
+def _bwd_dq_smem_bytes(Sp: int, Dp: int, QT: int, saved: bool) -> int:
+    """Shared memory of one dQ block (csrc/short_attention.cu::BwdQSmem)."""
+    ld_kv, ld_sq, ld_p = Dp + 8, max(Sp, Dp) + 4, Sp + 8
+    p = QT * ld_p * 2 if saved else QT * ld_sq * 4
+    return (2 * _a128(Sp * ld_kv * 2) + 2 * _a128(QT * ld_kv * 2) + _a128(p)
+            + _a128(QT * ld_sq * 4) + _a128(QT * ld_p * 2) + (0 if saved else _a128(Sp * 4)))
+
+
+def _bwd_dkv_smem_bytes(KT: int, Dp: int, QT: int, saved: bool) -> int:
+    """Shared memory of one dK/dV block (csrc/short_attention.cu::BwdKVSmem)."""
+    ld_kv, ld_acc, ld_s, ld_p = Dp + 8, Dp + 4, KT + 4, KT + 8
+    return (2 * _a128(KT * ld_kv * 2) + 2 * _a128(QT * ld_kv * 2) + 2 * _a128(KT * ld_acc * 4)
+            + (0 if saved else _a128(QT * ld_s * 4)) + _a128(QT * ld_s * 4)
+            + 2 * _a128(QT * ld_p * 2) + (0 if saved else _a128(KT * 4))
+            + _a128(3 * QT * 4))
+
+
+def _fitting(layout, first: int) -> int:
+    """Bytes of the layout at the most query rows (first, then fewer by 16)
+    that fit half an SM's shared memory (two blocks an SM), else one
+    block's; 0 when none does."""
+    for cap in (HALF_SMEM, MAX_SMEM):
+        for rows in range(first, 15, -16):
+            if layout(rows) <= cap:
+                return layout(rows)
+    return 0
+
+
+def bwd_smem_bytes(S: int, Dh: int, saved: bool):
+    """(dQ block, dK/dV block) shared memory in bytes of the backward at (S,
+    Dh) in a mode, with the tiles the launcher picks (csrc/short_attention.cu
+    ::bwd_dq_rows, bwd_dkv_rows; dK/dV over 64-key tiles); 0 for a block that
+    does not fit. The C launcher's `short_attention_bwd_smem` computes the
+    same."""
+    Sp, Dp = _round_up(S, 16), _round_up(Dh, 16)
+    KT = min(Sp, 64)
+    return (_fitting(lambda QT: _bwd_dq_smem_bytes(Sp, Dp, QT, saved), KT),
+            _fitting(lambda QT: _bwd_dkv_smem_bytes(KT, Dp, QT, saved), KT))
+
+
+def _bwd_head_smem_bytes(Sp: int, Dp: int, QT: int) -> int:
+    """Shared memory of one block of the one-block-a-head recompute kernel
+    (csrc/short_attention.cu::BwdHeadSmem)."""
     ld_kv, ld_acc, ld_s, ld_p = Dp + 8, Dp + 4, Sp + 4, Sp + 8
-    return (2 * a(Sp * ld_kv * 2) + 2 * a(QT * ld_kv * 2) + 2 * a(Sp * ld_acc * 4)
-            + a(QT * max(ld_s, ld_acc) * 4) + a(QT * ld_s * 4) + 2 * a(QT * ld_p * 2)
-            + a(Sp * 4) + a(QT * 4))
+    return (2 * _a128(Sp * ld_kv * 2) + 2 * _a128(QT * ld_kv * 2) + 2 * _a128(Sp * ld_acc * 4)
+            + _a128(QT * max(ld_s, ld_acc) * 4) + _a128(QT * ld_s * 4)
+            + 2 * _a128(QT * ld_p * 2) + _a128(Sp * 4) + _a128(QT * 4))
 
 
-def short_attention_bwd_fits(S: int, Dh: int) -> bool:
-    """Whether the backward kernel takes (S, Dh): K, V and the f32 dK/dV of
-    a head, and a 16-row query tile, in one block's shared memory (at Dh = 64
-    up to S = 208)."""
-    return _bwd_smem_bytes(S, Dh, 16) <= MAX_SMEM
-
-
-def _require_bwd_fits(S: int, Dh: int) -> None:
-    if not short_attention_bwd_fits(S, Dh):
-        raise ValueError(f"the short-S backward kernel does not fit S={S}, Dh={Dh} in "
-                         "shared memory (up to S=208 at Dh=64)")
+def bwd_head_smem_bytes(S: int, Dh: int) -> int:
+    """Shared memory in bytes of the recompute backward's one-block-a-head
+    kernel at (S, Dh), 64 query rows halved while it does not fit
+    (csrc/short_attention.cu::bwd_head_rows); 0 where even 16 rows do not
+    fit, and the recompute mode then takes the dQ and dK/dV launches."""
+    Sp, Dp = _round_up(S, 16), _round_up(Dh, 16)
+    QT = min(Sp, 64)
+    while QT > 16 and _bwd_head_smem_bytes(Sp, Dp, QT) > MAX_SMEM:
+        QT //= 2
+    return _bwd_head_smem_bytes(Sp, Dp, QT) if _bwd_head_smem_bytes(Sp, Dp, QT) <= MAX_SMEM else 0
 
 
 def short_attention_qkv_bwd_reference(
@@ -225,34 +350,63 @@ def short_attention_qkv_bwd_reference(
     scale: Optional[float] = None,
     rope_positions: Optional[torch.Tensor] = None,
 ) -> torch.Tensor:
-    """Plain version of the backward kernel, (B, S, 3D) dqkv from dout (the
-    cotangent of o), qkv, the saved o and the mask. The TPU kernel's rounding
-    points in qkv's dtype: q/k rotated in f32 and rounded; f32 scores, max,
-    exp, l = max(Σp, 1e-30), prob = p / l; dp = dO·V^T; delta = rowsum(dO∘o);
-    ds = prob·(dp − delta)·scale rounded; dq = ds·K and dk = ds^T·Q through
-    the inverse rotation in f32; dv = rounded(prob)^T·dO."""
-    _, _, D, Dh = _check_qkv(qkv, num_heads, rope_positions)
+    """Plain version of the recompute-mode backward, (B, S, 3D) dqkv from
+    dout (the cotangent of o), qkv, the saved o and the mask. The TPU
+    kernel's rounding points in qkv's dtype: q/k rotated in f32 and rounded;
+    f32 scores, max, exp, l = max(Σp, 1e-30), prob = p / l; dp = dO·V^T;
+    delta = rowsum(dO∘o); ds = prob·(dp − delta)·scale rounded; dq = ds·K
+    and dk = ds^T·Q through the inverse rotation in f32; dv =
+    rounded(prob)^T·dO."""
     dt = qkv.dtype
-    scale = _scale(scale, Dh)
-    qh, kh, vh = (split_heads(qkv[..., i * D:(i + 1) * D], num_heads) for i in range(3))
-    if rope_positions is not None:
-        cos, sin = _rope_cos_sin(rope_positions.to(qkv.device), Dh)
-        qh, kh = _rope_rot(qh, cos, sin).to(dt), _rope_rot(kh, cos, sin).to(dt)
-    s = torch.einsum("bhqd,bhkd->bhqk", qh.float(), kh.float()) * scale
-    if mask is not None:
-        s = s + torch.where(mask[:, None, None, :], 0.0, NEG_INF)
-    p = torch.exp(s - s.amax(dim=-1, keepdim=True))
-    prob = p / p.sum(dim=-1, keepdim=True).clamp(min=1e-30)
+    qh, kh, vh, cs = _heads_rotated(qkv, num_heads, rope_positions)
+    scale = _scale(scale, qh.shape[-1])
+    prob = _probs_f32(qh, kh, mask, scale)
     do = split_heads(dout.to(dt), num_heads).float()
-    dp = torch.einsum("bhqd,bhkd->bhqk", do, vh.float())
     delta = (do * split_heads(o, num_heads).float()).sum(dim=-1, keepdim=True)
+    return _dqkv_from_probs(do, qh, kh, vh, cs, prob, delta, scale, dt)
+
+
+def _dqkv_from_probs(do, qh, kh, vh, cs, prob, delta, scale, dt):
+    """dqkv from f32 dO heads and the f32 probabilities: dp = dO·V^T, ds =
+    prob·(dp − delta)·scale rounded to dt, dq = ds·K, dk = ds^T·Q (inverse
+    rotation in f32), dv = rounded(prob)^T·dO."""
+    dp = torch.einsum("bhqd,bhkd->bhqk", do, vh.float())
+    if delta is None:  # saved mode: from the probabilities
+        delta = (dp * prob).sum(dim=-1, keepdim=True)
     ds = (prob * (dp - delta) * scale).to(dt).float()
     dq = torch.einsum("bhqk,bhkd->bhqd", ds, kh.float())
     dk = torch.einsum("bhqk,bhqd->bhkd", ds, qh.float())
-    if rope_positions is not None:
-        dq, dk = _rope_rot_inv(dq, cos, sin), _rope_rot_inv(dk, cos, sin)
+    if cs is not None:
+        dq, dk = _rope_rot_inv(dq, *cs), _rope_rot_inv(dk, *cs)
     dv = torch.einsum("bhqk,bhqd->bhkd", prob.to(dt).float(), do)
     return torch.cat([merge_heads(t) for t in (dq, dk, dv)], dim=-1).to(dt)
+
+
+def short_attention_qkv_bwd_probs_reference(
+    dout: torch.Tensor,
+    qkv: torch.Tensor,
+    probs: torch.Tensor,
+    num_heads: int,
+    scale: Optional[float] = None,
+    rope_positions: Optional[torch.Tensor] = None,
+) -> torch.Tensor:
+    """Plain version of the saved-mode backward, (B, S, 3D) dqkv from dout,
+    qkv and the saved bf16 probabilities (B, H, S, S), at the TPU kernel's
+    saved-mode rounding points: dp = dO·V^T in f32, delta = Σ dp·prob from
+    the bf16 probabilities, ds = prob·(dp − delta)·scale rounded to qkv's
+    dtype, dq = ds·K and dk = ds^T·Q through the inverse rotation in f32, dv =
+    prob^T·dO. The mask is in the probabilities."""
+    dt = qkv.dtype
+    qh, kh, vh, cs = _heads_rotated(qkv, num_heads, rope_positions)
+    do = split_heads(dout.to(dt), num_heads).float()
+    return _dqkv_from_probs(do, qh, kh, vh, cs, probs.float(), None,
+                            _scale(scale, qh.shape[-1]), dt)
+
+
+def _check_residual(name, t, shape, dev):
+    if tuple(t.shape) != shape or t.dtype != torch.bfloat16 or t.device != dev:
+        raise ValueError(f"{name} must be {shape} bf16 on {dev}")
+    return t.contiguous()
 
 
 def short_attention_qkv_bwd(
@@ -264,25 +418,52 @@ def short_attention_qkv_bwd(
     scale: Optional[float] = None,
     rope_positions: Optional[torch.Tensor] = None,
 ) -> torch.Tensor:
-    """dqkv (B, S, 3D) of `short_attention_qkv` from its residuals. CPU
-    tensors take the plain version; CUDA tensors take the kernel (bf16, the
-    forward's bounds, `short_attention_bwd_fits`) or raise."""
+    """dqkv (B, S, 3D) of `short_attention_qkv` from its residuals, recompute
+    mode. CPU tensors take the plain version; CUDA tensors take the kernels
+    (bf16, the forward's bounds: one block a head where `bwd_head_smem_bytes`
+    fits, else a dQ launch and a dK/dV launch) or raise."""
     if qkv.device.type == "cpu":
         return short_attention_qkv_bwd_reference(
             dout, qkv, o, num_heads, mask=mask, scale=scale, rope_positions=rope_positions)
     B, S, D, Dh = _check_qkv(qkv, num_heads, rope_positions)
     mask, cos, sin = _kernel_inputs(qkv, num_heads, mask, rope_positions)
-    _require_bwd_fits(S, Dh)
-    for name, t in (("dout", dout), ("o", o)):
-        if tuple(t.shape) != (B, S, D) or t.dtype != torch.bfloat16 or t.device != qkv.device:
-            raise ValueError(f"{name} must be ({B}, {S}, {D}) bf16 on {qkv.device}")
-    dout, o = dout.contiguous(), o.contiguous()
+    dout, o = (_check_residual(n, t, (B, S, D), qkv.device) for n, t in (("dout", dout), ("o", o)))
     dqkv = torch.empty_like(qkv)
+    stats = torch.empty((B, num_heads, 3, S), dtype=torch.float32, device=qkv.device)
     _build.launch(
         "short_attention_qkv_bwd", qkv.data_ptr(), _ptr(mask), _ptr(cos), _ptr(sin),
-        o.data_ptr(), dout.data_ptr(), dqkv.data_ptr(), B, S, num_heads, Dh,
+        o.data_ptr(), dout.data_ptr(), stats.data_ptr(), dqkv.data_ptr(), B, S, num_heads, Dh,
         _scale(scale, Dh), _build.stream_of(qkv))
     _build.LAUNCHES.add("short_attention_bwd")
+    return dqkv
+
+
+def short_attention_qkv_bwd_probs(
+    dout: torch.Tensor,
+    qkv: torch.Tensor,
+    probs: torch.Tensor,
+    num_heads: int,
+    scale: Optional[float] = None,
+    rope_positions: Optional[torch.Tensor] = None,
+) -> torch.Tensor:
+    """dqkv (B, S, 3D) of `short_attention_qkv_save` from dout, qkv and its
+    saved probabilities, saved mode. CPU tensors take the plain version; CUDA
+    tensors take the kernels (bf16, the forward's bounds: a dQ launch and a
+    dK/dV launch) or raise."""
+    if qkv.device.type == "cpu":
+        return short_attention_qkv_bwd_probs_reference(
+            dout, qkv, probs, num_heads, scale=scale, rope_positions=rope_positions)
+    B, S, D, Dh = _check_qkv(qkv, num_heads, rope_positions)
+    _, cos, sin = _kernel_inputs(qkv, num_heads, None, rope_positions)
+    dout = _check_residual("dout", dout, (B, S, D), qkv.device)
+    probs = _check_residual("probs", probs, (B, num_heads, S, S), qkv.device)
+    dqkv = torch.empty_like(qkv)
+    stats = torch.empty((B, num_heads, 3, S), dtype=torch.float32, device=qkv.device)
+    _build.launch(
+        "short_attention_qkv_bwd_probs", qkv.data_ptr(), _ptr(cos), _ptr(sin), probs.data_ptr(),
+        dout.data_ptr(), stats.data_ptr(), dqkv.data_ptr(), B, S, num_heads, Dh,
+        _scale(scale, Dh), _build.stream_of(qkv))
+    _build.LAUNCHES.add("short_attention_bwd_probs")
     return dqkv
 
 
@@ -370,21 +551,31 @@ def _proj_param_grads(dy: torch.Tensor, o: torch.Tensor):
 
 class _ShortAttnProj(torch.autograd.Function):
     @staticmethod
-    def forward(ctx, qkv, wo, bo, mask, rope_positions, num_heads, scale):
-        o = short_attention_qkv(qkv, num_heads, mask=mask, scale=scale,
-                                rope_positions=rope_positions)
+    def forward(ctx, qkv, wo, bo, mask, rope_positions, num_heads, scale, save_probs):
+        if save_probs:
+            o, probs = short_attention_qkv_save(qkv, num_heads, mask=mask, scale=scale,
+                                                rope_positions=rope_positions)
+        else:
+            o = short_attention_qkv(qkv, num_heads, mask=mask, scale=scale,
+                                    rope_positions=rope_positions)
+            probs = None
         ctx.num_heads, ctx.scale = num_heads, scale
-        ctx.save_for_backward(qkv, o, wo, bo, mask, rope_positions)
+        ctx.save_for_backward(qkv, o, probs, wo, bo, mask, rope_positions)
         return out_projection(o, wo, bo)
 
     @staticmethod
     def backward(ctx, dy):
-        qkv, o, wo, bo, mask, pos = ctx.saved_tensors
+        qkv, o, probs, wo, bo, mask, pos = ctx.saved_tensors
         dy = dy.to(qkv.dtype)
-        dqkv = short_attention_qkv_bwd(_dout(dy, wo.to(qkv.dtype)), qkv, o, ctx.num_heads,
-                                       mask=mask, scale=ctx.scale, rope_positions=pos)
+        dout = _dout(dy, wo.to(qkv.dtype))
+        if probs is not None:
+            dqkv = short_attention_qkv_bwd_probs(dout, qkv, probs, ctx.num_heads,
+                                                 scale=ctx.scale, rope_positions=pos)
+        else:
+            dqkv = short_attention_qkv_bwd(dout, qkv, o, ctx.num_heads, mask=mask,
+                                           scale=ctx.scale, rope_positions=pos)
         dwo, dbo = _proj_param_grads(dy, o)
-        return dqkv, dwo.to(wo.dtype), dbo.to(bo.dtype), None, None, None, None
+        return dqkv, dwo.to(wo.dtype), dbo.to(bo.dtype), None, None, None, None, None
 
 
 def fused_short_attention_qkv_proj(
@@ -395,19 +586,24 @@ def fused_short_attention_qkv_proj(
     mask: Optional[torch.Tensor] = None,
     scale: Optional[float] = None,
     rope_positions: Optional[torch.Tensor] = None,
+    save_probs: Optional[bool] = None,
 ) -> torch.Tensor:
     """y = attention(qkv) @ wo^T + bo, (B, S, D) out; rope_positions: (S,)
     positions for rotate-half RoPE on q/k. Differentiable in qkv, wo and bo:
     the kernels on CUDA tensors (forward: attention, then the projection
     GEMM; backward: the dO GEMM, then the attention backward), the plain
-    versions on CPU tensors. On CUDA a shape whose backward does not fit is
-    refused before the forward when a gradient will be recorded."""
-    _, S, D, Dh = _check_qkv(qkv, num_heads, rope_positions)
+    versions on CPU tensors. `save_probs` is the JAX package's argument:
+    where a gradient will be recorded, True saves the bf16 probabilities in
+    the forward and the backward reads them, False recomputes them from qkv,
+    o and the mask, None takes the JAX package's rule (`saves_probs`).
+    Without a gradient nothing is saved."""
+    B, S, D, _ = _check_qkv(qkv, num_heads, rope_positions)
     _check_proj(qkv[..., :D], wo, bo)
-    if (qkv.device.type == "cuda" and torch.is_grad_enabled()
-            and any(t.requires_grad for t in (qkv, wo, bo))):
-        _require_bwd_fits(S, Dh)
-    return _ShortAttnProj.apply(qkv, wo, bo, mask, rope_positions, num_heads, scale)
+    if save_probs is None:
+        save_probs = saves_probs(B, S, num_heads)
+    save = bool(save_probs) and torch.is_grad_enabled() and any(
+        t.requires_grad for t in (qkv, wo, bo))
+    return _ShortAttnProj.apply(qkv, wo, bo, mask, rope_positions, num_heads, scale, save)
 
 
 # ---------------------------------------------------------------------------

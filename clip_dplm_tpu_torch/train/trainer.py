@@ -1,7 +1,8 @@
-"""Train and eval steps of the contrastive models, and the Trainer loop: the
-pair family (TwoTowerCLIP and RNARBPCLIP: any model whose forward returns
-emb_a, emb_b and logit_scale) and the three-way tf_clip model (cell_embed,
-pert_embed, protein_embed: the sum of the three pairs' losses).
+"""Train and eval steps of the port's models, and the Trainer loop: the pair
+family (TwoTowerCLIP and RNARBPCLIP: any model whose forward returns emb_a,
+emb_b and logit_scale), the three-way tf_clip model (cell_embed,
+pert_embed, protein_embed: the sum of the three pairs' losses) and DPLM (the
+absorbing-state diffusion loss over batch["tokens"] and batch["mask"]).
 
 Counterpart of `clip_dplm_tpu/train/trainer.py` for those families with the
 `infonce` loss: `make_loss_fn` (the per-family loss), `make_train_step`
@@ -27,6 +28,7 @@ from typing import Callable, Dict, Iterable, Optional, Tuple
 import torch
 
 from clip_dplm_tpu_torch.config import Config
+from clip_dplm_tpu_torch.models.dplm import diffusion_loss
 from clip_dplm_tpu_torch.ops import infonce
 from clip_dplm_tpu_torch.ops.fused_dense import DropoutSeeds
 from clip_dplm_tpu_torch.ops.fused_infonce import fused_clip_loss, fused_multiway_clip_loss
@@ -113,10 +115,27 @@ def _multiway_loss_fn(cfg: Config):
     return loss_fn
 
 
+def _dplm_loss_fn(cfg: Config):
+    """(model, batch, seeds, cache, cache_len) -> (loss, (metrics, None)) of
+    DPLM: the diffusion loss of one corruption drawn from the step's seeds
+    (models/dplm.py::diffusion_loss). The cache is not read."""
+
+    def loss_fn(model, batch, seeds: DropoutSeeds, cache=None, cache_len=None):
+        del cache, cache_len
+        loss, metrics = diffusion_loss(model, batch["tokens"], seeds, batch.get("mask"))
+        return loss, (metrics, None)
+
+    return loss_fn
+
+
 def make_loss_fn(cfg: Config):
     """The experiment family's loss: (model, batch, seeds, cache=None,
     cache_len=None) -> (loss, (metrics, emb_b for the cache or None))."""
-    return _multiway_loss_fn(cfg) if cfg.experiment == "tf_clip" else _pair_loss_fn(cfg)
+    if cfg.experiment == "tf_clip":
+        return _multiway_loss_fn(cfg)
+    if cfg.experiment == "dplm":
+        return _dplm_loss_fn(cfg)
+    return _pair_loss_fn(cfg)
 
 
 def make_train_step(cfg: Config) -> Callable[[TrainState, Dict], Tuple[TrainState, Dict]]:
@@ -184,12 +203,19 @@ def make_train_step(cfg: Config) -> Callable[[TrainState, Dict], Tuple[TrainStat
 def make_eval_step(cfg: Config) -> Callable[[TrainState, Dict], Dict]:
     """Deterministic forward and the loss (no label smoothing); tf_clip takes
     the plain multiway loss, as the reference's eval does. The fused loss
-    saves no raw similarity here: no backward would read it."""
+    saves no raw similarity here, nor the packed attention its
+    probabilities: no backward would read them. DPLM's eval draws its
+    corruption from the state's (key, step) without advancing the state, so
+    it is deterministic given the state."""
     _check_loss(cfg)
     cc = cfg.contrastive
 
     @torch.no_grad()
     def step(state: TrainState, batch: Dict) -> Dict:
+        if cfg.experiment == "dplm":
+            loss, metrics = diffusion_loss(state.model, batch["tokens"],
+                                           DropoutSeeds(state.key, state.step), batch.get("mask"))
+            return {**metrics, "loss": loss}
         out = state.model(batch, deterministic=True)
         ls = _logit_scale(cfg, out)
         if cfg.experiment == "tf_clip":

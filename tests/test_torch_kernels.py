@@ -249,11 +249,73 @@ def test_short_attention_bwd_matches_plain(cuda_device, np_rng, B, S, D, H, rope
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("B,S,D,H,rope,saved", [
+    (2, 128, 512, 8, False, True), (3, 65, 64, 2, True, True), (2, 255, 512, 8, True, True),
+    (2, 255, 1024, 8, True, True), (3, 30, 96, 2, True, True), (256, 128, 640, 10, True, True),
+    (2, 209, 128, 2, False, False), (2, 255, 512, 8, True, False),
+    (2, 255, 1024, 8, False, False), (2, 128, 512, 8, True, False)])
+def test_short_attention_bwd_lifted_and_saved_match_plain(cuda_device, np_rng, B, S, D, H, rope,
+                                                          saved):
+    """Both modes' backward kernels up to S = 255 at Dh = 64 and 128 (past
+    the one-block recompute kernel's bound, S <= 208 at Dh=64; that kernel
+    at S = 128) against their plain versions
+    on the same residuals (the plain forward's o or bf16 probabilities), two
+    launches equal byte for byte; in the saved mode the saving forward's o
+    and probabilities against the plain ones too."""
+    f = lambda *s: torch.from_numpy(np_rng.normal(size=s).astype(np.float32)).to(  # noqa: E731
+        cuda_device, torch.bfloat16)
+    qkv, dout = f(B, S, 3 * D), f(B, S, D)
+    mask = torch.from_numpy(_key_mask(np_rng, B, S)).to(cuda_device)
+    pos = torch.arange(S, device=cuda_device) if rope else None
+    o, probs = sa.short_attention_qkv_reference(qkv, H, mask=mask, rope_positions=pos,
+                                                return_probs=True)
+    before = _build.LAUNCHES.snapshot()
+    if saved:
+        o_k, p_k = sa.short_attention_qkv_save(qkv, H, mask=mask, rope_positions=pos)
+        torch.testing.assert_close(o_k.float(), o.float(), **TOL)
+        torch.testing.assert_close(p_k.float(), probs.float(), atol=1e-2, rtol=0)
+        run = lambda: sa.short_attention_qkv_bwd_probs(dout, qkv, probs, H,  # noqa: E731
+                                                       rope_positions=pos)
+        want = sa.short_attention_qkv_bwd_probs_reference(dout, qkv, probs, H, rope_positions=pos)
+        names = ("short_attention_save", "short_attention_bwd_probs")
+    else:
+        run = lambda: sa.short_attention_qkv_bwd(dout, qkv, o, H, mask=mask,  # noqa: E731
+                                                 rope_positions=pos)
+        want = sa.short_attention_qkv_bwd_reference(dout, qkv, o, H, mask=mask, rope_positions=pos)
+        names = ("short_attention_bwd",)
+    got, again = run(), run()
+    torch.cuda.synchronize()
+    after = _build.LAUNCHES.snapshot()
+    assert after[names[-1]] == before[names[-1]] + 2
+    if saved:
+        assert after[names[0]] == before[names[0]] + 1
+    assert torch.isfinite(got).all() and torch.equal(got, again)
+    _grads_close([got[..., i * D:(i + 1) * D] for i in range(3)],
+                 [want[..., i * D:(i + 1) * D] for i in range(3)], ["dq", "dk", "dv"])
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("Dh", [8, 48, 64, 128])
+def test_short_attention_bwd_smem_matches_the_mirror(cuda_device, Dh):
+    """The launcher's shared memory (csrc::short_attention_bwd_smem) equals
+    ops/short_attention.py::bwd_smem_bytes, and fits, over the forward's S;
+    the one-block recompute kernel's equals bwd_head_smem_bytes."""
+    lib = _build.LIBRARY.get()
+    for S in (1, 16, 30, 64, 65, 128, 200, 208, 209, 240, 255, 256):
+        for saved in (False, True):
+            want = sa.bwd_smem_bytes(S, Dh, saved)
+            got = tuple(lib.short_attention_bwd_smem(S, Dh, int(saved), k) for k in (0, 1))
+            assert got == want and all(0 < b <= sa.MAX_SMEM for b in got), (S, saved)
+        assert lib.short_attention_bwd_smem(S, Dh, 0, 2) == sa.bwd_head_smem_bytes(S, Dh), S
+
+
+@pytest.mark.cuda
 @pytest.mark.parametrize("B,S,D,H", [(2, 128, 512, 8), (3, 65, 128, 2)])
 def test_fused_short_attention_proj_grads_match_plain(cuda_device, np_rng, B, S, D, H):
     """The autograd Function on the card (attention, projection GEMM; dO
     GEMM, attention backward, f32 dWo/dbo) against autograd of the plain
-    formulation."""
+    formulation, in the mode the rule picks at these shapes (saved) and with
+    save_probs=False (recompute): each launches its own kernels only."""
     qkv = torch.from_numpy(np_rng.normal(size=(B, S, 3 * D)).astype(np.float32)).to(
         cuda_device, torch.bfloat16)
     wo = torch.from_numpy((np_rng.normal(size=(D, D)) / np.sqrt(D)).astype(np.float32))
@@ -262,23 +324,29 @@ def test_fused_short_attention_proj_grads_match_plain(cuda_device, np_rng, B, S,
     mask = torch.from_numpy(_ragged_mask(np_rng, B, S)).to(cuda_device)
     dy = torch.from_numpy(np_rng.normal(size=(B, S, D)).astype(np.float32)).to(cuda_device)
 
-    def run(fn):
+    def run(fn, **kw):
         leaves = [t.clone().requires_grad_(True) for t in (qkv, wo, bo)]
-        y = fn(*leaves, H, mask=mask)
+        y = fn(*leaves, H, mask=mask, **kw)
         y.backward(dy.to(y.dtype))
         return y.detach(), [t.grad for t in leaves]
 
-    before = _build.LAUNCHES.snapshot()
-    y, grads = run(fused_short_attention_qkv_proj)
-    torch.cuda.synchronize()
-    after = _build.LAUNCHES.snapshot()
-    for name in ("short_attention", "short_attention_out_proj", "fused_dense_gemm",
-                 "short_attention_bwd"):
-        assert after[name] == before[name] + 1, name
+    assert sa.saves_probs(B, S, H)
     y_ref, grads_ref = run(fused_short_attention_qkv_proj_reference)
-    assert grads[1].dtype == grads[2].dtype == torch.float32
-    torch.testing.assert_close(y.float(), y_ref.float(), **TOL)
-    _grads_close(grads, grads_ref, ["dqkv", "dwo", "dbo"])
+    for mode, launched, idle in ((None, ("short_attention_save", "short_attention_bwd_probs"),
+                                  ("short_attention", "short_attention_bwd")),
+                                 (False, ("short_attention", "short_attention_bwd"),
+                                  ("short_attention_save", "short_attention_bwd_probs"))):
+        before = _build.LAUNCHES.snapshot()
+        y, grads = run(fused_short_attention_qkv_proj, save_probs=mode)
+        torch.cuda.synchronize()
+        after = _build.LAUNCHES.snapshot()
+        for name in launched + ("short_attention_out_proj", "fused_dense_gemm"):
+            assert after[name] == before[name] + 1, (mode, name)
+        for name in idle:
+            assert after[name] == before[name], (mode, name)
+        assert grads[1].dtype == grads[2].dtype == torch.float32
+        torch.testing.assert_close(y.float(), y_ref.float(), **TOL)
+        _grads_close(grads, grads_ref, ["dqkv", "dwo", "dbo"])
 
 
 @pytest.mark.cuda
@@ -332,16 +400,21 @@ def test_forward_only_kernels_refuse_to_drop_gradients(cuda_device):
     with torch.no_grad():
         assert flash_attention(q, q, q).shape == q.shape
         assert short_attention_qkv(qkv, 2).shape == (2, 64, 64)
+        o_s, p_s = sa.short_attention_qkv_save(qkv, 2)
+        assert o_s.shape == (2, 64, 64) and p_s.shape == (2, 2, 64, 64)
     x = torch.randn(2, 10, 64, device=cuda_device, dtype=torch.bfloat16)
     heads = x.reshape(2, 10, 2, 32).transpose(1, 2)
     want = attention_reference(heads, heads, heads).transpose(1, 2).reshape(2, 10, 64)
     torch.testing.assert_close(multihead_attention(x, x, x, 2), want)
     with pytest.raises(NotImplementedError, match="item 7"):
         multihead_attention(o, o, o, 2)
+    with pytest.raises(NotImplementedError, match="fused_short_attention_qkv_proj"):
+        sa.short_attention_qkv_save(qkv, 2)
+    # S = 256 at Dh = 64 has its backward now (the one-block bound was S <= 208)
     big = torch.zeros(1, 256, 3 * 512, device=cuda_device, dtype=torch.bfloat16,
                       requires_grad=True)
-    with pytest.raises(ValueError, match="backward kernel does not fit"):
-        fused_short_attention_qkv_proj(big, w.new_zeros(512, 512), w.new_zeros(512), 8)
+    fused_short_attention_qkv_proj(big, w.new_zeros(512, 512), w.new_zeros(512), 8).sum().backward()
+    assert big.grad is not None and torch.isfinite(big.grad).all()
     with pytest.raises(ValueError, match="up to 128 heads"):
         sa.fused_cls_attention(torch.zeros(1, 8, 3 * 8 * 130, device=cuda_device,
                                            dtype=torch.bfloat16), 130)

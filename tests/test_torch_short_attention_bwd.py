@@ -1,11 +1,13 @@
 """The backward of the port's packed-qkv short-S attention with the fused
-out-projection (clip_dplm_tpu_torch/ops/short_attention.py): value, dqkv,
-dWo and dbo of `fused_short_attention_qkv_proj` on CPU tensors (the plain
-path, through its autograd Function) against the JAX kernel it replaces, run
-in Pallas interpret mode with save_probs=False, at the JAX suite's
-tolerances (f32; gradients atol 5e-5, rtol 2e-3); and the plain backward
-`short_attention_qkv_bwd_reference` against autograd of the plain
-forward."""
+out-projection (clip_dplm_tpu_torch/ops/short_attention.py), recompute
+mode: value, dqkv, dWo and dbo of `fused_short_attention_qkv_proj` on CPU
+tensors (the plain path, through its autograd Function) against the JAX
+kernel it replaces, both with save_probs=False, the JAX kernel run in Pallas
+interpret mode, at the JAX suite's tolerances (f32; gradients atol 5e-5,
+rtol 2e-3); the plain backward `short_attention_qkv_bwd_reference` against
+autograd of the plain forward; and the backward's shared memory, which fits
+every (S, Dh) the forward takes. The saved mode is
+tests/test_torch_saved_probs.py."""
 
 import jax
 import jax.numpy as jnp
@@ -51,7 +53,7 @@ def test_value_and_grads_match_jax_kernel(rng, rope, S):
     leaves = [torch.from_numpy(a).requires_grad_(True) for a in (qkv, wo.T.copy(), bo)]
     y = sa.fused_short_attention_qkv_proj(
         leaves[0], leaves[1], leaves[2], H, mask=torch.from_numpy(mask),
-        rope_positions=torch.from_numpy(pos) if rope else None)
+        rope_positions=torch.from_numpy(pos) if rope else None, save_probs=False)
     loss = torch.sum(torch.sin(y * torch.from_numpy(w)))
     loss.backward()
     np.testing.assert_allclose(float(loss.detach()), float(l_j), rtol=1e-5)
@@ -91,11 +93,35 @@ def test_cpu_backward_takes_plain_versions_and_counts_nothing(rng):
     assert leaves[1].grad.dtype == torch.float32
 
 
-@pytest.mark.parametrize("S,Dh,fits", [(128, 64, True), (65, 64, True), (208, 64, True),
-                                       (209, 64, False), (255, 32, True), (128, 128, False),
-                                       (96, 128, True)])
-def test_backward_shared_memory_bound(S, Dh, fits):
-    """The backward block holds K, V and f32 dK/dV of one head: at Dh=64 up
-    to S=208 fits the H100's 227 KB (csrc/short_attention.cu::BwdSmem)."""
-    assert sa.short_attention_bwd_fits(S, Dh) is fits
-    assert sa._bwd_smem_bytes(128, 64, 64) == 228096  # the flagship's 64-row tiles
+@pytest.mark.parametrize("Dh", [8, 64, 128])
+@pytest.mark.parametrize("S", [1, 16, 64, 65, 128, 208, 209, 240, 255, 256])
+def test_backward_shared_memory_bound(S, Dh):
+    """Both backward blocks (dQ: K and V of the head for the whole sequence;
+    dK/dV: a 64-key tile and its f32 dK/dV) fit the H100's 227 KB in both
+    modes at every S and Dh of the forward's range
+    (csrc/short_attention.cu::BwdQSmem, BwdKVSmem)."""
+    for saved in (False, True):
+        dq, dkv = sa.bwd_smem_bytes(S, Dh, saved)
+        assert 0 < dq <= sa.MAX_SMEM and 0 < dkv <= sa.MAX_SMEM, (saved, dq, dkv)
+    # the DPLM training shape's blocks, two an SM: 48 query rows (dQ) and
+    # 64 x 64 (dK/dV)
+    assert sa.bwd_smem_bytes(128, 64, True) == (102144, 108288)
+    assert max(sa.bwd_smem_bytes(128, 64, True) + sa.bwd_smem_bytes(128, 64, False)) <= (
+        sa.HALF_SMEM)
+
+
+@pytest.mark.parametrize("S,Dh,fits", [(1, 64, True), (64, 64, True), (128, 64, True),
+                                       (208, 64, True), (209, 64, False), (255, 64, False),
+                                       (64, 128, True), (128, 128, False), (256, 8, True)])
+def test_recompute_one_block_bound(S, Dh, fits):
+    """The recompute backward's one-block-a-head kernel (the whole head's K, V
+    and f32 dK/dV in one block, 64 query rows halved while they do not fit)
+    takes S <= 208 at Dh = 64, the flagship's and DPLM's S = 128 at 64 query
+    rows; past its bound the recompute mode takes the dQ and dK/dV launches
+    (csrc/short_attention.cu::bwd_head_rows)."""
+    got = sa.bwd_head_smem_bytes(S, Dh)
+    assert (0 < got <= sa.MAX_SMEM) == fits, got
+    if not fits:
+        assert got == 0
+    # the flagship block: 64 query rows, 223 KB, one block an SM
+    assert sa.bwd_head_smem_bytes(128, 64) == 228096

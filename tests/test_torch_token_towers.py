@@ -8,7 +8,10 @@ its exact dead-code elimination (values and gradients at the JAX suite's
 1e-4) and bf16 (rtol 0.05 / atol 0.03), three deterministic train steps
 (loss rtol 1e-4) and the first step's gradient of every leaf, the rna_rbp
 train CLI for one epoch on the CPU, and the token-pair batches of one
-seed."""
+seed. JAX on the CPU computes its attention exactly (XLA, no kernel), so
+the port's packed attention is pinned to its recompute mode here, as the
+JAX suite pins its own (tests/test_esm.py); the saved mode has
+tests/test_torch_saved_probs.py."""
 
 import jax
 import jax.numpy as jnp
@@ -30,6 +33,7 @@ from clip_dplm_tpu_torch.experiments import train as train_cli
 from clip_dplm_tpu_torch.experiments.registry import build_data, build_model
 from clip_dplm_tpu_torch.models.layers import TransformerBlock
 from clip_dplm_tpu_torch.models.token_towers import RNARBPCLIP, TokenTransformerTower
+from clip_dplm_tpu_torch.ops import short_attention as sa
 from clip_dplm_tpu_torch.ops.fused_dense import DropoutSeeds
 from clip_dplm_tpu_torch.train import trainer as ptrainer
 from clip_dplm_tpu_torch.train.state import create_train_state
@@ -46,6 +50,12 @@ SMALL = ["experiment=rna_rbp",
 NO_DROPOUT = ["rna_tower.dropout=0.0", "rbp_tower.dropout=0.0", "projection.dropout=0.0"]
 STEP = NO_DROPOUT + ["train.optim.schedule=constant", "train.optim.learning_rate=1e-3"]
 TOKENS = 64  # + CLS = 65: the packed short-S path in the first block
+
+
+@pytest.fixture(autouse=True)
+def recompute_mode(monkeypatch):
+    """The packed attention's backward recomputes the probabilities in f32."""
+    monkeypatch.setattr(sa, "saves_probs", lambda *a: False)
 
 
 def _cfgs(extra):

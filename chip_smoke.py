@@ -118,7 +118,32 @@ Phases, each fatal on failure (non-zero exit, no result line):
      dQ and dK/dV) with a finite loss; (d) the train CLI with
      experiment=dplm (S=64, B=128) for 3 epochs, whose loss must fall; (e)
      experiments/bench.py --model dplm at B=256, S=128. The two new launch
-     counters must rise in (d)+(e), the recompute backward's not at all.
+     counters must rise in (d)+(e), the recompute backward's not at all;
+ 13. the short-S attention over separate q, k, v (fused_short_attention,
+     fused_short_attention_heads): its forward, saving forward, recompute
+     backward and backward from the probabilities against their plain
+     versions on the card in bf16 (atol = rtol = 2e-2, the backward outputs
+     relative to their largest entry, on the plain forward's residuals) at
+     the flagship's B=1024, S=128, D=512, H=8 from qkv.chunk(3, -1) views
+     (read in place), at DPLM's B=256, S=128, H=10 as (B, H, S, Dh) heads
+     after rotary_embed, ragged at B=1000, S=65, at S=255 with Dh=64 and
+     Dh=128, and at S=64 with no mask; two launches of each equal byte for
+     byte; each timed beside SDPA's forward or backward (timed only); at the
+     flagship's shape the chunk views timed beside contiguous heads;
+ 14. the path of those kernels: (a) multihead_attention and
+     attention_dispatch, forward and backward on the card at the flagship's
+     and DPLM's full widths, launch only the separate-operand kernels in the
+     mode the JAX size rule picks (saved at B=1024 and DPLM's B=256;
+     recompute at the flagship's B=2304, 604 MB by JAX's count) and no plain
+     version, with values and gradients against the plain formulation; (b)
+     the flagship TransformerBlock's attention by its packed route
+     (packed_qkv_attention_proj) and its separate route (multihead_attention
+     over qkv.chunk(3, -1), then out_proj) on the same weights at B=1024: y,
+     dqkv, dWo, dbo agree (atol = rtol = 2e-2 of the largest entry); (c) the
+     same for one DPLM EsmBlock with RoPE at B=256, S=128: the packed RoPE
+     kernel against rotary_embed, attention_dispatch and out (y, dh and
+     every attention parameter's gradient). The kernels line takes the four
+     launch counts from (a).
 Prints a JSON line of per-kernel results (each kernel's time at its main
 shape, its plain version's, the library call's where there is one, and the
 bound: the larger of the bytes it must move over 3.35 TB/s and its
@@ -215,8 +240,18 @@ DPLM_KERNELS = {
     "short_attention_bwd_probs": ("clip_dplm_tpu_torch/csrc/short_attention.cu",
                                   "clip_dplm_tpu/ops/short_attention.py:583"),
 }
+SEPARATE_KERNELS = {
+    "short_attention_sep": ("clip_dplm_tpu_torch/csrc/short_attention.cu",
+                            "clip_dplm_tpu/ops/short_attention.py:412"),
+    "short_attention_sep_save": ("clip_dplm_tpu_torch/csrc/short_attention.cu",
+                                 "clip_dplm_tpu/ops/short_attention.py:412"),
+    "short_attention_sep_bwd": ("clip_dplm_tpu_torch/csrc/short_attention.cu",
+                                "clip_dplm_tpu/ops/short_attention.py:443"),
+    "short_attention_sep_bwd_probs": ("clip_dplm_tpu_torch/csrc/short_attention.cu",
+                                      "clip_dplm_tpu/ops/short_attention.py:443"),
+}
 KERNELS = {**SERVE_KERNELS, **TRAIN_KERNELS, **FLAGSHIP_KERNELS, **TF_CLIP_KERNELS,
-           **CACHE_KERNELS, **SAVED_RAW_KERNELS, **DPLM_KERNELS}
+           **CACHE_KERNELS, **SAVED_RAW_KERNELS, **DPLM_KERNELS, **SEPARATE_KERNELS}
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM HBM3 bandwidth
 PEAK_OPS = {"bf16": 989e12, "f32": 67e12}  # dense tensor-core bf16; f32 off the tensor cores
 
@@ -1543,6 +1578,269 @@ def phase_mode_steps(torch):
               f"recompute {times['recompute']}")
 
 
+def phase_separate_kernels(torch, results):
+    """13: the four separate-operand launches against their plain versions,
+    on the plain forward's residuals, each timed beside SDPA."""
+    from clip_dplm_tpu_torch.models.esm import rotary_embed
+    from clip_dplm_tpu_torch.ops import short_attention as sa
+    from clip_dplm_tpu_torch.ops.attention import split_heads
+
+    dev = torch.device("cuda")
+    g = torch.Generator(device=dev).manual_seed(31)
+    rnd = lambda *s: torch.randn(*s, generator=g, device=dev).to(torch.bfloat16)  # noqa: E731
+
+    def ragged_mask(B, S):
+        lens = torch.randint(S // 2, S + 1, (B,), generator=g, device=dev)
+        lens[0] = S
+        return torch.arange(S, device=dev)[None, :] < lens[:, None]
+
+    # (B, S, D, H, operands, masked): the flagship's chunk views, DPLM's heads
+    # after RoPE, ragged S=65, S=255 at Dh=64 and 128, S=64 with no mask
+    for B, S, D, H, operands, masked in (
+            (1024, 128, 512, 8, "chunk", True), (256, 128, 640, 10, "rope heads", True),
+            (1000, 65, 512, 8, "chunk", True), (32, 255, 640, 10, "chunk", True),
+            (32, 255, 1024, 8, "heads", True), (256, 64, 512, 8, "chunk", False)):
+        q, k, v = rnd(B, S, 3 * D).chunk(3, dim=-1)
+        if operands != "chunk":
+            q, k, v = (split_heads(t, H) for t in (q, k, v))
+        if operands == "rope heads":
+            pos = torch.arange(S, device=dev)
+            q, k = rotary_embed(q, pos), rotary_embed(k, pos)
+        mask = ragged_mask(B, S) if masked else None
+        dout = rnd(*q.shape)
+        hq, hk, hv, hdo = (t if t.dim() == 4 else split_heads(t, H) for t in (q, k, v, dout))
+        sdpa_mask = mask if masked else torch.ones(B, S, dtype=torch.bool, device=dev)
+        o, probs = sa.short_attention_sep_reference(q, k, v, H, mask=mask, return_probs=True)
+        shape = f"B={B} S={S} D={D} H={H} {operands}" + ("" if masked else " no mask")
+        n, n_p = B * S * D * 2, B * H * S * S * 2  # bytes of one operand, of the probabilities
+        runs = (  # name, kernel, plain, (bytes, ops), SDPA call
+            ("short_attention_sep", lambda: sa.short_attention_sep(q, k, v, H, mask=mask),
+             lambda: sa.short_attention_sep_reference(q, k, v, H, mask=mask),
+             (4 * n + B * S, 4 * B * S * S * D), sdpa_fn(torch, hq, hk, hv, sdpa_mask)),
+            ("short_attention_sep_save",
+             lambda: sa.short_attention_sep_save(q, k, v, H, mask=mask),
+             lambda: sa.short_attention_sep_reference(q, k, v, H, mask=mask, return_probs=True),
+             (4 * n + n_p + B * S, 4 * B * S * S * D), sdpa_fn(torch, hq, hk, hv, sdpa_mask)),
+            ("short_attention_sep_bwd",
+             lambda: sa.short_attention_sep_bwd(dout, q, k, v, o, H, mask=mask),
+             lambda: sa.short_attention_sep_bwd_reference(dout, q, k, v, o, H, mask=mask),
+             (8 * n + B * S, 10 * B * S * S * D),
+             sdpa_bwd_fn(torch, hq, hk, hv, sdpa_mask, hdo)),
+            ("short_attention_sep_bwd_probs",
+             lambda: sa.short_attention_sep_bwd_probs(dout, q, k, v, probs, H),
+             lambda: sa.short_attention_sep_bwd_probs_reference(dout, q, k, v, probs, H),
+             (7 * n + n_p, 8 * B * S * S * D), sdpa_bwd_fn(torch, hq, hk, hv, sdpa_mask, hdo)))
+        # bytes: q, k, v (and o, dO, the probabilities where read) in, the
+        # outputs once; ops: two (S, S, Dh) products a head forward, five
+        # backward in recompute mode, four from the probabilities
+        for name, kernel_fn, plain_fn, work, library_fn in runs:
+            with torch.no_grad():
+                got, again = kernel_fn(), kernel_fn()
+                want = plain_fn()
+            got, again, want = ([t] if torch.is_tensor(t) else list(t)
+                                for t in (got, again, want))
+            outs = {"short_attention_sep": ["o"], "short_attention_sep_save": ["o", "probs"]}
+            names = outs.get(name, ["dq", "dk", "dv"])
+            err = check_outputs(torch, f"{name} {shape}", got, want, names,
+                                raw_first=name in outs)
+            check(all(torch.equal(a, b) for a, b in zip(got, again)),
+                  f"{name} {shape}: two launches differ")
+            with torch.no_grad():
+                ms, plain_ms = timed_pair(torch, kernel_fn, plain_fn)
+            lib_ms = library_time(torch, library_fn)
+            record(results, name, shape, err, ms, plain_ms, work=work, library_ms=lib_ms)
+            if B == 1024:  # the chunk views read in place against contiguous heads
+                cq, ck, cv, cdo, co = (t.contiguous() for t in (hq, hk, hv, hdo, split_heads(o, H)))
+                heads_fn = {
+                    "short_attention_sep": lambda: sa.short_attention_sep(cq, ck, cv, H, mask=mask),
+                    "short_attention_sep_save": lambda: sa.short_attention_sep_save(
+                        cq, ck, cv, H, mask=mask),
+                    "short_attention_sep_bwd": lambda: sa.short_attention_sep_bwd(
+                        cdo, cq, ck, cv, co, H, mask=mask),
+                    "short_attention_sep_bwd_probs": lambda: sa.short_attention_sep_bwd_probs(
+                        cdo, cq, ck, cv, probs, H)}[name]
+                with torch.no_grad():
+                    t_bhsd = min(cuda_ms(torch, heads_fn), cuda_ms(torch, heads_fn))
+                print(f"{name} {shape}: (B, S, D) chunk views {ms:.4f} ms, contiguous "
+                      f"(B, H, S, Dh) heads {t_bhsd:.4f} ms")
+        del runs
+
+
+def _count_plain_calls_on_the_card(torch):
+    """Wrap the separate-operand plain versions and the plain formulation so
+    that each call on a CUDA tensor is counted; (counts, restore)."""
+    from clip_dplm_tpu_torch.ops import attention as att
+    from clip_dplm_tpu_torch.ops import short_attention as sa
+
+    counts = {"plain": 0}
+    saved = []
+    for mod, name in ((sa, "short_attention_sep_reference"),
+                      (sa, "short_attention_sep_bwd_reference"),
+                      (sa, "short_attention_sep_bwd_probs_reference"),
+                      (att, "attention_reference")):
+        fn = getattr(mod, name)
+
+        def wrapped(*a, _fn=fn, **k):
+            if any(torch.is_tensor(t) and t.is_cuda for t in a):
+                counts["plain"] += 1
+            return _fn(*a, **k)
+
+        saved.append((mod, name, fn))
+        setattr(mod, name, wrapped)
+
+    def restore():
+        for mod, name, fn in saved:
+            setattr(mod, name, fn)
+
+    return counts, restore
+
+
+def phase_separate_path(torch, build):
+    """14: the gates' path at full width, and the blocks' two routes.
+    Returns the launch counts of (a)."""
+    from clip_dplm_tpu_torch.ops import short_attention as sa
+    from clip_dplm_tpu_torch.ops.attention import (
+        attention_dispatch, attention_reference, multihead_attention, split_heads)
+
+    dev = torch.device("cuda")
+    g = torch.Generator(device=dev).manual_seed(37)
+    rnd = lambda *s: torch.randn(*s, generator=g, device=dev).to(torch.bfloat16)  # noqa: E731
+    sep = list(SEPARATE_KERNELS)
+    total = dict.fromkeys(sep, 0)
+    # (a) (B, S, D, H): the flagship at B=1024 (saved) and 2304 (past the
+    # rule's 512 MiB: recompute), DPLM 640/10 at B=256 (saved)
+    for B, S, D, H in ((1024, 128, 512, 8), (2304, 128, 512, 8), (256, 128, 640, 10)):
+        save = sa.saves_probs(B, S, H)
+        check(save is (B != 2304), f"the rule's mode at B={B} S={S} H={H}: save={save}")
+        lens = torch.randint(S // 2, S + 1, (B,), generator=g, device=dev)
+        mask = torch.arange(S, device=dev)[None, :] < lens[:, None]
+        qkv, dout = rnd(B, S, 3 * D), rnd(B, S, D)
+        for entry in ("multihead_attention", "attention_dispatch"):
+            leaves = [t.clone().requires_grad_(True) for t in qkv.chunk(3, dim=-1)]
+            if entry == "attention_dispatch":
+                ops = [split_heads(t, H) for t in leaves]
+                fn = lambda: attention_dispatch(*ops, mask=mask)  # noqa: E731
+                d_o = split_heads(dout, H)
+            else:
+                fn = lambda: multihead_attention(*leaves, H, mask=mask)  # noqa: E731
+                d_o = dout
+            counts, restore = _count_plain_calls_on_the_card(torch)
+            try:
+                build.LAUNCHES.reset()
+                out = fn()
+                out.backward(d_o)
+                torch.cuda.synchronize()
+                launches = build.LAUNCHES.snapshot()
+            finally:
+                restore()
+            ran = {k for k, c in launches.items() if c}
+            want = ({"short_attention_sep_save", "short_attention_sep_bwd_probs"} if save
+                    else {"short_attention_sep", "short_attention_sep_bwd"})
+            what = f"{entry} B={B} S={S} D={D} H={H}"
+            check(ran == want and all(launches[k] == 1 for k in want),
+                  f"{what}: launched {launches} (want one each of {sorted(want)})")
+            check(counts["plain"] == 0, f"{what}: {counts['plain']} plain calls on the card")
+            for k in sep:
+                total[k] += launches[k]
+            got = [out.detach()] + [t.grad for t in leaves]
+            plain = [t.detach().clone().requires_grad_(True) for t in qkv.chunk(3, dim=-1)]
+            ref = attention_reference(*(split_heads(t, H) for t in plain), mask=mask)
+            ref = ref if entry == "attention_dispatch" else ref.transpose(1, 2).reshape(B, S, D)
+            ref.backward(d_o)
+            err = check_outputs(torch, what, got, [ref.detach()] + [t.grad for t in plain],
+                                ["out", "dq", "dk", "dv"])
+            print(f"{what}: launched {sorted(want)} once each (the rule's "
+                  f"{'saved' if save else 'recompute'} mode), no plain call on the card, max "
+                  f"err {err:.3e} against the plain formulation")
+            del leaves, out, got, plain, ref
+    print(f"launches during the gates' path: {total}")
+    _block_routes(torch, g)
+    return total
+
+
+def _block_routes(torch, g):
+    """14(b) the flagship TransformerBlock's attention, 14(c) one DPLM
+    EsmBlock's with RoPE: the packed kernel's route against the separate
+    kernels' route on the same weights and inputs."""
+    import torch.nn.functional as F
+
+    from clip_dplm_tpu_torch.models.esm import EsmBlock, rotary_embed
+    from clip_dplm_tpu_torch.models.layers import TransformerBlock
+    from clip_dplm_tpu_torch.ops.attention import (
+        attention_dispatch, merge_heads, multihead_attention, packed_qkv_attention_proj,
+        split_heads)
+
+    dev = torch.device("cuda")
+    rnd = lambda *s: torch.randn(*s, generator=g, device=dev).to(torch.bfloat16)  # noqa: E731
+
+    def ragged_mask(B, S):
+        lens = torch.randint(S // 2, S + 1, (B,), generator=g, device=dev)
+        return torch.arange(S, device=dev)[None, :] < lens[:, None]
+
+    def randomize(module):
+        with torch.no_grad():
+            for p in module.parameters():
+                p.copy_(rnd(*p.shape).float() * (0.02 if p.dim() == 1 else p.shape[-1] ** -0.5))
+        return module
+
+    B, S = 1024, 128
+    block = randomize(TransformerBlock(512, 8, dropout=0.0, device=dev))
+    mask = ragged_mask(B, S)
+    qkv, dy = rnd(B, S, 3 * 512), rnd(B, S, 512)
+    routes = {
+        "packed": lambda x: packed_qkv_attention_proj(x, block.out_proj.kernel,
+                                                      block.out_proj.bias, 8, mask=mask),
+        "separate": lambda x: block.out_proj(multihead_attention(*x.chunk(3, dim=-1), 8,
+                                                                 mask=mask))}
+    res = {}
+    for name, route in routes.items():
+        block.zero_grad()
+        x = qkv.clone().requires_grad_(True)
+        y = route(x)
+        y.backward(dy)
+        res[name] = [y.detach(), x.grad, block.out_proj.kernel.grad.clone(),
+                     block.out_proj.bias.grad.clone()]
+    err = check_outputs(torch, "flagship block attention, separate vs packed", res["separate"],
+                        res["packed"], ["y", "dqkv", "dWo", "dbo"])
+    print(f"flagship TransformerBlock attention B={B} S={S}: separate route (multihead_attention"
+          f" + out_proj) vs packed route, max err {err:.3e}")
+
+    B, S, D, H = 256, 128, 640, 10
+    esm = randomize(EsmBlock(D, H, device=dev))
+    mask = ragged_mask(B, S)
+    pos = torch.arange(S, device=dev)
+    h0, dy = rnd(B, S, D), rnd(B, S, D)
+
+    def packed(h):
+        w = torch.cat([esm.q.kernel, esm.k.kernel, esm.v.kernel], 0)
+        b = torch.cat([esm.q.bias, esm.k.bias, esm.v.bias])
+        return packed_qkv_attention_proj(F.linear(h, w.to(h.dtype), b.to(h.dtype)),
+                                         esm.out.kernel, esm.out.bias, H, mask=mask,
+                                         rope_positions=pos)
+
+    def separate(h):
+        qh = rotary_embed(split_heads(esm.q(h), H), pos)
+        kh = rotary_embed(split_heads(esm.k(h), H), pos)
+        vh = split_heads(esm.v(h), H)
+        return esm.out(merge_heads(attention_dispatch(qh, kh, vh, mask=mask)))
+
+    params = [esm.q, esm.k, esm.v, esm.out]
+    res = {}
+    for name, route in (("packed", packed), ("separate", separate)):
+        esm.zero_grad()
+        h = h0.clone().requires_grad_(True)
+        y = route(h)
+        y.backward(dy)
+        res[name] = [y.detach(), h.grad] + [t.grad.clone() for m in params
+                                            for t in (m.kernel, m.bias)]
+    names = ["y", "dh"] + [f"d{m}.{t}" for m in ("q", "k", "v", "out") for t in ("kernel", "bias")]
+    err = check_outputs(torch, "DPLM EsmBlock attention, separate vs packed", res["separate"],
+                        res["packed"], names)
+    print(f"DPLM EsmBlock attention B={B} S={S} D={D} H={H} with RoPE: separate route "
+          f"(rotary_embed + attention_dispatch + out) vs the packed RoPE kernel, max err "
+          f"{err:.3e}")
+
+
 def main() -> int:
     import torch
 
@@ -1601,6 +1899,8 @@ def main() -> int:
     launches.update({k: v for k, v in phase_dplm_path(torch, _build).items()
                      if k in DPLM_KERNELS})
     phase_mode_steps(torch)
+    phase_separate_kernels(torch, results)
+    launches.update(phase_separate_path(torch, _build))
 
     keys = ("max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by", "library_ms")
     print(json.dumps({"kernels": [

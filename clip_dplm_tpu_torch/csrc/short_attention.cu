@@ -1,22 +1,39 @@
-// Packed-qkv short-sequence attention forward with rotate-half RoPE, and the
-// out-projection y = o·Wo^T + bo, for Hopper (sm_90a).
+// Short-sequence attention (S <= 256) forward and backward for Hopper
+// (sm_90a), over q, k and v given as operand descriptors, and the
+// out-projection y = o·Wo^T + bo of the packed path.
 //
-// Replaces clip_dplm_tpu/ops/short_attention.py::_fwd_kernel_qkv, the body of
-// fused_short_attention_qkv_proj (pallas_call in _fwd_call_qkv). The TPU
-// kernel runs G batch rows per program with all heads unrolled and the
-// out-projection in the same program; here the work is two launches:
+// Replaces two TPU kernels of clip_dplm_tpu/ops/short_attention.py, which
+// compute the same attention from differently laid out operands:
 //
-//   short_attn_qkv_kernel: one block of 8 warps per (query tile of up to 64
+//   - _fwd_kernel_qkv / _bwd_kernel_qkv (pallas_call in _fwd_call_qkv and
+//     _bwd_call_qkv), the body of fused_short_attention_qkv_proj: q, k and v
+//     are the three column blocks of one packed (B, S, 3D) qkv, with
+//     rotate-half RoPE on q and k and the out-projection after;
+//   - _fwd_kernel / _bwd_kernel (pallas_call in _fwd_call and _bwd_call),
+//     behind fused_short_attention (separate (B, S, D) q, k, v) and
+//     fused_short_attention_heads ((B, H, S, Dh) heads): no RoPE, no
+//     projection.
+//
+// Every kernel below takes each of q, k, v, o, dO, dq, dk and dv as an
+// `Operand`: a base pointer and batch, head and row strides in elements.
+// The packed qkv, the separate tensors (a qkv.chunk(3, -1) view among them,
+// read in place with its row stride of 3D) and the head-split tensors are
+// three sets of strides of the same kernels. Separate operands take no RoPE
+// (cos_t = sin_t = null) and no projection GEMM. The TPU kernels run G batch
+// rows per program with all heads unrolled (and, packed, the projection in
+// the same program); here the work is these launches:
+//
+//   short_attn_kernel: one block of 8 warps per (query tile of up to 64
 //     rows, head, batch row). K and V of the head for the whole sequence
-//     (S <= 256) are staged in shared memory with 16-byte loads; RoPE is
-//     applied to q and k while staging, in f32, rounded to bf16 (as the TPU
-//     kernel does). Scores are f32 with the additive -1e30 key bias, the
-//     softmax is exact (no online rescaling: all keys are resident), p is
-//     rounded to bf16 for p·V with f32 accumulation, and the row is divided
-//     by max(l, 1e-30). o goes to a (B, S, D) bf16 scratch.
+//     (S <= 256) are staged in shared memory with 16-byte loads where the
+//     strides allow it; RoPE, where given, is applied to q and k while
+//     staging, in f32, rounded to bf16 (as the TPU kernel does). Scores are
+//     f32 with the additive -1e30 key bias, the softmax is exact (no online
+//     rescaling: all keys are resident), p is rounded to bf16 for p·V with
+//     f32 accumulation, and the row is divided by max(l, 1e-30).
 //   dense_gemm_kernel (csrc/dense_gemm.cuh, shared with the fused Dense
-//     block): y = bf16(o·Wo^T + bo) with f32 accumulation, Wo in (out, in)
-//     layout, the bias added before the one rounding.
+//     block), packed path only: y = bf16(o·Wo^T + bo) with f32 accumulation,
+//     Wo in (out, in) layout, the bias added before the one rounding.
 //
 // Bounds on the H100: at the serving shapes (S = 128, Dh = 64) a block does
 // 2·64·128·64·2 = 2.1 MFLOP on 16 KB of K/V and 8 KB of q, far below the
@@ -27,20 +44,20 @@
 // that fragment loads do not conflict on banks. Fusing the projection into
 // the attention launch, and cp.async/TMA with wgmma, are later work.
 //
-// With a probabilities buffer (the saved mode of the TPU kernel, taken where
+// With a probabilities buffer (the saved mode of the TPU kernels, taken where
 // a backward follows and the JAX package's size rule allows it) the kernel
 // also writes bf16(p / l) of its query rows into a (B, H, S, S) buffer: p in
-// f32, divided by l before the one rounding, as _fwd_kernel_qkv's probs_ref.
+// f32, divided by l before the one rounding, as the TPU kernels' probs_ref.
 //
-// Backward: replaces _bwd_kernel_qkv (pallas_call in _bwd_call_qkv) in both
-// of its modes, for every S <= 256 and Dh (a multiple of 8, <= 128) the
-// forward takes. The out-projection's part of the TPU kernel (dO = dy·Wo^T)
-// is the shared GEMM, launched by the wrapper; dWo and dbo are plain matmuls
-// there, as the JAX package leaves them to XLA. The TPU kernel walks whole
-// heads in VMEM. Each output is written once by one block (no atomics: two
-// launches are equal byte for byte):
+// Backward: replaces _bwd_kernel_qkv and _bwd_kernel in both of their modes,
+// for every S <= 256 and Dh (a multiple of 8, <= 128) the forward takes. The
+// out-projection's part of the packed TPU kernel (dO = dy·Wo^T) is the shared
+// GEMM, launched by the wrapper; dWo and dbo are plain matmuls there, as the
+// JAX package leaves them to XLA. The TPU kernels walk whole heads in VMEM.
+// Each output is written once by one block (no atomics: two launches are
+// equal byte for byte):
 //
-//   short_attn_qkv_bwd_head_kernel (recompute mode, where its layout fits:
+//   short_attn_bwd_head_kernel (recompute mode, where its layout fits:
 //     S <= 208 at Dh = 64, the flagship's and DPLM's S = 128 among them):
 //     one block of 16 warps per (head, batch row) holds K, V and the f32
 //     dK/dV of the whole head and walks the query tiles, recomputing the
@@ -50,25 +67,25 @@
 // Past that bound, and always in saved mode, a head's f32 dK/dV does not fit
 // one block's shared memory beside K and V, so the work is two launches:
 //
-//   short_attn_qkv_bwd_dq_kernel<saved>: one block of 8 warps (16 where
-//     its tiles take a whole SM's shared memory, as at Dh = 128) per (query
+//   short_attn_bwd_dq_kernel<saved>: one block of 8 warps (16 where its
+//     tiles take a whole SM's shared memory, as at Dh = 128) per (query
 //     tile, head, batch row) holds K and V of the head for the whole
 //     sequence and forms full rows: dP = dO·V^T; recompute mode: the
-//     forward's softmax bit for bit (RoPE'd q/k rounded to bf16, f32 scores
-//     · scale + key bias, max, exp, l = max(Σp, 1e-30), prob = p / l) and
-//     delta = rowsum(dO∘o) from the saved o; saved mode: prob read from the
-//     bf16 buffer and delta = Σ dP·prob. Then ds = bf16(prob·(dP − delta)·
-//     scale) and dQ = ds·K through the inverse rotation in f32. It writes the
-//     row statistics (m, l, delta; saved mode delta only) to a (B, H, 3, S)
-//     f32 scratch.
-//   short_attn_qkv_bwd_dkv_kernel<saved>: one block of 8 or 16 warps per (key
+//     forward's softmax bit for bit (q/k RoPE'd where given and rounded to
+//     bf16, f32 scores · scale + key bias, max, exp, l = max(Σp, 1e-30),
+//     prob = p / l) and delta = rowsum(dO∘o) from the saved o; saved mode:
+//     prob read from the bf16 buffer and delta = Σ dP·prob. Then ds =
+//     bf16(prob·(dP − delta)·scale) and dQ = ds·K, through the inverse
+//     rotation in f32 where RoPE was given. It writes the row statistics (m,
+//     l, delta; saved mode delta only) to a (B, H, 3, S) f32 scratch.
+//   short_attn_bwd_dkv_kernel<saved>: one block of 8 or 16 warps per (key
 //     tile of 64, head, batch row) holds K and V of its keys and their f32
 //     dK/dV, and walks the query tiles: dP = dO·V^T for its keys, prob
 //     recomputed from the row's m and l (the same operations as above) or
 //     read, ds as above, dK += ds^T·Q and dV += bf16(prob)^T·dO; dK leaves
-//     through the inverse rotation.
+//     through the inverse rotation where RoPE was given.
 //
-// These are the TPU kernel's rounding points. The saved mode skips the
+// These are the TPU kernels' rounding points. The saved mode skips the
 // score product and the softmax and reads no o; it does its dP product twice
 // (once a kernel), as the recompute mode does its score and dP products.
 // At DPLM's training shape (B=256, S=128, D=640, H=10) the backward moves
@@ -81,6 +98,15 @@
 #include "dense_gemm.cuh"
 
 using namespace nvcuda;
+
+// One attention operand: row s of head h of batch row b starts at
+// p + b·sb + h·sh + s·ss (strides in elements; the Dh elements of a row are
+// contiguous). The C entries take it by pointer; Python mirrors it in
+// ops/_build.py::Operand.
+struct Operand {
+  void* p;
+  int64_t sb, sh, ss;
+};
 
 namespace clip_dplm {
 namespace {
@@ -98,6 +124,12 @@ constexpr size_t kHalfSmem = 115712;  // (228 KB per SM) / 2, less 1 KB reserved
 // serial phases (PERF.md, the findings of slice 3)
 constexpr int kHeadThreads = 512;
 constexpr int kHeadWarps = kHeadThreads / kWarp;
+
+
+template <typename T = const bf16>
+__device__ inline T* row_of(const Operand& t, int b, int h, int s) {
+  return static_cast<T*>(t.p) + b * t.sb + h * t.sh + s * t.ss;
+}
 
 // Shared-memory layout of one attention block. Row pitches are padded (+8
 // bf16, +4 f32) so that the rows of a 16x16 fragment fall on different banks.
@@ -123,12 +155,11 @@ struct AttnSmem {
 };
 
 __global__ void __launch_bounds__(kAttnThreads)
-short_attn_qkv_kernel(const bf16* __restrict__ qkv, const uint8_t* __restrict__ mask,
-                      const float* __restrict__ cos_t, const float* __restrict__ sin_t,
-                      bf16* __restrict__ o, bf16* __restrict__ probs, int S, int H, int Dh,
-                      float scale, int QT) {
+short_attn_kernel(const Operand q, const Operand k, const Operand v,
+                  const uint8_t* __restrict__ mask, const float* __restrict__ cos_t,
+                  const float* __restrict__ sin_t, const Operand o, bf16* __restrict__ probs,
+                  int S, int H, int Dh, float scale, int QT) {
   extern __shared__ __align__(128) unsigned char smem[];
-  const int D = H * Dh, D3 = 3 * D;
   const int Sp = round_up(S, 16), Dp = round_up(Dh, 16);
   const int q0 = blockIdx.x * QT, h = blockIdx.y, b = blockIdx.z;
   const AttnSmem lay(Sp, Dp, QT);
@@ -142,12 +173,10 @@ short_attn_qkv_kernel(const bf16* __restrict__ qkv, const uint8_t* __restrict__ 
   float* sBias = reinterpret_cast<float*>(smem + lay.bias);
   const int ldkv = lay.ld_kv, lds = lay.ld_s, ldo = lay.ld_o, ldp = lay.ld_p;
 
-  const bf16* base = qkv + size_t(b) * S * D3;
   const uint8_t* mask_row = mask == nullptr ? nullptr : mask + size_t(b) * S;
-  stage_rows(sK, ldkv, base + D + h * Dh, D3, Sp, S, Dh, Dp, cos_t, sin_t, 0);
-  stage_rows(sV, ldkv, base + 2 * D + h * Dh, D3, Sp, S, Dh, Dp, nullptr, nullptr, 0);
-  stage_rows(sQ, ldkv, base + size_t(q0) * D3 + h * Dh, D3, QT, S - q0, Dh, Dp, cos_t, sin_t,
-             q0);
+  stage_rows(sK, ldkv, row_of(k, b, h, 0), k.ss, Sp, S, Dh, Dp, cos_t, sin_t, 0);
+  stage_rows(sV, ldkv, row_of(v, b, h, 0), v.ss, Sp, S, Dh, Dp, nullptr, nullptr, 0);
+  stage_rows(sQ, ldkv, row_of(q, b, h, q0), q.ss, QT, S - q0, Dh, Dp, cos_t, sin_t, q0);
   for (int j = threadIdx.x; j < Sp; j += kAttnThreads) sBias[j] = key_bias(mask_row, j, S);
   __syncthreads();
 
@@ -227,7 +256,7 @@ short_attn_qkv_kernel(const bf16* __restrict__ qkv, const uint8_t* __restrict__ 
     __nv_bfloat162* u2 = reinterpret_cast<__nv_bfloat162*>(&u);
 #pragma unroll
     for (int e = 0; e < 4; ++e) u2[e] = __floats2bfloat162_rn(src[2 * e] * inv, src[2 * e + 1] * inv);
-    *reinterpret_cast<uint4*>(o + (size_t(b) * S + i) * D + h * Dh + d0) = u;
+    *reinterpret_cast<uint4*>(row_of<bf16>(o, b, h, i) + d0) = u;
   }
 }
 
@@ -430,13 +459,12 @@ __host__ inline int bwd_head_rows(int Sp, int Dp) {
 }
 
 __global__ void __launch_bounds__(kHeadThreads)
-short_attn_qkv_bwd_head_kernel(const bf16* __restrict__ qkv, const uint8_t* __restrict__ mask,
-                               const float* __restrict__ cos_t, const float* __restrict__ sin_t,
-                               const bf16* __restrict__ o, const bf16* __restrict__ dout,
-                               bf16* __restrict__ dqkv, int S, int H, int Dh, float scale,
-                               int QT) {
+short_attn_bwd_head_kernel(const Operand q, const Operand k, const Operand v,
+                           const uint8_t* __restrict__ mask, const float* __restrict__ cos_t,
+                           const float* __restrict__ sin_t, const Operand o, const Operand dout,
+                           const Operand dq, const Operand dk, const Operand dv, int S, int Dh,
+                           float scale, int QT) {
   extern __shared__ __align__(128) unsigned char smem[];
-  const int D = H * Dh, D3 = 3 * D;
   const int Sp = round_up(S, 16), Dp = round_up(Dh, 16);
   const int h = blockIdx.x, b = blockIdx.y;
   const BwdHeadSmem lay(Sp, Dp, QT);
@@ -455,22 +483,20 @@ short_attn_qkv_bwd_head_kernel(const bf16* __restrict__ qkv, const uint8_t* __re
   float* sDelta = reinterpret_cast<float*>(smem + lay.delta);
   const int ldkv = lay.ld_kv, ldacc = lay.ld_acc, lds = lay.ld_s, ldp = lay.ld_p;
 
-  const bf16* base = qkv + size_t(b) * S * D3;
-  const bf16* o_base = o + size_t(b) * S * D + h * Dh;
-  const bf16* do_base = dout + size_t(b) * S * D + h * Dh;
-  bf16* g_base = dqkv + size_t(b) * S * D3;
+  const bf16* o_base = row_of(o, b, h, 0);
+  const bf16* do_base = row_of(dout, b, h, 0);
   const uint8_t* mask_row = mask == nullptr ? nullptr : mask + size_t(b) * S;
-  stage_rows(sK, ldkv, base + D + h * Dh, D3, Sp, S, Dh, Dp, cos_t, sin_t, 0);
-  stage_rows(sV, ldkv, base + 2 * D + h * Dh, D3, Sp, S, Dh, Dp, nullptr, nullptr, 0);
+  stage_rows(sK, ldkv, row_of(k, b, h, 0), k.ss, Sp, S, Dh, Dp, cos_t, sin_t, 0);
+  stage_rows(sV, ldkv, row_of(v, b, h, 0), v.ss, Sp, S, Dh, Dp, nullptr, nullptr, 0);
   for (int j = threadIdx.x; j < Sp; j += kHeadThreads) sBias[j] = key_bias(mask_row, j, S);
   for (int i = threadIdx.x; i < Sp * ldacc; i += kHeadThreads) sDK[i] = sDV[i] = 0.f;
 
   const int warp = threadIdx.x / kWarp, lane = threadIdx.x % kWarp;
   for (int q0 = 0; q0 < S; q0 += QT) {
     __syncthreads();  // the previous tile is done with sQ, sDO and the dQ rows
-    stage_rows(sQ, ldkv, base + size_t(q0) * D3 + h * Dh, D3, QT, S - q0, Dh, Dp, cos_t, sin_t,
-               q0);
-    stage_rows(sDO, ldkv, do_base + size_t(q0) * D, D, QT, S - q0, Dh, Dp, nullptr, nullptr, 0);
+    stage_rows(sQ, ldkv, row_of(q, b, h, q0), q.ss, QT, S - q0, Dh, Dp, cos_t, sin_t, q0);
+    stage_rows(sDO, ldkv, do_base + q0 * dout.ss, dout.ss, QT, S - q0, Dh, Dp, nullptr, nullptr,
+               0);
     __syncthreads();
 
     // delta = rowsum(dO∘o) in f32; padding rows have dO = 0
@@ -479,7 +505,7 @@ short_attn_qkv_bwd_head_kernel(const bf16* __restrict__ qkv, const uint8_t* __re
       if (q0 + r < S)
         for (int d = lane; d < Dh; d += kWarp)
           acc += __bfloat162float(sDO[r * ldkv + d]) *
-                 __bfloat162float(o_base[size_t(q0 + r) * D + d]);
+                 __bfloat162float(o_base[(q0 + r) * o.ss + d]);
       acc = warp_sum(acc);
       if (lane == 0) sDelta[r] = acc;
     }
@@ -571,25 +597,23 @@ short_attn_qkv_bwd_head_kernel(const bf16* __restrict__ qkv, const uint8_t* __re
     }
     __syncthreads();
     const int rows = S - q0 < QT ? S - q0 : QT;
-    write_grad_rows(g_base + size_t(q0) * D3 + h * Dh, D3, sDQ, ldacc, rows, Dh, cos_t, sin_t,
-                    q0);
+    write_grad_rows(row_of<bf16>(dq, b, h, q0), dq.ss, sDQ, ldacc, rows, Dh, cos_t, sin_t, q0);
   }
   __syncthreads();
-  write_grad_rows(g_base + D + h * Dh, D3, sDK, ldacc, S, Dh, cos_t, sin_t, 0);
-  write_grad_rows(g_base + 2 * D + h * Dh, D3, sDV, ldacc, S, Dh, nullptr, nullptr, 0);
+  write_grad_rows(row_of<bf16>(dk, b, h, 0), dk.ss, sDK, ldacc, S, Dh, cos_t, sin_t, 0);
+  write_grad_rows(row_of<bf16>(dv, b, h, 0), dv.ss, sDV, ldacc, S, Dh, nullptr, nullptr, 0);
 }
 
 template <bool kSaved, int kThreads>
 __global__ void __launch_bounds__(kThreads, kBwdPair / kThreads)
-short_attn_qkv_bwd_dq_kernel(const bf16* __restrict__ qkv, const uint8_t* __restrict__ mask,
-                             const float* __restrict__ cos_t, const float* __restrict__ sin_t,
-                             const bf16* __restrict__ o, const bf16* __restrict__ probs,
-                             const bf16* __restrict__ dout, float* __restrict__ stats,
-                             bf16* __restrict__ dqkv, int S, int H, int Dh, float scale,
-                             int QT) {
+short_attn_bwd_dq_kernel(const Operand q, const Operand k, const Operand v,
+                         const uint8_t* __restrict__ mask, const float* __restrict__ cos_t,
+                         const float* __restrict__ sin_t, const Operand o,
+                         const bf16* __restrict__ probs, const Operand dout,
+                         float* __restrict__ stats, const Operand dq, int S, int H, int Dh,
+                         float scale, int QT) {
   extern __shared__ __align__(128) unsigned char smem[];
   constexpr int kWarps = kThreads / kWarp;
-  const int D = H * Dh, D3 = 3 * D;
   const int Sp = round_up(S, 16), Dp = round_up(Dh, 16);
   const int q0 = blockIdx.x * QT, h = blockIdx.y, b = blockIdx.z;
   const int qt = QT < Sp - q0 ? QT : Sp - q0;  // rows of this tile, a multiple of 16
@@ -606,14 +630,12 @@ short_attn_qkv_bwd_dq_kernel(const bf16* __restrict__ qkv, const uint8_t* __rest
   float* sBias = reinterpret_cast<float*>(smem + lay.bias);
   const int ldkv = lay.ld_kv, ldacc = lay.ld_acc, ldp = lay.ld_p, ldsq = lay.ld_sq;
 
-  const bf16* base = qkv + size_t(b) * S * D3;
   const size_t bh = size_t(b) * H + h;
-  stage_rows(sK, ldkv, base + D + h * Dh, D3, Sp, S, Dh, Dp, cos_t, sin_t, 0);
-  stage_rows(sV, ldkv, base + 2 * D + h * Dh, D3, Sp, S, Dh, Dp, nullptr, nullptr, 0);
-  stage_rows(sQ, ldkv, base + size_t(q0) * D3 + h * Dh, D3, qt, S - q0, Dh, Dp, cos_t, sin_t,
-             q0);
-  stage_rows(sDO, ldkv, dout + (size_t(b) * S + q0) * D + h * Dh, D, qt, S - q0, Dh, Dp, nullptr,
-             nullptr, 0);
+  stage_rows(sK, ldkv, row_of(k, b, h, 0), k.ss, Sp, S, Dh, Dp, cos_t, sin_t, 0);
+  stage_rows(sV, ldkv, row_of(v, b, h, 0), v.ss, Sp, S, Dh, Dp, nullptr, nullptr, 0);
+  stage_rows(sQ, ldkv, row_of(q, b, h, q0), q.ss, qt, S - q0, Dh, Dp, cos_t, sin_t, q0);
+  stage_rows(sDO, ldkv, row_of(dout, b, h, q0), dout.ss, qt, S - q0, Dh, Dp, nullptr, nullptr,
+             0);
   if (kSaved) {
     stage_tile(sPB, ldp, probs + (bh * S + q0) * S, S, qt, Sp, S - q0, S);
   } else {
@@ -665,7 +687,7 @@ short_attn_qkv_bwd_dq_kernel(const bf16* __restrict__ qkv, const uint8_t* __rest
       // delta = rowsum(dO∘o) in f32 from the saved o; padding rows have dO = 0
       float acc = 0.f;
       if (i < S) {
-        const bf16* orow = o + (size_t(b) * S + i) * D + h * Dh;
+        const bf16* orow = row_of(o, b, h, i);
         for (int d = lane; d < Dh; d += kWarp)
           acc += __bfloat162float(sDO[r * ldkv + d]) * __bfloat162float(orow[d]);
       }
@@ -700,20 +722,18 @@ short_attn_qkv_bwd_dq_kernel(const bf16* __restrict__ qkv, const uint8_t* __rest
   }
   __syncthreads();
   const int rows = S - q0 < qt ? S - q0 : qt;
-  write_grad_rows(dqkv + size_t(b) * S * D3 + size_t(q0) * D3 + h * Dh, D3, sDQ, ldacc, rows, Dh,
-                  cos_t, sin_t, q0);
+  write_grad_rows(row_of<bf16>(dq, b, h, q0), dq.ss, sDQ, ldacc, rows, Dh, cos_t, sin_t, q0);
 }
 
 template <bool kSaved, int kThreads>
 __global__ void __launch_bounds__(kThreads, kBwdPair / kThreads)
-short_attn_qkv_bwd_dkv_kernel(const bf16* __restrict__ qkv, const uint8_t* __restrict__ mask,
-                              const float* __restrict__ cos_t, const float* __restrict__ sin_t,
-                              const bf16* __restrict__ probs, const bf16* __restrict__ dout,
-                              const float* __restrict__ stats, bf16* __restrict__ dqkv, int S,
-                              int H, int Dh, float scale, int KT, int QT) {
+short_attn_bwd_dkv_kernel(const Operand q, const Operand k, const Operand v,
+                          const uint8_t* __restrict__ mask, const float* __restrict__ cos_t,
+                          const float* __restrict__ sin_t, const bf16* __restrict__ probs,
+                          const Operand dout, const float* __restrict__ stats, const Operand dk,
+                          const Operand dv, int S, int H, int Dh, float scale, int KT, int QT) {
   extern __shared__ __align__(128) unsigned char smem[];
   constexpr int kWarps = kThreads / kWarp;
-  const int D = H * Dh, D3 = 3 * D;
   const int Sp = round_up(S, 16), Dp = round_up(Dh, 16);
   const int k0 = blockIdx.x * KT, h = blockIdx.y, b = blockIdx.z;
   const int kt = KT < Sp - k0 ? KT : Sp - k0;  // keys of this tile, a multiple of 16
@@ -734,14 +754,10 @@ short_attn_qkv_bwd_dkv_kernel(const bf16* __restrict__ qkv, const uint8_t* __res
   float* sDelta = sL + QT;
   const int ldkv = lay.ld_kv, ldacc = lay.ld_acc, lds = lay.ld_s, ldp = lay.ld_p;
 
-  const bf16* base = qkv + size_t(b) * S * D3;
-  const bf16* do_base = dout + size_t(b) * S * D + h * Dh;
   const size_t bh = size_t(b) * H + h;
   const float* st = stats + bh * 3 * S;
-  stage_rows(sK, ldkv, base + size_t(k0) * D3 + D + h * Dh, D3, kt, S - k0, Dh, Dp, cos_t, sin_t,
-             k0);
-  stage_rows(sV, ldkv, base + size_t(k0) * D3 + 2 * D + h * Dh, D3, kt, S - k0, Dh, Dp, nullptr,
-             nullptr, 0);
+  stage_rows(sK, ldkv, row_of(k, b, h, k0), k.ss, kt, S - k0, Dh, Dp, cos_t, sin_t, k0);
+  stage_rows(sV, ldkv, row_of(v, b, h, k0), v.ss, kt, S - k0, Dh, Dp, nullptr, nullptr, 0);
   if (!kSaved) {
     const uint8_t* mask_row = mask == nullptr ? nullptr : mask + size_t(b) * S;
     for (int j = threadIdx.x; j < kt; j += kThreads) sBias[j] = key_bias(mask_row, k0 + j, S);
@@ -752,9 +768,9 @@ short_attn_qkv_bwd_dkv_kernel(const bf16* __restrict__ qkv, const uint8_t* __res
   for (int q0 = 0; q0 < S; q0 += QT) {
     const int qt = QT < Sp - q0 ? QT : Sp - q0;
     __syncthreads();  // the previous tile is done with sQ, sDO, sPB and sDS
-    stage_rows(sQ, ldkv, base + size_t(q0) * D3 + h * Dh, D3, qt, S - q0, Dh, Dp, cos_t, sin_t,
-               q0);
-    stage_rows(sDO, ldkv, do_base + size_t(q0) * D, D, qt, S - q0, Dh, Dp, nullptr, nullptr, 0);
+    stage_rows(sQ, ldkv, row_of(q, b, h, q0), q.ss, qt, S - q0, Dh, Dp, cos_t, sin_t, q0);
+    stage_rows(sDO, ldkv, row_of(dout, b, h, q0), dout.ss, qt, S - q0, Dh, Dp, nullptr, nullptr,
+               0);
     for (int r = threadIdx.x; r < qt; r += kThreads) {
       const bool valid = q0 + r < S;
       sM[r] = valid && !kSaved ? st[q0 + r] : 0.f;
@@ -816,9 +832,8 @@ short_attn_qkv_bwd_dkv_kernel(const bf16* __restrict__ qkv, const uint8_t* __res
   }
   __syncthreads();
   const int rows = S - k0 < kt ? S - k0 : kt;
-  bf16* g_base = dqkv + size_t(b) * S * D3 + size_t(k0) * D3;
-  write_grad_rows(g_base + D + h * Dh, D3, sDK, ldacc, rows, Dh, cos_t, sin_t, k0);
-  write_grad_rows(g_base + 2 * D + h * Dh, D3, sDV, ldacc, rows, Dh, nullptr, nullptr, 0);
+  write_grad_rows(row_of<bf16>(dk, b, h, k0), dk.ss, sDK, ldacc, rows, Dh, cos_t, sin_t, k0);
+  write_grad_rows(row_of<bf16>(dv, b, h, k0), dv.ss, sDV, ldacc, rows, Dh, nullptr, nullptr, 0);
 }
 
 template <typename Kernel>
@@ -827,12 +842,39 @@ cudaError_t allow_smem(Kernel kernel, size_t bytes) {
                               static_cast<int>(bytes));
 }
 
-// The two backward launches; probs null = recompute mode (o, mask read),
+// Operand t of (B, S, H·Dh) rows `row` elements apart, starting `offset`
+// elements into base: the packed qkv's q, k, v (row 3D, offsets 0, D, 2D)
+// and the packed path's o and dO (row D).
+Operand bsd(const void* base, int64_t offset, int64_t row, int S, int Dh) {
+  return {static_cast<bf16*>(const_cast<void*>(base)) + offset, S * row, Dh, row};
+}
+
+// The forward: o, and the probabilities where probs is not null.
+int launch_fwd(const Operand& q, const Operand& k, const Operand& v, const void* mask,
+               const void* cos_t, const void* sin_t, const Operand& o, void* probs, int B, int S,
+               int H, int Dh, float scale, cudaStream_t stream) {
+  const int Sp = round_up(S, 16), Dp = round_up(Dh, 16);
+  int QT = 64;  // query rows per block; fewer when K/V of the head fill shared memory
+  while (QT > 16 && AttnSmem(Sp, Dp, QT).total > kMaxSmem) QT /= 2;
+  const size_t bytes = AttnSmem(Sp, Dp, QT).total;
+  if (bytes > kMaxSmem || B > 65535 || H > 65535) return static_cast<int>(cudaErrorInvalidValue);
+  cudaError_t err = allow_smem(short_attn_kernel, bytes);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  dim3 grid((S + QT - 1) / QT, H, B);
+  short_attn_kernel<<<grid, kAttnThreads, bytes, stream>>>(
+      q, k, v, static_cast<const uint8_t*>(mask), static_cast<const float*>(cos_t),
+      static_cast<const float*>(sin_t), o, static_cast<bf16*>(probs), S, H, Dh, scale, QT);
+  return static_cast<int>(cudaGetLastError());
+}
+
+// The dQ and dK/dV launches; probs null = recompute mode (o, mask read),
 // else saved mode.
 template <bool kSaved>
-int launch_bwd(const void* qkv, const void* mask, const void* cos_t, const void* sin_t,
-               const void* o, const void* probs, const void* dout, void* stats, void* dqkv,
-               int B, int S, int H, int Dh, float scale, cudaStream_t stream) {
+int launch_bwd_pair(const Operand& q, const Operand& k, const Operand& v, const void* mask,
+                    const void* cos_t, const void* sin_t, const Operand& o, const void* probs,
+                    const Operand& dout, void* stats, const Operand& dq, const Operand& dk,
+                    const Operand& dv, int B, int S, int H, int Dh, float scale,
+                    cudaStream_t stream) {
   const int Sp = round_up(S, 16), Dp = round_up(Dh, 16);
   const int QT = bwd_dq_rows(Sp, Dp, kSaved);
   int KT, QT2;
@@ -840,38 +882,53 @@ int launch_bwd(const void* qkv, const void* mask, const void* cos_t, const void*
   if (QT == 0 || KT == 0 || B > 65535 || H > 65535) return static_cast<int>(cudaErrorInvalidValue);
   const size_t bytes_q = BwdQSmem(Sp, Dp, QT, kSaved).total;
   const size_t bytes_kv = BwdKVSmem(KT, Dp, QT2, kSaved).total;
-  const bf16* q = static_cast<const bf16*>(qkv);
   const uint8_t* m = static_cast<const uint8_t*>(mask);
   const float* c = static_cast<const float*>(cos_t);
   const float* s = static_cast<const float*>(sin_t);
   const bf16* pr = static_cast<const bf16*>(probs);
-  const bf16* dO = static_cast<const bf16*>(dout);
   float* st = static_cast<float*>(stats);
-  bf16* g = static_cast<bf16*>(dqkv);
-  const bf16* o_ = static_cast<const bf16*>(o);
   // 8 warps where a block's tiles fit half the SM (two blocks an SM), else 16
-  const auto dq = [&](auto kernel, int threads) {
+  const auto dq_launch = [&](auto kernel, int threads) {
     cudaError_t e = allow_smem(kernel, bytes_q);
     if (e != cudaSuccess) return e;
-    kernel<<<dim3((S + QT - 1) / QT, H, B), threads, bytes_q, stream>>>(q, m, c, s, o_, pr, dO,
-                                                                         st, g, S, H, Dh, scale,
-                                                                         QT);
+    kernel<<<dim3((S + QT - 1) / QT, H, B), threads, bytes_q, stream>>>(
+        q, k, v, m, c, s, o, pr, dout, st, dq, S, H, Dh, scale, QT);
     return cudaGetLastError();
   };
-  const auto dkv = [&](auto kernel, int threads) {
+  const auto dkv_launch = [&](auto kernel, int threads) {
     cudaError_t e = allow_smem(kernel, bytes_kv);
     if (e != cudaSuccess) return e;
-    kernel<<<dim3((S + KT - 1) / KT, H, B), threads, bytes_kv, stream>>>(q, m, c, s, pr, dO, st,
-                                                                          g, S, H, Dh, scale, KT,
-                                                                          QT2);
+    kernel<<<dim3((S + KT - 1) / KT, H, B), threads, bytes_kv, stream>>>(
+        q, k, v, m, c, s, pr, dout, st, dk, dv, S, H, Dh, scale, KT, QT2);
     return cudaGetLastError();
   };
-  cudaError_t err = bytes_q <= kHalfSmem ? dq(short_attn_qkv_bwd_dq_kernel<kSaved, 256>, 256)
-                                         : dq(short_attn_qkv_bwd_dq_kernel<kSaved, 512>, 512);
+  cudaError_t err = bytes_q <= kHalfSmem ? dq_launch(short_attn_bwd_dq_kernel<kSaved, 256>, 256)
+                                         : dq_launch(short_attn_bwd_dq_kernel<kSaved, 512>, 512);
   if (err != cudaSuccess) return static_cast<int>(err);
-  err = bytes_kv <= kHalfSmem ? dkv(short_attn_qkv_bwd_dkv_kernel<kSaved, 256>, 256)
-                              : dkv(short_attn_qkv_bwd_dkv_kernel<kSaved, 512>, 512);
+  err = bytes_kv <= kHalfSmem ? dkv_launch(short_attn_bwd_dkv_kernel<kSaved, 256>, 256)
+                              : dkv_launch(short_attn_bwd_dkv_kernel<kSaved, 512>, 512);
   return static_cast<int>(err);
+}
+
+// The recompute-mode backward: one block a head where its layout fits, else
+// the dQ and dK/dV launches.
+int launch_bwd_recompute(const Operand& q, const Operand& k, const Operand& v, const void* mask,
+                         const void* cos_t, const void* sin_t, const Operand& o,
+                         const Operand& dout, void* stats, const Operand& dq, const Operand& dk,
+                         const Operand& dv, int B, int S, int H, int Dh, float scale,
+                         cudaStream_t stream) {
+  const int QT = bwd_head_rows(round_up(S, 16), round_up(Dh, 16));
+  if (QT == 0)
+    return launch_bwd_pair<false>(q, k, v, mask, cos_t, sin_t, o, nullptr, dout, stats, dq, dk,
+                                  dv, B, S, H, Dh, scale, stream);
+  if (B > 65535 || H > 65535) return static_cast<int>(cudaErrorInvalidValue);
+  const size_t bytes = BwdHeadSmem(round_up(S, 16), round_up(Dh, 16), QT).total;
+  cudaError_t err = allow_smem(short_attn_bwd_head_kernel, bytes);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  short_attn_bwd_head_kernel<<<dim3(H, B), kHeadThreads, bytes, stream>>>(
+      q, k, v, static_cast<const uint8_t*>(mask), static_cast<const float*>(cos_t),
+      static_cast<const float*>(sin_t), o, dout, dq, dk, dv, S, Dh, scale, QT);
+  return static_cast<int>(cudaGetLastError());
 }
 
 }  // namespace
@@ -879,51 +936,32 @@ int launch_bwd(const void* qkv, const void* mask, const void* cos_t, const void*
 
 using namespace clip_dplm;
 
-// qkv (B, S, 3D) bf16; mask (B, S) uint8 or null; cos/sin (S, Dh/2) f32 or
-// null (no RoPE); o (B, S, D) bf16; probs (B, H, S, S) bf16 or null (not
-// saved). Requires Dh % 8 == 0, Dh <= 128, S <= 256.
+// Packed qkv (B, S, 3D) bf16; mask (B, S) uint8 or null; cos/sin (S, Dh/2)
+// f32 or null (no RoPE); o (B, S, D) bf16; probs (B, H, S, S) bf16 or null
+// (not saved). Requires Dh % 8 == 0, Dh <= 128, S <= 256.
 extern "C" int short_attention_qkv_fwd(const void* qkv, const void* mask, const void* cos_t,
                                        const void* sin_t, void* o, void* probs, int B, int S,
                                        int H, int Dh, float scale, void* stream) {
-  const int Sp = round_up(S, 16), Dp = round_up(Dh, 16);
-  int QT = 64;  // query rows per block; fewer when K/V of the head fill shared memory
-  while (QT > 16 && AttnSmem(Sp, Dp, QT).total > kMaxSmem) QT /= 2;
-  const size_t bytes = AttnSmem(Sp, Dp, QT).total;
-  if (bytes > kMaxSmem || B > 65535 || H > 65535) return static_cast<int>(cudaErrorInvalidValue);
-  cudaError_t err = allow_smem(short_attn_qkv_kernel, bytes);
-  if (err != cudaSuccess) return static_cast<int>(err);
-  dim3 grid((S + QT - 1) / QT, H, B);
-  short_attn_qkv_kernel<<<grid, kAttnThreads, bytes, static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const bf16*>(qkv), static_cast<const uint8_t*>(mask),
-      static_cast<const float*>(cos_t), static_cast<const float*>(sin_t), static_cast<bf16*>(o),
-      static_cast<bf16*>(probs), S, H, Dh, scale, QT);
-  return static_cast<int>(cudaGetLastError());
+  const int64_t D = int64_t(H) * Dh;
+  return launch_fwd(bsd(qkv, 0, 3 * D, S, Dh), bsd(qkv, D, 3 * D, S, Dh),
+                    bsd(qkv, 2 * D, 3 * D, S, Dh), mask, cos_t, sin_t, bsd(o, 0, D, S, Dh), probs,
+                    B, S, H, Dh, scale, static_cast<cudaStream_t>(stream));
 }
 
 // Backward of short_attention_qkv_fwd from its residuals, recompute mode:
 // qkv, mask, cos/sin as there; o (B, S, D) bf16 the forward's output; dout
 // (B, S, D) bf16 its cotangent; stats (B, H, 3, S) f32 scratch (read only by
-// the two-launch split); dqkv (B, S, 3D) bf16 out. One block a head where its
-// layout fits, else the dQ and dK/dV launches.
+// the two-launch split); dqkv (B, S, 3D) bf16 out.
 extern "C" int short_attention_qkv_bwd(const void* qkv, const void* mask, const void* cos_t,
                                        const void* sin_t, const void* o, const void* dout,
                                        void* stats, void* dqkv, int B, int S, int H, int Dh,
                                        float scale, void* stream) {
-  const int QT = bwd_head_rows(round_up(S, 16), round_up(Dh, 16));
-  if (QT == 0)
-    return launch_bwd<false>(qkv, mask, cos_t, sin_t, o, nullptr, dout, stats, dqkv, B, S, H, Dh,
-                             scale, static_cast<cudaStream_t>(stream));
-  if (B > 65535) return static_cast<int>(cudaErrorInvalidValue);
-  const size_t bytes = BwdHeadSmem(round_up(S, 16), round_up(Dh, 16), QT).total;
-  cudaError_t err = allow_smem(short_attn_qkv_bwd_head_kernel, bytes);
-  if (err != cudaSuccess) return static_cast<int>(err);
-  short_attn_qkv_bwd_head_kernel<<<dim3(H, B), kHeadThreads, bytes,
-                                   static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const bf16*>(qkv), static_cast<const uint8_t*>(mask),
-      static_cast<const float*>(cos_t), static_cast<const float*>(sin_t),
-      static_cast<const bf16*>(o), static_cast<const bf16*>(dout), static_cast<bf16*>(dqkv), S,
-      H, Dh, scale, QT);
-  return static_cast<int>(cudaGetLastError());
+  const int64_t D = int64_t(H) * Dh;
+  return launch_bwd_recompute(
+      bsd(qkv, 0, 3 * D, S, Dh), bsd(qkv, D, 3 * D, S, Dh), bsd(qkv, 2 * D, 3 * D, S, Dh), mask,
+      cos_t, sin_t, bsd(o, 0, D, S, Dh), bsd(dout, 0, D, S, Dh), stats,
+      bsd(dqkv, 0, 3 * D, S, Dh), bsd(dqkv, D, 3 * D, S, Dh), bsd(dqkv, 2 * D, 3 * D, S, Dh), B,
+      S, H, Dh, scale, static_cast<cudaStream_t>(stream));
 }
 
 // The same from the saved probabilities (B, H, S, S) bf16 instead of o and
@@ -932,8 +970,56 @@ extern "C" int short_attention_qkv_bwd_probs(const void* qkv, const void* cos_t,
                                              const void* sin_t, const void* probs,
                                              const void* dout, void* stats, void* dqkv, int B,
                                              int S, int H, int Dh, float scale, void* stream) {
-  return launch_bwd<true>(qkv, nullptr, cos_t, sin_t, nullptr, probs, dout, stats, dqkv, B, S, H,
-                          Dh, scale, static_cast<cudaStream_t>(stream));
+  const int64_t D = int64_t(H) * Dh;
+  const Operand none{nullptr, 0, 0, 0};
+  return launch_bwd_pair<true>(
+      bsd(qkv, 0, 3 * D, S, Dh), bsd(qkv, D, 3 * D, S, Dh), bsd(qkv, 2 * D, 3 * D, S, Dh),
+      nullptr, cos_t, sin_t, none, probs, bsd(dout, 0, D, S, Dh), stats,
+      bsd(dqkv, 0, 3 * D, S, Dh), bsd(dqkv, D, 3 * D, S, Dh), bsd(dqkv, 2 * D, 3 * D, S, Dh), B,
+      S, H, Dh, scale, static_cast<cudaStream_t>(stream));
+}
+
+// Separate operands (fused_short_attention, fused_short_attention_heads):
+// q, k, v, o, dout, dq, dk, dv bf16 operands of B batch rows, H heads, S rows
+// of Dh elements (row pitch a multiple of 8 and 16-byte aligned rows for the
+// outputs, which the wrapper allocates); no RoPE. mask (B, S) uint8 or null.
+// The bounds are the packed entries'.
+extern "C" int short_attention_sep_fwd(const Operand* q, const Operand* k, const Operand* v,
+                                       const void* mask, const Operand* o, int B, int S, int H,
+                                       int Dh, float scale, void* stream) {
+  return launch_fwd(*q, *k, *v, mask, nullptr, nullptr, *o, nullptr, B, S, H, Dh, scale,
+                    static_cast<cudaStream_t>(stream));
+}
+
+// The saving forward: also the probabilities (B, H, S, S) bf16.
+extern "C" int short_attention_sep_fwd_save(const Operand* q, const Operand* k, const Operand* v,
+                                            const void* mask, const Operand* o, void* probs, int B,
+                                            int S, int H, int Dh, float scale, void* stream) {
+  return launch_fwd(*q, *k, *v, mask, nullptr, nullptr, *o, probs, B, S, H, Dh, scale,
+                    static_cast<cudaStream_t>(stream));
+}
+
+// The recompute backward from o (the forward's output) and dout (its
+// cotangent); stats (B, H, 3, S) f32 scratch; dq, dk, dv out.
+extern "C" int short_attention_sep_bwd(const Operand* q, const Operand* k, const Operand* v,
+                                       const void* mask, const Operand* o, const Operand* dout,
+                                       void* stats, const Operand* dq, const Operand* dk,
+                                       const Operand* dv, int B, int S, int H, int Dh,
+                                       float scale, void* stream) {
+  return launch_bwd_recompute(*q, *k, *v, mask, nullptr, nullptr, *o, *dout, stats, *dq, *dk,
+                              *dv, B, S, H, Dh, scale, static_cast<cudaStream_t>(stream));
+}
+
+// The backward from the saved probabilities (B, H, S, S) bf16.
+extern "C" int short_attention_sep_bwd_probs(const Operand* q, const Operand* k,
+                                             const Operand* v, const void* probs,
+                                             const Operand* dout, void* stats, const Operand* dq,
+                                             const Operand* dk, const Operand* dv, int B, int S,
+                                             int H, int Dh, float scale, void* stream) {
+  const Operand none{nullptr, 0, 0, 0};
+  return launch_bwd_pair<true>(*q, *k, *v, nullptr, nullptr, nullptr, none, probs, *dout, stats,
+                               *dq, *dk, *dv, B, S, H, Dh, scale,
+                               static_cast<cudaStream_t>(stream));
 }
 
 // Shared memory in bytes of the backward's dQ (kernel 0) or dK/dV (kernel 1)

@@ -36,6 +36,17 @@ NVCC_FLAGS = (
 )
 
 _P, _I, _U, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_uint32, ctypes.c_float
+
+
+class Operand(ctypes.Structure):
+    """An attention operand as csrc/short_attention.cu's `Operand` takes it:
+    row s of head h of batch row b at p + b·sb + h·sh + s·ss elements."""
+
+    _fields_ = [("p", ctypes.c_void_p), ("sb", ctypes.c_int64), ("sh", ctypes.c_int64),
+                ("ss", ctypes.c_int64)]
+
+
+_O = ctypes.POINTER(Operand)
 # C launchers: name -> argtypes (pointers and the stream as c_void_p)
 _SIGNATURES = {
     # qkv, mask, cos, sin, o, probs, B, S, H, Dh, scale, stream
@@ -44,7 +55,16 @@ _SIGNATURES = {
     "short_attention_qkv_bwd": [_P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _F, _P],
     # qkv, cos, sin, probs, dout, stats, dqkv, B, S, H, Dh, scale, stream
     "short_attention_qkv_bwd_probs": [_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _F, _P],
-    # S, Dh, saved, kernel (0: dQ, 1: dK/dV) -> shared memory bytes
+    # q, k, v, mask, o, B, S, H, Dh, scale, stream
+    "short_attention_sep_fwd": [_O, _O, _O, _P, _O, _I, _I, _I, _I, _F, _P],
+    # q, k, v, mask, o, probs, B, S, H, Dh, scale, stream
+    "short_attention_sep_fwd_save": [_O, _O, _O, _P, _O, _P, _I, _I, _I, _I, _F, _P],
+    # q, k, v, mask, o, dout, stats, dq, dk, dv, B, S, H, Dh, scale, stream
+    "short_attention_sep_bwd": [_O, _O, _O, _P, _O, _O, _P, _O, _O, _O, _I, _I, _I, _I, _F, _P],
+    # q, k, v, probs, dout, stats, dq, dk, dv, B, S, H, Dh, scale, stream
+    "short_attention_sep_bwd_probs": [_O, _O, _O, _P, _O, _P, _O, _O, _O, _I, _I, _I, _I, _F,
+                                      _P],
+    # S, Dh, saved, kernel (0: dQ, 1: dK/dV, 2: one block a head) -> shared memory bytes
     "short_attention_bwd_smem": [_I, _I, _I, _I],
     # x, w, bias, y, M, N, K, stream
     "short_attention_out_proj": [_P, _P, _P, _P, _I, _I, _I, _P],
@@ -126,7 +146,9 @@ LAUNCHES = LaunchCounter(
      "tiny_attention_fwd", "tiny_attention_bwd", "flash_attention_bwd_dq",
      "flash_attention_bwd_dkv", "row_ce_lse", "row_ce_dx", "row_ce_dy",
      "sym_infonce_lse_save", "sym_infonce_grad_raw", "sym_infonce_grad_rawT",
-     "sym_infonce_grad_merged", "short_attention_save", "short_attention_bwd_probs"])
+     "sym_infonce_grad_merged", "short_attention_save", "short_attention_bwd_probs",
+     "short_attention_sep", "short_attention_sep_save", "short_attention_sep_bwd",
+     "short_attention_sep_bwd_probs"])
 
 
 class _Library:

@@ -12,13 +12,14 @@ CLS-query kernel for a block that keeps only row 0 (`cls_query_attention`).
 Each kernel wrapper runs its plain version for CPU tensors and its CUDA
 kernel for CUDA tensors. Separate q, k, v below 64 keys take
 `attention_reference` on every device, as the TPU gates send them to plain
-XLA (S = 1 included). At 64 <= S < 256 the TPU runs its short-S kernel over
-separate q, k, v where `short_attn_separate_ok` holds (one shape for q, k
-and v, Dh a multiple of 8, no mask or a (B, S) one): that kernel is not
-ported (ROADMAP queue 2 item 7), so `multihead_attention` and
-`attention_dispatch` raise for a CUDA tensor there rather than run the
-plain version on the card; everywhere else in that range they compute what
-the TPU computes, the plain formulation.
+XLA (S = 1 included). At 64 <= S < 256, where `short_attn_separate_ok` holds
+(one shape for q, k and v, Dh a multiple of 8, no mask or a (B, S) one),
+`multihead_attention` and `attention_dispatch` take the short-S kernel over
+separate q, k, v (`ops/short_attention.py::fused_short_attention`,
+`fused_short_attention_heads`), as the TPU gates do: its plain version for
+CPU tensors, its kernels for CUDA tensors, which raise with the kernel's
+bound for what they do not take (f32, Dh > 128). Everywhere else in that
+range both compute what the TPU computes, the plain formulation.
 """
 
 from __future__ import annotations
@@ -105,12 +106,6 @@ def short_attn_separate_ok(q_shape, k_shape, v_shape, head_dim: int, mask) -> bo
     )
 
 
-def _refuse_separate_short(S: int) -> None:
-    raise NotImplementedError(
-        f"no CUDA kernel for multi-head attention at S={S}: the short-S kernel over "
-        "separate q, k, v is ROADMAP queue 2 item 7")
-
-
 def tiny_attn_ok(qkv_shape, num_heads: int, mask) -> bool:
     """True for the shapes of the TPU's packed-diagonal tiny-S kernel: 2 <= S
     < 64, Dh a multiple of 8, a (B, S) mask."""
@@ -143,15 +138,16 @@ def multihead_attention(
     num_heads: int,
     mask: Optional[torch.Tensor] = None,
 ) -> torch.Tensor:
-    """Multi-head attention over (B, S, D) q, k, v: `attention_dispatch` (the
-    flash kernel from 256 keys on, the plain formulation below 64 keys on
-    every device). A CUDA tensor raises where the TPU would take its short-S
-    kernel over separate q, k, v (`short_attn_separate_ok`), which is not
-    ported (ROADMAP queue 2 item 7); other shapes at 64 <= S < 256 take the
-    plain formulation, as on the TPU."""
-    if q.device.type != "cpu" and short_attn_separate_ok(
+    """Multi-head attention over (B, S, D) q, k, v: the short-S kernel over
+    separate q, k, v where the TPU takes it (`short_attn_separate_ok` with D
+    divisible by the heads: `fused_short_attention`, on every device), else
+    `attention_dispatch` (the flash kernel from 256 keys on, the plain
+    formulation below 64 keys and for other shapes)."""
+    if q.shape[-1] % num_heads == 0 and short_attn_separate_ok(
             q.shape, k.shape, v.shape, q.shape[-1] // num_heads, mask):
-        _refuse_separate_short(k.shape[1])
+        from clip_dplm_tpu_torch.ops.short_attention import fused_short_attention
+
+        return fused_short_attention(q, k, v, num_heads, mask=mask)
     qh, kh, vh = (split_heads(t, num_heads) for t in (q, k, v))
     return merge_heads(attention_dispatch(qh, kh, vh, mask=mask))
 
@@ -197,12 +193,13 @@ def attention_dispatch(
     scale: Optional[float] = None,
 ) -> torch.Tensor:
     """Head-level dispatch over (B, H, S, Dh): the flash kernel from 256 keys
-    on, the plain formulation below. A CUDA tensor raises where the TPU would
-    take its short-S kernel over the heads (`short_attn_separate_ok`, ROADMAP
-    queue 2 item 7)."""
-    if qh.device.type != "cpu" and short_attn_separate_ok(qh.shape, kh.shape, vh.shape,
-                                                          qh.shape[-1], mask):
-        _refuse_separate_short(kh.shape[2])
+    on; the short-S kernel over the heads where the TPU takes it
+    (`short_attn_separate_ok`: `fused_short_attention_heads`, on every
+    device); the plain formulation elsewhere."""
+    if short_attn_separate_ok(qh.shape, kh.shape, vh.shape, qh.shape[-1], mask):
+        from clip_dplm_tpu_torch.ops.short_attention import fused_short_attention_heads
+
+        return fused_short_attention_heads(qh, kh, vh, mask=mask, scale=scale)
     if (
         kh.shape[2] >= FLASH_MIN_SEQ
         and qh.shape[-1] <= FLASH_MAX_HEAD_DIM

@@ -1,5 +1,6 @@
-"""Packed-qkv short-sequence attention with the out-projection fused, its
-backward, and the CLS-query attention of a block that keeps only row 0.
+"""Short-sequence attention: from packed qkv with the out-projection fused,
+from separate q, k, v, their backward, and the CLS-query attention of a
+block that keeps only row 0.
 
 Counterpart of `clip_dplm_tpu/ops/short_attention.py`:
 
@@ -17,6 +18,17 @@ Counterpart of `clip_dplm_tpu/ops/short_attention.py`:
   bf16 GEMM (`ops/fused_dense.py::_gemm`); dWo = dy^T·o and dbo = Σ dy are
   plain f32-output matmuls, as the JAX package leaves them to XLA, so they
   reach the f32 parameters unrounded.
+- `fused_short_attention` over separate (B, S, D) q, k, v and
+  `fused_short_attention_heads` over (B, H, S, Dh) heads, the ops behind
+  `multihead_attention` and `attention_dispatch` at 64 <= S < 256: an
+  autograd Function (`_ShortAttn`, the JAX package's `_short_attn_core`)
+  over `short_attention_sep` or, where a backward follows in the saved mode,
+  `short_attention_sep_save`, and backward `short_attention_sep_bwd` (from o
+  and the mask) or `short_attention_sep_bwd_probs`, with the same mode rule.
+  They launch the packed path's kernels with each operand given by its
+  strides (a `qkv.chunk(3, -1)` view is read in place), without RoPE or
+  projection; `short_attention_reference` is the JAX package's parity
+  target.
 - `fused_cls_attention`: attention output of query row 0, (B, 1, D), from
   packed qkv; an autograd Function whose backward recomputes the softmax
   from qkv and the mask (`fused_cls_attention_bwd`).
@@ -24,13 +36,14 @@ Counterpart of `clip_dplm_tpu/ops/short_attention.py`:
 Every wrapper runs its CUDA kernel (`csrc/short_attention.cu`,
 `csrc/cls_attention.cu`) for CUDA tensors and its plain PyTorch version
 (`*_reference`) for CPU tensors; the plain versions keep the kernels'
-rounding points. `short_attention_qkv`, `short_attention_qkv_save` and
-`out_projection` have no backward of their own: on CUDA they raise where
-autograd would record them.
+rounding points. The forward wrappers (`short_attention_qkv(_save)`,
+`short_attention_sep(_save)`) and `out_projection` have no backward of their
+own: on CUDA they raise where autograd would record them.
 """
 
 from __future__ import annotations
 
+import ctypes
 from typing import Optional
 
 import torch
@@ -160,14 +173,15 @@ def _jax_rows_per_program(block_b: int, B: int, Sp: int) -> int:
     return max(1, min(block_b * max(1, 128 // Sp), B))
 
 
-def saves_probs(B: int, S: int, num_heads: int) -> bool:
-    """The JAX package's default mode of the packed attention's backward:
+def saves_probs(B: int, S: int, num_heads: int, block_b: int = 8) -> bool:
+    """The JAX package's default mode of the short-S attention's backward:
     save the bf16 probabilities where its padded buffer, Bp·H·Sp²·2 bytes
     with its padded counts (Sp = `_jax_seq_pad(S)`, Bp = B rounded up to
-    `_jax_rows_per_program(8, B, Sp)`), takes at most 512 MiB; recompute them
-    above. Fixed by shape, on every device."""
+    `_jax_rows_per_program(block_b, B, Sp)`; the packed entry has block_b =
+    8), takes at most 512 MiB; recompute them above. Fixed by shape, on every
+    device."""
     Sp = _jax_seq_pad(S)
-    Bp = _round_up(B, _jax_rows_per_program(8, B, Sp))
+    Bp = _round_up(B, _jax_rows_per_program(block_b, B, Sp))
     return Bp * num_heads * Sp * Sp * 2 <= SAVE_PROBS_MAX_BYTES
 
 
@@ -189,14 +203,20 @@ def _heads_rotated(qkv, num_heads, rope_positions):
     return qh, kh, vh, cs
 
 
-def _probs_f32(qh, kh, mask, scale):
-    """The kernels' probabilities in f32: f32 scores · scale + key bias, max,
-    exp, l = max(Σp, 1e-30), prob = p / l."""
+def _exp_scores(qh, kh, mask, scale):
+    """(p, l) of the kernels' softmax in f32: f32 scores · scale + key bias,
+    max, p = exp(s − max), l = max(Σp, 1e-30)."""
     s = torch.einsum("bhqd,bhkd->bhqk", qh.float(), kh.float()) * scale
     if mask is not None:
         s = s + torch.where(mask[:, None, None, :], 0.0, NEG_INF)
     p = torch.exp(s - s.amax(dim=-1, keepdim=True))
-    return p / p.sum(dim=-1, keepdim=True).clamp(min=1e-30)
+    return p, p.sum(dim=-1, keepdim=True).clamp(min=1e-30)
+
+
+def _probs_f32(qh, kh, mask, scale):
+    """The kernels' probabilities in f32, prob = p / l (`_exp_scores`)."""
+    p, l = _exp_scores(qh, kh, mask, scale)
+    return p / l
 
 
 def short_attention_qkv_reference(
@@ -366,19 +386,27 @@ def short_attention_qkv_bwd_reference(
     return _dqkv_from_probs(do, qh, kh, vh, cs, prob, delta, scale, dt)
 
 
-def _dqkv_from_probs(do, qh, kh, vh, cs, prob, delta, scale, dt):
-    """dqkv from f32 dO heads and the f32 probabilities: dp = dO·V^T, ds =
-    prob·(dp − delta)·scale rounded to dt, dq = ds·K, dk = ds^T·Q (inverse
-    rotation in f32), dv = rounded(prob)^T·dO."""
+def _grads_from_probs(do, qh, kh, vh, prob, delta, scale, dt):
+    """f32 (dq, dk, dv) heads from f32 dO heads and the f32 probabilities: dp
+    = dO·V^T, delta = Σ dp·prob where not given (saved mode), ds =
+    prob·(dp − delta)·scale rounded to dt, dq = ds·K, dk = ds^T·Q, dv =
+    rounded(prob)^T·dO."""
     dp = torch.einsum("bhqd,bhkd->bhqk", do, vh.float())
     if delta is None:  # saved mode: from the probabilities
         delta = (dp * prob).sum(dim=-1, keepdim=True)
     ds = (prob * (dp - delta) * scale).to(dt).float()
     dq = torch.einsum("bhqk,bhkd->bhqd", ds, kh.float())
     dk = torch.einsum("bhqk,bhqd->bhkd", ds, qh.float())
+    dv = torch.einsum("bhqk,bhqd->bhkd", prob.to(dt).float(), do)
+    return dq, dk, dv
+
+
+def _dqkv_from_probs(do, qh, kh, vh, cs, prob, delta, scale, dt):
+    """dqkv (B, S, 3D) from `_grads_from_probs`, dq and dk through the
+    inverse rotation in f32."""
+    dq, dk, dv = _grads_from_probs(do, qh, kh, vh, prob, delta, scale, dt)
     if cs is not None:
         dq, dk = _rope_rot_inv(dq, *cs), _rope_rot_inv(dk, *cs)
-    dv = torch.einsum("bhqk,bhqd->bhkd", prob.to(dt).float(), do)
     return torch.cat([merge_heads(t) for t in (dq, dk, dv)], dim=-1).to(dt)
 
 
@@ -599,11 +627,365 @@ def fused_short_attention_qkv_proj(
     Without a gradient nothing is saved."""
     B, S, D, _ = _check_qkv(qkv, num_heads, rope_positions)
     _check_proj(qkv[..., :D], wo, bo)
-    if save_probs is None:
-        save_probs = saves_probs(B, S, num_heads)
-    save = bool(save_probs) and torch.is_grad_enabled() and any(
-        t.requires_grad for t in (qkv, wo, bo))
+    save = _save_mode(save_probs, (B, S, num_heads, 8), qkv, wo, bo)
     return _ShortAttnProj.apply(qkv, wo, bo, mask, rope_positions, num_heads, scale, save)
+
+
+def _save_mode(save_probs, rule_args, *inputs) -> bool:
+    """Whether the forward saves the probabilities: only where a gradient
+    will be recorded, then as `save_probs` says or, for None, as the JAX
+    package's rule (`saves_probs(*rule_args)`) picks."""
+    if save_probs is None:
+        save_probs = saves_probs(*rule_args)
+    return bool(save_probs) and torch.is_grad_enabled() and any(t.requires_grad for t in inputs)
+
+
+# ---------------------------------------------------------------------------
+# attention over separate q, k, v: (B, S, D) tensors or (B, H, S, Dh) heads
+# ---------------------------------------------------------------------------
+
+_SEP_NO_GRAD_WHY = "fused_short_attention(_heads) is the entry point with a backward"
+
+
+def _sep_heads(t: torch.Tensor, num_heads: int) -> torch.Tensor:
+    """The (B, H, S, Dh) view of a (B, S, D) operand, or the heads as given."""
+    return t if t.dim() == 4 else split_heads(t, num_heads)
+
+
+def _from_heads(x: torch.Tensor, like: torch.Tensor) -> torch.Tensor:
+    """(B, H, S, Dh) heads back in the layout of `like`."""
+    return x if like.dim() == 4 else merge_heads(x)
+
+
+def _check_sep(q, k, v, num_heads):
+    """Shape checks of separate operands; (B, S, H, Dh)."""
+    if k.shape != q.shape or v.shape != q.shape:
+        raise ValueError(f"separate attention needs q, k, v of one shape, got "
+                         f"{tuple(q.shape)} {tuple(k.shape)} {tuple(v.shape)}")
+    if q.dim() == 4:
+        B, H, S, Dh = q.shape
+        if H != num_heads:
+            raise ValueError(f"heads (B, H, S, Dh) with H={H}, num_heads={num_heads}")
+        return B, S, H, Dh
+    if q.dim() != 3:
+        raise ValueError(f"q must be (B, S, D) or (B, H, S, Dh), got {tuple(q.shape)}")
+    B, S, D = q.shape
+    if D % num_heads:
+        raise ValueError(f"D={D} not divisible by num_heads={num_heads}")
+    return B, S, num_heads, D // num_heads
+
+
+def short_attention_sep_reference(
+    q: torch.Tensor,
+    k: torch.Tensor,
+    v: torch.Tensor,
+    num_heads: int,
+    mask: Optional[torch.Tensor] = None,
+    scale: Optional[float] = None,
+    return_probs: bool = False,
+):
+    """Plain version of the separate-operand forward kernel, o in q's layout
+    ((B, S, D) or (B, H, S, Dh)), at the TPU kernel's rounding points: f32
+    scores · scale + key bias, p = exp(s − max), l = max(Σp, 1e-30), o =
+    (p in v's dtype)·V in f32, divided by l, rounded to q's dtype. With
+    return_probs, (o, probs): bf16(p / l), (B, H, S, S), whatever q's dtype,
+    as the saving kernel writes them."""
+    _check_sep(q, k, v, num_heads)
+    qh, kh, vh = (_sep_heads(t, num_heads) for t in (q, k, v))
+    scale = _scale(scale, qh.shape[-1])
+    p, l = _exp_scores(qh, kh, mask, scale)
+    o = torch.einsum("bhqk,bhkd->bhqd", p.to(v.dtype).float(), vh.float()) / l
+    o = _from_heads(o.to(q.dtype), q)
+    return (o, (p / l).to(torch.bfloat16)) if return_probs else o
+
+
+def short_attention_reference(
+    q: torch.Tensor,
+    k: torch.Tensor,
+    v: torch.Tensor,
+    num_heads: int,
+    mask: Optional[torch.Tensor] = None,
+    scale: Optional[float] = None,
+) -> torch.Tensor:
+    """The JAX package's parity target of `fused_short_attention`: head split,
+    `attention_reference`, merge; (B, S, D) in and out."""
+    qh, kh, vh = (split_heads(t, num_heads) for t in (q, k, v))
+    return merge_heads(attention_reference(qh, kh, vh, mask=mask, scale=scale))
+
+
+def short_attention_sep_bwd_reference(
+    dout: torch.Tensor,
+    q: torch.Tensor,
+    k: torch.Tensor,
+    v: torch.Tensor,
+    o: torch.Tensor,
+    num_heads: int,
+    mask: Optional[torch.Tensor] = None,
+    scale: Optional[float] = None,
+):
+    """Plain version of the recompute-mode backward, (dq, dk, dv) in q's
+    layout from dout (the cotangent of o, rounded to q's dtype), q, k, v, the
+    saved o and the mask: the forward's f32 probabilities recomputed, delta =
+    rowsum(dO∘o), then `_grads_from_probs`, each rounded to q's dtype."""
+    dt = q.dtype
+    qh, kh, vh = (_sep_heads(t, num_heads) for t in (q, k, v))
+    scale = _scale(scale, qh.shape[-1])
+    do = _sep_heads(dout.to(dt), num_heads).float()
+    delta = (do * _sep_heads(o, num_heads).float()).sum(dim=-1, keepdim=True)
+    grads = _grads_from_probs(do, qh, kh, vh, _probs_f32(qh, kh, mask, scale), delta, scale, dt)
+    return tuple(_from_heads(g.to(dt), q) for g in grads)
+
+
+def short_attention_sep_bwd_probs_reference(
+    dout: torch.Tensor,
+    q: torch.Tensor,
+    k: torch.Tensor,
+    v: torch.Tensor,
+    probs: torch.Tensor,
+    num_heads: int,
+    scale: Optional[float] = None,
+):
+    """Plain version of the saved-mode backward, (dq, dk, dv) in q's layout
+    from dout, q, k, v and the saved bf16 probabilities: delta = Σ dp·prob,
+    then `_grads_from_probs`. The mask is in the probabilities."""
+    dt = q.dtype
+    qh, kh, vh = (_sep_heads(t, num_heads) for t in (q, k, v))
+    do = _sep_heads(dout.to(dt), num_heads).float()
+    grads = _grads_from_probs(do, qh, kh, vh, probs.float(), None,
+                              _scale(scale, qh.shape[-1]), dt)
+    return tuple(_from_heads(g.to(dt), q) for g in grads)
+
+
+def _operand(t: torch.Tensor) -> _build.Operand:
+    """A (B, H, S, Dh) view with a unit last stride as the kernels take it."""
+    return _build.Operand(t.data_ptr(), t.stride(0), t.stride(1), t.stride(2))
+
+
+def _sep_kernel_inputs(q, k, v, num_heads, mask, *rest):
+    """The separate-operand kernels' checks: bounds first, then device and
+    dtype. Returns the mask on the device (or None), then (B, S, H, Dh), then
+    the (B, H, S, Dh) views of q, k, v and of each of `rest` (tensors in q's
+    layout) with a unit last stride (a copy only where it was not)."""
+    B, S, H, Dh = _check_sep(q, k, v, num_heads)
+    if not 1 <= S <= MAX_SEQ:
+        raise ValueError(f"the short-S kernel takes 1 <= S <= {MAX_SEQ}, got {S}")
+    if Dh % 8 or Dh > SHORT_MAX_HEAD_DIM:
+        raise ValueError(f"the short-S kernel takes Dh a multiple of 8 up to "
+                         f"{SHORT_MAX_HEAD_DIM}, got {Dh}")
+    if B > 65535:
+        raise ValueError(f"the short-S kernel takes B <= 65535, got {B}")
+    for t in (q, k, v, *rest):
+        _require_cuda(t)
+        if t.device != q.device:
+            raise ValueError(f"operands on {q.device} and {t.device}")
+    views = []
+    for t in (q, k, v, *rest):
+        t = _sep_heads(t, num_heads)
+        views.append(t if t.stride(-1) == 1 else t.contiguous())
+    return _device_mask(mask, B, S, q.device), (B, S, H, Dh), views
+
+
+def _sep_forward(q, k, v, num_heads, mask, scale, save: bool):
+    mask, (B, S, H, Dh), (qh, kh, vh) = _sep_kernel_inputs(q, k, v, num_heads, mask)
+    o = torch.empty(q.shape, dtype=torch.bfloat16, device=q.device)
+    probs = (torch.empty((B, H, S, S), dtype=torch.bfloat16, device=q.device)
+             if save else None)
+    ops = [_operand(t) for t in (qh, kh, vh, _sep_heads(o, H))]
+    args = [ctypes.byref(x) for x in ops[:3]] + [_ptr(mask), ctypes.byref(ops[3])]
+    if save:
+        _build.launch("short_attention_sep_fwd_save", *args, probs.data_ptr(), B, S, H, Dh,
+                      _scale(scale, Dh), _build.stream_of(q))
+    else:
+        _build.launch("short_attention_sep_fwd", *args, B, S, H, Dh, _scale(scale, Dh),
+                      _build.stream_of(q))
+    return o, probs
+
+
+def short_attention_sep(
+    q: torch.Tensor,
+    k: torch.Tensor,
+    v: torch.Tensor,
+    num_heads: int,
+    mask: Optional[torch.Tensor] = None,
+    scale: Optional[float] = None,
+) -> torch.Tensor:
+    """Multi-head self-attention over separate q, k, v, each (B, S, D) or
+    (B, H, S, Dh); o in that layout. CPU tensors take the plain version; CUDA
+    tensors take the kernel (bf16, 1 <= S <= 256, Dh a multiple of 8 up to
+    128, B <= 65535, no gradient recorded; any strides with a unit last one)
+    or raise."""
+    if q.device.type == "cpu":
+        return short_attention_sep_reference(q, k, v, num_heads, mask=mask, scale=scale)
+    require_no_grad("short_attention_sep", _SEP_NO_GRAD_WHY, q, k, v)
+    o, _ = _sep_forward(q, k, v, num_heads, mask, scale, save=False)
+    _build.LAUNCHES.add("short_attention_sep")
+    return o
+
+
+def short_attention_sep_save(
+    q: torch.Tensor,
+    k: torch.Tensor,
+    v: torch.Tensor,
+    num_heads: int,
+    mask: Optional[torch.Tensor] = None,
+    scale: Optional[float] = None,
+):
+    """`short_attention_sep` that also returns the probabilities, (o, probs
+    (B, H, S, S) bf16): the saved mode's residual. CPU tensors take the plain
+    version; CUDA tensors the kernel (its bounds) or raise."""
+    if q.device.type == "cpu":
+        return short_attention_sep_reference(q, k, v, num_heads, mask=mask, scale=scale,
+                                             return_probs=True)
+    require_no_grad("short_attention_sep_save", _SEP_NO_GRAD_WHY, q, k, v)
+    out = _sep_forward(q, k, v, num_heads, mask, scale, save=True)
+    _build.LAUNCHES.add("short_attention_sep_save")
+    return out
+
+
+def _sep_backward(name, dout, q, k, v, num_heads, mask, scale, o=None, probs=None):
+    """Launch `name` (the recompute backward from o and the mask, or the one
+    from the probabilities); (dq, dk, dv) in q's layout."""
+    rest = (dout,) if o is None else (dout, o)
+    for t in rest:
+        if t.shape != q.shape:
+            raise ValueError(f"dout and o must be {tuple(q.shape)}, got {tuple(t.shape)}")
+    mask, (B, S, H, Dh), views = _sep_kernel_inputs(q, k, v, num_heads, mask, *rest)
+    grads = [torch.empty(q.shape, dtype=torch.bfloat16, device=q.device) for _ in range(3)]
+    stats = torch.empty((B, H, 3, S), dtype=torch.float32, device=q.device)
+    ops = [_operand(t) for t in views + [_sep_heads(g, H) for g in grads]]
+    qkv_ops = [ctypes.byref(x) for x in ops[:3]]
+    grad_ops = [ctypes.byref(x) for x in ops[-3:]]
+    if o is None:
+        probs = _check_residual("probs", probs, (B, H, S, S), q.device)
+        _build.launch(name, *qkv_ops, probs.data_ptr(), ctypes.byref(ops[3]), stats.data_ptr(),
+                      *grad_ops, B, S, H, Dh, _scale(scale, Dh), _build.stream_of(q))
+    else:
+        _build.launch(name, *qkv_ops, _ptr(mask), ctypes.byref(ops[4]), ctypes.byref(ops[3]),
+                      stats.data_ptr(), *grad_ops, B, S, H, Dh, _scale(scale, Dh),
+                      _build.stream_of(q))
+    _build.LAUNCHES.add(name)
+    return tuple(grads)
+
+
+def short_attention_sep_bwd(
+    dout: torch.Tensor,
+    q: torch.Tensor,
+    k: torch.Tensor,
+    v: torch.Tensor,
+    o: torch.Tensor,
+    num_heads: int,
+    mask: Optional[torch.Tensor] = None,
+    scale: Optional[float] = None,
+):
+    """(dq, dk, dv) of `short_attention_sep` from its residuals, recompute
+    mode, in q's layout. CPU tensors take the plain version; CUDA tensors
+    take the kernels (the forward's bounds: one block a head where
+    `bwd_head_smem_bytes` fits, else a dQ and a dK/dV launch) or raise."""
+    if q.device.type == "cpu":
+        return short_attention_sep_bwd_reference(dout, q, k, v, o, num_heads, mask=mask,
+                                                 scale=scale)
+    return _sep_backward("short_attention_sep_bwd", dout, q, k, v, num_heads, mask, scale, o=o)
+
+
+def short_attention_sep_bwd_probs(
+    dout: torch.Tensor,
+    q: torch.Tensor,
+    k: torch.Tensor,
+    v: torch.Tensor,
+    probs: torch.Tensor,
+    num_heads: int,
+    scale: Optional[float] = None,
+):
+    """(dq, dk, dv) of `short_attention_sep_save` from dout, q, k, v and its
+    saved probabilities, saved mode, in q's layout. CPU tensors take the
+    plain version; CUDA tensors take the kernels (the forward's bounds: a dQ
+    and a dK/dV launch) or raise."""
+    if q.device.type == "cpu":
+        return short_attention_sep_bwd_probs_reference(dout, q, k, v, probs, num_heads,
+                                                       scale=scale)
+    return _sep_backward("short_attention_sep_bwd_probs", dout, q, k, v, num_heads, None, scale,
+                         probs=probs)
+
+
+class _ShortAttn(torch.autograd.Function):
+    """The counterpart of the JAX package's `_short_attn_core`: o from q, k, v
+    in one layout; saving the probabilities where asked (only ever with a
+    gradient to record), else keeping o for the recompute backward."""
+
+    @staticmethod
+    def forward(ctx, q, k, v, mask, num_heads, scale, save_probs):
+        if save_probs:
+            o, probs = short_attention_sep_save(q, k, v, num_heads, mask=mask, scale=scale)
+        else:
+            o, probs = short_attention_sep(q, k, v, num_heads, mask=mask, scale=scale), None
+        ctx.num_heads, ctx.scale = num_heads, scale
+        ctx.save_for_backward(q, k, v, None if save_probs else o, probs, mask)
+        return o
+
+    @staticmethod
+    def backward(ctx, do):
+        q, k, v, o, probs, mask = ctx.saved_tensors
+        do = do.to(q.dtype)
+        if probs is not None:
+            grads = short_attention_sep_bwd_probs(do, q, k, v, probs, ctx.num_heads,
+                                                  scale=ctx.scale)
+        else:
+            grads = short_attention_sep_bwd(do, q, k, v, o, ctx.num_heads, mask=mask,
+                                            scale=ctx.scale)
+        return (*grads, None, None, None, None)
+
+
+def fused_short_attention(
+    q: torch.Tensor,
+    k: torch.Tensor,
+    v: torch.Tensor,
+    num_heads: int,
+    mask: Optional[torch.Tensor] = None,
+    scale: Optional[float] = None,
+    block_b: int = 8,
+    layout: str = "bhsd",
+    save_probs: Optional[bool] = None,
+) -> torch.Tensor:
+    """Multi-head self-attention over (B, S, D) q, k, v, D = num_heads · Dh;
+    (B, S, D) out, as `ops/attention.py::multihead_attention`. mask: (B, S)
+    bool, True = real token. Differentiable in q, k and v: the kernels on
+    CUDA tensors (any strides with a unit last one, so `qkv.chunk(3, -1)`
+    views are read in place), the plain versions on CPU tensors.
+
+    `layout` ('bhsd' or 'bsd') is the JAX package's choice of TPU block
+    layout; the card has no counterpart of it, so both compute the same
+    thing the same way. `block_b` (the TPU kernel's batch rows per program)
+    enters only the JAX package's rule for `save_probs=None` (`saves_probs`).
+    Where a gradient will be recorded, True saves the bf16 probabilities in
+    the forward and the backward reads them; False recomputes them from q,
+    k, o and the mask. Without a gradient nothing is saved."""
+    if q.dim() != 3:
+        raise ValueError(f"fused_short_attention takes (B, S, D), got {tuple(q.shape)}")
+    B, S, H, _ = _check_sep(q, k, v, num_heads)
+    if layout not in ("bhsd", "bsd"):
+        raise ValueError(f"unknown layout {layout!r}")
+    save = _save_mode(save_probs, (B, S, H, block_b), q, k, v)
+    return _ShortAttn.apply(q, k, v, mask, num_heads, scale, save)
+
+
+def fused_short_attention_heads(
+    qh: torch.Tensor,
+    kh: torch.Tensor,
+    vh: torch.Tensor,
+    mask: Optional[torch.Tensor] = None,
+    scale: Optional[float] = None,
+    block_b: int = 8,
+    save_probs: Optional[bool] = None,
+) -> torch.Tensor:
+    """`fused_short_attention` over (B, H, S, Dh) heads, (B, H, S, Dh) out:
+    for towers that transform q and k per head after the split (ESM's rotary
+    embedding). The same kernels, modes and rule."""
+    if qh.dim() != 4:
+        raise ValueError(f"fused_short_attention_heads takes (B, H, S, Dh), got "
+                         f"{tuple(qh.shape)}")
+    B, S, H, _ = _check_sep(qh, kh, vh, qh.shape[1])
+    save = _save_mode(save_probs, (B, S, H, block_b), qh, kh, vh)
+    return _ShortAttn.apply(qh, kh, vh, mask, H, scale, save)
 
 
 # ---------------------------------------------------------------------------

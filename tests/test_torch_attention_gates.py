@@ -1,12 +1,13 @@
 """The port's attention gates at 64 <= S < 256 (clip_dplm_tpu_torch/ops/
 attention.py) against the JAX package's (`multihead_attention`,
 `attention_dispatch` in clip_dplm_tpu/ops/attention.py) without their
-backend term: a CUDA tensor raises only where the TPU would take its short-S
-kernel over separate q, k, v, which the port has not (ROADMAP queue 2 item
-7); every other shape takes the plain formulation, as on the TPU. A device
-other than the CPU is shown with meta tensors, which carry no data; one
-TransformerBlock whose heads the kernels do not take (Dh = 60) is held to
-JAX on the CPU."""
+backend term: where the TPU takes its short-S kernel over separate q, k, v
+the port takes its own (`fused_short_attention`, `fused_short_attention_heads`)
+on every device, whose CUDA wrappers raise with the kernel's bound for what
+they do not take (Dh > 128); every other shape takes the plain formulation,
+as on the TPU. A device other than the CPU is shown with meta tensors, which
+carry no data; one TransformerBlock whose heads the kernels do not take
+(Dh = 60) is held to JAX on the CPU."""
 
 import jax
 import jax.numpy as jnp
@@ -16,6 +17,7 @@ import torch
 
 from clip_dplm_tpu.models.layers import TransformerBlock as JaxBlock
 from clip_dplm_tpu_torch.models.layers import TransformerBlock
+from clip_dplm_tpu_torch.ops import short_attention as sa
 from clip_dplm_tpu_torch.ops.attention import (
     attention_dispatch,
     attention_reference,
@@ -45,34 +47,58 @@ def test_multihead_attention_runs_where_the_tpu_runs_plain(case):
     assert out.shape == q.shape and out.device.type == "meta"
 
 
+def _spy(monkeypatch, name):
+    """Replace the entry `name` of ops/short_attention.py with a recorder
+    that returns zeros of q's shape; the list of its calls' q shapes."""
+    calls = []
+
+    def entry(q, k, v, *args, **kwargs):
+        calls.append(tuple(q.shape))
+        return torch.zeros_like(q)
+
+    monkeypatch.setattr(sa, name, entry)
+    return calls
+
+
 @pytest.mark.parametrize("mask", [None, "(B, S)"])
-def test_multihead_attention_raises_where_the_tpu_takes_its_kernel(mask):
+def test_multihead_attention_raises_where_the_tpu_takes_its_kernel(monkeypatch, mask):
+    """Where the TPU takes its short-S kernel over separate (B, S, D) q, k, v,
+    the port calls `fused_short_attention`."""
+    calls = _spy(monkeypatch, "fused_short_attention")
     x = _meta(2, S, 512)  # Dh = 64
     m = None if mask is None else torch.ones(2, S, dtype=torch.bool, device="meta")
-    with pytest.raises(NotImplementedError, match="item 7"):
-        multihead_attention(x, x, x, 8, mask=m)
+    assert multihead_attention(x, x, x, 8, mask=m).shape == x.shape
+    assert calls == [(2, S, 512)]
 
 
 @pytest.mark.parametrize("Dh,raises", [(192, True), (64, True), (60, False)])
-def test_attention_dispatch_gate(Dh, raises):
+def test_attention_dispatch_gate(monkeypatch, Dh, raises):
     """The head-level gate: EsmBlock's route for heads the packed kernel does
-    not take (Dh > 128) raises where the TPU runs its short-S kernel over the
-    heads; Dh = 60 takes the plain formulation."""
-    qh = _meta(2, 4, S, Dh)
+    not take. Dh = 192: the short-S kernel over the heads, whose wrapper
+    raises with its Dh <= 128 bound on a device other than the CPU (the TPU
+    runs its kernel there); Dh = 64: `fused_short_attention_heads` is called;
+    Dh = 60 takes the plain formulation."""
+    qh = torch.empty(2, 4, S, Dh, device="meta", dtype=torch.bfloat16)
     mask = torch.ones(2, S, dtype=torch.bool, device="meta")
-    if raises:
-        with pytest.raises(NotImplementedError, match="item 7"):
+    if Dh == 192:
+        with pytest.raises(ValueError, match="Dh a multiple of 8 up to 128, got 192"):
             attention_dispatch(qh, qh, qh, mask=mask)
-    else:
-        assert attention_dispatch(qh, qh, qh, mask=mask).shape == qh.shape
+        return
+    calls = _spy(monkeypatch, "fused_short_attention_heads")
+    assert attention_dispatch(qh, qh, qh, mask=mask).shape == qh.shape
+    assert calls == ([(2, 4, S, Dh)] if raises else [])
 
 
 def test_attention_dispatch_is_plain_on_the_cpu():
+    """In the band, CPU tensors take the plain version of the short-S kernel
+    over the heads, equal to the plain formulation in f32."""
     g = torch.Generator().manual_seed(0)
     qh, kh, vh = (torch.randn(2, 4, S, 64, generator=g) for _ in range(3))
     mask = torch.arange(S)[None, :] < torch.tensor([[S], [90]])
-    torch.testing.assert_close(attention_dispatch(qh, kh, vh, mask=mask),
-                               attention_reference(qh, kh, vh, mask=mask))
+    got = attention_dispatch(qh, kh, vh, mask=mask)
+    torch.testing.assert_close(got, sa.short_attention_sep_reference(qh, kh, vh, 4, mask=mask),
+                               atol=0, rtol=0)
+    torch.testing.assert_close(got, attention_reference(qh, kh, vh, mask=mask))
 
 
 def test_block_with_60_wide_heads_matches_flax(rng):

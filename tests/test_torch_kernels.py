@@ -18,7 +18,12 @@ from clip_dplm_tpu_torch.ops import _build
 from clip_dplm_tpu_torch.ops import flash_attention as fa
 from clip_dplm_tpu_torch.ops import short_attention as sa
 from clip_dplm_tpu_torch.ops import tiny_attention as ta
-from clip_dplm_tpu_torch.ops.attention import attention_reference, multihead_attention
+from clip_dplm_tpu_torch.ops.attention import (
+    attention_dispatch,
+    attention_reference,
+    multihead_attention,
+    split_heads,
+)
 from clip_dplm_tpu_torch.ops import fused_dense as fd
 from clip_dplm_tpu_torch.ops import fused_infonce as fi
 from clip_dplm_tpu_torch.ops.flash_attention import flash_attention
@@ -406,8 +411,10 @@ def test_forward_only_kernels_refuse_to_drop_gradients(cuda_device):
     heads = x.reshape(2, 10, 2, 32).transpose(1, 2)
     want = attention_reference(heads, heads, heads).transpose(1, 2).reshape(2, 10, 64)
     torch.testing.assert_close(multihead_attention(x, x, x, 2), want)
-    with pytest.raises(NotImplementedError, match="item 7"):
-        multihead_attention(o, o, o, 2)
+    out = multihead_attention(o, o, o, 2)  # the short-S kernel over q, k, v records it
+    assert out.grad_fn is not None
+    with pytest.raises(NotImplementedError, match="fused_short_attention"):
+        sa.short_attention_sep(o, o, o, 2)
     with pytest.raises(NotImplementedError, match="fused_short_attention_qkv_proj"):
         sa.short_attention_qkv_save(qkv, 2)
     # S = 256 at Dh = 64 has its backward now (the one-block bound was S <= 208)
@@ -693,3 +700,138 @@ def test_saved_raw_refuses_what_the_kernels_do_not_take(cuda_device):
         fi.fused_symmetric_infonce(a[:, :64], a[:, :64], s, materialize_raw=True)
     with pytest.raises(ValueError, match="d <="):
         fi.fused_clip_loss(a, a, s, dot_dtype=torch.bfloat16, materialize_raw="always")
+
+
+SEP_CASES = [  # B, S, D, H, operands, masked
+    (2, 128, 512, 8, "chunk", True), (4, 128, 640, 10, "heads", True),
+    (1000, 65, 512, 8, "bsd", True), (2, 255, 512, 8, "heads", True),
+    (2, 255, 1024, 8, "chunk", True), (3, 64, 96, 4, "bsd", False)]
+
+
+def _sep_operands(rng, dev, B, S, D, H, operands):
+    """q, k, v and dO: `qkv.chunk(3, -1)` views (row stride 3D), separate
+    contiguous (B, S, D) tensors, or (B, H, S, Dh) head views of the chunks."""
+    f = lambda *s: torch.from_numpy(rng.normal(size=s).astype(np.float32)).to(  # noqa: E731
+        dev, torch.bfloat16)
+    q, k, v = f(B, S, 3 * D).chunk(3, dim=-1)
+    if operands == "bsd":
+        q, k, v = (t.contiguous() for t in (q, k, v))
+    if operands == "heads":
+        q, k, v = (split_heads(t, H) for t in (q, k, v))
+    return q, k, v, f(*q.shape)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("B,S,D,H,operands,masked", SEP_CASES)
+@pytest.mark.parametrize("saved", [False, True])
+def test_short_attention_sep_matches_plain(cuda_device, np_rng, B, S, D, H, operands, masked,
+                                           saved):
+    """The four separate-operand launches (forward, saving forward, recompute
+    backward, backward from the probabilities) against their plain versions
+    on the same inputs (the backwards on the plain forward's residuals), in
+    both layouts and on strided chunk views; two launches equal byte for
+    byte."""
+    q, k, v, dout = _sep_operands(np_rng, cuda_device, B, S, D, H, operands)
+    mask = (torch.from_numpy(_ragged_mask(np_rng, B, S)).to(cuda_device) if masked else None)
+    o, probs = sa.short_attention_sep_reference(q, k, v, H, mask=mask, return_probs=True)
+    before = _build.LAUNCHES.snapshot()
+    if saved:
+        fwd = lambda: sa.short_attention_sep_save(q, k, v, H, mask=mask)  # noqa: E731
+        bwd = lambda: sa.short_attention_sep_bwd_probs(dout, q, k, v, probs, H)  # noqa: E731
+        want = sa.short_attention_sep_bwd_probs_reference(dout, q, k, v, probs, H)
+        names = ("short_attention_sep_save", "short_attention_sep_bwd_probs")
+    else:
+        fwd = lambda: (sa.short_attention_sep(q, k, v, H, mask=mask), None)  # noqa: E731
+        bwd = lambda: sa.short_attention_sep_bwd(dout, q, k, v, o, H, mask=mask)  # noqa: E731
+        want = sa.short_attention_sep_bwd_reference(dout, q, k, v, o, H, mask=mask)
+        names = ("short_attention_sep", "short_attention_sep_bwd")
+    (o_k, p_k), (o_k2, p_k2) = fwd(), fwd()
+    grads, again = bwd(), bwd()
+    torch.cuda.synchronize()
+    after = _build.LAUNCHES.snapshot()
+    assert all(after[n] == before[n] + 2 for n in names)
+    assert o_k.shape == q.shape and torch.equal(o_k, o_k2)
+    torch.testing.assert_close(o_k.float(), o.float(), **TOL)
+    if saved:
+        assert torch.equal(p_k, p_k2)
+        torch.testing.assert_close(p_k.float(), probs.float(), atol=1e-2, rtol=0)
+    assert all(torch.isfinite(g).all() and torch.equal(g, h) for g, h in zip(grads, again))
+    _grads_close(grads, want, ["dq", "dk", "dv"])
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("B,S,D,H", [(2, 128, 512, 8), (3, 65, 128, 2), (2, 255, 1024, 8)])
+def test_packed_kernels_after_the_descriptor_change(cuda_device, np_rng, B, S, D, H):
+    """The packed entries, whose q, k, v are now operand descriptors into
+    qkv, against their plain versions, and equal byte for byte to the
+    separate entries on `qkv.chunk(3, -1)` views of the same qkv (no RoPE):
+    one kernel, two sets of strides."""
+    f = lambda *s: torch.from_numpy(np_rng.normal(size=s).astype(np.float32)).to(  # noqa: E731
+        cuda_device, torch.bfloat16)
+    qkv, dout = f(B, S, 3 * D), f(B, S, D)
+    mask = torch.from_numpy(_ragged_mask(np_rng, B, S)).to(cuda_device)
+    q, k, v = qkv.chunk(3, dim=-1)
+    with torch.no_grad():
+        o, probs = sa.short_attention_qkv_save(qkv, H, mask=mask)
+        o_sep, probs_sep = sa.short_attention_sep_save(q, k, v, H, mask=mask)
+        assert torch.equal(o, sa.short_attention_qkv(qkv, H, mask=mask))
+        assert torch.equal(o_sep, sa.short_attention_sep(q, k, v, H, mask=mask))
+    assert torch.equal(o, o_sep) and torch.equal(probs, probs_sep)
+    o_ref, p_ref = sa.short_attention_qkv_reference(qkv, H, mask=mask, return_probs=True)
+    torch.testing.assert_close(o.float(), o_ref.float(), **TOL)
+    torch.testing.assert_close(probs.float(), p_ref.float(), atol=1e-2, rtol=0)
+    for packed, sep, want in (
+            (sa.short_attention_qkv_bwd(dout, qkv, o, H, mask=mask),
+             sa.short_attention_sep_bwd(dout, q, k, v, o, H, mask=mask),
+             sa.short_attention_qkv_bwd_reference(dout, qkv, o, H, mask=mask)),
+            (sa.short_attention_qkv_bwd_probs(dout, qkv, probs, H),
+             sa.short_attention_sep_bwd_probs(dout, q, k, v, probs, H),
+             sa.short_attention_qkv_bwd_probs_reference(dout, qkv, probs, H))):
+        torch.cuda.synchronize()
+        assert torch.equal(packed, torch.cat(sep, dim=-1))
+        _grads_close(packed.chunk(3, dim=-1), want.chunk(3, dim=-1), ["dq", "dk", "dv"])
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("entry", ["multihead_attention", "attention_dispatch"])
+@pytest.mark.parametrize("save_rule", [True, False])
+def test_attention_gates_take_the_sep_kernels(cuda_device, np_rng, monkeypatch, entry,
+                                              save_rule):
+    """`multihead_attention` and `attention_dispatch` in the band run only the
+    separate-operand kernels on CUDA, in the mode the JAX rule picks (pinned
+    here both ways), with gradients equal to autograd of the plain
+    formulation; f32 and Dh > 128 raise with the kernel's bound."""
+    monkeypatch.setattr(sa, "saves_probs", lambda *a: save_rule)
+    B, S, D, H = 3, 100, 256, 4
+    q, k, v, dout = _sep_operands(np_rng, cuda_device, B, S, D, H,
+                                  "chunk" if entry == "multihead_attention" else "heads")
+    mask = torch.from_numpy(_ragged_mask(np_rng, B, S)).to(cuda_device)
+    fn = ((lambda *t: multihead_attention(*t, H, mask=mask)) if entry == "multihead_attention"
+          else (lambda *t: attention_dispatch(*t, mask=mask)))
+
+    def run(plain):
+        leaves = [t.detach().clone().requires_grad_(True) for t in (q, k, v)]
+        if plain:
+            heads = [split_heads(t, H) if t.dim() == 3 else t for t in leaves]
+            out = attention_reference(*heads, mask=mask)
+            out = out.transpose(1, 2).reshape(B, S, D) if q.dim() == 3 else out
+        else:
+            out = fn(*leaves)
+        out.backward(dout)
+        return out.detach(), [t.grad for t in leaves]
+
+    before = _build.LAUNCHES.snapshot()
+    out, grads = run(False)
+    torch.cuda.synchronize()
+    after = _build.LAUNCHES.snapshot()
+    ran = {n for n in after if after[n] != before[n]}
+    assert ran == ({"short_attention_sep_save", "short_attention_sep_bwd_probs"} if save_rule
+                   else {"short_attention_sep", "short_attention_sep_bwd"})
+    want, want_grads = run(True)
+    torch.testing.assert_close(out.float(), want.float(), **TOL)
+    _grads_close(grads, want_grads, ["dq", "dk", "dv"])
+    with pytest.raises(ValueError, match="bf16"):
+        fn(*(t.float() for t in (q, k, v)))
+    wide = torch.zeros(2, 2, S, 192, device=cuda_device, dtype=torch.bfloat16)
+    with pytest.raises(ValueError, match="up to 128, got 192"):
+        attention_dispatch(wide, wide, wide)

@@ -258,11 +258,12 @@ def test_train_cli_one_epoch_tf_clip(capsys):
 
 
 @pytest.mark.parametrize("S", [1, 10, 63])
-def test_multihead_attention_below_64_keys_is_plain_on_every_device(S):
+def test_multihead_attention_below_64_keys_is_plain_on_every_device(S, monkeypatch):
     """Separate q, k, v below 64 keys take the plain formulation whatever
     the device, as the reference's TPU gates send them to XLA (the protein
     tower's S = 1 among them); a device other than the CPU is shown with
-    meta tensors, which carry no data."""
+    meta tensors, which carry no data. From 64 keys on the short-S kernel's
+    entry takes them."""
     g = torch.Generator().manual_seed(S)
     q, k, v = (torch.randn(2, S, 32, generator=g) for _ in range(3))
     mask = torch.ones(2, S, dtype=torch.bool)
@@ -272,6 +273,11 @@ def test_multihead_attention_below_64_keys_is_plain_on_every_device(S):
     torch.testing.assert_close(got, want)
     meta = [t.to("meta") for t in (q, k, v)]
     assert multihead_attention(*meta, 4, mask=mask.to("meta")).shape == (2, S, 32)
-    with pytest.raises(NotImplementedError, match="item 7"):
-        x = torch.empty(2, 64, 32, device="meta")
-        multihead_attention(x, x, x, 4)
+    from clip_dplm_tpu_torch.ops import short_attention as sa
+
+    calls = []
+    monkeypatch.setattr(sa, "fused_short_attention",
+                        lambda q, *a, **k: calls.append(q.shape) or torch.zeros_like(q))
+    x = torch.empty(2, 64, 32, device="meta")
+    multihead_attention(x, x, x, 4)
+    assert calls == [x.shape]

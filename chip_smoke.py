@@ -60,7 +60,8 @@ Phases, each fatal on failure (non-zero exit, no result line):
      ragged; S=300) against their plain versions on the card in bf16
      (atol = rtol = 2e-2, gradients relative to their largest entry, the
      backwards on the plain forward's residuals), the flash forward's lse
-     against its plain version, each timed beside SDPA; (b) one tf_clip step
+     against its plain version and, at the cell tower's shape, its output,
+     each timed beside SDPA; (b) one tf_clip step
      on the card against the CPU at full width, B=256 (the cell tower is
      one sequence of 256 cells: the flash forward and backward), dropout on,
      as 7(a); (c) the train CLI with experiment=tf_clip, B=256, 3 epochs,
@@ -1064,6 +1065,11 @@ def phase_tf_clip_kernels(torch, results):
         lse = fa.flash_lse_reference(q, k, mask)
         with torch.no_grad():
             _, lse_k = fa._flash_forward(q, k, v, mask, None)
+            if main:  # the forward itself at the cell tower's shape, SDPA beside it
+                compare(torch, "flash_attention", f"B={B} H={H} S={S} Dh={Dh} {kind}",
+                        lambda: fa.flash_attention(q, k, v, mask=mask),
+                        lambda: attention_reference(q, k, v, mask=mask), results,
+                        library_fn=sdpa_fn(torch, q, k, v, mask))
         lse_err = check_outputs(torch, f"flash_attention lse B={B} H={H} S={S}", [lse_k],
                                 [lse], ["lse"])
         shape = f"B={B} H={H} S={S} Dh={Dh} {kind} (on the plain forward's residuals)"

@@ -1,31 +1,61 @@
 // Blockwise online-softmax attention with a (B, Sk) key mask, forward and
 // backward, for Hopper (sm_90a).
 //
-// Replaces clip_dplm_tpu/ops/flash_attention.py::_fwd_kernel (pallas_call in
-// _flash_fwd, public entry flash_attention). The TPU kernel walks the key
-// blocks as the innermost, sequential grid axis and carries m, l and the
-// accumulator in VMEM scratch between grid steps; CUDA blocks run in no
-// order, so here one block per (64-row query tile, head, batch row) loops
-// over 64-key tiles itself and keeps m, l and the f32 accumulator in shared
-// memory for the whole walk.
+// Forward: flash_fwd_kernel replaces clip_dplm_tpu/ops/flash_attention.py::
+// _fwd_kernel (pallas_call in _flash_fwd, public entry flash_attention). The
+// TPU kernel walks the key blocks as the innermost, sequential grid axis and
+// carries m, l and the accumulator in VMEM scratch between grid steps; CUDA
+// blocks run in no order, so one block per (query tile, head, batch row)
+// loops over 64-key tiles itself.
 //
-// Per key tile: S = q·k^T on the tensor cores (WMMA 16x16x16 bf16, f32
-// accumulation), s = S·scale + bias with the finite -1e30 bias of a masked
-// key (and -inf for padding past Sk, which never takes weight), m_new =
-// max(m, rowmax s), alpha = exp(m - m_new), p = exp(s - m_new) rounded to bf16
-// for p·V, l = l·alpha + rowsum p, acc = acc·alpha + p·V. The row ends as
-// acc / max(l, 1e-30). The scale comes from the unpadded Dh; Dh is padded to
-// a multiple of 16 in shared memory only, never in device memory.
+// What bounds it on the H100: 4·S·Sk·Dh FLOP against 2·(S + 2·Sk)·Dh bytes,
+// so at S = Sk = 1024 the tensor cores, not HBM, are the limit (ESM-2 650M's
+// (32, 20, 1024, 64): 171.8 GFLOP, 0.17 ms at 989 TFLOP/s). K/V of one
+// (b, h) is re-read by each query tile, mostly from L2. What keeps a kernel
+// from that bound is everything around the products: shared-memory round
+// trips of the scores, probabilities and accumulator, copies whose issue
+// stalls the warps that must feed the tensor cores, and the exponentials
+// (16 a cycle an SM, one a score: at Dh = 64 as many cycles as the products
+// take at the full tensor rate), each of which waits on the others inside a
+// warpgroup. So:
+//  * the products are warpgroup wgmma (wgmma.cuh), the card's only path to
+//    its full tensor rate: a warpgroup owns 64 query rows; S = Q·K^T is
+//    m64n64k16 with both operands read from shared memory (K-major), and
+//    O += P·V takes P from registers and V MN-major (the transpose bit);
+//  * S, P, the row max m and sum l and the f32 output accumulator O never
+//    leave registers: the S accumulator, rounded to bf16 pairs, is the A
+//    fragment of P·V (no shuffle, no shared memory); a row's max and sum are
+//    shuffles within a quad of lanes, and the rescale by alpha multiplies
+//    registers, skipped by a warp whose rows all kept their max;
+//  * Q, K and V arrive by TMA from one thread (cp.async.bulk.tensor, 64-column
+//    boxes, completion on an mbarrier; rows past S or Sk and columns past Dh
+//    arrive as zeros); per-thread 16-byte cp.async stalled the issue of the
+//    very warps that feed the tensor cores (PERF.md, section 6). K and V run
+//    through a ring of three tiles: the copy of tile j+2 is issued once S_j
+//    is on the tensor cores, so no step waits for its tile; one barrier a
+//    step frees a slot;
+//  * the tiles are in the 128-byte-swizzled layout that TMA's SW128 boxes
+//    write and wgmma's SW128 descriptors read (row r's 16-byte chunk c at
+//    chunk c ^ (r % 8) of a 64-column block, blocks side by side, every block
+//    1024-byte aligned), for K-major Q and K and MN-major V alike;
+//  * a block is two warpgroups, 128 query rows, for Dp = 64 and 128, so each
+//    K/V tile feeds 128 rows; Dp = 256 takes one (its O accumulator is 128
+//    registers a thread).
+// Dh is zero-padded to the template Dp (64, 128, 256) in shared memory only,
+// never in device memory; k-steps and output columns past Dh are skipped.
+// Dh % 8 != 0 or a base off 16 bytes, which TMA cannot take, stages by
+// elements into the same layout.
 //
-// Bounds on the H100: each block reads its q tile once and every k/v tile of
-// its (b, h) once, 2·64·Dh bytes per key tile for 4·64·64·Dh FLOP, i.e. 128
-// FLOP per byte at any Dh: below the card's ~295 FLOP/byte ridge, so the
-// loads bound it (K/V of one (b, h) is re-read by each of the S/64 query
-// tiles, mostly from L2), and so does their latency: a tile is staged with
-// 16-byte loads (element loads when Dh % 8 != 0) into bank-padded shared
-// memory before any math starts. cp.async/TMA double buffering and wgmma are
-// later work. The forward also writes the row logsumexp for the backward,
-// lse = m + log(max(l, 1e-30)) in f32, as _fwd_kernel does.
+// Arithmetic, as _fwd_kernel's: s = q·k^T·scale + bias, with the finite
+// -1e30 bias of a masked key and -inf for padding past Sk, so padding never
+// takes weight; m starts at -1e30, never -inf, so a tile of pure padding
+// gives alpha = 1 and p = 0, not NaN, and a row with no real key keeps
+// m = -1e30 exactly, giving p = 1 for each of its Sk keys: uniform weights.
+// p = expf(s - m) in f32, the reference's natural-domain exponential (an
+// exp2 domain with ex2.approx, tried first, moved the output's bf16
+// roundings: PERF.md, section 6), rounded to bf16 for P·V, while l sums
+// the unrounded p; out = O / max(l, 1e-30) in bf16, and the row logsumexp
+// lse = m + log(max(l, 1e-30)) in f32, the residual of the backward.
 //
 // Backward: flash_bwd_dq_kernel replaces _bwd_dq_kernel and
 // flash_bwd_dkv_kernel replaces _bwd_dkv_kernel (the two pallas_calls of
@@ -42,137 +72,329 @@
 // synchronous staging, two blocks per SM at Dh <= 64, reach a small fraction
 // of that (PERF.md).
 
+#include <cuda.h>
+#include <string.h>
+
 #include "common.cuh"
+#include "wgmma.cuh"
 
 using namespace nvcuda;
 
 namespace clip_dplm {
 namespace {
 
-constexpr int kThreads = 128;  // 4 warps; warp w owns query rows 16w..16w+15
-constexpr int kBQ = 64, kBKV = 64;
+constexpr int kBQ = 64, kBKV = 64;  // the backward's query and key tiles
 constexpr int kLdS = kBKV + 4;  // padded pitches: fragment rows on distinct banks
 constexpr int kLdP = kBKV + 8;
 
-struct FlashSmem {
-  int ld_qkv, ld_o;
-  size_t q, k, v, s, p, o, m, l, bias, total;
-  __host__ __device__ explicit FlashSmem(int Dp) {
-    ld_qkv = Dp + 8;
-    ld_o = Dp + 4;
-    size_t off = 0;
-    q = off;    off += align128(size_t(kBQ) * ld_qkv * sizeof(bf16));
-    k = off;    off += align128(size_t(kBKV) * ld_qkv * sizeof(bf16));
-    v = off;    off += align128(size_t(kBKV) * ld_qkv * sizeof(bf16));
-    s = off;    off += align128(size_t(kBQ) * kLdS * sizeof(float));
-    p = off;    off += align128(size_t(kBQ) * kLdP * sizeof(bf16));
-    o = off;    off += align128(size_t(kBQ) * ld_o * sizeof(float));
-    m = off;    off += align128(kBQ * sizeof(float));
-    l = off;    off += align128(kBQ * sizeof(float));
-    bias = off; off += align128(kBKV * sizeof(float));
-    total = off;
-  }
-};
+// ---------------------------------------------------------------------------
+// Forward
+// ---------------------------------------------------------------------------
 
-__global__ void __launch_bounds__(kThreads)
-flash_fwd_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
-                 const bf16* __restrict__ v, const uint8_t* __restrict__ mask,
-                 bf16* __restrict__ out, float* __restrict__ lse, int H, int S, int Sk, int Dh,
-                 float scale) {
-  extern __shared__ __align__(128) unsigned char smem[];
-  const int Dp = round_up(Dh, 16);
-  const int q0 = blockIdx.x * kBQ, h = blockIdx.y, b = blockIdx.z;
-  const FlashSmem lay(Dp);
-  bf16* sQ = reinterpret_cast<bf16*>(smem + lay.q);
-  bf16* sK = reinterpret_cast<bf16*>(smem + lay.k);
-  bf16* sV = reinterpret_cast<bf16*>(smem + lay.v);
-  float* sS = reinterpret_cast<float*>(smem + lay.s);
-  bf16* sP = reinterpret_cast<bf16*>(smem + lay.p);
-  float* sO = reinterpret_cast<float*>(smem + lay.o);
-  float* sM = reinterpret_cast<float*>(smem + lay.m);
-  float* sL = reinterpret_cast<float*>(smem + lay.l);
-  float* sBias = reinterpret_cast<float*>(smem + lay.bias);
-  const int ldq = lay.ld_qkv, ldo = lay.ld_o;
+constexpr int kKeys = 64;  // keys a tile
 
-  const size_t bh = size_t(b) * H + h;
-  const bf16* kb = k + bh * Sk * Dh;
-  const bf16* vb = v + bh * Sk * Dh;
-  const uint8_t* mask_row = mask == nullptr ? nullptr : mask + size_t(b) * Sk;
-
-  stage_rows(sQ, ldq, q + (bh * S + q0) * Dh, Dh, kBQ, S - q0, Dh, Dp, nullptr, nullptr, 0);
-  for (int idx = threadIdx.x; idx < kBQ * ldo; idx += kThreads) sO[idx] = 0.f;
-  for (int r = threadIdx.x; r < kBQ; r += kThreads) {
-    sM[r] = kMaskBias;
-    sL[r] = 0.f;
-  }
-
-  const int warp = threadIdx.x / kWarp, lane = threadIdx.x % kWarp;
-  for (int j0 = 0; j0 < Sk; j0 += kBKV) {
-    stage_rows(sK, ldq, kb + size_t(j0) * Dh, Dh, kBKV, Sk - j0, Dh, Dp, nullptr, nullptr, 0);
-    stage_rows(sV, ldq, vb + size_t(j0) * Dh, Dh, kBKV, Sk - j0, Dh, Dp, nullptr, nullptr, 0);
-    for (int j = threadIdx.x; j < kBKV; j += kThreads) sBias[j] = key_bias(mask_row, j0 + j, Sk);
-    __syncthreads();
-
-    // scores of this warp's 16 rows against the 64 keys of the tile
-    for (int c = 0; c < kBKV / 16; ++c) {
-      wmma::fragment<wmma::accumulator, 16, 16, 16, float> acc;
-      wmma::fill_fragment(acc, 0.f);
-      for (int kk = 0; kk < Dp; kk += 16) {
-        wmma::fragment<wmma::matrix_a, 16, 16, 16, bf16, wmma::row_major> a;
-        wmma::fragment<wmma::matrix_b, 16, 16, 16, bf16, wmma::col_major> bt;
-        wmma::load_matrix_sync(a, sQ + warp * 16 * ldq + kk, ldq);
-        wmma::load_matrix_sync(bt, sK + c * 16 * ldq + kk, ldq);
-        wmma::mma_sync(acc, a, bt, acc);
-      }
-      wmma::store_matrix_sync(sS + warp * 16 * kLdS + c * 16, acc, kLdS, wmma::mem_row_major);
-    }
-    __syncwarp();
-
-    // online softmax over the warp's rows: two keys per lane
-    for (int r = warp * 16; r < warp * 16 + 16; ++r) {
-      const float s0 = sS[r * kLdS + lane] * scale + sBias[lane];
-      const float s1 = sS[r * kLdS + lane + kWarp] * scale + sBias[lane + kWarp];
-      const float m_prev = sM[r];
-      const float m_new = fmaxf(m_prev, warp_max(fmaxf(s0, s1)));
-      const float alpha = expf(m_prev - m_new);
-      const float p0 = expf(s0 - m_new), p1 = expf(s1 - m_new);
-      sP[r * kLdP + lane] = __float2bfloat16(p0);
-      sP[r * kLdP + lane + kWarp] = __float2bfloat16(p1);
-      const float psum = warp_sum(p0 + p1);
-      for (int d = lane; d < Dp; d += kWarp) sO[r * ldo + d] *= alpha;
-      __syncwarp();
-      if (lane == 0) {
-        sM[r] = m_new;
-        sL[r] = sL[r] * alpha + psum;
-      }
-    }
-    __syncwarp();
-
-    // acc += p · V for the warp's rows
-    for (int c = 0; c < Dp / 16; ++c) {
-      wmma::fragment<wmma::accumulator, 16, 16, 16, float> acc;
-      wmma::load_matrix_sync(acc, sO + warp * 16 * ldo + c * 16, ldo, wmma::mem_row_major);
-      for (int kk = 0; kk < kBKV; kk += 16) {
-        wmma::fragment<wmma::matrix_a, 16, 16, 16, bf16, wmma::row_major> a;
-        wmma::fragment<wmma::matrix_b, 16, 16, 16, bf16, wmma::row_major> bv;
-        wmma::load_matrix_sync(a, sP + warp * 16 * kLdP + kk, kLdP);
-        wmma::load_matrix_sync(bv, sV + kk * ldq + c * 16, ldq);
-        wmma::mma_sync(acc, a, bv, acc);
-      }
-      wmma::store_matrix_sync(sO + warp * 16 * ldo + c * 16, acc, ldo, wmma::mem_row_major);
-    }
-    __syncthreads();  // sK/sV/sBias are overwritten by the next tile
-  }
-  __syncthreads();
-
-  for (int idx = threadIdx.x; idx < kBQ * Dh; idx += kThreads) {
-    const int r = idx / Dh, d = idx % Dh, i = q0 + r;
-    if (i < S) out[(bh * S + i) * Dh + d] = __float2bfloat16(sO[r * ldo + d] / fmaxf(sL[r], 1e-30f));
-  }
-  for (int r = threadIdx.x; r < kBQ && q0 + r < S; r += kThreads)
-    lse[bh * S + q0 + r] = sM[r] + logf(fmaxf(sL[r], 1e-30f));
+__device__ __forceinline__ unsigned smem_u32(const void* p) {
+  return static_cast<unsigned>(__cvta_generic_to_shared(p));
 }
 
+__device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
+  const __nv_bfloat162 h = __floats2bfloat162_rn(lo, hi);
+  return *reinterpret_cast<const uint32_t*>(&h);
+}
+
+// Key j's mask byte as loaded ahead (1: real, 0: masked, -1: padding past
+// Sk), and its additive bias: 0, kMaskBias, -inf (common.cuh: key_bias).
+__device__ __forceinline__ int key_state(const uint8_t* mask_row, int j, int n_keys) {
+  return j >= n_keys ? -1 : mask_row == nullptr ? 1 : int(mask_row[j]);
+}
+__device__ __forceinline__ float state_bias(int state) {
+  return state < 0 ? -INFINITY : state ? 0.f : kMaskBias;
+}
+
+// Element offset of (row r, column d) in a Rows x Dp bf16 tile: Dp/64 blocks
+// of Rows x 64 side by side, and inside a block row r's 16-byte chunk c at
+// chunk c ^ (r % 8): the 128-byte swizzle of TMA's SW128 boxes and wgmma's
+// SW128 operands.
+template <int Rows>
+__device__ __forceinline__ int swz(int r, int d) {
+  return (d >> 6) * (Rows * 64) + r * 64 + ((((d >> 3) & 7) ^ (r & 7)) << 3) + (d & 7);
+}
+
+// Rows [0, Rows) of a row-major (n_valid x Dh) bf16 slice into a swizzled
+// tile by element loads and stores, for what TMA cannot take (Dh % 8 != 0, a
+// base off 16 bytes); rows past n_valid and columns in [Dh, Dp) are zero.
+template <int Rows, int Dp, int Threads>
+__device__ __forceinline__ void stage_elems(bf16* dst, const bf16* src, int n_valid, int Dh) {
+  for (int idx = threadIdx.x; idx < Rows * Dp; idx += Threads) {
+    const int r = idx / Dp, d = idx % Dp;
+    dst[swz<Rows>(r, d)] =
+        (r < n_valid && d < Dh) ? src[size_t(r) * Dh + d] : __float2bfloat16(0.f);
+  }
+}
+
+__device__ __forceinline__ void mbar_init(uint64_t* bar) {
+  asm volatile("mbarrier.init.shared::cta.b64 [%0], 1;\n" ::"r"(smem_u32(bar)) : "memory");
+}
+// The one arrival of a phase, with the bytes its copies will bring.
+__device__ __forceinline__ void mbar_expect_tx(uint64_t* bar, unsigned bytes) {
+  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n" ::"r"(smem_u32(bar)),
+               "r"(bytes)
+               : "memory");
+}
+__device__ __forceinline__ void mbar_wait(uint64_t* bar, unsigned parity) {
+  asm volatile(
+      "{\n.reg .pred p;\nWAIT:\n"
+      "mbarrier.try_wait.parity.shared::cta.b64 p, [%0], %1;\n"
+      "@!p bra WAIT;\n}\n" ::"r"(smem_u32(bar)),
+      "r"(parity)
+      : "memory");
+}
+
+// Rows [row0, row0 + Rows) of slice `slice` of a (slices, rows, Dh) tensor,
+// by TMA into a swizzled Rows x Dp tile: one 64-column box per block that
+// holds a column below Dh (the blocks past Dh are never read); columns past
+// Dh and rows past the tensor's end arrive as zeros.
+template <int Rows>
+__device__ __forceinline__ void tma_tile(bf16* dst, const CUtensorMap* map, int row0, int slice,
+                                         int Dh, uint64_t* bar) {
+  const int blocks = (Dh + 63) / 64;
+  for (int blk = 0; blk < blocks; ++blk)
+    asm volatile(
+        "cp.async.bulk.tensor.3d.shared::cluster.global.mbarrier::complete_tx::bytes"
+        " [%0], [%1, {%2, %3, %4}], [%5];\n" ::"r"(smem_u32(dst + blk * Rows * 64)),
+        "l"(reinterpret_cast<uint64_t>(map)), "r"(blk * 64), "r"(row0), "r"(slice),
+        "r"(smem_u32(bar))
+        : "memory");
+}
+
+// The forward's geometry for a padded head width Dp: a warpgroup owns 64
+// query rows; two warpgroups (128 rows) share each K/V tile, one for
+// Dp = 256, whose O accumulator is 128 registers a thread. K, V and the key
+// bias run through a ring of kRing tiles.
+constexpr int kRing = 3;
+template <int Dp>
+struct FlashFwd {
+  static constexpr int kGroups = Dp <= 128 ? 2 : 1;
+  static constexpr int kRows = 64 * kGroups;  // query rows of a block
+  static constexpr int kThreads = 128 * kGroups;
+  static constexpr int kStage = kKeys * Dp;  // elements of one K or V stage
+  static constexpr size_t kQ = 0;
+  static constexpr size_t kK = kQ + size_t(kRows) * Dp * sizeof(bf16);
+  static constexpr size_t kV = kK + kRing * size_t(kStage) * sizeof(bf16);
+  static constexpr size_t kBias = kV + kRing * size_t(kStage) * sizeof(bf16);
+  static constexpr size_t kBar = kBias + kRing * kKeys * sizeof(float);
+  static constexpr size_t kBytes = kBar + kRing * sizeof(uint64_t) + 1024;  // + base alignment
+};
+
+// tma: q, k, v go by TMA through the tensor maps (Dh % 8 == 0, 16-byte
+// aligned bases); else by element loads.
+template <int Dp>
+__global__ void __launch_bounds__(FlashFwd<Dp>::kThreads, Dp == 64 ? 2 : 1)
+flash_fwd_kernel(const __grid_constant__ CUtensorMap tm_q, const __grid_constant__ CUtensorMap tm_k,
+                 const __grid_constant__ CUtensorMap tm_v, const bf16* __restrict__ q,
+                 const bf16* __restrict__ k, const bf16* __restrict__ v,
+                 const uint8_t* __restrict__ mask, bf16* __restrict__ out,
+                 float* __restrict__ lse, int H, int S, int Sk, int Dh, float scale, bool tma) {
+  using G = FlashFwd<Dp>;
+  constexpr int R = G::kRows, T = G::kThreads, kSteps = Dp / 16, kBlocks = Dp / 64;
+  extern __shared__ unsigned char smem_raw[];
+  unsigned char* smem = smem_raw + ((1024 - (smem_u32(smem_raw) & 1023)) & 1023);
+  bf16* sQ = reinterpret_cast<bf16*>(smem + G::kQ);
+  bf16* sK = reinterpret_cast<bf16*>(smem + G::kK);
+  bf16* sV = reinterpret_cast<bf16*>(smem + G::kV);
+  float* sBias = reinterpret_cast<float*>(smem + G::kBias);
+  uint64_t* full = reinterpret_cast<uint64_t*>(smem + G::kBar);  // one a ring slot
+
+  const int q0 = blockIdx.x * R, h = blockIdx.y, b = blockIdx.z;
+  const int bh = b * H + h;
+  const bf16* kb = k + size_t(bh) * Sk * Dh;
+  const bf16* vb = v + size_t(bh) * Sk * Dh;
+  const uint8_t* mask_row = mask == nullptr ? nullptr : mask + size_t(b) * Sk;
+  const int tid = threadIdx.x, lane = tid % kWarp, row0 = (tid / kWarp) * 16;
+  const int g = lane >> 2, t = lane & 3;  // the accumulator's row group and column pair
+  const int n_tiles = (Sk + kKeys - 1) / kKeys;
+  const int wg_row = (tid / 128) * 64;  // the warpgroup's first row of the block
+  const unsigned kv_bytes = 2 * kKeys * unsigned((Dh + 63) / 64) * 128;
+
+  // Tile jt's K and V into ring slot jt % kRing: by TMA from one thread,
+  // completing on that slot's mbarrier, or by element stores from all.
+  auto load_kv = [&](int jt) {
+    const int sl = jt % kRing, j0 = jt * kKeys;
+    bf16* dK = sK + sl * G::kStage;
+    bf16* dV = sV + sl * G::kStage;
+    if (!tma) {
+      stage_elems<kKeys, Dp, T>(dK, kb + size_t(j0) * Dh, Sk - j0, Dh);
+      stage_elems<kKeys, Dp, T>(dV, vb + size_t(j0) * Dh, Sk - j0, Dh);
+      fence_proxy_async();  // st.shared, read by wgmma
+    } else if (tid == 0) {
+      mbar_expect_tx(&full[sl], kv_bytes + (jt == 0 ? R * unsigned((Dh + 63) / 64) * 128 : 0));
+      if (jt == 0) tma_tile<R>(sQ, &tm_q, q0, bh, Dh, &full[0]);  // Q rides with tile 0
+      tma_tile<kKeys>(dK, &tm_k, j0, bh, Dh, &full[sl]);
+      tma_tile<kKeys>(dV, &tm_v, j0, bh, Dh, &full[sl]);
+    }
+  };
+
+  if (tid == 0) {
+    for (int i = 0; i < kRing; ++i) mbar_init(&full[i]);
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+    const CUtensorMap* maps[3] = {&tm_q, &tm_k, &tm_v};
+    for (int i = 0; tma && i < 3; ++i)
+      asm volatile("prefetch.tensormap [%0];\n" ::"l"(reinterpret_cast<uint64_t>(maps[i]))
+                   : "memory");
+  }
+  for (int i = tid; i < (kRing - 1) * kKeys; i += T)
+    sBias[i] = state_bias(key_state(mask_row, i, Sk));
+  if (!tma) {
+    stage_elems<R, Dp, T>(sQ, q + (size_t(bh) * S + q0) * Dh, S - q0, Dh);
+    fence_proxy_async();
+  }
+  __syncthreads();
+  for (int jt = 0; jt < kRing - 1 && jt < n_tiles; ++jt) load_kv(jt);
+  if (!tma) __syncthreads();
+
+  // O, one m64n64 accumulator per 64-wide block of d; m and l of rows g and
+  // g+8 of the warp's 16, l per lane (the quad's sum is taken once, at the
+  // end)
+  float o[kBlocks][32];
+#pragma unroll
+  for (int nb = 0; nb < kBlocks; ++nb)
+#pragma unroll
+    for (int i = 0; i < 32; ++i) o[nb][i] = 0.f;
+  float m[2] = {kMaskBias, kMaskBias}, l[2] = {0.f, 0.f};
+
+  for (int j = 0; j < n_tiles; ++j) {
+    const int slot = j % kRing, ahead = j + kRing - 1;  // the tile loaded in this step
+    // everyone is done with tile j-1, whose slot the load of tile `ahead`
+    // takes; tile j's bias is in
+    if (j > 0) __syncthreads();
+    // tile `ahead`'s mask bytes, loaded now, used after the math
+    const int state_ahead =
+        ahead < n_tiles && tid < kKeys ? key_state(mask_row, ahead * kKeys + tid, Sk) : 0;
+    if (!tma && ahead < n_tiles) load_kv(ahead);
+    if (tma) mbar_wait(&full[slot], (j / kRing) & 1);
+    const bf16* tK = sK + slot * G::kStage;
+    const bf16* tV = sV + slot * G::kStage;
+    const float* tB = sBias + slot * kKeys;
+
+    // S = Q·K^T: the warpgroup's 64 rows x 64 keys; both operands K-major
+    float s[32];
+    wgmma_fence();
+#pragma unroll
+    for (int kk = 0; kk < kSteps; ++kk) {
+      if (kk * 16 >= Dh) continue;
+      const int col = (kk % 4) * 16;  // a k16 step inside the 64-wide block kk / 4
+      wgmma_m64n64k16_ss(s, gmma_desc(sQ + (kk / 4) * R * 64 + wg_row * 64 + col, 16, 1024),
+                         gmma_desc(tK + (kk / 4) * kKeys * 64 + col, 16, 1024), kk > 0);
+    }
+    wgmma_commit();
+    if (tma && ahead < n_tiles) load_kv(ahead);  // issued while S is on the tensor cores
+    wgmma_wait<0>();
+    fence_regs(s);
+
+    // online softmax: s = S·scale + bias; a row is spread over a quad of
+    // lanes
+#pragma unroll
+    for (int n = 0; n < 8; ++n) {
+      const float2 bb = *reinterpret_cast<const float2*>(tB + 8 * n + 2 * t);
+      s[4 * n] = fmaf(s[4 * n], scale, bb.x);
+      s[4 * n + 1] = fmaf(s[4 * n + 1], scale, bb.y);
+      s[4 * n + 2] = fmaf(s[4 * n + 2], scale, bb.x);
+      s[4 * n + 3] = fmaf(s[4 * n + 3], scale, bb.y);
+    }
+    float alpha[2];
+#pragma unroll
+    for (int i = 0; i < 2; ++i) {
+      float mx = m[i];
+#pragma unroll
+      for (int n = 0; n < 8; ++n) mx = fmaxf(mx, fmaxf(s[4 * n + 2 * i], s[4 * n + 2 * i + 1]));
+      mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, 1));
+      mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, 2));
+      alpha[i] = expf(m[i] - mx);
+      m[i] = mx;
+      l[i] *= alpha[i];
+#pragma unroll
+      for (int n = 0; n < 8; ++n) {
+        s[4 * n + 2 * i] = expf(s[4 * n + 2 * i] - mx);
+        s[4 * n + 2 * i + 1] = expf(s[4 * n + 2 * i + 1] - mx);
+        l[i] += s[4 * n + 2 * i] + s[4 * n + 2 * i + 1];
+      }
+    }
+    // O to the new max; alpha = 1 exactly where the max held, so a warp
+    // whose 16 rows all kept theirs skips the multiplies
+    if (__any_sync(0xffffffffu, alpha[0] != 1.f || alpha[1] != 1.f)) {
+#pragma unroll
+      for (int nb = 0; nb < kBlocks; ++nb)
+#pragma unroll
+        for (int n = 0; n < 8; ++n) {
+          o[nb][4 * n] *= alpha[0];
+          o[nb][4 * n + 1] *= alpha[0];
+          o[nb][4 * n + 2] *= alpha[1];
+          o[nb][4 * n + 3] *= alpha[1];
+        }
+    }
+
+    // O += P·V: P from registers (the S accumulator of n-tiles 2kk, 2kk+1
+    // is the A fragment of the kk-th 16 keys), V MN-major
+    uint32_t pa[4][4];
+#pragma unroll
+    for (int kk = 0; kk < 4; ++kk) {
+      pa[kk][0] = pack_bf16(s[8 * kk], s[8 * kk + 1]);
+      pa[kk][1] = pack_bf16(s[8 * kk + 2], s[8 * kk + 3]);
+      pa[kk][2] = pack_bf16(s[8 * kk + 4], s[8 * kk + 5]);
+      pa[kk][3] = pack_bf16(s[8 * kk + 6], s[8 * kk + 7]);
+    }
+    wgmma_fence();
+#pragma unroll
+    for (int kk = 0; kk < 4; ++kk)
+#pragma unroll
+      for (int nb = 0; nb < kBlocks; ++nb)
+        if (nb * 64 < Dh)
+          wgmma_m64n64k16_rs<1>(o[nb], pa[kk],
+                                gmma_desc(tV + nb * kKeys * 64 + kk * 16 * 64, kKeys * 128, 1024),
+                                true);
+    wgmma_commit();
+    wgmma_wait<0>();
+#pragma unroll
+    for (int nb = 0; nb < kBlocks; ++nb) fence_regs(o[nb]);
+#pragma unroll
+    for (int kk = 0; kk < 4; ++kk) fence_regs(pa[kk]);  // A stays put until the wait
+    if (ahead < n_tiles && tid < kKeys)
+      sBias[(ahead % kRing) * kKeys + tid] = state_bias(state_ahead);
+  }
+
+  // epilogue: O / l as bf16 through this warp's own rows of sQ (its
+  // warpgroup's products that read them are done), then 16-byte stores
+  // where the layout allows; lse = m + log(l)
+#pragma unroll
+  for (int i = 0; i < 2; ++i) {
+    l[i] += __shfl_xor_sync(0xffffffffu, l[i], 1);
+    l[i] += __shfl_xor_sync(0xffffffffu, l[i], 2);
+    const float inv = 1.f / fmaxf(l[i], 1e-30f);
+    const int r = row0 + g + 8 * i;
+#pragma unroll
+    for (int nb = 0; nb < kBlocks; ++nb)
+#pragma unroll
+      for (int n = 0; n < 8; ++n)
+        if (nb * 64 + n * 8 < Dh)
+          *reinterpret_cast<uint32_t*>(sQ + swz<R>(r, nb * 64 + 8 * n + 2 * t)) =
+              pack_bf16(o[nb][4 * n + 2 * i] * inv, o[nb][4 * n + 2 * i + 1] * inv);
+    if (t == 0 && q0 + r < S) lse[size_t(bh) * S + q0 + r] = m[i] + logf(fmaxf(l[i], 1e-30f));
+  }
+  __syncwarp();
+  const bool out_vec = Dh % 8 == 0 && (reinterpret_cast<uintptr_t>(out) & 15) == 0;
+  const int chunks = (Dh + 7) / 8;
+  for (int idx = lane; idx < 16 * chunks; idx += kWarp) {
+    const int r = idx / chunks, c = idx % chunks, i = q0 + row0 + r;
+    if (i >= S) continue;
+    const bf16* src = sQ + swz<R>(row0 + r, 8 * c);
+    bf16* dst = out + (size_t(bh) * S + i) * Dh + 8 * c;
+    if (out_vec) {
+      *reinterpret_cast<uint4*>(dst) = *reinterpret_cast<const uint4*>(src);
+    } else {
+      for (int e = 0; e < 8 && 8 * c + e < Dh; ++e) dst[e] = src[e];
+    }
+  }
+}
 
 // ---------------------------------------------------------------------------
 // Backward: two kernels, as the TPU's two calls (dQ; dK and dV), each a loop
@@ -441,23 +663,80 @@ flash_bwd_dkv_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
 
 using namespace clip_dplm;
 
+typedef CUresult (*EncodeTiledFn)(CUtensorMap*, CUtensorMapDataType, cuuint32_t, void*,
+                                  const cuuint64_t*, const cuuint64_t*, const cuuint32_t*,
+                                  const cuuint32_t*, CUtensorMapInterleave, CUtensorMapSwizzle,
+                                  CUtensorMapL2promotion, CUtensorMapFloatOOBfill);
+
+// cuTensorMapEncodeTiled of libcuda, looked up through the runtime (no -lcuda).
+static EncodeTiledFn encode_tiled() {
+  static const EncodeTiledFn fn = [] {
+    void* p = nullptr;
+    cudaDriverEntryPointQueryResult found;
+    const cudaError_t err = cudaGetDriverEntryPointByVersion("cuTensorMapEncodeTiled", &p, 12000,
+                                                             cudaEnableDefault, &found);
+    return err == cudaSuccess && found == cudaDriverEntryPointSuccess
+               ? reinterpret_cast<EncodeTiledFn>(p)
+               : nullptr;
+  }();
+  return fn;
+}
+
+// A (slices, rows, Dh) bf16 tensor as TMA boxes of 64 columns by box_rows
+// rows of one slice, 128-byte swizzled; reads past its edges give zeros.
+static bool tensor_map(CUtensorMap* map, const void* base, int Dh, int rows, int slices,
+                       int box_rows) {
+  const EncodeTiledFn encode = encode_tiled();
+  const cuuint64_t dims[3] = {cuuint64_t(Dh), cuuint64_t(rows), cuuint64_t(slices)};
+  const cuuint64_t strides[2] = {cuuint64_t(Dh) * 2, cuuint64_t(rows) * Dh * 2};  // bytes
+  const cuuint32_t box[3] = {64, cuuint32_t(box_rows), 1};
+  const cuuint32_t elem[3] = {1, 1, 1};
+  return encode != nullptr &&
+         encode(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 3, const_cast<void*>(base), dims, strides,
+                box, elem, CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_128B,
+                CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
+                CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
+}
+
+template <int Dp>
+static int launch_flash_fwd(const void* q, const void* k, const void* v, const void* mask,
+                            void* out, void* lse, int B, int H, int S, int Sk, int Dh,
+                            float scale, void* stream) {
+  using G = FlashFwd<Dp>;
+  // TMA takes 16-byte-aligned bases and row pitches; else the kernel stages by elements
+  const bool tma = Dh % 8 == 0 && ((reinterpret_cast<uintptr_t>(q) |
+                                    reinterpret_cast<uintptr_t>(k) |
+                                    reinterpret_cast<uintptr_t>(v)) & 15) == 0;
+  CUtensorMap tq, tk, tv;
+  memset(&tq, 0, sizeof(tq));
+  memset(&tk, 0, sizeof(tk));
+  memset(&tv, 0, sizeof(tv));
+  if (tma && !(tensor_map(&tq, q, Dh, S, B * H, G::kRows) &&
+               tensor_map(&tk, k, Dh, Sk, B * H, kKeys) &&
+               tensor_map(&tv, v, Dh, Sk, B * H, kKeys)))
+    return static_cast<int>(cudaErrorInvalidValue);
+  cudaError_t err = cudaFuncSetAttribute(flash_fwd_kernel<Dp>,
+                                         cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                         static_cast<int>(G::kBytes));
+  if (err != cudaSuccess) return static_cast<int>(err);
+  dim3 grid((S + G::kRows - 1) / G::kRows, H, B);
+  flash_fwd_kernel<Dp><<<grid, G::kThreads, G::kBytes, static_cast<cudaStream_t>(stream)>>>(
+      tq, tk, tv, static_cast<const bf16*>(q), static_cast<const bf16*>(k),
+      static_cast<const bf16*>(v), static_cast<const uint8_t*>(mask), static_cast<bf16*>(out),
+      static_cast<float*>(lse), H, S, Sk, Dh, scale, tma);
+  return static_cast<int>(cudaGetLastError());
+}
+
 // q (B, H, S, Dh), k/v (B, H, Sk, Dh), out (B, H, S, Dh) bf16; mask (B, Sk)
-// uint8 or null; lse (B, H, S) f32 out. Requires Dh <= 256.
+// uint8 or null; lse (B, H, S) f32 out. Requires 1 <= Dh <= 256.
 extern "C" int flash_attention_fwd(const void* q, const void* k, const void* v, const void* mask,
                                    void* out, void* lse, int B, int H, int S, int Sk, int Dh,
                                    float scale, void* stream) {
-  const size_t bytes = FlashSmem(round_up(Dh, 16)).total;
-  if (bytes > kMaxSmem || B > 65535 || H > 65535) return static_cast<int>(cudaErrorInvalidValue);
-  cudaError_t err = cudaFuncSetAttribute(flash_fwd_kernel,
-                                         cudaFuncAttributeMaxDynamicSharedMemorySize,
-                                         static_cast<int>(bytes));
-  if (err != cudaSuccess) return static_cast<int>(err);
-  dim3 grid((S + kBQ - 1) / kBQ, H, B);
-  flash_fwd_kernel<<<grid, kThreads, bytes, static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const bf16*>(q), static_cast<const bf16*>(k), static_cast<const bf16*>(v),
-      static_cast<const uint8_t*>(mask), static_cast<bf16*>(out), static_cast<float*>(lse), H, S,
-      Sk, Dh, scale);
-  return static_cast<int>(cudaGetLastError());
+  if (Dh < 1 || Dh > 256 || B > 65535 || H > 65535 || int64_t(B) * H > INT32_MAX)
+    return static_cast<int>(cudaErrorInvalidValue);  // TMA's slice coordinate is 32-bit
+  auto launch = Dh <= 64 ? launch_flash_fwd<64> : Dh <= 128 ? launch_flash_fwd<128>
+                                                             : launch_flash_fwd<256>;
+  return launch(q, k, v, mask, out, lse, B, H, S, Sk, Dh, scale, stream);
 }
 
 // The backward's two launchers. q, k, v, mask as the forward's; dout (B, H,

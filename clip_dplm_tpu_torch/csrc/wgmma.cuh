@@ -1,0 +1,111 @@
+// Warpgroup matrix products (wgmma, sm_90a) over shared-memory tiles in the
+// 128-byte-swizzled layout, and their synchronisation.
+//
+// The tiles are the ones `swz` lays out (flash_attention.cu): a Rows x Dp
+// bf16 tile is Dp/64 blocks of Rows x 64 side by side; inside a block row r
+// is 128 bytes and its 16-byte chunk c sits at chunk c ^ (r % 8). Every
+// block starts on a 1024-byte boundary, so the swizzle is a function of the
+// address bits, as wgmma's SW128 mode reads it.
+//
+// Descriptor fields (CuTe's GmmaDescriptor, cute/arch/mma_sm90_desc.hpp, and
+// make_gmma_desc in cute/atom/mma_traits_sm90_gmma.hpp), in 16-byte units:
+// start address [0, 14), leading byte offset (LBO) [16, 30), stride byte
+// offset (SBO) [32, 46), base offset [49, 52) (0: atoms 1024-aligned), layout
+// [62, 64) (1: SW128).
+// - K-major (Layout_K_SW128_Atom: 8 rows of 64 K-elements): SBO = 1024 bytes
+//   between 8-row groups, LBO unused (1). A k16 step inside the 64-wide
+//   block adds its 32 bytes to the start address; the next block is
+//   Rows·128 bytes on.
+// - MN-major (Layout_MN_SW128_Atom: 64 MN-elements by 8 K-rows): SBO = 1024
+//   bytes between 8-row K groups, LBO = the distance between 64-wide MN
+//   blocks. A k16 step is 16 rows, 2048 bytes.
+#pragma once
+
+#include <stdint.h>
+
+namespace clip_dplm {
+
+__device__ __forceinline__ uint64_t gmma_desc(const void* smem, uint32_t lbo_bytes,
+                                              uint32_t sbo_bytes) {
+  const uint32_t addr = static_cast<uint32_t>(__cvta_generic_to_shared(smem));
+  return uint64_t((addr & 0x3FFFF) >> 4) | (uint64_t((lbo_bytes >> 4) & 0x3FFF) << 16) |
+         (uint64_t((sbo_bytes >> 4) & 0x3FFF) << 32) | (uint64_t(1) << 62);
+}
+
+// wgmma reads shared memory through the async proxy: threads that wrote a
+// tile with st.shared or cp.async fence before the barrier that publishes it.
+__device__ __forceinline__ void fence_proxy_async() {
+  asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
+}
+__device__ __forceinline__ void wgmma_fence() {
+  asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory");
+}
+__device__ __forceinline__ void wgmma_commit() {
+  asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory");
+}
+template <int N>
+__device__ __forceinline__ void wgmma_wait() {
+  asm volatile("wgmma.wait_group.sync.aligned %0;\n" ::"n"(N) : "memory");
+}
+
+// Keeps the compiler from moving reads or writes of accumulator registers
+// across a wgmma fence, commit or wait (the products write them
+// asynchronously).
+template <int N>
+__device__ __forceinline__ void fence_regs(float (&r)[N]) {
+#pragma unroll
+  for (int i = 0; i < N; ++i) asm volatile("" : "+f"(r[i])::"memory");
+}
+// The same for A fragments in registers, which must not change (nor be
+// reused) before the wait that retires their product.
+template <int N>
+__device__ __forceinline__ void fence_regs(uint32_t (&r)[N]) {
+#pragma unroll
+  for (int i = 0; i < N; ++i) asm volatile("" : "+r"(r[i])::"memory");
+}
+
+// m64n64k16, bf16 in, f32 accumulate, d += a·b (d = a·b when accumulate is
+// false). Accumulator: warp w of the warpgroup holds rows 16w..16w+15; d[4n
+// .. 4n+1] are (row g, columns 8n+2t, +1) and d[4n+2 .. 4n+3] (row g+8, same
+// columns), g = lane / 4, t = lane % 4: the mma.sync m16n8 layout, eight
+// n-tiles side by side.
+#define CLIP_DPLM_D32                                                                         \
+  "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]),        \
+      "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), \
+      "+f"(d[14]), "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),           \
+      "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]), "+f"(d[25]),           \
+      "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31])
+#define CLIP_DPLM_D32_LIST                                                              \
+  "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, %16, %17, " \
+  "%18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31}"
+
+// A and B from shared memory (both K-major).
+__device__ __forceinline__ void wgmma_m64n64k16_ss(float (&d)[32], uint64_t desc_a,
+                                                   uint64_t desc_b, bool accumulate) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %34, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 " CLIP_DPLM_D32_LIST
+      ", %32, %33, p, 1, 1, 0, 0;\n}\n"
+      : CLIP_DPLM_D32
+      : "l"(desc_a), "l"(desc_b), "r"(int(accumulate)));
+}
+
+// A from registers (the mma.sync m16n8k16 A fragment of the warp's 16 rows:
+// a[0] (row g, k 2t..2t+1), a[1] (row g+8, same k), a[2] (row g, k 2t+8..),
+// a[3] (row g+8, k 2t+8..)), B from shared memory; kTransB: B is MN-major.
+template <int kTransB>
+__device__ __forceinline__ void wgmma_m64n64k16_rs(float (&d)[32], const uint32_t (&a)[4],
+                                                   uint64_t desc_b, bool accumulate) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %37, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 " CLIP_DPLM_D32_LIST
+      ", {%32, %33, %34, %35}, %36, p, 1, 1, %38;\n}\n"
+      : CLIP_DPLM_D32
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(desc_b), "r"(int(accumulate)),
+        "n"(kTransB));
+}
+
+#undef CLIP_DPLM_D32
+#undef CLIP_DPLM_D32_LIST
+
+}  // namespace clip_dplm

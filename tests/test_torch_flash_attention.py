@@ -41,6 +41,28 @@ def test_plain_matches_jax_kernel_s300(rng, masked):
                                atol=2e-5, rtol=2e-5)
 
 
+@pytest.mark.parametrize("B,H,S,Sk,Dh,masked", [
+    (2, 2, 300, 300, 24, True),   # ESM-2 35M's head width, under the kernel's 64-wide template
+    (1, 2, 300, 300, 128, True),  # the 128-wide template
+    (2, 2, 130, 300, 64, True),   # fewer queries than keys (JAX pads them to 256 and 384)
+    (2, 2, 300, 130, 64, False),  # more queries than keys, no mask
+])
+def test_plain_matches_jax_kernel_shapes(rng, B, H, S, Sk, Dh, masked):
+    """The plain version, the CUDA forward's yardstick, against JAX's
+    kernel in interpret mode at other head widths and at S != Sk, in f32 at
+    the JAX suite's flash tolerance 2e-5."""
+    q = rng.normal(size=(B, H, S, Dh)).astype(np.float32)
+    k, v = (rng.normal(size=(B, H, Sk, Dh)).astype(np.float32) for _ in range(2))
+    mask = _ragged_mask(rng, B, Sk) if masked else None
+    with pltpu.force_tpu_interpret_mode():
+        want = jax_flash(jnp.asarray(q), jnp.asarray(k), jnp.asarray(v),
+                         mask=None if mask is None else jnp.asarray(mask))
+    got = flash_attention(torch.from_numpy(q), torch.from_numpy(k), torch.from_numpy(v),
+                          mask=None if mask is None else torch.from_numpy(mask))
+    assert got.shape == (B, H, S, Dh)
+    np.testing.assert_allclose(got.numpy(), np.asarray(want), atol=2e-5, rtol=2e-5)
+
+
 def test_fully_masked_row_is_uniform_over_its_keys(rng):
     """The finite -1e30 bias gives a row with no real key uniform weights
     over its Sk keys (padding takes none), not NaN or zeros."""

@@ -97,19 +97,66 @@ def test_out_projection_matches_plain(cuda_device, np_rng, M, D):
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("B,H,S,Dh", [(2, 4, 256, 64), (2, 3, 300, 40),
-                                      (1, 2, 1000, 64), (1, 2, 333, 128),
-                                      (2, 2, 257, 256)])
-def test_flash_attention_matches_plain(cuda_device, np_rng, B, H, S, Dh):
-    q, k, v = (torch.from_numpy(np_rng.normal(size=(B, H, S, Dh)).astype(np.float32))
-               .to(cuda_device, torch.bfloat16) for _ in range(3))
-    mask = torch.from_numpy(_ragged_mask(np_rng, B, S)).to(cuda_device)
+@pytest.mark.parametrize("B,H,S,Sk,Dh,masked", [
+    # the first five shapes (Dp = 64, 64, 64, 128, 256)
+    (2, 4, 256, 256, 64, True), (2, 3, 300, 300, 40, True), (1, 2, 1000, 1000, 64, True),
+    (1, 2, 333, 333, 128, True), (2, 2, 257, 257, 256, True),
+    # ESM-2 8M, 35M and 150M head widths in the Dp = 64 template; Dh = 20
+    # stages element by element
+    (2, 3, 200, 200, 16, True), (2, 2, 150, 150, 20, True), (1, 4, 300, 300, 24, True),
+    (2, 2, 260, 260, 32, True),
+    # fewer query rows than a block; Sk != S both ways; no mask
+    (3, 2, 1, 1, 64, True), (2, 2, 1, 300, 64, True), (2, 2, 70, 70, 64, True),
+    (2, 2, 130, 300, 64, True), (1, 2, 500, 77, 128, True), (2, 2, 300, 300, 64, False),
+    (1, 2, 190, 190, 200, False), (1, 2, 129, 129, 72, True)])
+def test_flash_attention_matches_plain(cuda_device, np_rng, B, H, S, Sk, Dh, masked):
+    """The forward's out and lse against the plain version; one row with no
+    real key (uniform weights, lse near -1e30); two launches equal byte for
+    byte."""
+    q = torch.from_numpy(np_rng.normal(size=(B, H, S, Dh)).astype(np.float32))
+    k, v = (torch.from_numpy(np_rng.normal(size=(B, H, Sk, Dh)).astype(np.float32))
+            for _ in range(2))
+    q, k, v = (t.to(cuda_device, torch.bfloat16) for t in (q, k, v))
+    mask = (torch.from_numpy(_ragged_mask(np_rng, B, Sk)).to(cuda_device) if masked
+            else None)
     before = _build.LAUNCHES.snapshot()["flash_attention"]
-    got = flash_attention(q, k, v, mask=mask)
+    with torch.no_grad():
+        got = flash_attention(q, k, v, mask=mask)
+        again, lse = fa._flash_forward(q, k, v, mask, None)
     torch.cuda.synchronize()
-    assert _build.LAUNCHES.snapshot()["flash_attention"] == before + 1
+    assert _build.LAUNCHES.snapshot()["flash_attention"] == before + 2
+    assert torch.isfinite(got).all() and torch.isfinite(lse).all()
+    assert torch.equal(got, again)
     torch.testing.assert_close(got.float(),
                                attention_reference(q, k, v, mask=mask).float(), **TOL)
+    torch.testing.assert_close(lse, fa.flash_lse_reference(q, k, mask), **TOL)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("Dh", [64, 128])
+def test_flash_attention_misaligned_views_match_aligned(cuda_device, np_rng, Dh):
+    """q, k, v as contiguous views whose base is off 16 bytes: the kernel
+    stages them by elements instead of by TMA, into the same layout, so the
+    output equals the aligned tensors' byte for byte."""
+    B, H, S = 2, 3, 200
+    n = B * H * S * Dh
+    aligned = [torch.from_numpy(np_rng.normal(size=(B, H, S, Dh)).astype(np.float32))
+               .to(cuda_device, torch.bfloat16) for _ in range(3)]
+    views = []
+    for t in aligned:
+        buf = torch.empty(n + 1, device=cuda_device, dtype=torch.bfloat16)
+        view = buf[1:].view(B, H, S, Dh)
+        view.copy_(t)
+        assert view.is_contiguous() and view.data_ptr() % 16 != 0
+        views.append(view)
+    mask = torch.from_numpy(_ragged_mask(np_rng, B, S)).to(cuda_device)
+    with torch.no_grad():
+        got, lse = fa._flash_forward(*views, mask, None)
+        want, lse_want = fa._flash_forward(*aligned, mask, None)
+    torch.cuda.synchronize()
+    assert torch.equal(got, want) and torch.equal(lse, lse_want)
+    torch.testing.assert_close(got.float(), attention_reference(*aligned, mask=mask).float(),
+                               **TOL)
 
 
 @pytest.mark.cuda

@@ -7,6 +7,8 @@ Phases, each fatal on failure (non-zero exit, no result line):
   2. build the kernels from clip_dplm_tpu_torch/csrc/*.cu with nvcc;
   3. each kernel against its plain PyTorch version on the card, in bf16, at
      the serving path's shapes (bound atol = rtol = 2e-2), with both times;
+     the packed short-S forward also at S=129 and 256 with Dh=128 (two
+     blocks a head); the short-S forward's registers and spills, from ptxas;
   4. DPLM 640/12/10 logits on the card (kernel path) against the same
      weights on the CPU (plain path), bf16 on both, at S = 128 and 300;
   5. the HTTP server of experiments/serve.py on port 0 with random weights at
@@ -110,8 +112,9 @@ Phases, each fatal on failure (non-zero exit, no result line):
      card in bf16 (atol = rtol = 2e-2, the backward outputs relative to
      their largest entry, on the plain forward's residuals) at DPLM's B=256,
      S=128, D=640, H=10 with RoPE, the flagship's B=1024, S=128, D=512, H=8,
-     S=64, a ragged B=1000, S=65, and S=255 at Dh=64 and Dh=128, where the
-     recompute backward is held to its plain version too; two launches of
+     S=64, a ragged B=1000, S=65, S=255 at Dh=64 and Dh=128, where the
+     recompute backward is held to its plain version too, and S=129 and 256
+     at Dh=128; two launches of
      each equal byte for byte; each timed beside the recompute backward and
      SDPA (timed only); (b) one DPLM train step on the card against the CPU
      at full width, B=8, S=64, the same weights and the same hash-drawn
@@ -128,7 +131,8 @@ Phases, each fatal on failure (non-zero exit, no result line):
      the flagship's B=1024, S=128, D=512, H=8 from qkv.chunk(3, -1) views
      (read in place), at DPLM's B=256, S=128, H=10 as (B, H, S, Dh) heads
      after rotary_embed, ragged at B=1000, S=65, at S=255 with Dh=64 and
-     Dh=128, and at S=64 with no mask; two launches of each equal byte for
+     Dh=128, at S=64 with no mask, and at S=129 and 256 with Dh=128; two
+     launches of each equal byte for
      byte; each timed beside SDPA's forward or backward (timed only); at the
      flagship's shape the chunk views timed beside contiguous heads;
  14. the path of those kernels: (a) multihead_attention and
@@ -156,6 +160,7 @@ f32), then as the last line
 from __future__ import annotations
 
 import json
+import re
 import subprocess
 import sys
 import threading
@@ -415,6 +420,17 @@ def phase_kernels(torch, results):
                 work=(2 * M * D * 2 + D * D * 4 + D * 4, 2 * M * D * D),
                 library_fn=(lambda: torch.nn.functional.linear(o, wo.bfloat16(), bo.bfloat16()))
                 if main else None)
+    # the packed forward past one block a head, at Dh=128: S=129 (a second
+    # block of one row) and S=256 (two full blocks), the scores recomputed
+    # over the resident K
+    for S in (129, 256):
+        B, D, H = 32, 1024, 8
+        qkv = torch.randn(B, S, 3 * D, generator=g, device=dev).to(torch.bfloat16)
+        mask, pos = ragged_mask(B, S), torch.arange(S, device=dev)
+        compare(torch, "short_attention", f"B={B} S={S} D={D} H={H} rope",
+                lambda: short_attention_qkv(qkv, H, mask=mask, rope_positions=pos),
+                lambda: short_attention_qkv_reference(qkv, H, mask=mask, rope_positions=pos),
+                results, work=(B * S * 4 * D * 2 + B * S + S * 8, 4 * B * S * S * D))
     # flash kernel: ESM-2 650M embed, the 32-row 1024 bucket, then a ragged
     # last key tile (S=1000) and the smallest flash bucket
     for B, S in ((32, 1024), (8, 1000), (8, 256)):
@@ -1435,10 +1451,12 @@ def phase_dplm_kernels(torch, results):
         return t.unflatten(-1, (H, -1)).transpose(1, 2)
 
     # (B, S, D, H, rope): DPLM's bench step, the flagship block, DPLM's CLI
-    # (S=64), ragged S=65, and S=255 at Dh=64 and Dh=128
+    # (S=64), ragged S=65, S=255 at Dh=64 and Dh=128, and the forward's two
+    # blocks a head at Dh=128: S=129 and S=256
     for B, S, D, H, rope in ((256, 128, 640, 10, True), (1024, 128, 512, 8, False),
                              (256, 64, 640, 10, True), (1000, 65, 512, 8, False),
-                             (32, 255, 640, 10, True), (32, 255, 1024, 8, True)):
+                             (32, 255, 640, 10, True), (32, 255, 1024, 8, True),
+                             (32, 129, 1024, 8, True), (32, 256, 1024, 8, False)):
         main = (B, S) == (256, 128)
         qkv, dout, mask = rnd(B, S, 3 * D), rnd(B, S, D), ragged_mask(B, S)
         pos = torch.arange(S, device=dev) if rope else None
@@ -1601,11 +1619,13 @@ def phase_separate_kernels(torch, results):
         return torch.arange(S, device=dev)[None, :] < lens[:, None]
 
     # (B, S, D, H, operands, masked): the flagship's chunk views, DPLM's heads
-    # after RoPE, ragged S=65, S=255 at Dh=64 and 128, S=64 with no mask
+    # after RoPE, ragged S=65, S=255 at Dh=64 and 128, S=64 with no mask, and
+    # the forward's two blocks a head at Dh=128: S=129 and S=256
     for B, S, D, H, operands, masked in (
             (1024, 128, 512, 8, "chunk", True), (256, 128, 640, 10, "rope heads", True),
             (1000, 65, 512, 8, "chunk", True), (32, 255, 640, 10, "chunk", True),
-            (32, 255, 1024, 8, "heads", True), (256, 64, 512, 8, "chunk", False)):
+            (32, 255, 1024, 8, "heads", True), (256, 64, 512, 8, "chunk", False),
+            (32, 129, 1024, 8, "heads", True), (32, 256, 1024, 8, "chunk", True)):
         q, k, v = rnd(B, S, 3 * D).chunk(3, dim=-1)
         if operands != "chunk":
             q, k, v = (split_heads(t, H) for t in (q, k, v))
@@ -1847,6 +1867,19 @@ def _block_routes(torch, g):
           f"{err:.3e}")
 
 
+def forward_registers(log: str):
+    """(instance, registers, spill line) of each short-S forward instance in
+    ptxas's report (short_attn_fwd_kernel<Dp, NT>, NT score tiles a thread)."""
+    lines = log.splitlines()
+    for i, line in enumerate(lines):
+        found = re.search(r"short_attn_fwd_kernelILi(\d+)ELi(\d+)E", line)
+        if "Compiling entry" in line and found:
+            regs = re.search(r"Used (\d+) registers", " ".join(lines[i:i + 4]))
+            spill = next((x.strip() for x in lines[i:i + 4] if "spill" in x), "spills: not reported")
+            yield (f"<Dp={found.group(1)}, NT={found.group(2)}>",
+                   regs.group(1) if regs else "?", spill)
+
+
 def main() -> int:
     import torch
 
@@ -1871,6 +1904,8 @@ def main() -> int:
     for line in _build.LIBRARY.build_log.splitlines():
         if "Used" in line or "Compiling entry" in line or "spill" in line:
             print("ptxas:", line.strip())
+    for kernel, regs, spills in forward_registers(_build.LIBRARY.build_log):
+        print(f"short-S forward {kernel}: {regs} registers, {spills}")
 
     results = {}
     phase_kernels(torch, results)

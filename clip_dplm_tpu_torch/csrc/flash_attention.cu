@@ -72,10 +72,10 @@
 // synchronous staging, two blocks per SM at Dh <= 64, reach a small fraction
 // of that (PERF.md).
 
-#include <cuda.h>
 #include <string.h>
 
 #include "common.cuh"
+#include "tma.cuh"
 #include "wgmma.cuh"
 
 using namespace nvcuda;
@@ -93,15 +93,6 @@ constexpr int kLdP = kBKV + 8;
 
 constexpr int kKeys = 64;  // keys a tile
 
-__device__ __forceinline__ unsigned smem_u32(const void* p) {
-  return static_cast<unsigned>(__cvta_generic_to_shared(p));
-}
-
-__device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
-  const __nv_bfloat162 h = __floats2bfloat162_rn(lo, hi);
-  return *reinterpret_cast<const uint32_t*>(&h);
-}
-
 // Key j's mask byte as loaded ahead (1: real, 0: masked, -1: padding past
 // Sk), and its additive bias: 0, kMaskBias, -inf (common.cuh: key_bias).
 __device__ __forceinline__ int key_state(const uint8_t* mask_row, int j, int n_keys) {
@@ -109,15 +100,6 @@ __device__ __forceinline__ int key_state(const uint8_t* mask_row, int j, int n_k
 }
 __device__ __forceinline__ float state_bias(int state) {
   return state < 0 ? -INFINITY : state ? 0.f : kMaskBias;
-}
-
-// Element offset of (row r, column d) in a Rows x Dp bf16 tile: Dp/64 blocks
-// of Rows x 64 side by side, and inside a block row r's 16-byte chunk c at
-// chunk c ^ (r % 8): the 128-byte swizzle of TMA's SW128 boxes and wgmma's
-// SW128 operands.
-template <int Rows>
-__device__ __forceinline__ int swz(int r, int d) {
-  return (d >> 6) * (Rows * 64) + r * 64 + ((((d >> 3) & 7) ^ (r & 7)) << 3) + (d & 7);
 }
 
 // Rows [0, Rows) of a row-major (n_valid x Dh) bf16 slice into a swizzled
@@ -130,41 +112,6 @@ __device__ __forceinline__ void stage_elems(bf16* dst, const bf16* src, int n_va
     dst[swz<Rows>(r, d)] =
         (r < n_valid && d < Dh) ? src[size_t(r) * Dh + d] : __float2bfloat16(0.f);
   }
-}
-
-__device__ __forceinline__ void mbar_init(uint64_t* bar) {
-  asm volatile("mbarrier.init.shared::cta.b64 [%0], 1;\n" ::"r"(smem_u32(bar)) : "memory");
-}
-// The one arrival of a phase, with the bytes its copies will bring.
-__device__ __forceinline__ void mbar_expect_tx(uint64_t* bar, unsigned bytes) {
-  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n" ::"r"(smem_u32(bar)),
-               "r"(bytes)
-               : "memory");
-}
-__device__ __forceinline__ void mbar_wait(uint64_t* bar, unsigned parity) {
-  asm volatile(
-      "{\n.reg .pred p;\nWAIT:\n"
-      "mbarrier.try_wait.parity.shared::cta.b64 p, [%0], %1;\n"
-      "@!p bra WAIT;\n}\n" ::"r"(smem_u32(bar)),
-      "r"(parity)
-      : "memory");
-}
-
-// Rows [row0, row0 + Rows) of slice `slice` of a (slices, rows, Dh) tensor,
-// by TMA into a swizzled Rows x Dp tile: one 64-column box per block that
-// holds a column below Dh (the blocks past Dh are never read); columns past
-// Dh and rows past the tensor's end arrive as zeros.
-template <int Rows>
-__device__ __forceinline__ void tma_tile(bf16* dst, const CUtensorMap* map, int row0, int slice,
-                                         int Dh, uint64_t* bar) {
-  const int blocks = (Dh + 63) / 64;
-  for (int blk = 0; blk < blocks; ++blk)
-    asm volatile(
-        "cp.async.bulk.tensor.3d.shared::cluster.global.mbarrier::complete_tx::bytes"
-        " [%0], [%1, {%2, %3, %4}], [%5];\n" ::"r"(smem_u32(dst + blk * Rows * 64)),
-        "l"(reinterpret_cast<uint64_t>(map)), "r"(blk * 64), "r"(row0), "r"(slice),
-        "r"(smem_u32(bar))
-        : "memory");
 }
 
 // The forward's geometry for a padded head width Dp: a warpgroup owns 64
@@ -662,41 +609,6 @@ flash_bwd_dkv_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
 }  // namespace clip_dplm
 
 using namespace clip_dplm;
-
-typedef CUresult (*EncodeTiledFn)(CUtensorMap*, CUtensorMapDataType, cuuint32_t, void*,
-                                  const cuuint64_t*, const cuuint64_t*, const cuuint32_t*,
-                                  const cuuint32_t*, CUtensorMapInterleave, CUtensorMapSwizzle,
-                                  CUtensorMapL2promotion, CUtensorMapFloatOOBfill);
-
-// cuTensorMapEncodeTiled of libcuda, looked up through the runtime (no -lcuda).
-static EncodeTiledFn encode_tiled() {
-  static const EncodeTiledFn fn = [] {
-    void* p = nullptr;
-    cudaDriverEntryPointQueryResult found;
-    const cudaError_t err = cudaGetDriverEntryPointByVersion("cuTensorMapEncodeTiled", &p, 12000,
-                                                             cudaEnableDefault, &found);
-    return err == cudaSuccess && found == cudaDriverEntryPointSuccess
-               ? reinterpret_cast<EncodeTiledFn>(p)
-               : nullptr;
-  }();
-  return fn;
-}
-
-// A (slices, rows, Dh) bf16 tensor as TMA boxes of 64 columns by box_rows
-// rows of one slice, 128-byte swizzled; reads past its edges give zeros.
-static bool tensor_map(CUtensorMap* map, const void* base, int Dh, int rows, int slices,
-                       int box_rows) {
-  const EncodeTiledFn encode = encode_tiled();
-  const cuuint64_t dims[3] = {cuuint64_t(Dh), cuuint64_t(rows), cuuint64_t(slices)};
-  const cuuint64_t strides[2] = {cuuint64_t(Dh) * 2, cuuint64_t(rows) * Dh * 2};  // bytes
-  const cuuint32_t box[3] = {64, cuuint32_t(box_rows), 1};
-  const cuuint32_t elem[3] = {1, 1, 1};
-  return encode != nullptr &&
-         encode(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 3, const_cast<void*>(base), dims, strides,
-                box, elem, CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_128B,
-                CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
-                CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
-}
 
 template <int Dp>
 static int launch_flash_fwd(const void* q, const void* k, const void* v, const void* mask,

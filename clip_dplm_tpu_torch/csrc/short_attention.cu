@@ -23,31 +23,45 @@
 // rows per program with all heads unrolled (and, packed, the projection in
 // the same program); here the work is these launches:
 //
-//   short_attn_kernel: one block of 8 warps per (query tile of up to 64
-//     rows, head, batch row). K and V of the head for the whole sequence
-//     (S <= 256) are staged in shared memory with 16-byte loads where the
-//     strides allow it; RoPE, where given, is applied to q and k while
-//     staging, in f32, rounded to bf16 (as the TPU kernel does). Scores are
-//     f32 with the additive -1e30 key bias, the softmax is exact (no online
-//     rescaling: all keys are resident), p is rounded to bf16 for p·V with
-//     f32 accumulation, and the row is divided by max(l, 1e-30).
+//   short_attn_fwd_kernel<Dp>: one block of two warpgroups per (128 query
+//     rows, head, batch row), so at S <= 128 (the flagship, DPLM training
+//     and the sampler) one block covers a whole head and K and V of the head
+//     are read once; at 128 < S <= 256 two blocks do. One thread issues TMA
+//     boxes (cp.async.bulk.tensor over a 4-D tensor map an operand, built
+//     from its strides) for Q, K and the whole head's V into SW128-swizzled
+//     tiles, completing on two mbarriers (Q with K, then V, whose copy runs
+//     under the score product); a base or stride off 16 bytes stages by
+//     elements instead. RoPE, where given, rotates q and k in place once
+//     they land, in f32, rounded to bf16 (as the TPU kernel does). S = Q·K^T
+//     and O = P·V are wgmma m64n64k16 (wgmma.cuh): Q and K K-major from
+//     shared memory, P from registers, V MN-major. The softmax is the
+//     reference's exact one in registers: s = S·scale + key bias (0, the
+//     finite -1e30 of a masked key, -inf past S), m the max over every key
+//     of the row (quad shuffles) before any exponential, p = expf(s − m)
+//     rounded to bf16 for P·V with f32 accumulation, l = Σ p unrounded, and
+//     o = bf16(O / max(l, 1e-30)). A thread holds its rows' whole score
+//     row: 64 registers at S <= 128, where the instance fits 128 registers
+//     and two blocks share an SM, 128 at S <= 256 (one block an SM;
+//     recomputing the scores over the resident K instead, one pass for m and
+//     one for P·V, was 17-27 % slower there: PERF.md, section 6).
 //   dense_gemm_kernel (csrc/dense_gemm.cuh, shared with the fused Dense
 //     block), packed path only: y = bf16(o·Wo^T + bo) with f32 accumulation,
 //     Wo in (out, in) layout, the bias added before the one rounding.
 //
-// Bounds on the H100: at the serving shapes (S = 128, Dh = 64) a block does
-// 2·64·128·64·2 = 2.1 MFLOP on 16 KB of K/V and 8 KB of q, far below the
-// tensor cores' ratio of ~295 FLOP per byte, so the loads (K/V re-read by
-// each query tile, mostly from L2) and the latency of the block's serial
-// phases (stage, q·k^T, softmax, p·V) bound it. WMMA 16x16x16 bf16 tiles
-// keep the products on the tensor cores; shared-memory rows are padded so
-// that fragment loads do not conflict on banks. Fusing the projection into
-// the attention launch, and cp.async/TMA with wgmma, are later work.
+// Bounds on the H100: at the flagship's (B=1024, S=128, D=512, H=8) the
+// forward does 4·B·S²·D = 34 GFLOP (0.035 ms at 989 TFLOP/s) on 537 MB of
+// q, k, v and o (0.16 ms at 3.35 TB/s), 805 MB with the probabilities: it is
+// bound by memory, by a factor of 5-7. So K and V are read once a head, the
+// copies cost the warps no instructions, and nothing but the probabilities
+// and o leaves the registers on its way out.
 //
 // With a probabilities buffer (the saved mode of the TPU kernels, taken where
 // a backward follows and the JAX package's size rule allows it) the kernel
 // also writes bf16(p / l) of its query rows into a (B, H, S, S) buffer: p in
-// f32, divided by l before the one rounding, as the TPU kernels' probs_ref.
+// f32, divided by l before the one rounding, as the TPU kernels' probs_ref,
+// through a 64 x 64 staging tile a warpgroup so that rows leave in 16-byte
+// stores. Both modes compute o by the same instructions, so o is equal bit
+// for bit with and without it.
 //
 // Backward: replaces _bwd_kernel_qkv and _bwd_kernel in both of their modes,
 // for every S <= 256 and Dh (a multiple of 8, <= 128) the forward takes. The
@@ -93,9 +107,13 @@
 // (S, S, Dh) products a head on WMMA tiles, far under the tensor cores' ~295
 // FLOP/B: memory and the blocks' serial phases bound it.
 
+#include <string.h>
+
 #include <initializer_list>
 
 #include "dense_gemm.cuh"
+#include "tma.cuh"
+#include "wgmma.cuh"
 
 using namespace nvcuda;
 
@@ -111,8 +129,6 @@ struct Operand {
 namespace clip_dplm {
 namespace {
 
-constexpr int kAttnThreads = 256;  // the attention kernel: 8 warps
-constexpr int kAttnWarps = kAttnThreads / kWarp;
 // the dQ and dK/dV kernels: 8 warps a block, two blocks an SM where their
 // tiles fit half of its shared memory, so that one block's staging overlaps
 // the other's products; 16 warps where the tiles take one block an SM
@@ -131,132 +147,414 @@ __device__ inline T* row_of(const Operand& t, int b, int h, int s) {
   return static_cast<T*>(t.p) + b * t.sb + h * t.sh + s * t.ss;
 }
 
-// Shared-memory layout of one attention block. Row pitches are padded (+8
-// bf16, +4 f32) so that the rows of a 16x16 fragment fall on different banks.
-struct AttnSmem {
-  int ld_kv, ld_s, ld_o, ld_p;
-  size_t k, v, q, so, p, l, bias, total;
-  __host__ __device__ AttnSmem(int Sp, int Dp, int QT) {
-    ld_kv = Dp + 8;
-    ld_s = Sp + 4;
-    ld_o = Dp + 4;
-    ld_p = Sp + 8;
-    const int ld_so = ld_s > ld_o ? ld_s : ld_o;
-    size_t off = 0;
-    k = off;    off += align128(size_t(Sp) * ld_kv * sizeof(bf16));
-    v = off;    off += align128(size_t(Sp) * ld_kv * sizeof(bf16));
-    q = off;    off += align128(size_t(QT) * ld_kv * sizeof(bf16));
-    so = off;   off += align128(size_t(QT) * ld_so * sizeof(float));  // scores, then o
-    p = off;    off += align128(size_t(QT) * ld_p * sizeof(bf16));
-    l = off;    off += align128(size_t(QT) * sizeof(float));
-    bias = off; off += align128(size_t(Sp) * sizeof(float));
-    total = off;
+// ---------------------------------------------------------------------------
+// Forward
+// ---------------------------------------------------------------------------
+
+constexpr int kMaxSeq = 256;
+constexpr int kFwdThreads = 256;  // two warpgroups
+constexpr int kFwdRows = 128;     // query rows of a block, 64 a warpgroup
+constexpr int kKeyTile = 64;      // keys of one m64n64 score accumulator
+constexpr unsigned kBox = 64 * 64 * sizeof(bf16);  // bytes of one 64 x 64 TMA box
+
+// Shared memory of a forward block at n_kt key tiles and padded width Dp,
+// as offsets from a 1024-byte-aligned base: the Q tile (128 x Dp), K and V
+// of the whole head (n_kt·64 x Dp each), all SW128-swizzled (tma.cuh: swz);
+// in saved mode a 64 x 64 staging tile of probabilities a warpgroup; the key
+// bias; two mbarriers (Q with K, then V).
+struct FwdSmem {
+  size_t q, k, v, p, bias, bar, total;
+  __host__ __device__ FwdSmem(int n_kt, int Dp, bool saved) {
+    const size_t kv = size_t(n_kt) * kKeyTile * Dp * sizeof(bf16);
+    q = 0;
+    k = q + size_t(kFwdRows) * Dp * sizeof(bf16);
+    v = k + kv;
+    p = v + kv;
+    bias = p + (saved ? 2 * size_t(kBox) : 0);
+    bar = bias + size_t(n_kt) * kKeyTile * sizeof(float);
+    total = bar + 2 * sizeof(uint64_t) + 1024;  // + the base's alignment
   }
 };
 
-__global__ void __launch_bounds__(kAttnThreads)
-short_attn_kernel(const Operand q, const Operand k, const Operand v,
-                  const uint8_t* __restrict__ mask, const float* __restrict__ cos_t,
-                  const float* __restrict__ sin_t, const Operand o, bf16* __restrict__ probs,
-                  int S, int H, int Dh, float scale, int QT) {
-  extern __shared__ __align__(128) unsigned char smem[];
-  const int Sp = round_up(S, 16), Dp = round_up(Dh, 16);
-  const int q0 = blockIdx.x * QT, h = blockIdx.y, b = blockIdx.z;
-  const AttnSmem lay(Sp, Dp, QT);
+// The 128 threads of warpgroup wg (named barriers 1 and 2; immediate ids, so
+// that ptxas reserves only those).
+__device__ __forceinline__ void wg_sync(int wg) {
+  if (wg == 0)
+    asm volatile("bar.sync 1, 128;\n" ::: "memory");
+  else
+    asm volatile("bar.sync 2, 128;\n" ::: "memory");
+}
+
+// Rows [r0, r0 + rows) of head h of batch row b of operand t into a swizzled
+// rows x Dp tile by element loads, for what TMA cannot take (a base or a
+// stride off 16 bytes); rows past n_valid and columns in [Dh, Dp) are zero.
+template <int Dp>
+__device__ inline void stage_operand(bf16* dst, const Operand& t, int b, int h, int r0, int rows,
+                                     int n_valid, int Dh) {
+  for (int idx = threadIdx.x; idx < rows * Dp; idx += kFwdThreads) {
+    const int r = idx / Dp, d = idx % Dp;
+    dst[swz(rows, r, d)] =
+        (r < n_valid && d < Dh) ? row_of(t, b, h, r0 + r)[d] : __float2bfloat16(0.f);
+  }
+}
+
+// One 64 x 64 box of an operand's 4-D tensor map, whose dimensions are
+// (Dh, H, S, B) where head_inner, else (Dh, S, H, B).
+__device__ __forceinline__ void tma_rows(bf16* dst, const CUtensorMap* map, bool head_inner,
+                                         int col, int row, int h, int b, uint64_t* bar) {
+  if (head_inner)
+    tma_box_4d(dst, map, col, h, row, b, bar);
+  else
+    tma_box_4d(dst, map, col, row, h, b, bar);
+}
+
+// Rotate-half RoPE in place over rows [r0, r1) of a swizzled rows x Dp tile
+// and, where tile2 is given, the same rows of tile2 (rows2 x Dp) with the same
+// cos/sin (q and k at the same positions), row r at position pos0 + r:
+// [t1·cos − t2·sin, t2·cos + t1·sin] in f32, rounded to bf16, the arithmetic
+// of stage_rows (common.cuh).
+__device__ inline void rope_in_place(bf16* tile, int rows, bf16* tile2, int rows2, int r0, int r1,
+                                     int Dh, const float* cos_t, const float* sin_t, int pos0) {
+  const int half = Dh / 2;
+  if (half % 8 == 0) {
+    const int cpr = half / 8;  // 8-element chunks per half row
+    for (int idx = threadIdx.x; idx < (r1 - r0) * cpr; idx += kFwdThreads) {
+      const int r = r0 + idx / cpr, d0 = (idx % cpr) * 8;
+      float c[8], sn[8];
+      const float4* cp = reinterpret_cast<const float4*>(cos_t + size_t(pos0 + r) * half + d0);
+      const float4* sp = reinterpret_cast<const float4*>(sin_t + size_t(pos0 + r) * half + d0);
+      *reinterpret_cast<float4*>(c) = cp[0];
+      *reinterpret_cast<float4*>(c + 4) = cp[1];
+      *reinterpret_cast<float4*>(sn) = sp[0];
+      *reinterpret_cast<float4*>(sn + 4) = sp[1];
+      for (int which = 0; which < 2; ++which) {
+        bf16* t = which == 0 ? tile : tile2;
+        if (t == nullptr) continue;
+        const int n = which == 0 ? rows : rows2;
+        bf16* p1 = t + swz(n, r, d0);
+        bf16* p2 = t + swz(n, r, half + d0);
+        float a[8], bb[8], lo[8], hi[8];
+        load8(p1, a);
+        load8(p2, bb);
+#pragma unroll
+        for (int e = 0; e < 8; ++e) {
+          lo[e] = a[e] * c[e] - bb[e] * sn[e];
+          hi[e] = bb[e] * c[e] + a[e] * sn[e];
+        }
+        store8(p1, lo);
+        store8(p2, hi);
+      }
+    }
+  } else {
+    for (int idx = threadIdx.x; idx < (r1 - r0) * half; idx += kFwdThreads) {
+      const int r = r0 + idx / half, i = idx % half;
+      const float c = cos_t[size_t(pos0 + r) * half + i];
+      const float sn = sin_t[size_t(pos0 + r) * half + i];
+      for (int which = 0; which < 2; ++which) {
+        bf16* t = which == 0 ? tile : tile2;
+        if (t == nullptr) continue;
+        const int n = which == 0 ? rows : rows2;
+        bf16* p1 = t + swz(n, r, i);
+        bf16* p2 = t + swz(n, r, half + i);
+        const float x1 = __bfloat162float(*p1), x2 = __bfloat162float(*p2);
+        *p1 = __float2bfloat16(x1 * c - x2 * sn);
+        *p2 = __float2bfloat16(x2 * c + x1 * sn);
+      }
+    }
+  }
+}
+
+// s[j] = Q·K^T of key tile j (those below n_kt) for the warpgroup's 64 rows
+// (qw: its rows of the Q tile), both operands K-major from shared memory,
+// then s·scale + the key bias.
+template <int Dp, int NT>
+__device__ __forceinline__ void score_tiles(float (&s)[NT][32], const bf16* qw, const bf16* sK,
+                                            const float* sBias, int n_kt, int Sp, int Dh,
+                                            float scale, int t) {
+  wgmma_fence();
+#pragma unroll
+  for (int j = 0; j < NT; ++j) {
+    if (j >= n_kt) continue;
+#pragma unroll
+    for (int kk = 0; kk < Dp / 16; ++kk) {
+      if (kk * 16 >= Dh) continue;
+      const int col = (kk % 4) * 16;  // a k16 step inside the 64-wide block kk / 4
+      wgmma_m64n64k16_ss(s[j], gmma_desc(qw + (kk / 4) * kFwdRows * 64 + col, 16, 1024),
+                         gmma_desc(sK + (kk / 4) * Sp * 64 + j * kKeyTile * 64 + col, 16, 1024),
+                         kk > 0);
+    }
+  }
+  wgmma_commit();
+  wgmma_wait<0>();
+#pragma unroll
+  for (int j = 0; j < NT; ++j) fence_regs(s[j]);
+#pragma unroll
+  for (int j = 0; j < NT; ++j) {
+    if (j >= n_kt) continue;
+    const float* tb = sBias + j * kKeyTile;
+#pragma unroll
+    for (int n = 0; n < 8; ++n) {
+      const float2 bb = *reinterpret_cast<const float2*>(tb + 8 * n + 2 * t);
+      s[j][4 * n] = fmaf(s[j][4 * n], scale, bb.x);
+      s[j][4 * n + 1] = fmaf(s[j][4 * n + 1], scale, bb.y);
+      s[j][4 * n + 2] = fmaf(s[j][4 * n + 2], scale, bb.x);
+      s[j][4 * n + 3] = fmaf(s[j][4 * n + 3], scale, bb.y);
+    }
+  }
+}
+
+// The row max m over every key, then p = expf(s − m) in place and l = Σ p
+// (unrounded) of rows g and g+8, each reduced over the quad of lanes that
+// holds the row; l at least 1e-30.
+template <int NT>
+__device__ __forceinline__ void softmax_tiles(float (&s)[NT][32], int n_kt, float (&l)[2]) {
+  float m[2] = {-INFINITY, -INFINITY};
+#pragma unroll
+  for (int j = 0; j < NT; ++j) {
+    if (j >= n_kt) continue;
+#pragma unroll
+    for (int i = 0; i < 2; ++i)
+#pragma unroll
+      for (int n = 0; n < 8; ++n)
+        m[i] = fmaxf(m[i], fmaxf(s[j][4 * n + 2 * i], s[j][4 * n + 2 * i + 1]));
+  }
+#pragma unroll
+  for (int i = 0; i < 2; ++i) {
+    m[i] = fmaxf(m[i], __shfl_xor_sync(0xffffffffu, m[i], 1));
+    m[i] = fmaxf(m[i], __shfl_xor_sync(0xffffffffu, m[i], 2));
+    l[i] = 0.f;
+  }
+#pragma unroll
+  for (int j = 0; j < NT; ++j) {
+    if (j >= n_kt) continue;
+#pragma unroll
+    for (int i = 0; i < 2; ++i)
+#pragma unroll
+      for (int n = 0; n < 8; ++n) {
+        s[j][4 * n + 2 * i] = expf(s[j][4 * n + 2 * i] - m[i]);
+        s[j][4 * n + 2 * i + 1] = expf(s[j][4 * n + 2 * i + 1] - m[i]);
+        l[i] += s[j][4 * n + 2 * i] + s[j][4 * n + 2 * i + 1];
+      }
+  }
+#pragma unroll
+  for (int i = 0; i < 2; ++i) {
+    l[i] += __shfl_xor_sync(0xffffffffu, l[i], 1);
+    l[i] += __shfl_xor_sync(0xffffffffu, l[i], 2);
+    l[i] = fmaxf(l[i], 1e-30f);
+  }
+}
+
+// O = P·V over the key tiles: P from registers (the S accumulator of n-tiles
+// 2kk, 2kk+1 of key tile j, rounded to bf16, is the A fragment of its kk-th
+// 16 keys), V MN-major from shared memory.
+template <int Dp, int NT>
+__device__ __forceinline__ void pv_tiles(float (&acc)[Dp / 64][32], const float (&s)[NT][32],
+                                         const bf16* sV, int n_kt, int Sp, int Dh) {
+#pragma unroll
+  for (int nb = 0; nb < Dp / 64; ++nb)
+#pragma unroll
+    for (int i = 0; i < 32; ++i) acc[nb][i] = 0.f;
+  uint32_t pa[NT][4][4];
+#pragma unroll
+  for (int j = 0; j < NT; ++j) {
+    if (j >= n_kt) continue;
+#pragma unroll
+    for (int kk = 0; kk < 4; ++kk) {
+      pa[j][kk][0] = pack_bf16(s[j][8 * kk], s[j][8 * kk + 1]);
+      pa[j][kk][1] = pack_bf16(s[j][8 * kk + 2], s[j][8 * kk + 3]);
+      pa[j][kk][2] = pack_bf16(s[j][8 * kk + 4], s[j][8 * kk + 5]);
+      pa[j][kk][3] = pack_bf16(s[j][8 * kk + 6], s[j][8 * kk + 7]);
+    }
+  }
+  wgmma_fence();
+#pragma unroll
+  for (int j = 0; j < NT; ++j) {
+    if (j >= n_kt) continue;
+#pragma unroll
+    for (int kk = 0; kk < 4; ++kk)
+#pragma unroll
+      for (int nb = 0; nb < Dp / 64; ++nb)
+        if (nb * 64 < Dh)
+          wgmma_m64n64k16_rs<1>(
+              acc[nb], pa[j][kk],
+              gmma_desc(sV + nb * Sp * 64 + (j * kKeyTile + kk * 16) * 64, Sp * 128, 1024), true);
+  }
+  wgmma_commit();
+  wgmma_wait<0>();
+#pragma unroll
+  for (int nb = 0; nb < Dp / 64; ++nb) fence_regs(acc[nb]);
+#pragma unroll
+  for (int j = 0; j < NT; ++j)
+#pragma unroll
+    for (int kk = 0; kk < 4; ++kk) fence_regs(pa[j][kk]);  // A stays put until the wait
+}
+
+// p / l for p in [0, 1] and l in [1, 256] (l sums exp(s − m), the row max
+// giving 1), from r = 1 / l correctly rounded: q = p·r, then one correction
+// by the residual p − q·l, exact in an FMA, which makes q the correctly
+// rounded quotient wherever it is a normal number (Markstein's theorem);
+// the division's own instruction sequence cost the saving forward ~30 %.
+__device__ __forceinline__ float div_by(float p, float l, float r) {
+  const float q = p * r;
+  return fmaf(fmaf(-q, l, p), r, q);
+}
+
+// bf16(p / l) of the key tiles into the warpgroup's rows of the
+// probabilities (prow: its first row; rows_valid of its 64 rows below S):
+// through the warpgroup's 64 x 64 staging tile sPw, so that rows leave in
+// 16-byte stores (vec: S % 8 == 0), element stores otherwise.
+template <int NT>
+__device__ __forceinline__ void write_probs(const float (&s)[NT][32], int n_kt,
+                                            const float (&l)[2], bf16* sPw, bf16* prow,
+                                            int rows_valid, int S, bool vec, int wg, int wrow,
+                                            int g, int t) {
+  const int ltid = threadIdx.x % 128;
+  const float r[2] = {__frcp_rn(l[0]), __frcp_rn(l[1])};
+#pragma unroll
+  for (int j = 0; j < NT; ++j) {
+    if (j >= n_kt) continue;
+    wg_sync(wg);  // the last tile's reads of sPw are done
+#pragma unroll
+    for (int i = 0; i < 2; ++i)
+#pragma unroll
+      for (int n = 0; n < 8; ++n)
+        *reinterpret_cast<uint32_t*>(sPw + swz(64, wrow + g + 8 * i, 8 * n + 2 * t)) =
+            pack_bf16(div_by(s[j][4 * n + 2 * i], l[i], r[i]),
+                      div_by(s[j][4 * n + 2 * i + 1], l[i], r[i]));
+    wg_sync(wg);
+    const int c0 = j * kKeyTile;
+    for (int idx = ltid; idx < 64 * 8; idx += 128) {
+      const int rr = idx >> 3, col = c0 + 8 * (idx & 7);
+      if (rr >= rows_valid || col >= S) continue;
+      const bf16* src = sPw + swz(64, rr, col - c0);
+      bf16* dst = prow + size_t(rr) * S + col;
+      if (vec) {
+        *reinterpret_cast<uint4*>(dst) = *reinterpret_cast<const uint4*>(src);
+      } else {
+        for (int e = 0; e < 8 && col + e < S; ++e) dst[e] = src[e];
+      }
+    }
+  }
+}
+
+// One block per (128 query rows, head, batch row); a warpgroup owns 64 of
+// the rows. NT: the key tiles of 64 a thread holds the scores of, 2 (S <=
+// 128: 64 registers, so that the instance fits 128 and two blocks an SM) or
+// 4 (S <= 256). tma: q, k, v arrive by TMA through the tensor maps; else by
+// element loads. head_inner: bit i set where operand i's map is (Dh, H, S,
+// B), else (Dh, S, H, B).
+template <int Dp, int NT>
+__global__ void __launch_bounds__(kFwdThreads, 1)
+short_attn_fwd_kernel(const __grid_constant__ CUtensorMap tm_q,
+                      const __grid_constant__ CUtensorMap tm_k,
+                      const __grid_constant__ CUtensorMap tm_v, const Operand q, const Operand k,
+                      const Operand v, const uint8_t* __restrict__ mask,
+                      const float* __restrict__ cos_t, const float* __restrict__ sin_t,
+                      const Operand o, bf16* __restrict__ probs, int S, int H, int Dh, float scale,
+                      bool tma, int head_inner) {
+  constexpr int kBlocks = Dp / 64;
+  extern __shared__ unsigned char smem_raw[];
+  unsigned char* smem = smem_raw + ((1024 - (smem_u32(smem_raw) & 1023)) & 1023);
+  const int n_kt = (S + kKeyTile - 1) / kKeyTile, Sp = n_kt * kKeyTile;
+  const FwdSmem lay(n_kt, Dp, probs != nullptr);
+  bf16* sQ = reinterpret_cast<bf16*>(smem + lay.q);
   bf16* sK = reinterpret_cast<bf16*>(smem + lay.k);
   bf16* sV = reinterpret_cast<bf16*>(smem + lay.v);
-  bf16* sQ = reinterpret_cast<bf16*>(smem + lay.q);
-  float* sS = reinterpret_cast<float*>(smem + lay.so);
-  float* sO = sS;  // o reuses the score rows once p is formed
-  bf16* sP = reinterpret_cast<bf16*>(smem + lay.p);
-  float* sL = reinterpret_cast<float*>(smem + lay.l);
   float* sBias = reinterpret_cast<float*>(smem + lay.bias);
-  const int ldkv = lay.ld_kv, lds = lay.ld_s, ldo = lay.ld_o, ldp = lay.ld_p;
+  uint64_t* bar = reinterpret_cast<uint64_t*>(smem + lay.bar);
 
+  const int q0 = blockIdx.x * kFwdRows, h = blockIdx.y, b = blockIdx.z;
+  const int tid = threadIdx.x, wg = tid / 128, lane = tid % kWarp, row0 = (tid / kWarp) * 16;
+  const int g = lane >> 2, t = lane & 3;  // the accumulator's row group and column pair
+  const int q_rows = S - q0 < kFwdRows ? S - q0 : kFwdRows;  // query rows below S
+  const int n_blk = (Dh + 63) / 64;  // 64-column blocks holding a column below Dh
+
+  // Q and K on bar[0], V on bar[1], each box issued once by one thread: K
+  // and V of the head are read once for all 128 rows
+  if (tid == 0) {
+    mbar_init(&bar[0]);
+    mbar_init(&bar[1]);
+    mbar_fence_init();
+    if (tma) {
+      const int q_boxes = (q_rows + 63) / 64;  // no box for a warpgroup with no row
+      mbar_expect_tx(&bar[0], unsigned(q_boxes + n_kt) * n_blk * kBox);
+      for (int blk = 0; blk < n_blk; ++blk) {
+        for (int rt = 0; rt < q_boxes; ++rt)
+          tma_rows(sQ + blk * kFwdRows * 64 + rt * 64 * 64, &tm_q, head_inner & 1, blk * 64,
+                   q0 + rt * 64, h, b, &bar[0]);
+        for (int kt = 0; kt < n_kt; ++kt)
+          tma_rows(sK + blk * Sp * 64 + kt * 64 * 64, &tm_k, head_inner & 2, blk * 64, kt * 64,
+                   h, b, &bar[0]);
+      }
+      mbar_expect_tx(&bar[1], unsigned(n_kt) * n_blk * kBox);
+      for (int blk = 0; blk < n_blk; ++blk)
+        for (int kt = 0; kt < n_kt; ++kt)
+          tma_rows(sV + blk * Sp * 64 + kt * 64 * 64, &tm_v, head_inner & 4, blk * 64, kt * 64,
+                   h, b, &bar[1]);
+    }
+  }
   const uint8_t* mask_row = mask == nullptr ? nullptr : mask + size_t(b) * S;
-  stage_rows(sK, ldkv, row_of(k, b, h, 0), k.ss, Sp, S, Dh, Dp, cos_t, sin_t, 0);
-  stage_rows(sV, ldkv, row_of(v, b, h, 0), v.ss, Sp, S, Dh, Dp, nullptr, nullptr, 0);
-  stage_rows(sQ, ldkv, row_of(q, b, h, q0), q.ss, QT, S - q0, Dh, Dp, cos_t, sin_t, q0);
-  for (int j = threadIdx.x; j < Sp; j += kAttnThreads) sBias[j] = key_bias(mask_row, j, S);
-  __syncthreads();
-
-  const int warp = threadIdx.x / kWarp, lane = threadIdx.x % kWarp;
-  // scores: (QT x Dp) · (Dp x Sp), f32 accumulation
-  {
-    const int nC = Sp / 16, tiles = (QT / 16) * nC;
-    for (int t = warp; t < tiles; t += kAttnWarps) {
-      const int r = t / nC, c = t % nC;
-      wmma::fragment<wmma::accumulator, 16, 16, 16, float> acc;
-      wmma::fill_fragment(acc, 0.f);
-      for (int kk = 0; kk < Dp; kk += 16) {
-        wmma::fragment<wmma::matrix_a, 16, 16, 16, bf16, wmma::row_major> a;
-        wmma::fragment<wmma::matrix_b, 16, 16, 16, bf16, wmma::col_major> bt;
-        wmma::load_matrix_sync(a, sQ + r * 16 * ldkv + kk, ldkv);
-        wmma::load_matrix_sync(bt, sK + c * 16 * ldkv + kk, ldkv);
-        wmma::mma_sync(acc, a, bt, acc);
-      }
-      wmma::store_matrix_sync(sS + r * 16 * lds + c * 16, acc, lds, wmma::mem_row_major);
-    }
+  for (int j = tid; j < Sp; j += kFwdThreads) sBias[j] = key_bias(mask_row, j, S);
+  if (!tma) {
+    stage_operand<Dp>(sQ, q, b, h, q0, kFwdRows, q_rows, Dh);
+    stage_operand<Dp>(sK, k, b, h, 0, Sp, S, Dh);
+    stage_operand<Dp>(sV, v, b, h, 0, Sp, S, Dh);
+    fence_proxy_async();  // st.shared, read by wgmma
   }
-  __syncthreads();
-
-  // exact softmax per query row; p stays unnormalized until the end
-  for (int r = warp; r < QT; r += kAttnWarps) {
-    float* srow = sS + r * lds;
-    float m = -INFINITY;
-    for (int j = lane; j < Sp; j += kWarp) {
-      const float s = srow[j] * scale + sBias[j];
-      srow[j] = s;
-      m = fmaxf(m, s);
+  __syncthreads();  // the barriers' init, the bias, the element-staged tiles
+  if (tma) mbar_wait(&bar[0], 0);
+  if (cos_t != nullptr) {  // RoPE on q and k, in place; one cos/sin read for both
+    if (q0 == 0) {            // where their rows share positions
+      rope_in_place(sQ, kFwdRows, sK, Sp, 0, q_rows, Dh, cos_t, sin_t, 0);
+      rope_in_place(sK, Sp, nullptr, 0, q_rows, S, Dh, cos_t, sin_t, 0);
+    } else {
+      rope_in_place(sQ, kFwdRows, nullptr, 0, 0, q_rows, Dh, cos_t, sin_t, q0);
+      rope_in_place(sK, Sp, nullptr, 0, 0, S, Dh, cos_t, sin_t, 0);
     }
-    m = warp_max(m);
-    float l = 0.f;
-    for (int j = lane; j < Sp; j += kWarp) {
-      const float p = expf(srow[j] - m);
-      sP[r * ldp + j] = __float2bfloat16(p);
-      srow[j] = p;  // f32 p, for the saved probabilities (each lane its own j)
-      l += p;
-    }
-    l = fmaxf(warp_sum(l), 1e-30f);
-    if (lane == 0) sL[r] = l;
-    if (probs != nullptr && q0 + r < S) {
-      bf16* prow = probs + ((size_t(b) * H + h) * S + q0 + r) * S;
-      for (int j = lane; j < S; j += kWarp) prow[j] = __float2bfloat16(srow[j] / l);
-    }
+    fence_proxy_async();
+    __syncthreads();
   }
-  __syncthreads();
+  if (wg * 64 >= q_rows) return;  // a warpgroup with no query row; no block barrier follows
 
-  // o = p · V: (QT x Sp) · (Sp x Dp), written over the score rows
-  {
-    const int nC = Dp / 16, tiles = (QT / 16) * nC;
-    for (int t = warp; t < tiles; t += kAttnWarps) {
-      const int r = t / nC, c = t % nC;
-      wmma::fragment<wmma::accumulator, 16, 16, 16, float> acc;
-      wmma::fill_fragment(acc, 0.f);
-      for (int kk = 0; kk < Sp; kk += 16) {
-        wmma::fragment<wmma::matrix_a, 16, 16, 16, bf16, wmma::row_major> a;
-        wmma::fragment<wmma::matrix_b, 16, 16, 16, bf16, wmma::row_major> bv;
-        wmma::load_matrix_sync(a, sP + r * 16 * ldp + kk, ldp);
-        wmma::load_matrix_sync(bv, sV + kk * ldkv + c * 16, ldkv);
-        wmma::mma_sync(acc, a, bv, acc);
-      }
-      wmma::store_matrix_sync(sO + r * 16 * ldo + c * 16, acc, ldo, wmma::mem_row_major);
-    }
+  // The reference's exact softmax over all keys, in registers: a thread
+  // holds its rows' whole score row, NT key tiles of 64.
+  const bf16* qw = sQ + wg * 64 * 64;  // the warpgroup's rows of each 64-column block
+  float s[NT][32], l[2];
+  score_tiles<Dp, NT>(s, qw, sK, sBias, n_kt, Sp, Dh, scale, t);
+  softmax_tiles(s, n_kt, l);
+  if (probs != nullptr) {
+    const int rows_valid = q_rows - wg * 64 < 64 ? q_rows - wg * 64 : 64;
+    bf16* sPw = reinterpret_cast<bf16*>(smem + lay.p) + wg * 64 * 64;
+    bf16* prow = probs + ((size_t(b) * H + h) * S + q0 + wg * 64) * size_t(S);
+    write_probs(s, n_kt, l, sPw, prow, rows_valid, S, S % 8 == 0, wg, (tid / kWarp % 4) * 16, g,
+                t);
   }
-  __syncthreads();
+  if (tma) mbar_wait(&bar[1], 0);
+  float acc[kBlocks][32];  // O, one m64n64 accumulator per 64-wide block of d
+  pv_tiles<Dp, NT>(acc, s, sV, n_kt, Sp, Dh);
 
-  // o rows in 8-element (16-byte) chunks; Dh % 8 == 0
-  const int cpr = Dh / 8;
-  for (int idx = threadIdx.x; idx < QT * cpr; idx += kAttnThreads) {
-    const int r = idx / cpr, d0 = (idx % cpr) * 8, i = q0 + r;
-    if (i >= S) continue;
-    const float inv = 1.f / sL[r];
-    const float* src = sO + r * ldo + d0;
-    uint4 u;
-    __nv_bfloat162* u2 = reinterpret_cast<__nv_bfloat162*>(&u);
+  // o = O / l in bf16 through this warp's own rows of sQ (the warpgroup's
+  // products that read them are done), then 16-byte stores (Dh % 8 == 0,
+  // 16-byte-aligned rows of o)
 #pragma unroll
-    for (int e = 0; e < 4; ++e) u2[e] = __floats2bfloat162_rn(src[2 * e] * inv, src[2 * e + 1] * inv);
-    *reinterpret_cast<uint4*>(row_of<bf16>(o, b, h, i) + d0) = u;
+  for (int i = 0; i < 2; ++i) {
+    const float inv = 1.f / l[i];
+    const int r = row0 + g + 8 * i;
+#pragma unroll
+    for (int nb = 0; nb < kBlocks; ++nb)
+#pragma unroll
+      for (int n = 0; n < 8; ++n)
+        if (nb * 64 + n * 8 < Dh)
+          *reinterpret_cast<uint32_t*>(sQ + swz(kFwdRows, r, nb * 64 + 8 * n + 2 * t)) =
+              pack_bf16(acc[nb][4 * n + 2 * i] * inv, acc[nb][4 * n + 2 * i + 1] * inv);
+  }
+  __syncwarp();
+  const int chunks = Dh / 8;
+  for (int idx = lane; idx < 16 * chunks; idx += kWarp) {
+    const int r = idx / chunks, c = idx % chunks, i = q0 + row0 + r;
+    if (i >= S) continue;
+    *reinterpret_cast<uint4*>(row_of<bf16>(o, b, h, i) + 8 * c) =
+        *reinterpret_cast<const uint4*>(sQ + swz(kFwdRows, row0 + r, 8 * c));
   }
 }
 
@@ -849,22 +1147,55 @@ Operand bsd(const void* base, int64_t offset, int64_t row, int S, int Dh) {
   return {static_cast<bf16*>(const_cast<void*>(base)) + offset, S * row, Dh, row};
 }
 
-// The forward: o, and the probabilities where probs is not null.
+// The forward at padded width Dp: o, and the probabilities where probs is
+// not null. q, k, v go by TMA where every base is 16-byte aligned and every
+// stride a positive multiple of 8 elements: a 4-D tensor map an operand,
+// (Dh, S, H, B) or, where its head stride is the smaller (the packed qkv and
+// its chunk views), (Dh, H, S, B); else by element loads.
+template <int Dp>
+int launch_fwd_dp(const Operand& q, const Operand& k, const Operand& v, const void* mask,
+                  const void* cos_t, const void* sin_t, const Operand& o, void* probs, int B,
+                  int S, int H, int Dh, float scale, cudaStream_t stream) {
+  const Operand* ops[3] = {&q, &k, &v};
+  CUtensorMap maps[3];
+  memset(maps, 0, sizeof(maps));
+  bool tma = true;
+  int head_inner = 0;
+  for (int i = 0; i < 3 && tma; ++i) {
+    const Operand& t = *ops[i];
+    tma = (reinterpret_cast<uintptr_t>(t.p) & 15) == 0 && t.sb > 0 && t.sh > 0 && t.ss > 0 &&
+          (t.sb | t.sh | t.ss) % 8 == 0;
+    const bool hi = t.sh < t.ss;
+    const cuuint64_t dims[4] = {cuuint64_t(Dh), cuuint64_t(hi ? H : S), cuuint64_t(hi ? S : H),
+                                cuuint64_t(B)};
+    const cuuint64_t strides[3] = {cuuint64_t(hi ? t.sh : t.ss) * 2,
+                                   cuuint64_t(hi ? t.ss : t.sh) * 2, cuuint64_t(t.sb) * 2};
+    const cuuint32_t box[4] = {64, hi ? 1u : 64u, hi ? 64u : 1u, 1};
+    tma = tma && tensor_map(&maps[i], t.p, 4, dims, strides, box);  // else: element loads
+    head_inner |= int(hi) << i;
+  }
+  const int n_kt = (S + kKeyTile - 1) / kKeyTile;
+  const size_t bytes = FwdSmem(n_kt, Dp, probs != nullptr).total;
+  auto kernel = n_kt <= 2 ? short_attn_fwd_kernel<Dp, 2> : short_attn_fwd_kernel<Dp, 4>;
+  cudaError_t err = allow_smem(kernel, bytes);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  dim3 grid((S + kFwdRows - 1) / kFwdRows, H, B);
+  kernel<<<grid, kFwdThreads, bytes, stream>>>(
+      maps[0], maps[1], maps[2], q, k, v, static_cast<const uint8_t*>(mask),
+      static_cast<const float*>(cos_t), static_cast<const float*>(sin_t), o,
+      static_cast<bf16*>(probs), S, H, Dh, scale, tma, head_inner);
+  return static_cast<int>(cudaGetLastError());
+}
+
+// The forward: o, and the probabilities where probs is not null. Requires
+// 1 <= S <= 256, Dh a multiple of 8 up to 128, B and H <= 65535.
 int launch_fwd(const Operand& q, const Operand& k, const Operand& v, const void* mask,
                const void* cos_t, const void* sin_t, const Operand& o, void* probs, int B, int S,
                int H, int Dh, float scale, cudaStream_t stream) {
-  const int Sp = round_up(S, 16), Dp = round_up(Dh, 16);
-  int QT = 64;  // query rows per block; fewer when K/V of the head fill shared memory
-  while (QT > 16 && AttnSmem(Sp, Dp, QT).total > kMaxSmem) QT /= 2;
-  const size_t bytes = AttnSmem(Sp, Dp, QT).total;
-  if (bytes > kMaxSmem || B > 65535 || H > 65535) return static_cast<int>(cudaErrorInvalidValue);
-  cudaError_t err = allow_smem(short_attn_kernel, bytes);
-  if (err != cudaSuccess) return static_cast<int>(err);
-  dim3 grid((S + QT - 1) / QT, H, B);
-  short_attn_kernel<<<grid, kAttnThreads, bytes, stream>>>(
-      q, k, v, static_cast<const uint8_t*>(mask), static_cast<const float*>(cos_t),
-      static_cast<const float*>(sin_t), o, static_cast<bf16*>(probs), S, H, Dh, scale, QT);
-  return static_cast<int>(cudaGetLastError());
+  if (S < 1 || S > kMaxSeq || Dh < 8 || Dh % 8 || Dh > 128 || B > 65535 || H > 65535)
+    return static_cast<int>(cudaErrorInvalidValue);
+  auto launch = Dh <= 64 ? launch_fwd_dp<64> : launch_fwd_dp<128>;
+  return launch(q, k, v, mask, cos_t, sin_t, o, probs, B, S, H, Dh, scale, stream);
 }
 
 // The dQ and dK/dV launches; probs null = recompute mode (o, mask read),

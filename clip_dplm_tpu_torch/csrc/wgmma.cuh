@@ -1,7 +1,7 @@
 // Warpgroup matrix products (wgmma, sm_90a) over shared-memory tiles in the
 // 128-byte-swizzled layout, and their synchronisation.
 //
-// The tiles are the ones `swz` lays out (flash_attention.cu): a Rows x Dp
+// The tiles are the ones `swz` lays out (tma.cuh): a Rows x Dp
 // bf16 tile is Dp/64 blocks of Rows x 64 side by side; inside a block row r
 // is 128 bytes and its 16-byte chunk c sits at chunk c ^ (r % 8). Every
 // block starts on a 1024-byte boundary, so the swizzle is a function of the
@@ -21,9 +21,17 @@
 //   blocks. A k16 step is 16 rows, 2048 bytes.
 #pragma once
 
+#include <cuda_bf16.h>
 #include <stdint.h>
 
 namespace clip_dplm {
+
+// Two f32 values as one register of bf16 (lo in the low half): an A fragment
+// entry of a product with A from registers.
+__device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
+  const __nv_bfloat162 h = __floats2bfloat162_rn(lo, hi);
+  return *reinterpret_cast<const uint32_t*>(&h);
+}
 
 __device__ __forceinline__ uint64_t gmma_desc(const void* smem, uint32_t lbo_bytes,
                                               uint32_t sbo_bytes) {

@@ -53,7 +53,7 @@ SHAPES = ((32, 20, 1024, 64, "ragged"), (1, 8, 4096, 64, "degree"))
 def build_other(other: Path) -> ctypes.CDLL:
     """The other checkout's flash_attention.cu, alone, as a shared library."""
     src = other / "clip_dplm_tpu_torch" / "csrc" / "flash_attention.cu"
-    digest = hashlib.sha256(src.read_bytes() + (src.parent / "common.cuh").read_bytes())
+    digest = hashlib.sha256(b"".join(p.read_bytes() for p in sorted(src.parent.glob("*.cu*"))))
     out = REPO / "build" / "flash_ab" / f"libflash_{digest.hexdigest()[:16]}.so"
     if not out.exists():
         out.parent.mkdir(parents=True, exist_ok=True)

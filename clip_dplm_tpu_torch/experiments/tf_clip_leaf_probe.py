@@ -2,6 +2,7 @@
 last bits of the cell tower's attention:
 
     python -m clip_dplm_tpu_torch.experiments.tf_clip_leaf_probe [--other DIR]
+        [--cases asis,flip8,flip64,plain] [--bf16-reduction as-is|off|both]
 
 Run from the root of a checkout (it imports that checkout's `chip_smoke.py`).
 Each case runs 9(b) on its own inputs (B=256, full widths, the same seed)
@@ -14,7 +15,12 @@ and prints the worst leaf's error over its noise bound (the check fails above
 - `plain`: the flash forward replaced by its plain version on the card
   (`attention_reference` and `flash_lse_reference`).
 With `--other DIR`, `asis` and `flip8` also run in that checkout (for
-example a parent commit unpacked with `git archive`). Needs a CUDA device.
+example a parent commit unpacked with `git archive`). `--cases` picks the
+cases (all four by default). `--bf16-reduction off` sets
+`torch.backends.cuda.matmul.allow_bf16_reduced_precision_reduction` to False
+in each case's process before the step (cuBLAS then reduces bf16 products in
+f32, as JAX does); `as-is` leaves the setting as the package has it; `both`
+runs every case with each, off first. Needs a CUDA device.
 """
 
 from __future__ import annotations
@@ -33,6 +39,10 @@ from clip_dplm_tpu_torch.ops import flash_attention as fa
 from clip_dplm_tpu_torch.ops.attention import attention_reference
 
 _build.LIBRARY.get()
+if sys.argv[2] == "off":
+    torch.backends.cuda.matmul.allow_bf16_reduced_precision_reduction = False
+print("allow_bf16_reduced_precision_reduction:",
+      torch.backends.cuda.matmul.allow_bf16_reduced_precision_reduction)
 failed = []
 chip_smoke.check = lambda ok, what: None if ok else failed.append(what)
 mode = sys.argv[1]
@@ -58,15 +68,17 @@ for what in failed:
 '''
 
 
-def run_case(tree: Path, mode: str) -> None:
+def run_case(tree: Path, mode: str, reduction: str) -> None:
     env = dict(os.environ, PYTHONPATH=str(tree))
-    proc = subprocess.run([sys.executable, "-c", CASE, mode], cwd=tree, env=env,
+    proc = subprocess.run([sys.executable, "-c", CASE, mode, reduction], cwd=tree, env=env,
                           capture_output=True, text=True, timeout=900)
     if proc.returncode != 0:
         raise RuntimeError(f"{tree} {mode}:\n{proc.stdout[-2000:]}{proc.stderr[-3000:]}")
     worst = re.search(r"worst leaf ([0-9.]+) x its noise \(([^)]*)\)", proc.stdout)
+    flag = re.search(r"allow_bf16_reduced_precision_reduction: (\w+)", proc.stdout).group(1)
     fails = [line for line in proc.stdout.splitlines() if line.startswith("would fail:")]
-    print(f"{tree.name or tree} {mode}: worst leaf {worst.group(1)}x ({worst.group(2)})")
+    print(f"{tree.name or tree} {mode} (bf16 reduced-precision reduction {flag}): "
+          f"worst leaf {worst.group(1)}x ({worst.group(2)})")
     for line in fails:
         print("  ", line)
 
@@ -74,13 +86,18 @@ def run_case(tree: Path, mode: str) -> None:
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--other", type=Path, help="another checkout of the repo")
+    ap.add_argument("--cases", default="asis,flip8,flip64,plain",
+                    help="comma-separated cases of this checkout")
+    ap.add_argument("--bf16-reduction", choices=("as-is", "off", "both"), default="as-is")
     args = ap.parse_args(argv)
     here = Path.cwd().resolve()
-    cases = [(here, m) for m in ("asis", "flip8", "flip64", "plain")]
+    cases = [(here, m) for m in args.cases.split(",")]
     if args.other is not None:
         cases += [(args.other.resolve(), m) for m in ("asis", "flip8")]
-    for tree, mode in cases:
-        run_case(tree, mode)
+    settings = ("off", "as-is") if args.bf16_reduction == "both" else (args.bf16_reduction,)
+    for reduction in settings:
+        for tree, mode in cases:
+            run_case(tree, mode, reduction)
     return 0
 
 

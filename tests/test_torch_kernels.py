@@ -840,6 +840,94 @@ def test_packed_kernels_after_the_descriptor_change(cuda_device, np_rng, B, S, D
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("rope", [False, True])
+@pytest.mark.parametrize("masked", [True, False])
+@pytest.mark.parametrize("Dh", [24, 64, 128])
+@pytest.mark.parametrize("S", [64, 65, 128, 129, 200, 255, 256])
+def test_short_attention_fwd_matches_plain_in_both_modes(cuda_device, np_rng, S, Dh, masked, rope):
+    """The forward at the sequence lengths its blocks treat differently (one
+    block a head up to S=128 with one or two key tiles, two blocks and a
+    recomputed score pass past it, a ragged last tile) and at Dh = 24 (one
+    partial 64-column block; RoPE rotated element by element), 64 and 128:
+    o and the probabilities against the plain version, with a row that has
+    no real key where masked; o equal bit for bit with and without the
+    probabilities, two launches equal byte for byte, and the packed entry
+    equal bit for bit to the separate one on `qkv.chunk(3, -1)` views
+    (without RoPE, which only the packed entry applies)."""
+    B, H = 2, 3
+    D = H * Dh
+    qkv = torch.from_numpy(np_rng.normal(size=(B, S, 3 * D)).astype(np.float32)).to(
+        cuda_device, torch.bfloat16)
+    mask = torch.from_numpy(_ragged_mask(np_rng, B, S)).to(cuda_device) if masked else None
+    pos = torch.arange(S, device=cuda_device) if rope else None
+    kw = dict(mask=mask, rope_positions=pos)
+    before = _build.LAUNCHES.snapshot()
+    with torch.no_grad():
+        o = sa.short_attention_qkv(qkv, H, **kw)
+        o_save, probs = sa.short_attention_qkv_save(qkv, H, **kw)
+        o_again, probs_again = sa.short_attention_qkv_save(qkv, H, **kw)
+    torch.cuda.synchronize()
+    after = _build.LAUNCHES.snapshot()
+    assert after["short_attention"] == before["short_attention"] + 1
+    assert after["short_attention_save"] == before["short_attention_save"] + 2
+    o_ref, p_ref = sa.short_attention_qkv_reference(qkv, H, return_probs=True, **kw)
+    torch.testing.assert_close(o.float(), o_ref.float(), **TOL)
+    torch.testing.assert_close(probs.float(), p_ref.float(), atol=1e-2, rtol=0)
+    assert torch.equal(o, o_save) and torch.equal(o_save, o_again)
+    assert torch.equal(probs, probs_again)
+    if not rope:
+        q, k, v = qkv.chunk(3, dim=-1)
+        with torch.no_grad():
+            o_sep = sa.short_attention_sep(q, k, v, H, mask=mask)
+            o_sep_save, probs_sep = sa.short_attention_sep_save(q, k, v, H, mask=mask)
+        assert torch.equal(o, o_sep) and torch.equal(o, o_sep_save)
+        assert torch.equal(probs, probs_sep)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("S,Dh", [(65, 24), (128, 64), (200, 128)])
+@pytest.mark.parametrize("saved", [False, True])
+def test_short_attention_fwd_misaligned_operands_match_aligned(cuda_device, np_rng, S, Dh, saved):
+    """Operands whose base is off 16 bytes (views one element into a wider
+    buffer) stage by elements instead of TMA: the same o and probabilities,
+    bit for bit, as contiguous copies of the same values."""
+    B, H = 3, 2
+    D = H * Dh
+    wide = torch.from_numpy(np_rng.normal(size=(B, S, 3 * D + 1)).astype(np.float32)).to(
+        cuda_device, torch.bfloat16)
+    q, k, v = wide[..., 1:].chunk(3, dim=-1)
+    assert q.data_ptr() % 16 != 0
+    mask = torch.from_numpy(_ragged_mask(np_rng, B, S)).to(cuda_device)
+    fn = sa.short_attention_sep_save if saved else sa.short_attention_sep
+    with torch.no_grad():
+        got, want = (fn(*ops, H, mask=mask) for ops in ((q, k, v), (q.contiguous(),
+                                                                  k.contiguous(),
+                                                                  v.contiguous())))
+    torch.cuda.synchronize()
+    got, want = ((t,) if torch.is_tensor(t) else t for t in (got, want))
+    assert all(torch.equal(a, b) for a, b in zip(got, want))
+    torch.testing.assert_close(got[0].float(), sa.short_attention_sep_reference(
+        q, k, v, H, mask=mask).float(), **TOL)
+
+
+@pytest.mark.cuda
+def test_short_attention_fwd_refuses_past_its_bounds(cuda_device):
+    """S <= 256, Dh a multiple of 8 up to 128 and B <= 65535, as before the
+    redesign: each entry raises past them."""
+    z = lambda *s: torch.zeros(*s, device=cuda_device, dtype=torch.bfloat16)  # noqa: E731
+    with torch.no_grad():
+        with pytest.raises(ValueError, match="S <= 256"):
+            sa.short_attention_qkv(z(1, 257, 3 * 64), 1)
+        with pytest.raises(ValueError, match="multiple of 8"):
+            sa.short_attention_qkv_save(z(1, 64, 3 * 136), 1)
+        with pytest.raises(ValueError, match="multiple of 8"):
+            sa.short_attention_sep(z(1, 64, 12), z(1, 64, 12), z(1, 64, 12), 1)
+        with pytest.raises(ValueError, match="B <= 65535"):
+            t = z(65536, 1, 1, 8)
+            sa.short_attention_sep_save(t, t, t, 1)
+
+
+@pytest.mark.cuda
 @pytest.mark.parametrize("entry", ["multihead_attention", "attention_dispatch"])
 @pytest.mark.parametrize("save_rule", [True, False])
 def test_attention_gates_take_the_sep_kernels(cuda_device, np_rng, monkeypatch, entry,

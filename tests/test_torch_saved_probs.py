@@ -53,15 +53,44 @@ def _port_grads(qkv, wo, bo, mask, H, pos, w, save_probs):
                                   leaves[2].grad.numpy()]
 
 
-@pytest.mark.parametrize("rope", [False, True])
-@pytest.mark.parametrize("S", [64, 65, 200])
-def test_saved_mode_matches_jax_kernel(rng, rope, S):
-    """B=2, D=64, 2 heads, ragged masks; the JAX kernel pads S=65 to 128 and
-    S=200 to 256 rows. The loss sin(y)·valid is the JAX suite's."""
-    B, D, H = 2, 64, 2
+@pytest.mark.parametrize("S,rope,Dh,dead_row,jax_residual", [
+    pytest.param(64, False, 32, False, False, id="64-False"),
+    pytest.param(64, True, 32, False, False, id="64-True"),
+    pytest.param(65, False, 32, False, False, id="65-False"),
+    pytest.param(65, True, 32, False, False, id="65-True"),
+    pytest.param(200, False, 32, False, False, id="200-False"),
+    pytest.param(200, True, 32, False, False, id="200-True"),
+    pytest.param(128, True, 32, True, True, id="128-True-dead_row"),
+    pytest.param(129, False, 32, False, True, id="129-False"),
+    pytest.param(256, True, 32, True, True, id="256-True-dead_row"),
+    pytest.param(128, True, 24, False, True, id="128-True-Dh24"),
+    pytest.param(129, False, 128, False, True, id="129-False-Dh128"),
+    pytest.param(256, False, 128, False, True, id="256-False-Dh128"),
+])
+def test_saved_mode_matches_jax_kernel(rng, monkeypatch, S, rope, Dh, dead_row, jax_residual):
+    """B=2, 2 heads, ragged masks; the JAX kernel pads S=65 to 128 and
+    S=129, 200 to 256 rows. The loss sin(y)·valid is the JAX suite's. The
+    shapes the CUDA forward treats differently as in
+    test_torch_short_attention.py::test_plain_matches_jax_kernel; a batch
+    row with no real key (dead_row, where JAX's padded key count is S) takes
+    uniform weights and all of its rows count in the loss.
+
+    With jax_residual (the cases added with those shapes) the port's saved
+    probabilities are first held to the ones JAX's forward saves
+    (`_fwd_call_qkv`, interpret mode) within one bf16 step, and the port's
+    backward then reads JAX's: the two compute the f32 scores in different
+    summation orders, so a few probabilities on a bf16 rounding boundary
+    round apart (6 of the 262,144 at S=256, Dh=32), and each such step moves
+    a dqkv entry by up to ~1e-4, past the gradient tolerance, which holds
+    the two backwards on the same residual."""
+    B, H = 2, 2
+    D = H * Dh
     qkv, wo, bo, mask = _inputs(rng, B, S, D)
     pos = np.arange(S) if rope else None
     w = mask[:, :, None].astype(np.float32)
+    if dead_row:
+        mask[1] = False
+        w[1] = 1.0
 
     def jloss(qkv, wo, bo):
         y = jax_sa.fused_short_attention_qkv_proj(
@@ -72,12 +101,47 @@ def test_saved_mode_matches_jax_kernel(rng, rope, S):
     with pltpu.force_tpu_interpret_mode():
         l_j, g_j = jax.value_and_grad(jloss, argnums=(0, 1, 2))(
             jnp.asarray(qkv), jnp.asarray(wo), jnp.asarray(bo))
+    if jax_residual:
+        probs_j = torch.from_numpy(_jax_saved_probs(qkv, mask, H, pos))
+        kw = dict(mask=torch.from_numpy(mask),
+                  rope_positions=None if pos is None else torch.from_numpy(pos))
+        _, probs_port = sa.short_attention_qkv_reference(torch.from_numpy(qkv), H,
+                                                         return_probs=True, **kw)
+        a, b = probs_port.float().numpy(), probs_j.float().numpy()
+        np.testing.assert_allclose(a, b, rtol=2.0 ** -7, atol=0)  # one bf16 step
+        assert (a != b).mean() < 1e-4
+        save = sa.short_attention_qkv_save
+        monkeypatch.setattr(sa, "short_attention_qkv_save",
+                            lambda *args, **kwargs: (save(*args, **kwargs)[0], probs_j))
     before = _build.LAUNCHES.snapshot()
     loss, got = _port_grads(qkv, wo, bo, mask, H, pos, w, save_probs=True)
     assert _build.LAUNCHES.snapshot() == before  # CPU tensors: the plain versions
     np.testing.assert_allclose(loss, float(l_j), rtol=1e-5)
     for name, a, b in zip(["dqkv", "dwo", "dbo"], got, g_j):
         np.testing.assert_allclose(a, np.asarray(b), atol=5e-5, rtol=2e-3, err_msg=name)
+
+
+def _jax_saved_probs(qkv, mask, H, pos):
+    """The bf16 probabilities JAX's saving forward keeps (B, H, S, S), as
+    `fused_short_attention_qkv_proj` calls it with block_b=2: qkv and the
+    mask padded to the kernel's rows, the -1e30 key bias, the RoPE tables of
+    the padded length."""
+    B, S, D3 = qkv.shape
+    Dh = D3 // 3 // H
+    Sp = jax_sa._seq_pad(S)
+    G = jax_sa._rows_per_program(2, B, Sp)
+    Bp = -(-B // G) * G
+    qkvp = np.zeros((Bp, Sp, D3), np.float32)
+    qkvp[:B, :S] = qkv
+    maskp = np.zeros((Bp, Sp), bool)
+    maskp[:B, :S] = mask
+    bias = jnp.where(jnp.asarray(maskp), 0.0, jax_sa.NEG_INF).astype(jnp.float32)[:, None, :]
+    rope_cs = None if pos is None else jax_sa._rope_cos_sin(jnp.asarray(pos), Dh, Sp)
+    with pltpu.force_tpu_interpret_mode():
+        _, probs, _ = jax_sa._fwd_call_qkv(jnp.asarray(qkvp), bias, None, None, heads=H,
+                                           scale=1.0 / Dh ** 0.5, G=G, interpret=True,
+                                           save_probs=True, rope_cs=rope_cs)
+    return np.array(probs[:B, :, :S, :S].astype(jnp.float32))  # a writable copy
 
 
 @pytest.mark.parametrize("rope", [False, True])

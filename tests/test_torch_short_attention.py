@@ -27,13 +27,33 @@ def _inputs(rng, B, S, D):
     return qkv, wo, bo, mask
 
 
-@pytest.mark.parametrize("rope", [True, False])
-@pytest.mark.parametrize("S", [64, 100])
-def test_plain_matches_jax_kernel(rng, rope, S):
-    """Ragged masks; the JAX kernel pads S=100 to 128 rows in the kernel.
-    Tolerance 2e-3 is the JAX suite's for its in-kernel RoPE path."""
-    B, D, H = 2, 64, 2  # Dh = 32
+@pytest.mark.parametrize("S,rope,Dh,dead_row", [
+    pytest.param(64, True, 32, False, id="64-True"),
+    pytest.param(64, False, 32, False, id="64-False"),
+    pytest.param(100, True, 32, False, id="100-True"),
+    pytest.param(100, False, 32, False, id="100-False"),
+    pytest.param(128, True, 32, True, id="128-True-dead_row"),
+    pytest.param(129, True, 32, False, id="129-True"),
+    pytest.param(256, False, 32, True, id="256-False-dead_row"),
+    pytest.param(129, True, 24, False, id="129-True-Dh24"),
+    pytest.param(128, False, 128, False, id="128-False-Dh128"),
+    pytest.param(256, True, 128, False, id="256-True-Dh128"),
+])
+def test_plain_matches_jax_kernel(rng, S, rope, Dh, dead_row):
+    """Ragged masks; the JAX kernel pads S=100 to 128 rows and S=129 to 256
+    in the kernel. The shapes the CUDA forward treats differently: S=128
+    (one block a head, two key tiles), 129 and 256 (two blocks, scores
+    recomputed), Dh=24 (a partial 64-column block, RoPE by elements) and 128
+    (two blocks of columns). A batch row with no real key (dead_row) takes
+    uniform weights; JAX pads keys with the same -1e30 as a masked key, so it
+    averages over its padded key count and agrees with the port only where
+    that is S (S = 128, 256). Tolerance 2e-3 is the JAX suite's for its
+    in-kernel RoPE path."""
+    B, H = 2, 2
+    D = H * Dh
     qkv, wo, bo, mask = _inputs(rng, B, S, D)
+    if dead_row:
+        mask[1] = False
     pos = np.arange(S)
     with pltpu.force_tpu_interpret_mode():
         want = jax_qkv_proj(

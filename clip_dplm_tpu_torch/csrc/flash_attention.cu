@@ -63,14 +63,18 @@
 // from the saved lse, never the (S, Sk) matrix; delta = rowsum(dO∘O) comes
 // from the wrapper (a plain op, as XLA computes it outside the TPU calls).
 // ds = bf16(p·(dp - delta)·scale) with dp = dO·V^T. The dQ kernel walks the
-// key tiles of its 64-row query tile (dQ += ds·K); the dK/dV kernel walks the
-// query tiles of its 64-key tile (dK += ds^T·Q, dV += p^T·dO), both with f32
-// accumulators kept in registers for the whole walk, written once: no
-// atomics. At (1, 8, 4096,
-// 64), the tf_clip cell tower, the backward is 7 products of 2·S²·Dh·H = 17.2
-// GFLOP, bound by operations (0.12 ms at 989 TFLOP/s); these WMMA tiles with
-// synchronous staging, two blocks per SM at Dh <= 64, reach a small fraction
-// of that (PERF.md).
+// key tiles of its query rows (dQ += ds·K); the dK/dV kernel walks the query
+// tiles of its keys (dK += ds^T·Q, dV += p^T·dO), both with f32 accumulators
+// kept in registers for the whole walk, rounded once and written once: no
+// atomics, so runs repeat bit for bit. What bounds them on the H100: at (1, 8,
+// 4096, 64), the tf_clip cell tower, dK/dV is 4 products of 2·S²·Dh·H = 17.2
+// GFLOP each (0.07 ms at 989 TFLOP/s) against ~21 MB in and out, dQ 3 (0.05
+// ms): the tensor cores. The dK/dV kernel is the forward's machinery turned around:
+// the keys are wgmma's M (a warpgroup owns 64), S^T = K·Q^T and dP^T = V·dO^T
+// from K-major SW128 tiles leave p^T and ds^T in registers in the A-fragment
+// layout of dV += P^T·dO and dK += dS^T·Q (dO and Q MN-major, the forward's
+// P·V); K and V arrive once by TMA, Q, dO and their lse and delta stream
+// through a TMA ring of 64-row tiles, by elements where TMA cannot go.
 
 #include <string.h>
 
@@ -352,20 +356,18 @@ flash_fwd_kernel(const __grid_constant__ CUtensorMap tm_q, const __grid_constant
 constexpr int kBwdThreads = 256;  // 8 warps
 constexpr int kBwdWarps = kBwdThreads / kWarp;
 // The f32 accumulator tiles a warp keeps in registers for the whole walk:
-// dQ is (64 x Dp), 4·Dp/16 tiles of 16x16; dK and dV twice that; Dp <= 128.
-constexpr int kDqFrags = 4, kDkvFrags = 8;
+// dQ is (64 x Dp), 4·Dp/16 tiles of 16x16; Dp <= 128.
+constexpr int kDqFrags = 4;
 typedef wmma::fragment<wmma::accumulator, 16, 16, 16, float> AccFrag;
 
-// Shared memory of a backward block. Both keep a q tile, a dO tile, a k tile
-// and a v tile (bf16), the score and dP tiles (f32) and ds (bf16); the dK/dV
-// block adds the probabilities split in two bf16 parts. The accumulators live
+// Shared memory of a dQ block: a q tile, a dO tile, a k tile and a v tile
+// (bf16), the score and dP tiles (f32) and ds (bf16). The accumulators live
 // in registers; at the end they pass through shared memory on their way out,
-// over tiles no longer needed (dQ over the score and dP tiles, which are
-// contiguous; dK and dV over the q, dO, k and v tiles).
+// over the score and dP tiles, which are contiguous.
 struct FlashBwdSmem {
   int ld_x, ld_acc;
-  size_t q, dout, k, v, s, dp, ds, phi, plo, lse, delta, bias, total;
-  __host__ __device__ FlashBwdSmem(int Dp, bool dkv) {
+  size_t q, dout, k, v, s, dp, ds, lse, delta, bias, total;
+  __host__ __device__ explicit FlashBwdSmem(int Dp) {
     ld_x = Dp + 8;
     ld_acc = Dp + 4;
     const size_t tile_x = align128(size_t(kBQ) * ld_x * sizeof(bf16));
@@ -378,8 +380,6 @@ struct FlashBwdSmem {
     s = off;     off += align128(size_t(kBQ) * kLdS * sizeof(float));
     dp = off;    off += align128(size_t(kBQ) * kLdS * sizeof(float));
     ds = off;    off += tile_p;
-    phi = off;   off += dkv ? tile_p : 0;
-    plo = off;   off += dkv ? tile_p : 0;
     lse = off;   off += align128(kBQ * sizeof(float));
     delta = off; off += align128(kBQ * sizeof(float));
     bias = off;  off += align128(kBKV * sizeof(float));
@@ -437,7 +437,7 @@ flash_bwd_dq_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
   extern __shared__ __align__(128) unsigned char smem[];
   const int Dp = round_up(Dh, 16);
   const int i0 = blockIdx.x * kBQ, h = blockIdx.y, b = blockIdx.z;
-  const FlashBwdSmem lay(Dp, false);
+  const FlashBwdSmem lay(Dp);
   bf16* sQ = reinterpret_cast<bf16*>(smem + lay.q);
   bf16* sDO = reinterpret_cast<bf16*>(smem + lay.dout);
   bf16* sK = reinterpret_cast<bf16*>(smem + lay.k);
@@ -505,102 +505,267 @@ flash_bwd_dq_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
   }
 }
 
-// One block per (64-key tile, head, batch row): dV = Σ over query tiles of
-// p^T·dO with p in f32 (as the TPU kernel forms it: the tensor cores take p
-// as bf16(p) + bf16(p - bf16(p)), ~16 bits of it), dK = Σ ds^T·Q.
-__global__ void __launch_bounds__(kBwdThreads, 2)
-flash_bwd_dkv_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
-                     const bf16* __restrict__ v, const uint8_t* __restrict__ mask,
-                     const bf16* __restrict__ dout, const float* __restrict__ lse,
-                     const float* __restrict__ delta, bf16* __restrict__ dk,
-                     bf16* __restrict__ dv, int H, int S, int Sk, int Dh, float scale) {
-  extern __shared__ __align__(128) unsigned char smem[];
-  const int Dp = round_up(Dh, 16);
-  const int j0 = blockIdx.x * kBKV, h = blockIdx.y, b = blockIdx.z;
-  const FlashBwdSmem lay(Dp, true);
-  bf16* sQ = reinterpret_cast<bf16*>(smem + lay.q);
-  bf16* sDO = reinterpret_cast<bf16*>(smem + lay.dout);
-  bf16* sK = reinterpret_cast<bf16*>(smem + lay.k);
-  bf16* sV = reinterpret_cast<bf16*>(smem + lay.v);
-  float* sS = reinterpret_cast<float*>(smem + lay.s);
-  float* sDP = reinterpret_cast<float*>(smem + lay.dp);
-  bf16* sDS = reinterpret_cast<bf16*>(smem + lay.ds);
-  bf16* sPhi = reinterpret_cast<bf16*>(smem + lay.phi);
-  bf16* sPlo = reinterpret_cast<bf16*>(smem + lay.plo);
-  float* sLse = reinterpret_cast<float*>(smem + lay.lse);
-  float* sDelta = reinterpret_cast<float*>(smem + lay.delta);
-  float* sBias = reinterpret_cast<float*>(smem + lay.bias);
-  const int ldx = lay.ld_x, ldacc = lay.ld_acc;
-  const int warp = threadIdx.x / kWarp;
+// The wgmma backward's geometry for a padded head width Dp (64 or 128): a
+// warpgroup owns 64 resident rows (keys for dK/dV, query rows for dQ), the M
+// of its products; `Groups` warpgroups share each streamed 64-row tile of
+// the other side, which runs through a ring of kRing slots (two at Dp = 128,
+// to stay at two blocks an SM). Shared memory: the two resident tiles (K
+// and V; Q and dO), the ring's two tiles a slot (Q and dO; K and V), each
+// slot's vectors (lse and delta of its 64 query rows; the bias of its 64
+// keys) and one mbarrier a slot.
+template <int Dp, int Groups>
+struct FlashBwd {
+  static constexpr int kRows = 64 * Groups;  // resident rows of a block
+  static constexpr int kThreads = 128 * Groups;
+  static constexpr int kRing = Dp == 64 ? 3 : 2;
+  static constexpr int kStage = 64 * Dp;  // elements of one streamed tile
+  static constexpr size_t kResA = 0;
+  static constexpr size_t kResB = kResA + size_t(kRows) * Dp * sizeof(bf16);
+  static constexpr size_t kRingA = kResB + size_t(kRows) * Dp * sizeof(bf16);
+  static constexpr size_t kRingB = kRingA + kRing * size_t(kStage) * sizeof(bf16);
+  static constexpr size_t kVec = kRingB + kRing * size_t(kStage) * sizeof(bf16);
+  static constexpr size_t kBar = kVec + kRing * 2 * 64 * sizeof(float);
+  static constexpr size_t kBytes = kBar + kRing * sizeof(uint64_t) + 1024;  // + base alignment
+};
 
-  const size_t bh = size_t(b) * H + h;
+// One block per (64·Groups keys, head, batch row): dV = Σ over query tiles
+// of p^T·dO with p in f32 (as the TPU kernel forms it: the tensor cores take
+// p as bf16(p) + bf16(p - bf16(p)), two products), dK = Σ ds^T·Q. The keys
+// are the M of every product: S^T = K·Q^T and dP^T = V·dO^T read both
+// operands K-major from shared memory, so p^T and ds^T land in registers in
+// the accumulator layout, which is the A fragment of dV += P^T·dO and
+// dK += dS^T·Q (dO and Q MN-major), the forward's P·V pattern. The key bias
+// is per accumulator row (two keys a thread, read once); lse and delta are
+// per column, read from the slot of their query tile.
+template <int Dp, int Groups>
+__global__ void __launch_bounds__(FlashBwd<Dp, Groups>::kThreads, Groups == 1 ? 2 : 1)
+flash_bwd_dkv_kernel(const __grid_constant__ CUtensorMap tm_q,
+                     const __grid_constant__ CUtensorMap tm_k,
+                     const __grid_constant__ CUtensorMap tm_v,
+                     const __grid_constant__ CUtensorMap tm_do, const bf16* __restrict__ q,
+                     const bf16* __restrict__ k, const bf16* __restrict__ v,
+                     const uint8_t* __restrict__ mask, const bf16* __restrict__ dout,
+                     const float* __restrict__ lse, const float* __restrict__ delta,
+                     bf16* __restrict__ dk, bf16* __restrict__ dv, int H, int S, int Sk, int Dh,
+                     float scale, bool tma) {
+  using G = FlashBwd<Dp, Groups>;
+  constexpr int R = G::kRows, T = G::kThreads, kRing = G::kRing;
+  constexpr int kSteps = Dp / 16, kBlocks = Dp / 64;
+  extern __shared__ unsigned char smem_raw[];
+  unsigned char* smem = smem_raw + ((1024 - (smem_u32(smem_raw) & 1023)) & 1023);
+  bf16* sK = reinterpret_cast<bf16*>(smem + G::kResA);
+  bf16* sV = reinterpret_cast<bf16*>(smem + G::kResB);
+  bf16* sQ = reinterpret_cast<bf16*>(smem + G::kRingA);
+  bf16* sDO = reinterpret_cast<bf16*>(smem + G::kRingB);
+  float* sLse = reinterpret_cast<float*>(smem + G::kVec);  // [kRing][64]
+  float* sDelta = sLse + kRing * 64;                        // [kRing][64]
+  uint64_t* full = reinterpret_cast<uint64_t*>(smem + G::kBar);  // one a ring slot
+
+  const int j0 = blockIdx.x * R, h = blockIdx.y, b = blockIdx.z;
+  const int bh = b * H + h;
+  const bf16* qb = q + size_t(bh) * S * Dh;
+  const bf16* dob = dout + size_t(bh) * S * Dh;
+  const float* lse_b = lse + size_t(bh) * S;
+  const float* delta_b = delta + size_t(bh) * S;
   const uint8_t* mask_row = mask == nullptr ? nullptr : mask + size_t(b) * Sk;
-  stage_rows(sK, ldx, k + (bh * Sk + j0) * Dh, Dh, kBKV, Sk - j0, Dh, Dp, nullptr, nullptr, 0);
-  stage_rows(sV, ldx, v + (bh * Sk + j0) * Dh, Dh, kBKV, Sk - j0, Dh, Dp, nullptr, nullptr, 0);
-  for (int j = threadIdx.x; j < kBKV; j += kBwdThreads) sBias[j] = key_bias(mask_row, j0 + j, Sk);
-  // warp w owns tiles w, w + 8, ... of [dK | dV], tk tiles each
-  const int nC = Dp / 16, tk = 4 * nC;
-  AccFrag acc[kDkvFrags];
-#pragma unroll
-  for (int i = 0; i < kDkvFrags; ++i) wmma::fill_fragment(acc[i], 0.f);
+  const int tid = threadIdx.x, lane = tid % kWarp, row0 = (tid / kWarp) * 16;
+  const int g = lane >> 2, t = lane & 3;  // the accumulator's row group and column pair
+  const int n_tiles = (S + 63) / 64;
+  const int wg_row = (tid / 128) * 64;  // the warpgroup's first key of the block
+  const unsigned row_bytes = unsigned((Dh + 63) / 64) * 128;  // one row's TMA boxes
 
-  for (int i0 = 0; i0 < S; i0 += kBQ) {
-    __syncthreads();  // the previous tile is done with sQ, sDO and the p/ds tiles
-    stage_q_side(sQ, sDO, sLse, sDelta, ldx, q, dout, lse, delta, bh, i0, S, Dh, Dp);
-    __syncthreads();
-    score_and_dp_tiles(sS, sDP, sQ, sDO, sK, sV, ldx, Dp, warp);
-    __syncthreads();
-    for (int idx = threadIdx.x; idx < kBQ * kBKV; idx += kBwdThreads) {
-      const int r = idx / kBKV, c = idx % kBKV;  // r: query, c: key
-      const float p = expf(sS[r * kLdS + c] * scale + sBias[c] - sLse[r]);
-      const bf16 hi = __float2bfloat16(p);
-      sPhi[r * kLdP + c] = hi;
-      sPlo[r * kLdP + c] = __float2bfloat16(p - __bfloat162float(hi));
-      sDS[r * kLdP + c] = __float2bfloat16(p * (sDP[r * kLdS + c] - sDelta[r]) * scale);
-    }
-    __syncthreads();
-    // dK (64 keys x Dp) += ds^T·Q; dV += p^T·dO. A = P^T: element (key i,
-    // query j) is P[j][i], column-major with pitch kLdP.
-#pragma unroll
-    for (int i = 0; i < kDkvFrags; ++i) {
-      const int t = warp + i * kBwdWarps;
-      if (t < 2 * tk) {
-        const bool is_dv = t >= tk;
-        const int u = t % tk, r = u / nC, c = u % nC;
-        const bf16* X = is_dv ? sDO : sQ;
-        for (int kk = 0; kk < kBQ; kk += 16) {
-          wmma::fragment<wmma::matrix_a, 16, 16, 16, bf16, wmma::col_major> a;
-          wmma::fragment<wmma::matrix_b, 16, 16, 16, bf16, wmma::row_major> bx;
-          wmma::load_matrix_sync(bx, X + kk * ldx + c * 16, ldx);
-          wmma::load_matrix_sync(a, (is_dv ? sPhi : sDS) + kk * kLdP + r * 16, kLdP);
-          wmma::mma_sync(acc[i], a, bx, acc[i]);
-          if (is_dv) {
-            wmma::load_matrix_sync(a, sPlo + kk * kLdP + r * 16, kLdP);
-            wmma::mma_sync(acc[i], a, bx, acc[i]);
-          }
-        }
+  // Query tile it's Q and dO into ring slot it % kRing: by TMA from one
+  // thread, completing on that slot's mbarrier (K and V ride with tile 0),
+  // or by element stores from all.
+  auto load_q = [&](int it) {
+    const int sl = it % kRing, i0 = it * 64;
+    bf16* dQ = sQ + sl * G::kStage;
+    bf16* dDO = sDO + sl * G::kStage;
+    if (!tma) {
+      stage_elems<64, Dp, T>(dQ, qb + size_t(i0) * Dh, S - i0, Dh);
+      stage_elems<64, Dp, T>(dDO, dob + size_t(i0) * Dh, S - i0, Dh);
+      fence_proxy_async();  // st.shared, read by wgmma
+    } else if (tid == 0) {
+      mbar_expect_tx(&full[sl], 2 * 64 * row_bytes + (it == 0 ? 2 * R * row_bytes : 0));
+      if (it == 0) {
+        tma_tile<R>(sK, &tm_k, j0, bh, Dh, &full[0]);
+        tma_tile<R>(sV, &tm_v, j0, bh, Dh, &full[0]);
       }
+      tma_tile<64>(dQ, &tm_q, i0, bh, Dh, &full[sl]);
+      tma_tile<64>(dDO, &tm_do, i0, bh, Dh, &full[sl]);
     }
+  };
+
+  if (tid == 0) {
+    for (int i = 0; i < kRing; ++i) mbar_init(&full[i]);
+    mbar_fence_init();
+    const CUtensorMap* maps[4] = {&tm_q, &tm_k, &tm_v, &tm_do};
+    for (int i = 0; tma && i < 4; ++i)
+      asm volatile("prefetch.tensormap [%0];\n" ::"l"(reinterpret_cast<uint64_t>(maps[i]))
+                   : "memory");
   }
-  __syncthreads();  // every warp is done with the q, dO, k and v tiles: dK, dV go there
-  float* sDK = reinterpret_cast<float*>(smem + lay.q);
-  float* sDV = sDK + kBKV * ldacc;
-#pragma unroll
-  for (int i = 0; i < kDkvFrags; ++i) {
-    const int t = warp + i * kBwdWarps;
-    if (t < 2 * tk) {
-      const int u = t % tk;
-      wmma::store_matrix_sync((t >= tk ? sDV : sDK) + (u / nC) * 16 * ldacc + (u % nC) * 16,
-                              acc[i], ldacc, wmma::mem_row_major);
-    }
+  // the first tiles' lse and delta; zero past S, so that a padding row takes
+  // p = 1 against zero dO (dV += 0) and ds = 0
+  for (int i = tid; i < (kRing - 1) * 64; i += T) {
+    sLse[i] = i < S ? lse_b[i] : 0.f;
+    sDelta[i] = i < S ? delta_b[i] : 0.f;
+  }
+  if (!tma) {
+    stage_elems<R, Dp, T>(sK, k + (size_t(bh) * Sk + j0) * Dh, Sk - j0, Dh);
+    stage_elems<R, Dp, T>(sV, v + (size_t(bh) * Sk + j0) * Dh, Sk - j0, Dh);
+    fence_proxy_async();
   }
   __syncthreads();
-  for (int idx = threadIdx.x; idx < kBKV * Dh; idx += kBwdThreads) {
-    const int r = idx / Dh, d = idx % Dh;
-    if (j0 + r < Sk) {
-      const size_t o = (bh * Sk + j0 + r) * Dh + d;
-      dk[o] = __float2bfloat16(sDK[r * ldacc + d]);
-      dv[o] = __float2bfloat16(sDV[r * ldacc + d]);
+  for (int it = 0; it < kRing - 1 && it < n_tiles; ++it) load_q(it);
+  if (!tma) __syncthreads();
+
+  // the bias of this thread's two keys (accumulator rows g and g+8)
+  float bias[2];
+#pragma unroll
+  for (int i = 0; i < 2; ++i) bias[i] = state_bias(key_state(mask_row, j0 + row0 + g + 8 * i, Sk));
+  // dK and dV, one m64n64 accumulator per 64-wide block of d each
+  float dk_acc[kBlocks][32], dv_acc[kBlocks][32];
+#pragma unroll
+  for (int nb = 0; nb < kBlocks; ++nb)
+#pragma unroll
+    for (int i = 0; i < 32; ++i) dk_acc[nb][i] = dv_acc[nb][i] = 0.f;
+
+  for (int it = 0; it < n_tiles; ++it) {
+    const int slot = it % kRing, ahead = it + kRing - 1;  // the tile loaded in this step
+    // everyone is done with tile it-1, whose slot the load of tile `ahead`
+    // takes; tile it's lse and delta are in
+    if (it > 0) __syncthreads();
+    // tile `ahead`'s lse and delta, loaded now, stored after the math
+    const int i_ahead = ahead * 64 + tid;
+    const bool row_ahead = ahead < n_tiles && tid < 64 && i_ahead < S;
+    const float lse_ahead = row_ahead ? lse_b[i_ahead] : 0.f;
+    const float delta_ahead = row_ahead ? delta_b[i_ahead] : 0.f;
+    if (!tma && ahead < n_tiles) load_q(ahead);
+    if (tma) mbar_wait(&full[slot], (it / kRing) & 1);
+    const bf16* tQ = sQ + slot * G::kStage;
+    const bf16* tDO = sDO + slot * G::kStage;
+    const float* tL = sLse + slot * 64;
+    const float* tD = sDelta + slot * 64;
+
+    // S^T = K·Q^T and dP^T = V·dO^T: the warpgroup's 64 keys x 64 query
+    // rows; all four operands K-major
+    float st[32], dpt[32];
+    wgmma_fence();
+#pragma unroll
+    for (int kk = 0; kk < kSteps; ++kk) {
+      if (kk * 16 >= Dh) continue;
+      const int col = (kk % 4) * 16;  // a k16 step inside the 64-wide block kk / 4
+      wgmma_m64n64k16_ss(st, gmma_desc(sK + (kk / 4) * R * 64 + wg_row * 64 + col, 16, 1024),
+                         gmma_desc(tQ + (kk / 4) * 64 * 64 + col, 16, 1024), kk > 0);
+    }
+#pragma unroll
+    for (int kk = 0; kk < kSteps; ++kk) {
+      if (kk * 16 >= Dh) continue;
+      const int col = (kk % 4) * 16;
+      wgmma_m64n64k16_ss(dpt, gmma_desc(sV + (kk / 4) * R * 64 + wg_row * 64 + col, 16, 1024),
+                         gmma_desc(tDO + (kk / 4) * 64 * 64 + col, 16, 1024), kk > 0);
+    }
+    wgmma_commit();
+    if (tma && ahead < n_tiles) load_q(ahead);  // issued while the products run
+    wgmma_wait<0>();
+    fence_regs(st);
+    fence_regs(dpt);
+
+    // p^T = exp(s^T·scale + bias - lse), ds^T = bf16(p·(dp - delta)·scale);
+    // element 4n + e of a row is query column 8n + 2t + (e & 1)
+#pragma unroll
+    for (int n = 0; n < 8; ++n) {
+      const float2 L = *reinterpret_cast<const float2*>(tL + 8 * n + 2 * t);
+      const float2 D = *reinterpret_cast<const float2*>(tD + 8 * n + 2 * t);
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const float p = expf(fmaf(st[4 * n + e], scale, bias[e >> 1]) - (e & 1 ? L.y : L.x));
+        st[4 * n + e] = p;
+        dpt[4 * n + e] = p * (dpt[4 * n + e] - (e & 1 ? D.y : D.x)) * scale;
+      }
+    }
+    // the A fragments of the kk-th 16 query rows: accumulator n-tiles 2kk,
+    // 2kk+1; p as bf16(p) and bf16(p - bf16(p))
+    uint32_t ph[4][4], pl[4][4], pd[4][4];
+#pragma unroll
+    for (int kk = 0; kk < 4; ++kk)
+#pragma unroll
+      for (int r = 0; r < 4; ++r) {
+        const float a = st[8 * kk + 2 * r], c = st[8 * kk + 2 * r + 1];
+        ph[kk][r] = pack_bf16(a, c);
+        pl[kk][r] = pack_bf16(a - bf16r(a), c - bf16r(c));
+        pd[kk][r] = pack_bf16(dpt[8 * kk + 2 * r], dpt[8 * kk + 2 * r + 1]);
+      }
+
+    // dV += P^T·dO (hi, then lo) and dK += dS^T·Q: A from registers, dO and
+    // Q MN-major
+    wgmma_fence();
+#pragma unroll
+    for (int kk = 0; kk < 4; ++kk)
+#pragma unroll
+      for (int nb = 0; nb < kBlocks; ++nb)
+        if (nb * 64 < Dh) {
+          const uint64_t d_do = gmma_desc(tDO + nb * 64 * 64 + kk * 16 * 64, 64 * 128, 1024);
+          wgmma_m64n64k16_rs<1>(dv_acc[nb], ph[kk], d_do, true);
+          wgmma_m64n64k16_rs<1>(dv_acc[nb], pl[kk], d_do, true);
+          wgmma_m64n64k16_rs<1>(dk_acc[nb], pd[kk],
+                                gmma_desc(tQ + nb * 64 * 64 + kk * 16 * 64, 64 * 128, 1024),
+                                true);
+        }
+    wgmma_commit();
+    wgmma_wait<0>();
+#pragma unroll
+    for (int nb = 0; nb < kBlocks; ++nb) {
+      fence_regs(dk_acc[nb]);
+      fence_regs(dv_acc[nb]);
+    }
+#pragma unroll
+    for (int kk = 0; kk < 4; ++kk) {  // A stays put until the wait
+      fence_regs(ph[kk]);
+      fence_regs(pl[kk]);
+      fence_regs(pd[kk]);
+    }
+    if (ahead < n_tiles && tid < 64) {
+      sLse[(ahead % kRing) * 64 + tid] = lse_ahead;
+      sDelta[(ahead % kRing) * 64 + tid] = delta_ahead;
+    }
+  }
+
+  // epilogue: dK and dV rounded once to bf16 through this warp's own rows of
+  // sK and sV (its warpgroup's products, the only readers of those rows,
+  // are done), then 16-byte stores where the layout allows
+#pragma unroll
+  for (int i = 0; i < 2; ++i) {
+    const int r = row0 + g + 8 * i;
+#pragma unroll
+    for (int nb = 0; nb < kBlocks; ++nb)
+#pragma unroll
+      for (int n = 0; n < 8; ++n)
+        if (nb * 64 + n * 8 < Dh) {
+          const int at = swz<R>(r, nb * 64 + 8 * n + 2 * t);
+          *reinterpret_cast<uint32_t*>(sK + at) =
+              pack_bf16(dk_acc[nb][4 * n + 2 * i], dk_acc[nb][4 * n + 2 * i + 1]);
+          *reinterpret_cast<uint32_t*>(sV + at) =
+              pack_bf16(dv_acc[nb][4 * n + 2 * i], dv_acc[nb][4 * n + 2 * i + 1]);
+        }
+  }
+  __syncwarp();
+  const bool out_vec = Dh % 8 == 0 && ((reinterpret_cast<uintptr_t>(dk) |
+                                        reinterpret_cast<uintptr_t>(dv)) & 15) == 0;
+  const int chunks = (Dh + 7) / 8;
+  for (int idx = lane; idx < 16 * chunks; idx += kWarp) {
+    const int r = idx / chunks, c = idx % chunks, j = j0 + row0 + r;
+    if (j >= Sk) continue;
+    const int at = swz<R>(row0 + r, 8 * c);
+    const size_t o = (size_t(bh) * Sk + j) * Dh + 8 * c;
+    if (out_vec) {
+      *reinterpret_cast<uint4*>(dk + o) = *reinterpret_cast<const uint4*>(sK + at);
+      *reinterpret_cast<uint4*>(dv + o) = *reinterpret_cast<const uint4*>(sV + at);
+    } else {
+      for (int e = 0; e < 8 && 8 * c + e < Dh; ++e) {
+        dk[o + e] = sK[at + e];
+        dv[o + e] = sV[at + e];
+      }
     }
   }
 }
@@ -656,9 +821,8 @@ extern "C" int flash_attention_fwd(const void* q, const void* k, const void* v, 
 // delta (B, H, S) f32 = rowsum(dout∘out). dq (B, H, S, Dh), dk and dv (B, H,
 // Sk, Dh) bf16 out. Requires Dh <= 128.
 template <typename Kernel>
-static cudaError_t flash_bwd_prepare(Kernel kernel, bool dkv, int B, int H, int Dh,
-                                     size_t* bytes) {
-  *bytes = FlashBwdSmem(round_up(Dh, 16), dkv).total;
+static cudaError_t flash_bwd_prepare(Kernel kernel, int B, int H, int Dh, size_t* bytes) {
+  *bytes = FlashBwdSmem(round_up(Dh, 16)).total;
   if (Dh > 128 || *bytes > kMaxSmem || B > 65535 || H > 65535) return cudaErrorInvalidValue;
   return cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
                               static_cast<int>(*bytes));
@@ -669,7 +833,7 @@ extern "C" int flash_attention_bwd_dq(const void* q, const void* k, const void* 
                                       const void* delta, void* dq, int B, int H, int S, int Sk,
                                       int Dh, float scale, void* stream) {
   size_t bytes;
-  cudaError_t err = flash_bwd_prepare(flash_bwd_dq_kernel, false, B, H, Dh, &bytes);
+  cudaError_t err = flash_bwd_prepare(flash_bwd_dq_kernel, B, H, Dh, &bytes);
   if (err != cudaSuccess) return static_cast<int>(err);
   dim3 grid((S + kBQ - 1) / kBQ, H, B);
   flash_bwd_dq_kernel<<<grid, kBwdThreads, bytes, static_cast<cudaStream_t>(stream)>>>(
@@ -680,18 +844,53 @@ extern "C" int flash_attention_bwd_dq(const void* q, const void* k, const void* 
   return static_cast<int>(cudaGetLastError());
 }
 
+// Whether q, k, v and dout go by TMA (Dh % 8 == 0, 16-byte-aligned bases:
+// TMA takes no less) or by element loads inside the kernel.
+static bool bwd_tma(int Dh, const void* q, const void* k, const void* v, const void* dout) {
+  return Dh % 8 == 0 && ((reinterpret_cast<uintptr_t>(q) | reinterpret_cast<uintptr_t>(k) |
+                          reinterpret_cast<uintptr_t>(v) | reinterpret_cast<uintptr_t>(dout)) &
+                         15) == 0;
+}
+
+// The dK/dV block: one warpgroup of 64 keys (Groups = 1).
+constexpr int kDkvGroups = 1;
+
+template <int Dp>
+static int launch_flash_bwd_dkv(const void* q, const void* k, const void* v, const void* mask,
+                                const void* dout, const void* lse, const void* delta, void* dk,
+                                void* dv, int B, int H, int S, int Sk, int Dh, float scale,
+                                void* stream) {
+  using G = FlashBwd<Dp, kDkvGroups>;
+  const bool tma = bwd_tma(Dh, q, k, v, dout);
+  CUtensorMap tq, tk, tv, tdo;
+  memset(&tq, 0, sizeof(tq));
+  memset(&tk, 0, sizeof(tk));
+  memset(&tv, 0, sizeof(tv));
+  memset(&tdo, 0, sizeof(tdo));
+  if (tma && !(tensor_map(&tq, q, Dh, S, B * H, 64) && tensor_map(&tk, k, Dh, Sk, B * H, G::kRows) &&
+               tensor_map(&tv, v, Dh, Sk, B * H, G::kRows) &&
+               tensor_map(&tdo, dout, Dh, S, B * H, 64)))
+    return static_cast<int>(cudaErrorInvalidValue);
+  auto kernel = flash_bwd_dkv_kernel<Dp, kDkvGroups>;
+  cudaError_t err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                         static_cast<int>(G::kBytes));
+  if (err != cudaSuccess) return static_cast<int>(err);
+  dim3 grid((Sk + G::kRows - 1) / G::kRows, H, B);
+  kernel<<<grid, G::kThreads, G::kBytes, static_cast<cudaStream_t>(stream)>>>(
+      tq, tk, tv, tdo, static_cast<const bf16*>(q), static_cast<const bf16*>(k),
+      static_cast<const bf16*>(v), static_cast<const uint8_t*>(mask),
+      static_cast<const bf16*>(dout), static_cast<const float*>(lse),
+      static_cast<const float*>(delta), static_cast<bf16*>(dk), static_cast<bf16*>(dv), H, S, Sk,
+      Dh, scale, tma);
+  return static_cast<int>(cudaGetLastError());
+}
+
 extern "C" int flash_attention_bwd_dkv(const void* q, const void* k, const void* v,
                                        const void* mask, const void* dout, const void* lse,
                                        const void* delta, void* dk, void* dv, int B, int H, int S,
                                        int Sk, int Dh, float scale, void* stream) {
-  size_t bytes;
-  cudaError_t err = flash_bwd_prepare(flash_bwd_dkv_kernel, true, B, H, Dh, &bytes);
-  if (err != cudaSuccess) return static_cast<int>(err);
-  dim3 grid((Sk + kBKV - 1) / kBKV, H, B);
-  flash_bwd_dkv_kernel<<<grid, kBwdThreads, bytes, static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const bf16*>(q), static_cast<const bf16*>(k), static_cast<const bf16*>(v),
-      static_cast<const uint8_t*>(mask), static_cast<const bf16*>(dout),
-      static_cast<const float*>(lse), static_cast<const float*>(delta), static_cast<bf16*>(dk),
-      static_cast<bf16*>(dv), H, S, Sk, Dh, scale);
-  return static_cast<int>(cudaGetLastError());
+  if (Dh < 1 || Dh > 128 || B > 65535 || H > 65535 || S < 1 || Sk < 1)
+    return static_cast<int>(cudaErrorInvalidValue);
+  auto launch = Dh <= 64 ? launch_flash_bwd_dkv<64> : launch_flash_bwd_dkv<128>;
+  return launch(q, k, v, mask, dout, lse, delta, dk, dv, B, H, S, Sk, Dh, scale, stream);
 }

@@ -7,8 +7,9 @@ last bits of the cell tower's attention:
 Run from the root of a checkout (it imports that checkout's `chip_smoke.py`).
 Each case runs 9(b) on its own inputs (B=256, full widths, the same seed)
 in a process of its own, with the smoke's checks recorded instead of raised,
-and prints the worst leaf's error over its noise bound (the check fails above
-3) and the checks that would have failed:
+and prints the worst leaf's error over its noise bound as the smoke's check
+computes it (it fails above 3), the same for the step's own draw alone where
+the smoke prints that beside it, and the checks that would have failed:
 - `asis`: the tree as it is;
 - `flipN`: N outputs of every flash-attention forward, drawn from a fixed
   seed, raised by about one bf16 step (x (1 + 2^-7)), the lse untouched;
@@ -75,10 +76,12 @@ def run_case(tree: Path, mode: str, reduction: str) -> None:
     if proc.returncode != 0:
         raise RuntimeError(f"{tree} {mode}:\n{proc.stdout[-2000:]}{proc.stderr[-3000:]}")
     worst = re.search(r"worst leaf ([0-9.]+) x its noise \(([^)]*)\)", proc.stdout)
+    one = re.search(r"draw 0 alone: ([0-9.]+)x \(([^)]*)\)", proc.stdout)
     flag = re.search(r"allow_bf16_reduced_precision_reduction: (\w+)", proc.stdout).group(1)
     fails = [line for line in proc.stdout.splitlines() if line.startswith("would fail:")]
     print(f"{tree.name or tree} {mode} (bf16 reduced-precision reduction {flag}): "
-          f"worst leaf {worst.group(1)}x ({worst.group(2)})")
+          f"worst leaf {worst.group(1)}x ({worst.group(2)})"
+          + ("" if one is None else f"; draw 0 alone {one.group(1)}x ({one.group(2)})"))
     for line in fails:
         print("  ", line)
 

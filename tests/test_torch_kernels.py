@@ -542,14 +542,28 @@ def test_fused_tiny_attention_proj_grads_match_plain(cuda_device, np_rng, B, S, 
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("B,H,S,Dh", [(1, 8, 4096, 64), (2, 3, 300, 40), (1, 2, 333, 128),
-                                      (2, 2, 64, 16), (3, 2, 257, 64)])
-def test_flash_attention_bwd_matches_plain(cuda_device, np_rng, B, H, S, Dh):
+@pytest.mark.parametrize("B,H,S,Sk,Dh", [
+    # the first five cases
+    (1, 8, 4096, 4096, 64), (2, 3, 300, 300, 40), (1, 2, 333, 333, 128), (2, 2, 64, 64, 16),
+    (3, 2, 257, 257, 64),
+    # both templates (Dp = 64: Dh 20 by elements, 24 by TMA; Dp = 128: 72,
+    # 128) at one tile, a tile and a row, two tiles, two and a row, four and
+    # a row
+    *[(2, 2, S, S, Dh) for Dh in (20, 24, 72, 128) for S in (64, 65, 128, 129, 257)],
+    # fewer keys than query rows and more
+    (2, 2, 130, 300, 64), (1, 2, 500, 77, 128), (2, 3, 65, 200, 40)])
+def test_flash_attention_bwd_matches_plain(cuda_device, np_rng, B, H, S, Sk, Dh):
     """The forward's lse and the two backward kernels on the plain forward's
-    residuals (out, lse)."""
-    q, k, v, dout = (torch.from_numpy(np_rng.normal(size=(B, H, S, Dh)).astype(np.float32))
-                     .to(cuda_device, torch.bfloat16) for _ in range(4))
-    mask = torch.from_numpy(_key_mask(np_rng, B, S)).to(cuda_device)
+    residuals (out, lse); batch row 0 with its last whole 64-key tile masked
+    (from Sk = 128 on), where dK and dV are zero exactly."""
+    f = lambda *s: torch.from_numpy(np_rng.normal(size=s).astype(np.float32)).to(  # noqa: E731
+        cuda_device, torch.bfloat16)
+    q, k, v, dout = f(B, H, S, Dh), f(B, H, Sk, Dh), f(B, H, Sk, Dh), f(B, H, S, Dh)
+    mask = _key_mask(np_rng, B, Sk)
+    hi = Sk // 64 * 64
+    if Sk >= 128:
+        mask[0, hi - 64:hi] = False
+    mask = torch.from_numpy(mask).to(cuda_device)
     with torch.no_grad():
         _, lse = fa._flash_forward(q, k, v, mask, None)
     out_ref = attention_reference(q, k, v, mask=mask)
@@ -564,6 +578,53 @@ def test_flash_attention_bwd_matches_plain(cuda_device, np_rng, B, H, S, Dh):
     want = fa.flash_attention_bwd_reference(q, k, v, mask, out_ref, lse_ref, dout)
     assert all(torch.isfinite(t).all() for t in got)
     _grads_close(got, want, ["dq", "dk", "dv"])
+    if Sk >= 128:
+        assert not got[1][0, :, hi - 64:hi].any() and not got[2][0, :, hi - 64:hi].any()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("B,H,S,Dh", [(1, 8, 1024, 64), (2, 3, 300, 128), (2, 2, 129, 20)])
+def test_flash_attention_bwd_repeats_bit_for_bit(cuda_device, np_rng, B, H, S, Dh):
+    """Two launches of each backward kernel on the same inputs give equal
+    bytes: every sum is taken in one order, with no atomics."""
+    q, k, v, dout = (torch.from_numpy(np_rng.normal(size=(B, H, S, Dh)).astype(np.float32))
+                     .to(cuda_device, torch.bfloat16) for _ in range(4))
+    mask = torch.from_numpy(_key_mask(np_rng, B, S)).to(cuda_device)
+    out, lse = attention_reference(q, k, v, mask=mask), fa.flash_lse_reference(q, k, mask)
+    first = fa.flash_attention_bwd(q, k, v, mask, out, lse, dout)
+    again = fa.flash_attention_bwd(q, k, v, mask, out, lse, dout)
+    torch.cuda.synchronize()
+    for name, a, b in zip(("dq", "dk", "dv"), first, again):
+        assert torch.equal(a, b), name
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("Dh", [64, 128])
+def test_flash_attention_bwd_misaligned_views_match_aligned(cuda_device, np_rng, Dh):
+    """q, k, v and dout as contiguous views whose base is off 16 bytes: the
+    backward kernels stage them by elements instead of by TMA, into the same
+    layout, so dq, dk and dv equal the aligned tensors' byte for byte."""
+    B, H, S = 2, 3, 200
+    n = B * H * S * Dh
+    aligned = [torch.from_numpy(np_rng.normal(size=(B, H, S, Dh)).astype(np.float32))
+               .to(cuda_device, torch.bfloat16) for _ in range(4)]
+    views = []
+    for t in aligned:
+        buf = torch.empty(n + 1, device=cuda_device, dtype=torch.bfloat16)
+        view = buf[1:].view(B, H, S, Dh)
+        view.copy_(t)
+        assert view.is_contiguous() and view.data_ptr() % 16 != 0
+        views.append(view)
+    mask = torch.from_numpy(_key_mask(np_rng, B, S)).to(cuda_device)
+    q, k, v, dout = aligned
+    out, lse = attention_reference(q, k, v, mask=mask), fa.flash_lse_reference(q, k, mask)
+    got = fa.flash_attention_bwd(*views[:3], mask, out, lse, views[3])
+    want = fa.flash_attention_bwd(q, k, v, mask, out, lse, dout)
+    torch.cuda.synchronize()
+    for name, a, b in zip(("dq", "dk", "dv"), got, want):
+        assert torch.equal(a, b), name
+    _grads_close(got, fa.flash_attention_bwd_reference(q, k, v, mask, out, lse, dout),
+                 ["dq", "dk", "dv"])
 
 
 @pytest.mark.cuda

@@ -23,9 +23,9 @@ Phases, each fatal on failure (non-zero exit, no result line):
   7. the two-tower train path at the widths of the repository's bench.py:
      (a) one train step on the card (kernels) against the same step on the
      CPU (plain versions) from the same weights and batch, bf16 both,
-     dropout on: every leaf's gradient before the optimizer, the loss and the
-     update; at B=256 (the merged from-raw kernel) and B=512 (the two
-     passes), each launching that schedule's kernels and not the other's; (b) the train CLI (experiments/train.py --device cuda) for
+     dropout on: every leaf's gradient before the optimizer (over four
+     dropout draws), the loss (over eight) and the update; at B=256 (the
+     merged from-raw kernel) and B=512 (the two passes), each launching that schedule's kernels and not the other's; (b) the train CLI (experiments/train.py --device cuda) for
      3 epochs at B=256, whose loss must fall; (c) experiments/bench.py at
      B=8192 (pairs/s, MFU). Every train launch counter must rise in (b)+(c),
      the InfoNCE's as the default `fused_materialize_raw="auto"` has it: the
@@ -63,7 +63,9 @@ Phases, each fatal on failure (non-zero exit, no result line):
      (atol = rtol = 2e-2, gradients relative to their largest entry, the
      backwards on the plain forward's residuals), the flash forward's lse
      against its plain version and, at the cell tower's shape, its output,
-     each timed beside SDPA; (b) one tf_clip step
+     each timed beside SDPA, and the two backward kernels' sum beside SDPA's
+     whole backward at each shape (ptxas's registers and spills of every
+     backward instance are printed after the build); (b) one tf_clip step
      on the card against the CPU at full width, B=256 (the cell tower is
      one sequence of 256 cells: the flash forward and backward), dropout on,
      as 7(a); (c) the train CLI with experiment=tf_clip, B=256, 3 epochs,
@@ -821,7 +823,7 @@ def step_card_vs_cpu(torch, what, cfg, batch, cache=None):
                              f"noise {noises})"))
     ref = np.array(draws["cpu"])
     per_draw = {k: (np.array(draws[k]) - ref) / ref for k in ("card", "cpu_f32")}
-    loss_err, loss_noise = (float(np.sqrt(np.mean(per_draw[k] ** 2))) for k in per_draw)
+    loss_err, loss_noise = (rms(per_draw[k]) for k in per_draw)
     upd_err, upd_noise = _rel(d_card, d_cpu), _rel(d_f32, d_cpu)
     print(f"{what}: loss card {l_card:.6f} cpu "
           f"{l_cpu:.6f} cpu_f32 {l_f32:.6f}; loss rel err {loss_err:.3e} (bf16 noise "

@@ -66,15 +66,18 @@
 // key tiles of its query rows (dQ += ds·K); the dK/dV kernel walks the query
 // tiles of its keys (dK += ds^T·Q, dV += p^T·dO), both with f32 accumulators
 // kept in registers for the whole walk, rounded once and written once: no
-// atomics, so runs repeat bit for bit. What bounds them on the H100: at (1, 8,
-// 4096, 64), the tf_clip cell tower, dK/dV is 4 products of 2·S²·Dh·H = 17.2
-// GFLOP each (0.07 ms at 989 TFLOP/s) against ~21 MB in and out, dQ 3 (0.05
-// ms): the tensor cores. The dK/dV kernel is the forward's machinery turned around:
-// the keys are wgmma's M (a warpgroup owns 64), S^T = K·Q^T and dP^T = V·dO^T
-// from K-major SW128 tiles leave p^T and ds^T in registers in the A-fragment
-// layout of dV += P^T·dO and dK += dS^T·Q (dO and Q MN-major, the forward's
-// P·V); K and V arrive once by TMA, Q, dO and their lse and delta stream
-// through a TMA ring of 64-row tiles, by elements where TMA cannot go.
+// atomics, so runs repeat bit for bit. What bounds them on the H100: at (1,
+// 8, 4096, 64), the tf_clip cell tower, dK/dV is 4 products of 2·S²·Dh·H =
+// 17.2 GFLOP each (0.07 ms at 989 TFLOP/s) against ~21 MB in and out, dQ 3
+// (0.05 ms): the tensor cores. The dK/dV kernel is the forward's machinery
+// turned around: the keys are wgmma's M (64 a warpgroup), S^T = K·Q^T and
+// dP^T = V·dO^T from K-major SW128 tiles leave p^T and ds^T in registers in
+// the A-fragment layout of dV += P^T·dO and dK += dS^T·Q (dO and Q MN-major,
+// the forward's P·V); K and V arrive once by TMA, Q, dO and their lse and
+// delta stream through a TMA ring of 64-row tiles. The dQ kernel is the forward's loop
+// with dP = dO·V^T beside S and dQ += dS·K in place of P·V: two warpgroups
+// of 64 query rows, Q and dO once by TMA, K, V and the key bias through the
+// ring. Both stage by elements into the same layout where TMA cannot go.
 
 #include <string.h>
 
@@ -82,14 +85,8 @@
 #include "tma.cuh"
 #include "wgmma.cuh"
 
-using namespace nvcuda;
-
 namespace clip_dplm {
 namespace {
-
-constexpr int kBQ = 64, kBKV = 64;  // the backward's query and key tiles
-constexpr int kLdS = kBKV + 4;  // padded pitches: fragment rows on distinct banks
-constexpr int kLdP = kBKV + 8;
 
 // ---------------------------------------------------------------------------
 // Forward
@@ -353,166 +350,14 @@ flash_fwd_kernel(const __grid_constant__ CUtensorMap tm_q, const __grid_constant
 // atomics and runs repeat bit for bit.
 // ---------------------------------------------------------------------------
 
-constexpr int kBwdThreads = 256;  // 8 warps
-constexpr int kBwdWarps = kBwdThreads / kWarp;
-// The f32 accumulator tiles a warp keeps in registers for the whole walk:
-// dQ is (64 x Dp), 4·Dp/16 tiles of 16x16; Dp <= 128.
-constexpr int kDqFrags = 4;
-typedef wmma::fragment<wmma::accumulator, 16, 16, 16, float> AccFrag;
-
-// Shared memory of a dQ block: a q tile, a dO tile, a k tile and a v tile
-// (bf16), the score and dP tiles (f32) and ds (bf16). The accumulators live
-// in registers; at the end they pass through shared memory on their way out,
-// over the score and dP tiles, which are contiguous.
-struct FlashBwdSmem {
-  int ld_x, ld_acc;
-  size_t q, dout, k, v, s, dp, ds, lse, delta, bias, total;
-  __host__ __device__ explicit FlashBwdSmem(int Dp) {
-    ld_x = Dp + 8;
-    ld_acc = Dp + 4;
-    const size_t tile_x = align128(size_t(kBQ) * ld_x * sizeof(bf16));
-    const size_t tile_p = align128(size_t(kBQ) * kLdP * sizeof(bf16));
-    size_t off = 0;
-    q = off;     off += tile_x;
-    dout = off;  off += tile_x;
-    k = off;     off += tile_x;
-    v = off;     off += tile_x;
-    s = off;     off += align128(size_t(kBQ) * kLdS * sizeof(float));
-    dp = off;    off += align128(size_t(kBQ) * kLdS * sizeof(float));
-    ds = off;    off += tile_p;
-    lse = off;   off += align128(kBQ * sizeof(float));
-    delta = off; off += align128(kBQ * sizeof(float));
-    bias = off;  off += align128(kBKV * sizeof(float));
-    total = off;
-  }
-};
-
-// S = Q·K^T and dP = dO·V^T over a (64 query x 64 key) tile pair, f32 into
-// sS and sDP (pitch kLdS): 32 WMMA tiles over the block's 8 warps.
-__device__ inline void score_and_dp_tiles(float* sS, float* sDP, const bf16* sQ, const bf16* sDO,
-                                          const bf16* sK, const bf16* sV, int ldx, int Dp,
-                                          int warp) {
-  for (int t = warp; t < 32; t += kBwdWarps) {
-    const bool is_dp = t >= 16;
-    const int r = (t % 16) / 4, c = t % 4;
-    const bf16* A = is_dp ? sDO : sQ;
-    const bf16* Bt = is_dp ? sV : sK;
-    wmma::fragment<wmma::accumulator, 16, 16, 16, float> acc;
-    wmma::fill_fragment(acc, 0.f);
-    for (int kk = 0; kk < Dp; kk += 16) {
-      wmma::fragment<wmma::matrix_a, 16, 16, 16, bf16, wmma::row_major> a;
-      wmma::fragment<wmma::matrix_b, 16, 16, 16, bf16, wmma::col_major> bt;
-      wmma::load_matrix_sync(a, A + r * 16 * ldx + kk, ldx);
-      wmma::load_matrix_sync(bt, Bt + c * 16 * ldx + kk, ldx);
-      wmma::mma_sync(acc, a, bt, acc);
-    }
-    wmma::store_matrix_sync((is_dp ? sDP : sS) + r * 16 * kLdS + c * 16, acc, kLdS,
-                            wmma::mem_row_major);
-  }
-}
-
-// The q-side rows of a tile: q and dO (zero past S), lse and delta (zero past
-// S, so that a padding row takes p <= 1 and ds = 0).
-__device__ inline void stage_q_side(bf16* sQ, bf16* sDO, float* sLse, float* sDelta, int ldx,
-                                    const bf16* q, const bf16* dout, const float* lse,
-                                    const float* delta, size_t bh, int i0, int S, int Dh,
-                                    int Dp) {
-  stage_rows(sQ, ldx, q + (bh * S + i0) * Dh, Dh, kBQ, S - i0, Dh, Dp, nullptr, nullptr, 0);
-  stage_rows(sDO, ldx, dout + (bh * S + i0) * Dh, Dh, kBQ, S - i0, Dh, Dp, nullptr, nullptr, 0);
-  for (int r = threadIdx.x; r < kBQ; r += blockDim.x) {
-    const bool ok = i0 + r < S;
-    sLse[r] = ok ? lse[bh * S + i0 + r] : 0.f;
-    sDelta[r] = ok ? delta[bh * S + i0 + r] : 0.f;
-  }
-}
-
-// One block per (64-row query tile, head, batch row): dQ = Σ over key tiles
-// of ds·K, ds = bf16(p·(dp - delta)·scale), p = exp(s·scale + bias - lse).
-__global__ void __launch_bounds__(kBwdThreads, 2)
-flash_bwd_dq_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
-                    const bf16* __restrict__ v, const uint8_t* __restrict__ mask,
-                    const bf16* __restrict__ dout, const float* __restrict__ lse,
-                    const float* __restrict__ delta, bf16* __restrict__ dq, int H, int S, int Sk,
-                    int Dh, float scale) {
-  extern __shared__ __align__(128) unsigned char smem[];
-  const int Dp = round_up(Dh, 16);
-  const int i0 = blockIdx.x * kBQ, h = blockIdx.y, b = blockIdx.z;
-  const FlashBwdSmem lay(Dp);
-  bf16* sQ = reinterpret_cast<bf16*>(smem + lay.q);
-  bf16* sDO = reinterpret_cast<bf16*>(smem + lay.dout);
-  bf16* sK = reinterpret_cast<bf16*>(smem + lay.k);
-  bf16* sV = reinterpret_cast<bf16*>(smem + lay.v);
-  float* sS = reinterpret_cast<float*>(smem + lay.s);
-  float* sDP = reinterpret_cast<float*>(smem + lay.dp);
-  bf16* sDS = reinterpret_cast<bf16*>(smem + lay.ds);
-  float* sLse = reinterpret_cast<float*>(smem + lay.lse);
-  float* sDelta = reinterpret_cast<float*>(smem + lay.delta);
-  float* sBias = reinterpret_cast<float*>(smem + lay.bias);
-  const int ldx = lay.ld_x, ldacc = lay.ld_acc;
-  const int warp = threadIdx.x / kWarp;
-  const int nC = Dp / 16, tiles = 4 * nC;  // warp w owns dQ tiles w, w + 8, ...
-  AccFrag acc[kDqFrags];
-#pragma unroll
-  for (int i = 0; i < kDqFrags; ++i) wmma::fill_fragment(acc[i], 0.f);
-
-  const size_t bh = size_t(b) * H + h;
-  const uint8_t* mask_row = mask == nullptr ? nullptr : mask + size_t(b) * Sk;
-  stage_q_side(sQ, sDO, sLse, sDelta, ldx, q, dout, lse, delta, bh, i0, S, Dh, Dp);
-
-  for (int j0 = 0; j0 < Sk; j0 += kBKV) {
-    __syncthreads();  // the previous tile is done with sK, sV and sDS
-    stage_rows(sK, ldx, k + (bh * Sk + j0) * Dh, Dh, kBKV, Sk - j0, Dh, Dp, nullptr, nullptr, 0);
-    stage_rows(sV, ldx, v + (bh * Sk + j0) * Dh, Dh, kBKV, Sk - j0, Dh, Dp, nullptr, nullptr, 0);
-    for (int j = threadIdx.x; j < kBKV; j += kBwdThreads) sBias[j] = key_bias(mask_row, j0 + j, Sk);
-    __syncthreads();
-    score_and_dp_tiles(sS, sDP, sQ, sDO, sK, sV, ldx, Dp, warp);
-    __syncthreads();
-    for (int idx = threadIdx.x; idx < kBQ * kBKV; idx += kBwdThreads) {
-      const int r = idx / kBKV, c = idx % kBKV;
-      const float p = expf(sS[r * kLdS + c] * scale + sBias[c] - sLse[r]);
-      sDS[r * kLdP + c] = __float2bfloat16(p * (sDP[r * kLdS + c] - sDelta[r]) * scale);
-    }
-    __syncthreads();
-    // dQ (64 x Dp) += ds (64 x 64) · K (64 x Dp)
-#pragma unroll
-    for (int i = 0; i < kDqFrags; ++i) {
-      const int t = warp + i * kBwdWarps;
-      if (t < tiles) {
-        const int r = t / nC, c = t % nC;
-        for (int kk = 0; kk < kBKV; kk += 16) {
-          wmma::fragment<wmma::matrix_a, 16, 16, 16, bf16, wmma::row_major> a;
-          wmma::fragment<wmma::matrix_b, 16, 16, 16, bf16, wmma::row_major> bk;
-          wmma::load_matrix_sync(a, sDS + r * 16 * kLdP + kk, kLdP);
-          wmma::load_matrix_sync(bk, sK + kk * ldx + c * 16, ldx);
-          wmma::mma_sync(acc[i], a, bk, acc[i]);
-        }
-      }
-    }
-  }
-  __syncthreads();  // every warp is done with the score and dP tiles: dQ goes there
-  float* sDQ = sS;
-#pragma unroll
-  for (int i = 0; i < kDqFrags; ++i) {
-    const int t = warp + i * kBwdWarps;
-    if (t < tiles)
-      wmma::store_matrix_sync(sDQ + (t / nC) * 16 * ldacc + (t % nC) * 16, acc[i], ldacc,
-                              wmma::mem_row_major);
-  }
-  __syncthreads();
-  for (int idx = threadIdx.x; idx < kBQ * Dh; idx += kBwdThreads) {
-    const int r = idx / Dh, d = idx % Dh;
-    if (i0 + r < S) dq[(bh * S + i0 + r) * Dh + d] = __float2bfloat16(sDQ[r * ldacc + d]);
-  }
-}
-
 // The wgmma backward's geometry for a padded head width Dp (64 or 128): a
-// warpgroup owns 64 resident rows (keys for dK/dV, query rows for dQ), the M
-// of its products; `Groups` warpgroups share each streamed 64-row tile of
-// the other side, which runs through a ring of kRing slots (two at Dp = 128,
-// to stay at two blocks an SM). Shared memory: the two resident tiles (K
-// and V; Q and dO), the ring's two tiles a slot (Q and dO; K and V), each
-// slot's vectors (lse and delta of its 64 query rows; the bias of its 64
-// keys) and one mbarrier a slot.
+// block holds kRows = 64·Groups resident rows (keys for dK/dV, query rows
+// for dQ), the M of its products, and streams 64-row tiles of the other side
+// through a ring of kRing slots (two at Dp = 128, to keep shared memory
+// under half an SM's). Shared memory: the two resident tiles (K and V; Q and
+// dO), the ring's two tiles a slot (Q and dO; K and V), each slot's vectors
+// (lse and delta of its 64 query rows; the bias of its 64 keys) and one
+// mbarrier a slot.
 template <int Dp, int Groups>
 struct FlashBwd {
   static constexpr int kRows = 64 * Groups;  // resident rows of a block
@@ -528,17 +373,23 @@ struct FlashBwd {
   static constexpr size_t kBytes = kBar + kRing * sizeof(uint64_t) + 1024;  // + base alignment
 };
 
-// One block per (64·Groups keys, head, batch row): dV = Σ over query tiles
-// of p^T·dO with p in f32 (as the TPU kernel forms it: the tensor cores take
-// p as bf16(p) + bf16(p - bf16(p)), two products), dK = Σ ds^T·Q. The keys
-// are the M of every product: S^T = K·Q^T and dP^T = V·dO^T read both
-// operands K-major from shared memory, so p^T and ds^T land in registers in
-// the accumulator layout, which is the A fragment of dV += P^T·dO and
-// dK += dS^T·Q (dO and Q MN-major), the forward's P·V pattern. The key bias
-// is per accumulator row (two keys a thread, read once); lse and delta are
-// per column, read from the slot of their query tile.
-template <int Dp, int Groups>
-__global__ void __launch_bounds__(FlashBwd<Dp, Groups>::kThreads, Groups == 1 ? 2 : 1)
+// One block per (64 keys, head, batch row): dV = Σ over query tiles of
+// p^T·dO with p in f32 (as the TPU kernel forms it: the tensor cores take p
+// as bf16(p) + bf16(p - bf16(p)), two products), dK = Σ ds^T·Q. The keys are
+// the M of every product: S^T = K·Q^T and dP^T = V·dO^T read both operands
+// K-major from shared memory, so p^T and ds^T land in registers in the
+// accumulator layout, which is the A fragment of dV += P^T·dO and dK +=
+// dS^T·Q (dO and Q MN-major), the forward's P·V pattern. The key bias is per
+// accumulator row (two keys a thread, read once); lse and delta are per
+// column, read from the slot of their query tile. A warpgroup owns one
+// 64-column block of dK and dV: at Dp = 128 two warpgroups share the keys,
+// each forming all of S^T and dP^T (holding both blocks of both
+// accumulators in one thread spilled). Two warpgroups of 64 keys each,
+// sharing every Q/dO tile, were no faster than one; at Dp = 64 the kernel
+// fits 168 registers, three blocks an SM, which gains where the grid is
+// many waves deep (PERF.md).
+template <int Dp>
+__global__ void __launch_bounds__(Dp * 2, Dp == 64 ? 3 : 1)
 flash_bwd_dkv_kernel(const __grid_constant__ CUtensorMap tm_q,
                      const __grid_constant__ CUtensorMap tm_k,
                      const __grid_constant__ CUtensorMap tm_v,
@@ -548,9 +399,8 @@ flash_bwd_dkv_kernel(const __grid_constant__ CUtensorMap tm_q,
                      const float* __restrict__ lse, const float* __restrict__ delta,
                      bf16* __restrict__ dk, bf16* __restrict__ dv, int H, int S, int Sk, int Dh,
                      float scale, bool tma) {
-  using G = FlashBwd<Dp, Groups>;
-  constexpr int R = G::kRows, T = G::kThreads, kRing = G::kRing;
-  constexpr int kSteps = Dp / 16, kBlocks = Dp / 64;
+  using G = FlashBwd<Dp, 1>;
+  constexpr int R = G::kRows, T = Dp * 2, kRing = G::kRing, kSteps = Dp / 16;
   extern __shared__ unsigned char smem_raw[];
   unsigned char* smem = smem_raw + ((1024 - (smem_u32(smem_raw) & 1023)) & 1023);
   bf16* sK = reinterpret_cast<bf16*>(smem + G::kResA);
@@ -568,10 +418,10 @@ flash_bwd_dkv_kernel(const __grid_constant__ CUtensorMap tm_q,
   const float* lse_b = lse + size_t(bh) * S;
   const float* delta_b = delta + size_t(bh) * S;
   const uint8_t* mask_row = mask == nullptr ? nullptr : mask + size_t(b) * Sk;
-  const int tid = threadIdx.x, lane = tid % kWarp, row0 = (tid / kWarp) * 16;
+  const int tid = threadIdx.x, lane = tid % kWarp, row0 = (tid % 128 / kWarp) * 16;
   const int g = lane >> 2, t = lane & 3;  // the accumulator's row group and column pair
+  const int nb = tid / 128;               // the warpgroup's 64 columns of dK and dV
   const int n_tiles = (S + 63) / 64;
-  const int wg_row = (tid / 128) * 64;  // the warpgroup's first key of the block
   const unsigned row_bytes = unsigned((Dh + 63) / 64) * 128;  // one row's TMA boxes
 
   // Query tile it's Q and dO into ring slot it % kRing: by TMA from one
@@ -623,12 +473,10 @@ flash_bwd_dkv_kernel(const __grid_constant__ CUtensorMap tm_q,
   float bias[2];
 #pragma unroll
   for (int i = 0; i < 2; ++i) bias[i] = state_bias(key_state(mask_row, j0 + row0 + g + 8 * i, Sk));
-  // dK and dV, one m64n64 accumulator per 64-wide block of d each
-  float dk_acc[kBlocks][32], dv_acc[kBlocks][32];
+  // the warpgroup's block of dK and dV: one m64n64 accumulator each
+  float dk_acc[32], dv_acc[32];
 #pragma unroll
-  for (int nb = 0; nb < kBlocks; ++nb)
-#pragma unroll
-    for (int i = 0; i < 32; ++i) dk_acc[nb][i] = dv_acc[nb][i] = 0.f;
+  for (int i = 0; i < 32; ++i) dk_acc[i] = dv_acc[i] = 0.f;
 
   for (int it = 0; it < n_tiles; ++it) {
     const int slot = it % kRing, ahead = it + kRing - 1;  // the tile loaded in this step
@@ -655,14 +503,14 @@ flash_bwd_dkv_kernel(const __grid_constant__ CUtensorMap tm_q,
     for (int kk = 0; kk < kSteps; ++kk) {
       if (kk * 16 >= Dh) continue;
       const int col = (kk % 4) * 16;  // a k16 step inside the 64-wide block kk / 4
-      wgmma_m64n64k16_ss(st, gmma_desc(sK + (kk / 4) * R * 64 + wg_row * 64 + col, 16, 1024),
+      wgmma_m64n64k16_ss(st, gmma_desc(sK + (kk / 4) * R * 64 + col, 16, 1024),
                          gmma_desc(tQ + (kk / 4) * 64 * 64 + col, 16, 1024), kk > 0);
     }
 #pragma unroll
     for (int kk = 0; kk < kSteps; ++kk) {
       if (kk * 16 >= Dh) continue;
       const int col = (kk % 4) * 16;
-      wgmma_m64n64k16_ss(dpt, gmma_desc(sV + (kk / 4) * R * 64 + wg_row * 64 + col, 16, 1024),
+      wgmma_m64n64k16_ss(dpt, gmma_desc(sV + (kk / 4) * R * 64 + col, 16, 1024),
                          gmma_desc(tDO + (kk / 4) * 64 * 64 + col, 16, 1024), kk > 0);
     }
     wgmma_commit();
@@ -697,28 +545,22 @@ flash_bwd_dkv_kernel(const __grid_constant__ CUtensorMap tm_q,
         pd[kk][r] = pack_bf16(dpt[8 * kk + 2 * r], dpt[8 * kk + 2 * r + 1]);
       }
 
-    // dV += P^T·dO (hi, then lo) and dK += dS^T·Q: A from registers, dO and
-    // Q MN-major
+    // dV += P^T·dO (hi, then lo) and dK += dS^T·Q over the warpgroup's
+    // columns (below Dh: Dp = 128 only for Dh > 64): A from registers, dO
+    // and Q MN-major
     wgmma_fence();
 #pragma unroll
-    for (int kk = 0; kk < 4; ++kk)
-#pragma unroll
-      for (int nb = 0; nb < kBlocks; ++nb)
-        if (nb * 64 < Dh) {
-          const uint64_t d_do = gmma_desc(tDO + nb * 64 * 64 + kk * 16 * 64, 64 * 128, 1024);
-          wgmma_m64n64k16_rs<1>(dv_acc[nb], ph[kk], d_do, true);
-          wgmma_m64n64k16_rs<1>(dv_acc[nb], pl[kk], d_do, true);
-          wgmma_m64n64k16_rs<1>(dk_acc[nb], pd[kk],
-                                gmma_desc(tQ + nb * 64 * 64 + kk * 16 * 64, 64 * 128, 1024),
-                                true);
-        }
+    for (int kk = 0; kk < 4; ++kk) {
+      const uint64_t d_do = gmma_desc(tDO + nb * 64 * 64 + kk * 16 * 64, 64 * 128, 1024);
+      wgmma_m64n64k16_rs<1>(dv_acc, ph[kk], d_do, true);
+      wgmma_m64n64k16_rs<1>(dv_acc, pl[kk], d_do, true);
+      wgmma_m64n64k16_rs<1>(dk_acc, pd[kk],
+                            gmma_desc(tQ + nb * 64 * 64 + kk * 16 * 64, 64 * 128, 1024), true);
+    }
     wgmma_commit();
     wgmma_wait<0>();
-#pragma unroll
-    for (int nb = 0; nb < kBlocks; ++nb) {
-      fence_regs(dk_acc[nb]);
-      fence_regs(dv_acc[nb]);
-    }
+    fence_regs(dk_acc);
+    fence_regs(dv_acc);
 #pragma unroll
     for (int kk = 0; kk < 4; ++kk) {  // A stays put until the wait
       fence_regs(ph[kk]);
@@ -731,30 +573,30 @@ flash_bwd_dkv_kernel(const __grid_constant__ CUtensorMap tm_q,
     }
   }
 
-  // epilogue: dK and dV rounded once to bf16 through this warp's own rows of
-  // sK and sV (its warpgroup's products, the only readers of those rows,
-  // are done), then 16-byte stores where the layout allows
+  // epilogue: dK and dV rounded once to bf16 through this warp's rows and
+  // its warpgroup's columns of sK and sV (once no product reads them: at Dp
+  // = 128 the other warpgroup's may still), then 16-byte stores where the
+  // layout allows
+  if (Dp > 64) __syncthreads();
 #pragma unroll
   for (int i = 0; i < 2; ++i) {
     const int r = row0 + g + 8 * i;
 #pragma unroll
-    for (int nb = 0; nb < kBlocks; ++nb)
-#pragma unroll
-      for (int n = 0; n < 8; ++n)
-        if (nb * 64 + n * 8 < Dh) {
-          const int at = swz<R>(r, nb * 64 + 8 * n + 2 * t);
-          *reinterpret_cast<uint32_t*>(sK + at) =
-              pack_bf16(dk_acc[nb][4 * n + 2 * i], dk_acc[nb][4 * n + 2 * i + 1]);
-          *reinterpret_cast<uint32_t*>(sV + at) =
-              pack_bf16(dv_acc[nb][4 * n + 2 * i], dv_acc[nb][4 * n + 2 * i + 1]);
-        }
+    for (int n = 0; n < 8; ++n)
+      if (nb * 64 + n * 8 < Dh) {
+        const int at = swz<R>(r, nb * 64 + 8 * n + 2 * t);
+        *reinterpret_cast<uint32_t*>(sK + at) = pack_bf16(dk_acc[4 * n + 2 * i],
+                                                          dk_acc[4 * n + 2 * i + 1]);
+        *reinterpret_cast<uint32_t*>(sV + at) = pack_bf16(dv_acc[4 * n + 2 * i],
+                                                          dv_acc[4 * n + 2 * i + 1]);
+      }
   }
   __syncwarp();
   const bool out_vec = Dh % 8 == 0 && ((reinterpret_cast<uintptr_t>(dk) |
                                         reinterpret_cast<uintptr_t>(dv)) & 15) == 0;
-  const int chunks = (Dh + 7) / 8;
+  const int chunks = min((Dh + 7) / 8 - 8 * nb, 8);  // the warpgroup's 8-column chunks
   for (int idx = lane; idx < 16 * chunks; idx += kWarp) {
-    const int r = idx / chunks, c = idx % chunks, j = j0 + row0 + r;
+    const int r = idx / chunks, c = 8 * nb + idx % chunks, j = j0 + row0 + r;
     if (j >= Sk) continue;
     const int at = swz<R>(row0 + r, 8 * c);
     const size_t o = (size_t(bh) * Sk + j) * Dh + 8 * c;
@@ -766,6 +608,202 @@ flash_bwd_dkv_kernel(const __grid_constant__ CUtensorMap tm_q,
         dk[o + e] = sK[at + e];
         dv[o + e] = sV[at + e];
       }
+    }
+  }
+}
+
+// One block per (128 query rows, head, batch row), two warpgroups of 64 as
+// the forward's: dQ = Σ over key tiles of ds·K, ds = bf16(p·(dp - delta)·
+// scale), p = exp(s·scale + bias - lse). The query rows are the M of every
+// product: S = Q·K^T and dP = dO·V^T read both operands K-major from shared
+// memory, ds lands in registers in the accumulator layout, the A fragment of
+// dQ += dS·K (K MN-major). lse and delta are per accumulator row (two rows
+// a thread, read once); the key bias is per column, from the slot of its key
+// tile. One warpgroup a block, three blocks an SM, lost 15 % at the tf_clip
+// cell tower's one sequence (PERF.md).
+template <int Dp>
+__global__ void __launch_bounds__(FlashBwd<Dp, 2>::kThreads, 1)
+flash_bwd_dq_kernel(const __grid_constant__ CUtensorMap tm_q,
+                    const __grid_constant__ CUtensorMap tm_k,
+                    const __grid_constant__ CUtensorMap tm_v,
+                    const __grid_constant__ CUtensorMap tm_do, const bf16* __restrict__ q,
+                    const bf16* __restrict__ k, const bf16* __restrict__ v,
+                    const uint8_t* __restrict__ mask, const bf16* __restrict__ dout,
+                    const float* __restrict__ lse, const float* __restrict__ delta,
+                    bf16* __restrict__ dq, int H, int S, int Sk, int Dh, float scale, bool tma) {
+  using G = FlashBwd<Dp, 2>;
+  constexpr int R = G::kRows, T = G::kThreads, kRing = G::kRing;
+  constexpr int kSteps = Dp / 16, kBlocks = Dp / 64;
+  extern __shared__ unsigned char smem_raw[];
+  unsigned char* smem = smem_raw + ((1024 - (smem_u32(smem_raw) & 1023)) & 1023);
+  bf16* sQ = reinterpret_cast<bf16*>(smem + G::kResA);
+  bf16* sDO = reinterpret_cast<bf16*>(smem + G::kResB);
+  bf16* sK = reinterpret_cast<bf16*>(smem + G::kRingA);
+  bf16* sV = reinterpret_cast<bf16*>(smem + G::kRingB);
+  float* sBias = reinterpret_cast<float*>(smem + G::kVec);  // [kRing][64]
+  uint64_t* full = reinterpret_cast<uint64_t*>(smem + G::kBar);
+
+  const int q0 = blockIdx.x * R, h = blockIdx.y, b = blockIdx.z;
+  const int bh = b * H + h;
+  const bf16* kb = k + size_t(bh) * Sk * Dh;
+  const bf16* vb = v + size_t(bh) * Sk * Dh;
+  const uint8_t* mask_row = mask == nullptr ? nullptr : mask + size_t(b) * Sk;
+  const int tid = threadIdx.x, lane = tid % kWarp, row0 = (tid / kWarp) * 16;
+  const int g = lane >> 2, t = lane & 3;
+  const int n_tiles = (Sk + kKeys - 1) / kKeys;
+  const int wg_row = (tid / 128) * 64;
+  const unsigned row_bytes = unsigned((Dh + 63) / 64) * 128;
+
+  // Key tile jt's K and V into ring slot jt % kRing (Q and dO ride with
+  // tile 0), by TMA from one thread or by element stores from all.
+  auto load_kv = [&](int jt) {
+    const int sl = jt % kRing, j0 = jt * kKeys;
+    bf16* dK = sK + sl * G::kStage;
+    bf16* dV = sV + sl * G::kStage;
+    if (!tma) {
+      stage_elems<kKeys, Dp, T>(dK, kb + size_t(j0) * Dh, Sk - j0, Dh);
+      stage_elems<kKeys, Dp, T>(dV, vb + size_t(j0) * Dh, Sk - j0, Dh);
+      fence_proxy_async();
+    } else if (tid == 0) {
+      mbar_expect_tx(&full[sl], 2 * kKeys * row_bytes + (jt == 0 ? 2 * R * row_bytes : 0));
+      if (jt == 0) {
+        tma_tile<R>(sQ, &tm_q, q0, bh, Dh, &full[0]);
+        tma_tile<R>(sDO, &tm_do, q0, bh, Dh, &full[0]);
+      }
+      tma_tile<kKeys>(dK, &tm_k, j0, bh, Dh, &full[sl]);
+      tma_tile<kKeys>(dV, &tm_v, j0, bh, Dh, &full[sl]);
+    }
+  };
+
+  if (tid == 0) {
+    for (int i = 0; i < kRing; ++i) mbar_init(&full[i]);
+    mbar_fence_init();
+    const CUtensorMap* maps[4] = {&tm_q, &tm_k, &tm_v, &tm_do};
+    for (int i = 0; tma && i < 4; ++i)
+      asm volatile("prefetch.tensormap [%0];\n" ::"l"(reinterpret_cast<uint64_t>(maps[i]))
+                   : "memory");
+  }
+  for (int i = tid; i < (kRing - 1) * kKeys; i += T)
+    sBias[i] = state_bias(key_state(mask_row, i, Sk));
+  if (!tma) {
+    stage_elems<R, Dp, T>(sQ, q + (size_t(bh) * S + q0) * Dh, S - q0, Dh);
+    stage_elems<R, Dp, T>(sDO, dout + (size_t(bh) * S + q0) * Dh, S - q0, Dh);
+    fence_proxy_async();
+  }
+  __syncthreads();
+  for (int jt = 0; jt < kRing - 1 && jt < n_tiles; ++jt) load_kv(jt);
+  if (!tma) __syncthreads();
+
+  // lse and delta of this thread's two rows (accumulator rows g and g+8);
+  // zero past S, where q and dO are zero: p = 1 against dp = 0, ds = 0
+  float row_lse[2], row_delta[2];
+#pragma unroll
+  for (int i = 0; i < 2; ++i) {
+    const int r = q0 + row0 + g + 8 * i;
+    row_lse[i] = r < S ? lse[size_t(bh) * S + r] : 0.f;
+    row_delta[i] = r < S ? delta[size_t(bh) * S + r] : 0.f;
+  }
+  float acc[kBlocks][32];
+#pragma unroll
+  for (int nb = 0; nb < kBlocks; ++nb)
+#pragma unroll
+    for (int i = 0; i < 32; ++i) acc[nb][i] = 0.f;
+
+  for (int j = 0; j < n_tiles; ++j) {
+    const int slot = j % kRing, ahead = j + kRing - 1;
+    if (j > 0) __syncthreads();
+    const int state_ahead =
+        ahead < n_tiles && tid < kKeys ? key_state(mask_row, ahead * kKeys + tid, Sk) : 0;
+    if (!tma && ahead < n_tiles) load_kv(ahead);
+    if (tma) mbar_wait(&full[slot], (j / kRing) & 1);
+    const bf16* tK = sK + slot * G::kStage;
+    const bf16* tV = sV + slot * G::kStage;
+    const float* tB = sBias + slot * kKeys;
+
+    // S = Q·K^T and dP = dO·V^T: the warpgroup's 64 rows x 64 keys
+    float s[32], dp[32];
+    wgmma_fence();
+#pragma unroll
+    for (int kk = 0; kk < kSteps; ++kk) {
+      if (kk * 16 >= Dh) continue;
+      const int col = (kk % 4) * 16;
+      wgmma_m64n64k16_ss(s, gmma_desc(sQ + (kk / 4) * R * 64 + wg_row * 64 + col, 16, 1024),
+                         gmma_desc(tK + (kk / 4) * kKeys * 64 + col, 16, 1024), kk > 0);
+    }
+#pragma unroll
+    for (int kk = 0; kk < kSteps; ++kk) {
+      if (kk * 16 >= Dh) continue;
+      const int col = (kk % 4) * 16;
+      wgmma_m64n64k16_ss(dp, gmma_desc(sDO + (kk / 4) * R * 64 + wg_row * 64 + col, 16, 1024),
+                         gmma_desc(tV + (kk / 4) * kKeys * 64 + col, 16, 1024), kk > 0);
+    }
+    wgmma_commit();
+    if (tma && ahead < n_tiles) load_kv(ahead);
+    wgmma_wait<0>();
+    fence_regs(s);
+    fence_regs(dp);
+
+    // ds = bf16(p·(dp - delta)·scale), p = exp(s·scale + bias - lse);
+    // element 4n + e is row g + 8(e >> 1), key 8n + 2t + (e & 1)
+    uint32_t pd[4][4];
+#pragma unroll
+    for (int n = 0; n < 8; ++n) {
+      const float2 bb = *reinterpret_cast<const float2*>(tB + 8 * n + 2 * t);
+      float x[4];
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const float p = expf(fmaf(s[4 * n + e], scale, e & 1 ? bb.y : bb.x) - row_lse[e >> 1]);
+        x[e] = p * (dp[4 * n + e] - row_delta[e >> 1]) * scale;
+      }
+      pd[n / 2][(n % 2) * 2] = pack_bf16(x[0], x[1]);
+      pd[n / 2][(n % 2) * 2 + 1] = pack_bf16(x[2], x[3]);
+    }
+
+    // dQ += dS·K: A from registers, K MN-major
+    wgmma_fence();
+#pragma unroll
+    for (int kk = 0; kk < 4; ++kk)
+#pragma unroll
+      for (int nb = 0; nb < kBlocks; ++nb)
+        if (nb * 64 < Dh)
+          wgmma_m64n64k16_rs<1>(acc[nb], pd[kk],
+                                gmma_desc(tK + nb * kKeys * 64 + kk * 16 * 64, kKeys * 128, 1024),
+                                true);
+    wgmma_commit();
+    wgmma_wait<0>();
+#pragma unroll
+    for (int nb = 0; nb < kBlocks; ++nb) fence_regs(acc[nb]);
+#pragma unroll
+    for (int kk = 0; kk < 4; ++kk) fence_regs(pd[kk]);
+    if (ahead < n_tiles && tid < kKeys)
+      sBias[(ahead % kRing) * kKeys + tid] = state_bias(state_ahead);
+  }
+
+  // epilogue: dQ rounded once to bf16 through this warp's own rows of sQ,
+  // then 16-byte stores where the layout allows
+#pragma unroll
+  for (int i = 0; i < 2; ++i) {
+    const int r = row0 + g + 8 * i;
+#pragma unroll
+    for (int nb = 0; nb < kBlocks; ++nb)
+#pragma unroll
+      for (int n = 0; n < 8; ++n)
+        if (nb * 64 + n * 8 < Dh)
+          *reinterpret_cast<uint32_t*>(sQ + swz<R>(r, nb * 64 + 8 * n + 2 * t)) =
+              pack_bf16(acc[nb][4 * n + 2 * i], acc[nb][4 * n + 2 * i + 1]);
+  }
+  __syncwarp();
+  const bool out_vec = Dh % 8 == 0 && (reinterpret_cast<uintptr_t>(dq) & 15) == 0;
+  const int chunks = (Dh + 7) / 8;
+  for (int idx = lane; idx < 16 * chunks; idx += kWarp) {
+    const int r = idx / chunks, c = idx % chunks, i = q0 + row0 + r;
+    if (i >= S) continue;
+    const bf16* src = sQ + swz<R>(row0 + r, 8 * c);
+    bf16* dst = dq + (size_t(bh) * S + i) * Dh + 8 * c;
+    if (out_vec) {
+      *reinterpret_cast<uint4*>(dst) = *reinterpret_cast<const uint4*>(src);
+    } else {
+      for (int e = 0; e < 8 && 8 * c + e < Dh; ++e) dst[e] = src[e];
     }
   }
 }
@@ -816,34 +854,6 @@ extern "C" int flash_attention_fwd(const void* q, const void* k, const void* v, 
   return launch(q, k, v, mask, out, lse, B, H, S, Sk, Dh, scale, stream);
 }
 
-// The backward's two launchers. q, k, v, mask as the forward's; dout (B, H,
-// S, Dh) bf16 the cotangent of out; lse (B, H, S) f32 from the forward;
-// delta (B, H, S) f32 = rowsum(dout∘out). dq (B, H, S, Dh), dk and dv (B, H,
-// Sk, Dh) bf16 out. Requires Dh <= 128.
-template <typename Kernel>
-static cudaError_t flash_bwd_prepare(Kernel kernel, int B, int H, int Dh, size_t* bytes) {
-  *bytes = FlashBwdSmem(round_up(Dh, 16)).total;
-  if (Dh > 128 || *bytes > kMaxSmem || B > 65535 || H > 65535) return cudaErrorInvalidValue;
-  return cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-                              static_cast<int>(*bytes));
-}
-
-extern "C" int flash_attention_bwd_dq(const void* q, const void* k, const void* v,
-                                      const void* mask, const void* dout, const void* lse,
-                                      const void* delta, void* dq, int B, int H, int S, int Sk,
-                                      int Dh, float scale, void* stream) {
-  size_t bytes;
-  cudaError_t err = flash_bwd_prepare(flash_bwd_dq_kernel, B, H, Dh, &bytes);
-  if (err != cudaSuccess) return static_cast<int>(err);
-  dim3 grid((S + kBQ - 1) / kBQ, H, B);
-  flash_bwd_dq_kernel<<<grid, kBwdThreads, bytes, static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const bf16*>(q), static_cast<const bf16*>(k), static_cast<const bf16*>(v),
-      static_cast<const uint8_t*>(mask), static_cast<const bf16*>(dout),
-      static_cast<const float*>(lse), static_cast<const float*>(delta), static_cast<bf16*>(dq), H,
-      S, Sk, Dh, scale);
-  return static_cast<int>(cudaGetLastError());
-}
-
 // Whether q, k, v and dout go by TMA (Dh % 8 == 0, 16-byte-aligned bases:
 // TMA takes no less) or by element loads inside the kernel.
 static bool bwd_tma(int Dh, const void* q, const void* k, const void* v, const void* dout) {
@@ -852,32 +862,35 @@ static bool bwd_tma(int Dh, const void* q, const void* k, const void* v, const v
                          15) == 0;
 }
 
-// The dK/dV block: one warpgroup of 64 keys (Groups = 1).
-constexpr int kDkvGroups = 1;
+// The backward's tensor maps: q and dout as boxes of box_q rows, k and v of
+// box_k rows; false where TMA takes the tensors and an encoding failed.
+static bool bwd_maps(bool tma, CUtensorMap* maps, const void* q, const void* k, const void* v,
+                     const void* dout, int B, int H, int S, int Sk, int Dh, int box_q,
+                     int box_k) {
+  for (int i = 0; i < 4; ++i) memset(&maps[i], 0, sizeof(CUtensorMap));
+  return !tma || (tensor_map(&maps[0], q, Dh, S, B * H, box_q) &&
+                  tensor_map(&maps[1], k, Dh, Sk, B * H, box_k) &&
+                  tensor_map(&maps[2], v, Dh, Sk, B * H, box_k) &&
+                  tensor_map(&maps[3], dout, Dh, S, B * H, box_q));
+}
 
 template <int Dp>
 static int launch_flash_bwd_dkv(const void* q, const void* k, const void* v, const void* mask,
                                 const void* dout, const void* lse, const void* delta, void* dk,
                                 void* dv, int B, int H, int S, int Sk, int Dh, float scale,
                                 void* stream) {
-  using G = FlashBwd<Dp, kDkvGroups>;
+  using G = FlashBwd<Dp, 1>;
   const bool tma = bwd_tma(Dh, q, k, v, dout);
-  CUtensorMap tq, tk, tv, tdo;
-  memset(&tq, 0, sizeof(tq));
-  memset(&tk, 0, sizeof(tk));
-  memset(&tv, 0, sizeof(tv));
-  memset(&tdo, 0, sizeof(tdo));
-  if (tma && !(tensor_map(&tq, q, Dh, S, B * H, 64) && tensor_map(&tk, k, Dh, Sk, B * H, G::kRows) &&
-               tensor_map(&tv, v, Dh, Sk, B * H, G::kRows) &&
-               tensor_map(&tdo, dout, Dh, S, B * H, 64)))
+  CUtensorMap m[4];
+  if (!bwd_maps(tma, m, q, k, v, dout, B, H, S, Sk, Dh, 64, G::kRows))
     return static_cast<int>(cudaErrorInvalidValue);
-  auto kernel = flash_bwd_dkv_kernel<Dp, kDkvGroups>;
+  auto kernel = flash_bwd_dkv_kernel<Dp>;
   cudaError_t err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
                                          static_cast<int>(G::kBytes));
   if (err != cudaSuccess) return static_cast<int>(err);
   dim3 grid((Sk + G::kRows - 1) / G::kRows, H, B);
-  kernel<<<grid, G::kThreads, G::kBytes, static_cast<cudaStream_t>(stream)>>>(
-      tq, tk, tv, tdo, static_cast<const bf16*>(q), static_cast<const bf16*>(k),
+  kernel<<<grid, Dp * 2, G::kBytes, static_cast<cudaStream_t>(stream)>>>(
+      m[0], m[1], m[2], m[3], static_cast<const bf16*>(q), static_cast<const bf16*>(k),
       static_cast<const bf16*>(v), static_cast<const uint8_t*>(mask),
       static_cast<const bf16*>(dout), static_cast<const float*>(lse),
       static_cast<const float*>(delta), static_cast<bf16*>(dk), static_cast<bf16*>(dv), H, S, Sk,
@@ -885,12 +898,50 @@ static int launch_flash_bwd_dkv(const void* q, const void* k, const void* v, con
   return static_cast<int>(cudaGetLastError());
 }
 
+template <int Dp>
+static int launch_flash_bwd_dq(const void* q, const void* k, const void* v, const void* mask,
+                               const void* dout, const void* lse, const void* delta, void* dq,
+                               int B, int H, int S, int Sk, int Dh, float scale, void* stream) {
+  using G = FlashBwd<Dp, 2>;
+  const bool tma = bwd_tma(Dh, q, k, v, dout);
+  CUtensorMap m[4];
+  if (!bwd_maps(tma, m, q, k, v, dout, B, H, S, Sk, Dh, G::kRows, kKeys))
+    return static_cast<int>(cudaErrorInvalidValue);
+  auto kernel = flash_bwd_dq_kernel<Dp>;
+  cudaError_t err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                         static_cast<int>(G::kBytes));
+  if (err != cudaSuccess) return static_cast<int>(err);
+  dim3 grid((S + G::kRows - 1) / G::kRows, H, B);
+  kernel<<<grid, G::kThreads, G::kBytes, static_cast<cudaStream_t>(stream)>>>(
+      m[0], m[1], m[2], m[3], static_cast<const bf16*>(q), static_cast<const bf16*>(k),
+      static_cast<const bf16*>(v), static_cast<const uint8_t*>(mask),
+      static_cast<const bf16*>(dout), static_cast<const float*>(lse),
+      static_cast<const float*>(delta), static_cast<bf16*>(dq), H, S, Sk, Dh, scale, tma);
+  return static_cast<int>(cudaGetLastError());
+}
+
+// The backward's two entries. q, k, v, mask as the forward's; dout (B, H, S,
+// Dh) bf16 the cotangent of out; lse (B, H, S) f32 from the forward; delta
+// (B, H, S) f32 = rowsum(dout∘out). dq (B, H, S, Dh), dk and dv (B, H, Sk,
+// Dh) bf16 out. Requires 1 <= Dh <= 128, B and H <= 65535.
+static bool bwd_shape_ok(int B, int H, int S, int Sk, int Dh) {
+  return Dh >= 1 && Dh <= 128 && B <= 65535 && H <= 65535 && S >= 1 && Sk >= 1;
+}
+
+extern "C" int flash_attention_bwd_dq(const void* q, const void* k, const void* v,
+                                      const void* mask, const void* dout, const void* lse,
+                                      const void* delta, void* dq, int B, int H, int S, int Sk,
+                                      int Dh, float scale, void* stream) {
+  if (!bwd_shape_ok(B, H, S, Sk, Dh)) return static_cast<int>(cudaErrorInvalidValue);
+  auto launch = Dh <= 64 ? launch_flash_bwd_dq<64> : launch_flash_bwd_dq<128>;
+  return launch(q, k, v, mask, dout, lse, delta, dq, B, H, S, Sk, Dh, scale, stream);
+}
+
 extern "C" int flash_attention_bwd_dkv(const void* q, const void* k, const void* v,
                                        const void* mask, const void* dout, const void* lse,
                                        const void* delta, void* dk, void* dv, int B, int H, int S,
                                        int Sk, int Dh, float scale, void* stream) {
-  if (Dh < 1 || Dh > 128 || B > 65535 || H > 65535 || S < 1 || Sk < 1)
-    return static_cast<int>(cudaErrorInvalidValue);
+  if (!bwd_shape_ok(B, H, S, Sk, Dh)) return static_cast<int>(cudaErrorInvalidValue);
   auto launch = Dh <= 64 ? launch_flash_bwd_dkv<64> : launch_flash_bwd_dkv<128>;
   return launch(q, k, v, mask, dout, lse, delta, dk, dv, B, H, S, Sk, Dh, scale, stream);
 }

@@ -8,7 +8,9 @@ Phases, each fatal on failure (non-zero exit, no result line):
   3. each kernel against its plain PyTorch version on the card, in bf16, at
      the serving path's shapes (bound atol = rtol = 2e-2), with both times;
      the packed short-S forward also at S=129 and 256 with Dh=128 (two
-     blocks a head); the short-S forward's registers and spills, from ptxas;
+     blocks a head); the out-projection GEMM also at DPLM training's
+     M=32768 (N=K=640; two launches equal byte for byte) beside cuBLAS; the
+     GEMM's and the short-S forward's registers and spills, from ptxas;
   4. DPLM 640/12/10 logits on the card (kernel path) against the same
      weights on the CPU (plain path), bf16 on both, at S = 128 and 300;
   5. the HTTP server of experiments/serve.py on port 0 with random weights at
@@ -19,7 +21,10 @@ Phases, each fatal on failure (non-zero exit, no result line):
      bf16 (atol = rtol = 2e-2; gradients summed over the batch relative to
      their largest entry), forward and every gradient: fused Dense+LN at the
      two-tower step's four geometries at B=8192 and a ragged B=1000 (dropout
-     masks equal bit for bit), symmetric InfoNCE at B=8192 and B=1000, d=512;
+     masks equal bit for bit), the GEMM alone in both directions (x·W^T + b,
+     B K-major, bias after a rounding; du·W, B MN-major, no bias) with two
+     launches equal byte for byte, each beside cuBLAS at B=8192 1024->1024
+     and 2048 -> 1024 (du·W); symmetric InfoNCE at B=8192 and B=1000, d=512;
   7. the two-tower train path at the widths of the repository's bench.py:
      (a) one train step on the card (kernels) against the same step on the
      CPU (plain versions) from the same weights and batch, bf16 both,
@@ -342,8 +347,9 @@ def record(results, name, shape, err, ms, plain_ms, work=None, library_ms=None):
     gives ms, plain_ms, library_ms and, from `work` = (bytes, ops, kind),
     the bound."""
     lib = "" if library_ms is None else f" library_ms={library_ms:.4f}"
+    lim = "" if work is None else " bound_ms={:.4f} ({})".format(*bound(*work))
     print(f"kernel {name} {shape}: max_abs_err={err:.3e} ms={ms:.4f} plain_ms={plain_ms:.4f}"
-          + lib)
+          + lib + lim)
     entry = results.setdefault(name, {"max_abs_err": 0.0})
     entry["max_abs_err"] = max(entry["max_abs_err"], err)
     if "ms" not in entry:
@@ -431,6 +437,18 @@ def phase_kernels(torch, results):
                 work=(2 * M * D * 2 + D * D * 4 + D * 4, 2 * M * D * D),
                 library_fn=(lambda: torch.nn.functional.linear(o, wo.bfloat16(), bo.bfloat16()))
                 if main else None)
+    # the out-projection at DPLM training's M = 256 rows x 128 tokens; two
+    # launches equal byte for byte
+    M, D = 32768, 640
+    o = torch.randn(M, D, generator=g, device=dev).to(torch.bfloat16)
+    wo = torch.randn(D, D, generator=g, device=dev) / D ** 0.5
+    bo = torch.randn(D, generator=g, device=dev) * 0.1
+    check(torch.equal(out_projection(o, wo, bo), out_projection(o, wo, bo)),
+          f"short_attention_out_proj M={M}: two launches differ")
+    compare(torch, "short_attention_out_proj", f"M={M} N=K={D} (DPLM training)",
+            lambda: out_projection(o, wo, bo), lambda: out_projection_reference(o, wo, bo),
+            results, work=(2 * M * D * 2 + D * D * 2 + D * 2, 2 * M * D * D),
+            library_fn=lambda: torch.nn.functional.linear(o, wo.bfloat16(), bo.bfloat16()))
     # the packed forward past one block a head, at Dh=128: S=129 (a second
     # block of one row) and S=256 (two full blocks), the scores recomputed
     # over the resident K
@@ -634,6 +652,8 @@ def phase_train_kernels(torch, results):
         got = fd._gemm(x, wb, bb, N, b_row=False)
         want = (x.float() @ wb.float().t()).bfloat16() + bb
         gerr = check_outputs(torch, f"fused_dense_gemm {shape}", [got], [want], ["u"])
+        check(torch.equal(got, fd._gemm(x, wb, bb, N, b_row=False)),
+              f"fused_dense_gemm {shape}: two launches differ")
         ms, plain_ms = timed_pair(
             torch, lambda: fd._gemm(x, wb, bb, N, b_row=False),
             lambda: (x.float() @ wb.float().t()).bfloat16() + bb)
@@ -641,6 +661,20 @@ def phase_train_kernels(torch, results):
                max(gerr, dx_err), ms, plain_ms,
                work=(B * K * 2 + N * K * 2 + N * 2 + B * N * 2, 2 * B * N * K),
                library_ms=library_time(torch, lambda: torch.nn.functional.linear(x, wb, bb)))
+        # the other direction alone against cuBLAS: dx = du·W, B = W row-major
+        # (MN-major), no bias; at 1024 -> 2048 that is Kr = 2048 -> Nc = 1024
+        du = rnd(B, N).bfloat16()
+        got = fd._gemm(du, wb, None, K, b_row=True)
+        check(torch.equal(got, fd._gemm(du, wb, None, K, b_row=True)),
+              f"fused_dense_gemm {shape} du W: two launches differ")
+        if B == 8192 and (K, N) == (1024, 2048):
+            want = (du.float() @ wb.float()).bfloat16()
+            derr = check_outputs(torch, f"fused_dense_gemm {shape} du W", [got], [want], ["dx"])
+            ms, plain_ms = timed_pair(torch, lambda: fd._gemm(du, wb, None, K, b_row=True),
+                                      lambda: (du.float() @ wb.float()).bfloat16())
+            record(results, "fused_dense_gemm", f"M={B} Kr={N} Nc={K} (du W, B MN-major)",
+                   derr, ms, plain_ms, work=(B * N * 2 + N * K * 2 + B * K * 2, 2 * B * N * K),
+                   library_ms=library_time(torch, lambda: torch.mm(du, wb)))
     for B in (8192, 1000):
         d = 512
         a = torch.nn.functional.normalize(rnd(B, d), dim=-1)
@@ -1930,11 +1964,11 @@ def kernel_registers(log: str, kernel: str):
     ptxas's report: its template arguments, as <a, b, ...>."""
     lines = log.splitlines()
     for i, line in enumerate(lines):
-        found = re.search(kernel + r"((?:ILi\d+E|Li\d+E)*)", line)
+        found = re.search(kernel + r"((?:IL[ib]\d+E|L[ib]\d+E)*)", line)
         if "Compiling entry" in line and found:
             regs = re.search(r"Used (\d+) registers", " ".join(lines[i:i + 4]))
             spill = next((x.strip() for x in lines[i:i + 4] if "spill" in x), "spills: not reported")
-            args = ", ".join(re.findall(r"Li(\d+)E", found.group(1)))
+            args = ", ".join(re.findall(r"L[ib](\d+)E", found.group(1)))
             yield f"<{args}>", regs.group(1) if regs else "?", spill
 
 
@@ -1962,7 +1996,8 @@ def main() -> int:
     for line in _build.LIBRARY.build_log.splitlines():
         if "Used" in line or "Compiling entry" in line or "spill" in line:
             print("ptxas:", line.strip())
-    for what, kernel in (("short-S forward", "short_attn_fwd_kernel"),
+    for what, kernel in (("GEMM", "dense_gemm_kernel"),
+                         ("short-S forward", "short_attn_fwd_kernel"),
                          ("flash backward dQ", "flash_bwd_dq_kernel"),
                          ("flash backward dK/dV", "flash_bwd_dkv_kernel")):
         for args, regs, spills in kernel_registers(_build.LIBRARY.build_log, kernel):

@@ -176,15 +176,6 @@ struct FwdSmem {
   }
 };
 
-// The 128 threads of warpgroup wg (named barriers 1 and 2; immediate ids, so
-// that ptxas reserves only those).
-__device__ __forceinline__ void wg_sync(int wg) {
-  if (wg == 0)
-    asm volatile("bar.sync 1, 128;\n" ::: "memory");
-  else
-    asm volatile("bar.sync 2, 128;\n" ::: "memory");
-}
-
 // Rows [r0, r0 + rows) of head h of batch row b of operand t into a swizzled
 // rows x Dp tile by element loads, for what TMA cannot take (a base or a
 // stride off 16 bytes); rows past n_valid and columns in [Dh, Dp) are zero.

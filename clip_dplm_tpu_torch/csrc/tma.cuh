@@ -1,7 +1,8 @@
 // Tiles in shared memory for wgmma, and the Tensor Memory Accelerator (TMA)
 // copies that fill them: the 128-byte swizzle, mbarrier completion, the
 // device-side box copies and the host-side tensor maps. Shared by the flash
-// forward (flash_attention.cu) and the short-S forward (short_attention.cu).
+// kernels (flash_attention.cu), the short-S forward (short_attention.cu) and
+// the GEMM (dense_gemm.cuh).
 #pragma once
 
 #include <cuda.h>
@@ -28,8 +29,11 @@ __device__ __forceinline__ int swz(int r, int d) {
   return swz(Rows, r, d);
 }
 
-__device__ __forceinline__ void mbar_init(uint64_t* bar) {
-  asm volatile("mbarrier.init.shared::cta.b64 [%0], 1;\n" ::"r"(smem_u32(bar)) : "memory");
+// A barrier whose phase completes after `arrivals` arrivals (and the bytes
+// announced with them).
+__device__ __forceinline__ void mbar_init(uint64_t* bar, unsigned arrivals = 1) {
+  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n" ::"r"(smem_u32(bar)), "r"(arrivals)
+               : "memory");
 }
 // Makes the initialised barriers visible to the async proxy (TMA).
 __device__ __forceinline__ void mbar_fence_init() {
@@ -40,6 +44,10 @@ __device__ __forceinline__ void mbar_expect_tx(uint64_t* bar, unsigned bytes) {
   asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n" ::"r"(smem_u32(bar)),
                "r"(bytes)
                : "memory");
+}
+// One arrival without bytes (a consumer releasing a ring slot).
+__device__ __forceinline__ void mbar_arrive(uint64_t* bar) {
+  asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];\n" ::"r"(smem_u32(bar)) : "memory");
 }
 __device__ __forceinline__ void mbar_wait(uint64_t* bar, unsigned parity) {
   asm volatile(
@@ -65,6 +73,17 @@ __device__ __forceinline__ void tma_tile(bf16* dst, const CUtensorMap* map, int 
         "l"(reinterpret_cast<uint64_t>(map)), "r"(blk * 64), "r"(row0), "r"(slice),
         "r"(smem_u32(bar))
         : "memory");
+}
+
+// One box of a 2-D tensor map at coordinates (c0, c1), innermost first, into
+// dst; completes on bar.
+__device__ __forceinline__ void tma_box_2d(bf16* dst, const CUtensorMap* map, int c0, int c1,
+                                           uint64_t* bar) {
+  asm volatile(
+      "cp.async.bulk.tensor.2d.shared::cluster.global.mbarrier::complete_tx::bytes"
+      " [%0], [%1, {%2, %3}], [%4];\n" ::"r"(smem_u32(dst)),
+      "l"(reinterpret_cast<uint64_t>(map)), "r"(c0), "r"(c1), "r"(smem_u32(bar))
+      : "memory");
 }
 
 // One box of a 4-D tensor map at coordinates (c0, c1, c2, c3), innermost

@@ -84,8 +84,8 @@ def test_short_attention_matches_plain(cuda_device, np_rng, B, S, D, H):
 @pytest.mark.cuda
 @pytest.mark.parametrize("M,D", [(64, 64), (100, 104), (4096, 640), (33, 1280)])
 def test_out_projection_matches_plain(cuda_device, np_rng, M, D):
-    """The GEMM alone, at ragged M and a K that is no multiple of its 32-wide
-    k tile."""
+    """The GEMM alone, at ragged M and a K that is no multiple of its 64-wide
+    k step."""
     o = torch.from_numpy(np_rng.normal(size=(M, D)).astype(np.float32))
     wo = torch.from_numpy((np_rng.normal(size=(D, D)) / np.sqrt(D)).astype(np.float32))
     bo = torch.from_numpy(np_rng.normal(size=(D,)).astype(np.float32))
@@ -93,6 +93,68 @@ def test_out_projection_matches_plain(cuda_device, np_rng, M, D):
     got = out_projection(o, wo, bo)
     torch.cuda.synchronize()
     torch.testing.assert_close(got.float(), out_projection_reference(o, wo, bo).float(),
+                               **TOL)
+
+
+def _gemm_plain(a, b, bias, b_row, epilogue):
+    """The GEMM's plain version: the product in f32, then the epilogue's
+    roundings ("round": bf16(bf16(acc) + bias), "once": bf16(acc + bias),
+    "none": bf16(acc))."""
+    acc = a.float() @ (b.float() if b_row else b.float().t())
+    if epilogue == "round":
+        return (acc.bfloat16().float() + bias.float()).bfloat16()
+    if epilogue == "once":
+        return (acc + bias.float()).bfloat16()
+    return acc.bfloat16()
+
+
+def _gemm_launch(a, b, bias, n_cols, b_row, epilogue):
+    """One launch through the C entry that has the epilogue: fused_dense_gemm
+    (the bias added after a rounding, or none; either B layout), or
+    short_attention_out_proj (one rounding; B K-major)."""
+    if epilogue != "once":
+        return fd._gemm(a, b, bias if epilogue == "round" else None, n_cols, b_row)
+    assert not b_row
+    c = torch.empty(a.shape[0], n_cols, dtype=torch.bfloat16, device=a.device)
+    _build.launch("short_attention_out_proj", a.data_ptr(), b.data_ptr(), bias.data_ptr(),
+                  c.data_ptr(), a.shape[0], n_cols, a.shape[1], _build.stream_of(a))
+    return c
+
+
+# M, Kr, Nc, B row-major (MN-major) or given transposed (K-major), epilogue
+GEMM_CASES = [
+    # M under one warpgroup's 64 rows, ragged M, Kr no multiple of the 64-wide
+    # k step, Nc no multiple of the 128-wide tile, each epilogue in each layout
+    (1, 104, 640, False, "round"), (1, 1000, 520, True, "none"),
+    (33, 1000, 640, False, "once"), (33, 104, 520, True, "round"),
+    (1000, 104, 520, False, "none"), (1000, 1000, 640, True, "none"),
+    (1000, 1000, 520, False, "once"), (1000, 104, 640, True, "round"),
+    (64, 8, 136, False, "round"), (130, 72, 8, True, "none"),
+] + [  # the smoke's FD_GEOMETRIES: u = x·W^T + b, then dx = du·W
+    case for B, K, N in ((8192, 1024, 1024), (8192, 1024, 2048), (8192, 2048, 2048),
+                         (8192, 2048, 512), (1000, 1024, 2048))
+    for case in ((B, K, N, False, "round"), (B, N, K, True, "none"))
+]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("M,Kr,Nc,b_row,epilogue", GEMM_CASES)
+def test_dense_gemm_matches_plain(cuda_device, np_rng, M, Kr, Nc, b_row, epilogue):
+    """The GEMM against the f32 product rounded as its epilogue says, in both
+    B layouts; two launches equal byte for byte; one launch counted a call."""
+    f = lambda *s: torch.from_numpy(np_rng.normal(size=s).astype(np.float32)).to(cuda_device)  # noqa: E731
+    a = f(M, Kr).bfloat16()
+    b = (f(Kr, Nc) if b_row else f(Nc, Kr)).div(np.sqrt(Kr)).bfloat16()
+    bias = f(Nc).bfloat16()
+    before = _build.LAUNCHES.snapshot()["fused_dense_gemm"]
+    got = _gemm_launch(a, b, bias, Nc, b_row, epilogue)
+    again = _gemm_launch(a, b, bias, Nc, b_row, epilogue)
+    torch.cuda.synchronize()
+    if epilogue != "once":
+        assert _build.LAUNCHES.snapshot()["fused_dense_gemm"] == before + 2
+    assert got.shape == (M, Nc) and torch.isfinite(got.float()).all()
+    assert torch.equal(got, again)
+    torch.testing.assert_close(got.float(), _gemm_plain(a, b, bias, b_row, epilogue).float(),
                                **TOL)
 
 

@@ -123,7 +123,10 @@ Phases, each fatal on failure (non-zero exit, no result line):
      recompute backward is held to its plain version too, and S=129 and 256
      at Dh=128; two launches of
      each equal byte for byte; each timed beside the recompute backward and
-     SDPA (timed only); (b) one DPLM train step on the card against the CPU
+     SDPA (timed only); the backward's row names the design that ran, read
+     from the C launcher's count of calls by design: the one-block kernel at
+     S <= 128, the dQ and dK/dV pair past it; (b) one DPLM train
+     step on the card against the CPU
      at full width, B=8, S=64, the same weights and the same hash-drawn
      corruption, as 7(a); (c) one step at S=300 (the flash path: forward,
      dQ and dK/dV) with a finite loss; (d) the train CLI with
@@ -141,7 +144,8 @@ Phases, each fatal on failure (non-zero exit, no result line):
      Dh=128, at S=64 with no mask, and at S=129 and 256 with Dh=128; two
      launches of each equal byte for
      byte; each timed beside SDPA's forward or backward (timed only); at the
-     flagship's shape the chunk views timed beside contiguous heads;
+     flagship's shape the chunk views timed beside contiguous heads; the
+     backward from the probabilities names its design as in 12(a);
  14. the path of those kernels: (a) multihead_attention and
      attention_dispatch, forward and backward on the card at the flagship's
      and DPLM's full widths, launch only the separate-operand kernels in the
@@ -376,6 +380,23 @@ def sdpa_bwd_fn(torch, q, k, v, mask, dout):
     leaves = [t.detach().clone().requires_grad_(True) for t in (q, k, v)]
     out = sdpa_fn(torch, *leaves, mask)()
     return lambda: torch.autograd.grad(out, leaves, dout, retain_graph=True)
+
+
+def saved_bwd_design(lib, what, S, Dh, fn):
+    """The design of the backward from the probabilities that one call of fn
+    launched, read from the C launcher's count of calls by design
+    (`short_attention_saved_bwd_calls`): exactly one call, of the design the
+    launcher's rule (`bwd_saved_design`) names at (S, Dh)."""
+    from clip_dplm_tpu_torch.ops import short_attention as sa
+
+    designs = ("one block", "pair")
+    before = [lib.short_attention_saved_bwd_calls(i) for i in range(2)]
+    fn()
+    moved = [lib.short_attention_saved_bwd_calls(i) - before[i] for i in range(2)]
+    want = sa.bwd_saved_design(S, Dh)
+    check(moved == [int(d == want) for d in designs],
+          f"{what}: calls by design {dict(zip(designs, moved))}, not one of the {want} design")
+    return want
 
 
 def check_outputs(torch, what, got, want, names, raw_first=True):
@@ -1528,6 +1549,7 @@ def phase_dplm_kernels(torch, results):
     against their plain versions, on the plain forward's residuals, with the
     recompute backward beside them (held to its plain version at S=255) and
     SDPA's backward, timed only."""
+    from clip_dplm_tpu_torch.ops import _build
     from clip_dplm_tpu_torch.ops import short_attention as sa
 
     dev = torch.device("cuda")
@@ -1581,12 +1603,15 @@ def phase_dplm_kernels(torch, results):
             sa.short_attention_qkv_bwd_probs_reference(dout, qkv, probs, H, rope_positions=pos)],
             ["dqkv"], raw_first=False)
         check(torch.equal(got, again), f"short_attention_bwd_probs {shape}: two launches differ")
+        design = saved_bwd_design(_build.LIBRARY.get(), f"short_attention_bwd_probs {shape}", S,
+                                  D // H, bwd)
         ms, plain_ms = timed_pair(torch, bwd, lambda: sa.short_attention_qkv_bwd_probs_reference(
             dout, qkv, probs, H, rope_positions=pos))
         # bytes: qkv, dO, the probabilities in; dqkv out; ops: the dP, dQ, dK
         # and dV products
-        record(results, "short_attention_bwd_probs", shape + " (on the plain probabilities)", err,
-               ms, plain_ms, work=(B * S * 7 * D * 2 + B * H * S * S * 2, 8 * B * S * S * D),
+        record(results, "short_attention_bwd_probs",
+               shape + f" (on the plain probabilities; {design})", err, ms, plain_ms,
+               work=(B * S * 7 * D * 2 + B * H * S * S * 2, 8 * B * S * S * D),
                library_ms=library_time(torch, sdpa_bwd) if main else None)
         rec = lambda: sa.short_attention_qkv_bwd(dout, qkv, o, H, **kw)  # noqa: E731
         if S == 255:
@@ -1698,6 +1723,7 @@ def phase_separate_kernels(torch, results):
     """13: the four separate-operand launches against their plain versions,
     on the plain forward's residuals, each timed beside SDPA."""
     from clip_dplm_tpu_torch.models.esm import rotary_embed
+    from clip_dplm_tpu_torch.ops import _build
     from clip_dplm_tpu_torch.ops import short_attention as sa
     from clip_dplm_tpu_torch.ops.attention import split_heads
 
@@ -1763,10 +1789,14 @@ def phase_separate_kernels(torch, results):
                                 raw_first=name in outs)
             check(all(torch.equal(a, b) for a, b in zip(got, again)),
                   f"{name} {shape}: two launches differ")
+            row = shape
+            if name == "short_attention_sep_bwd_probs":
+                row += " (" + saved_bwd_design(_build.LIBRARY.get(), f"{name} {shape}", S,
+                                               D // H, kernel_fn) + ")"
             with torch.no_grad():
                 ms, plain_ms = timed_pair(torch, kernel_fn, plain_fn)
             lib_ms = library_time(torch, library_fn)
-            record(results, name, shape, err, ms, plain_ms, work=work, library_ms=lib_ms)
+            record(results, name, row, err, ms, plain_ms, work=work, library_ms=lib_ms)
             if B == 1024:  # the chunk views read in place against contiguous heads
                 cq, ck, cv, cdo, co = (t.contiguous() for t in (hq, hk, hv, hdo, split_heads(o, H)))
                 heads_fn = {
@@ -1998,6 +2028,8 @@ def main() -> int:
             print("ptxas:", line.strip())
     for what, kernel in (("GEMM", "dense_gemm_kernel"),
                          ("short-S forward", "short_attn_fwd_kernel"),
+                         ("short-S backward from the probabilities",
+                          "short_attn_bwd_saved_kernel"),
                          ("flash backward dQ", "flash_bwd_dq_kernel"),
                          ("flash backward dK/dV", "flash_bwd_dkv_kernel")):
         for args, regs, spills in kernel_registers(_build.LIBRARY.build_log, kernel):

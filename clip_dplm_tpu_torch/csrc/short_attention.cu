@@ -71,6 +71,18 @@
 // Each output is written once by one block (no atomics: two launches are
 // equal byte for byte):
 //
+//   short_attn_bwd_saved_kernel<Dp, NT> (saved mode at S <= 128: the
+//     flagship's and DPLM's S = 128, DPLM's CLI at S = 64): one block of NT
+//     warpgroups per (head, batch row), as the TPU kernel's one program a
+//     head. Q, K, V, dO and the probabilities of the head arrive by TMA once;
+//     dP, delta and ds are formed once, in registers (wgmma, query rows as
+//     M), and dQ = ds·K from them; dV = P^T·dO and dK = dS^T·Q take the keys
+//     as M, reading P and then ds (written over P) transposed through
+//     wgmma's MN-major A. At DPLM's training shape (B=256, S=128, D=640,
+//     H=10) the call moves qkv, dO, the probabilities and dqkv, ~377 MB (0.11
+//     ms at 3.35 TB/s), and does four (S, S, Dh) products a head, 21 GFLOP
+//     (0.02 ms at 989 TFLOP/s): memory bounds it, so each byte is read once
+//     and the products and the stores overlap.
 //   short_attn_bwd_head_kernel (recompute mode, where its layout fits:
 //     S <= 208 at Dh = 64, the flagship's and DPLM's S = 128 among them):
 //     one block of 16 warps per (head, batch row) holds K, V and the f32
@@ -78,8 +90,8 @@
 //     softmax as below; five (S, S, Dh) products a head, the fastest of the
 //     recompute kernels there (PERF.md, the findings of slices 3 and 7).
 //
-// Past that bound, and always in saved mode, a head's f32 dK/dV does not fit
-// one block's shared memory beside K and V, so the work is two launches:
+// Past those bounds a head's f32 dK/dV does not fit one block's shared
+// memory beside K and V, so the work is two launches:
 //
 //   short_attn_bwd_dq_kernel<saved>: one block of 8 warps (16 where its
 //     tiles take a whole SM's shared memory, as at Dh = 128) per (query
@@ -100,12 +112,9 @@
 //     through the inverse rotation where RoPE was given.
 //
 // These are the TPU kernels' rounding points. The saved mode skips the
-// score product and the softmax and reads no o; it does its dP product twice
-// (once a kernel), as the recompute mode does its score and dP products.
-// At DPLM's training shape (B=256, S=128, D=640, H=10) the backward moves
-// qkv, dO, the probabilities and dqkv (~377 MB in saved mode) and does ~5
-// (S, S, Dh) products a head on WMMA tiles, far under the tensor cores' ~295
-// FLOP/B: memory and the blocks' serial phases bound it.
+// score product and the softmax and reads no o; the pair does its dP product
+// twice (once a kernel), as the recompute mode does its score and dP
+// products, on WMMA tiles through shared memory.
 
 #include <string.h>
 
@@ -182,7 +191,7 @@ struct FwdSmem {
 template <int Dp>
 __device__ inline void stage_operand(bf16* dst, const Operand& t, int b, int h, int r0, int rows,
                                      int n_valid, int Dh) {
-  for (int idx = threadIdx.x; idx < rows * Dp; idx += kFwdThreads) {
+  for (int idx = threadIdx.x; idx < rows * Dp; idx += blockDim.x) {
     const int r = idx / Dp, d = idx % Dp;
     dst[swz(rows, r, d)] =
         (r < n_valid && d < Dh) ? row_of(t, b, h, r0 + r)[d] : __float2bfloat16(0.f);
@@ -209,7 +218,7 @@ __device__ inline void rope_in_place(bf16* tile, int rows, bf16* tile2, int rows
   const int half = Dh / 2;
   if (half % 8 == 0) {
     const int cpr = half / 8;  // 8-element chunks per half row
-    for (int idx = threadIdx.x; idx < (r1 - r0) * cpr; idx += kFwdThreads) {
+    for (int idx = threadIdx.x; idx < (r1 - r0) * cpr; idx += blockDim.x) {
       const int r = r0 + idx / cpr, d0 = (idx % cpr) * 8;
       float c[8], sn[8];
       const float4* cp = reinterpret_cast<const float4*>(cos_t + size_t(pos0 + r) * half + d0);
@@ -237,7 +246,7 @@ __device__ inline void rope_in_place(bf16* tile, int rows, bf16* tile2, int rows
       }
     }
   } else {
-    for (int idx = threadIdx.x; idx < (r1 - r0) * half; idx += kFwdThreads) {
+    for (int idx = threadIdx.x; idx < (r1 - r0) * half; idx += blockDim.x) {
       const int r = r0 + idx / half, i = idx % half;
       const float c = cos_t[size_t(pos0 + r) * half + i];
       const float sn = sin_t[size_t(pos0 + r) * half + i];
@@ -1125,6 +1134,416 @@ short_attn_bwd_dkv_kernel(const Operand q, const Operand k, const Operand v,
   write_grad_rows(row_of<bf16>(dv, b, h, k0), dv.ss, sDV, ldacc, rows, Dh, nullptr, nullptr, 0);
 }
 
+// ---------------------------------------------------------------------------
+// Backward from the saved probabilities, one block a head (S <= 128)
+// ---------------------------------------------------------------------------
+
+constexpr int kSavedMaxSeq = 128;  // the one-block saved backward's bound: two key tiles
+
+// Shared memory of a block of short_attn_bwd_saved_kernel at R = 64·NT rows
+// (query rows and keys alike) and padded width Dp, as offsets from a
+// 1024-byte-aligned base: Q, K, V and dO of the head (R x Dp each), then the
+// probabilities (R x R, query rows by keys), all SW128-swizzled, and one
+// mbarrier. ds takes the probabilities' place once dV has read them, and K
+// and V, side by side, take each f32 output tile on its way out. Python
+// mirrors it in ops/short_attention.py::bwd_saved_smem_bytes.
+struct BwdSavedSmem {
+  size_t q, k, v, dout, p, bar, total;
+  __host__ __device__ BwdSavedSmem(int NT, int Dp) {
+    const size_t tile = size_t(NT) * 64 * Dp * sizeof(bf16);
+    q = 0;
+    k = tile;
+    v = 2 * tile;
+    dout = 3 * tile;
+    p = 4 * tile;
+    bar = p + size_t(NT) * 64 * NT * 64 * sizeof(bf16);
+    total = bar + sizeof(uint64_t) + 1024;  // + the base's alignment
+  }
+};
+
+// Element (r, c) of an R x Dp f32 staging tile: row-major, the 8-column
+// groups of row r XOR-ed with r % 4, so that the accumulators' float2 stores
+// (eight rows a warp) take two wavefronts and a row's 8-column group stays
+// contiguous.
+template <int Dp>
+__device__ __forceinline__ int stage_at(int r, int c) {
+  return r * Dp + (c ^ ((r & 3) << 3));
+}
+
+// The warp's 16 rows (r0 .. r0+15) of m64n64 accumulators acc[nb] (columns
+// nb·64 ..) into the f32 staging tile; columns past Dh are skipped.
+template <int Dp>
+__device__ __forceinline__ void stage_acc(float* st, const float (&acc)[Dp / 64][32], int r0, int g,
+                                          int t, int Dh) {
+#pragma unroll
+  for (int i = 0; i < 2; ++i)
+#pragma unroll
+    for (int nb = 0; nb < Dp / 64; ++nb)
+#pragma unroll
+      for (int n = 0; n < 8; ++n)
+        if (nb * 64 + 8 * n < Dh)
+          *reinterpret_cast<float2*>(st + stage_at<Dp>(r0 + g + 8 * i, nb * 64 + 8 * n + 2 * t)) =
+              make_float2(acc[nb][4 * n + 2 * i], acc[nb][4 * n + 2 * i + 1]);
+}
+
+// Rows [0, n_rows) of the f32 staging tile to bf16 rows of head h of batch
+// row b of operand t, eight columns a thread (16-byte stores; Dh % 8 == 0);
+// with cos/sin, through the inverse rotate-half RoPE first, row r at
+// position r, in f32: write_grad_rows' arithmetic. Where the half width is a
+// multiple of 8, a thread takes a chunk of each half, so that its cos/sin
+// come in four 16-byte loads.
+template <int Dp>
+__device__ inline void write_staged(const Operand& t, int b, int h, const float* st, int n_rows,
+                                    int Dh, const float* cos_t, const float* sin_t) {
+  const int half = Dh / 2;
+  const auto load8f = [&](int r, int d, float* v) {  // 8 contiguous columns from d
+    const float4* src = reinterpret_cast<const float4*>(st + stage_at<Dp>(r, d));
+    *reinterpret_cast<float4*>(v) = src[0];
+    *reinterpret_cast<float4*>(v + 4) = src[1];
+  };
+  if (cos_t != nullptr && half % 8 == 0) {
+    const int cph = half / 8;  // 8-column chunks a half row
+    for (int idx = threadIdx.x; idx < n_rows * cph; idx += blockDim.x) {
+      const int r = idx / cph, d0 = (idx % cph) * 8;
+      float lo[8], hi[8], c[8], sn[8], o1[8], o2[8];
+      const float4* cp = reinterpret_cast<const float4*>(cos_t + size_t(r) * half + d0);
+      const float4* sp = reinterpret_cast<const float4*>(sin_t + size_t(r) * half + d0);
+      *reinterpret_cast<float4*>(c) = cp[0];
+      *reinterpret_cast<float4*>(c + 4) = cp[1];
+      *reinterpret_cast<float4*>(sn) = sp[0];
+      *reinterpret_cast<float4*>(sn + 4) = sp[1];
+      load8f(r, d0, lo);
+      load8f(r, d0 + half, hi);
+#pragma unroll
+      for (int e = 0; e < 8; ++e) {
+        o1[e] = lo[e] * c[e] + hi[e] * sn[e];
+        o2[e] = hi[e] * c[e] - lo[e] * sn[e];
+      }
+      bf16* row = row_of<bf16>(t, b, h, r);
+      store8(row + d0, o1);
+      store8(row + half + d0, o2);
+    }
+    return;
+  }
+  const int cpr = Dh / 8;
+  for (int idx = threadIdx.x; idx < n_rows * cpr; idx += blockDim.x) {
+    const int r = idx / cpr, d0 = (idx % cpr) * 8;
+    float v[8], w[8];
+    load8f(r, d0, v);
+    if (cos_t != nullptr) {
+#pragma unroll
+      for (int e = 0; e < 8; ++e) {
+        const int d = d0 + e, i = d < half ? d : d - half;
+        const size_t p = size_t(r) * half + i;
+        const float other = st[stage_at<Dp>(r, d < half ? d + half : i)];
+        w[e] = d < half ? v[e] * cos_t[p] + other * sin_t[p] : v[e] * cos_t[p] - other * sin_t[p];
+      }
+#pragma unroll
+      for (int e = 0; e < 8; ++e) v[e] = w[e];
+    }
+    store8(row_of<bf16>(t, b, h, r) + d0, v);
+  }
+}
+
+// One block a head (h, b) for S <= 128: the TPU kernels' saved-mode
+// backward, dp = dO·V^T, delta = Σ dp·prob over the row's keys, ds =
+// bf16(prob·(dp − delta)·scale), dq = ds·K, dk = ds^T·Q, dv = prob^T·dO,
+// each operand read from device memory once. NT warpgroups (one a 64-row
+// tile, R = 64·NT rows): Q, K, V, dO and the probabilities arrive by TMA
+// behind one mbarrier (tma: the four 4-D operand maps, head_inner as in the
+// forward; tma_p: the probabilities' 3-D map, S % 8 == 0), or by element
+// loads into the same layout; RoPE, where given, rotates q and k in place.
+// The transposed A of dV and dK is read by the descriptor (wgmma's MN-major
+// A) rather than through ldmatrix.trans into registers: it costs no
+// instruction or register, which keeps Dp = 64 at 128 registers and two
+// blocks an SM.
+//   query-major: warpgroup w takes query rows 64w..64w+63; dP (SS, every key
+//     tile) in registers; delta by quad shuffles; ds in registers, rounded to
+//     bf16 as the A fragment of dQ = ds·K (K MN-major);
+//   key-major: warpgroup w takes keys 64w..64w+63; dV = P^T·dO, then, with
+//     ds written over the probabilities, dK = dS^T·Q: A MN-major (the
+//     transpose bit), dO and Q MN-major.
+// Each output leaves its accumulators through the f32 staging tile over K
+// and V (the inverse RoPE there for dQ and dK) and is written once, rows in
+// 16-byte stores, dQ's under the dV products and dV's under the dK products;
+// no atomics.
+template <int Dp, int NT>
+__global__ void __launch_bounds__(NT * 128, Dp == 64 ? 4 / NT : 1)
+short_attn_bwd_saved_kernel(const __grid_constant__ CUtensorMap tm_q,
+                            const __grid_constant__ CUtensorMap tm_k,
+                            const __grid_constant__ CUtensorMap tm_v,
+                            const __grid_constant__ CUtensorMap tm_do,
+                            const __grid_constant__ CUtensorMap tm_p, const Operand q,
+                            const Operand k, const Operand v, const Operand dout,
+                            const bf16* __restrict__ probs, const float* __restrict__ cos_t,
+                            const float* __restrict__ sin_t, const Operand dq, const Operand dk,
+                            const Operand dv, int S, int H, int Dh, float scale, bool tma,
+                            bool tma_p, int head_inner) {
+  constexpr int R = NT * 64, kBlocks = Dp / 64;
+  extern __shared__ unsigned char smem_raw[];
+  unsigned char* smem = smem_raw + ((1024 - (smem_u32(smem_raw) & 1023)) & 1023);
+  const BwdSavedSmem lay(NT, Dp);
+  bf16* sQ = reinterpret_cast<bf16*>(smem + lay.q);
+  bf16* sK = reinterpret_cast<bf16*>(smem + lay.k);
+  bf16* sV = reinterpret_cast<bf16*>(smem + lay.v);
+  bf16* sDO = reinterpret_cast<bf16*>(smem + lay.dout);
+  bf16* sP = reinterpret_cast<bf16*>(smem + lay.p);  // the probabilities, then ds
+  float* sStage = reinterpret_cast<float*>(smem + lay.k);  // K and V, once free
+  uint64_t* bar = reinterpret_cast<uint64_t*>(smem + lay.bar);
+
+  const int h = blockIdx.x, b = blockIdx.y;
+  const int tid = threadIdx.x, wg = tid / 128, lane = tid % kWarp;
+  const int r0 = (tid / kWarp) * 16;      // the warp's first accumulator row of the R rows
+  const int g = lane >> 2, t = lane & 3;  // the accumulator's row group and column pair
+  const int n_blk = (Dh + 63) / 64;       // 64-column blocks holding a column below Dh
+  const size_t bh = size_t(b) * H + h;
+  // RoPE with a half width a multiple of 8: an item is an 8-column chunk of
+  // each half of row r of q and of k; this thread's items' cos/sin (at most
+  // Dp/32: R rows x Dp/16 chunks over 2R threads) are read while the copies
+  // land
+  constexpr int kRopeItems = Dp / 32;
+  const int half = Dh / 2, cph = Dh / 16;
+  const bool rope8 = cos_t != nullptr && half % 8 == 0;
+  float rc[kRopeItems][8], rs[kRopeItems][8];
+  if (rope8) {
+#pragma unroll
+    for (int u = 0; u < kRopeItems; ++u) {
+      const int idx = tid + u * NT * 128;
+      if (idx >= S * cph) continue;
+      const size_t at = size_t(idx / cph) * half + (idx % cph) * 8;
+#pragma unroll
+      for (int e = 0; e < 2; ++e) {
+        *reinterpret_cast<float4*>(rc[u] + 4 * e) = reinterpret_cast<const float4*>(cos_t + at)[e];
+        *reinterpret_cast<float4*>(rs[u] + 4 * e) = reinterpret_cast<const float4*>(sin_t + at)[e];
+      }
+    }
+  }
+
+  if (tid == 0) {
+    mbar_init(bar);
+    mbar_fence_init();
+    if (tma || tma_p)
+      mbar_expect_tx(bar, (tma ? 4u * NT * n_blk * kBox : 0u) +
+                              (tma_p ? unsigned(NT) * R * 128 : 0u));
+    if (tma) {
+      const CUtensorMap* maps[4] = {&tm_q, &tm_k, &tm_v, &tm_do};
+      bf16* tiles[4] = {sQ, sK, sV, sDO};
+#pragma unroll
+      for (int i = 0; i < 4; ++i)
+        for (int blk = 0; blk < n_blk; ++blk)
+          for (int rt = 0; rt < NT; ++rt)
+            tma_rows(tiles[i] + blk * R * 64 + rt * 64 * 64, maps[i], head_inner & (1 << i),
+                     blk * 64, rt * 64, h, b, bar);
+    }
+    if (tma_p) tma_tile<R>(sP, &tm_p, 0, int(bh), S, bar);  // NT boxes of 64 keys x R rows
+  }
+  if (!tma) {
+    stage_operand<Dp>(sQ, q, b, h, 0, R, S, Dh);
+    stage_operand<Dp>(sK, k, b, h, 0, R, S, Dh);
+    stage_operand<Dp>(sV, v, b, h, 0, R, S, Dh);
+    stage_operand<Dp>(sDO, dout, b, h, 0, R, S, Dh);
+  }
+  if (!tma_p) {  // zero outside S x S, as TMA's out-of-bounds fill; 8 loads in flight a thread
+    constexpr int kThreads = NT * 128, kBatch = 8;
+    static_assert(R * R % (kBatch * kThreads) == 0, "whole batches of loads");
+    const bf16* ph = probs + bh * S * S;
+    for (int base = tid; base < R * R; base += kBatch * kThreads) {
+      bf16 x[kBatch];
+#pragma unroll
+      for (int u = 0; u < kBatch; ++u) {
+        const int r = (base + u * kThreads) / R, c = (base + u * kThreads) % R;
+        x[u] = r < S && c < S ? ph[size_t(r) * S + c] : __float2bfloat16(0.f);
+      }
+#pragma unroll
+      for (int u = 0; u < kBatch; ++u)
+        sP[swz(R, (base + u * kThreads) / R, (base + u * kThreads) % R)] = x[u];
+    }
+  }
+  if (!tma || !tma_p) fence_proxy_async();  // st.shared, read by wgmma
+  __syncthreads();  // the barrier's init, the element-staged tiles
+  if (tma || tma_p) mbar_wait(bar, 0);
+  if (rope8) {  // in place, rope_in_place's arithmetic
+#pragma unroll
+    for (int u = 0; u < kRopeItems; ++u) {
+      const int idx = tid + u * NT * 128;
+      if (idx >= S * cph) continue;
+      const int r = idx / cph, d0 = (idx % cph) * 8;
+      bf16* tiles[2] = {sQ, sK};
+#pragma unroll
+      for (int w = 0; w < 2; ++w) {
+        bf16* p1 = tiles[w] + swz(R, r, d0);
+        bf16* p2 = tiles[w] + swz(R, r, half + d0);
+        float a[8], bb[8], lo[8], hi[8];
+        load8(p1, a);
+        load8(p2, bb);
+#pragma unroll
+        for (int e = 0; e < 8; ++e) {
+          lo[e] = a[e] * rc[u][e] - bb[e] * rs[u][e];
+          hi[e] = bb[e] * rc[u][e] + a[e] * rs[u][e];
+        }
+        store8(p1, lo);
+        store8(p2, hi);
+      }
+    }
+  } else if (cos_t != nullptr) {  // q and k at the same positions: one cos/sin read for both
+    rope_in_place(sQ, R, sK, R, 0, S, Dh, cos_t, sin_t, 0);
+  }
+  if (cos_t != nullptr) {
+    fence_proxy_async();
+    __syncthreads();
+  }
+
+  // Query-major: dP = dO·V^T for the warpgroup's 64 rows over every key
+  // tile, both operands K-major. Padding rows and keys are zero in dO, V and
+  // the probabilities, so their ds is 0.
+  float s[NT][32];
+  const bf16* dow = sDO + wg * 64 * 64;
+  wgmma_fence();
+#pragma unroll
+  for (int j = 0; j < NT; ++j)
+#pragma unroll
+    for (int kk = 0; kk < Dp / 16; ++kk) {
+      if (kk * 16 >= Dh) continue;
+      const int col = (kk % 4) * 16;  // a k16 step inside the 64-wide block kk / 4
+      wgmma_m64n64k16_ss(s[j], gmma_desc(dow + (kk / 4) * R * 64 + col, 16, 1024),
+                         gmma_desc(sV + (kk / 4) * R * 64 + j * 64 * 64 + col, 16, 1024),
+                         kk > 0);
+    }
+  wgmma_commit();
+  wgmma_wait<0>();
+#pragma unroll
+  for (int j = 0; j < NT; ++j) fence_regs(s[j]);
+
+  // delta = Σ dP·prob over the row's keys (rows g and g+8, reduced over the
+  // quad of lanes that holds them), then ds = prob·(dP − delta)·scale in place
+  const auto prob2 = [&](int j, int n, int i) {
+    return __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(
+        sP + swz(R, r0 + g + 8 * i, j * 64 + 8 * n + 2 * t)));
+  };
+  float delta[2] = {0.f, 0.f};
+#pragma unroll
+  for (int j = 0; j < NT; ++j)
+#pragma unroll
+    for (int n = 0; n < 8; ++n)
+#pragma unroll
+      for (int i = 0; i < 2; ++i) {
+        const float2 p = prob2(j, n, i);
+        delta[i] += s[j][4 * n + 2 * i] * p.x + s[j][4 * n + 2 * i + 1] * p.y;
+      }
+#pragma unroll
+  for (int i = 0; i < 2; ++i) {
+    delta[i] += __shfl_xor_sync(0xffffffffu, delta[i], 1);
+    delta[i] += __shfl_xor_sync(0xffffffffu, delta[i], 2);
+  }
+#pragma unroll
+  for (int j = 0; j < NT; ++j)
+#pragma unroll
+    for (int n = 0; n < 8; ++n)
+#pragma unroll
+      for (int i = 0; i < 2; ++i) {
+        const float2 p = prob2(j, n, i);
+        s[j][4 * n + 2 * i] = p.x * (s[j][4 * n + 2 * i] - delta[i]) * scale;
+        s[j][4 * n + 2 * i + 1] = p.y * (s[j][4 * n + 2 * i + 1] - delta[i]) * scale;
+      }
+  // ds in bf16 as the A fragments of its 16-key steps (accumulator n-tiles
+  // 2kk, 2kk+1 of key tile j), kept until ds replaces the probabilities
+  uint32_t ds[NT][4][4];
+#pragma unroll
+  for (int j = 0; j < NT; ++j)
+#pragma unroll
+    for (int kk = 0; kk < 4; ++kk)
+#pragma unroll
+      for (int e = 0; e < 4; ++e)
+        ds[j][kk][e] = pack_bf16(s[j][8 * kk + 2 * e], s[j][8 * kk + 2 * e + 1]);
+
+  // dQ = ds·K: A from registers, K MN-major
+  float acc[kBlocks][32];  // dQ, then dV, then dK: one m64n64 accumulator a 64-column block
+#pragma unroll
+  for (int nb = 0; nb < kBlocks; ++nb)
+#pragma unroll
+    for (int i = 0; i < 32; ++i) acc[nb][i] = 0.f;
+  wgmma_fence();
+#pragma unroll
+  for (int j = 0; j < NT; ++j)
+#pragma unroll
+    for (int kk = 0; kk < 4; ++kk)
+#pragma unroll
+      for (int nb = 0; nb < kBlocks; ++nb)
+        if (nb * 64 < Dh)
+          wgmma_m64n64k16_rs<1>(acc[nb], ds[j][kk],
+                                gmma_desc(sK + nb * R * 64 + (j * 64 + kk * 16) * 64, R * 128,
+                                          1024),
+                                true);
+  wgmma_commit();
+  wgmma_wait<0>();
+#pragma unroll
+  for (int nb = 0; nb < kBlocks; ++nb) fence_regs(acc[nb]);
+#pragma unroll
+  for (int j = 0; j < NT; ++j)
+#pragma unroll
+    for (int kk = 0; kk < 4; ++kk) fence_regs(ds[j][kk]);  // A stays put until the wait
+  __syncthreads();  // every product on K and V is done: they take the staging tile
+  stage_acc<Dp>(sStage, acc, r0, g, t, Dh);
+#pragma unroll
+  for (int nb = 0; nb < kBlocks; ++nb) fence_regs(acc[nb]);
+  __syncthreads();
+
+  // Key-major: dV = P^T·dO for the warpgroup's 64 keys over every query row
+  // (A: the warpgroup's 64-key column block of the probabilities, MN-major;
+  // dO MN-major), issued before dQ leaves, whose stores it overlaps
+  const bf16* pw = sP + wg * R * 64;
+  wgmma_fence();
+#pragma unroll
+  for (int kk = 0; kk < R / 16; ++kk)
+#pragma unroll
+    for (int nb = 0; nb < kBlocks; ++nb)
+      if (nb * 64 < Dh)
+        wgmma_m64n64k16_ss<1, 1>(acc[nb], gmma_desc(pw + kk * 16 * 64, R * 128, 1024),
+                                 gmma_desc(sDO + nb * R * 64 + kk * 16 * 64, R * 128, 1024),
+                                 kk > 0);
+  wgmma_commit();
+  write_staged<Dp>(dq, b, h, sStage, S, Dh, cos_t, sin_t);
+  wgmma_wait<0>();
+#pragma unroll
+  for (int nb = 0; nb < kBlocks; ++nb) fence_regs(acc[nb]);
+  __syncthreads();  // dQ has left the staging tile; no dV product reads the probabilities
+  stage_acc<Dp>(sStage, acc, r0, g, t, Dh);
+#pragma unroll
+  for (int nb = 0; nb < kBlocks; ++nb) fence_regs(acc[nb]);
+  // ds over the probabilities, each thread where it read them
+#pragma unroll
+  for (int j = 0; j < NT; ++j)
+#pragma unroll
+    for (int kk = 0; kk < 4; ++kk)
+#pragma unroll
+      for (int e = 0; e < 4; ++e)
+        *reinterpret_cast<uint32_t*>(sP + swz(R, r0 + g + 8 * (e & 1),
+                                               j * 64 + 16 * kk + 8 * (e >> 1) + 2 * t)) =
+            ds[j][kk][e];
+  fence_proxy_async();  // st.shared, read by wgmma
+  __syncthreads();
+
+  // dK = dS^T·Q, as dV, issued before dV leaves
+  wgmma_fence();
+#pragma unroll
+  for (int kk = 0; kk < R / 16; ++kk)
+#pragma unroll
+    for (int nb = 0; nb < kBlocks; ++nb)
+      if (nb * 64 < Dh)
+        wgmma_m64n64k16_ss<1, 1>(acc[nb], gmma_desc(pw + kk * 16 * 64, R * 128, 1024),
+                                 gmma_desc(sQ + nb * R * 64 + kk * 16 * 64, R * 128, 1024),
+                                 kk > 0);
+  wgmma_commit();
+  write_staged<Dp>(dv, b, h, sStage, S, Dh, nullptr, nullptr);
+  wgmma_wait<0>();
+#pragma unroll
+  for (int nb = 0; nb < kBlocks; ++nb) fence_regs(acc[nb]);
+  __syncthreads();  // dV has left the staging tile
+  stage_acc<Dp>(sStage, acc, r0, g, t, Dh);
+  __syncthreads();
+  write_staged<Dp>(dk, b, h, sStage, S, Dh, cos_t, sin_t);
+}
+
 template <typename Kernel>
 cudaError_t allow_smem(Kernel kernel, size_t bytes) {
   return cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
@@ -1143,16 +1562,17 @@ Operand bsd(const void* base, int64_t offset, int64_t row, int S, int Dh) {
 // stride a positive multiple of 8 elements: a 4-D tensor map an operand,
 // (Dh, S, H, B) or, where its head stride is the smaller (the packed qkv and
 // its chunk views), (Dh, H, S, B); else by element loads.
-template <int Dp>
-int launch_fwd_dp(const Operand& q, const Operand& k, const Operand& v, const void* mask,
-                  const void* cos_t, const void* sin_t, const Operand& o, void* probs, int B,
-                  int S, int H, int Dh, float scale, cudaStream_t stream) {
-  const Operand* ops[3] = {&q, &k, &v};
-  CUtensorMap maps[3];
-  memset(maps, 0, sizeof(maps));
+// The 4-D tensor maps of n operands for 64 x 64 boxes: (Dh, S, H, B) or,
+// where an operand's head stride is the smaller (the packed qkv and its chunk
+// views), (Dh, H, S, B), with bit i of *head_inner set. False where a base or
+// a stride is off 16 bytes (or not positive): the kernel then loads by
+// elements.
+bool operand_maps(const Operand* const* ops, int n, CUtensorMap* maps, int B, int S, int H,
+                  int Dh, int* head_inner) {
+  memset(maps, 0, n * sizeof(CUtensorMap));
   bool tma = true;
-  int head_inner = 0;
-  for (int i = 0; i < 3 && tma; ++i) {
+  *head_inner = 0;
+  for (int i = 0; i < n && tma; ++i) {
     const Operand& t = *ops[i];
     tma = (reinterpret_cast<uintptr_t>(t.p) & 15) == 0 && t.sb > 0 && t.sh > 0 && t.ss > 0 &&
           (t.sb | t.sh | t.ss) % 8 == 0;
@@ -1162,9 +1582,20 @@ int launch_fwd_dp(const Operand& q, const Operand& k, const Operand& v, const vo
     const cuuint64_t strides[3] = {cuuint64_t(hi ? t.sh : t.ss) * 2,
                                    cuuint64_t(hi ? t.ss : t.sh) * 2, cuuint64_t(t.sb) * 2};
     const cuuint32_t box[4] = {64, hi ? 1u : 64u, hi ? 64u : 1u, 1};
-    tma = tma && tensor_map(&maps[i], t.p, 4, dims, strides, box);  // else: element loads
-    head_inner |= int(hi) << i;
+    tma = tma && tensor_map(&maps[i], t.p, 4, dims, strides, box);
+    *head_inner |= int(hi) << i;
   }
+  return tma;
+}
+
+template <int Dp>
+int launch_fwd_dp(const Operand& q, const Operand& k, const Operand& v, const void* mask,
+                  const void* cos_t, const void* sin_t, const Operand& o, void* probs, int B,
+                  int S, int H, int Dh, float scale, cudaStream_t stream) {
+  const Operand* ops[3] = {&q, &k, &v};
+  CUtensorMap maps[3];
+  int head_inner;
+  const bool tma = operand_maps(ops, 3, maps, B, S, H, Dh, &head_inner);
   const int n_kt = (S + kKeyTile - 1) / kKeyTile;
   const size_t bytes = FwdSmem(n_kt, Dp, probs != nullptr).total;
   auto kernel = n_kt <= 2 ? short_attn_fwd_kernel<Dp, 2> : short_attn_fwd_kernel<Dp, 4>;
@@ -1232,6 +1663,63 @@ int launch_bwd_pair(const Operand& q, const Operand& k, const Operand& v, const 
   return static_cast<int>(err);
 }
 
+// The saved-mode backward at padded width Dp and NT key tiles (S <= 64·NT):
+// one block a head; the probabilities by TMA where their row pitch S is a
+// multiple of 8 elements and their base 16-byte aligned.
+template <int Dp, int NT>
+int launch_bwd_saved_dp(const Operand& q, const Operand& k, const Operand& v, const void* cos_t,
+                        const void* sin_t, const void* probs, const Operand& dout,
+                        const Operand& dq, const Operand& dk, const Operand& dv, int B, int S,
+                        int H, int Dh, float scale, cudaStream_t stream) {
+  const Operand* ops[4] = {&q, &k, &v, &dout};
+  CUtensorMap maps[5] = {};
+  int head_inner;
+  const bool tma = operand_maps(ops, 4, maps, B, S, H, Dh, &head_inner);
+  const bool tma_p = S % 8 == 0 && (reinterpret_cast<uintptr_t>(probs) & 15) == 0 &&
+                     int64_t(B) * H <= INT32_MAX &&
+                     tensor_map(&maps[4], probs, S, S, B * H, NT * 64);
+  const size_t bytes = BwdSavedSmem(NT, Dp).total;
+  cudaError_t err = allow_smem(short_attn_bwd_saved_kernel<Dp, NT>, bytes);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  short_attn_bwd_saved_kernel<Dp, NT><<<dim3(H, B), NT * 128, bytes, stream>>>(
+      maps[0], maps[1], maps[2], maps[3], maps[4], q, k, v, dout, static_cast<const bf16*>(probs),
+      static_cast<const float*>(cos_t), static_cast<const float*>(sin_t), dq, dk, dv, S, H, Dh,
+      scale, tma, tma_p, head_inner);
+  return static_cast<int>(cudaGetLastError());
+}
+
+// Calls of launch_bwd_saved that launched each design since the library was
+// loaded (0: one block a head, 1: the dQ and dK/dV pair): what a check reads
+// to show which kernels a call ran.
+int g_saved_bwd_calls[2] = {0, 0};
+
+// The backward from the saved probabilities: one block a head
+// (short_attn_bwd_saved_kernel) at S <= 128, else the dQ and dK/dV launches,
+// which pass delta between them through stats ((B, H, 3, S) f32, null where
+// the one-block kernel runs). Requires 1 <= S <= 256, Dh a multiple of 8 up
+// to 128, B and H <= 65535.
+int launch_bwd_saved(const Operand& q, const Operand& k, const Operand& v, const void* cos_t,
+                     const void* sin_t, const void* probs, const Operand& dout, void* stats,
+                     const Operand& dq, const Operand& dk, const Operand& dv, int B, int S, int H,
+                     int Dh, float scale, cudaStream_t stream) {
+  if (S < 1 || S > kMaxSeq || Dh < 8 || Dh % 8 || Dh > 128 || B > 65535 || H > 65535)
+    return static_cast<int>(cudaErrorInvalidValue);
+  if (S <= kSavedMaxSeq) {
+    auto launch = Dh <= 64 ? (S <= 64 ? launch_bwd_saved_dp<64, 1> : launch_bwd_saved_dp<64, 2>)
+                           : (S <= 64 ? launch_bwd_saved_dp<128, 1> : launch_bwd_saved_dp<128, 2>);
+    const int err = launch(q, k, v, cos_t, sin_t, probs, dout, dq, dk, dv, B, S, H, Dh, scale,
+                           stream);
+    g_saved_bwd_calls[0] += err == 0;
+    return err;
+  }
+  if (stats == nullptr) return static_cast<int>(cudaErrorInvalidValue);
+  const Operand none{nullptr, 0, 0, 0};
+  const int err = launch_bwd_pair<true>(q, k, v, nullptr, cos_t, sin_t, none, probs, dout, stats,
+                                        dq, dk, dv, B, S, H, Dh, scale, stream);
+  g_saved_bwd_calls[1] += err == 0;
+  return err;
+}
+
 // The recompute-mode backward: one block a head where its layout fits, else
 // the dQ and dK/dV launches.
 int launch_bwd_recompute(const Operand& q, const Operand& k, const Operand& v, const void* mask,
@@ -1287,18 +1775,18 @@ extern "C" int short_attention_qkv_bwd(const void* qkv, const void* mask, const 
 }
 
 // The same from the saved probabilities (B, H, S, S) bf16 instead of o and
-// the mask (saved mode).
+// the mask (saved mode); stats is read only past S = 128 (null allowed up to
+// it).
 extern "C" int short_attention_qkv_bwd_probs(const void* qkv, const void* cos_t,
                                              const void* sin_t, const void* probs,
                                              const void* dout, void* stats, void* dqkv, int B,
                                              int S, int H, int Dh, float scale, void* stream) {
   const int64_t D = int64_t(H) * Dh;
-  const Operand none{nullptr, 0, 0, 0};
-  return launch_bwd_pair<true>(
-      bsd(qkv, 0, 3 * D, S, Dh), bsd(qkv, D, 3 * D, S, Dh), bsd(qkv, 2 * D, 3 * D, S, Dh),
-      nullptr, cos_t, sin_t, none, probs, bsd(dout, 0, D, S, Dh), stats,
-      bsd(dqkv, 0, 3 * D, S, Dh), bsd(dqkv, D, 3 * D, S, Dh), bsd(dqkv, 2 * D, 3 * D, S, Dh), B,
-      S, H, Dh, scale, static_cast<cudaStream_t>(stream));
+  return launch_bwd_saved(
+      bsd(qkv, 0, 3 * D, S, Dh), bsd(qkv, D, 3 * D, S, Dh), bsd(qkv, 2 * D, 3 * D, S, Dh), cos_t,
+      sin_t, probs, bsd(dout, 0, D, S, Dh), stats, bsd(dqkv, 0, 3 * D, S, Dh),
+      bsd(dqkv, D, 3 * D, S, Dh), bsd(dqkv, 2 * D, 3 * D, S, Dh), B, S, H, Dh, scale,
+      static_cast<cudaStream_t>(stream));
 }
 
 // Separate operands (fused_short_attention, fused_short_attention_heads):
@@ -1332,23 +1820,27 @@ extern "C" int short_attention_sep_bwd(const Operand* q, const Operand* k, const
                               *dv, B, S, H, Dh, scale, static_cast<cudaStream_t>(stream));
 }
 
-// The backward from the saved probabilities (B, H, S, S) bf16.
+// The backward from the saved probabilities (B, H, S, S) bf16; stats as in
+// short_attention_qkv_bwd_probs.
 extern "C" int short_attention_sep_bwd_probs(const Operand* q, const Operand* k,
                                              const Operand* v, const void* probs,
                                              const Operand* dout, void* stats, const Operand* dq,
                                              const Operand* dk, const Operand* dv, int B, int S,
                                              int H, int Dh, float scale, void* stream) {
-  const Operand none{nullptr, 0, 0, 0};
-  return launch_bwd_pair<true>(*q, *k, *v, nullptr, nullptr, nullptr, none, probs, *dout, stats,
-                               *dq, *dk, *dv, B, S, H, Dh, scale,
-                               static_cast<cudaStream_t>(stream));
+  return launch_bwd_saved(*q, *k, *v, nullptr, nullptr, probs, *dout, stats, *dq, *dk, *dv, B, S,
+                          H, Dh, scale, static_cast<cudaStream_t>(stream));
 }
 
 // Shared memory in bytes of the backward's dQ (kernel 0) or dK/dV (kernel 1)
-// block at (S, Dh) in the given mode, or of the one-block-a-head recompute
-// kernel's block (kernel 2); 0 where it does not fit.
+// block at (S, Dh) in the given mode, of the one-block-a-head recompute
+// kernel's block (kernel 2) or of the one-block saved kernel's (kernel 3); 0
+// where it does not fit or does not run.
 extern "C" int short_attention_bwd_smem(int S, int Dh, int saved, int kernel) {
   const int Sp = round_up(S, 16), Dp = round_up(Dh, 16);
+  if (kernel == 3) {
+    if (S < 1 || S > kSavedMaxSeq) return 0;
+    return static_cast<int>(BwdSavedSmem(S <= 64 ? 1 : 2, Dh <= 64 ? 64 : 128).total);
+  }
   if (kernel == 2) {
     const int QT = bwd_head_rows(Sp, Dp);
     return QT == 0 ? 0 : static_cast<int>(BwdHeadSmem(Sp, Dp, QT).total);
@@ -1360,6 +1852,13 @@ extern "C" int short_attention_bwd_smem(int S, int Dh, int saved, int kernel) {
   int KT, QT;
   bwd_dkv_rows(Sp, Dp, saved != 0, &KT, &QT);
   return KT == 0 ? 0 : static_cast<int>(BwdKVSmem(KT, Dp, QT, saved != 0).total);
+}
+
+// Calls of the backward from the probabilities, either entry, that launched
+// one block a head (design 0) or the dQ and dK/dV pair (design 1) since the
+// library was loaded.
+extern "C" int short_attention_saved_bwd_calls(int design) {
+  return design == 0 || design == 1 ? g_saved_bwd_calls[design] : -1;
 }
 
 // x (M, K), w (N, K), bias (N), y (M, N), all bf16.

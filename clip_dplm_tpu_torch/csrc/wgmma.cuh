@@ -96,15 +96,19 @@ __device__ __forceinline__ void fence_regs(uint32_t (&r)[N]) {
   "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, %16, %17, " \
   "%18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31}"
 
-// A and B from shared memory (both K-major).
+// A and B from shared memory, each K-major unless its flag says MN-major
+// (kTransA: A is M x K with M contiguous, as a transposed operand P^T read
+// from P's rows; wgmma transposes 16-bit types only). An MN-major A of 64
+// rows is one 64-wide MN block: its descriptor's LBO is not read.
+template <int kTransA = 0, int kTransB = 0>
 __device__ __forceinline__ void wgmma_m64n64k16_ss(float (&d)[32], uint64_t desc_a,
                                                    uint64_t desc_b, bool accumulate) {
   asm volatile(
       "{\n.reg .pred p;\nsetp.ne.b32 p, %34, 0;\n"
       "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 " CLIP_DPLM_D32_LIST
-      ", %32, %33, p, 1, 1, 0, 0;\n}\n"
+      ", %32, %33, p, 1, 1, %35, %36;\n}\n"
       : CLIP_DPLM_D32
-      : "l"(desc_a), "l"(desc_b), "r"(int(accumulate)));
+      : "l"(desc_a), "l"(desc_b), "r"(int(accumulate)), "n"(kTransA), "n"(kTransB));
 }
 
 // A from registers (the mma.sync m16n8k16 A fragment of the warp's 16 rows:

@@ -59,6 +59,7 @@ from clip_dplm_tpu_torch.ops.attention import (
 )
 
 MAX_SEQ = 256  # K and V of a head for the whole sequence sit in shared memory
+SAVED_ONE_BLOCK_MAX_SEQ = 128  # the saved-mode backward's one block a head
 MAX_SMEM = 232448  # dynamic shared memory of one block on the H100 (227 KB)
 HALF_SMEM = 115712  # each of two blocks on one SM (228 KB, less 1 KB a block)
 # the JAX package's bound on the saved probabilities of one call
@@ -340,6 +341,35 @@ def bwd_smem_bytes(S: int, Dh: int, saved: bool):
             _fitting(lambda QT: _bwd_dkv_smem_bytes(KT, Dp, QT, saved), KT))
 
 
+def bwd_saved_design(S: int, Dh: int) -> str:
+    """The launches of the backward from the saved probabilities at (S, Dh),
+    as csrc/short_attention.cu::launch_bwd_saved picks them: "one block" (a
+    head a block, `short_attn_bwd_saved_kernel`) at S <= 128, "pair" (the dQ
+    and dK/dV launches, which pass delta through a (B, H, 3, S) f32 scratch)
+    past it."""
+    return "one block" if S <= SAVED_ONE_BLOCK_MAX_SEQ and Dh <= SHORT_MAX_HEAD_DIM else "pair"
+
+
+def bwd_saved_smem_bytes(S: int, Dh: int) -> int:
+    """Shared memory in bytes of the one-block saved backward's block at (S,
+    Dh) (csrc/short_attention.cu::BwdSavedSmem: Q, K, V, dO and the
+    probabilities of the head at R = 64 or 128 rows and Dp = 64 or 128
+    columns, one mbarrier, 1 KB for the base's alignment); 0 where it does
+    not run."""
+    if bwd_saved_design(S, Dh) != "one block":
+        return 0
+    R, Dp = (64 if S <= 64 else 128), (64 if Dh <= 64 else 128)
+    return 4 * R * Dp * 2 + R * R * 2 + 8 + 1024
+
+
+def _saved_stats(B: int, S: int, H: int, Dh: int, dev) -> Optional[torch.Tensor]:
+    """The (B, H, 3, S) f32 scratch of the saved-mode pair, None where the
+    one-block kernel runs."""
+    if bwd_saved_design(S, Dh) == "one block":
+        return None
+    return torch.empty((B, H, 3, S), dtype=torch.float32, device=dev)
+
+
 def _bwd_head_smem_bytes(Sp: int, Dp: int, QT: int) -> int:
     """Shared memory of one block of the one-block-a-head recompute kernel
     (csrc/short_attention.cu::BwdHeadSmem)."""
@@ -476,8 +506,9 @@ def short_attention_qkv_bwd_probs(
 ) -> torch.Tensor:
     """dqkv (B, S, 3D) of `short_attention_qkv_save` from dout, qkv and its
     saved probabilities, saved mode. CPU tensors take the plain version; CUDA
-    tensors take the kernels (bf16, the forward's bounds: a dQ launch and a
-    dK/dV launch) or raise."""
+    tensors take the kernels (bf16, the forward's bounds: one block a head
+    at S <= 128, else a dQ launch and a dK/dV launch; `bwd_saved_design`) or
+    raise."""
     if qkv.device.type == "cpu":
         return short_attention_qkv_bwd_probs_reference(
             dout, qkv, probs, num_heads, scale=scale, rope_positions=rope_positions)
@@ -486,10 +517,10 @@ def short_attention_qkv_bwd_probs(
     dout = _check_residual("dout", dout, (B, S, D), qkv.device)
     probs = _check_residual("probs", probs, (B, num_heads, S, S), qkv.device)
     dqkv = torch.empty_like(qkv)
-    stats = torch.empty((B, num_heads, 3, S), dtype=torch.float32, device=qkv.device)
+    stats = _saved_stats(B, S, num_heads, Dh, qkv.device)
     _build.launch(
         "short_attention_qkv_bwd_probs", qkv.data_ptr(), _ptr(cos), _ptr(sin), probs.data_ptr(),
-        dout.data_ptr(), stats.data_ptr(), dqkv.data_ptr(), B, S, num_heads, Dh,
+        dout.data_ptr(), _ptr(stats), dqkv.data_ptr(), B, S, num_heads, Dh,
         _scale(scale, Dh), _build.stream_of(qkv))
     _build.LAUNCHES.add("short_attention_bwd_probs")
     return dqkv
@@ -851,15 +882,16 @@ def _sep_backward(name, dout, q, k, v, num_heads, mask, scale, o=None, probs=Non
             raise ValueError(f"dout and o must be {tuple(q.shape)}, got {tuple(t.shape)}")
     mask, (B, S, H, Dh), views = _sep_kernel_inputs(q, k, v, num_heads, mask, *rest)
     grads = [torch.empty(q.shape, dtype=torch.bfloat16, device=q.device) for _ in range(3)]
-    stats = torch.empty((B, H, 3, S), dtype=torch.float32, device=q.device)
     ops = [_operand(t) for t in views + [_sep_heads(g, H) for g in grads]]
     qkv_ops = [ctypes.byref(x) for x in ops[:3]]
     grad_ops = [ctypes.byref(x) for x in ops[-3:]]
     if o is None:
         probs = _check_residual("probs", probs, (B, H, S, S), q.device)
-        _build.launch(name, *qkv_ops, probs.data_ptr(), ctypes.byref(ops[3]), stats.data_ptr(),
+        stats = _saved_stats(B, S, H, Dh, q.device)
+        _build.launch(name, *qkv_ops, probs.data_ptr(), ctypes.byref(ops[3]), _ptr(stats),
                       *grad_ops, B, S, H, Dh, _scale(scale, Dh), _build.stream_of(q))
     else:
+        stats = torch.empty((B, H, 3, S), dtype=torch.float32, device=q.device)
         _build.launch(name, *qkv_ops, _ptr(mask), ctypes.byref(ops[4]), ctypes.byref(ops[3]),
                       stats.data_ptr(), *grad_ops, B, S, H, Dh, _scale(scale, Dh),
                       _build.stream_of(q))
@@ -898,8 +930,9 @@ def short_attention_sep_bwd_probs(
 ):
     """(dq, dk, dv) of `short_attention_sep_save` from dout, q, k, v and its
     saved probabilities, saved mode, in q's layout. CPU tensors take the
-    plain version; CUDA tensors take the kernels (the forward's bounds: a dQ
-    and a dK/dV launch) or raise."""
+    plain version; CUDA tensors take the kernels (the forward's bounds: one
+    block a head at S <= 128, else a dQ and a dK/dV launch;
+    `bwd_saved_design`) or raise."""
     if q.device.type == "cpu":
         return short_attention_sep_bwd_probs_reference(dout, q, k, v, probs, num_heads,
                                                        scale=scale)

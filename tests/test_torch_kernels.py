@@ -413,7 +413,8 @@ def test_short_attention_bwd_lifted_and_saved_match_plain(cuda_device, np_rng, B
 def test_short_attention_bwd_smem_matches_the_mirror(cuda_device, Dh):
     """The launcher's shared memory (csrc::short_attention_bwd_smem) equals
     ops/short_attention.py::bwd_smem_bytes, and fits, over the forward's S;
-    the one-block recompute kernel's equals bwd_head_smem_bytes."""
+    the one-block recompute kernel's equals bwd_head_smem_bytes, the
+    one-block saved kernel's bwd_saved_smem_bytes (0 past S = 128)."""
     lib = _build.LIBRARY.get()
     for S in (1, 16, 30, 64, 65, 128, 200, 208, 209, 240, 255, 256):
         for saved in (False, True):
@@ -421,6 +422,78 @@ def test_short_attention_bwd_smem_matches_the_mirror(cuda_device, Dh):
             got = tuple(lib.short_attention_bwd_smem(S, Dh, int(saved), k) for k in (0, 1))
             assert got == want and all(0 < b <= sa.MAX_SMEM for b in got), (S, saved)
         assert lib.short_attention_bwd_smem(S, Dh, 0, 2) == sa.bwd_head_smem_bytes(S, Dh), S
+        saved_one = lib.short_attention_bwd_smem(S, Dh, 1, 3)
+        assert saved_one == sa.bwd_saved_smem_bytes(S, Dh), S
+        assert (0 < saved_one <= sa.MAX_SMEM) == (sa.bwd_saved_design(S, Dh) == "one block"), S
+
+
+SAVED_ONE_BLOCK_CASES = [  # B, S, D, H, entry, mask
+    (256, 128, 640, 10, "packed rope", "ragged"),  # DPLM training
+    (64, 128, 512, 8, "chunk", "ragged"),           # the flagship's chunk views
+    (4, 64, 256, 4, "packed rope", "ragged"),       # S=64, Dh=64 (DPLM's CLI)
+    (4, 64, 512, 4, "heads", "ragged"),             # S=64, Dh=128
+    (3, 128, 256, 2, "chunk", None),                # S=128, Dh=128
+    (4, 128, 256, 4, "packed", "ragged"),           # S=128, Dh=64
+    (5, 65, 512, 8, "chunk", "ragged"),             # probabilities off 16 bytes: element loads
+    (3, 65, 64, 2, "packed rope", "ragged"),        # the same, packed, Dh=32
+    (4, 100, 640, 10, "packed rope", "dead row"),   # a batch row with no real key
+    (3, 30, 96, 2, "packed rope", "dead row"),      # Dh=48, one key tile
+]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("B,S,D,H,entry,masked", SAVED_ONE_BLOCK_CASES)
+def test_short_attention_bwd_saved_one_block_matches_plain(cuda_device, np_rng, B, S, D, H,
+                                                           entry, masked):
+    """The one-block backward from the saved probabilities (S <= 128), through
+    both saved entries, against its plain version on the plain forward's
+    probabilities: packed qkv with and without RoPE, `qkv.chunk(3, -1)` views
+    and head views; Dh = 32 to 128; S = 65, whose probabilities' rows are off
+    16 bytes (element loads); a batch row whose keys are all masked. Two
+    launches are equal byte for byte, each moves the counter once, and the C
+    launcher counts both as one-block calls."""
+    f = lambda *s: torch.from_numpy(np_rng.normal(size=s).astype(np.float32)).to(  # noqa: E731
+        cuda_device, torch.bfloat16)
+    assert sa.bwd_saved_design(S, D // H) == "one block"
+    qkv, mask = f(B, S, 3 * D), None
+    if masked == "ragged":
+        mask = torch.from_numpy(_key_mask(np_rng, B, S)).to(cuda_device)
+    elif masked == "dead row":
+        mask = torch.from_numpy(_ragged_mask(np_rng, B, S)).to(cuda_device)
+    if entry.startswith("packed"):
+        pos = torch.arange(S, device=cuda_device) if entry == "packed rope" else None
+        dout = f(B, S, D)
+        _, probs = sa.short_attention_qkv_reference(qkv, H, mask=mask, rope_positions=pos,
+                                                    return_probs=True)
+        run = lambda: [sa.short_attention_qkv_bwd_probs(dout, qkv, probs, H,  # noqa: E731
+                                                        rope_positions=pos)]
+        want = sa.short_attention_qkv_bwd_probs_reference(dout, qkv, probs, H,
+                                                          rope_positions=pos).chunk(3, dim=-1)
+        name = "short_attention_bwd_probs"
+    else:
+        q, k, v = qkv.chunk(3, dim=-1)
+        if entry == "heads":
+            q, k, v = (split_heads(t, H) for t in (q, k, v))
+        dout = f(*q.shape)
+        _, probs = sa.short_attention_sep_reference(q, k, v, H, mask=mask, return_probs=True)
+        run = lambda: list(sa.short_attention_sep_bwd_probs(dout, q, k, v, probs, H))  # noqa: E731
+        want = sa.short_attention_sep_bwd_probs_reference(dout, q, k, v, probs, H)
+        name = "short_attention_sep_bwd_probs"
+    lib = _build.LIBRARY.get()
+    designs = [lib.short_attention_saved_bwd_calls(i) for i in (0, 1)]
+    before = _build.LAUNCHES.snapshot()[name]
+    got = run()
+    torch.cuda.synchronize()
+    assert _build.LAUNCHES.snapshot()[name] == before + 1
+    again = run()
+    torch.cuda.synchronize()
+    assert _build.LAUNCHES.snapshot()[name] == before + 2
+    # both calls ran the one-block kernel, neither the dQ and dK/dV pair
+    assert [lib.short_attention_saved_bwd_calls(i) for i in (0, 1)] == [designs[0] + 2, designs[1]]
+    assert all(torch.isfinite(a).all() and torch.equal(a, b) for a, b in zip(got, again))
+    if len(got) == 1:
+        got = got[0].chunk(3, dim=-1)
+    _grads_close(got, want, ["dq", "dk", "dv"])
 
 
 @pytest.mark.cuda

@@ -103,8 +103,9 @@ def test_backward_shared_memory_bound(S, Dh):
     for saved in (False, True):
         dq, dkv = sa.bwd_smem_bytes(S, Dh, saved)
         assert 0 < dq <= sa.MAX_SMEM and 0 < dkv <= sa.MAX_SMEM, (saved, dq, dkv)
-    # the DPLM training shape's blocks, two an SM: 48 query rows (dQ) and
-    # 64 x 64 (dK/dV)
+    # the pair's blocks at S=128, Dh=64 (saved mode runs the one-block kernel
+    # there since it took S <= 128; the pair keeps 128 < S <= 256), two an
+    # SM: 48 query rows (dQ) and 64 x 64 (dK/dV)
     assert sa.bwd_smem_bytes(128, 64, True) == (102144, 108288)
     assert max(sa.bwd_smem_bytes(128, 64, True) + sa.bwd_smem_bytes(128, 64, False)) <= (
         sa.HALF_SMEM)
@@ -125,3 +126,32 @@ def test_recompute_one_block_bound(S, Dh, fits):
         assert got == 0
     # the flagship block: 64 query rows, 223 KB, one block an SM
     assert sa.bwd_head_smem_bytes(128, 64) == 228096
+
+
+@pytest.mark.parametrize("S,Dh,smem", [(128, 64, 99336), (128, 128, 164872), (64, 64, 41992),
+                                       (64, 128, 74760)])
+def test_saved_one_block_shared_memory(S, Dh, smem):
+    """The one-block saved backward's block (csrc/short_attention.cu::
+    BwdSavedSmem: Q, K, V, dO and the probabilities of the head, R = 64 or
+    128 rows, Dp = 64 or 128): at DPLM's and the flagship's (128, 64) it fits
+    half an SM, two blocks an SM; at Dh=128 one block's 227 KB."""
+    got = sa.bwd_saved_smem_bytes(S, Dh)
+    assert got == smem
+    assert got <= (sa.HALF_SMEM if Dh <= 64 else sa.MAX_SMEM)
+    # every (S, Dh) of a padded size shares its block
+    assert sa.bwd_saved_smem_bytes(S - 7, Dh - 8) == smem
+
+
+@pytest.mark.parametrize("Dh", [8, 64, 128])
+@pytest.mark.parametrize("S", [1, 16, 64, 65, 100, 128, 129, 200, 255, 256])
+def test_saved_backward_design_by_shape(S, Dh):
+    """The saved-mode backward runs one block a head at S <= 128 and the dQ
+    and dK/dV pair past it, which alone allocates the (B, H, 3, S) scratch;
+    the one-block block's shared memory is 0 where it does not run."""
+    one = S <= 128
+    assert sa.bwd_saved_design(S, Dh) == ("one block" if one else "pair")
+    assert (sa.bwd_saved_smem_bytes(S, Dh) > 0) == one
+    stats = sa._saved_stats(2, S, 3, Dh, torch.device("cpu"))
+    assert (stats is None) == one
+    if not one:
+        assert stats.shape == (2, 3, 3, S) and stats.dtype == torch.float32

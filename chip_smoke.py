@@ -43,7 +43,9 @@ Phases, each fatal on failure (non-zero exit, no result line):
      and backward against their plain versions on the card in bf16 (atol =
      rtol = 2e-2, gradients relative to their largest entry) at B=1024,
      with RoPE at DPLM's B=32 D=640, and ragged at B=1000 S=65, each timed
-     beside SDPA (the library call of the same attention, timed only);
+     beside SDPA (the library call of the same attention, timed only); the
+     backward's rows name the design that ran, read from the C launcher's
+     count of recompute calls by design (one block a head at S <= 128);
      flash attention with requires_grad records a gradient equal to its
      plain version's (atol = rtol = 2e-2 of the largest entry);
      (b) one flagship train step on the card against the CPU, B=16, dropout
@@ -56,8 +58,11 @@ Phases, each fatal on failure (non-zero exit, no result line):
      probabilities, the recompute backward not at all); (e) experiments/
      bench.py --model rna_rbp at B=2304, past the rule's 512 MiB (JAX's
      count: 604 MB a packed call), must launch the recompute backward (its
-     one-block-a-head kernel at S=128) and neither saved-mode kernel; the
-     kernels line takes the recompute backward's launches from (e);
+     one-block kernel at S=128, design 0 of the launcher's count, and no
+     other design) and neither saved-mode kernel; then one flagship step
+     card vs CPU at B=16 as (b) with the rule pinned to recompute, whose
+     worst leaf is printed beside the saved mode's of (b); the kernels line
+     takes the recompute backward's launches from (e);
   9. the tf_clip three-way step (experiments/bench.py --model tf_clip
      widths: three encoders of 3 blocks of 8 heads, d=512; gene_dim 2000 + 1,
      esm_dim 1280, 10 DEG tokens): (a) the tiny-S attention forward and
@@ -125,7 +130,9 @@ Phases, each fatal on failure (non-zero exit, no result line):
      each equal byte for byte; each timed beside the recompute backward and
      SDPA (timed only); the backward's row names the design that ran, read
      from the C launcher's count of calls by design: the one-block kernel at
-     S <= 128, the dQ and dK/dV pair past it; (b) one DPLM train
+     S <= 128, the dQ and dK/dV pair past it; the recompute backward's line
+     names its design the same way (one block at S <= 128, the WMMA head
+     kernel past it where it fits, else the pair); (b) one DPLM train
      step on the card against the CPU
      at full width, B=8, S=64, the same weights and the same hash-drawn
      corruption, as 7(a); (c) one step at S=300 (the flash path: forward,
@@ -144,8 +151,8 @@ Phases, each fatal on failure (non-zero exit, no result line):
      Dh=128, at S=64 with no mask, and at S=129 and 256 with Dh=128; two
      launches of each equal byte for
      byte; each timed beside SDPA's forward or backward (timed only); at the
-     flagship's shape the chunk views timed beside contiguous heads; the
-     backward from the probabilities names its design as in 12(a);
+     flagship's shape the chunk views timed beside contiguous heads; both
+     backwards name their design as in 12(a);
  14. the path of those kernels: (a) multihead_attention and
      attention_dispatch, forward and backward on the card at the flagship's
      and DPLM's full widths, launch only the separate-operand kernels in the
@@ -382,18 +389,25 @@ def sdpa_bwd_fn(torch, q, k, v, mask, dout):
     return lambda: torch.autograd.grad(out, leaves, dout, retain_graph=True)
 
 
-def saved_bwd_design(lib, what, S, Dh, fn):
-    """The design of the backward from the probabilities that one call of fn
-    launched, read from the C launcher's count of calls by design
-    (`short_attention_saved_bwd_calls`): exactly one call, of the design the
-    launcher's rule (`bwd_saved_design`) names at (S, Dh)."""
+def bwd_design(lib, what, S, Dh, fn, saved=True):
+    """The design of the backward (from the probabilities, or recompute)
+    that one call of fn launched, read from the C launcher's count of calls
+    by design (`short_attention_saved_bwd_calls`,
+    `short_attention_recompute_bwd_calls`): exactly one call, of the design
+    the launcher's rule (`bwd_saved_design`, `bwd_recompute_design`) names
+    at (S, Dh)."""
     from clip_dplm_tpu_torch.ops import short_attention as sa
 
-    designs = ("one block", "pair")
-    before = [lib.short_attention_saved_bwd_calls(i) for i in range(2)]
+    if saved:
+        designs, count, rule = (("one block", "pair"), lib.short_attention_saved_bwd_calls,
+                                sa.bwd_saved_design)
+    else:
+        designs, count, rule = (("one block", "head", "pair"),
+                                lib.short_attention_recompute_bwd_calls, sa.bwd_recompute_design)
+    before = [count(i) for i in range(len(designs))]
     fn()
-    moved = [lib.short_attention_saved_bwd_calls(i) - before[i] for i in range(2)]
-    want = sa.bwd_saved_design(S, Dh)
+    moved = [count(i) - before[i] for i in range(len(designs))]
+    want = rule(S, Dh)
     check(moved == [int(d == want) for d in designs],
           f"{what}: calls by design {dict(zip(designs, moved))}, not one of the {want} design")
     return want
@@ -892,6 +906,7 @@ def step_card_vs_cpu(torch, what, cfg, batch, cache=None):
           f"{time.perf_counter() - t0:.1f} s")
     for factor, msg in held:
         check(factor <= STEP_NOISE_FACTOR, msg)
+    result = worst, worst_leaf
     check(loss_err <= STEP_NOISE_FACTOR * loss_noise + 1e-6,
           f"{what} loss: rel err {loss_err} > {STEP_NOISE_FACTOR} x noise {loss_noise}")
     check(upd_err <= STEP_NOISE_FACTOR * upd_noise,
@@ -914,6 +929,7 @@ def step_card_vs_cpu(torch, what, cfg, batch, cache=None):
               f"{start}..{start + B - 1} rel L2 {c_err:.3e} (bf16 noise {c_noise:.3e})")
         check(c_err <= STEP_NOISE_FACTOR * c_noise,
               f"{what} cache rows: rel L2 {c_err} > {STEP_NOISE_FACTOR} x noise {c_noise}")
+    return result
 
 
 def phase_train_path(torch, build):
@@ -964,6 +980,7 @@ def phase_flagship_kernels(torch, results):
     """8(a): the flagship's three new kernels against their plain versions,
     each timed beside SDPA at the same shape; and flash attention recording
     its gradient."""
+    from clip_dplm_tpu_torch.ops import _build
     from clip_dplm_tpu_torch.ops import short_attention as sa
     from clip_dplm_tpu_torch.ops.attention import attention_reference
     from clip_dplm_tpu_torch.ops.flash_attention import flash_attention
@@ -989,8 +1006,13 @@ def phase_flagship_kernels(torch, results):
         o = sa.short_attention_qkv_reference(qkv, H, mask=mask, rope_positions=pos)
         q, k, v = (heads(t, H) for t in qkv.split(D, dim=-1))
         shape = f"B={B} S={S} D={D} H={H}" + (" rope" if rope else "")
+        design = bwd_design(_build.LIBRARY.get(), f"short_attention_bwd {shape}", S, D // H,
+                            lambda: sa.short_attention_qkv_bwd(dout, qkv, o, H, mask=mask,
+                                                               rope_positions=pos),
+                            saved=False)
         # bytes: qkv, o, dO, mask in, dqkv out; ops: five (S, S, Dh) products a head
-        compare(torch, "short_attention_bwd", shape + " (on the plain forward's residuals)",
+        compare(torch, "short_attention_bwd",
+                shape + f" (on the plain forward's residuals; {design})",
                 lambda: sa.short_attention_qkv_bwd(dout, qkv, o, H, mask=mask,
                                                    rope_positions=pos),
                 lambda: sa.short_attention_qkv_bwd_reference(dout, qkv, o, H, mask=mask,
@@ -1081,6 +1103,7 @@ def phase_flagship_path(torch, build):
     check_saved_raw_path(launches, "flagship", 256, 1024)
     # 8(e): the recompute backward's launches come from the path that runs it
     launches["short_attention_bwd"] = flagship_past_the_rule(torch, build)["short_attention_bwd"]
+    phase_flagship_recompute_step(torch)
     return launches
 
 
@@ -1119,14 +1142,45 @@ def flagship_past_the_rule(torch, build):
 
     B, S, H = 2304, 128, 8
     check(not saves_probs(B, S, H), f"the rule saves at B={B} S={S} H={H}")
+    lib = build.LIBRARY.get()
+    designs = [lib.short_attention_recompute_bwd_calls(i) for i in range(3)]
     build.LAUNCHES.reset()
     out = bench.main(["--model", "rna_rbp", "--batch", str(B)])
     torch.cuda.synchronize()
     counts = build.LAUNCHES.snapshot()
+    moved = [lib.short_attention_recompute_bwd_calls(i) - designs[i] for i in range(3)]
     print(f"bench rna_rbp B={B} (604 MB a packed call by JAX's count): step {out['step_ms']} ms, "
-          f"{out['value']} pairs/s, MFU {out['mfu']}")
+          f"{out['value']} pairs/s, MFU {out['mfu']}; recompute backward calls by design "
+          f"(one block, head, pair): {moved}")
     check_attention_path(counts, f"flagship B={B}", (B, S, H))
+    check(moved[0] == counts["short_attention_bwd"] > 0 and moved[1:] == [0, 0],
+          f"flagship B={B}: recompute backward calls by design {moved}, not all one block")
     return counts
+
+
+def phase_flagship_recompute_step(torch):
+    """8(e): one flagship step at full width, S=128, B=16, card vs CPU as
+    8(b), with the rule pinned to recompute: the one-block recompute
+    backward inside a train step, held to the step check's bound."""
+    from clip_dplm_tpu_torch.config import Config, apply_overrides
+    from clip_dplm_tpu_torch.experiments import bench
+    from clip_dplm_tpu_torch.ops import short_attention as sa
+
+    B = 16
+    cfg = apply_overrides(Config(), bench.RNA_RBP_OVERRIDES + [
+        f"train.batch_size={B}", "train.optim.schedule=constant",
+        "train.optim.learning_rate=1e-3"])
+    batch = bench.rna_rbp_batch(cfg, B, np.random.default_rng(5))
+    rule = sa.saves_probs
+    sa.saves_probs = lambda *a: False
+    try:
+        worst, leaf = step_card_vs_cpu(
+            torch, f"flagship train step B={B} S=128 in recompute mode (full widths, dropout 0.1)",
+            cfg, batch)
+    finally:
+        sa.saves_probs = rule
+    print(f"8(e) worst leaf in recompute mode: {worst:.3f}x its noise ({leaf}); 8(b)'s in saved "
+          f"mode was 1.934x (rbp_proj.layer_scale) in the last accepted smoke (PERF.md)")
 
 
 def phase_tf_clip_kernels(torch, results):
@@ -1603,8 +1657,8 @@ def phase_dplm_kernels(torch, results):
             sa.short_attention_qkv_bwd_probs_reference(dout, qkv, probs, H, rope_positions=pos)],
             ["dqkv"], raw_first=False)
         check(torch.equal(got, again), f"short_attention_bwd_probs {shape}: two launches differ")
-        design = saved_bwd_design(_build.LIBRARY.get(), f"short_attention_bwd_probs {shape}", S,
-                                  D // H, bwd)
+        design = bwd_design(_build.LIBRARY.get(), f"short_attention_bwd_probs {shape}", S,
+                            D // H, bwd)
         ms, plain_ms = timed_pair(torch, bwd, lambda: sa.short_attention_qkv_bwd_probs_reference(
             dout, qkv, probs, H, rope_positions=pos))
         # bytes: qkv, dO, the probabilities in; dqkv out; ops: the dP, dQ, dK
@@ -1623,9 +1677,11 @@ def phase_dplm_kernels(torch, results):
             results["short_attention_bwd"]["max_abs_err"] = max(
                 results["short_attention_bwd"]["max_abs_err"], r_err)
             print(f"kernel short_attention_bwd {shape}: max_abs_err={r_err:.3e}")
+        rec_design = bwd_design(_build.LIBRARY.get(), f"short_attention_bwd {shape}", S, D // H,
+                                rec, saved=False)
         rec_ms, sdpa_ms = library_time(torch, rec), library_time(torch, sdpa_bwd)
         print(f"packed attention backward {shape}: from the probabilities {ms:.4f} ms, recompute "
-              f"{rec_ms:.4f} ms, SDPA's backward {sdpa_ms:.4f} ms (timed only)")
+              f"{rec_ms:.4f} ms ({rec_design}), SDPA's backward {sdpa_ms:.4f} ms (timed only)")
         del sdpa_bwd
 
 
@@ -1790,9 +1846,9 @@ def phase_separate_kernels(torch, results):
             check(all(torch.equal(a, b) for a, b in zip(got, again)),
                   f"{name} {shape}: two launches differ")
             row = shape
-            if name == "short_attention_sep_bwd_probs":
-                row += " (" + saved_bwd_design(_build.LIBRARY.get(), f"{name} {shape}", S,
-                                               D // H, kernel_fn) + ")"
+            if name in ("short_attention_sep_bwd_probs", "short_attention_sep_bwd"):
+                row += " (" + bwd_design(_build.LIBRARY.get(), f"{name} {shape}", S, D // H,
+                                         kernel_fn, saved=name.endswith("probs")) + ")"
             with torch.no_grad():
                 ms, plain_ms = timed_pair(torch, kernel_fn, plain_fn)
             lib_ms = library_time(torch, library_fn)
@@ -2028,8 +2084,8 @@ def main() -> int:
             print("ptxas:", line.strip())
     for what, kernel in (("GEMM", "dense_gemm_kernel"),
                          ("short-S forward", "short_attn_fwd_kernel"),
-                         ("short-S backward from the probabilities",
-                          "short_attn_bwd_saved_kernel"),
+                         ("short-S backward, one block a head",
+                          "short_attn_bwd_block_kernel"),
                          ("flash backward dQ", "flash_bwd_dq_kernel"),
                          ("flash backward dK/dV", "flash_bwd_dkv_kernel")):
         for args, regs, spills in kernel_registers(_build.LIBRARY.build_log, kernel):

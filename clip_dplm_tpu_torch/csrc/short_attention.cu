@@ -71,24 +71,30 @@
 // Each output is written once by one block (no atomics: two launches are
 // equal byte for byte):
 //
-//   short_attn_bwd_saved_kernel<Dp, NT> (saved mode at S <= 128: the
+//   short_attn_bwd_block_kernel<Dp, NT, kSaved> (both modes at S <= 128: the
 //     flagship's and DPLM's S = 128, DPLM's CLI at S = 64): one block of NT
 //     warpgroups per (head, batch row), as the TPU kernel's one program a
-//     head. Q, K, V, dO and the probabilities of the head arrive by TMA once;
-//     dP, delta and ds are formed once, in registers (wgmma, query rows as
-//     M), and dQ = ds·K from them; dV = P^T·dO and dK = dS^T·Q take the keys
-//     as M, reading P and then ds (written over P) transposed through
-//     wgmma's MN-major A. At DPLM's training shape (B=256, S=128, D=640,
-//     H=10) the call moves qkv, dO, the probabilities and dqkv, ~377 MB (0.11
-//     ms at 3.35 TB/s), and does four (S, S, Dh) products a head, 21 GFLOP
-//     (0.02 ms at 989 TFLOP/s): memory bounds it, so each byte is read once
-//     and the products and the stores overlap.
-//   short_attn_bwd_head_kernel (recompute mode, where its layout fits:
-//     S <= 208 at Dh = 64, the flagship's and DPLM's S = 128 among them):
-//     one block of 16 warps per (head, batch row) holds K, V and the f32
-//     dK/dV of the whole head and walks the query tiles, recomputing the
-//     softmax as below; five (S, S, Dh) products a head, the fastest of the
-//     recompute kernels there (PERF.md, the findings of slices 3 and 7).
+//     head. Q, K, V, dO and the probabilities (saved mode) or o (recompute
+//     mode) of the head arrive by TMA once. Recompute mode first forms delta
+//     = rowsum(dO∘o) from o, then the forward's scores and exact softmax in
+//     registers (the forward's score_tiles and softmax_tiles, query rows as
+//     M), prob = p / l in f32, and writes bf16(prob) where o was; saved mode
+//     reads the probabilities. dP (a key tile at a time in recompute mode,
+//     where the f32 prob of every key tile holds the registers), delta (saved
+//     mode: Σ dP·prob) and ds are formed once, in registers (wgmma, query
+//     rows as M), and dQ = ds·K from them; dV = P^T·dO and dK = dS^T·Q take
+//     the keys as M, reading P and then ds (written over P) transposed
+//     through wgmma's MN-major A. At DPLM's training shape (B=256, S=128,
+//     D=640, H=10) the saved call moves qkv, dO, the probabilities and dqkv,
+//     ~377 MB (0.11 ms at 3.35 TB/s), and does four (S, S, Dh) products a
+//     head, 21 GFLOP (0.02 ms at 989 TFLOP/s); the recompute call reads o
+//     instead of the probabilities (335 MB) and does five products: memory
+//     bounds both, so each byte is read once and the products and the
+//     stores overlap.
+//   short_attn_bwd_head_kernel (recompute mode at 128 < S where its layout
+//     fits: S <= 208 at Dh = 64): one block of 16 warps per (head, batch
+//     row) holds K, V and the f32 dK/dV of the whole head and walks the query
+//     tiles on WMMA, recomputing the softmax as below.
 //
 // Past those bounds a head's f32 dK/dV does not fit one block's shared
 // memory beside K and V, so the work is two launches:
@@ -114,7 +120,10 @@
 // These are the TPU kernels' rounding points. The saved mode skips the
 // score product and the softmax and reads no o; the pair does its dP product
 // twice (once a kernel), as the recompute mode does its score and dP
-// products, on WMMA tiles through shared memory.
+// products, on WMMA tiles through shared memory. Each launcher counts its
+// calls by design (short_attention_saved_bwd_calls,
+// short_attention_recompute_bwd_calls), what a check reads to show which
+// kernels a call ran.
 
 #include <string.h>
 
@@ -144,7 +153,7 @@ namespace {
 // (PERF.md, the findings of slice 7). kBwdPair threads an SM either way.
 constexpr int kBwdPair = 512;
 constexpr size_t kHalfSmem = 115712;  // (228 KB per SM) / 2, less 1 KB reserved a block
-// the one-block-a-head recompute backward: 16 warps, so that the one block
+// the WMMA one-block-a-head recompute backward: 16 warps, so that the one block
 // an SM that its shared memory allows hides more of the latency of its
 // serial phases (PERF.md, the findings of slice 3)
 constexpr int kHeadThreads = 512;
@@ -265,9 +274,9 @@ __device__ inline void rope_in_place(bf16* tile, int rows, bf16* tile2, int rows
 }
 
 // s[j] = Q·K^T of key tile j (those below n_kt) for the warpgroup's 64 rows
-// (qw: its rows of the Q tile), both operands K-major from shared memory,
-// then s·scale + the key bias.
-template <int Dp, int NT>
+// (qw: its rows of the QRows x Dp Q tile), both operands K-major from shared
+// memory, then s·scale + the key bias.
+template <int Dp, int NT, int QRows = kFwdRows>
 __device__ __forceinline__ void score_tiles(float (&s)[NT][32], const bf16* qw, const bf16* sK,
                                             const float* sBias, int n_kt, int Sp, int Dh,
                                             float scale, int t) {
@@ -279,7 +288,7 @@ __device__ __forceinline__ void score_tiles(float (&s)[NT][32], const bf16* qw, 
     for (int kk = 0; kk < Dp / 16; ++kk) {
       if (kk * 16 >= Dh) continue;
       const int col = (kk % 4) * 16;  // a k16 step inside the 64-wide block kk / 4
-      wgmma_m64n64k16_ss(s[j], gmma_desc(qw + (kk / 4) * kFwdRows * 64 + col, 16, 1024),
+      wgmma_m64n64k16_ss(s[j], gmma_desc(qw + (kk / 4) * QRows * 64 + col, 16, 1024),
                          gmma_desc(sK + (kk / 4) * Sp * 64 + j * kKeyTile * 64 + col, 16, 1024),
                          kk > 0);
     }
@@ -1135,28 +1144,33 @@ short_attn_bwd_dkv_kernel(const Operand q, const Operand k, const Operand v,
 }
 
 // ---------------------------------------------------------------------------
-// Backward from the saved probabilities, one block a head (S <= 128)
+// Backward in either mode, one block a head (S <= 128)
 // ---------------------------------------------------------------------------
 
-constexpr int kSavedMaxSeq = 128;  // the one-block saved backward's bound: two key tiles
+constexpr int kBlockMaxSeq = 128;  // the one-block backward's bound: two key tiles
 
-// Shared memory of a block of short_attn_bwd_saved_kernel at R = 64·NT rows
+// Shared memory of a block of short_attn_bwd_block_kernel at R = 64·NT rows
 // (query rows and keys alike) and padded width Dp, as offsets from a
 // 1024-byte-aligned base: Q, K, V and dO of the head (R x Dp each), then the
-// probabilities (R x R, query rows by keys), all SW128-swizzled, and one
-// mbarrier. ds takes the probabilities' place once dV has read them, and K
-// and V, side by side, take each f32 output tile on its way out. Python
-// mirrors it in ops/short_attention.py::bwd_saved_smem_bytes.
-struct BwdSavedSmem {
-  size_t q, k, v, dout, p, bar, total;
-  __host__ __device__ BwdSavedSmem(int NT, int Dp) {
+// probabilities (R x R, query rows by keys), all SW128-swizzled, then, in
+// recompute mode, the key bias, and one mbarrier. In recompute mode o (R x
+// Dp) lands where the probabilities go, which are written over it once delta
+// has read it (the region takes the larger of the two: o at R = 64, Dp =
+// 128). ds takes the probabilities' place once dV has read them, and K and
+// V, side by side, take each f32 output tile on its way out. Python mirrors
+// it in ops/short_attention.py::_block_smem_bytes.
+struct BwdBlockSmem {
+  size_t q, k, v, dout, p, bias, bar, total;
+  __host__ __device__ BwdBlockSmem(int NT, int Dp, bool saved) {
     const size_t tile = size_t(NT) * 64 * Dp * sizeof(bf16);
+    const size_t probs = size_t(NT) * 64 * NT * 64 * sizeof(bf16);
     q = 0;
     k = tile;
     v = 2 * tile;
     dout = 3 * tile;
     p = 4 * tile;
-    bar = p + size_t(NT) * 64 * NT * 64 * sizeof(bf16);
+    bias = p + (saved || probs >= tile ? probs : tile);
+    bar = bias + (saved ? 0 : size_t(NT) * 64 * sizeof(float));
     total = bar + sizeof(uint64_t) + 1024;  // + the base's alignment
   }
 };
@@ -1245,49 +1259,57 @@ __device__ inline void write_staged(const Operand& t, int b, int h, const float*
   }
 }
 
-// One block a head (h, b) for S <= 128: the TPU kernels' saved-mode
-// backward, dp = dO·V^T, delta = Σ dp·prob over the row's keys, ds =
-// bf16(prob·(dp − delta)·scale), dq = ds·K, dk = ds^T·Q, dv = prob^T·dO,
-// each operand read from device memory once. NT warpgroups (one a 64-row
-// tile, R = 64·NT rows): Q, K, V, dO and the probabilities arrive by TMA
-// behind one mbarrier (tma: the four 4-D operand maps, head_inner as in the
-// forward; tma_p: the probabilities' 3-D map, S % 8 == 0), or by element
-// loads into the same layout; RoPE, where given, rotates q and k in place.
-// The transposed A of dV and dK is read by the descriptor (wgmma's MN-major
-// A) rather than through ldmatrix.trans into registers: it costs no
-// instruction or register, which keeps Dp = 64 at 128 registers and two
-// blocks an SM.
-//   query-major: warpgroup w takes query rows 64w..64w+63; dP (SS, every key
-//     tile) in registers; delta by quad shuffles; ds in registers, rounded to
-//     bf16 as the A fragment of dQ = ds·K (K MN-major);
+// One block a head (h, b) for S <= 128: the TPU kernels' backward, dp =
+// dO·V^T, delta (saved mode: Σ dp·prob over the row's keys; recompute mode:
+// Σ dO·o over the row's columns), ds = bf16(prob·(dp − delta)·scale), dq =
+// ds·K, dk = ds^T·Q, dv = bf16(prob)^T·dO, each operand read from device
+// memory once. Recompute mode takes prob = p / l in f32 from the forward's
+// scores and softmax, recomputed in registers; saved mode reads bf16 prob.
+// NT warpgroups (one a 64-row tile, R = 64·NT rows): Q, K, V, dO and the
+// probabilities or o arrive by TMA behind one mbarrier (tma: the 4-D operand
+// maps, head_inner as in the forward, o's the fifth, tm_x; tma_p, saved mode:
+// the probabilities' 3-D map in tm_x, S % 8 == 0), or by element loads into
+// the same layout; RoPE, where given, rotates q and k in place. The
+// transposed A of dV and dK is read by the descriptor (wgmma's MN-major A)
+// rather than through ldmatrix.trans into registers: it costs no instruction
+// or register, which keeps Dp = 64 at 128 registers and two blocks an SM.
+//   query-major: warpgroup w takes query rows 64w..64w+63; recompute mode:
+//     the scores (SS, every key tile), the softmax and the f32 prob in
+//     registers, bf16(prob) stored where o was; dP (SS) in registers, of
+//     every key tile (saved mode) or one at a time (recompute mode); delta by
+//     quad shuffles; ds in registers, rounded to bf16 as the A fragment of
+//     dQ = ds·K (K MN-major);
 //   key-major: warpgroup w takes keys 64w..64w+63; dV = P^T·dO, then, with
 //     ds written over the probabilities, dK = dS^T·Q: A MN-major (the
 //     transpose bit), dO and Q MN-major.
 // Each output leaves its accumulators through the f32 staging tile over K
 // and V (the inverse RoPE there for dQ and dK) and is written once, rows in
 // 16-byte stores, dQ's under the dV products and dV's under the dK products;
-// no atomics.
-template <int Dp, int NT>
+// no atomics. Padding rows and keys (past S) are zero in Q, K, V, dO and o
+// and take the key bias −inf, so their ds is 0 with no mask.
+template <int Dp, int NT, bool kSaved>
 __global__ void __launch_bounds__(NT * 128, Dp == 64 ? 4 / NT : 1)
-short_attn_bwd_saved_kernel(const __grid_constant__ CUtensorMap tm_q,
+short_attn_bwd_block_kernel(const __grid_constant__ CUtensorMap tm_q,
                             const __grid_constant__ CUtensorMap tm_k,
                             const __grid_constant__ CUtensorMap tm_v,
                             const __grid_constant__ CUtensorMap tm_do,
-                            const __grid_constant__ CUtensorMap tm_p, const Operand q,
-                            const Operand k, const Operand v, const Operand dout,
-                            const bf16* __restrict__ probs, const float* __restrict__ cos_t,
-                            const float* __restrict__ sin_t, const Operand dq, const Operand dk,
-                            const Operand dv, int S, int H, int Dh, float scale, bool tma,
-                            bool tma_p, int head_inner) {
+                            const __grid_constant__ CUtensorMap tm_x, const Operand q,
+                            const Operand k, const Operand v, const Operand dout, const Operand o,
+                            const bf16* __restrict__ probs, const uint8_t* __restrict__ mask,
+                            const float* __restrict__ cos_t, const float* __restrict__ sin_t,
+                            const Operand dq, const Operand dk, const Operand dv, int S, int H,
+                            int Dh, float scale, bool tma, bool tma_p, int head_inner) {
   constexpr int R = NT * 64, kBlocks = Dp / 64;
+  constexpr int kOps = kSaved ? 4 : 5;  // operands by the 4-D maps: q, k, v, dO (and o)
   extern __shared__ unsigned char smem_raw[];
   unsigned char* smem = smem_raw + ((1024 - (smem_u32(smem_raw) & 1023)) & 1023);
-  const BwdSavedSmem lay(NT, Dp);
+  const BwdBlockSmem lay(NT, Dp, kSaved);
   bf16* sQ = reinterpret_cast<bf16*>(smem + lay.q);
   bf16* sK = reinterpret_cast<bf16*>(smem + lay.k);
   bf16* sV = reinterpret_cast<bf16*>(smem + lay.v);
   bf16* sDO = reinterpret_cast<bf16*>(smem + lay.dout);
-  bf16* sP = reinterpret_cast<bf16*>(smem + lay.p);  // the probabilities, then ds
+  bf16* sP = reinterpret_cast<bf16*>(smem + lay.p);  // (o, then) the probabilities, then ds
+  float* sBias = reinterpret_cast<float*>(smem + lay.bias);  // recompute mode
   float* sStage = reinterpret_cast<float*>(smem + lay.k);  // K and V, once free
   uint64_t* bar = reinterpret_cast<uint64_t*>(smem + lay.bar);
 
@@ -1323,27 +1345,33 @@ short_attn_bwd_saved_kernel(const __grid_constant__ CUtensorMap tm_q,
     mbar_init(bar);
     mbar_fence_init();
     if (tma || tma_p)
-      mbar_expect_tx(bar, (tma ? 4u * NT * n_blk * kBox : 0u) +
+      mbar_expect_tx(bar, (tma ? unsigned(kOps) * NT * n_blk * kBox : 0u) +
                               (tma_p ? unsigned(NT) * R * 128 : 0u));
     if (tma) {
-      const CUtensorMap* maps[4] = {&tm_q, &tm_k, &tm_v, &tm_do};
-      bf16* tiles[4] = {sQ, sK, sV, sDO};
+      const CUtensorMap* maps[5] = {&tm_q, &tm_k, &tm_v, &tm_do, &tm_x};
+      bf16* tiles[5] = {sQ, sK, sV, sDO, sP};
 #pragma unroll
-      for (int i = 0; i < 4; ++i)
+      for (int i = 0; i < kOps; ++i)
         for (int blk = 0; blk < n_blk; ++blk)
           for (int rt = 0; rt < NT; ++rt)
             tma_rows(tiles[i] + blk * R * 64 + rt * 64 * 64, maps[i], head_inner & (1 << i),
                      blk * 64, rt * 64, h, b, bar);
     }
-    if (tma_p) tma_tile<R>(sP, &tm_p, 0, int(bh), S, bar);  // NT boxes of 64 keys x R rows
+    if (tma_p) tma_tile<R>(sP, &tm_x, 0, int(bh), S, bar);  // NT boxes of 64 keys x R rows
   }
   if (!tma) {
     stage_operand<Dp>(sQ, q, b, h, 0, R, S, Dh);
     stage_operand<Dp>(sK, k, b, h, 0, R, S, Dh);
     stage_operand<Dp>(sV, v, b, h, 0, R, S, Dh);
     stage_operand<Dp>(sDO, dout, b, h, 0, R, S, Dh);
+    if (!kSaved) stage_operand<Dp>(sP, o, b, h, 0, R, S, Dh);
   }
-  if (!tma_p) {  // zero outside S x S, as TMA's out-of-bounds fill; 8 loads in flight a thread
+  if (!kSaved) {
+    const uint8_t* mask_row = mask == nullptr ? nullptr : mask + size_t(b) * S;
+    for (int j = tid; j < R; j += NT * 128) sBias[j] = key_bias(mask_row, j, S);
+  } else if (!tma_p) {
+    // the probabilities: zero outside S x S, as TMA's out-of-bounds fill; 8
+    // loads in flight a thread
     constexpr int kThreads = NT * 128, kBatch = 8;
     static_assert(R * R % (kBatch * kThreads) == 0, "whole batches of loads");
     const bf16* ph = probs + bh * S * S;
@@ -1362,6 +1390,25 @@ short_attn_bwd_saved_kernel(const __grid_constant__ CUtensorMap tm_q,
   if (!tma || !tma_p) fence_proxy_async();  // st.shared, read by wgmma
   __syncthreads();  // the barrier's init, the element-staged tiles
   if (tma || tma_p) mbar_wait(bar, 0);
+  // recompute mode: delta = Σ dO·o over the row's columns (rows g and g+8,
+  // the quad's lanes on alternate 8-column chunks, then reduced over the
+  // quad), read before the probabilities are written over o
+  float delta[2] = {0.f, 0.f};
+  if constexpr (!kSaved) {
+#pragma unroll
+    for (int i = 0; i < 2; ++i) {
+      const int r = r0 + g + 8 * i;
+      for (int c = t; c < Dh / 8; c += 4) {
+        float x[8], y[8];
+        load8(sDO + swz(R, r, 8 * c), x);
+        load8(sP + swz(R, r, 8 * c), y);
+#pragma unroll
+        for (int e = 0; e < 8; ++e) delta[i] = fmaf(x[e], y[e], delta[i]);
+      }
+      delta[i] += __shfl_xor_sync(0xffffffffu, delta[i], 1);
+      delta[i] += __shfl_xor_sync(0xffffffffu, delta[i], 2);
+    }
+  }
   if (rope8) {  // in place, rope_in_place's arithmetic
 #pragma unroll
     for (int u = 0; u < kRopeItems; ++u) {
@@ -1388,73 +1435,126 @@ short_attn_bwd_saved_kernel(const __grid_constant__ CUtensorMap tm_q,
   } else if (cos_t != nullptr) {  // q and k at the same positions: one cos/sin read for both
     rope_in_place(sQ, R, sK, R, 0, S, Dh, cos_t, sin_t, 0);
   }
-  if (cos_t != nullptr) {
+  if (cos_t != nullptr || !kSaved) {  // recompute mode: also every read of o is done
     fence_proxy_async();
     __syncthreads();
   }
 
-  // Query-major: dP = dO·V^T for the warpgroup's 64 rows over every key
-  // tile, both operands K-major. Padding rows and keys are zero in dO, V and
-  // the probabilities, so their ds is 0.
-  float s[NT][32];
   const bf16* dow = sDO + wg * 64 * 64;
-  wgmma_fence();
-#pragma unroll
-  for (int j = 0; j < NT; ++j)
-#pragma unroll
-    for (int kk = 0; kk < Dp / 16; ++kk) {
-      if (kk * 16 >= Dh) continue;
-      const int col = (kk % 4) * 16;  // a k16 step inside the 64-wide block kk / 4
-      wgmma_m64n64k16_ss(s[j], gmma_desc(dow + (kk / 4) * R * 64 + col, 16, 1024),
-                         gmma_desc(sV + (kk / 4) * R * 64 + j * 64 * 64 + col, 16, 1024),
-                         kk > 0);
-    }
-  wgmma_commit();
-  wgmma_wait<0>();
-#pragma unroll
-  for (int j = 0; j < NT; ++j) fence_regs(s[j]);
-
-  // delta = Σ dP·prob over the row's keys (rows g and g+8, reduced over the
-  // quad of lanes that holds them), then ds = prob·(dP − delta)·scale in place
-  const auto prob2 = [&](int j, int n, int i) {
-    return __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(
-        sP + swz(R, r0 + g + 8 * i, j * 64 + 8 * n + 2 * t)));
-  };
-  float delta[2] = {0.f, 0.f};
-#pragma unroll
-  for (int j = 0; j < NT; ++j)
-#pragma unroll
-    for (int n = 0; n < 8; ++n)
-#pragma unroll
-      for (int i = 0; i < 2; ++i) {
-        const float2 p = prob2(j, n, i);
-        delta[i] += s[j][4 * n + 2 * i] * p.x + s[j][4 * n + 2 * i + 1] * p.y;
-      }
-#pragma unroll
-  for (int i = 0; i < 2; ++i) {
-    delta[i] += __shfl_xor_sync(0xffffffffu, delta[i], 1);
-    delta[i] += __shfl_xor_sync(0xffffffffu, delta[i], 2);
-  }
-#pragma unroll
-  for (int j = 0; j < NT; ++j)
-#pragma unroll
-    for (int n = 0; n < 8; ++n)
-#pragma unroll
-      for (int i = 0; i < 2; ++i) {
-        const float2 p = prob2(j, n, i);
-        s[j][4 * n + 2 * i] = p.x * (s[j][4 * n + 2 * i] - delta[i]) * scale;
-        s[j][4 * n + 2 * i + 1] = p.y * (s[j][4 * n + 2 * i + 1] - delta[i]) * scale;
-      }
   // ds in bf16 as the A fragments of its 16-key steps (accumulator n-tiles
   // 2kk, 2kk+1 of key tile j), kept until ds replaces the probabilities
   uint32_t ds[NT][4][4];
+  if constexpr (kSaved) {
+    // Query-major: dP = dO·V^T for the warpgroup's 64 rows over every key
+    // tile, both operands K-major. Padding rows and keys are zero in dO, V
+    // and the probabilities, so their ds is 0.
+    float s[NT][32];
+    wgmma_fence();
 #pragma unroll
-  for (int j = 0; j < NT; ++j)
+    for (int j = 0; j < NT; ++j)
 #pragma unroll
-    for (int kk = 0; kk < 4; ++kk)
+      for (int kk = 0; kk < Dp / 16; ++kk) {
+        if (kk * 16 >= Dh) continue;
+        const int col = (kk % 4) * 16;  // a k16 step inside the 64-wide block kk / 4
+        wgmma_m64n64k16_ss(s[j], gmma_desc(dow + (kk / 4) * R * 64 + col, 16, 1024),
+                           gmma_desc(sV + (kk / 4) * R * 64 + j * 64 * 64 + col, 16, 1024),
+                           kk > 0);
+      }
+    wgmma_commit();
+    wgmma_wait<0>();
 #pragma unroll
-      for (int e = 0; e < 4; ++e)
-        ds[j][kk][e] = pack_bf16(s[j][8 * kk + 2 * e], s[j][8 * kk + 2 * e + 1]);
+    for (int j = 0; j < NT; ++j) fence_regs(s[j]);
+
+    // delta = Σ dP·prob over the row's keys (rows g and g+8, reduced over
+    // the quad of lanes that holds them), then ds = prob·(dP − delta)·scale
+    // in place
+    const auto prob2 = [&](int j, int n, int i) {
+      return __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(
+          sP + swz(R, r0 + g + 8 * i, j * 64 + 8 * n + 2 * t)));
+    };
+#pragma unroll
+    for (int j = 0; j < NT; ++j)
+#pragma unroll
+      for (int n = 0; n < 8; ++n)
+#pragma unroll
+        for (int i = 0; i < 2; ++i) {
+          const float2 p = prob2(j, n, i);
+          delta[i] += s[j][4 * n + 2 * i] * p.x + s[j][4 * n + 2 * i + 1] * p.y;
+        }
+#pragma unroll
+    for (int i = 0; i < 2; ++i) {
+      delta[i] += __shfl_xor_sync(0xffffffffu, delta[i], 1);
+      delta[i] += __shfl_xor_sync(0xffffffffu, delta[i], 2);
+    }
+#pragma unroll
+    for (int j = 0; j < NT; ++j)
+#pragma unroll
+      for (int n = 0; n < 8; ++n)
+#pragma unroll
+        for (int i = 0; i < 2; ++i) {
+          const float2 p = prob2(j, n, i);
+          s[j][4 * n + 2 * i] = p.x * (s[j][4 * n + 2 * i] - delta[i]) * scale;
+          s[j][4 * n + 2 * i + 1] = p.y * (s[j][4 * n + 2 * i + 1] - delta[i]) * scale;
+        }
+#pragma unroll
+    for (int j = 0; j < NT; ++j)
+#pragma unroll
+      for (int kk = 0; kk < 4; ++kk)
+#pragma unroll
+        for (int e = 0; e < 4; ++e)
+          ds[j][kk][e] = pack_bf16(s[j][8 * kk + 2 * e], s[j][8 * kk + 2 * e + 1]);
+  } else {
+    // The forward's scores and exact softmax for the warpgroup's 64 rows over
+    // every key tile, in its order; prob = p / l in f32 (div_by, as the
+    // saving forward divides) kept in registers, and bf16(prob) written over
+    // o, each thread where its accumulator entries sit (key tile j, n-tiles
+    // 2kk and 2kk+1, rows g and g+8)
+    float s[NT][32], l[2];
+    score_tiles<Dp, NT, R>(s, sQ + wg * 64 * 64, sK, sBias, NT, R, Dh, scale, t);
+    softmax_tiles<NT>(s, NT, l);
+    const float rl[2] = {__frcp_rn(l[0]), __frcp_rn(l[1])};
+#pragma unroll
+    for (int j = 0; j < NT; ++j)
+#pragma unroll
+      for (int kk = 0; kk < 4; ++kk)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          const int x = 8 * kk + 2 * e, i = e & 1;
+          s[j][x] = div_by(s[j][x], l[i], rl[i]);
+          s[j][x + 1] = div_by(s[j][x + 1], l[i], rl[i]);
+          *reinterpret_cast<uint32_t*>(
+              sP + swz(R, r0 + g + 8 * i, j * 64 + 16 * kk + 8 * (e >> 1) + 2 * t)) =
+              pack_bf16(s[j][x], s[j][x + 1]);
+        }
+    fence_proxy_async();  // st.shared, read by the dV products after the next block barrier
+    // dP = dO·V^T a key tile at a time, then that tile's ds = prob·(dP −
+    // delta)·scale with the f32 prob, packed at once: the f32 prob of every
+    // tile and one dP tile hold the registers, not two full sets
+#pragma unroll
+    for (int j = 0; j < NT; ++j) {
+      float dp[32];
+      wgmma_fence();
+#pragma unroll
+      for (int kk = 0; kk < Dp / 16; ++kk) {
+        if (kk * 16 >= Dh) continue;
+        const int col = (kk % 4) * 16;  // a k16 step inside the 64-wide block kk / 4
+        wgmma_m64n64k16_ss(dp, gmma_desc(dow + (kk / 4) * R * 64 + col, 16, 1024),
+                           gmma_desc(sV + (kk / 4) * R * 64 + j * 64 * 64 + col, 16, 1024),
+                           kk > 0);
+      }
+      wgmma_commit();
+      wgmma_wait<0>();
+      fence_regs(dp);
+#pragma unroll
+      for (int kk = 0; kk < 4; ++kk)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          const int x = 8 * kk + 2 * e, i = e & 1;
+          ds[j][kk][e] = pack_bf16(s[j][x] * (dp[x] - delta[i]) * scale,
+                                   s[j][x + 1] * (dp[x + 1] - delta[i]) * scale);
+        }
+    }
+  }
 
   // dQ = ds·K: A from registers, K MN-major
   float acc[kBlocks][32];  // dQ, then dV, then dK: one m64n64 accumulator a 64-column block
@@ -1663,38 +1763,64 @@ int launch_bwd_pair(const Operand& q, const Operand& k, const Operand& v, const 
   return static_cast<int>(err);
 }
 
-// The saved-mode backward at padded width Dp and NT key tiles (S <= 64·NT):
-// one block a head; the probabilities by TMA where their row pitch S is a
-// multiple of 8 elements and their base 16-byte aligned.
-template <int Dp, int NT>
-int launch_bwd_saved_dp(const Operand& q, const Operand& k, const Operand& v, const void* cos_t,
-                        const void* sin_t, const void* probs, const Operand& dout,
-                        const Operand& dq, const Operand& dk, const Operand& dv, int B, int S,
-                        int H, int Dh, float scale, cudaStream_t stream) {
-  const Operand* ops[4] = {&q, &k, &v, &dout};
+// The one-block backward at padded width Dp and NT key tiles (S <= 64·NT),
+// either mode: q, k, v, dO and, in recompute mode, o by TMA where
+// operand_maps maps them; saved mode: the probabilities by TMA where their
+// row pitch S is a multiple of 8 elements and their base 16-byte aligned.
+template <int Dp, int NT, bool kSaved>
+int launch_bwd_block_dp(const Operand& q, const Operand& k, const Operand& v, const void* mask,
+                        const void* cos_t, const void* sin_t, const Operand& o, const void* probs,
+                        const Operand& dout, const Operand& dq, const Operand& dk,
+                        const Operand& dv, int B, int S, int H, int Dh, float scale,
+                        cudaStream_t stream) {
+  const Operand* ops[5] = {&q, &k, &v, &dout, &o};
   CUtensorMap maps[5] = {};
   int head_inner;
-  const bool tma = operand_maps(ops, 4, maps, B, S, H, Dh, &head_inner);
-  const bool tma_p = S % 8 == 0 && (reinterpret_cast<uintptr_t>(probs) & 15) == 0 &&
+  const bool tma = operand_maps(ops, kSaved ? 4 : 5, maps, B, S, H, Dh, &head_inner);
+  const bool tma_p = kSaved && S % 8 == 0 && (reinterpret_cast<uintptr_t>(probs) & 15) == 0 &&
                      int64_t(B) * H <= INT32_MAX &&
                      tensor_map(&maps[4], probs, S, S, B * H, NT * 64);
-  const size_t bytes = BwdSavedSmem(NT, Dp).total;
-  cudaError_t err = allow_smem(short_attn_bwd_saved_kernel<Dp, NT>, bytes);
+  const size_t bytes = BwdBlockSmem(NT, Dp, kSaved).total;
+  const auto kernel = short_attn_bwd_block_kernel<Dp, NT, kSaved>;
+  cudaError_t err = allow_smem(kernel, bytes);
   if (err != cudaSuccess) return static_cast<int>(err);
-  short_attn_bwd_saved_kernel<Dp, NT><<<dim3(H, B), NT * 128, bytes, stream>>>(
-      maps[0], maps[1], maps[2], maps[3], maps[4], q, k, v, dout, static_cast<const bf16*>(probs),
+  kernel<<<dim3(H, B), NT * 128, bytes, stream>>>(
+      maps[0], maps[1], maps[2], maps[3], maps[4], q, k, v, dout, o,
+      static_cast<const bf16*>(probs), static_cast<const uint8_t*>(mask),
       static_cast<const float*>(cos_t), static_cast<const float*>(sin_t), dq, dk, dv, S, H, Dh,
       scale, tma, tma_p, head_inner);
   return static_cast<int>(cudaGetLastError());
 }
 
+// The one-block backward's instance for (S, Dh): Dp = 64 or 128, one or two
+// key tiles.
+template <bool kSaved>
+int launch_bwd_block(const Operand& q, const Operand& k, const Operand& v, const void* mask,
+                     const void* cos_t, const void* sin_t, const Operand& o, const void* probs,
+                     const Operand& dout, const Operand& dq, const Operand& dk, const Operand& dv,
+                     int B, int S, int H, int Dh, float scale, cudaStream_t stream) {
+  auto launch = Dh <= 64 ? (S <= 64 ? launch_bwd_block_dp<64, 1, kSaved>
+                                    : launch_bwd_block_dp<64, 2, kSaved>)
+                         : (S <= 64 ? launch_bwd_block_dp<128, 1, kSaved>
+                                    : launch_bwd_block_dp<128, 2, kSaved>);
+  return launch(q, k, v, mask, cos_t, sin_t, o, probs, dout, dq, dk, dv, B, S, H, Dh, scale,
+                stream);
+}
+
 // Calls of launch_bwd_saved that launched each design since the library was
-// loaded (0: one block a head, 1: the dQ and dK/dV pair): what a check reads
-// to show which kernels a call ran.
+// loaded (0: one block a head, 1: the dQ and dK/dV pair), and of
+// launch_bwd_recompute (0: one block a head, 1: the WMMA head kernel, 2: the
+// pair): what a check reads to show which kernels a call ran.
 int g_saved_bwd_calls[2] = {0, 0};
+int g_recompute_bwd_calls[3] = {0, 0, 0};
+
+bool bwd_in_bounds(int B, int S, int H, int Dh) {
+  return S >= 1 && S <= kMaxSeq && Dh >= 8 && Dh % 8 == 0 && Dh <= 128 && B <= 65535 &&
+         H <= 65535;
+}
 
 // The backward from the saved probabilities: one block a head
-// (short_attn_bwd_saved_kernel) at S <= 128, else the dQ and dK/dV launches,
+// (short_attn_bwd_block_kernel) at S <= 128, else the dQ and dK/dV launches,
 // which pass delta between them through stats ((B, H, 3, S) f32, null where
 // the one-block kernel runs). Requires 1 <= S <= 256, Dh a multiple of 8 up
 // to 128, B and H <= 65535.
@@ -1702,43 +1828,56 @@ int launch_bwd_saved(const Operand& q, const Operand& k, const Operand& v, const
                      const void* sin_t, const void* probs, const Operand& dout, void* stats,
                      const Operand& dq, const Operand& dk, const Operand& dv, int B, int S, int H,
                      int Dh, float scale, cudaStream_t stream) {
-  if (S < 1 || S > kMaxSeq || Dh < 8 || Dh % 8 || Dh > 128 || B > 65535 || H > 65535)
-    return static_cast<int>(cudaErrorInvalidValue);
-  if (S <= kSavedMaxSeq) {
-    auto launch = Dh <= 64 ? (S <= 64 ? launch_bwd_saved_dp<64, 1> : launch_bwd_saved_dp<64, 2>)
-                           : (S <= 64 ? launch_bwd_saved_dp<128, 1> : launch_bwd_saved_dp<128, 2>);
-    const int err = launch(q, k, v, cos_t, sin_t, probs, dout, dq, dk, dv, B, S, H, Dh, scale,
-                           stream);
+  if (!bwd_in_bounds(B, S, H, Dh)) return static_cast<int>(cudaErrorInvalidValue);
+  const Operand none{nullptr, 0, 0, 0};
+  if (S <= kBlockMaxSeq) {
+    const int err = launch_bwd_block<true>(q, k, v, nullptr, cos_t, sin_t, none, probs, dout, dq,
+                                           dk, dv, B, S, H, Dh, scale, stream);
     g_saved_bwd_calls[0] += err == 0;
     return err;
   }
   if (stats == nullptr) return static_cast<int>(cudaErrorInvalidValue);
-  const Operand none{nullptr, 0, 0, 0};
   const int err = launch_bwd_pair<true>(q, k, v, nullptr, cos_t, sin_t, none, probs, dout, stats,
                                         dq, dk, dv, B, S, H, Dh, scale, stream);
   g_saved_bwd_calls[1] += err == 0;
   return err;
 }
 
-// The recompute-mode backward: one block a head where its layout fits, else
-// the dQ and dK/dV launches.
+// The recompute-mode backward from o and the mask: one block a head
+// (short_attn_bwd_block_kernel) at S <= 128; past it the WMMA head kernel
+// where its layout fits (bwd_head_rows), else the dQ and dK/dV launches,
+// which pass m, l and delta through stats ((B, H, 3, S) f32, null where they
+// do not run). The bounds are launch_bwd_saved's.
 int launch_bwd_recompute(const Operand& q, const Operand& k, const Operand& v, const void* mask,
                          const void* cos_t, const void* sin_t, const Operand& o,
                          const Operand& dout, void* stats, const Operand& dq, const Operand& dk,
                          const Operand& dv, int B, int S, int H, int Dh, float scale,
                          cudaStream_t stream) {
+  if (!bwd_in_bounds(B, S, H, Dh)) return static_cast<int>(cudaErrorInvalidValue);
+  if (S <= kBlockMaxSeq) {
+    const int err = launch_bwd_block<false>(q, k, v, mask, cos_t, sin_t, o, nullptr, dout, dq, dk,
+                                            dv, B, S, H, Dh, scale, stream);
+    g_recompute_bwd_calls[0] += err == 0;
+    return err;
+  }
   const int QT = bwd_head_rows(round_up(S, 16), round_up(Dh, 16));
-  if (QT == 0)
-    return launch_bwd_pair<false>(q, k, v, mask, cos_t, sin_t, o, nullptr, dout, stats, dq, dk,
-                                  dv, B, S, H, Dh, scale, stream);
-  if (B > 65535 || H > 65535) return static_cast<int>(cudaErrorInvalidValue);
+  if (QT == 0) {
+    if (stats == nullptr) return static_cast<int>(cudaErrorInvalidValue);
+    const int err = launch_bwd_pair<false>(q, k, v, mask, cos_t, sin_t, o, nullptr, dout, stats,
+                                           dq, dk, dv, B, S, H, Dh, scale, stream);
+    g_recompute_bwd_calls[2] += err == 0;
+    return err;
+  }
   const size_t bytes = BwdHeadSmem(round_up(S, 16), round_up(Dh, 16), QT).total;
   cudaError_t err = allow_smem(short_attn_bwd_head_kernel, bytes);
-  if (err != cudaSuccess) return static_cast<int>(err);
-  short_attn_bwd_head_kernel<<<dim3(H, B), kHeadThreads, bytes, stream>>>(
-      q, k, v, static_cast<const uint8_t*>(mask), static_cast<const float*>(cos_t),
-      static_cast<const float*>(sin_t), o, dout, dq, dk, dv, S, Dh, scale, QT);
-  return static_cast<int>(cudaGetLastError());
+  if (err == cudaSuccess) {
+    short_attn_bwd_head_kernel<<<dim3(H, B), kHeadThreads, bytes, stream>>>(
+        q, k, v, static_cast<const uint8_t*>(mask), static_cast<const float*>(cos_t),
+        static_cast<const float*>(sin_t), o, dout, dq, dk, dv, S, Dh, scale, QT);
+    err = cudaGetLastError();
+  }
+  g_recompute_bwd_calls[1] += err == cudaSuccess;
+  return static_cast<int>(err);
 }
 
 }  // namespace
@@ -1760,8 +1899,9 @@ extern "C" int short_attention_qkv_fwd(const void* qkv, const void* mask, const 
 
 // Backward of short_attention_qkv_fwd from its residuals, recompute mode:
 // qkv, mask, cos/sin as there; o (B, S, D) bf16 the forward's output; dout
-// (B, S, D) bf16 its cotangent; stats (B, H, 3, S) f32 scratch (read only by
-// the two-launch split); dqkv (B, S, 3D) bf16 out.
+// (B, S, D) bf16 its cotangent; stats (B, H, 3, S) f32 scratch, read only by
+// the dQ and dK/dV pair (null allowed where it does not run); dqkv (B, S, 3D)
+// bf16 out.
 extern "C" int short_attention_qkv_bwd(const void* qkv, const void* mask, const void* cos_t,
                                        const void* sin_t, const void* o, const void* dout,
                                        void* stats, void* dqkv, int B, int S, int H, int Dh,
@@ -1810,7 +1950,7 @@ extern "C" int short_attention_sep_fwd_save(const Operand* q, const Operand* k, 
 }
 
 // The recompute backward from o (the forward's output) and dout (its
-// cotangent); stats (B, H, 3, S) f32 scratch; dq, dk, dv out.
+// cotangent); stats as in short_attention_qkv_bwd; dq, dk, dv out.
 extern "C" int short_attention_sep_bwd(const Operand* q, const Operand* k, const Operand* v,
                                        const void* mask, const Operand* o, const Operand* dout,
                                        void* stats, const Operand* dq, const Operand* dk,
@@ -1832,14 +1972,15 @@ extern "C" int short_attention_sep_bwd_probs(const Operand* q, const Operand* k,
 }
 
 // Shared memory in bytes of the backward's dQ (kernel 0) or dK/dV (kernel 1)
-// block at (S, Dh) in the given mode, of the one-block-a-head recompute
-// kernel's block (kernel 2) or of the one-block saved kernel's (kernel 3); 0
-// where it does not fit or does not run.
+// block at (S, Dh) in the given mode, of the WMMA one-block-a-head recompute
+// kernel's block (kernel 2; at any S where it fits, though it runs only past
+// S = 128), or of the one-block kernel's in saved mode (kernel 3) or in
+// recompute mode (kernel 4); 0 where it does not fit or does not run.
 extern "C" int short_attention_bwd_smem(int S, int Dh, int saved, int kernel) {
   const int Sp = round_up(S, 16), Dp = round_up(Dh, 16);
-  if (kernel == 3) {
-    if (S < 1 || S > kSavedMaxSeq) return 0;
-    return static_cast<int>(BwdSavedSmem(S <= 64 ? 1 : 2, Dh <= 64 ? 64 : 128).total);
+  if (kernel == 3 || kernel == 4) {
+    if (S < 1 || S > kBlockMaxSeq || Dh < 1 || Dh > 128) return 0;
+    return static_cast<int>(BwdBlockSmem(S <= 64 ? 1 : 2, Dh <= 64 ? 64 : 128, kernel == 3).total);
   }
   if (kernel == 2) {
     const int QT = bwd_head_rows(Sp, Dp);
@@ -1859,6 +2000,13 @@ extern "C" int short_attention_bwd_smem(int S, int Dh, int saved, int kernel) {
 // library was loaded.
 extern "C" int short_attention_saved_bwd_calls(int design) {
   return design == 0 || design == 1 ? g_saved_bwd_calls[design] : -1;
+}
+
+// Calls of the recompute backward, either entry, that launched one block a
+// head (design 0), the WMMA head kernel (design 1) or the dQ and dK/dV pair
+// (design 2) since the library was loaded.
+extern "C" int short_attention_recompute_bwd_calls(int design) {
+  return design >= 0 && design <= 2 ? g_recompute_bwd_calls[design] : -1;
 }
 
 // x (M, K), w (N, K), bias (N), y (M, N), all bf16.

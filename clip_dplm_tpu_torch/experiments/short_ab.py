@@ -48,6 +48,23 @@ once, printing the device ms a step of its short-S attention kernels.
     python -m clip_dplm_tpu_torch.experiments.short_ab --other DIR --bwd
         [--steps dplm,rna_rbp] [--profile dplm]
 
+With `--bwd --recompute` it times the recompute-mode backward instead: both
+checkouts' `short_attention_qkv_bwd` and `short_attention_sep_bwd` on the
+plain forward's o and a random dO (and the mask), held against the plain
+version as above and timed in turns, at the flagship's chunk views and
+packed call (B=1024, S=128, D=512, H=8), DPLM training's packed RoPE shape
+(B=256, S=128, D=640, H=10), S=65 (B=1000, separate), S=128 at Dh=128 (B=64,
+separate) and S=200 (B=64, DPLM's widths, packed, RoPE: the WMMA head
+kernel, past the one-block bound), with SDPA's whole backward and the
+bound (q, k, v, o and dO read once, dq, dk, dv written once; five (S, S,
+Dh) products a head). `--steps` then runs each checkout's bench steps with
+the JAX size rule pinned to recompute (as chip_smoke.py's
+`phase_mode_steps` pins it), in turns, and the flagship at B=2304, where
+the rule itself picks recompute:
+
+    python -m clip_dplm_tpu_torch.experiments.short_ab --other DIR --bwd --recompute
+        [--steps dplm,rna_rbp]
+
 Needs a CUDA device and nvcc.
 """
 
@@ -57,6 +74,7 @@ import argparse
 import ctypes
 import hashlib
 import json
+import os
 import subprocess
 import sys
 from pathlib import Path
@@ -82,7 +100,10 @@ SHAPES = (
     ("S=200 Dh=64 packed, saving", 64, 200, 640, 10, "packed", True),
 )
 FWD_KEYS = ("short_attn_kernel", "short_attn_fwd")  # the forward's mangled names
-BWD_KEYS = ("short_attn_bwd_saved", "short_attn_bwd_dq", "short_attn_bwd_dkv")
+# the one-block backward's mangled names (short_attn_bwd_saved_kernel in checkouts whose
+# one-block kernel served the saved mode alone), then the pair's and the WMMA head kernel's
+BWD_KEYS = ("short_attn_bwd_block", "short_attn_bwd_saved", "short_attn_bwd_dq",
+            "short_attn_bwd_dkv", "short_attn_bwd_head")
 # name, B, S, D, H, entry ("packed" qkv, RoPE or not, or "sep" chunk views)
 BWD_SHAPES = (
     ("DPLM packed, RoPE", 256, 128, 640, 10, "packed rope"),
@@ -91,12 +112,22 @@ BWD_SHAPES = (
     ("S=65 separate (the probabilities by element loads)", 1000, 65, 512, 8, "sep"),
     ("S=200 packed, RoPE", 64, 200, 640, 10, "packed rope"),
 )
+# the recompute backward's: the same entries, and S=128 at Dh=128
+BWD_RECOMPUTE_SHAPES = (
+    ("flagship separate", 1024, 128, 512, 8, "sep"),
+    ("flagship packed", 1024, 128, 512, 8, "packed"),
+    ("DPLM packed, RoPE", 256, 128, 640, 10, "packed rope"),
+    ("S=65 separate", 1000, 65, 512, 8, "sep"),
+    ("S=128 Dh=128 separate", 64, 128, 1024, 8, "sep"),
+    ("S=200 packed, RoPE (the WMMA head kernel)", 64, 200, 640, 10, "packed rope"),
+)
 
 
 def _bind(lib: ctypes.CDLL) -> ctypes.CDLL:
     for name in ("short_attention_qkv_fwd", "short_attention_sep_fwd",
                  "short_attention_sep_fwd_save", "short_attention_qkv_bwd_probs",
-                 "short_attention_sep_bwd_probs"):
+                 "short_attention_sep_bwd_probs", "short_attention_qkv_bwd",
+                 "short_attention_sep_bwd"):
         fn = getattr(lib, name)
         fn.argtypes = _build._SIGNATURES[name]
         fn.restype = ctypes.c_int
@@ -216,9 +247,10 @@ def _close(got, want) -> float:
     return (a - b).abs().max().item()
 
 
-def bwd_turns(lib_this: ctypes.CDLL, lib_other: ctypes.CDLL, rounds: int) -> None:
+def bwd_turns(lib_this: ctypes.CDLL, lib_other: ctypes.CDLL, rounds: int,
+              recompute: bool = False) -> None:
     stream = torch.cuda.current_stream().cuda_stream
-    for name, B, S, D, H, entry in BWD_SHAPES:
+    for name, B, S, D, H, entry in BWD_RECOMPUTE_SHAPES if recompute else BWD_SHAPES:
         Dh = D // H
         g = torch.Generator(device="cuda").manual_seed(0)
         qkv = torch.randn(B, S, 3 * D, generator=g, device="cuda").bfloat16()
@@ -233,30 +265,48 @@ def bwd_turns(lib_this: ctypes.CDLL, lib_other: ctypes.CDLL, rounds: int) -> Non
         q, k, v = (sa._sep_heads(t, H) for t in qkv.chunk(3, dim=-1))
         if entry.startswith("packed"):
             pos = torch.arange(S, device="cuda") if entry == "packed rope" else None
-            _, probs = sa.short_attention_qkv_reference(qkv, H, mask=mask, rope_positions=pos,
+            o, probs = sa.short_attention_qkv_reference(qkv, H, mask=mask, rope_positions=pos,
                                                         return_probs=True)
-            want = sa.short_attention_qkv_bwd_probs_reference(dout, qkv, probs, H,
-                                                              rope_positions=pos)
+            if recompute:
+                want = sa.short_attention_qkv_bwd_reference(dout, qkv, o, H, mask=mask,
+                                                            rope_positions=pos)
+            else:
+                want = sa.short_attention_qkv_bwd_probs_reference(dout, qkv, probs, H,
+                                                                  rope_positions=pos)
             cos, sin = ((t.contiguous() for t in sa._rope_cos_sin(pos, Dh)) if pos is not None
                         else (None, None))
 
             def call(lib, tree):
+                if recompute:
+                    return lib.short_attention_qkv_bwd(
+                        qkv.data_ptr(), mask.data_ptr(), sa._ptr(cos), sa._ptr(sin),
+                        o.data_ptr(), dout.data_ptr(), stats.data_ptr(), out[tree].data_ptr(), B,
+                        S, H, Dh, scale, stream)
                 return lib.short_attention_qkv_bwd_probs(
                     qkv.data_ptr(), sa._ptr(cos), sa._ptr(sin), probs.data_ptr(),
                     dout.data_ptr(), stats.data_ptr(), out[tree].data_ptr(), B, S, H, Dh, scale,
                     stream)
         else:
-            _, probs = sa.short_attention_sep_reference(q, k, v, H, mask=mask, return_probs=True)
-            want = torch.cat(sa.short_attention_sep_bwd_probs_reference(
-                dout, *qkv.chunk(3, dim=-1), probs, H), dim=-1)
-            ops = [_operand(t) for t in (q, k, v, sa._sep_heads(dout, H))]
+            o, probs = sa.short_attention_sep_reference(q, k, v, H, mask=mask, return_probs=True)
+            if recompute:
+                want = sa.short_attention_sep_bwd_reference(dout, *qkv.chunk(3, dim=-1),
+                                                            sa.merge_heads(o), H, mask=mask)
+            else:
+                want = sa.short_attention_sep_bwd_probs_reference(
+                    dout, *qkv.chunk(3, dim=-1), probs, H)
+            want = torch.cat(want, dim=-1)
+            ops = [_operand(t) for t in (q, k, v, sa._sep_heads(dout, H), o)]
 
             def call(lib, tree):
                 grads = [_operand(sa._sep_heads(t, H)) for t in out[tree].chunk(3, dim=-1)]
+                qkv_ops, g_ops = ([ctypes.byref(x) for x in xs] for xs in (ops[:3], grads))
+                if recompute:
+                    return lib.short_attention_sep_bwd(
+                        *qkv_ops, mask.data_ptr(), ctypes.byref(ops[4]), ctypes.byref(ops[3]),
+                        stats.data_ptr(), *g_ops, B, S, H, Dh, scale, stream)
                 return lib.short_attention_sep_bwd_probs(
-                    *[ctypes.byref(x) for x in ops[:3]], probs.data_ptr(), ctypes.byref(ops[3]),
-                    stats.data_ptr(), *[ctypes.byref(x) for x in grads], B, S, H, Dh, scale,
-                    stream)
+                    *qkv_ops, probs.data_ptr(), ctypes.byref(ops[3]), stats.data_ptr(), *g_ops,
+                    B, S, H, Dh, scale, stream)
 
         fns = {}
         for tree, lib in (("this", lib_this), ("other", lib_other)):
@@ -276,23 +326,58 @@ def bwd_turns(lib_this: ctypes.CDLL, lib_other: ctypes.CDLL, rounds: int) -> Non
             for tree in ("other", "this", "this", "other"):
                 times[tree].append(cuda_ms(fns[tree]))
         leaves = [t.detach().clone().requires_grad_(True) for t in (q, k, v)]
-        o = torch.nn.functional.scaled_dot_product_attention(
+        o_sdpa = torch.nn.functional.scaled_dot_product_attention(
             *leaves, attn_mask=mask[:, None, None, :])
         do_h = sa._sep_heads(dout, H)
-        sdpa = lambda: torch.autograd.grad(o, leaves, do_h, retain_graph=True)  # noqa: E731
+        sdpa = lambda: torch.autograd.grad(o_sdpa, leaves, do_h,  # noqa: E731
+                                           retain_graph=True)
         sdpa_ms = min(cuda_ms(sdpa), cuda_ms(sdpa))
-        ops_n = 8 * B * S * S * D
-        nbytes = 7 * B * S * D * 2 + B * H * S * S * 2 + (S * Dh * 4 if entry == "packed rope"
-                                                          else 0)
+        rope_bytes = S * Dh * 4 if entry == "packed rope" else 0
+        if recompute:  # q, k, v, o, dO and the mask in, dq, dk, dv out; five products
+            ops_n, nbytes = 10 * B * S * S * D, 8 * B * S * D * 2 + B * S + rope_bytes
+        else:  # q, k, v, dO and the probabilities in, dq, dk, dv out; four products
+            ops_n, nbytes = 8 * B * S * S * D, 7 * B * S * D * 2 + B * H * S * S * 2 + rope_bytes
         t_ops, t_bytes = ops_n / PEAK_BF16 * 1e3, nbytes / HBM_BYTES_PER_S * 1e3
+        design = (sa.bwd_recompute_design if recompute else sa.bwd_saved_design)(S, Dh)
         print(json.dumps({
-            "shape": name, "B": B, "S": S, "D": D, "H": H,
-            "design": sa.bwd_saved_design(S, Dh), "this_ms": times["this"],
+            "shape": name, "mode": "recompute" if recompute else "saved", "B": B, "S": S,
+            "D": D, "H": H, "design": design, "this_ms": times["this"],
             "other_ms": times["other"], "sdpa_bwd_ms": sdpa_ms, "bound_ms": max(t_ops, t_bytes),
             "bound_by": "operations" if t_ops >= t_bytes else "bytes",
             "this_over_bound": min(times["this"]) / max(t_ops, t_bytes),
             "this_over_sdpa": min(times["this"]) / sdpa_ms, "max_abs_err": errs}), flush=True)
-        del sdpa, o, leaves
+        del sdpa, o_sdpa, leaves
+
+
+# One bench step with the JAX size rule pinned to recompute, in the tree it
+# runs in; the bench's arguments follow.
+_RECOMPUTE_BENCH = (
+    "import json, sys\n"
+    "from clip_dplm_tpu_torch.ops import short_attention as sa\n"
+    "sa.saves_probs = lambda *a: False\n"
+    "from clip_dplm_tpu_torch.experiments import bench\n"
+    "print(json.dumps({'step_ms': bench.main(sys.argv[1:])['step_ms']}))\n")
+
+
+def recompute_step_turns(other: Path, models) -> None:
+    """Each tree's bench step in recompute mode, in processes of their own,
+    in turns other, this, this, other: the models with the rule pinned, then
+    the flagship at B=2304, past the rule's 512 MiB."""
+    runs = [(m, ["--model", m]) for m in models] + [("rna_rbp B=2304",
+                                                     ["--model", "rna_rbp", "--batch", "2304"])]
+    for label, args in runs:
+        times = {"this": [], "other": []}
+        for tree in ("other", "this", "this", "other"):
+            root = REPO if tree == "this" else other
+            proc = subprocess.run([sys.executable, "-c", _RECOMPUTE_BENCH, *args], cwd=root,
+                                  env=dict(os.environ, PYTHONPATH=str(root)),
+                                  capture_output=True, text=True, timeout=900)
+            if proc.returncode != 0:
+                raise RuntimeError(f"bench {label} in {root} failed:\n{proc.stdout[-3000:]}"
+                                   f"{proc.stderr[-3000:]}")
+            times[tree].append(json.loads(proc.stdout.strip().splitlines()[-1])["step_ms"])
+        print(json.dumps({"bench": label, "mode": "recompute", "this_step_ms": times["this"],
+                          "other_step_ms": times["other"]}), flush=True)
 
 
 def profile_attention(other: Path, model: str) -> None:
@@ -319,6 +404,8 @@ def main(argv=None) -> int:
     ap.add_argument("--rounds", type=int, default=2)
     ap.add_argument("--bwd", action="store_true",
                     help="the backward from the saved probabilities, not the forward")
+    ap.add_argument("--recompute", action="store_true",
+                    help="with --bwd: the recompute-mode backward instead")
     ap.add_argument("--steps", default="", help="bench models to time in turns, comma-separated")
     ap.add_argument("--profile", default="", help="a bench model to profile in each tree")
     args = ap.parse_args(argv)
@@ -333,9 +420,13 @@ def main(argv=None) -> int:
     for key in BWD_KEYS if args.bwd else FWD_KEYS:
         for line in ptxas_lines(_build.LIBRARY.build_log, key):
             print("this ptxas:", line)
-    turns = bwd_turns if args.bwd else kernel_turns
-    turns(lib_this, build_other(other), args.rounds)
-    if args.steps:
+    if args.bwd:
+        bwd_turns(lib_this, build_other(other), args.rounds, recompute=args.recompute)
+    else:
+        kernel_turns(lib_this, build_other(other), args.rounds)
+    if args.steps and args.recompute:
+        recompute_step_turns(other, args.steps.split(","))
+    elif args.steps:
         from clip_dplm_tpu_torch.experiments.gemm_ab import step_turns
 
         step_turns(other, args.steps.split(","))

@@ -64,12 +64,16 @@ _SIGNATURES = {
     # q, k, v, probs, dout, stats, dq, dk, dv, B, S, H, Dh, scale, stream
     "short_attention_sep_bwd_probs": [_O, _O, _O, _P, _O, _P, _O, _O, _O, _I, _I, _I, _I, _F,
                                       _P],
-    # S, Dh, saved, kernel (0: dQ, 1: dK/dV, 2: one block a head in recompute mode,
-    # 3: one block a head in saved mode) -> shared memory bytes
+    # S, Dh, saved, kernel (0: dQ, 1: dK/dV, 2: the WMMA head kernel of the
+    # recompute mode, 3: one block a head in saved mode, 4: one block a head in
+    # recompute mode) -> shared memory bytes
     "short_attention_bwd_smem": [_I, _I, _I, _I],
     # design (0: one block a head, 1: the dQ and dK/dV pair) -> calls of the
     # backward from the probabilities that launched it
     "short_attention_saved_bwd_calls": [_I],
+    # design (0: one block a head, 1: the WMMA head kernel, 2: the dQ and
+    # dK/dV pair) -> calls of the recompute backward that launched it
+    "short_attention_recompute_bwd_calls": [_I],
     # x, w, bias, y, M, N, K, stream
     "short_attention_out_proj": [_P, _P, _P, _P, _I, _I, _I, _P],
     # qkv, mask, out, B, S, H, Dh, scale, stream

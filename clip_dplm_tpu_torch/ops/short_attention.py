@@ -59,7 +59,7 @@ from clip_dplm_tpu_torch.ops.attention import (
 )
 
 MAX_SEQ = 256  # K and V of a head for the whole sequence sit in shared memory
-SAVED_ONE_BLOCK_MAX_SEQ = 128  # the saved-mode backward's one block a head
+ONE_BLOCK_MAX_SEQ = 128  # the backward's one block a head, both modes
 MAX_SMEM = 232448  # dynamic shared memory of one block on the H100 (227 KB)
 HALF_SMEM = 115712  # each of two blocks on one SM (228 KB, less 1 KB a block)
 # the JAX package's bound on the saved probabilities of one call
@@ -341,38 +341,78 @@ def bwd_smem_bytes(S: int, Dh: int, saved: bool):
             _fitting(lambda QT: _bwd_dkv_smem_bytes(KT, Dp, QT, saved), KT))
 
 
+def _one_block(S: int, Dh: int) -> bool:
+    return S <= ONE_BLOCK_MAX_SEQ and Dh <= SHORT_MAX_HEAD_DIM
+
+
 def bwd_saved_design(S: int, Dh: int) -> str:
     """The launches of the backward from the saved probabilities at (S, Dh),
     as csrc/short_attention.cu::launch_bwd_saved picks them: "one block" (a
-    head a block, `short_attn_bwd_saved_kernel`) at S <= 128, "pair" (the dQ
+    head a block, `short_attn_bwd_block_kernel`) at S <= 128, "pair" (the dQ
     and dK/dV launches, which pass delta through a (B, H, 3, S) f32 scratch)
     past it."""
-    return "one block" if S <= SAVED_ONE_BLOCK_MAX_SEQ and Dh <= SHORT_MAX_HEAD_DIM else "pair"
+    return "one block" if _one_block(S, Dh) else "pair"
+
+
+def _block_smem_bytes(S: int, Dh: int, saved: bool) -> int:
+    """csrc/short_attention.cu::BwdBlockSmem: Q, K, V and dO of the head at R
+    = 64 or 128 rows and Dp = 64 or 128 columns, the probabilities (R x R;
+    recompute mode: o first, the larger of the two), in recompute mode the
+    key bias (R floats), one mbarrier, 1 KB for the base's alignment."""
+    R, Dp = (64 if S <= 64 else 128), (64 if Dh <= 64 else 128)
+    probs = R * R * 2 if saved else max(R * R, R * Dp) * 2 + R * 4
+    return 4 * R * Dp * 2 + probs + 8 + 1024
 
 
 def bwd_saved_smem_bytes(S: int, Dh: int) -> int:
     """Shared memory in bytes of the one-block saved backward's block at (S,
-    Dh) (csrc/short_attention.cu::BwdSavedSmem: Q, K, V, dO and the
-    probabilities of the head at R = 64 or 128 rows and Dp = 64 or 128
-    columns, one mbarrier, 1 KB for the base's alignment); 0 where it does
-    not run."""
-    if bwd_saved_design(S, Dh) != "one block":
-        return 0
-    R, Dp = (64 if S <= 64 else 128), (64 if Dh <= 64 else 128)
-    return 4 * R * Dp * 2 + R * R * 2 + 8 + 1024
+    Dh) (`_block_smem_bytes`); 0 where it does not run."""
+    return _block_smem_bytes(S, Dh, True) if bwd_saved_design(S, Dh) == "one block" else 0
 
 
-def _saved_stats(B: int, S: int, H: int, Dh: int, dev) -> Optional[torch.Tensor]:
-    """The (B, H, 3, S) f32 scratch of the saved-mode pair, None where the
-    one-block kernel runs."""
-    if bwd_saved_design(S, Dh) == "one block":
+def bwd_recompute_design(S: int, Dh: int) -> str:
+    """The launches of the recompute-mode backward at (S, Dh), as
+    csrc/short_attention.cu::launch_bwd_recompute picks them: "one block" (a
+    head a block, `short_attn_bwd_block_kernel` with the scores recomputed on
+    wgmma) at S <= 128; past it "head" (the WMMA one-block-a-head kernel,
+    `short_attn_bwd_head_kernel`) where its layout fits (`bwd_head_smem_bytes`:
+    S <= 208 at Dh = 64), else "pair" (the dQ and dK/dV launches, which pass
+    m, l and delta through a (B, H, 3, S) f32 scratch)."""
+    if _one_block(S, Dh):
+        return "one block"
+    return "head" if bwd_head_smem_bytes(S, Dh) else "pair"
+
+
+def bwd_recompute_smem_bytes(S: int, Dh: int) -> int:
+    """Shared memory in bytes of the one-block recompute backward's block at
+    (S, Dh) (`_block_smem_bytes`: o lands where the probabilities go, the key
+    bias after them); 0 where it does not run."""
+    return _block_smem_bytes(S, Dh, False) if bwd_recompute_design(S, Dh) == "one block" else 0
+
+
+def _pair_stats(design: str, B: int, S: int, H: int, dev) -> Optional[torch.Tensor]:
+    """The (B, H, 3, S) f32 scratch of the dQ and dK/dV pair where `design`
+    is "pair", else None."""
+    if design != "pair":
         return None
     return torch.empty((B, H, 3, S), dtype=torch.float32, device=dev)
 
 
+def _saved_stats(B: int, S: int, H: int, Dh: int, dev) -> Optional[torch.Tensor]:
+    """The scratch of the saved-mode pair, None where the one-block kernel
+    runs."""
+    return _pair_stats(bwd_saved_design(S, Dh), B, S, H, dev)
+
+
+def _recompute_stats(B: int, S: int, H: int, Dh: int, dev) -> Optional[torch.Tensor]:
+    """The scratch of the recompute-mode pair, None where one block a head
+    runs (either kernel)."""
+    return _pair_stats(bwd_recompute_design(S, Dh), B, S, H, dev)
+
+
 def _bwd_head_smem_bytes(Sp: int, Dp: int, QT: int) -> int:
-    """Shared memory of one block of the one-block-a-head recompute kernel
-    (csrc/short_attention.cu::BwdHeadSmem)."""
+    """Shared memory of one block of the WMMA one-block-a-head recompute
+    kernel (csrc/short_attention.cu::BwdHeadSmem)."""
     ld_kv, ld_acc, ld_s, ld_p = Dp + 8, Dp + 4, Sp + 4, Sp + 8
     return (2 * _a128(Sp * ld_kv * 2) + 2 * _a128(QT * ld_kv * 2) + 2 * _a128(Sp * ld_acc * 4)
             + _a128(QT * max(ld_s, ld_acc) * 4) + _a128(QT * ld_s * 4)
@@ -380,10 +420,11 @@ def _bwd_head_smem_bytes(Sp: int, Dp: int, QT: int) -> int:
 
 
 def bwd_head_smem_bytes(S: int, Dh: int) -> int:
-    """Shared memory in bytes of the recompute backward's one-block-a-head
-    kernel at (S, Dh), 64 query rows halved while it does not fit
-    (csrc/short_attention.cu::bwd_head_rows); 0 where even 16 rows do not
-    fit, and the recompute mode then takes the dQ and dK/dV launches."""
+    """Shared memory in bytes of the recompute backward's WMMA
+    one-block-a-head kernel at (S, Dh), 64 query rows halved while it does
+    not fit (csrc/short_attention.cu::bwd_head_rows); 0 where even 16 rows do
+    not fit, and past S = 128 the recompute mode then takes the dQ and dK/dV
+    launches. It runs only past S = 128 (`bwd_recompute_design`)."""
     Sp, Dp = _round_up(S, 16), _round_up(Dh, 16)
     QT = min(Sp, 64)
     while QT > 16 and _bwd_head_smem_bytes(Sp, Dp, QT) > MAX_SMEM:
@@ -478,8 +519,9 @@ def short_attention_qkv_bwd(
 ) -> torch.Tensor:
     """dqkv (B, S, 3D) of `short_attention_qkv` from its residuals, recompute
     mode. CPU tensors take the plain version; CUDA tensors take the kernels
-    (bf16, the forward's bounds: one block a head where `bwd_head_smem_bytes`
-    fits, else a dQ launch and a dK/dV launch) or raise."""
+    (bf16, the forward's bounds: one block a head at S <= 128 and, past it,
+    where the WMMA head kernel fits, else a dQ launch and a dK/dV launch;
+    `bwd_recompute_design`) or raise."""
     if qkv.device.type == "cpu":
         return short_attention_qkv_bwd_reference(
             dout, qkv, o, num_heads, mask=mask, scale=scale, rope_positions=rope_positions)
@@ -487,10 +529,10 @@ def short_attention_qkv_bwd(
     mask, cos, sin = _kernel_inputs(qkv, num_heads, mask, rope_positions)
     dout, o = (_check_residual(n, t, (B, S, D), qkv.device) for n, t in (("dout", dout), ("o", o)))
     dqkv = torch.empty_like(qkv)
-    stats = torch.empty((B, num_heads, 3, S), dtype=torch.float32, device=qkv.device)
+    stats = _recompute_stats(B, S, num_heads, Dh, qkv.device)
     _build.launch(
         "short_attention_qkv_bwd", qkv.data_ptr(), _ptr(mask), _ptr(cos), _ptr(sin),
-        o.data_ptr(), dout.data_ptr(), stats.data_ptr(), dqkv.data_ptr(), B, S, num_heads, Dh,
+        o.data_ptr(), dout.data_ptr(), _ptr(stats), dqkv.data_ptr(), B, S, num_heads, Dh,
         _scale(scale, Dh), _build.stream_of(qkv))
     _build.LAUNCHES.add("short_attention_bwd")
     return dqkv
@@ -891,9 +933,9 @@ def _sep_backward(name, dout, q, k, v, num_heads, mask, scale, o=None, probs=Non
         _build.launch(name, *qkv_ops, probs.data_ptr(), ctypes.byref(ops[3]), _ptr(stats),
                       *grad_ops, B, S, H, Dh, _scale(scale, Dh), _build.stream_of(q))
     else:
-        stats = torch.empty((B, H, 3, S), dtype=torch.float32, device=q.device)
+        stats = _recompute_stats(B, S, H, Dh, q.device)
         _build.launch(name, *qkv_ops, _ptr(mask), ctypes.byref(ops[4]), ctypes.byref(ops[3]),
-                      stats.data_ptr(), *grad_ops, B, S, H, Dh, _scale(scale, Dh),
+                      _ptr(stats), *grad_ops, B, S, H, Dh, _scale(scale, Dh),
                       _build.stream_of(q))
     _build.LAUNCHES.add(name)
     return tuple(grads)
@@ -911,8 +953,9 @@ def short_attention_sep_bwd(
 ):
     """(dq, dk, dv) of `short_attention_sep` from its residuals, recompute
     mode, in q's layout. CPU tensors take the plain version; CUDA tensors
-    take the kernels (the forward's bounds: one block a head where
-    `bwd_head_smem_bytes` fits, else a dQ and a dK/dV launch) or raise."""
+    take the kernels (the forward's bounds: one block a head at S <= 128 and,
+    past it, where the WMMA head kernel fits, else a dQ and a dK/dV launch;
+    `bwd_recompute_design`) or raise."""
     if q.device.type == "cpu":
         return short_attention_sep_bwd_reference(dout, q, k, v, o, num_heads, mask=mask,
                                                  scale=scale)

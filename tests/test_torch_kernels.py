@@ -371,8 +371,8 @@ def test_short_attention_bwd_matches_plain(cuda_device, np_rng, B, S, D, H, rope
 def test_short_attention_bwd_lifted_and_saved_match_plain(cuda_device, np_rng, B, S, D, H, rope,
                                                           saved):
     """Both modes' backward kernels up to S = 255 at Dh = 64 and 128 (past
-    the one-block recompute kernel's bound, S <= 208 at Dh=64; that kernel
-    at S = 128) against their plain versions
+    the WMMA head kernel's bound, S <= 208 at Dh=64: the dQ and dK/dV pair;
+    at S = 128 the one-block kernels) against their plain versions
     on the same residuals (the plain forward's o or bf16 probabilities), two
     launches equal byte for byte; in the saved mode the saving forward's o
     and probabilities against the plain ones too."""
@@ -413,8 +413,9 @@ def test_short_attention_bwd_lifted_and_saved_match_plain(cuda_device, np_rng, B
 def test_short_attention_bwd_smem_matches_the_mirror(cuda_device, Dh):
     """The launcher's shared memory (csrc::short_attention_bwd_smem) equals
     ops/short_attention.py::bwd_smem_bytes, and fits, over the forward's S;
-    the one-block recompute kernel's equals bwd_head_smem_bytes, the
-    one-block saved kernel's bwd_saved_smem_bytes (0 past S = 128)."""
+    the WMMA head kernel's equals bwd_head_smem_bytes, the one-block kernel's
+    bwd_saved_smem_bytes in saved mode and bwd_recompute_smem_bytes in
+    recompute mode (0 past S = 128)."""
     lib = _build.LIBRARY.get()
     for S in (1, 16, 30, 64, 65, 128, 200, 208, 209, 240, 255, 256):
         for saved in (False, True):
@@ -425,6 +426,10 @@ def test_short_attention_bwd_smem_matches_the_mirror(cuda_device, Dh):
         saved_one = lib.short_attention_bwd_smem(S, Dh, 1, 3)
         assert saved_one == sa.bwd_saved_smem_bytes(S, Dh), S
         assert (0 < saved_one <= sa.MAX_SMEM) == (sa.bwd_saved_design(S, Dh) == "one block"), S
+        recompute_one = lib.short_attention_bwd_smem(S, Dh, 0, 4)
+        assert recompute_one == sa.bwd_recompute_smem_bytes(S, Dh), S
+        assert (0 < recompute_one <= sa.MAX_SMEM) == (
+            sa.bwd_recompute_design(S, Dh) == "one block"), S
 
 
 SAVED_ONE_BLOCK_CASES = [  # B, S, D, H, entry, mask
@@ -494,6 +499,137 @@ def test_short_attention_bwd_saved_one_block_matches_plain(cuda_device, np_rng, 
     if len(got) == 1:
         got = got[0].chunk(3, dim=-1)
     _grads_close(got, want, ["dq", "dk", "dv"])
+
+
+RECOMPUTE_ONE_BLOCK_CASES = [  # B, S, D, H, entry, mask
+    (256, 128, 640, 10, "packed rope", "ragged"),  # DPLM training's packed RoPE shape
+    (64, 128, 512, 8, "chunk", "ragged"),           # the flagship's chunk views
+    (64, 128, 512, 8, "packed", "ragged"),          # the flagship's packed call
+    (4, 64, 256, 4, "packed rope", "ragged"),       # S=64, Dh=64 (DPLM's CLI)
+    (4, 64, 512, 4, "heads", "ragged"),             # S=64, Dh=128 (o larger than the probs)
+    (3, 128, 256, 2, "chunk", None),                # S=128, Dh=128
+    (4, 128, 256, 4, "packed", "ragged"),           # S=128, Dh=64
+    (5, 65, 512, 8, "chunk", "ragged"),             # S=65: padding rows and keys
+    (3, 65, 64, 2, "packed rope", "ragged"),        # the same, packed, Dh=32
+    (4, 100, 640, 10, "packed rope", "holes"),      # keys masked inside the rows
+    (4, 100, 640, 10, "packed rope", "dead row"),   # a batch row with no real key
+    (3, 30, 96, 2, "packed rope", "dead row"),      # Dh=48, one key tile
+]
+
+
+def _recompute_designs(lib):
+    return [lib.short_attention_recompute_bwd_calls(i) for i in range(3)]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("B,S,D,H,entry,masked", RECOMPUTE_ONE_BLOCK_CASES)
+def test_short_attention_bwd_recompute_one_block_matches_plain(cuda_device, np_rng, B, S, D, H,
+                                                               entry, masked):
+    """The one-block recompute backward (S <= 128: the scores and softmax
+    recomputed on wgmma), through both recompute entries, against its plain
+    version on the plain forward's o: packed qkv with and without RoPE,
+    `qkv.chunk(3, -1)` views and head views; Dh = 32 to 128; S = 65, whose
+    padding rows and keys must take ds = 0; keys masked inside the rows; a
+    batch row whose keys are all masked. Two launches are equal byte for
+    byte, each moves the counter once, and the C launcher counts both as
+    one-block calls and none of the other designs."""
+    f = lambda *s: torch.from_numpy(np_rng.normal(size=s).astype(np.float32)).to(  # noqa: E731
+        cuda_device, torch.bfloat16)
+    assert sa.bwd_recompute_design(S, D // H) == "one block"
+    qkv, mask = f(B, S, 3 * D), None
+    if masked in ("ragged", "holes"):
+        mask_np = _key_mask(np_rng, B, S)
+        if masked == "holes":
+            mask_np[:, [1, S // 2]] = False
+        mask = torch.from_numpy(mask_np).to(cuda_device)
+    elif masked == "dead row":
+        mask = torch.from_numpy(_ragged_mask(np_rng, B, S)).to(cuda_device)
+    if entry.startswith("packed"):
+        pos = torch.arange(S, device=cuda_device) if entry == "packed rope" else None
+        dout = f(B, S, D)
+        o = sa.short_attention_qkv_reference(qkv, H, mask=mask, rope_positions=pos)
+        run = lambda: [sa.short_attention_qkv_bwd(dout, qkv, o, H, mask=mask,  # noqa: E731
+                                                  rope_positions=pos)]
+        want = sa.short_attention_qkv_bwd_reference(dout, qkv, o, H, mask=mask,
+                                                    rope_positions=pos).chunk(3, dim=-1)
+        name = "short_attention_bwd"
+    else:
+        q, k, v = qkv.chunk(3, dim=-1)
+        if entry == "heads":
+            q, k, v = (split_heads(t, H) for t in (q, k, v))
+        dout = f(*q.shape)
+        o = sa.short_attention_sep_reference(q, k, v, H, mask=mask)
+        run = lambda: list(sa.short_attention_sep_bwd(dout, q, k, v, o, H,  # noqa: E731
+                                                      mask=mask))
+        want = sa.short_attention_sep_bwd_reference(dout, q, k, v, o, H, mask=mask)
+        name = "short_attention_sep_bwd"
+    lib = _build.LIBRARY.get()
+    designs = _recompute_designs(lib)
+    before = _build.LAUNCHES.snapshot()[name]
+    got = run()
+    torch.cuda.synchronize()
+    assert _build.LAUNCHES.snapshot()[name] == before + 1
+    again = run()
+    torch.cuda.synchronize()
+    assert _build.LAUNCHES.snapshot()[name] == before + 2
+    # both calls ran the one-block kernel, neither the head kernel nor the pair
+    assert _recompute_designs(lib) == [designs[0] + 2, designs[1], designs[2]]
+    assert all(torch.isfinite(a).all() and torch.equal(a, b) for a, b in zip(got, again))
+    if len(got) == 1:
+        got = got[0].chunk(3, dim=-1)
+    _grads_close(got, want, ["dq", "dk", "dv"])
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("S,Dh", [(65, 24), (128, 64), (100, 128)])
+def test_short_attention_bwd_recompute_misaligned_operands_match_aligned(cuda_device, np_rng,
+                                                                         S, Dh):
+    """q, k, v (and o, dO) whose base is off 16 bytes (views one element
+    into a wider buffer) stage by elements instead of TMA in the one-block
+    recompute backward: the same dq, dk, dv, bit for bit, as contiguous
+    copies of the same values, and close to the plain version."""
+    B, H = 3, 2
+    D = H * Dh
+    wide = lambda n: torch.from_numpy(  # noqa: E731
+        np_rng.normal(size=(B, S, n * D + 1)).astype(np.float32)).to(cuda_device, torch.bfloat16)
+    q, k, v = wide(3)[..., 1:].chunk(3, dim=-1)
+    o, dout = wide(2)[..., 1:].chunk(2, dim=-1)
+    assert q.data_ptr() % 16 != 0 and o.data_ptr() % 16 != 0
+    mask = torch.from_numpy(_ragged_mask(np_rng, B, S)).to(cuda_device)
+    lib = _build.LIBRARY.get()
+    designs = _recompute_designs(lib)
+    got, want = (sa.short_attention_sep_bwd(*ops, H, mask=mask)
+                 for ops in ((dout, q, k, v, o),
+                             tuple(t.contiguous() for t in (dout, q, k, v, o))))
+    torch.cuda.synchronize()
+    assert _recompute_designs(lib) == [designs[0] + 2, designs[1], designs[2]]
+    assert all(torch.equal(a, b) for a, b in zip(got, want))
+    _grads_close(got, sa.short_attention_sep_bwd_reference(dout, q, k, v, o, H, mask=mask),
+                 ["dq", "dk", "dv"])
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("B,S,D,H,design", [(2, 200, 640, 10, 1), (2, 255, 1024, 8, 2)])
+def test_short_attention_bwd_recompute_past_one_block_counts_its_design(cuda_device, np_rng, B,
+                                                                        S, D, H, design):
+    """Past S = 128 the recompute backward keeps its WMMA head kernel (S =
+    200 at Dh = 64: design 1) and the dQ and dK/dV pair (S = 255 at Dh =
+    128: design 2); the launcher counts the call there and nowhere else."""
+    f = lambda *s: torch.from_numpy(np_rng.normal(size=s).astype(np.float32)).to(  # noqa: E731
+        cuda_device, torch.bfloat16)
+    assert sa.bwd_recompute_design(S, D // H) == ("one block", "head", "pair")[design]
+    qkv, dout = f(B, S, 3 * D), f(B, S, D)
+    mask = torch.from_numpy(_key_mask(np_rng, B, S)).to(cuda_device)
+    pos = torch.arange(S, device=cuda_device)
+    o = sa.short_attention_qkv_reference(qkv, H, mask=mask, rope_positions=pos)
+    lib = _build.LIBRARY.get()
+    designs = _recompute_designs(lib)
+    got = sa.short_attention_qkv_bwd(dout, qkv, o, H, mask=mask, rope_positions=pos)
+    torch.cuda.synchronize()
+    designs[design] += 1
+    assert _recompute_designs(lib) == designs
+    want = sa.short_attention_qkv_bwd_reference(dout, qkv, o, H, mask=mask, rope_positions=pos)
+    _grads_close(got.chunk(3, dim=-1), want.chunk(3, dim=-1), ["dq", "dk", "dv"])
 
 
 @pytest.mark.cuda

@@ -4,9 +4,12 @@ mode: value, dqkv, dWo and dbo of `fused_short_attention_qkv_proj` on CPU
 tensors (the plain path, through its autograd Function) against the JAX
 kernel it replaces, both with save_probs=False, the JAX kernel run in Pallas
 interpret mode, at the JAX suite's tolerances (f32; gradients atol 5e-5,
-rtol 2e-3); the plain backward `short_attention_qkv_bwd_reference` against
-autograd of the plain forward; and the backward's shared memory, which fits
-every (S, Dh) the forward takes. The saved mode is
+rtol 2e-3), at S = 64 and 65 (padding rows and keys in the one-block
+kernel), with ragged masks and with keys masked inside the rows; the plain
+backward `short_attention_qkv_bwd_reference` against autograd of the plain
+forward; the backward's shared memory, which fits every (S, Dh) the forward
+takes; and which launches each mode's backward takes at each (S, Dh), with
+the scratch only the dQ and dK/dV pair reads. The saved mode is
 tests/test_torch_saved_probs.py."""
 
 import jax
@@ -23,22 +26,29 @@ from clip_dplm_tpu_torch.ops import _build
 from clip_dplm_tpu_torch.ops import short_attention as sa
 
 
-def _inputs(rng, B, S, D):
+def _inputs(rng, B, S, D, holes=False):
+    """qkv, wo, bo and a ragged (B, S) mask; with holes, keys 1 and S // 2
+    masked too (key 0 stays real: no row without a real key, since the TPU
+    kernel pads keys with -1e30 where the port's kernels take -inf)."""
     qkv = rng.normal(size=(B, S, 3 * D)).astype(np.float32)
     wo = (rng.normal(size=(D, D)) * 0.1).astype(np.float32)  # flax (in, out)
     bo = (rng.normal(size=(D,)) * 0.1).astype(np.float32)
     lens = rng.integers(S // 2, S + 1, B)
     mask = np.arange(S)[None, :] < lens[:, None]
+    if holes:
+        mask[:, [1, S // 2]] = False
     return qkv, wo, bo, mask
 
 
 @pytest.mark.parametrize("rope", [False, True])
-@pytest.mark.parametrize("S", [64, 65])
-def test_value_and_grads_match_jax_kernel(rng, rope, S):
-    """B=2, D=64, 2 heads, ragged masks; S=65 pads to 128 rows in the JAX
-    kernel. The loss sin(y)·valid is the JAX suite's."""
+@pytest.mark.parametrize("S,holes", [(64, False), (65, False), (65, True)],
+                         ids=["64", "65", "65-holes"])
+def test_value_and_grads_match_jax_kernel(rng, rope, S, holes):
+    """B=2, D=64, 2 heads, ragged masks, and keys masked inside the rows
+    (holes); S=65 pads to 128 rows in the JAX kernel and in the port's
+    one-block kernel. The loss sin(y)·valid is the JAX suite's."""
     B, D, H = 2, 64, 2
-    qkv, wo, bo, mask = _inputs(rng, B, S, D)
+    qkv, wo, bo, mask = _inputs(rng, B, S, D, holes)
     pos = np.arange(S)
     w = mask[:, :, None].astype(np.float32)
 
@@ -115,16 +125,17 @@ def test_backward_shared_memory_bound(S, Dh):
                                        (208, 64, True), (209, 64, False), (255, 64, False),
                                        (64, 128, True), (128, 128, False), (256, 8, True)])
 def test_recompute_one_block_bound(S, Dh, fits):
-    """The recompute backward's one-block-a-head kernel (the whole head's K, V
-    and f32 dK/dV in one block, 64 query rows halved while they do not fit)
-    takes S <= 208 at Dh = 64, the flagship's and DPLM's S = 128 at 64 query
-    rows; past its bound the recompute mode takes the dQ and dK/dV launches
-    (csrc/short_attention.cu::bwd_head_rows)."""
+    """The recompute backward's WMMA one-block-a-head kernel (the whole head's
+    K, V and f32 dK/dV in one block, 64 query rows halved while they do not
+    fit) fits S <= 208 at Dh = 64, S = 128 at 64 query rows; it runs past S =
+    128 (below, the wgmma one-block kernel takes every call,
+    `bwd_recompute_design`), and past its bound the recompute mode takes the
+    dQ and dK/dV launches (csrc/short_attention.cu::bwd_head_rows)."""
     got = sa.bwd_head_smem_bytes(S, Dh)
     assert (0 < got <= sa.MAX_SMEM) == fits, got
     if not fits:
         assert got == 0
-    # the flagship block: 64 query rows, 223 KB, one block an SM
+    # its block at S = 128: 64 query rows, 223 KB, one block an SM
     assert sa.bwd_head_smem_bytes(128, 64) == 228096
 
 
@@ -155,3 +166,72 @@ def test_saved_backward_design_by_shape(S, Dh):
     assert (stats is None) == one
     if not one:
         assert stats.shape == (2, 3, 3, S) and stats.dtype == torch.float32
+
+
+@pytest.mark.parametrize("Dh", [8, 64, 128])
+@pytest.mark.parametrize("S", [1, 16, 64, 65, 128, 129, 200, 208, 209, 256])
+def test_recompute_backward_design_by_shape(S, Dh):
+    """The recompute-mode backward runs one block a head (the wgmma kernel)
+    at S <= 128 and Dh <= 128; past S = 128 the WMMA head kernel where it
+    fits (S <= 208 at Dh = 64; S <= 256 at Dh = 8, `test_recompute_one_block_
+    bound`; never at Dh = 128), else the dQ and dK/dV pair, which alone
+    allocates the (B, H, 3, S) scratch. The one-block block's shared memory
+    is 0 where it does not run."""
+    if S <= 128:
+        want = "one block"
+    elif Dh == 8 or (Dh == 64 and S <= 208):
+        want = "head"
+    else:
+        want = "pair"
+    assert sa.bwd_recompute_design(S, Dh) == want
+    assert (sa.bwd_recompute_smem_bytes(S, Dh) > 0) == (want == "one block")
+    stats = sa._recompute_stats(2, S, 3, Dh, torch.device("cpu"))
+    assert (stats is None) == (want != "pair")
+    if want == "pair":
+        assert stats.shape == (2, 3, 3, S) and stats.dtype == torch.float32
+
+
+@pytest.mark.parametrize("S,Dh,smem", [(128, 64, 99848), (64, 64, 42248), (128, 128, 165384),
+                                       (64, 128, 83208)])
+def test_recompute_one_block_shared_memory(S, Dh, smem):
+    """The one-block recompute backward's block (csrc/short_attention.cu::
+    BwdBlockSmem: Q, K, V, dO of the head, o where the probabilities go, the
+    larger of the two, then the key bias): 512 bytes over the saved mode's
+    block at (128, 64), still within half an SM, two blocks an SM at Dh = 64;
+    at (64, 128) o (16 KB) is larger than the probabilities (8 KB)."""
+    got = sa.bwd_recompute_smem_bytes(S, Dh)
+    assert got == smem
+    assert got <= (sa.HALF_SMEM if Dh <= 64 else sa.MAX_SMEM)
+    R = 64 if S <= 64 else 128
+    assert got - sa.bwd_saved_smem_bytes(S, Dh) == R * 4 + (8192 if (S, Dh) == (64, 128) else 0)
+    # every (S, Dh) of a padded size shares its block
+    assert sa.bwd_recompute_smem_bytes(S - 7, Dh - 8) == smem
+
+
+def test_recompute_wrapper_allocates_the_scratch_only_for_the_pair(monkeypatch):
+    """On the card the recompute wrappers hand the C launcher a (B, H, 3, S)
+    scratch only where the dQ and dK/dV pair runs, and null elsewhere: their
+    launch arguments, recorded on meta tensors with the launch replaced."""
+    calls = []
+    monkeypatch.setattr(sa, "_require_cuda", lambda x: None)
+    monkeypatch.setattr(sa._build, "launch", lambda name, *a: calls.append((name, a)))
+    monkeypatch.setattr(sa._build, "stream_of", lambda t: 0)
+    monkeypatch.setattr(sa, "_ptr", lambda t: None if t is None else 1)
+    monkeypatch.setattr(sa, "_device_mask", lambda mask, B, S, dev: None)
+    meta = torch.device("meta")
+    for S, H, Dh in ((128, 8, 64), (200, 10, 64), (255, 8, 128)):
+        D = H * Dh
+        qkv = torch.empty(2, S, 3 * D, dtype=torch.bfloat16, device=meta)
+        o = torch.empty(2, S, D, dtype=torch.bfloat16, device=meta)
+        calls.clear()
+        sa.short_attention_qkv_bwd(o, qkv, o, H)
+        (name, args), = calls
+        assert name == "short_attention_qkv_bwd"
+        pair = sa.bwd_recompute_design(S, Dh) == "pair"
+        assert (args[6] is not None) == pair, (S, Dh)  # stats
+        q, k, v = qkv.chunk(3, dim=-1)
+        calls.clear()
+        sa.short_attention_sep_bwd(o, q, k, v, o, H)
+        (name, args), = calls
+        assert name == "short_attention_sep_bwd"
+        assert (args[6] is not None) == pair, (S, Dh)

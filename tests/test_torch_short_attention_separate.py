@@ -9,7 +9,9 @@ autograd Function:
 - values at atol 1e-5, rtol 1e-4, and the gradients in the recompute mode
   (save_probs=False) at atol 2e-5, rtol 1e-3: both layouts, 2 and 4 heads,
   masked and unmasked, S = 64, 72, 200 and a tiny S = 33 through the op
-  itself, B = 3 (not a multiple of the TPU kernel's rows per program);
+  itself, B = 3 (not a multiple of the TPU kernel's rows per program); S =
+  65 (padding rows and keys in the port's one-block kernel) with keys masked
+  inside the rows;
   `multihead_attention` and `attention_dispatch` give the op's values in the
   band;
 - the heads entry, recompute mode with an explicit scale, saved mode at the
@@ -39,10 +41,14 @@ B, D = 3, 64
 
 
 def _inputs(rng, S, masked):
+    """masked: False, True (ragged) or "holes" (ragged, keys 1 and S // 2
+    masked too)."""
     q, k, v, w = (rng.normal(size=(B, S, D)).astype(np.float32) for _ in range(4))
     mask = None
     if masked:  # no row without a real key: the TPU kernel pads keys with -1e30 too
         mask = np.arange(S)[None, :] < rng.integers(S // 2, S + 1, B)[:, None]
+    if masked == "holes":
+        mask[:, [1, S // 2]] = False
     return q, k, v, w, mask
 
 
@@ -78,7 +84,8 @@ def _mask_kw(mask, torch_side):
 
 @pytest.mark.parametrize("layout,H,masked,S", [
     ("bhsd", 2, True, 64), ("bsd", 4, True, 72), ("bhsd", 4, False, 200),
-    ("bsd", 2, False, 200), ("bhsd", 4, True, 33)])
+    ("bsd", 2, False, 200), ("bhsd", 4, True, 33), ("bsd", 2, "holes", 65),
+    ("bhsd", 4, "holes", 65)])
 def test_values_and_recompute_grads_match_jax_kernel(rng, layout, H, masked, S):
     q, k, v, w, mask = _inputs(rng, S, masked)
     want, g_want = _jax_vjp(jax_sa.fused_short_attention, (q, k, v), w, False, num_heads=H,

@@ -45,7 +45,9 @@ Phases, each fatal on failure (non-zero exit, no result line):
      with RoPE at DPLM's B=32 D=640, and ragged at B=1000 S=65, each timed
      beside SDPA (the library call of the same attention, timed only); the
      backward's rows name the design that ran, read from the C launcher's
-     count of recompute calls by design (one block a head at S <= 128);
+     count of recompute calls by design (one block a head at S <= 128), and
+     the CLS backward's rows theirs, from its launcher's count (one block a
+     batch row and head group at S <= 256);
      flash attention with requires_grad records a gradient equal to its
      plain version's (atol = rtol = 2e-2 of the largest entry);
      (b) one flagship train step on the card against the CPU, B=16, dropout
@@ -408,6 +410,23 @@ def bwd_design(lib, what, S, Dh, fn, saved=True):
     fn()
     moved = [count(i) - before[i] for i in range(len(designs))]
     want = rule(S, Dh)
+    check(moved == [int(d == want) for d in designs],
+          f"{what}: calls by design {dict(zip(designs, moved))}, not one of the {want} design")
+    return want
+
+
+def cls_bwd_design(lib, what, S, D, H, fn):
+    """The design of the CLS backward that one call of fn launched, read from
+    the C launcher's count of calls by design (`cls_attention_bwd_calls`: 0
+    one block a batch row and head group, 1 one block a batch row): exactly
+    one call, of the design the launcher's rule (`cls_bwd_design`) names."""
+    from clip_dplm_tpu_torch.ops import short_attention as sa
+
+    designs = ("group", "row")
+    before = [lib.cls_attention_bwd_calls(i) for i in range(2)]
+    fn()
+    moved = [lib.cls_attention_bwd_calls(i) - before[i] for i in range(2)]
+    want = sa.cls_bwd_design(S, D, H)
     check(moved == [int(d == want) for d in designs],
           f"{what}: calls by design {dict(zip(designs, moved))}, not one of the {want} design")
     return want
@@ -1032,8 +1051,10 @@ def phase_flagship_kernels(torch, results):
                     work=(B * D * 2 + 2 * B * S * D * 2 + B * S + B * D * 2, 4 * B * S * D,
                           "f32"),
                     library_fn=sdpa_fn(torch, q0, k, v, mask) if main else None)
+        cls_design = cls_bwd_design(_build.LIBRARY.get(), f"cls_attention_bwd {shape}", S, D,
+                                    H, lambda: sa.fused_cls_attention_bwd(do1, qkv, H, mask=mask))
         # bytes: q row 0, dO, K, V, mask in, dqkv out; f32 ops: scores, dp, dq, dk, dv
-        compare(torch, "cls_attention_bwd", shape,
+        compare(torch, "cls_attention_bwd", shape + f" ({cls_design} design)",
                 lambda: sa.fused_cls_attention_bwd(do1, qkv, H, mask=mask),
                 lambda: sa.fused_cls_attention_bwd_reference(do1, qkv, H, mask=mask),
                 results, work=(2 * B * D * 2 + 2 * B * S * D * 2 + B * S + B * S * 3 * D * 2,

@@ -1,8 +1,8 @@
 // Tiles in shared memory for wgmma, and the Tensor Memory Accelerator (TMA)
 // copies that fill them: the 128-byte swizzle, mbarrier completion, the
 // device-side box copies and the host-side tensor maps. Shared by the flash
-// kernels (flash_attention.cu), the short-S forward (short_attention.cu) and
-// the GEMM (dense_gemm.cuh).
+// kernels (flash_attention.cu), the short-S forward (short_attention.cu), the
+// GEMM (dense_gemm.cuh) and the CLS backward (cls_attention.cu).
 #pragma once
 
 #include <cuda.h>
@@ -86,6 +86,17 @@ __device__ __forceinline__ void tma_box_2d(bf16* dst, const CUtensorMap* map, in
       : "memory");
 }
 
+// One box of a 3-D tensor map at coordinates (c0, c1, c2), innermost first,
+// into dst; completes on bar.
+__device__ __forceinline__ void tma_box_3d(bf16* dst, const CUtensorMap* map, int c0, int c1,
+                                           int c2, uint64_t* bar) {
+  asm volatile(
+      "cp.async.bulk.tensor.3d.shared::cluster.global.mbarrier::complete_tx::bytes"
+      " [%0], [%1, {%2, %3, %4}], [%5];\n" ::"r"(smem_u32(dst)),
+      "l"(reinterpret_cast<uint64_t>(map)), "r"(c0), "r"(c1), "r"(c2), "r"(smem_u32(bar))
+      : "memory");
+}
+
 // One box of a 4-D tensor map at coordinates (c0, c1, c2, c3), innermost
 // first, into dst; completes on bar.
 __device__ __forceinline__ void tma_box_4d(bf16* dst, const CUtensorMap* map, int c0, int c1,
@@ -119,17 +130,28 @@ inline EncodeTiledFn encode_tiled() {
 
 // A bf16 tensor of `rank` dimensions (dims innermost first, the innermost
 // contiguous; strides in bytes of dimensions 1 .. rank-1) as TMA boxes of
-// `box` elements a dimension, 128-byte swizzled (box[0] = 64); reads past its
-// edges give zeros.
+// `box` elements a dimension, 128-byte swizzled (box[0] = 64) unless another
+// swizzle is given (CU_TENSOR_MAP_SWIZZLE_NONE: box rows dense, box[0]·2 a
+// multiple of 16 bytes, up to 256 elements); reads past its edges give zeros.
 inline bool tensor_map(CUtensorMap* map, const void* base, int rank, const cuuint64_t* dims,
-                       const cuuint64_t* strides, const cuuint32_t* box) {
+                       const cuuint64_t* strides, const cuuint32_t* box,
+                       CUtensorMapSwizzle swizzle = CU_TENSOR_MAP_SWIZZLE_128B) {
   const EncodeTiledFn encode = encode_tiled();
   const cuuint32_t elem[4] = {1, 1, 1, 1};
-  return encode != nullptr &&
-         encode(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, rank, const_cast<void*>(base), dims,
-                strides, box, elem, CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_128B,
-                CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
-                CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
+  auto run = [&] {
+    return encode(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, rank, const_cast<void*>(base), dims,
+                  strides, box, elem, CU_TENSOR_MAP_INTERLEAVE_NONE, swizzle,
+                  CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
+                  CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
+  };
+  if (encode == nullptr) return false;
+  if (run()) return true;
+  // cuTensorMapEncodeTiled works on the calling thread's current context,
+  // and a thread that has made no runtime call yet has none (an autograd
+  // worker whose first node is a kernel's backward): make the device's
+  // primary context current there, and encode again.
+  int dev;
+  return cudaGetDevice(&dev) == cudaSuccess && cudaSetDevice(dev) == cudaSuccess && run();
 }
 
 // A (slices, rows, Dh) bf16 tensor as boxes of 64 columns by box_rows rows

@@ -65,6 +65,22 @@ the rule itself picks recompute:
     python -m clip_dplm_tpu_torch.experiments.short_ab --other DIR --bwd --recompute
         [--steps dplm,rna_rbp]
 
+With `--cls` it times the CLS-query attention instead: the other
+checkout's `csrc/cls_attention.cu`, compiled alone, and this one's, both
+C entries `cls_attention_bwd` and `cls_attention_fwd` called through ctypes
+on the same inputs (a ragged mask, a random dout), held against the plain
+versions (the gradient divided by its largest entry, atol = rtol = 2e-2)
+and timed in turns other, this, this, other, at the flagship (B=1024,
+S=128, D=512, H=8), S=65 (B=1000), S=64, S=32 and S=96 (B=1024; S=96 the
+first row of the group blocks of 256 threads) and S=257 (B=256), one row
+past the group design's cut. Each line names the design this checkout's
+launcher ran (read from `cls_attention_bwd_calls`, held to
+`cls_bwd_design`), SDPA's whole backward over the one query row (timed
+only), and both bounds (bytes over 3.35 TB/s, f32 operations over 67 TFLOP/s).
+`--steps rna_rbp` then times each checkout's flagship bench step in turns:
+
+    python -m clip_dplm_tpu_torch.experiments.short_ab --other DIR --cls [--steps rna_rbp]
+
 Needs a CUDA device and nvcc.
 """
 
@@ -104,6 +120,17 @@ FWD_KEYS = ("short_attn_kernel", "short_attn_fwd")  # the forward's mangled name
 # one-block kernel served the saved mode alone), then the pair's and the WMMA head kernel's
 BWD_KEYS = ("short_attn_bwd_block", "short_attn_bwd_saved", "short_attn_bwd_dq",
             "short_attn_bwd_dkv", "short_attn_bwd_head")
+CLS_KEYS = ("cls_attn",)  # the CLS kernels' mangled names
+# name, B, S, D, H of the CLS turns
+CLS_SHAPES = (
+    ("flagship", 1024, 128, 512, 8),
+    ("S=65", 1000, 65, 512, 8),
+    ("S=64", 1024, 64, 512, 8),
+    ("S=32", 1024, 32, 512, 8),
+    ("S=96", 1024, 96, 512, 8),
+    ("S=257, past the group design's cut", 256, 257, 512, 8),
+)
+PEAK_F32 = 67e12  # H100 SXM f32 outside the tensor cores
 # name, B, S, D, H, entry ("packed" qkv, RoPE or not, or "sep" chunk views)
 BWD_SHAPES = (
     ("DPLM packed, RoPE", 256, 128, 640, 10, "packed rope"),
@@ -123,33 +150,39 @@ BWD_RECOMPUTE_SHAPES = (
 )
 
 
-def _bind(lib: ctypes.CDLL) -> ctypes.CDLL:
-    for name in ("short_attention_qkv_fwd", "short_attention_sep_fwd",
+SHORT_ENTRIES = ("short_attention_qkv_fwd", "short_attention_sep_fwd",
                  "short_attention_sep_fwd_save", "short_attention_qkv_bwd_probs",
                  "short_attention_sep_bwd_probs", "short_attention_qkv_bwd",
-                 "short_attention_sep_bwd"):
+                 "short_attention_sep_bwd")
+CLS_ENTRIES = ("cls_attention_fwd", "cls_attention_bwd")
+
+
+def _bind(lib: ctypes.CDLL, names=SHORT_ENTRIES) -> ctypes.CDLL:
+    for name in names:
         fn = getattr(lib, name)
         fn.argtypes = _build._SIGNATURES[name]
         fn.restype = ctypes.c_int
     return lib
 
 
-def build_other(other: Path) -> ctypes.CDLL:
-    """The other checkout's short_attention.cu, alone, as a shared library."""
+def build_other(other: Path, cls: bool = False) -> ctypes.CDLL:
+    """The other checkout's short_attention.cu (cls: cls_attention.cu),
+    alone, as a shared library."""
     csrc = other / "clip_dplm_tpu_torch" / "csrc"
+    source, keys = (("cls_attention.cu", CLS_KEYS) if cls
+                    else ("short_attention.cu", FWD_KEYS + BWD_KEYS))
     digest = hashlib.sha256(b"".join(p.read_bytes() for p in sorted(csrc.glob("*.cu*"))))
-    out = REPO / "build" / "short_ab" / f"libshort_{digest.hexdigest()[:16]}.so"
+    out = REPO / "build" / "short_ab" / f"lib{source[:-3]}_{digest.hexdigest()[:16]}.so"
     if not out.exists():
         out.parent.mkdir(parents=True, exist_ok=True)
-        cmd = [_build._nvcc(), *_build.NVCC_FLAGS, "-shared", "-o", str(out),
-               str(csrc / "short_attention.cu")]
+        cmd = [_build._nvcc(), *_build.NVCC_FLAGS, "-shared", "-o", str(out), str(csrc / source)]
         proc = subprocess.run(cmd, capture_output=True, text=True)
         if proc.returncode != 0:
             raise RuntimeError(f"nvcc failed: {' '.join(cmd)}\n{proc.stdout}{proc.stderr}")
-        for key in FWD_KEYS + BWD_KEYS:
+        for key in keys:
             for line in ptxas_lines(proc.stdout + proc.stderr, key):
                 print("other ptxas:", line)
-    return _bind(ctypes.CDLL(str(out)))
+    return _bind(ctypes.CDLL(str(out)), CLS_ENTRIES if cls else SHORT_ENTRIES)
 
 
 def _operand(t: torch.Tensor) -> _build.Operand:
@@ -349,6 +382,90 @@ def bwd_turns(lib_this: ctypes.CDLL, lib_other: ctypes.CDLL, rounds: int,
         del sdpa, o_sdpa, leaves
 
 
+def cls_turns(lib_this: ctypes.CDLL, lib_other: ctypes.CDLL, rounds: int) -> None:
+    """Both checkouts' CLS backward and forward in turns at CLS_SHAPES."""
+    stream = torch.cuda.current_stream().cuda_stream
+    for name, B, S, D, H in CLS_SHAPES:
+        Dh = D // H
+        g = torch.Generator(device="cuda").manual_seed(0)
+        qkv = torch.randn(B, S, 3 * D, generator=g, device="cuda").bfloat16()
+        dout = torch.randn(B, 1, D, generator=g, device="cuda").bfloat16()
+        lens = torch.randint(S // 2, S + 1, (B,), generator=g, device="cuda")
+        lens[0] = S
+        mask = torch.arange(S, device="cuda")[None, :] < lens[:, None]
+        scale = 1.0 / Dh ** 0.5
+        want = sa.fused_cls_attention_bwd_reference(dout, qkv, H, mask=mask)
+        want_o = sa.fused_cls_attention_reference(qkv, H, mask=mask).float()
+        dqkv, o = torch.empty_like(qkv), torch.empty(B, 1, D, dtype=torch.bfloat16, device="cuda")
+        args = (qkv.data_ptr(), mask.data_ptr())
+
+        def checked(fn, what):
+            def run():
+                rc = fn()
+                if rc != 0:
+                    raise RuntimeError(f"{what} {name}: CUDA error {rc}")
+            return run
+
+        def bwd_err(run):
+            dqkv.fill_(float("nan"))
+            run()
+            torch.cuda.synchronize()
+            return max(_close(a, b) for a, b in zip(dqkv.chunk(3, -1), want.chunk(3, -1)))
+
+        bwd, fwd = {}, {}
+        for tree, lib in (("this", lib_this), ("other", lib_other)):
+            bwd[tree] = checked(lambda lib=lib: lib.cls_attention_bwd(
+                *args, dout.data_ptr(), dqkv.data_ptr(), B, S, H, Dh, scale, stream),
+                f"{tree} cls_attention_bwd")
+            fwd[tree] = checked(lambda lib=lib: lib.cls_attention_fwd(
+                *args, o.data_ptr(), B, S, H, Dh, scale, stream), f"{tree} cls_attention_fwd")
+        calls = [lib_this.cls_attention_bwd_calls(d) for d in (0, 1)]
+        errs = {tree: bwd_err(bwd[tree]) for tree in ("this", "other")}
+        moved = [lib_this.cls_attention_bwd_calls(d) - calls[d] for d in (0, 1)]
+        design = sa.cls_bwd_design(S, D, H)
+        if moved != [int(design == "group"), int(design == "row")]:
+            raise RuntimeError(f"{name}: calls by design {moved}, not one of the {design} design")
+        fwd_errs = {}
+        for tree in ("this", "other"):
+            fwd[tree]()
+            torch.cuda.synchronize()
+            if not torch.allclose(o.float(), want_o, **TOL):
+                raise RuntimeError(f"{tree} cls_attention_fwd disagrees at {name}")
+            fwd_errs[tree] = (o.float() - want_o).abs().max().item()
+        times = {k: [] for k in ("this", "other", "fwd_this", "fwd_other")}
+        for _ in range(rounds):
+            for tree in ("other", "this", "this", "other"):
+                times[tree].append(cuda_ms(bwd[tree]))
+            for tree in ("other", "this", "this", "other"):
+                times["fwd_" + tree].append(cuda_ms(fwd[tree]))
+        heads = [sa._sep_heads(t, H) for t in qkv.chunk(3, dim=-1)]
+        leaves = [t.detach().clone().requires_grad_(True)
+                  for t in (heads[0][:, :, :1], heads[1], heads[2])]
+        o_sdpa = torch.nn.functional.scaled_dot_product_attention(
+            *leaves, attn_mask=mask[:, None, None, :])
+        do_h = sa._sep_heads(dout, H)
+        sdpa = lambda: torch.autograd.grad(o_sdpa, leaves, do_h,  # noqa: E731
+                                           retain_graph=True)
+        sdpa_ms = min(cuda_ms(sdpa), cuda_ms(sdpa))
+        # q row 0, dout, K, V and the mask in, dqkv out; scores, dp, dq, dk, dv in f32
+        t_bytes = (2 * B * D * 2 + 2 * B * S * D * 2 + B * S + B * S * 3 * D * 2) / HBM_BYTES_PER_S
+        t_ops = 8 * B * S * D / PEAK_F32
+        # q row 0, K, V and the mask in, o out; scores and the value sum
+        fwd_bound = max((2 * B * D * 2 + 2 * B * S * D * 2 + B * S) / HBM_BYTES_PER_S,
+                        4 * B * S * D / PEAK_F32) * 1e3
+        bound = max(t_bytes, t_ops) * 1e3
+        print(json.dumps({
+            "shape": name, "B": B, "S": S, "D": D, "H": H, "design": design,
+            "this_ms": times["this"], "other_ms": times["other"], "sdpa_bwd_ms": sdpa_ms,
+            "bound_ms": bound, "bound_by": "operations" if t_ops >= t_bytes else "bytes",
+            "this_over_bound": min(times["this"]) / bound,
+            "this_over_sdpa": min(times["this"]) / sdpa_ms,
+            "fwd_this_ms": times["fwd_this"], "fwd_other_ms": times["fwd_other"],
+            "fwd_bound_ms": fwd_bound, "max_abs_err": errs, "fwd_max_abs_err": fwd_errs}),
+            flush=True)
+        del sdpa, o_sdpa, leaves
+
+
 # One bench step with the JAX size rule pinned to recompute, in the tree it
 # runs in; the bench's arguments follow.
 _RECOMPUTE_BENCH = (
@@ -406,6 +523,8 @@ def main(argv=None) -> int:
                     help="the backward from the saved probabilities, not the forward")
     ap.add_argument("--recompute", action="store_true",
                     help="with --bwd: the recompute-mode backward instead")
+    ap.add_argument("--cls", action="store_true",
+                    help="the CLS-query attention's backward and forward instead")
     ap.add_argument("--steps", default="", help="bench models to time in turns, comma-separated")
     ap.add_argument("--profile", default="", help="a bench model to profile in each tree")
     args = ap.parse_args(argv)
@@ -416,11 +535,14 @@ def main(argv=None) -> int:
                          capture_output=True, text=True)
     print(smi.stdout.strip())
     other = args.other.resolve()
-    lib_this = _bind(_build.LIBRARY.get())
-    for key in BWD_KEYS if args.bwd else FWD_KEYS:
+    lib_this = _bind(_build.LIBRARY.get(),
+                     SHORT_ENTRIES + CLS_ENTRIES + ("cls_attention_bwd_calls",))
+    for key in CLS_KEYS if args.cls else BWD_KEYS if args.bwd else FWD_KEYS:
         for line in ptxas_lines(_build.LIBRARY.build_log, key):
             print("this ptxas:", line)
-    if args.bwd:
+    if args.cls:
+        cls_turns(lib_this, build_other(other, cls=True), args.rounds)
+    elif args.bwd:
         bwd_turns(lib_this, build_other(other), args.rounds, recompute=args.recompute)
     else:
         kernel_turns(lib_this, build_other(other), args.rounds)

@@ -80,6 +80,11 @@ _SIGNATURES = {
     "cls_attention_fwd": [_P, _P, _P, _I, _I, _I, _I, _F, _P],
     # qkv, mask, dout, dqkv, B, S, H, Dh, scale, stream
     "cls_attention_bwd": [_P, _P, _P, _P, _I, _I, _I, _I, _F, _P],
+    # design (0: one block a batch row and head group, 1: one block a batch
+    # row) -> calls of the CLS backward that launched it
+    "cls_attention_bwd_calls": [_I],
+    # S, H, Dh -> shared memory bytes of the block the CLS backward launches
+    "cls_attention_bwd_smem": [_I, _I, _I],
     # q, k, v, mask, out, lse, B, H, S, Sk, Dh, scale, stream
     "flash_attention_fwd": [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _F, _P],
     # q, k, v, mask, dout, lse, delta, dq, B, H, S, Sk, Dh, scale, stream

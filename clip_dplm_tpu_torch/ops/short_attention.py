@@ -31,7 +31,9 @@ Counterpart of `clip_dplm_tpu/ops/short_attention.py`:
   target.
 - `fused_cls_attention`: attention output of query row 0, (B, 1, D), from
   packed qkv; an autograd Function whose backward recomputes the softmax
-  from qkv and the mask (`fused_cls_attention_bwd`).
+  from qkv and the mask (`fused_cls_attention_bwd`: one block a batch row
+  and head group where the group's K and V fit shared memory, else one block
+  a batch row, by the rule `cls_bwd_design`).
 
 Every wrapper runs its CUDA kernel (`csrc/short_attention.cu`,
 `csrc/cls_attention.cu`) for CUDA tensors and its plain PyTorch version
@@ -57,6 +59,7 @@ from clip_dplm_tpu_torch.ops.attention import (
     require_no_grad,
     split_heads,
 )
+from clip_dplm_tpu_torch.ops.fused_dense import _aligned
 
 MAX_SEQ = 256  # K and V of a head for the whole sequence sit in shared memory
 ONE_BLOCK_MAX_SEQ = 128  # the backward's one block a head, both modes
@@ -65,6 +68,9 @@ HALF_SMEM = 115712  # each of two blocks on one SM (228 KB, less 1 KB a block)
 # the JAX package's bound on the saved probabilities of one call
 SAVE_PROBS_MAX_BYTES = 512 * 1024 * 1024
 CLS_MAX_HEADS = 128  # the TPU kernel's head columns; the port keeps its bound
+CLS_GROUP_COLS = 64  # the CLS backward's head groups: whole heads, at most this wide
+CLS_GROUP_MAX = 256  # rows and columns of one TMA box: a group's S and width
+CLS_GROUP_WIDE_ROWS = 96  # S from which a group block takes 256 threads, below it 128
 _NO_GRAD_WHY = "fused_short_attention_qkv_proj is the entry point with a backward"
 
 
@@ -390,6 +396,58 @@ def bwd_recompute_smem_bytes(S: int, Dh: int) -> int:
     return _block_smem_bytes(S, Dh, False) if bwd_recompute_design(S, Dh) == "one block" else 0
 
 
+def cls_bwd_groups(D: int, H: int):
+    """(heads a group, the group's columns, groups a batch row) of the CLS
+    backward's group design (csrc/cls_attention.cu::ClsGroups): whole heads,
+    at most CLS_GROUP_COLS columns, one head where Dh is wider; the last group
+    holds the heads left over."""
+    Dh = D // H
+    heads = min(max(CLS_GROUP_COLS // Dh, 1), H)
+    return heads, heads * Dh, -(-H // heads)
+
+
+def cls_bwd_group_threads(S: int) -> int:
+    """Threads of one block of the CLS backward's group design
+    (csrc/cls_attention.cu::cls_group_threads)."""
+    return 256 if S >= CLS_GROUP_WIDE_ROWS else 128
+
+
+def cls_bwd_group_smem_bytes(S: int, D: int, H: int) -> int:
+    """Shared memory of one block of the CLS backward's group design
+    (csrc/cls_attention.cu::ClsGroupSmem): the group's K and V tiles (S x
+    cols bf16; V's holds dq0's partials after the scores, 8 floats a thread,
+    where those are more), q0 and dout in f32, prob and ds (heads x S f32),
+    the key bias, one mbarrier, 128 bytes for the base's alignment."""
+    heads, cols, _ = cls_bwd_groups(D, H)
+    tile = S * cols * 2
+    return (_a128(tile) + _a128(max(tile, cls_bwd_group_threads(S) * 8 * 4)) + 2 * _a128(cols * 4)
+            + 2 * _a128(heads * S * 4) + _a128(S * 4) + 8 + 128)
+
+
+def cls_bwd_design(S: int, D: int, H: int) -> str:
+    """The launch of the CLS backward at (S, D, H), as
+    csrc/cls_attention.cu::launch_cls_bwd picks it: "group" (one block a
+    batch row and head group, K and V of the group staged once by TMA) where
+    S and the group's width fit one TMA box (<= 256) and its layout fits a
+    block's shared memory (`cls_bwd_group_smem_bytes`), else "row" (one block
+    a batch row, `_cls_smem_bytes`). The launcher counts the calls of each
+    (`cls_attention_bwd_calls`: 0 group, 1 row)."""
+    _, cols, _ = cls_bwd_groups(D, H)
+    fits = (1 <= S <= CLS_GROUP_MAX and cols <= CLS_GROUP_MAX
+            and cls_bwd_group_smem_bytes(S, D, H) <= MAX_SMEM)
+    return "group" if fits else "row"
+
+
+def cls_bwd_smem_bytes(S: int, D: int, H: int) -> int:
+    """Shared memory in bytes of the block the CLS backward launches at (S,
+    D, H), 0 where neither design fits (the C launcher's
+    `cls_attention_bwd_smem` computes the same)."""
+    if cls_bwd_design(S, D, H) == "group":
+        return cls_bwd_group_smem_bytes(S, D, H)
+    row = _cls_smem_bytes(S, D, H, True)
+    return row if row <= MAX_SMEM else 0
+
+
 def _pair_stats(design: str, B: int, S: int, H: int, dev) -> Optional[torch.Tensor]:
     """The (B, H, 3, S) f32 scratch of the dQ and dK/dV pair where `design`
     is "pair", else None."""
@@ -628,7 +686,7 @@ def _dout(dy: torch.Tensor, wo: torch.Tensor) -> torch.Tensor:
     the shared GEMM on the card, plain on the CPU."""
     if dy.device.type == "cpu":
         return (dy.float() @ wo.float()).to(dy.dtype)
-    from clip_dplm_tpu_torch.ops.fused_dense import _aligned, _gemm
+    from clip_dplm_tpu_torch.ops.fused_dense import _gemm
 
     D = wo.shape[1]
     return _gemm(_aligned(dy.reshape(-1, wo.shape[0])), _aligned(wo), None, D,
@@ -1134,8 +1192,11 @@ def fused_cls_attention_bwd_reference(
     return torch.cat([dq, dk, dv], dim=-1).to(qkv.dtype)
 
 
-def _cls_kernel_inputs(qkv, num_heads, mask):
-    """The CLS kernels' checks; the mask on the device or None."""
+def _cls_kernel_inputs(qkv, num_heads, mask, bwd: bool):
+    """The CLS kernels' checks; (qkv at a 16-byte-aligned address, a copy
+    only where it was not, the mask on the device or None). The forward
+    takes what the row design's backward layout fits, the backward what
+    either design fits (`cls_bwd_smem_bytes`)."""
     _require_cuda(qkv)
     B, S, D3 = qkv.shape
     D = D3 // 3
@@ -1144,9 +1205,11 @@ def _cls_kernel_inputs(qkv, num_heads, mask):
     if num_heads > CLS_MAX_HEADS or (D // num_heads) % 8:
         raise ValueError(f"the CLS kernel takes up to {CLS_MAX_HEADS} heads of a width that "
                          f"is a multiple of 8, got {num_heads} heads of {D // num_heads}")
-    if _cls_smem_bytes(S, D, num_heads, True) > MAX_SMEM:
+    fits = (cls_bwd_smem_bytes(S, D, num_heads) if bwd
+            else _cls_smem_bytes(S, D, num_heads, True) <= MAX_SMEM)
+    if not fits:
         raise ValueError(f"the CLS kernel does not fit S={S}, H={num_heads} in shared memory")
-    return _device_mask(mask, B, S, qkv.device)
+    return _aligned(qkv), _device_mask(mask, B, S, qkv.device)
 
 
 def fused_cls_attention_bwd(
@@ -1157,15 +1220,16 @@ def fused_cls_attention_bwd(
     scale: Optional[float] = None,
 ) -> torch.Tensor:
     """dqkv (B, S, 3D) of `fused_cls_attention` from qkv and the mask. CPU
-    tensors take the plain version; CUDA tensors take the kernel or raise."""
+    tensors take the plain version; CUDA tensors take the kernel of the
+    design `cls_bwd_design` names, or raise."""
     if qkv.device.type == "cpu":
         return fused_cls_attention_bwd_reference(dout, qkv, num_heads, mask=mask, scale=scale)
     B, S, D3 = qkv.shape
-    mask = _cls_kernel_inputs(qkv, num_heads, mask)
+    qkv, mask = _cls_kernel_inputs(qkv, num_heads, mask, bwd=True)
     D = D3 // 3
     if tuple(dout.shape) != (B, 1, D):
         raise ValueError(f"dout must be ({B}, 1, {D}), got {tuple(dout.shape)}")
-    dout = dout.to(torch.bfloat16).contiguous()
+    dout = _aligned(dout.to(torch.bfloat16))
     dqkv = torch.empty_like(qkv)
     _build.launch("cls_attention_bwd", qkv.data_ptr(), _ptr(mask), dout.data_ptr(),
                   dqkv.data_ptr(), B, S, num_heads, D // num_heads,
@@ -1178,7 +1242,7 @@ def _cls_forward(qkv, num_heads, mask, scale):
     if qkv.device.type == "cpu":
         return fused_cls_attention_reference(qkv, num_heads, mask=mask, scale=scale)
     B, S, D3 = qkv.shape
-    mask = _cls_kernel_inputs(qkv, num_heads, mask)
+    qkv, mask = _cls_kernel_inputs(qkv, num_heads, mask, bwd=False)
     D = D3 // 3
     out = torch.empty((B, 1, D), dtype=torch.bfloat16, device=qkv.device)
     _build.launch("cls_attention_fwd", qkv.data_ptr(), _ptr(mask), out.data_ptr(), B, S,

@@ -91,3 +91,66 @@ def test_bwd_reference_matches_autograd_and_counts_nothing(rng, masked):
                                      mask=None if mask is None else torch.from_numpy(mask))
     assert _build.LAUNCHES.snapshot() == before
     np.testing.assert_allclose(got.numpy(), want, atol=1e-6, rtol=1e-5)
+
+
+# (S, D, H, design, shared-memory bytes of the block the backward launches):
+# the flagship, S=1, ESM-CLIP's lengths 32 and 64, the group design's cut at
+# S=256 and one row past it (the row design), Dh=128, Dh=8 with 16 heads (8
+# heads a group), Dh=256 at S=256 (the group's K and V past 227 KB), Dh=264
+# (a group wider than one TMA box), 128 heads of 8 at S=256, which only the
+# group design fits, and one head of 8 on each side of S=96, where a block's
+# threads go from 128 to 256 and with them dq0's partials, 4 or 8 KB over V's
+# 1.5 KB tile
+CLS_BWD_SHAPES = [
+    (128, 512, 8, "group", 34952),
+    (1, 512, 8, "group", 5256),
+    (32, 512, 8, "group", 9224),
+    (64, 512, 8, "group", 17800),
+    (256, 512, 8, "group", 69256),
+    (257, 512, 8, "row", sa._cls_smem_bytes(257, 512, 8, True)),
+    (128, 1024, 8, "group", 68232),
+    (200, 128, 16, "group", 65544),
+    (256, 512, 2, "row", sa._cls_smem_bytes(256, 512, 2, True)),
+    (64, 528, 2, "row", sa._cls_smem_bytes(64, 528, 2, True)),
+    (256, 1024, 128, "group", 2 * 32768 + 2 * 256 + 2 * 8192 + 1024 + 136),
+    (95, 8, 1, "group", 1536 + 4096 + 2 * 128 + 2 * 384 + 384 + 136),
+    (96, 8, 1, "group", 1536 + 8192 + 2 * 128 + 2 * 384 + 384 + 136),
+]
+
+
+@pytest.mark.parametrize("S,D,H,design,smem", CLS_BWD_SHAPES)
+def test_cls_bwd_design_and_its_layout(S, D, H, design, smem):
+    """The launcher's rule and the Python mirror of its block's shared memory
+    (csrc/cls_attention.cu::ClsGroupSmem, ClsSmem), counted by hand: K and V
+    tiles of S x the group's columns in bf16 (V's at least dq0's partials,
+    which it holds after the scores: 8 floats a thread, 128 threads below
+    S=96 and 256 from it), q0 and dout,
+    prob and ds, the key bias, an mbarrier and 128 bytes of alignment."""
+    assert sa.cls_bwd_design(S, D, H) == design
+    assert sa.cls_bwd_smem_bytes(S, D, H) == smem
+    assert 0 < smem <= sa.MAX_SMEM
+    if design == "group":
+        assert sa.cls_bwd_group_smem_bytes(S, D, H) == smem
+
+
+@pytest.mark.parametrize("D,H,groups", [
+    (512, 8, (1, 64, 8)), (512, 16, (2, 64, 8)), (128, 16, (8, 64, 2)),
+    (96, 12, (8, 64, 2)), (96, 4, (2, 48, 2)), (1024, 8, (1, 128, 8)),
+    (64, 2, (2, 64, 1)), (8, 1, (1, 8, 1)), (1280, 20, (1, 64, 20)),
+])
+def test_cls_bwd_groups(D, H, groups):
+    """Whole heads a group, up to 64 columns (one head where Dh is wider, no
+    more than H), the last group the heads left over: 12 heads of 8 make a
+    group of 8 and one of 4."""
+    assert sa.cls_bwd_groups(D, H) == groups
+
+
+def test_cls_bwd_takes_what_either_design_takes():
+    """Where the row design's layout is past 227 KB the group design still
+    takes the backward (128 heads of 8 at S=256), and past both the wrapper's
+    check refuses before any launch."""
+    assert sa._cls_smem_bytes(256, 1024, 128, True) > sa.MAX_SMEM
+    assert sa.cls_bwd_smem_bytes(256, 1024, 128) > 0
+    assert sa._cls_smem_bytes(1024, 1024, 128, True) > sa.MAX_SMEM
+    assert sa.cls_bwd_design(1024, 1024, 128) == "row"
+    assert sa.cls_bwd_smem_bytes(1024, 1024, 128) == 0

@@ -698,6 +698,93 @@ def test_cls_attention_matches_plain(cuda_device, np_rng, B, S, D, H):
                  [want_g[..., i * D:(i + 1) * D] for i in range(3)], ["dq", "dk", "dv"])
 
 
+def _cls_inputs(rng, dev, B, S, D):
+    qkv = torch.from_numpy(rng.normal(size=(B, S, 3 * D)).astype(np.float32)).to(
+        dev, torch.bfloat16)
+    mask = torch.from_numpy(_ragged_mask(rng, B, S)).to(dev)
+    dout = torch.from_numpy(rng.normal(size=(B, 1, D)).astype(np.float32)).to(dev, torch.bfloat16)
+    return qkv, mask, dout
+
+
+def _cls_bwd_launch(qkv, mask, dout, H):
+    """dqkv of one launch of the CLS backward's C entry into a buffer filled
+    with NaN first, so that an element left unwritten shows."""
+    B, S, D3 = qkv.shape
+    Dh = D3 // 3 // H
+    dqkv = torch.full_like(qkv, float("nan"))
+    _build.launch("cls_attention_bwd", qkv.data_ptr(), mask.data_ptr(), dout.data_ptr(),
+                  dqkv.data_ptr(), B, S, H, Dh, 1.0 / Dh ** 0.5, _build.stream_of(qkv))
+    torch.cuda.synchronize()
+    return dqkv
+
+
+def _cls_grads_close(dqkv, want, D):
+    assert torch.isfinite(dqkv).all()
+    assert torch.count_nonzero(dqkv[:, 1:, :D]) == 0
+    _grads_close([dqkv[..., i * D:(i + 1) * D] for i in range(3)],
+                 [want[..., i * D:(i + 1) * D] for i in range(3)], ["dq", "dk", "dv"])
+
+
+# (B, S, D, H): the five shapes of test_cls_attention_matches_plain, the
+# flagship at B=64, S=1, 32 and 64 (ESM-CLIP's lengths), the group design's
+# cut (S=256) and one row past it, Dh=128, 12 heads of 8 (groups of 8 and 4
+# heads), Dh=24 (three chunks a head), Dh=256 (one box of 256 columns), Dh=264
+# (wider than a box: the row design), 128 heads of 8 at S=256 (past the row
+# design's shared memory) and one head of 8 at S=95 and 96 (blocks of 128 and
+# 256 threads); the last batch row has no real key
+CLS_BWD_SHAPES = [(4, 128, 512, 8), (3, 65, 64, 2), (5, 33, 1280, 20), (2, 200, 128, 16),
+                  (1000, 65, 512, 8), (64, 128, 512, 8), (6, 1, 512, 8), (8, 32, 512, 8),
+                  (8, 64, 512, 8), (4, 256, 512, 8), (4, 257, 512, 8), (4, 128, 1024, 8),
+                  (3, 40, 96, 12), (3, 50, 96, 4), (2, 64, 512, 2), (2, 64, 528, 2),
+                  (2, 256, 1024, 128), (4, 95, 8, 1), (4, 96, 8, 1)]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("B,S,D,H", CLS_BWD_SHAPES)
+def test_cls_bwd_designs_match_plain(cuda_device, np_rng, B, S, D, H):
+    """Each launch moves the launcher's count of the design `cls_bwd_design`
+    names by one; dqkv matches the plain backward with every element written
+    and the q rows 1.. zero; two launches are equal byte for byte, and so is
+    the wrapper's output; the C layout's bytes are the Python mirror's."""
+    qkv, mask, dout = _cls_inputs(np_rng, cuda_device, B, S, D)
+    lib = _build.LIBRARY.get()
+    design = sa.cls_bwd_design(S, D, H)
+    outs = []
+    for _ in range(2):
+        before = [lib.cls_attention_bwd_calls(d) for d in (0, 1)]
+        outs.append(_cls_bwd_launch(qkv, mask, dout, H))
+        moved = [lib.cls_attention_bwd_calls(d) - before[d] for d in (0, 1)]
+        assert moved == [int(design == "group"), int(design == "row")], (design, moved)
+    want = sa.fused_cls_attention_bwd_reference(dout, qkv, H, mask=mask)
+    _cls_grads_close(outs[0], want, D)
+    assert torch.equal(outs[0].view(torch.int16), outs[1].view(torch.int16))
+    got = sa.fused_cls_attention_bwd(dout, qkv, H, mask=mask)
+    assert torch.equal(got.view(torch.int16), outs[0].view(torch.int16))
+    assert lib.cls_attention_bwd_smem(S, H, D // H) == sa.cls_bwd_smem_bytes(S, D, H) > 0
+
+
+@pytest.mark.cuda
+def test_cls_attention_takes_operands_off_16_bytes(cuda_device, np_rng):
+    """A contiguous qkv (and dout) two bytes past a 16-byte boundary gives
+    the bytes of its aligned copy, forward and backward."""
+    B, S, D, H = 4, 128, 512, 8
+    qkv0, mask, dout0 = _cls_inputs(np_rng, cuda_device, B, S, D)
+    qkv = torch.empty(qkv0.numel() + 1, dtype=torch.bfloat16, device=cuda_device)[1:].view(
+        B, S, 3 * D)
+    dout = torch.empty(dout0.numel() + 1, dtype=torch.bfloat16, device=cuda_device)[1:].view(
+        B, 1, D)
+    qkv.copy_(qkv0)
+    dout.copy_(dout0)
+    assert qkv.data_ptr() % 16 == 2 and dout.data_ptr() % 16 == 2
+    with torch.no_grad():
+        got, want = (sa.fused_cls_attention(x, H, mask=mask) for x in (qkv, qkv0))
+    assert torch.equal(got.view(torch.int16), want.view(torch.int16))
+    got, want = (sa.fused_cls_attention_bwd(d, x, H, mask=mask)
+                 for d, x in ((dout, qkv), (dout0, qkv0)))
+    torch.cuda.synchronize()
+    assert torch.equal(got.view(torch.int16), want.view(torch.int16))
+
+
 @pytest.mark.cuda
 def test_forward_only_kernels_refuse_to_drop_gradients(cuda_device):
     """A CUDA launch that autograd would record without a backward raises;

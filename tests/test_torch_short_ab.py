@@ -46,3 +46,18 @@ def test_recompute_bench_pins_the_rule(monkeypatch):
     exec(compile(short_ab._RECOMPUTE_BENCH, "<recompute bench>", "exec"), {})
     assert seen == [(["--model", "rna_rbp"], False)]
     assert printed[-1] == '{"step_ms": 1.5}'
+
+
+@pytest.mark.parametrize("name,B,S,D,H", short_ab.CLS_SHAPES)
+def test_cls_shapes_run_the_design_they_name(name, B, S, D, H):
+    """`short_ab --cls`: every shape up to S=256 runs the group design, the
+    one past the cut the row design, as its name says."""
+    want = "row" if "past" in name else "group"
+    assert sa.cls_bwd_design(S, D, H) == want
+    assert (S > sa.CLS_GROUP_MAX) == (want == "row")
+
+
+def test_cls_shapes_cover_the_flagship_and_the_cut():
+    shapes = {(B, S, D, H) for _, B, S, D, H in short_ab.CLS_SHAPES}
+    assert {(1024, 128, 512, 8), (1000, 65, 512, 8), (1024, 64, 512, 8)} <= shapes
+    assert any(S == sa.CLS_GROUP_MAX + 1 for _, S, _, _ in shapes)

@@ -93,6 +93,9 @@ Phases, each fatal on failure (non-zero exit, no result line):
      filled cache) and dy for b's 8192 rows, the b->a direction (8192, 8192),
      and a ragged m=1000, n=1777, n_valid=1400 whose whole fused_row_ce
      (loss, dx, dy, dscale; shuffled labels) is held to its plain version;
+     every backward call must have launched the wgmma kernel
+     row_ce_grad_kernel (its C launcher's count, `row_ce_grad_calls`, whose
+     registers and spills ptxas reports after the build);
      no single library call computes these functions; (b) one cached train
      step on the card against the CPU at the preset's widths (towers
      158/1280 -> 512), B=256, from the same weights, batch and warm cache
@@ -100,7 +103,8 @@ Phases, each fatal on failure (non-zero exit, no result line):
      dropout on, as 7(a), with cache_ptr and cache_len equal and the new
      cache rows within the same noise bound; (c) the train CLI with the
      preset's two overrides (B=128, cache 8192) for 3 epochs, whose loss
-     must fall; (d) experiments/bench.py --model two_tower_cached at B=8192.
+     must fall; (d) experiments/bench.py --model two_tower_cached at B=8192,
+     whose grad calls go through row_ce_grad_kernel too.
      The three new launch counters must rise in (c)+(d);
  11. the saved-raw InfoNCE (JAX's default on the three train paths): the
      saving forward (row and column lse, the int16 raw with |dq| <= 1), pass
@@ -255,6 +259,10 @@ CACHE_KERNELS = {
     "row_ce_dy": ("clip_dplm_tpu_torch/csrc/row_ce.cu",
                   "clip_dplm_tpu/ops/fused_infonce.py:236"),
 }
+# 10(a)'s shapes: (what, m, n, n_valid, rows of y whose gradient is formed)
+CACHE_SHAPES = (("a->[b; cache]", 8192, 16384, 8192 + 5000, 8192),
+                ("b->a", 8192, 8192, 8192, 8192),
+                ("ragged", 1000, 1777, 1400, 1777))
 SAVED_RAW_KERNELS = {
     "sym_infonce_lse_save": ("clip_dplm_tpu_torch/csrc/fused_infonce.cu",
                              "clip_dplm_tpu/ops/fused_infonce.py:1220"),
@@ -1348,7 +1356,11 @@ def phase_cache_kernels(torch, results):
     """10(a): the row cross-entropy's three kernels against their plain
     versions at the cached step's shapes (the backward kernels on the plain
     lse), and the whole fused_row_ce at a ragged shape with shuffled labels.
-    No single library call computes these functions: library_ms is null."""
+    No single library call computes these functions: library_ms is null.
+    Every backward call goes through the wgmma kernel row_ce_grad_kernel, as
+    its launcher's count (`row_ce_grad_calls`) shows."""
+    from clip_dplm_tpu_torch.experiments.row_ce_ab import work as row_ce_work
+    from clip_dplm_tpu_torch.ops import _build
     from clip_dplm_tpu_torch.ops import fused_infonce as fi
 
     dev = torch.device("cuda")
@@ -1359,10 +1371,10 @@ def phase_cache_kernels(torch, results):
 
     d = 512
     scale = torch.tensor([14.2857], device=dev)
-    # (what, m, n, n_valid, rows of y whose gradient is formed)
-    for what, m, n, nv, rows in (("a->[b; cache]", 8192, 16384, 8192 + 5000, 8192),
-                                 ("b->a", 8192, 8192, 8192, 8192),
-                                 ("ragged", 1000, 1777, 1400, 1777)):
+    lib = _build.LIBRARY.get()
+    launched = _build.LAUNCHES.snapshot()
+    calls = [lib.row_ce_grad_calls(i) for i in (0, 1)]
+    for what, m, n, nv, rows in CACHE_SHAPES:
         x, y = unit(m, d), unit(n, d)
         x[: min(m, n)] = torch.nn.functional.normalize(x[: min(m, n)] + y[: min(m, n)], dim=-1)
         xb, yb = x.bfloat16(), y.bfloat16()
@@ -1373,25 +1385,21 @@ def phase_cache_kernels(torch, results):
         compare(torch, "row_ce_lse", shape, lambda: fi._kernel_row_lse(xb, yb, scale, nvt),
                 lambda: fi._plain_row_lse(xb, yb, scale, nvt), results,
                 work=((m + nv) * d * 2 + 8 + m * 4, 2.0 * m * nv * d))
-        # bytes: x, y's valid rows, lse in; P y (f32) and rowdot out; ops: the
-        # recomputed raw tile and the contraction
+        # the backward's bytes and operations as the A/B harness counts them
         compare(torch, "row_ce_dx", shape + " P y (on the plain lse)",
                 lambda: fi._kernel_row_dx(xb, yb, scale, lse, nvt)[0],
                 lambda: fi._plain_row_dx(xb, yb, scale, lse, nvt)[0], results,
-                work=((m + nv) * d * 2 + m * 4 + m * d * 4 + m * 4, 4.0 * m * nv * d),
-                normalize=True)
+                work=row_ce_work("row_ce_dx", m, nv, rows, d), normalize=True)
         rd_err = check_outputs(torch, f"row_ce_dx {shape}",
                                [fi._kernel_row_dx(xb, yb, scale, lse, nvt)[1]],
                                [fi._plain_row_dx(xb, yb, scale, lse, nvt)[1]], ["rowdot"],
                                raw_first=False)
         results["row_ce_dx"]["max_abs_err"] = max(results["row_ce_dx"]["max_abs_err"], rd_err)
         print(f"kernel row_ce_dx {shape} rowdot: max_abs_err={rd_err:.3e}")
-        # bytes: x, y's first `rows` rows, lse in; P^T x (f32) out
         compare(torch, "row_ce_dy", shape + f" P^T x for y's first {rows} rows (on the plain lse)",
                 lambda: fi._kernel_row_dy(xb, yb, scale, lse, rows),
                 lambda: fi._plain_row_dy(xb, yb, scale, lse, rows), results,
-                work=((m + rows) * d * 2 + m * 4 + rows * d * 4, 4.0 * m * rows * d),
-                normalize=True)
+                work=row_ce_work("row_ce_dy", m, nv, rows, d), normalize=True)
     # the autograd Function at the ragged shape, shuffled labels
     labels = torch.randperm(1400, generator=g, device=dev)[:1000]
     nvt = torch.tensor([1400], dtype=torch.int32, device=dev)
@@ -1405,6 +1413,14 @@ def phase_cache_kernels(torch, results):
                         outs["kernel"], outs["plain"], ["loss", "dx", "dy", "dscale"])
     print(f"fused_row_ce m=1000 n=1777 n_valid=1400 shuffled labels, kernels vs plain: "
           f"max err {err:.3e} (loss, dx, dy, dscale)")
+    # every backward call above went through the wgmma grad kernel
+    moved = [lib.row_ce_grad_calls(i) - calls[i] for i in (0, 1)]
+    now = _build.LAUNCHES.snapshot()
+    want = [now[k] - launched[k] for k in ("row_ce_dx", "row_ce_dy")]
+    check(moved == want and min(moved) > 0,
+          f"row_ce grad kernel calls (dx, dy) {moved}, wrapper launches {want}")
+    print(f"row_ce_grad_kernel (wgmma, 64 own rows a block) calls in 10(a): dx {moved[0]}, "
+          f"dy {moved[1]} (every wrapper launch)")
     print("row_ce kernels: no single library call computes them (library_ms null)")
 
 
@@ -1445,9 +1461,14 @@ def phase_cache_path(torch, build):
     check(losses[-1] < losses[0], f"preset train CLI: loss did not fall: {losses}")
     print(f"two_tower_optimized preset train CLI (B=128, cache 8192, 3 epochs of 13 steps): "
           f"train_loss {losses}, val_loss {hist['val_loss']}, {cli_s:.1f} s")
+    lib = build.LIBRARY.get()
+    calls = [lib.row_ce_grad_calls(i) for i in (0, 1)]
     out = bench.main(["--model", "two_tower_cached", "--batch", "8192"])
     torch.cuda.synchronize()
     launches = build.LAUNCHES.snapshot()
+    moved = [lib.row_ce_grad_calls(i) - calls[i] for i in (0, 1)]
+    check(min(moved) > 0, f"bench two_tower_cached: row_ce_grad_kernel calls (dx, dy) {moved}")
+    print(f"bench two_tower_cached: row_ce_grad_kernel calls dx {moved[0]}, dy {moved[1]}")
     print(f"bench two_tower_cached B=8192 (cache 8192, full): step {out['step_ms']} ms, "
           f"{out['value']} pairs/s, {out['model_tflops_per_s_per_chip']} model TFLOP/s, MFU "
           f"{out['mfu']} of {out['peak_bf16_tflops']} TFLOP/s bf16 peak")
@@ -2108,7 +2129,8 @@ def main() -> int:
                          ("short-S backward, one block a head",
                           "short_attn_bwd_block_kernel"),
                          ("flash backward dQ", "flash_bwd_dq_kernel"),
-                         ("flash backward dK/dV", "flash_bwd_dkv_kernel")):
+                         ("flash backward dK/dV", "flash_bwd_dkv_kernel"),
+                         ("row-CE backward <dp / 64, dX>", "row_ce_grad_kernel")):
         for args, regs, spills in kernel_registers(_build.LIBRARY.build_log, kernel):
             print(f"{what} {kernel}{args}: {regs} registers, {spills}")
 

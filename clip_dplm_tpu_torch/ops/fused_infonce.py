@@ -78,8 +78,8 @@ from clip_dplm_tpu_torch.ops.infonce import (
     modality_pairs,
 )
 
-MAX_DIM = 512  # the grad kernel's accumulator: 32 x d f32 in registers
-_BM = 32  # rows per block of both kernels
+MAX_DIM = 512  # the grad kernels' accumulators: d f32 columns in registers
+_BM = 32  # rows per block of the symmetric kernels
 _BN = 64  # columns per tile: the saved raw's row pitch is a multiple of it
 _MERGED_ROWS = 256  # rows of one cluster of the merged kernel: one acc_b partial each
 # The saved raw is int16 fixed point: cosines of (bf16-rounded) unit vectors
@@ -448,24 +448,24 @@ def _kernel_row_dx(x, y, scale, lse, n_valid):
     m, n, d = x.shape[0], y.shape[0], x.shape[1]
     xp, yp = _pad_dim(x), _pad_dim(y)
     dp = xp.shape[1]
-    py = torch.empty((-(-m // _BM) * _BM, dp), dtype=torch.float32, device=x.device)
+    py = torch.empty((m, dp), dtype=torch.float32, device=x.device)
     rowdot = torch.empty(m, dtype=torch.float32, device=x.device)
     _build.launch("row_ce_dx", xp.data_ptr(), yp.data_ptr(), scale.data_ptr(),
                   n_valid.data_ptr(), lse.contiguous().data_ptr(), py.data_ptr(),
                   rowdot.data_ptr(), m, n, dp, _build.stream_of(x))
     _build.LAUNCHES.add("row_ce_dx")
-    return py[:m, :d], rowdot
+    return py[:, :d], rowdot
 
 
 def _kernel_row_dy(x, y, scale, lse, rows: int):
     m, d = x.shape[0], x.shape[1]
     xp, yp = _pad_dim(x), _pad_dim(y[:rows])
     dp = xp.shape[1]
-    ptx = torch.empty((-(-rows // _BM) * _BM, dp), dtype=torch.float32, device=x.device)
+    ptx = torch.empty((rows, dp), dtype=torch.float32, device=x.device)
     _build.launch("row_ce_dy", xp.data_ptr(), yp.data_ptr(), scale.data_ptr(),
                   lse.contiguous().data_ptr(), ptx.data_ptr(), m, rows, dp, _build.stream_of(x))
     _build.LAUNCHES.add("row_ce_dy")
-    return ptx[:rows, :d]
+    return ptx[:, :d]
 
 
 class _RowCE(torch.autograd.Function):

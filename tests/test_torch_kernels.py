@@ -1014,30 +1014,48 @@ def _row_ce_inputs(rng, device, m, n, d=512):
     return f(m, d), f(n, d), torch.tensor(14.3, device=device)
 
 
+# (m, n, n_valid, rows of y whose gradient is formed, d): every padded width
+# dp = 64..512 of the grad kernel's instances, n_valid ending inside a
+# 64-row walked tile, m not a multiple of the 64-row own tile
+ROW_CE_SHAPES = [(1024, 2048, 1024 + 700, 1024, 512), (512, 512, None, 512, 512),
+                 (1000, 1777, 1400, 1777, 512), (40, 136, 100, 64, 512), (33, 200, 1, 200, 512),
+                 (300, 700, 650, 700, 48), (260, 520, 333, 200, 128), (200, 300, 290, 300, 150),
+                 (130, 400, 257, 400, 200), (100, 333, 300, 100, 300), (65, 129, 70, 129, 384),
+                 (190, 250, 250, 250, 420), (2000, 3000, 2500, 1500, 512)]
+
+
 @pytest.mark.cuda
-@pytest.mark.parametrize("m,n,n_valid,rows", [(1024, 2048, 1024 + 700, 1024), (512, 512, None, 512),
-                                              (1000, 1777, 1400, 1777), (40, 136, 100, 64),
-                                              (33, 200, 1, 200)])
-def test_row_ce_kernels_match_plain(cuda_device, np_rng, m, n, n_valid, rows):
+@pytest.mark.parametrize("m,n,n_valid,rows,d", ROW_CE_SHAPES)
+def test_row_ce_kernels_match_plain(cuda_device, np_rng, m, n, n_valid, rows, d):
     """The row lse, P y with rowsum(p raw), and P^T x over the first `rows`
     rows of y, each against its plain version on the same inputs (the
-    backward kernels on the plain lse); n_valid = 1 masks all but one column."""
-    x, y, s = _row_ce_inputs(np_rng, cuda_device, m, n)
+    backward kernels on the plain lse); n_valid = 1 masks all but one column.
+    Each backward call moves the launcher's count of the wgmma grad kernel
+    by one, and two launches are equal byte for byte (no atomics)."""
+    x, y, s = _row_ce_inputs(np_rng, cuda_device, m, n, d)
     xb, yb, s32 = x.bfloat16(), y.bfloat16(), s.reshape(1)
     nv = torch.tensor([n if n_valid is None else n_valid], dtype=torch.int32, device=cuda_device)
+    lib = _build.LIBRARY.get()
     before = _build.LAUNCHES.snapshot()
+    calls = [lib.row_ce_grad_calls(i) for i in (0, 1)]
     lse = fi._kernel_row_lse(xb, yb, s32, nv)
     lse_ref = fi._plain_row_lse(xb, yb, s32, nv)
     got = fi._kernel_row_dx(xb, yb, s32, lse_ref, nv) + (fi._kernel_row_dy(xb, yb, s32, lse_ref,
                                                                            rows),)
+    again = fi._kernel_row_dx(xb, yb, s32, lse_ref, nv) + (fi._kernel_row_dy(xb, yb, s32, lse_ref,
+                                                                             rows),)
     torch.cuda.synchronize()
     after = _build.LAUNCHES.snapshot()
-    for name in ("row_ce_lse", "row_ce_dx", "row_ce_dy"):
-        assert after[name] == before[name] + 1, name
+    assert after["row_ce_lse"] == before["row_ce_lse"] + 1
+    for name in ("row_ce_dx", "row_ce_dy"):
+        assert after[name] == before[name] + 2, name
+    assert [lib.row_ce_grad_calls(i) - calls[i] for i in (0, 1)] == [2, 2]
     torch.testing.assert_close(lse, lse_ref, **TOL)
     want = fi._plain_row_dx(xb, yb, s32, lse_ref, nv) + (fi._plain_row_dy(xb, yb, s32, lse_ref,
                                                                           rows),)
+    assert [tuple(t.shape) for t in got] == [(m, d), (m,), (rows, d)]
     assert all(torch.isfinite(t).all() for t in got)
+    assert all(torch.equal(a, b) for a, b in zip(got, again))
     _grads_close(got, want, ["P y", "rowdot", "P^T x"])
 
 

@@ -24,7 +24,9 @@ Phases, each fatal on failure (non-zero exit, no result line):
      masks equal bit for bit), the GEMM alone in both directions (x·W^T + b,
      B K-major, bias after a rounding; du·W, B MN-major, no bias) with two
      launches equal byte for byte, each beside cuBLAS at B=8192 1024->1024
-     and 2048 -> 1024 (du·W); symmetric InfoNCE at B=8192 and B=1000, d=512;
+     and 2048 -> 1024 (du·W); symmetric InfoNCE at B=8192 and B=1000, d=512,
+     each forward through the wgmma lse walk (`lse_walk_kernel`, its
+     launcher's count `lse_walk_calls`) and one `lse_combine` launch;
   7. the two-tower train path at the widths of the repository's bench.py:
      (a) one train step on the card (kernels) against the same step on the
      CPU (plain versions) from the same weights and batch, bf16 both,
@@ -95,7 +97,8 @@ Phases, each fatal on failure (non-zero exit, no result line):
      (loss, dx, dy, dscale; shuffled labels) is held to its plain version;
      every backward call must have launched the wgmma kernel
      row_ce_grad_kernel (its C launcher's count, `row_ce_grad_calls`, whose
-     registers and spills ptxas reports after the build);
+     registers and spills ptxas reports after the build), and every lse
+     call the wgmma walk lse_walk_kernel (`lse_walk_calls`);
      no single library call computes these functions; (b) one cached train
      step on the card against the CPU at the preset's widths (towers
      158/1280 -> 512), B=256, from the same weights, batch and warm cache
@@ -105,7 +108,9 @@ Phases, each fatal on failure (non-zero exit, no result line):
      preset's two overrides (B=128, cache 8192) for 3 epochs, whose loss
      must fall; (d) experiments/bench.py --model two_tower_cached at B=8192,
      whose grad calls go through row_ce_grad_kernel too.
-     The three new launch counters must rise in (c)+(d);
+     The three new launch counters must rise in (c)+(d), every lse call of
+     (c)+(d) through lse_walk_kernel and one lse_combine launch (as on the
+     two-tower and tf_clip paths, 7 and 9);
  11. the saved-raw InfoNCE (JAX's default on the three train paths): the
      saving forward (row and column lse, the int16 raw with |dq| <= 1), pass
      A (P y, rowdot), pass B (P^T x) and the merged kernel (all three in one
@@ -114,7 +119,11 @@ Phases, each fatal on failure (non-zero exit, no result line):
      entry, on the same raw and the plain lse) at B=8192 and 4096, d=512, a
      ragged B=1000 (partial tiles and clusters), B=256 and a ragged 200 (one
      cluster of the merged kernel, as the train CLIs run it); two launches
-     of each kernel equal byte for byte; the whole fused_symmetric_infonce
+     of each kernel equal byte for byte; the non-saving forward's lse equal
+     to the saving one's bit for bit; the combine of the walk's partials
+     (`lse_combine`) against its plain version (torch.logsumexp), two
+     launches equal, and the walk timed alone; every forward through
+     lse_walk_kernel; the whole fused_symmetric_infonce
      with materialize_raw=True: its backward against the plain backward on
      the raw and lse its own forward saved (da, db, dscale) at B=8192 and
      1000 on independent unit rows and at B=8192 and 256 on aligned pairs,
@@ -228,7 +237,7 @@ TRAIN_KERNELS = {
                              "clip_dplm_tpu/ops/fused_dense.py:292"),
     "fused_dense_bwd_rows": ("clip_dplm_tpu_torch/csrc/fused_dense.cu",
                              "clip_dplm_tpu/ops/fused_dense.py:517"),
-    "sym_infonce_lse": ("clip_dplm_tpu_torch/csrc/fused_infonce.cu",
+    "sym_infonce_lse": ("clip_dplm_tpu_torch/csrc/lse_walk.cu",
                         "clip_dplm_tpu/ops/fused_infonce.py:1296"),
     "sym_infonce_grad": ("clip_dplm_tpu_torch/csrc/fused_infonce.cu",
                          "clip_dplm_tpu/ops/fused_infonce.py:867"),
@@ -252,7 +261,7 @@ TF_CLIP_KERNELS = {
                                 "clip_dplm_tpu/ops/flash_attention.py:251"),
 }
 CACHE_KERNELS = {
-    "row_ce_lse": ("clip_dplm_tpu_torch/csrc/row_ce.cu",
+    "row_ce_lse": ("clip_dplm_tpu_torch/csrc/lse_walk.cu",
                    "clip_dplm_tpu/ops/fused_infonce.py:102"),
     "row_ce_dx": ("clip_dplm_tpu_torch/csrc/row_ce.cu",
                   "clip_dplm_tpu/ops/fused_infonce.py:212"),
@@ -264,7 +273,7 @@ CACHE_SHAPES = (("a->[b; cache]", 8192, 16384, 8192 + 5000, 8192),
                 ("b->a", 8192, 8192, 8192, 8192),
                 ("ragged", 1000, 1777, 1400, 1777))
 SAVED_RAW_KERNELS = {
-    "sym_infonce_lse_save": ("clip_dplm_tpu_torch/csrc/fused_infonce.cu",
+    "sym_infonce_lse_save": ("clip_dplm_tpu_torch/csrc/lse_walk.cu",
                              "clip_dplm_tpu/ops/fused_infonce.py:1220"),
     "sym_infonce_grad_merged": ("clip_dplm_tpu_torch/csrc/fused_infonce.cu",
                                 "clip_dplm_tpu/ops/fused_infonce.py:665"),
@@ -272,6 +281,12 @@ SAVED_RAW_KERNELS = {
                              "clip_dplm_tpu/ops/fused_infonce.py:754"),
     "sym_infonce_grad_rawT": ("clip_dplm_tpu_torch/csrc/fused_infonce.cu",
                               "clip_dplm_tpu/ops/fused_infonce.py:782"),
+}
+# the combine of the lse walks' partials (it stands for the XLA combine after
+# the pallas_call of `_sym_row_col_lse`): one launch every lse call
+LSE_KERNELS = {
+    "lse_combine": ("clip_dplm_tpu_torch/csrc/lse_walk.cu",
+                    "clip_dplm_tpu/ops/fused_infonce.py:1319"),
 }
 DPLM_KERNELS = {
     "short_attention_save": ("clip_dplm_tpu_torch/csrc/short_attention.cu",
@@ -290,7 +305,8 @@ SEPARATE_KERNELS = {
                                       "clip_dplm_tpu/ops/short_attention.py:443"),
 }
 KERNELS = {**SERVE_KERNELS, **TRAIN_KERNELS, **FLAGSHIP_KERNELS, **TF_CLIP_KERNELS,
-           **CACHE_KERNELS, **SAVED_RAW_KERNELS, **DPLM_KERNELS, **SEPARATE_KERNELS}
+           **CACHE_KERNELS, **SAVED_RAW_KERNELS, **LSE_KERNELS, **DPLM_KERNELS,
+           **SEPARATE_KERNELS}
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM HBM3 bandwidth
 PEAK_OPS = {"bf16": 989e12, "f32": 67e12}  # dense tensor-core bf16; f32 off the tensor cores
 
@@ -650,6 +666,7 @@ FD_GEOMETRIES = [  # what, B, K, N, order, act, dropout, skip tail
 
 
 def phase_train_kernels(torch, results):
+    from clip_dplm_tpu_torch.ops import _build
     from clip_dplm_tpu_torch.ops import fused_dense as fd
     from clip_dplm_tpu_torch.ops import fused_infonce as fi
 
@@ -737,6 +754,7 @@ def phase_train_kernels(torch, results):
             record(results, "fused_dense_gemm", f"M={B} Kr={N} Nc={K} (du W, B MN-major)",
                    derr, ms, plain_ms, work=(B * N * 2 + N * K * 2 + B * K * 2, 2 * B * N * K),
                    library_ms=library_time(torch, lambda: torch.mm(du, wb)))
+    walks, launched = walk_calls(_build), _build.LAUNCHES.snapshot()
     for B in (8192, 1000):
         d = 512
         a = torch.nn.functional.normalize(rnd(B, d), dim=-1)
@@ -766,6 +784,8 @@ def phase_train_kernels(torch, results):
         record(results, "sym_infonce_grad", shape + " backward (two passes + tail)", err, ms,
                plain_ms, work=(4 * B * d * 4 + 2 * B * 4, 8 * B * B * d))
         del graphs
+    now = _build.LAUNCHES.snapshot()
+    check_walk(_build, walks, {k: now[k] - launched[k] for k in now}, "phase 6 InfoNCE")
 
 
 def loss_kernels(*batches):
@@ -786,6 +806,31 @@ def check_saved_raw_path(launches, what, *batches):
         check(launches[name] > 0, f"kernel {name} was not launched by the {what} path")
     check(launches["sym_infonce_grad"] == 0,
           f"the {what} path ran the recompute pass under fused_materialize_raw=auto")
+
+
+# the lse entries in the order of the walk's launcher count (`lse_walk_calls`)
+LSE_WALK = ("row_ce_lse", "sym_infonce_lse", "sym_infonce_lse_save")
+
+
+def walk_calls(build):
+    lib = build.LIBRARY.get()
+    return [lib.lse_walk_calls(i) for i in range(len(LSE_WALK))]
+
+
+def check_walk(build, before, launches, what, combined=True):
+    """Every lse launch since `before` went through the wgmma walk
+    (`lse_walk_kernel`: its launcher's count by entry equals the wrappers'
+    launches) and, where the calls were whole (`combined`), was combined by
+    one `lse_combine` launch."""
+    moved = [a - b for a, b in zip(walk_calls(build), before)]
+    want = [launches[k] for k in LSE_WALK]
+    check(moved == want and sum(want) > 0
+          and (not combined or launches["lse_combine"] == sum(want)),
+          f"{what}: lse walk calls {moved}, wrapper launches {want}, combine launches "
+          f"{launches['lse_combine']}")
+    print(f"{what}: every lse call through lse_walk_kernel (calls "
+          f"{dict(zip(LSE_WALK, moved))})" + (", each combined by one lse_combine launch"
+                                              if combined else ""))
 
 
 def _rel(a, b):
@@ -965,6 +1010,7 @@ def phase_train_path(torch, build):
     from clip_dplm_tpu_torch.experiments import train as train_cli
 
     build.LAUNCHES.reset()
+    walks = walk_calls(build)
     overrides = bench.OVERRIDES + ["train.batch_size=256", "train.optim.warmup_steps=5",
                                    "train.optim.learning_rate=1e-3"]
     t0 = time.perf_counter()
@@ -987,6 +1033,7 @@ def phase_train_path(torch, build):
         if name != "sym_infonce_grad":
             check(launches[name] > 0, f"kernel {name} was not launched by the train path")
     check_saved_raw_path(launches, "train", 256, 8192)
+    check_walk(build, walks, launches, "train path (CLI and bench)")
     # the recompute pass is what "never" runs: one CLI epoch with it
     build.LAUNCHES.reset()
     never = ["-o", "contrastive.fused_materialize_raw=never"]
@@ -1329,6 +1376,7 @@ def phase_tf_clip_path(torch, build):
     from clip_dplm_tpu_torch.experiments import train as train_cli
 
     build.LAUNCHES.reset()
+    walks = walk_calls(build)
     overrides = bench.TF_CLIP_OVERRIDES + ["train.batch_size=256", "train.optim.warmup_steps=5",
                                            "train.optim.learning_rate=1e-3"]
     t0 = time.perf_counter()
@@ -1349,6 +1397,7 @@ def phase_tf_clip_path(torch, build):
     for name in list(TF_CLIP_KERNELS) + ["flash_attention"]:
         check(launches[name] > 0, f"kernel {name} was not launched by the tf_clip path")
     check_saved_raw_path(launches, "tf_clip", 256, 4096)
+    check_walk(build, walks, launches, "tf_clip path (CLI and bench)")
     return launches
 
 
@@ -1374,6 +1423,7 @@ def phase_cache_kernels(torch, results):
     lib = _build.LIBRARY.get()
     launched = _build.LAUNCHES.snapshot()
     calls = [lib.row_ce_grad_calls(i) for i in (0, 1)]
+    walks = walk_calls(_build)
     for what, m, n, nv, rows in CACHE_SHAPES:
         x, y = unit(m, d), unit(n, d)
         x[: min(m, n)] = torch.nn.functional.normalize(x[: min(m, n)] + y[: min(m, n)], dim=-1)
@@ -1421,6 +1471,7 @@ def phase_cache_kernels(torch, results):
           f"row_ce grad kernel calls (dx, dy) {moved}, wrapper launches {want}")
     print(f"row_ce_grad_kernel (wgmma, 64 own rows a block) calls in 10(a): dx {moved[0]}, "
           f"dy {moved[1]} (every wrapper launch)")
+    check_walk(_build, walks, {k: now[k] - launched[k] for k in now}, "10(a) row-CE lse")
     print("row_ce kernels: no single library call computes them (library_ms null)")
 
 
@@ -1451,6 +1502,7 @@ def phase_cache_path(torch, build):
     from clip_dplm_tpu_torch.experiments import train as train_cli
 
     build.LAUNCHES.reset()
+    walks = walk_calls(build)
     overrides = bench.PRESET_OVERRIDES + ["train.batch_size=128", "train.optim.warmup_steps=5",
                                           "train.optim.learning_rate=1e-3"]
     t0 = time.perf_counter()
@@ -1475,14 +1527,16 @@ def phase_cache_path(torch, build):
     print(f"launches during the cache phase: {launches}")
     for name in CACHE_KERNELS:
         check(launches[name] > 0, f"kernel {name} was not launched by the cached path")
+    check_walk(build, walks, launches, "cached path (CLI and bench)")
     return launches
 
 
 def phase_saved_raw_kernels(torch, results):
-    """11: the saved-raw InfoNCE's four kernels against their plain versions
-    (the backward ones on the same raw and the plain lse), bit-for-bit
-    repeats, the whole autograd Function, and the two from-raw schedules
-    timed at the train paths' shapes."""
+    """11: the saved-raw InfoNCE's four kernels and the lse combine against
+    their plain versions (the backward ones on the same raw and the plain
+    lse), bit-for-bit repeats, the whole autograd Function, and the two
+    from-raw schedules timed at the train paths' shapes."""
+    from clip_dplm_tpu_torch.ops import _build
     from clip_dplm_tpu_torch.ops import fused_infonce as fi
 
     dev = torch.device("cuda")
@@ -1493,6 +1547,7 @@ def phase_saved_raw_kernels(torch, results):
 
     d = 512
     scale = torch.tensor([14.2857], device=dev)
+    walks, launched = walk_calls(_build), _build.LAUNCHES.snapshot()
     # 256 and a ragged 200: one cluster of the merged kernel (no partials),
     # the launch the train CLIs' B=256 steps make
     for what, B in (("two-tower", 8192), ("tf_clip pair", 4096), ("ragged", 1000),
@@ -1509,6 +1564,18 @@ def phase_saved_raw_kernels(torch, results):
               f"sym_infonce_lse_save {shape}: raw_q off by {dq} (bound 1)")
         print(f"sym_infonce_lse_save {shape}: raw_q max |dq| {dq}, "
               f"{int((got[2] != want[2]).sum())} of {B * B} entries differ by 1")
+        check(all(torch.equal(u, v) for u, v in zip(got[:2], fi._kernel_lse(xb, yb, scale))),
+              f"sym_infonce_lse {shape}: its lse differ from the saving forward's")
+        # the combine alone, on this walk's partials
+        part, nsplit, groups, _ = fi._walk_partials(xb, yb, scale, save=True)
+        comb = lambda: torch.cat(fi._kernel_lse_combine(part, nsplit, B, groups, B))  # noqa: E731
+        check(torch.equal(comb(), comb()), f"lse_combine {shape}: two launches differ")
+        compare(torch, "lse_combine", f"{shape}, {nsplit} row and {groups} column partials",
+                comb, lambda: torch.cat(fi._plain_lse_combine(part, nsplit, B, groups, B)),
+                results, work=(4 * (2 * nsplit * B + 2 * groups * B + 2 * B),
+                               4.0 * (nsplit * B + groups * B), "f32"))
+        walk_ms = cuda_ms(torch, lambda: fi._walk_partials(xb, yb, scale, save=True))
+        print(f"sym_infonce_lse_save {shape}: the walk alone {walk_ms:.4f} ms")
         ms, plain_ms = timed_pair(torch, lambda: fi._kernel_lse_save(xb, yb, scale),
                                   lambda: fi._plain_lse_save(xb, yb, scale))
         # bytes: x, y (bf16), scale in; both lse and the int16 raw out; ops: the raw product
@@ -1542,7 +1609,8 @@ def phase_saved_raw_kernels(torch, results):
             first, second = fn(), fn()
             check(all(torch.equal(u, v) for u, v in zip(first, second)),
                   f"{name} {shape}: two launches differ")
-        print(f"saved-raw kernels {shape}: two launches of each equal byte for byte")
+        print(f"saved-raw kernels {shape}: two launches of each equal byte for byte; "
+              "sym_infonce_lse gives the saving forward's lse bit for bit")
     # the whole autograd Function with the saved raw. Its backward is held
     # to the plain backward run on the residuals the kernel forward saved
     # (its raw_q and lse): with aligned pairs (b near a) 0.5 acc_a nearly
@@ -1591,8 +1659,12 @@ def phase_saved_raw_kernels(torch, results):
                                 ["loss", "da", "db", "dscale"])
             print(f"{what}, kernels vs plain: max err {err:.3e} (loss, da, db, dscale)")
         del graphs
+    now = _build.LAUNCHES.snapshot()
+    check_walk(_build, walks, {k: now[k] - launched[k] for k in now}, "11 saved-raw InfoNCE",
+               combined=False)
     phase_from_raw_schedules(torch, fi, unit, scale, d)
-    print("saved-raw kernels: no single library call computes them (library_ms null)")
+    print("saved-raw kernels and the lse combine: no single library call computes them "
+          "(library_ms null)")
 
 
 def wall_ms(torch, fn, iters: int = 50) -> float:
@@ -2130,7 +2202,8 @@ def main() -> int:
                           "short_attn_bwd_block_kernel"),
                          ("flash backward dQ", "flash_bwd_dq_kernel"),
                          ("flash backward dK/dV", "flash_bwd_dkv_kernel"),
-                         ("row-CE backward <dp / 64, dX>", "row_ce_grad_kernel")):
+                         ("row-CE backward <dp / 64, dX>", "row_ce_grad_kernel"),
+                         ("InfoNCE lse walk <dp / 64, cols, save, mask>", "lse_walk_kernel")):
         for args, regs, spills in kernel_registers(_build.LIBRARY.build_log, kernel):
             print(f"{what} {kernel}{args}: {regs} registers, {spills}")
 
@@ -2140,8 +2213,9 @@ def main() -> int:
     launches = phase_server(torch, _build)
     phase_train_kernels(torch, results)
     phase_train_step(torch, _build)
-    # the saved-raw kernels' launches: their sum over the three train paths
-    saved = dict.fromkeys(SAVED_RAW_KERNELS, 0)
+    # the saved-raw kernels' launches and the combine's: their sums over the
+    # train paths
+    saved = dict.fromkeys([*SAVED_RAW_KERNELS, *LSE_KERNELS], 0)
 
     def keep(counts, names):
         launches.update({k: v for k, v in counts.items() if k in names})
@@ -2157,8 +2231,7 @@ def main() -> int:
     keep(phase_tf_clip_path(torch, _build), TF_CLIP_KERNELS)
     phase_cache_kernels(torch, results)
     phase_cache_step(torch)
-    launches.update({k: v for k, v in phase_cache_path(torch, _build).items()
-                     if k in CACHE_KERNELS})
+    keep(phase_cache_path(torch, _build), CACHE_KERNELS)
     phase_saved_raw_kernels(torch, results)
     launches.update(saved)
     phase_dplm_kernels(torch, results)

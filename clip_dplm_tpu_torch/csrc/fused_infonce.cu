@@ -1,33 +1,24 @@
-// Symmetric InfoNCE over scale·a·b^T, forward (row and column logsumexp,
-// optionally saving the raw similarity as int16) and the backward, both
-// the recompute pass and the passes from the saved raw, for Hopper (sm_90a).
+// Symmetric InfoNCE over scale·a·b^T, the backward: the recompute pass and
+// the passes from the saved raw, for Hopper (sm_90a). The forward (row and
+// column logsumexp, optionally saving the raw similarity as int16) is
+// lse_walk.cu's.
 //
-// Replaces clip_dplm_tpu/ops/fused_infonce.py: `_sym_lse_kernel` and
-// `_sym_lse_save_kernel` (the shared-raw forward, pallas_call in
-// `_sym_row_col_lse`), `_sym_grad_kernel` (pallas_call in `_sym_grad_pass`,
-// the recompute schedule of the backward), and the backward from the saved
-// raw: `_sym_grad_merged_kernel` (pallas_call in `_sym_grad_merged`) and
-// `_sym_grad_raw_kernel` / `_sym_grad_rawT_kernel` (the two pallas_calls in
+// Replaces clip_dplm_tpu/ops/fused_infonce.py: `_sym_grad_kernel`
+// (pallas_call in `_sym_grad_pass`, the recompute schedule of the backward),
+// and the backward from the saved raw: `_sym_grad_merged_kernel`
+// (pallas_call in `_sym_grad_merged`) and `_sym_grad_raw_kernel` /
+// `_sym_grad_rawT_kernel` (the two pallas_calls in
 // `_sym_grad_passes_from_raw`).
 //
-//   sym_lse_kernel<kSave>: one block per 32 rows of x. The rows stay in
-//     shared memory while the block walks the columns of y in 64-wide tiles:
-//     each raw tile x·y^T (bf16 operands, f32 accumulation, WMMA) is scaled,
-//     its rows update an online max / sum (exact row lse at the end), and its
-//     columns give one partial (max over the block's rows, sum of exp below
-//     it) per row block. The caller combines the column partials with
-//     torch.logsumexp, as the reference combines its own with
-//     jax.nn.logsumexp. Padded columns are -inf; padded rows never weigh.
-//     With kSave the f32 raw tile, before the scale, is also stored as
-//     q = rint(raw · kRawQScale) in int16 (round half to even, as jnp.round),
-//     one 16-byte store a thread; the lse are the same bit for bit.
-//   sym_grad_kernel: the same walk; it recomputes each raw tile, forms
-//     p = exp(s - lse_row) + exp(s - lse_col), rounds p to bf16 and
-//     accumulates acc += p·y (f32) in registers, and rowdot += sum(p·raw).
+//   sym_grad_kernel: one block per 32 rows of x, which stay in shared memory
+//     while the block walks the columns of y in 64-wide tiles (each raw tile
+//     x·y^T: bf16 operands, f32 accumulation, WMMA); it recomputes each raw
+//     tile, forms p = exp(s - lse_row) + exp(s - lse_col), rounds p to bf16
+//     and accumulates acc += p·y (f32) in registers, and rowdot += sum(p·raw).
 //     The caller runs it twice, (a, b) and (b, a), and does the scalar tail.
 //   sym_grad_raw_kernel (pass A): sym_grad_kernel with the raw tile read
 //     from the saved int16 (cp.async, 16-byte chunks) instead of recomputed:
-//     s = q · (scale / kRawQScale), rowdot = sum(p·q) / kRawQScale.
+//     s = q · (scale / RAW_QSCALE), rowdot = sum(p·q) / RAW_QSCALE.
 //   sym_grad_rawT_kernel (pass B): a block owns 32 columns of raw (rows of
 //     y) and walks the row tiles of x, 64 rows at a time, reading the
 //     (64 x 32) int16 tile of its columns (four 16-byte chunks a row); p is
@@ -56,8 +47,8 @@
 // with ldq a multiple of 64 (>= n): whole tiles are stored and read, the
 // columns past n are masked.
 //
-// Bounds on the H100: at B = 8192, d = 512 the forward is 69 GFLOP and the
-// recompute pass 137 GFLOP per call, against 8 MB of operands: compute-bound.
+// Bounds on the H100: at B = 8192, d = 512 the recompute pass is 137 GFLOP
+// per call, against 8 MB of operands: compute-bound.
 // From the saved raw each contraction is 69 GFLOP against the 128 MB int16
 // raw (0.04 ms at 3.35 TB/s): still bound by operations. WMMA fragments are
 // loaded from shared memory for every product, so the shared-memory
@@ -74,22 +65,15 @@ namespace {
 
 namespace cg = cooperative_groups;
 
-// int16 fixed point of the saved raw: the reference's RAW_QSCALE (cosines of
-// bf16-rounded unit vectors stay below ~1.008) and its reciprocal, each
-// rounded once from double, as the reference's f32 arithmetic sees them.
-constexpr float kRawQScale = static_cast<float>(32767.0 / 1.01);
+// The reciprocal of the saved raw's int16 fixed point (the reference's
+// RAW_QSCALE: cosines of bf16-rounded unit vectors stay below ~1.008),
+// rounded once from double, as the reference's f32 arithmetic sees it.
 constexpr float kRawQInv = static_cast<float>(1.0 / (32767.0 / 1.01));
 constexpr int kLdQ = kBN + 8;   // int16 pitch of a 32 x 64 raw tile
 constexpr int kLdQT = kBM + 8;  // int16 / bf16 pitch of pass B's 64 x 32 tiles
 constexpr int kCluster = 8;     // blocks of the merged kernel's cluster
 constexpr int kCRows = kCluster * kBM;
 static_assert(kThreads == kBM * kBN / 8, "one 8-entry chunk of the raw tile a thread");
-
-__device__ inline uint32_t quantize_pair(float lo, float hi) {
-  const int a = max(-32768, min(32767, __float2int_rn(lo * kRawQScale)));
-  const int b = max(-32768, min(32767, __float2int_rn(hi * kRawQScale)));
-  return uint32_t(uint16_t(int16_t(a))) | (uint32_t(uint16_t(int16_t(b))) << 16);
-}
 
 // rows [r0, r0 + rows_tile) x columns [c0, c0 + cols_tile) of the saved raw
 // (pitch ldq) into dst (pitch ldd) with 16-byte cp.async; rows past n_rows
@@ -128,76 +112,6 @@ __device__ inline void p_from_raw(const int16_t* qs, bf16* ps, float* rd, float 
     dot = warp_sum(dot);
     if (lane == 0) rd[r] += dot;
   }
-}
-
-template <bool kSave>
-__global__ void __launch_bounds__(kThreads, 2)
-sym_lse_kernel(const bf16* __restrict__ x, const bf16* __restrict__ y,
-               const float* __restrict__ scale_p, float* __restrict__ row_lse,
-               float* __restrict__ colmax, float* __restrict__ colsum,
-               int16_t* __restrict__ raw_q, int ldq, int m, int n, int dp) {
-  extern __shared__ __align__(128) unsigned char smem[];
-  const Smem lay(dp);
-  bf16* xs = reinterpret_cast<bf16*>(smem + lay.x);
-  bf16* ys = reinterpret_cast<bf16*>(smem + lay.y);
-  float* ss = reinterpret_cast<float*>(smem + lay.s);
-  float* mrow = reinterpret_cast<float*>(smem + lay.m);
-  float* lrow = reinterpret_cast<float*>(smem + lay.l);
-  const int r0 = blockIdx.x * kBM, rows = min(kBM, m - r0);
-  const int warp = threadIdx.x / kWarp, lane = threadIdx.x % kWarp;
-  const float scale = *scale_p;
-  stage(xs, lay.ld, x, r0, kBM, m, dp);
-  if (threadIdx.x < kBM) {
-    mrow[threadIdx.x] = -INFINITY;
-    lrow[threadIdx.x] = 0.f;
-  }
-  for (int j0 = 0; j0 < n; j0 += kBN) {
-    stage(ys, lay.ld, y, j0, kBN, n, dp);
-    cp_async_wait<0>();
-    __syncthreads();
-    raw_tile(xs, ys, lay.ld, dp, ss);
-    __syncthreads();
-    // scaled scores, -inf past the last column; with kSave the raw tile is
-    // stored first. Each thread owns 8 adjacent entries of one row.
-    {
-      const int r = threadIdx.x / 8, c0 = threadIdx.x % 8 * 8;
-      float* v = ss + r * kLdS + c0;
-      if (kSave && r < rows) {
-        uint4 u;
-        uint32_t* w = reinterpret_cast<uint32_t*>(&u);
-#pragma unroll
-        for (int e = 0; e < 4; ++e) w[e] = quantize_pair(v[2 * e], v[2 * e + 1]);
-        *reinterpret_cast<uint4*>(raw_q + size_t(r0 + r) * ldq + j0 + c0) = u;
-      }
-#pragma unroll
-      for (int e = 0; e < 8; ++e) v[e] = j0 + c0 + e < n ? v[e] * scale : -INFINITY;
-    }
-    __syncthreads();
-    // rows: online max / sum
-    for (int r = warp; r < rows; r += kWarps) {
-      const float v0 = ss[r * kLdS + lane], v1 = ss[r * kLdS + lane + 32];
-      const float mt = warp_max(fmaxf(v0, v1));
-      const float m_old = mrow[r], m_new = fmaxf(m_old, mt);
-      const float e = warp_sum(expf(v0 - m_new) + expf(v1 - m_new));
-      if (lane == 0) {
-        lrow[r] = lrow[r] * expf(m_old - m_new) + e;
-        mrow[r] = m_new;
-      }
-    }
-    // columns: one partial per (row block, column)
-    if (threadIdx.x < kBN && j0 + threadIdx.x < n) {
-      const int c = threadIdx.x;
-      float cm = -INFINITY;
-      for (int r = 0; r < rows; ++r) cm = fmaxf(cm, ss[r * kLdS + c]);
-      float cs = 0.f;
-      for (int r = 0; r < rows; ++r) cs += expf(ss[r * kLdS + c] - cm);
-      colmax[size_t(blockIdx.x) * n + j0 + c] = cm;
-      colsum[size_t(blockIdx.x) * n + j0 + c] = cs;
-    }
-    __syncthreads();
-  }
-  if (threadIdx.x < rows)
-    row_lse[r0 + threadIdx.x] = mrow[threadIdx.x] + logf(fmaxf(lrow[threadIdx.x], 1e-30f));
 }
 
 // NT: accumulator column fragments per warp; dp == 64 * NT
@@ -509,20 +423,6 @@ cudaError_t prepare(Kernel kernel, size_t bytes) {
                               static_cast<int>(bytes));
 }
 
-template <bool kSave>
-cudaError_t launch_lse(const void* x, const void* y, const void* scale, void* row_lse,
-                       void* colmax, void* colsum, void* raw_q, int ldq, int m, int n, int dp,
-                       cudaStream_t stream) {
-  const size_t bytes = Smem(dp).total;
-  cudaError_t err = prepare(sym_lse_kernel<kSave>, bytes);
-  if (err != cudaSuccess) return err;
-  sym_lse_kernel<kSave><<<(m + kBM - 1) / kBM, kThreads, bytes, stream>>>(
-      static_cast<const bf16*>(x), static_cast<const bf16*>(y), static_cast<const float*>(scale),
-      static_cast<float*>(row_lse), static_cast<float*>(colmax), static_cast<float*>(colsum),
-      static_cast<int16_t*>(raw_q), ldq, m, n, dp);
-  return cudaGetLastError();
-}
-
 template <int NT>
 cudaError_t launch_grad(const void* x, const void* y, const void* scale, const void* lse_row,
                         const void* lse_col, void* acc, void* rowdot, int m, int n, int dp,
@@ -619,26 +519,6 @@ struct MergedL {
 }  // namespace clip_dplm
 
 using namespace clip_dplm;
-
-// x (m, dp), y (n, dp) bf16, dp % 64 == 0 and dp <= 512; scale: one f32 on
-// the device. row_lse (m); colmax/colsum (ceil(m/32), n) f32.
-extern "C" int sym_infonce_lse(const void* x, const void* y, const void* scale, void* row_lse,
-                               void* colmax, void* colsum, int m, int n, int dp, void* stream) {
-  if (dp % 64 || dp > 512 || m < 1 || n < 1) return static_cast<int>(cudaErrorInvalidValue);
-  return static_cast<int>(launch_lse<false>(x, y, scale, row_lse, colmax, colsum, nullptr, 0, m,
-                                            n, dp, static_cast<cudaStream_t>(stream)));
-}
-
-// sym_infonce_lse, and raw_q (m, ldq) int16 = rint(x·y^T · RAW_QSCALE) over
-// whole 64-column tiles (ldq % 64 == 0, ldq >= n; zero past n).
-extern "C" int sym_infonce_lse_save(const void* x, const void* y, const void* scale,
-                                    void* row_lse, void* colmax, void* colsum, void* raw_q,
-                                    int ldq, int m, int n, int dp, void* stream) {
-  if (dp % 64 || dp > 512 || m < 1 || n < 1 || ldq % 64 || ldq < n)
-    return static_cast<int>(cudaErrorInvalidValue);
-  return static_cast<int>(launch_lse<true>(x, y, scale, row_lse, colmax, colsum, raw_q, ldq, m,
-                                           n, dp, static_cast<cudaStream_t>(stream)));
-}
 
 // acc (round_up(m, 32), dp) f32 = (P_row + P_col^T)·y with bf16 p; rowdot
 // (m) f32 = rowsum(p·raw). lse_row (m), lse_col (n) f32.

@@ -1,4 +1,4 @@
-// Tiles shared by the InfoNCE kernels (fused_infonce.cu, row_ce.cu): a block
+// Tiles of the symmetric InfoNCE's backward kernels (fused_infonce.cu): a block
 // keeps 32 rows of one operand in shared memory and walks the rows of the
 // other in 64-wide tiles, forming each raw tile x·y^T with bf16 WMMA products
 // and f32 accumulation. d is padded by the caller to a multiple of 64 with
@@ -21,7 +21,7 @@ constexpr int kLdP = kBN + 8;  // bf16 p tile
 
 struct Smem {
   int ld;  // bf16 row pitch of the x and y tiles
-  size_t x, y, s, p, m, l, rowdot, total;
+  size_t x, y, s, p, rowdot, total;
   __host__ __device__ explicit Smem(int dp) {
     ld = dp + 8;
     size_t off = 0;
@@ -29,8 +29,6 @@ struct Smem {
     y = off;      off += align128(size_t(kBN) * ld * sizeof(bf16));
     s = off;      off += align128(size_t(kBM) * kLdS * sizeof(float));
     p = off;      off += align128(size_t(kBM) * kLdP * sizeof(bf16));
-    m = off;      off += align128(kBM * sizeof(float));
-    l = off;      off += align128(kBM * sizeof(float));
     rowdot = off; off += align128(kBM * sizeof(float));
     total = off;
   }

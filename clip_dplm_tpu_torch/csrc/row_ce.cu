@@ -1,18 +1,12 @@
 // Row cross-entropy over scale·x·y^T with a column-validity count, for
-// Hopper (sm_90a): the forward's row logsumexp and the two contractions of
-// the backward. The hard-negative cache path runs them twice a step: a
-// against [b; cache] with n_valid = B + cache_len, and b against a.
+// Hopper (sm_90a): the two contractions of the backward. The hard-negative
+// cache path runs them twice a step: a against [b; cache] with n_valid = B +
+// cache_len, and b against a. (The forward's row logsumexp is
+// lse_walk.cu's row_ce_lse.)
 //
-// Replaces clip_dplm_tpu/ops/fused_infonce.py: `_lse_kernel` (pallas_call in
-// `_row_lse`), `_dx_kernel` and `_dy_kernel` (the two pallas_calls in
-// `_softmax_contractions`). None of them stores the m x n similarity.
-//
-// row_ce_lse_kernel: one block per 32 rows of x, which stay in shared memory
-// while the block walks the columns of y in 64-wide tiles (raw tile x·y^T:
-// bf16 operands, f32 accumulation, WMMA fragments from shared memory); each
-// row keeps an online max / sum of scale·raw + colmask, colmask = 0 below
-// n_valid and -1e30 from it on, as the reference's. n_valid is read from the
-// device (the cache's fill level lives there; the host never waits for it).
+// Replaces clip_dplm_tpu/ops/fused_infonce.py: `_dx_kernel` and `_dy_kernel`
+// (the two pallas_calls in `_softmax_contractions`). Neither stores the m x n
+// similarity.
 //
 // row_ce_grad_kernel<KB, kDx>, dp = 64·KB, is the backward of both
 // directions. A block owns 64 rows ("own") and walks the rows of the other
@@ -25,9 +19,9 @@
 //     S^T = y_own·x_tile^T, p = exp(scale·S^T - lse[walked row]) with no
 //     column mask, as the reference's `_dy_kernel`, acc += bf16(p)·x_tile.
 // p is 0 on walked rows past n_walk. A tile whose columns all lie at or past
-// n_valid changes neither the online max / sum (exp(-1e30 - m) is 0 in f32)
-// nor p·y, so the lse and dX kernels stop at the last valid column (for
-// n_valid > 0): the unfilled part of the cache costs nothing.
+// n_valid adds nothing to p·y (exp(-1e30 - lse) is 0 in f32), so the dX
+// kernel stops at the last valid column (for n_valid > 0): the unfilled part
+// of the cache costs nothing.
 //
 // What bounds it on the H100: at B = C = 8192, d = 512 and a full cache the
 // a direction's dX is 4·8192·13192·512 = 221 GFLOP (0.224 ms at 989
@@ -84,7 +78,7 @@
 
 #include <string.h>
 
-#include "infonce_tiles.cuh"
+#include "common.cuh"
 #include "tma.cuh"
 #include "wgmma.cuh"
 
@@ -93,54 +87,6 @@ namespace {
 
 // Columns [0, end) a kernel walks: the valid prefix when there is one.
 __device__ inline int walk_end(int nv, int n) { return nv > 0 ? nv : n; }
-
-__global__ void __launch_bounds__(kThreads, 2)
-row_ce_lse_kernel(const bf16* __restrict__ x, const bf16* __restrict__ y,
-                  const float* __restrict__ scale_p, const int* __restrict__ nvalid_p,
-                  float* __restrict__ lse, int m, int n, int dp) {
-  extern __shared__ __align__(128) unsigned char smem[];
-  const Smem lay(dp);
-  bf16* xs = reinterpret_cast<bf16*>(smem + lay.x);
-  bf16* ys = reinterpret_cast<bf16*>(smem + lay.y);
-  float* ss = reinterpret_cast<float*>(smem + lay.s);
-  float* mrow = reinterpret_cast<float*>(smem + lay.m);
-  float* lrow = reinterpret_cast<float*>(smem + lay.l);
-  const int r0 = blockIdx.x * kBM, rows = min(kBM, m - r0);
-  const int warp = threadIdx.x / kWarp, lane = threadIdx.x % kWarp;
-  const float scale = *scale_p;
-  const int nv = max(0, min(*nvalid_p, n)), end = walk_end(nv, n);
-  stage(xs, lay.ld, x, r0, kBM, m, dp);
-  if (threadIdx.x < kBM) {
-    mrow[threadIdx.x] = -INFINITY;
-    lrow[threadIdx.x] = 0.f;
-  }
-  for (int j0 = 0; j0 < end; j0 += kBN) {
-    stage(ys, lay.ld, y, j0, kBN, n, dp);
-    cp_async_wait<0>();
-    __syncthreads();
-    raw_tile(xs, ys, lay.ld, dp, ss);
-    __syncthreads();
-    // rows: online max / sum of the scaled, masked scores
-    for (int r = warp; r < rows; r += kWarps) {
-      float v[2];
-#pragma unroll
-      for (int h = 0; h < 2; ++h) {
-        const int c = lane + 32 * h;
-        v[h] = ss[r * kLdS + c] * scale + (j0 + c < nv ? 0.f : kMaskBias);
-      }
-      const float mt = warp_max(fmaxf(v[0], v[1]));
-      const float m_old = mrow[r], m_new = fmaxf(m_old, mt);
-      const float e = warp_sum(expf(v[0] - m_new) + expf(v[1] - m_new));
-      if (lane == 0) {
-        lrow[r] = lrow[r] * expf(m_old - m_new) + e;
-        mrow[r] = m_new;
-      }
-    }
-    __syncthreads();
-  }
-  if (threadIdx.x < rows)
-    lse[r0 + threadIdx.x] = mrow[threadIdx.x] + logf(fmaxf(lrow[threadIdx.x], 1e-30f));
-}
 
 constexpr int kGradRows = 64;      // own rows a block: wgmma's M
 constexpr int kGradTile = 64;      // walked rows a tile: S's N, P·walk's K
@@ -481,22 +427,6 @@ int dispatch_grad(const void* own, const void* walk, const void* scale, const vo
 }  // namespace clip_dplm
 
 using namespace clip_dplm;
-
-// x (m, dp), y (n, dp) bf16, dp % 64 == 0 and dp <= 512; scale: one f32 and
-// n_valid: one int32 on the device. lse (m) f32.
-extern "C" int row_ce_lse(const void* x, const void* y, const void* scale, const void* nvalid,
-                          void* lse, int m, int n, int dp, void* stream) {
-  if (dp % 64 || dp > 512 || m < 1 || n < 1) return static_cast<int>(cudaErrorInvalidValue);
-  const size_t bytes = Smem(dp).total;
-  cudaError_t err = cudaFuncSetAttribute(row_ce_lse_kernel,
-                                         cudaFuncAttributeMaxDynamicSharedMemorySize,
-                                         static_cast<int>(bytes));
-  if (err != cudaSuccess) return static_cast<int>(err);
-  row_ce_lse_kernel<<<(m + kBM - 1) / kBM, kThreads, bytes, static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const bf16*>(x), static_cast<const bf16*>(y), static_cast<const float*>(scale),
-      static_cast<const int*>(nvalid), static_cast<float*>(lse), m, n, dp);
-  return static_cast<int>(cudaGetLastError());
-}
 
 // py (m, dp) f32 = P·y with bf16 p; rowdot (m) f32 = rowsum(p·raw);
 // P = exp(scale·x·y^T + colmask - lse), lse (m) f32. x and y 16-byte

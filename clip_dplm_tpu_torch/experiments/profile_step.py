@@ -1,6 +1,7 @@
 """Where the time of one train step goes on the card:
 `python -m clip_dplm_tpu_torch.experiments.profile_step [--model
-two_tower|two_tower_cached|rna_rbp|tf_clip|dplm] [-o a.b=c ...]`.
+two_tower|two_tower_cached|rna_rbp|tf_clip|dplm] [-o a.b=c ...]
+[--kernels KEY,...]`.
 
 Builds the configuration, batch and warmed-up step of
 `experiments/bench.py` (`build_step`, at the model's default batch), then:
@@ -10,7 +11,8 @@ Builds the configuration, batch and warmed-up step of
 - profiles as many steps with torch.profiler (CPU and CUDA activities) and
   prints the device busy share (the kernels' summed device time over the
   profiled wall time) and the TOP operators and kernels that take the most
-  device time, per step.
+  device time, per step, and with `--kernels` every other kernel whose name
+  holds one of the keys.
 Prints JSON lines; the last is the summary. Needs CUDA.
 """
 
@@ -44,6 +46,8 @@ def parse_args(argv: Optional[Sequence[str]] = None) -> argparse.Namespace:
                                 formatter_class=argparse.RawDescriptionHelpFormatter)
     p.add_argument("--model", choices=sorted(MODELS), default="two_tower")
     p.add_argument("--override", "-o", action="append", default=[])
+    p.add_argument("--kernels", default="",
+                   help="also list the kernels whose names hold one of these comma-separated keys")
     return p.parse_args(argv)
 
 
@@ -87,7 +91,10 @@ def main(argv: Optional[Sequence[str]] = None) -> Dict:
         entry = by_kernel.setdefault(e.name[:120], [0.0, 0])
         entry[0] += e.time_range.elapsed_us()
         entry[1] += 1
-    for name, (us, n) in sorted(by_kernel.items(), key=lambda kv: -kv[1][0])[:TOP]:
+    keys = [k for k in args.kernels.split(",") if k]
+    for i, (name, (us, n)) in enumerate(sorted(by_kernel.items(), key=lambda kv: -kv[1][0])):
+        if i >= TOP and not any(k in name for k in keys):
+            continue
         print(json.dumps({"kernel": name, "device_ms_per_step": per_step(us),
                           "launches_per_step": n / STEPS}))
     out = {

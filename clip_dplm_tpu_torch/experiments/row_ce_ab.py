@@ -8,8 +8,8 @@ checkout's, in turns on one card, with the bound beside them:
 DIR is another checkout of the repository (for example a parent commit
 unpacked with `git archive` into a directory that `.gitignore` lists), or a
 directory under `build/` holding only
-`clip_dplm_tpu_torch/csrc/{row_ce.cu,common.cuh,infonce_tiles.cuh,tma.cuh,
-wgmma.cuh}` (a variant of the kernel). Its `row_ce.cu` is compiled alone
+`clip_dplm_tpu_torch/csrc/{row_ce.cu,common.cuh,tma.cuh,wgmma.cuh}` (a
+variant of the kernel). Its `row_ce.cu` is compiled alone
 with nvcc into `build/row_ce_ab/`; this checkout's comes from the package's
 library. Both trees' C entries are called through ctypes on the same inputs
 (unit rows, the first min(m, n) of x pulled towards y's, the plain lse) at

@@ -108,12 +108,17 @@ _SIGNATURES = {
     "fused_dense_bwd_rows": [_P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P,
                              _P, _P, _P, _I, _I, _I, _I, _I, _U, _U, _F, _I,
                              _I, _P],
-    # x, y, scale, row_lse, colmax, colsum, m, n, dp, stream
-    "sym_infonce_lse": [_P, _P, _P, _P, _P, _P, _I, _I, _I, _P],
+    # x, y, scale, part, m, n, dp, nsplit, stream
+    "sym_infonce_lse": [_P, _P, _P, _P, _I, _I, _I, _I, _P],
     # x, y, scale, lse_row, lse_col, acc, rowdot, m, n, dp, stream
     "sym_infonce_grad": [_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _P],
-    # x, y, scale, row_lse, colmax, colsum, raw_q, ldq, m, n, dp, stream
-    "sym_infonce_lse_save": [_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _P],
+    # x, y, scale, part, raw_q, ldq, m, n, dp, nsplit, stream
+    "sym_infonce_lse_save": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _P],
+    # part, nsplit, m, groups, n, row_lse, col_lse, stream
+    "lse_combine": [_P, _I, _I, _I, _I, _P, _P, _P],
+    # which (0: row_ce_lse, 1: sym_infonce_lse, 2: sym_infonce_lse_save) ->
+    # calls that launched the wgmma walk lse_walk_kernel
+    "lse_walk_calls": [_I],
     # raw_q, ldq, y, scale, lse_row, lse_col, acc_a, rowdot, m, n, dp, stream
     "sym_infonce_grad_raw": [_P, _I, _P, _P, _P, _P, _P, _P, _I, _I, _I, _P],
     # raw_q, ldq, x, scale, lse_row, lse_col, acc_b, m, n, dp, stream
@@ -121,8 +126,8 @@ _SIGNATURES = {
     # raw_q, ldq, x, y, scale, lse_row, lse_col, acc_a, rowdot, part, acc_b,
     # m, n, dp, stream
     "sym_infonce_grad_merged": [_P, _I, _P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _P],
-    # x, y, scale, n_valid, lse, m, n, dp, stream
-    "row_ce_lse": [_P, _P, _P, _P, _P, _I, _I, _I, _P],
+    # x, y, scale, n_valid, part, m, n, dp, nsplit, stream
+    "row_ce_lse": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _P],
     # x, y, scale, n_valid, lse, py, rowdot, m, n, dp, stream
     "row_ce_dx": [_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _P],
     # x, y, scale, lse, ptx, m, n_rows, dp, stream
@@ -164,7 +169,7 @@ LAUNCHES = LaunchCounter(
      "sym_infonce_lse_save", "sym_infonce_grad_raw", "sym_infonce_grad_rawT",
      "sym_infonce_grad_merged", "short_attention_save", "short_attention_bwd_probs",
      "short_attention_sep", "short_attention_sep_save", "short_attention_sep_bwd",
-     "short_attention_sep_bwd_probs"])
+     "short_attention_sep_bwd_probs", "lse_combine"])
 
 
 class _Library:

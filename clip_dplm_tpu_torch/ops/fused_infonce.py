@@ -12,8 +12,10 @@ row cross-entropy the hard-negative cache path runs in both directions.
 
 over s = scale * a b^T with d = rowsum(a * b). The forward takes the row
 logsumexp and the column logsumexp (the row lse of b a^T) in one pass
-(`csrc/fused_infonce.cu::sym_lse_kernel`). The backward has two schedules,
-as the reference's:
+(`csrc/lse_walk.cu::lse_walk_kernel`, the wgmma walk: row partials per
+column range and column partials per 64 rows, which `lse_combine_kernel`
+combines in a fixed order). The backward has two schedules, as the
+reference's:
 
 - recompute (`materialize_raw=False`): the gradient pass runs twice, (a, b)
   and (b, a), each recomputing the raw tiles and forming
@@ -21,7 +23,7 @@ as the reference's:
   rowdot = rowsum(p * raw) (`sym_grad_kernel`);
 - saved raw (`materialize_raw=True`): the forward also stores the raw
   similarity before the scale as int16, q = round(raw * RAW_QSCALE)
-  (`sym_lse_kernel<kSave>`; the lse, so the loss, are the same bit for
+  (`sym_infonce_lse_save`; the lse, so the loss, are the same bit for
   bit), and the backward reads it instead of recomputing: s = q * (scale /
   RAW_QSCALE), acc_a = P y, acc_b = P^T x and rowdot = rowsum(p * q) /
   RAW_QSCALE, either in one pass over q (`sym_grad_merged_kernel`, a
@@ -44,9 +46,10 @@ is up to B = 18,317 square), "always", "never" or a bool.
   loss = mean_i[lse_i - scale <x_i, y_labels_i>]
 
 over the columns of y below n_valid (a device int32: the cache's fill
-level), the rest at -1e30. The forward's row lse (`csrc/row_ce.cu::
-row_ce_lse`), then in the backward P y with rowsum(p * raw) (`row_ce_dx`)
-and P^T x (`row_ce_dy`, no column mask, as the reference's); the tail
+level), the rest at -1e30. The forward's row lse (`csrc/lse_walk.cu::
+row_ce_lse`, the same walk and combine), then in the backward P y with
+rowsum(p * raw) (`row_ce_dx`) and P^T x (`row_ce_dy`, no column mask, as the
+reference's); the tail
 
   dx = (g/m) scale (P y - y_pos),   dy = (g/m) scale P^T x, minus (g/m) scale x at the labels,
   dscale = (g/m) (sum(rowdot) - sum(raw_pos))
@@ -66,6 +69,7 @@ yet.
 
 from __future__ import annotations
 
+import functools
 from typing import Dict, Optional, Tuple
 
 import torch
@@ -79,8 +83,11 @@ from clip_dplm_tpu_torch.ops.infonce import (
 )
 
 MAX_DIM = 512  # the grad kernels' accumulators: d f32 columns in registers
-_BM = 32  # rows per block of the symmetric kernels
+_BM = 32  # rows per block of the symmetric backward kernels
 _BN = 64  # columns per tile: the saved raw's row pitch is a multiple of it
+_WALK_ROWS = 128  # own rows a block of the lse walk (csrc/lse_walk.cu)
+_WALK_GROUP = 64  # own rows of one column partial of the walk: a warpgroup
+H100_SMS = 132
 _MERGED_ROWS = 256  # rows of one cluster of the merged kernel: one acc_b partial each
 # The saved raw is int16 fixed point: cosines of (bf16-rounded) unit vectors
 # stay below ~1.008, so q = round(raw * RAW_QSCALE) keeps an absolute error
@@ -168,27 +175,79 @@ def _raw_pitch(n: int) -> int:
     return -(-n // _BN) * _BN
 
 
-def _kernel_lse(x, y, scale, save: bool = False):
-    """(row lse, column lse), and with `save` the int16 raw: an (m, n) view
-    of an (m, round_up(n, 64)) buffer, as the from-raw kernels read it."""
+def _walk_splits(m: int, n: int, sms: int = H100_SMS) -> int:
+    """Column ranges the lse walk splits n columns into for m own rows: as
+    many as fill `sms` SMs with one block each of 128 own rows (2 at m=8192,
+    4 at 4096, 16 at 1000 on the H100's 132), at least one, at most one a
+    64-column tile."""
+    return max(1, min(-(-n // _BN), sms // -(-m // _WALK_ROWS)))
+
+
+def _walk_groups(m: int) -> int:
+    """Column partials of the walk a column: one each 64 own rows."""
+    return -(-m // _WALK_GROUP)
+
+
+@functools.lru_cache(maxsize=None)
+def _sm_count(index: int) -> int:
+    return torch.cuda.get_device_properties(index).multi_processor_count
+
+
+def _plain_lse_combine(part, nsplit: int, m: int, groups: int, n: int):
+    """The plain version of `lse_combine`: (row lse (m), column lse (n), or
+    None for n = 0) from the walk's flat partials, [2][nsplit][m] (max, sum)
+    of each column range, then [2][groups][n] of each 64 own rows; each
+    partial counts as max + log(max(sum, 1e-30)), combined with
+    torch.logsumexp, as the reference combines its column partials with
+    jax.nn.logsumexp."""
+    def lse(mx, sm):
+        return torch.logsumexp(mx + torch.log(torch.clamp(sm, min=1e-30)), dim=0)
+
+    rows = 2 * nsplit * m
+    row_lse = lse(*part[:rows].view(2, nsplit, m))
+    if n == 0:
+        return row_lse, None
+    return row_lse, lse(*part[rows:rows + 2 * groups * n].view(2, groups, n))
+
+
+def _kernel_lse_combine(part, nsplit: int, m: int, groups: int, n: int):
+    """`_plain_lse_combine` in one launch (`lse_combine_kernel`): each lse
+    summed in a fixed order, no atomics."""
+    row_lse = torch.empty(m, dtype=torch.float32, device=part.device)
+    col_lse = torch.empty(n, dtype=torch.float32, device=part.device) if n else None
+    _build.launch("lse_combine", part.data_ptr(), nsplit, m, groups, n, row_lse.data_ptr(),
+                  None if col_lse is None else col_lse.data_ptr(), _build.stream_of(part))
+    _build.LAUNCHES.add("lse_combine")
+    return row_lse, col_lse
+
+
+def _walk_partials(x, y, scale, save: bool = False):
+    """The symmetric walk alone: (its flat partials, nsplit, groups, and the
+    int16 raw's (m, round_up(n, 64)) buffer with `save`, else None)."""
     m, n = x.shape[0], y.shape[0]
     xp, yp = _pad_dim(x), _pad_dim(y)
-    nm = -(-m // _BM)
-    row_lse = torch.empty(m, dtype=torch.float32, device=x.device)
-    part = torch.empty((2, nm, n), dtype=torch.float32, device=x.device)
-    ptrs = (xp.data_ptr(), yp.data_ptr(), scale.data_ptr(), row_lse.data_ptr(),
-            part[0].data_ptr(), part[1].data_ptr())
+    nsplit, groups = _walk_splits(m, n, _sm_count(x.device.index)), _walk_groups(m)
+    part = torch.empty(2 * nsplit * m + 2 * groups * n, dtype=torch.float32, device=x.device)
+    ptrs = (xp.data_ptr(), yp.data_ptr(), scale.data_ptr(), part.data_ptr())
+    raw_q = None
     if save:
         raw_q = torch.empty((m, _raw_pitch(n)), dtype=torch.int16, device=x.device)
         _build.launch("sym_infonce_lse_save", *ptrs, raw_q.data_ptr(), raw_q.shape[1], m, n,
-                      xp.shape[1], _build.stream_of(x))
+                      xp.shape[1], nsplit, _build.stream_of(x))
         _build.LAUNCHES.add("sym_infonce_lse_save")
     else:
-        _build.launch("sym_infonce_lse", *ptrs, m, n, xp.shape[1], _build.stream_of(x))
+        _build.launch("sym_infonce_lse", *ptrs, m, n, xp.shape[1], nsplit, _build.stream_of(x))
         _build.LAUNCHES.add("sym_infonce_lse")
-    # exact combine of the per-row-block column partials
-    log_part = part[0] + torch.log(torch.clamp(part[1], min=1e-30))
-    lse = row_lse, torch.logsumexp(log_part, dim=0)
+    return part, nsplit, groups, raw_q
+
+
+def _kernel_lse(x, y, scale, save: bool = False):
+    """(row lse, column lse), and with `save` the int16 raw: an (m, n) view
+    of an (m, round_up(n, 64)) buffer, as the from-raw kernels read it. The
+    walk writes its partials, the combine reduces them."""
+    m, n = x.shape[0], y.shape[0]
+    part, nsplit, groups, raw_q = _walk_partials(x, y, scale, save)
+    lse = _kernel_lse_combine(part, nsplit, m, groups, n)
     return (*lse, raw_q[:, :n]) if save else lse
 
 
@@ -437,11 +496,13 @@ def _plain_row_dy(x, y, scale, lse, rows: int):
 def _kernel_row_lse(x, y, scale, n_valid):
     m, n = x.shape[0], y.shape[0]
     xp, yp = _pad_dim(x), _pad_dim(y)
-    lse = torch.empty(m, dtype=torch.float32, device=x.device)
+    nsplit = _walk_splits(m, n, _sm_count(x.device.index))
+    part = torch.empty(2 * nsplit * m, dtype=torch.float32, device=x.device)
     _build.launch("row_ce_lse", xp.data_ptr(), yp.data_ptr(), scale.data_ptr(),
-                  n_valid.data_ptr(), lse.data_ptr(), m, n, xp.shape[1], _build.stream_of(x))
+                  n_valid.data_ptr(), part.data_ptr(), m, n, xp.shape[1], nsplit,
+                  _build.stream_of(x))
     _build.LAUNCHES.add("row_ce_lse")
-    return lse
+    return _kernel_lse_combine(part, nsplit, m, 0, 0)[0]
 
 
 def _kernel_row_dx(x, y, scale, lse, n_valid):

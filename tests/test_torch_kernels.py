@@ -1109,17 +1109,28 @@ SAVED_RAW_KERNELS = ("sym_infonce_lse_save", "sym_infonce_grad_raw", "sym_infonc
 @pytest.mark.cuda
 @pytest.mark.parametrize("m,n,d", [(1000, 1000, 512), (4096, 4096, 512), (300, 700, 96),
                                    (136, 136, 48), (520, 33, 200), (256, 256, 512),
-                                   (200, 200, 512)])
+                                   (200, 200, 512), (129, 63, 512), (1000, 1777, 512),
+                                   (200, 40, 48)])
 def test_saved_raw_kernels_match_plain(cuda_device, np_rng, m, n, d):
     """The saving forward (lse and the int16 raw, |dq| <= 1 where the f32
     sums round differently), pass A, pass B and the merged kernel from the
     same raw and the plain lse, each against its plain version; merged
     against the two passes; two launches of each kernel equal byte for
-    byte (no atomics)."""
+    byte (no atomics). The non-saving forward gives the same lse bits, and
+    both went through the wgmma walk (its launcher's count) and one combine
+    launch each; m and n off the walk's 128-row blocks and 64-row tiles,
+    n < 64, m = 4096 (four column ranges on the H100)."""
     x, y, s = _row_ce_inputs(np_rng, cuda_device, m, n, d)
     xb, yb, s32 = x.bfloat16(), y.bfloat16(), s.reshape(1)
+    lib = _build.LIBRARY.get()
+    walks = [lib.lse_walk_calls(i) for i in range(3)]
     before = _build.LAUNCHES.snapshot()
     *lse, raw_q = fi._kernel_lse_save(xb, yb, s32)
+    plain_lse = fi._kernel_lse(xb, yb, s32)
+    torch.cuda.synchronize()
+    assert [lib.lse_walk_calls(i) - walks[i] for i in range(3)] == [0, 1, 1]
+    assert _build.LAUNCHES.snapshot()["lse_combine"] == before["lse_combine"] + 2
+    assert all(torch.equal(u, v) for u, v in zip(lse, plain_lse))
     *lse_ref, raw_ref = fi._plain_lse_save(xb, yb, s32)
     two = fi._kernel_grad_two_pass(raw_q, xb, yb, s32, *lse_ref)
     merged = fi._kernel_grad_merged(raw_q, xb, yb, s32, *lse_ref)
@@ -1141,6 +1152,94 @@ def test_saved_raw_kernels_match_plain(cuda_device, np_rng, m, n, d):
              fi._kernel_grad_merged(raw_q, xb, yb, s32, *lse_ref))
     for first, second in zip(((*lse, raw_q), two, merged), again):
         assert all(torch.equal(u, v) for u, v in zip(first, second))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("m,n,d,aligned", [(4096, 4096, 512, True), (4096, 4096, 512, False),
+                                           (1000, 1000, 512, True), (1000, 1000, 512, False),
+                                           (300, 700, 64, True)])
+def test_lse_walk_at_the_clamp_scale(cuda_device, np_rng, m, n, d, aligned):
+    """At scale 100 (the clamp of the logit scale) the one-exponential column
+    partials of the walk (p = exp(s - m_row), weighed by exp(m_row - M) for
+    the largest row max M of 16 rows) hold the row and column lse to the
+    plain version, with aligned pairs (each row's max on the diagonal, far
+    above the rest of its column; at 300 x 700, d = 64, columns past 300 sit
+    ~60 below the rows' maxes, where a partial's sum relative to M falls
+    under the combine's floor of 1e-30 unless stored in log form) and with
+    independent rows."""
+    x, y, _ = _row_ce_inputs(np_rng, cuda_device, m, n, d)
+    if aligned:
+        k = min(m, n)
+        y[:k] = torch.nn.functional.normalize(x[:k] + 0.5 * y[:k], dim=-1)
+    xb, yb = x.bfloat16(), y.bfloat16()
+    s32 = torch.tensor([100.0], device=cuda_device)
+    for got in (fi._kernel_lse_save(xb, yb, s32)[:2], fi._kernel_lse(xb, yb, s32)):
+        for a, b in zip(got, fi._plain_lse(xb, yb, s32)):
+            assert torch.isfinite(a).all()
+            torch.testing.assert_close(a, b, **TOL)
+
+
+# (m, n, n_valid, d): n_valid at 0 (every column masked), at a 64-column tile
+# edge and inside a tile; m, n off the walk's 128-row blocks and 64-row
+# tiles; n < 64; m = 4096 (four column ranges on the H100)
+ROW_CE_LSE_SHAPES = [(1000, 1777, 0, 512), (1000, 1777, 1024, 512), (1000, 1777, 1030, 512),
+                     (129, 63, 63, 512), (129, 63, 40, 96), (4096, 8192, 5000, 512),
+                     (200, 40, 17, 48), (33, 200, 1, 200)]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("m,n,n_valid,d", ROW_CE_LSE_SHAPES)
+def test_row_ce_lse_walk_matches_plain(cuda_device, np_rng, m, n, n_valid, d):
+    """The row-CE lse (the walk with the device-side column count, then the
+    combine) against its plain version; each call one walk launch (its
+    launcher's count) and one combine launch; two launches equal byte for
+    byte."""
+    x, y, s = _row_ce_inputs(np_rng, cuda_device, m, n, d)
+    xb, yb, s32 = x.bfloat16(), y.bfloat16(), s.reshape(1)
+    nv = torch.tensor([n_valid], dtype=torch.int32, device=cuda_device)
+    lib = _build.LIBRARY.get()
+    walks = lib.lse_walk_calls(0)
+    before = _build.LAUNCHES.snapshot()
+    got, again = fi._kernel_row_lse(xb, yb, s32, nv), fi._kernel_row_lse(xb, yb, s32, nv)
+    torch.cuda.synchronize()
+    after = _build.LAUNCHES.snapshot()
+    assert lib.lse_walk_calls(0) - walks == 2
+    assert after["row_ce_lse"] - before["row_ce_lse"] == 2
+    assert after["lse_combine"] - before["lse_combine"] == 2
+    assert got.shape == (m,) and torch.equal(got, again)
+    torch.testing.assert_close(got, fi._plain_row_lse(xb, yb, s32, nv), **TOL)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("nsplit,m,groups,n", [(2, 8192, 128, 8192), (16, 1000, 16, 1777),
+                                               (3, 129, 3, 0), (1, 7, 1, 5)])
+def test_lse_combine_matches_plain(cuda_device, np_rng, nsplit, m, groups, n):
+    """The combine kernel against its plain version (torch.logsumexp over
+    max + log(max(sum, 1e-30))) on partials with -inf maxima and zero sums
+    (an empty column range, padded rows); two launches equal byte for
+    byte."""
+    size = 2 * nsplit * m + 2 * groups * n
+    part = torch.from_numpy(np_rng.normal(size=size).astype(np.float32)).to(cuda_device)
+    rows = part[:2 * nsplit * m].view(2, nsplit, m)
+    rows[0] *= 30.0
+    rows[1] = rows[1].abs() * 50.0
+    rows[0, -1, ::7] = -float("inf")  # a range past the valid columns: (-inf, 0)
+    rows[1, -1, ::7] = 0.0
+    if n:
+        cols = part[2 * nsplit * m:].view(2, groups, n)
+        cols[0] *= 30.0
+        cols[1] = cols[1].abs() * 40.0
+        cols[1, 0, ::5] = 0.0
+    got = fi._kernel_lse_combine(part, nsplit, m, groups, n)
+    again = fi._kernel_lse_combine(part, nsplit, m, groups, n)
+    want = fi._plain_lse_combine(part, nsplit, m, groups, n)
+    torch.cuda.synchronize()
+    for a, b, c in zip(got, again, want):
+        if c is None:
+            assert a is None and b is None
+            continue
+        assert torch.equal(a, b)
+        torch.testing.assert_close(a, c, **TOL)
 
 
 @pytest.mark.cuda

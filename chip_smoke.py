@@ -31,8 +31,10 @@ Phases, each fatal on failure (non-zero exit, no result line):
      (a) one train step on the card (kernels) against the same step on the
      CPU (plain versions) from the same weights and batch, bf16 both,
      dropout on: every leaf's gradient before the optimizer (over four
-     dropout draws), the loss (over eight) and the update; at B=256 (the
-     merged from-raw kernel) and B=512 (the two passes), each launching that schedule's kernels and not the other's; (b) the train CLI (experiments/train.py --device cuda) for
+     dropout draws), the loss (over eight) and the update; at B=256 and
+     B=512, each launching the from-raw schedule of the port's shape rule
+     (the two passes of from_raw_grad_kernel, split over a cluster at these
+     batches) and not the other; (b) the train CLI (experiments/train.py --device cuda) for
      3 epochs at B=256, whose loss must fall; (c) experiments/bench.py at
      B=8192 (pairs/s, MFU). Every train launch counter must rise in (b)+(c),
      the InfoNCE's as the default `fused_materialize_raw="auto"` has it: the
@@ -117,8 +119,13 @@ Phases, each fatal on failure (non-zero exit, no result line):
      pass over the raw) against their plain versions on the card in bf16
      (atol = rtol = 2e-2, the backward outputs relative to their largest
      entry, on the same raw and the plain lse) at B=8192 and 4096, d=512, a
-     ragged B=1000 (partial tiles and clusters), B=256 and a ragged 200 (one
-     cluster of the merged kernel, as the train CLIs run it); two launches
+     ragged B=1000 (partial tiles and clusters), B=256 and a ragged 200 (the
+     train CLIs' batch; one cluster of the merged kernel); pass A and pass B
+     also at scale 100 (the logit-scale clamp) on the raw and lse the saving
+     forward stores there, aligned pairs; each time beside its bound; every
+     pass A and B launch through the wgmma kernel from_raw_grad_kernel (its
+     launcher's count `from_raw_grad_calls`, whose registers and spills
+     ptxas reports after the build); two launches
      of each kernel equal byte for byte; the non-saving forward's lse equal
      to the saving one's bit for bit; the combine of the walk's partials
      (`lse_combine`) against its plain version (torch.logsumexp), two
@@ -277,11 +284,15 @@ SAVED_RAW_KERNELS = {
                              "clip_dplm_tpu/ops/fused_infonce.py:1220"),
     "sym_infonce_grad_merged": ("clip_dplm_tpu_torch/csrc/fused_infonce.cu",
                                 "clip_dplm_tpu/ops/fused_infonce.py:665"),
-    "sym_infonce_grad_raw": ("clip_dplm_tpu_torch/csrc/fused_infonce.cu",
+    "sym_infonce_grad_raw": ("clip_dplm_tpu_torch/csrc/raw_grad.cu",
                              "clip_dplm_tpu/ops/fused_infonce.py:754"),
-    "sym_infonce_grad_rawT": ("clip_dplm_tpu_torch/csrc/fused_infonce.cu",
+    "sym_infonce_grad_rawT": ("clip_dplm_tpu_torch/csrc/raw_grad.cu",
                               "clip_dplm_tpu/ops/fused_infonce.py:782"),
 }
+# 11's shapes: (what, B) at d = 512; 256 and a ragged 200: the train CLIs'
+# batch, one cluster of the merged kernel (no partials)
+SAVED_RAW_SHAPES = (("two-tower", 8192), ("tf_clip pair", 4096), ("ragged", 1000),
+                    ("train CLI", 256), ("ragged one cluster", 200))
 # the combine of the lse walks' partials (it stands for the XLA combine after
 # the pallas_call of `_sym_row_col_lse`): one launch every lse call
 LSE_KERNELS = {
@@ -801,11 +812,34 @@ def loss_kernels(*batches):
     return sorted(names)
 
 
-def check_saved_raw_path(launches, what, *batches):
+def from_raw_calls(build):
+    """The launcher's count of from_raw_grad_kernel calls by pass (A, B)."""
+    lib = build.LIBRARY.get()
+    return [lib.from_raw_grad_calls(i) for i in (0, 1)]
+
+
+def check_from_raw(build, before, launches, what):
+    """Every launch of pass A and pass B since `before` went through the wgmma
+    kernel from_raw_grad_kernel (its launcher's count by pass equals the
+    wrappers' launches)."""
+    moved = [a - b for a, b in zip(from_raw_calls(build), before)]
+    want = [launches["sym_infonce_grad_raw"], launches["sym_infonce_grad_rawT"]]
+    check(moved == want, f"{what}: from_raw_grad_kernel calls (A, B) {moved}, wrapper "
+          f"launches {want}")
+    return moved
+
+
+def check_saved_raw_path(launches, what, *batches, build, raws):
+    """The saving forward and the from-raw schedule of the shape rule ran at
+    these batches, the recompute pass did not, and every pass A and B launch
+    since `raws` (`from_raw_calls`) went through from_raw_grad_kernel."""
     for name in loss_kernels(*batches):
         check(launches[name] > 0, f"kernel {name} was not launched by the {what} path")
     check(launches["sym_infonce_grad"] == 0,
           f"the {what} path ran the recompute pass under fused_materialize_raw=auto")
+    moved = check_from_raw(build, raws, launches, f"{what} path")
+    print(f"{what} path: from_raw_grad_kernel calls A {moved[0]}, B {moved[1]} (every pass "
+          "launch)")
 
 
 # the lse entries in the order of the walk's launcher count (`lse_walk_calls`)
@@ -839,7 +873,7 @@ def _rel(a, b):
 
 def phase_train_step(torch, build):
     """7(a): the two-tower step at bench widths, card vs CPU, at B=256 and
-    512: the two from-raw schedules of the port's shape rule."""
+    512, each with the from-raw schedule of the port's shape rule."""
     from clip_dplm_tpu_torch.config import Config, apply_overrides
     from clip_dplm_tpu_torch.experiments import bench
 
@@ -851,10 +885,11 @@ def phase_train_step(torch, build):
         batch = {"a": rng.normal(size=(B, 256)).astype(np.float32),
                  "b": rng.normal(size=(B, 1280)).astype(np.float32)}
         build.LAUNCHES.reset()
+        raws = from_raw_calls(build)
         step_card_vs_cpu(torch, f"train step B={B} (bench widths, dropout 0.1)", cfg, batch)
         torch.cuda.synchronize()
         launches = build.LAUNCHES.snapshot()
-        check_saved_raw_path(launches, f"B={B} step", B)
+        check_saved_raw_path(launches, f"B={B} step", B, build=build, raws=raws)
         other = [k for k in SAVED_RAW_KERNELS if k not in loss_kernels(B) and launches[k]]
         check(not other, f"train step B={B}: the other from-raw schedule ran too ({other})")
         print(f"train step B={B}: InfoNCE kernels {', '.join(loss_kernels(B))}")
@@ -1010,7 +1045,7 @@ def phase_train_path(torch, build):
     from clip_dplm_tpu_torch.experiments import train as train_cli
 
     build.LAUNCHES.reset()
-    walks = walk_calls(build)
+    walks, raws = walk_calls(build), from_raw_calls(build)
     overrides = bench.OVERRIDES + ["train.batch_size=256", "train.optim.warmup_steps=5",
                                    "train.optim.learning_rate=1e-3"]
     t0 = time.perf_counter()
@@ -1032,7 +1067,7 @@ def phase_train_path(torch, build):
     for name in TRAIN_KERNELS:
         if name != "sym_infonce_grad":
             check(launches[name] > 0, f"kernel {name} was not launched by the train path")
-    check_saved_raw_path(launches, "train", 256, 8192)
+    check_saved_raw_path(launches, "train", 256, 8192, build=build, raws=raws)
     check_walk(build, walks, launches, "train path (CLI and bench)")
     # the recompute pass is what "never" runs: one CLI epoch with it
     build.LAUNCHES.reset()
@@ -1154,6 +1189,7 @@ def phase_flagship_path(torch, build):
     from clip_dplm_tpu_torch.experiments import train as train_cli
 
     build.LAUNCHES.reset()
+    raws = from_raw_calls(build)
     overrides = bench.RNA_RBP_OVERRIDES + ["train.batch_size=256", "train.optim.warmup_steps=5",
                                            "train.optim.learning_rate=1e-3"]
     t0 = time.perf_counter()
@@ -1176,7 +1212,7 @@ def phase_flagship_path(torch, build):
     # the CLI's towers (S = 65 and 129 at B=256) and the bench's (S = 128 at
     # B=1024), 8 heads
     check_attention_path(launches, "flagship", (256, 65, 8), (256, 129, 8), (1024, 128, 8))
-    check_saved_raw_path(launches, "flagship", 256, 1024)
+    check_saved_raw_path(launches, "flagship", 256, 1024, build=build, raws=raws)
     # 8(e): the recompute backward's launches come from the path that runs it
     launches["short_attention_bwd"] = flagship_past_the_rule(torch, build)["short_attention_bwd"]
     phase_flagship_recompute_step(torch)
@@ -1376,7 +1412,7 @@ def phase_tf_clip_path(torch, build):
     from clip_dplm_tpu_torch.experiments import train as train_cli
 
     build.LAUNCHES.reset()
-    walks = walk_calls(build)
+    walks, raws = walk_calls(build), from_raw_calls(build)
     overrides = bench.TF_CLIP_OVERRIDES + ["train.batch_size=256", "train.optim.warmup_steps=5",
                                            "train.optim.learning_rate=1e-3"]
     t0 = time.perf_counter()
@@ -1396,7 +1432,7 @@ def phase_tf_clip_path(torch, build):
     print(f"launches during the tf_clip phase: {launches}")
     for name in list(TF_CLIP_KERNELS) + ["flash_attention"]:
         check(launches[name] > 0, f"kernel {name} was not launched by the tf_clip path")
-    check_saved_raw_path(launches, "tf_clip", 256, 4096)
+    check_saved_raw_path(launches, "tf_clip", 256, 4096, build=build, raws=raws)
     check_walk(build, walks, launches, "tf_clip path (CLI and bench)")
     return launches
 
@@ -1534,8 +1570,12 @@ def phase_cache_path(torch, build):
 def phase_saved_raw_kernels(torch, results):
     """11: the saved-raw InfoNCE's four kernels and the lse combine against
     their plain versions (the backward ones on the same raw and the plain
-    lse), bit-for-bit repeats, the whole autograd Function, and the two
-    from-raw schedules timed at the train paths' shapes."""
+    lse), bit-for-bit repeats, pass A and pass B at the clamp scale on
+    aligned pairs, the whole autograd Function, and the two from-raw
+    schedules timed at the train paths' shapes. Every pass A and B launch
+    goes through the wgmma kernel from_raw_grad_kernel, as its launcher's
+    count by pass shows."""
+    from clip_dplm_tpu_torch.experiments.raw_ab import work as raw_work
     from clip_dplm_tpu_torch.ops import _build
     from clip_dplm_tpu_torch.ops import fused_infonce as fi
 
@@ -1548,10 +1588,8 @@ def phase_saved_raw_kernels(torch, results):
     d = 512
     scale = torch.tensor([14.2857], device=dev)
     walks, launched = walk_calls(_build), _build.LAUNCHES.snapshot()
-    # 256 and a ragged 200: one cluster of the merged kernel (no partials),
-    # the launch the train CLIs' B=256 steps make
-    for what, B in (("two-tower", 8192), ("tf_clip pair", 4096), ("ragged", 1000),
-                    ("train CLI", 256), ("ragged one cluster", 200)):
+    raws = from_raw_calls(_build)
+    for what, B in SAVED_RAW_SHAPES:
         x = unit(B, d)
         y = torch.nn.functional.normalize(x + 0.5 * unit(B, d), dim=-1)
         xb, yb = x.bfloat16(), y.bfloat16()
@@ -1583,25 +1621,38 @@ def phase_saved_raw_kernels(torch, results):
                work=(2 * B * d * 2 + 4 + 2 * B * 4 + B * B * 2, 2 * B * B * d))
         args = (got[2], xb, yb, scale, *want[:2])
         raw_in = B * B * 2 + 2 * B * 4 + 4  # raw_q, both lse, scale
-        passes = (  # name, kernel, plain, outputs, bytes, ops
+        passes = (  # name, kernel, plain, outputs, (bytes, ops)
             ("sym_infonce_grad_raw", fi._kernel_grad_raw, fi._plain_grad_raw,
-             ["acc_a", "rowdot"], raw_in + B * d * 2 + B * d * 4 + B * 4, 2 * B * B * d),
+             ["acc_a", "rowdot"], raw_work("sym_infonce_grad_raw", B, B, d)),
             ("sym_infonce_grad_rawT", lambda *a: (fi._kernel_grad_rawT(*a),),
-             lambda *a: (fi._plain_grad_rawT(*a),), ["acc_b"], raw_in + B * d * 2 + B * d * 4,
-             2 * B * B * d),
+             lambda *a: (fi._plain_grad_rawT(*a),), ["acc_b"],
+             raw_work("sym_infonce_grad_rawT", B, B, d)),
             ("sym_infonce_grad_merged", fi._kernel_grad_merged, fi._plain_grad_from_raw,
-             ["acc_a", "rowdot", "acc_b"], raw_in + 2 * B * d * 2 + 2 * B * d * 4 + B * 4,
-             4 * B * B * d))
-        for name, kfn, pfn, outs, nbytes, ops in passes:
+             ["acc_a", "rowdot", "acc_b"],
+             (raw_in + 2 * B * d * 2 + 2 * B * d * 4 + B * 4, 4 * B * B * d)))
+        for name, kfn, pfn, outs, work in passes:
             err = check_outputs(torch, f"{name} {shape}", kfn(*args), pfn(*args), outs,
                                 raw_first=False)
             ms, plain_ms = timed_pair(torch, lambda: kfn(*args), lambda: pfn(*args))
             record(results, name, f"{shape} {', '.join(outs)} (on the plain lse)", err, ms,
-                   plain_ms, work=(nbytes, ops))
+                   plain_ms, work=work)
         err = check_outputs(torch, f"merged vs two-pass {shape}", fi._kernel_grad_merged(*args),
                             fi._kernel_grad_two_pass(*args), ["acc_a", "rowdot", "acc_b"],
                             raw_first=False)
         print(f"sym_infonce_grad_merged {shape}: against the two passes, max err {err:.3e}")
+        # pass A and B at the clamp of the logit scale, on the raw and lse the
+        # saving forward stores there: p near 1 or 2 on the aligned pairs'
+        # diagonal, far below it elsewhere
+        s100 = torch.tensor([100.0], device=dev)
+        *lse100, raw100 = fi._kernel_lse_save(xb, yb, s100)
+        at100 = (raw100, xb, yb, s100, *lse100)
+        err = check_outputs(torch, f"pass A and B {shape} at scale 100",
+                            fi._kernel_grad_two_pass(*at100), fi._plain_grad_from_raw(*at100),
+                            ["acc_a", "rowdot", "acc_b"], raw_first=False)
+        for name in ("sym_infonce_grad_raw", "sym_infonce_grad_rawT"):
+            results[name]["max_abs_err"] = max(results[name]["max_abs_err"], err)
+        print(f"sym_infonce_grad_raw / _rawT {shape} at scale 100 (aligned pairs, the saving "
+              f"forward's raw and lse): max err {err:.3e} (acc_a, rowdot, acc_b)")
         for name, fn in (("sym_infonce_lse_save", lambda: fi._kernel_lse_save(xb, yb, scale)),
                          ("sym_infonce_grad_raw", lambda: fi._kernel_grad_raw(*args)),
                          ("sym_infonce_grad_rawT", lambda: (fi._kernel_grad_rawT(*args),)),
@@ -1660,6 +1711,11 @@ def phase_saved_raw_kernels(torch, results):
             print(f"{what}, kernels vs plain: max err {err:.3e} (loss, da, db, dscale)")
         del graphs
     now = _build.LAUNCHES.snapshot()
+    moved = check_from_raw(_build, raws, {k: now[k] - launched[k] for k in now},
+                           "11 saved-raw InfoNCE")
+    check(min(moved) > 0, f"11: from_raw_grad_kernel calls (A, B) {moved}")
+    print(f"11: every pass A and B launch through from_raw_grad_kernel (calls A {moved[0]}, "
+          f"B {moved[1]})")
     check_walk(_build, walks, {k: now[k] - launched[k] for k in now}, "11 saved-raw InfoNCE",
                combined=False)
     phase_from_raw_schedules(torch, fi, unit, scale, d)
@@ -2203,6 +2259,8 @@ def main() -> int:
                          ("flash backward dQ", "flash_bwd_dq_kernel"),
                          ("flash backward dK/dV", "flash_bwd_dkv_kernel"),
                          ("row-CE backward <dp / 64, dX>", "row_ce_grad_kernel"),
+                         ("InfoNCE backward from the raw <dp / 64, pass B>",
+                          "from_raw_grad_kernel"),
                          ("InfoNCE lse walk <dp / 64, cols, save, mask>", "lse_walk_kernel")):
         for args, regs, spills in kernel_registers(_build.LIBRARY.build_log, kernel):
             print(f"{what} {kernel}{args}: {regs} registers, {spills}")

@@ -14,6 +14,14 @@ typedef __nv_bfloat16 bf16;
 constexpr int kWarp = 32;
 // Dynamic shared memory one block may use on Hopper (sm_90): 227 KB.
 constexpr size_t kMaxSmem = 232448;
+// The saved raw similarity's int16 fixed point, q = rint(raw · kRawQScale)
+// (the reference's RAW_QSCALE: cosines of bf16-rounded unit vectors stay
+// below ~1.008), and its reciprocal, each rounded once from double as the
+// reference's f32 arithmetic sees it: lse_walk.cu writes q, fused_infonce.cu
+// and raw_grad.cu read it.
+constexpr float kRawQScale = static_cast<float>(32767.0 / 1.01);
+constexpr float kRawQInv = static_cast<float>(1.0 / (32767.0 / 1.01));
+constexpr float kLog2e = 1.4426950408889634f;
 // Additive bias of a masked key. Finite, as in the reference: a row whose
 // keys are all masked gets uniform weights, not NaN.
 constexpr float kMaskBias = -1e30f;

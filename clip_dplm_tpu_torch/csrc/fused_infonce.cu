@@ -1,14 +1,12 @@
-// Symmetric InfoNCE over scale·a·b^T, the backward: the recompute pass and
-// the passes from the saved raw, for Hopper (sm_90a). The forward (row and
-// column logsumexp, optionally saving the raw similarity as int16) is
-// lse_walk.cu's.
+// Symmetric InfoNCE over scale·a·b^T, the backward's recompute pass and the
+// merged schedule from the saved raw, for Hopper (sm_90a). The forward (row
+// and column logsumexp, optionally saving the raw similarity as int16) is
+// lse_walk.cu's; the two passes from the saved raw (pass A, P·y and rowdot;
+// pass B, P^T·x) are raw_grad.cu's wgmma kernel.
 //
 // Replaces clip_dplm_tpu/ops/fused_infonce.py: `_sym_grad_kernel`
-// (pallas_call in `_sym_grad_pass`, the recompute schedule of the backward),
-// and the backward from the saved raw: `_sym_grad_merged_kernel`
-// (pallas_call in `_sym_grad_merged`) and `_sym_grad_raw_kernel` /
-// `_sym_grad_rawT_kernel` (the two pallas_calls in
-// `_sym_grad_passes_from_raw`).
+// (pallas_call in `_sym_grad_pass`, the recompute schedule of the backward)
+// and `_sym_grad_merged_kernel` (pallas_call in `_sym_grad_merged`).
 //
 //   sym_grad_kernel: one block per 32 rows of x, which stay in shared memory
 //     while the block walks the columns of y in 64-wide tiles (each raw tile
@@ -16,45 +14,35 @@
 //     tile, forms p = exp(s - lse_row) + exp(s - lse_col), rounds p to bf16
 //     and accumulates acc += p·y (f32) in registers, and rowdot += sum(p·raw).
 //     The caller runs it twice, (a, b) and (b, a), and does the scalar tail.
-//   sym_grad_raw_kernel (pass A): sym_grad_kernel with the raw tile read
-//     from the saved int16 (cp.async, 16-byte chunks) instead of recomputed:
-//     s = q · (scale / RAW_QSCALE), rowdot = sum(p·q) / RAW_QSCALE.
-//   sym_grad_rawT_kernel (pass B): a block owns 32 columns of raw (rows of
-//     y) and walks the row tiles of x, 64 rows at a time, reading the
-//     (64 x 32) int16 tile of its columns (four 16-byte chunks a row); p is
-//     stored as it lies (walked row, own column) and read as a column-major
-//     WMMA operand, so acc_b = p^T·x needs no transpose. It writes once: no
-//     atomics, so runs repeat bit for bit.
-//   sym_grad_merged_kernel: each raw tile is read once and contracted both
-//     ways. A cluster of 8 blocks (32 rows each, 256 rows) walks the column
-//     tiles in step. Each block forms its p tile and adds p·y to its acc_a
-//     (registers), as pass A; after one cluster barrier every block gathers
-//     the 8 p tiles of the cluster over distributed shared memory and forms
-//     its share of the cluster's (64 x dp) p^T·x tile: the 16-column
-//     d-fragments k, k + 8, ... for the block of rank k, over the cluster's
-//     256 rows, whose x columns it keeps in shared memory for the whole walk.
-//     The tile is written to the cluster's partial (one per 256 rows), and
-//     sum_partials_kernel adds the ceil(m / 256) partials in a fixed order:
-//     no atomics anywhere; up to 256 rows the one partial is acc_b itself.
-//     The TPU kernel keeps the whole (n, d) f32 sum in VMEM; no on-chip
-//     store of the H100 holds 16 MB, so the partials go through device
-//     memory (at B = 8192, d = 512: 32 partials, 512 MB written and read
-//     once).
+//   sym_grad_merged_kernel: each tile of the saved int16 raw (m, ldq) is read
+//     once (cp.async, 16-byte chunks; s = q · (scale / RAW_QSCALE), rowdot =
+//     sum(p·q) / RAW_QSCALE) and contracted both ways. A cluster of 8 blocks
+//     (32 rows each, 256 rows) walks the column tiles in step. Each block
+//     forms its p tile and adds p·y to its acc_a (registers); after one
+//     cluster barrier every block gathers the 8 p tiles of the cluster over
+//     distributed shared memory and forms its share of the cluster's
+//     (64 x dp) p^T·x tile: the 16-column d-fragments k, k + 8, ... for the
+//     block of rank k, over the cluster's 256 rows, whose x columns it keeps
+//     in shared memory for the whole walk. The tile is written to the
+//     cluster's partial (one per 256 rows), and sum_partials_kernel adds the
+//     ceil(m / 256) partials in a fixed order: no atomics anywhere; up to 256
+//     rows the one partial is acc_b itself. The TPU kernel keeps the whole
+//     (n, d) f32 sum in VMEM; no on-chip store of the H100 holds 16 MB, so
+//     the partials go through device memory (at B = 8192, d = 512: 32
+//     partials, 512 MB written and read once).
 //
 // The caller pads d to a multiple of 64 with zero columns (no change to any
-// dot product); the grad kernels' accumulator covers 32 x d in registers
-// (d <= 512: at most 64 f32 per thread). The saved raw is (m, ldq) int16
-// with ldq a multiple of 64 (>= n): whole tiles are stored and read, the
-// columns past n are masked.
+// dot product); the accumulators cover 32 x d in registers (d <= 512: at
+// most 64 f32 per thread). The saved raw's columns past n are masked.
 //
 // Bounds on the H100: at B = 8192, d = 512 the recompute pass is 137 GFLOP
-// per call, against 8 MB of operands: compute-bound.
-// From the saved raw each contraction is 69 GFLOP against the 128 MB int16
-// raw (0.04 ms at 3.35 TB/s): still bound by operations. WMMA fragments are
-// loaded from shared memory for every product, so the shared-memory
-// bandwidth, not the tensor cores, sets the rate (wgmma with operands in
-// shared memory descriptors is later work). The exps (67 M per pass) ride
-// along.
+// per call against 8 MB of operands, and the merged kernel 137 GFLOP against
+// the 128 MB int16 raw: both bound by operations. Both are WMMA designs
+// (fragments loaded from shared memory for every product, so the
+// shared-memory bandwidth, not the tensor cores, sets the rate); their
+// wgmma redesign is later work (ROADMAP, Redesign B). The shape rule
+// `ops/fused_infonce.py::_from_raw_merged` decides between the merged kernel
+// and raw_grad.cu's two passes.
 
 #include <cooperative_groups.h>
 
@@ -65,12 +53,7 @@ namespace {
 
 namespace cg = cooperative_groups;
 
-// The reciprocal of the saved raw's int16 fixed point (the reference's
-// RAW_QSCALE: cosines of bf16-rounded unit vectors stay below ~1.008),
-// rounded once from double, as the reference's f32 arithmetic sees it.
-constexpr float kRawQInv = static_cast<float>(1.0 / (32767.0 / 1.01));
 constexpr int kLdQ = kBN + 8;   // int16 pitch of a 32 x 64 raw tile
-constexpr int kLdQT = kBM + 8;  // int16 / bf16 pitch of pass B's 64 x 32 tiles
 constexpr int kCluster = 8;     // blocks of the merged kernel's cluster
 constexpr int kCRows = kCluster * kBM;
 static_assert(kThreads == kBM * kBN / 8, "one 8-entry chunk of the raw tile a thread");
@@ -174,123 +157,6 @@ sym_grad_kernel(const bf16* __restrict__ x, const bf16* __restrict__ y,
     wmma::store_matrix_sync(acc_out + size_t(r0 + rf * 16) * dp + (cf0 + 4 * t) * 16, acc[t], dp,
                             wmma::mem_row_major);
   if (threadIdx.x < rows) rowdot[r0 + threadIdx.x] = rd[threadIdx.x];
-}
-
-// Shared memory of pass A: the y tile, the int16 raw tile, the p tile.
-struct RawSmem {
-  int ld;
-  size_t y, q, p, rowdot, total;
-  __host__ __device__ explicit RawSmem(int dp) {
-    ld = dp + 8;
-    size_t off = 0;
-    y = off;      off += align128(size_t(kBN) * ld * sizeof(bf16));
-    q = off;      off += align128(size_t(kBM) * kLdQ * sizeof(int16_t));
-    p = off;      off += align128(size_t(kBM) * kLdP * sizeof(bf16));
-    rowdot = off; off += align128(kBM * sizeof(float));
-    total = off;
-  }
-};
-
-template <int NT>
-__global__ void __launch_bounds__(kThreads, 2)
-sym_grad_raw_kernel(const int16_t* __restrict__ raw_q, int ldq, const bf16* __restrict__ y,
-                    const float* __restrict__ scale_p, const float* __restrict__ lse_row,
-                    const float* __restrict__ lse_col, float* __restrict__ acc_out,
-                    float* __restrict__ rowdot, int m, int n, int dp) {
-  extern __shared__ __align__(128) unsigned char smem[];
-  const RawSmem lay(dp);
-  const int ld = lay.ld;
-  bf16* ys = reinterpret_cast<bf16*>(smem + lay.y);
-  int16_t* qs = reinterpret_cast<int16_t*>(smem + lay.q);
-  bf16* ps = reinterpret_cast<bf16*>(smem + lay.p);
-  float* rd = reinterpret_cast<float*>(smem + lay.rowdot);
-  const int r0 = blockIdx.x * kBM, rows = min(kBM, m - r0);
-  const int warp = threadIdx.x / kWarp;
-  const int rf = warp & 1, cf0 = warp >> 1;
-  const float sq = *scale_p * kRawQInv;  // dequantization and scale in one multiply
-  if (threadIdx.x < kBM) rd[threadIdx.x] = 0.f;
-
-  wmma::fragment<wmma::accumulator, 16, 16, 16, float> acc[NT];
-#pragma unroll
-  for (int t = 0; t < NT; ++t) wmma::fill_fragment(acc[t], 0.f);
-
-  for (int j0 = 0; j0 < n; j0 += kBN) {
-    stage_q(qs, kLdQ, raw_q, ldq, r0, kBM, j0, kBN, m);
-    stage(ys, ld, y, j0, kBN, n, dp);
-    cp_async_wait<0>();
-    __syncthreads();
-    p_from_raw(qs, ps, rd, sq, lse_row, lse_col, r0, rows, j0, n);
-    __syncthreads();
-    accumulate_py<NT>(acc, ps, ys, ld, rf, cf0);
-    __syncthreads();
-  }
-#pragma unroll
-  for (int t = 0; t < NT; ++t)
-    wmma::store_matrix_sync(acc_out + size_t(r0 + rf * 16) * dp + (cf0 + 4 * t) * 16, acc[t], dp,
-                            wmma::mem_row_major);
-  if (threadIdx.x < rows) rowdot[r0 + threadIdx.x] = rd[threadIdx.x] * kRawQInv;
-}
-
-// Shared memory of pass B: the x tile (64 walked rows), the 64 x 32 int16
-// raw tile of the block's columns and its p tile.
-struct RawTSmem {
-  int ld;
-  size_t x, q, p, total;
-  __host__ __device__ explicit RawTSmem(int dp) {
-    ld = dp + 8;
-    size_t off = 0;
-    x = off; off += align128(size_t(kBN) * ld * sizeof(bf16));
-    q = off; off += align128(size_t(kBN) * kLdQT * sizeof(int16_t));
-    p = off; off += align128(size_t(kBN) * kLdQT * sizeof(bf16));
-    total = off;
-  }
-};
-
-template <int NT>
-__global__ void __launch_bounds__(kThreads, 2)
-sym_grad_rawT_kernel(const int16_t* __restrict__ raw_q, int ldq, const bf16* __restrict__ x,
-                     const float* __restrict__ scale_p, const float* __restrict__ lse_row,
-                     const float* __restrict__ lse_col, float* __restrict__ acc_out, int m, int n,
-                     int dp) {
-  extern __shared__ __align__(128) unsigned char smem[];
-  const RawTSmem lay(dp);
-  const int ld = lay.ld;
-  bf16* xs = reinterpret_cast<bf16*>(smem + lay.x);
-  int16_t* qs = reinterpret_cast<int16_t*>(smem + lay.q);
-  bf16* ps = reinterpret_cast<bf16*>(smem + lay.p);
-  const int c0 = blockIdx.x * kBM, cols = min(kBM, n - c0);
-  const int warp = threadIdx.x / kWarp, lane = threadIdx.x % kWarp;
-  const int rf = warp & 1, cf0 = warp >> 1;
-  const float sq = *scale_p * kRawQInv;
-  const float lse_c = lane < cols ? lse_col[c0 + lane] : 0.f;  // the lane's own column
-
-  wmma::fragment<wmma::accumulator, 16, 16, 16, float> acc[NT];
-#pragma unroll
-  for (int t = 0; t < NT; ++t) wmma::fill_fragment(acc[t], 0.f);
-
-  for (int i0 = 0; i0 < m; i0 += kBN) {
-    stage_q(qs, kLdQT, raw_q, ldq, i0, kBN, c0, kBM, m);
-    stage(xs, ld, x, i0, kBN, m, dp);
-    cp_async_wait<0>();
-    __syncthreads();
-    // p (walked row r, own column = lane), 0 on padding
-    for (int r = warp; r < kBN; r += kWarps) {
-      float p = 0.f;
-      if (i0 + r < m && lane < cols) {
-        const float s = qs[r * kLdQT + lane] * sq;
-        p = expf(s - lse_row[i0 + r]) + expf(s - lse_c);
-      }
-      ps[r * kLdQT + lane] = __float2bfloat16(p);
-    }
-    __syncthreads();
-    accumulate_ptx<NT>(acc, ps, kLdQT, xs, ld, rf, cf0);
-    __syncthreads();
-  }
-  // acc_out is (round_up(n, 32), dp)
-#pragma unroll
-  for (int t = 0; t < NT; ++t)
-    wmma::store_matrix_sync(acc_out + size_t(c0 + rf * 16) * dp + (cf0 + 4 * t) * 16, acc[t], dp,
-                            wmma::mem_row_major);
 }
 
 // Shared memory of the merged kernel: the y tile, the int16 raw tile, the
@@ -437,7 +303,7 @@ cudaError_t launch_grad(const void* x, const void* y, const void* scale, const v
   return cudaGetLastError();
 }
 
-// The from-raw kernels' arguments, as the C entries take them.
+// The merged kernel's arguments, as its C entry takes them.
 struct FromRaw {
   const int16_t* raw_q;
   int ldq;
@@ -447,26 +313,6 @@ struct FromRaw {
   int m, n, dp;
   cudaStream_t stream;
 };
-
-template <int NT>
-cudaError_t launch_raw(const FromRaw& a) {
-  const size_t bytes = RawSmem(a.dp).total;
-  cudaError_t err = prepare(sym_grad_raw_kernel<NT>, bytes);
-  if (err != cudaSuccess) return err;
-  sym_grad_raw_kernel<NT><<<(a.m + kBM - 1) / kBM, kThreads, bytes, a.stream>>>(
-      a.raw_q, a.ldq, a.y, a.scale, a.lse_row, a.lse_col, a.acc_a, a.rowdot, a.m, a.n, a.dp);
-  return cudaGetLastError();
-}
-
-template <int NT>
-cudaError_t launch_rawT(const FromRaw& a) {
-  const size_t bytes = RawTSmem(a.dp).total;
-  cudaError_t err = prepare(sym_grad_rawT_kernel<NT>, bytes);
-  if (err != cudaSuccess) return err;
-  sym_grad_rawT_kernel<NT><<<(a.n + kBM - 1) / kBM, kThreads, bytes, a.stream>>>(
-      a.raw_q, a.ldq, a.x, a.scale, a.lse_row, a.lse_col, a.acc_b, a.m, a.n, a.dp);
-  return cudaGetLastError();
-}
 
 template <int NT>
 cudaError_t launch_merged(const FromRaw& a) {
@@ -487,33 +333,20 @@ cudaError_t launch_merged(const FromRaw& a) {
 }
 
 // One launcher for each dp = 64·NT, NT = 1..8
-template <template <int> class L>
-int dispatch(const FromRaw& a) {
+int dispatch_merged(const FromRaw& a) {
   if (a.dp % 64 || a.dp > 512 || a.m < 1 || a.n < 1 || a.ldq % 64 || a.ldq < a.n)
     return static_cast<int>(cudaErrorInvalidValue);
   switch (a.dp / 64) {
-    case 1: return static_cast<int>(L<1>::run(a));
-    case 2: return static_cast<int>(L<2>::run(a));
-    case 3: return static_cast<int>(L<3>::run(a));
-    case 4: return static_cast<int>(L<4>::run(a));
-    case 5: return static_cast<int>(L<5>::run(a));
-    case 6: return static_cast<int>(L<6>::run(a));
-    case 7: return static_cast<int>(L<7>::run(a));
-    default: return static_cast<int>(L<8>::run(a));
+    case 1: return static_cast<int>(launch_merged<1>(a));
+    case 2: return static_cast<int>(launch_merged<2>(a));
+    case 3: return static_cast<int>(launch_merged<3>(a));
+    case 4: return static_cast<int>(launch_merged<4>(a));
+    case 5: return static_cast<int>(launch_merged<5>(a));
+    case 6: return static_cast<int>(launch_merged<6>(a));
+    case 7: return static_cast<int>(launch_merged<7>(a));
+    default: return static_cast<int>(launch_merged<8>(a));
   }
 }
-template <int NT>
-struct RawL {
-  static cudaError_t run(const FromRaw& a) { return launch_raw<NT>(a); }
-};
-template <int NT>
-struct RawTL {
-  static cudaError_t run(const FromRaw& a) { return launch_rawT<NT>(a); }
-};
-template <int NT>
-struct MergedL {
-  static cudaError_t run(const FromRaw& a) { return launch_merged<NT>(a); }
-};
 
 }  // namespace
 }  // namespace clip_dplm
@@ -543,32 +376,9 @@ extern "C" int sym_infonce_grad(const void* x, const void* y, const void* scale,
 
 // From the saved raw_q (m, ldq) int16, lse_row (m), lse_col (n) f32, with
 // p = exp(s - lse_row) + exp(s - lse_col), s = raw_q · scale / RAW_QSCALE,
-// bf16 p in the products. Pass A: acc_a (round_up(m, 32), dp) f32 = P·y and
-// rowdot (m) = rowsum(p·raw_q) / RAW_QSCALE.
-extern "C" int sym_infonce_grad_raw(const void* raw_q, int ldq, const void* y, const void* scale,
-                                    const void* lse_row, const void* lse_col, void* acc_a,
-                                    void* rowdot, int m, int n, int dp, void* stream) {
-  FromRaw a{static_cast<const int16_t*>(raw_q), ldq, nullptr, static_cast<const bf16*>(y),
-            static_cast<const float*>(scale), static_cast<const float*>(lse_row),
-            static_cast<const float*>(lse_col), static_cast<float*>(acc_a),
-            static_cast<float*>(rowdot), nullptr, nullptr, m, n, dp,
-            static_cast<cudaStream_t>(stream)};
-  return dispatch<RawL>(a);
-}
-
-// Pass B: acc_b (round_up(n, 32), dp) f32 = P^T·x.
-extern "C" int sym_infonce_grad_rawT(const void* raw_q, int ldq, const void* x,
-                                     const void* scale, const void* lse_row, const void* lse_col,
-                                     void* acc_b, int m, int n, int dp, void* stream) {
-  FromRaw a{static_cast<const int16_t*>(raw_q), ldq, static_cast<const bf16*>(x), nullptr,
-            static_cast<const float*>(scale), static_cast<const float*>(lse_row),
-            static_cast<const float*>(lse_col), nullptr, nullptr, nullptr,
-            static_cast<float*>(acc_b), m, n, dp, static_cast<cudaStream_t>(stream)};
-  return dispatch<RawTL>(a);
-}
-
-// Both in one pass over raw_q, and the sum of the per-256-row partials:
-// acc_a and rowdot as pass A; part (ceil(m / 256), ldq, dp) f32 scratch
+// bf16 p in the products, both contractions in one pass over raw_q and the
+// sum of the per-256-row partials: acc_a (round_up(m, 32), dp) f32 = P·y,
+// rowdot (m) = rowsum(p·raw_q) / RAW_QSCALE; part (ceil(m / 256), ldq, dp) f32 scratch
 // (unread, and may be null, for m <= 256: the one partial is acc_b);
 // acc_b (ldq, dp) f32 = P^T·x.
 extern "C" int sym_infonce_grad_merged(const void* raw_q, int ldq, const void* x, const void* y,
@@ -581,5 +391,5 @@ extern "C" int sym_infonce_grad_merged(const void* raw_q, int ldq, const void* x
             static_cast<const float*>(lse_row), static_cast<const float*>(lse_col),
             static_cast<float*>(acc_a), static_cast<float*>(rowdot), static_cast<float*>(part),
             static_cast<float*>(acc_b), m, n, dp, static_cast<cudaStream_t>(stream)};
-  return dispatch<MergedL>(a);
+  return dispatch_merged(a);
 }

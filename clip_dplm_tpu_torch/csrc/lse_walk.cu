@@ -95,12 +95,7 @@ constexpr int kWalkRows = 128;     // own rows a block: two consumer warpgroups
 constexpr int kWalkGroup = 64;     // own rows a warpgroup: one column partial each
 constexpr int kWalkTile = 64;      // walked rows a tile: S's N
 constexpr int kWalkThreads = 384;  // two consumer warpgroups and a producer warpgroup
-constexpr float kLog2e = 1.4426950408889634f;
 constexpr float kLn2 = 0.6931471805599453f;
-// int16 fixed point of the saved raw: the reference's RAW_QSCALE, rounded
-// once from double (fused_infonce.cu's from-raw kernels read it with the
-// same constant)
-constexpr float kRawQScale = static_cast<float>(32767.0 / 1.01);
 
 // rint(v · RAW_QSCALE) in int16 for v = lo and hi (lo in the low half): the
 // product rounded to f32 and clamped to int16's range, then rounded half to
@@ -110,13 +105,6 @@ __device__ __forceinline__ uint32_t quantize_pair(float lo, float hi) {
   const float a = fminf(fmaxf(lo * kRawQScale, -32768.f), 32767.f) + kMagic;
   const float b = fminf(fmaxf(hi * kRawQScale, -32768.f), 32767.f) + kMagic;
   return __byte_perm(__float_as_uint(a), __float_as_uint(b), 0x5410);
-}
-
-// 2^x in one MUFU.EX2 (2^-inf = 0; results below 2^-126 flush to 0)
-__device__ __forceinline__ float exp2_ftz(float x) {
-  float y;
-  asm("ex2.approx.ftz.f32 %0, %1;\n" : "=f"(y) : "f"(x));
-  return y;
 }
 
 // One step of a reduce-scatter over lanes: the lanes with bit kBit set keep
@@ -130,15 +118,6 @@ __device__ __forceinline__ void scatter_sum(float (&cs)[16], int lane) {
     const float recv = __shfl_xor_sync(0xffffffffu, hi ? cs[k] : cs[k + kHalf], kBit);
     cs[k] = (hi ? cs[k + kHalf] : cs[k]) + recv;
   }
-}
-
-// Four 8x8 bf16 matrices from shared memory (lane L gives a row of matrix
-// L / 8): the A fragment of mma's m16n8k16 for the right row addresses.
-__device__ __forceinline__ void ldmatrix_x4(uint32_t (&r)[4], const bf16* p) {
-  asm volatile("ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0, %1, %2, %3}, [%4];\n"
-               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
-               : "r"(smem_u32(p))
-               : "memory");
 }
 
 // The two consumer warpgroups' turns to issue their products: warpgroup w

@@ -75,6 +75,16 @@ __device__ __forceinline__ void tma_tile(bf16* dst, const CUtensorMap* map, int 
         : "memory");
 }
 
+// One box of a 1-D tensor map at coordinate c0 into dst; completes on bar.
+__device__ __forceinline__ void tma_box_1d(void* dst, const CUtensorMap* map, int c0,
+                                           uint64_t* bar) {
+  asm volatile(
+      "cp.async.bulk.tensor.1d.shared::cluster.global.mbarrier::complete_tx::bytes"
+      " [%0], [%1, {%2}], [%3];\n" ::"r"(smem_u32(dst)),
+      "l"(reinterpret_cast<uint64_t>(map)), "r"(c0), "r"(smem_u32(bar))
+      : "memory");
+}
+
 // One box of a 2-D tensor map at coordinates (c0, c1), innermost first, into
 // dst; completes on bar.
 __device__ __forceinline__ void tma_box_2d(bf16* dst, const CUtensorMap* map, int c0, int c1,

@@ -33,6 +33,32 @@ __device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
   return *reinterpret_cast<const uint32_t*>(&h);
 }
 
+// 2^x in one MUFU.EX2 (2^-inf = 0; results below 2^-126 flush to 0)
+__device__ __forceinline__ float exp2_ftz(float x) {
+  float y;
+  asm("ex2.approx.ftz.f32 %0, %1;\n" : "=f"(y) : "f"(x));
+  return y;
+}
+
+// Four 8x8 matrices of 16-bit entries from shared memory (lane L gives the
+// address of row L % 8 of matrix L / 8; register i holds matrix i's row g,
+// entries 2t and 2t + 1, g = lane / 4, t = lane % 4): the A fragment of
+// mma's m16n8k16 (and of wgmma's A from registers) for the right row
+// addresses. The _trans form transposes each matrix as it loads: register i
+// holds matrix i's entries (2t, g) and (2t + 1, g).
+__device__ __forceinline__ void ldmatrix_x4(uint32_t (&r)[4], const void* p) {
+  asm volatile("ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0, %1, %2, %3}, [%4];\n"
+               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+               : "r"(static_cast<uint32_t>(__cvta_generic_to_shared(p)))
+               : "memory");
+}
+__device__ __forceinline__ void ldmatrix_x4_trans(uint32_t (&r)[4], const void* p) {
+  asm volatile("ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0, %1, %2, %3}, [%4];\n"
+               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+               : "r"(static_cast<uint32_t>(__cvta_generic_to_shared(p)))
+               : "memory");
+}
+
 __device__ __forceinline__ uint64_t gmma_desc(const void* smem, uint32_t lbo_bytes,
                                               uint32_t sbo_bytes) {
   const uint32_t addr = static_cast<uint32_t>(__cvta_generic_to_shared(smem));

@@ -123,6 +123,9 @@ _SIGNATURES = {
     "sym_infonce_grad_raw": [_P, _I, _P, _P, _P, _P, _P, _P, _I, _I, _I, _P],
     # raw_q, ldq, x, scale, lse_row, lse_col, acc_b, m, n, dp, stream
     "sym_infonce_grad_rawT": [_P, _I, _P, _P, _P, _P, _P, _I, _I, _I, _P],
+    # which (0: sym_infonce_grad_raw, 1: sym_infonce_grad_rawT) -> calls that
+    # launched the wgmma kernel from_raw_grad_kernel
+    "from_raw_grad_calls": [_I],
     # raw_q, ldq, x, y, scale, lse_row, lse_col, acc_a, rowdot, part, acc_b,
     # m, n, dp, stream
     "sym_infonce_grad_merged": [_P, _I, _P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _P],

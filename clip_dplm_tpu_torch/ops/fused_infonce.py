@@ -26,11 +26,12 @@ reference's:
   (`sym_infonce_lse_save`; the lse, so the loss, are the same bit for
   bit), and the backward reads it instead of recomputing: s = q * (scale /
   RAW_QSCALE), acc_a = P y, acc_b = P^T x and rowdot = rowsum(p * q) /
-  RAW_QSCALE, either in one pass over q (`sym_grad_merged_kernel`, a
-  cluster of 8 blocks sharing its p tiles, then a fixed-order sum of the
-  per-256-row partials of acc_b) or in two (`sym_grad_raw_kernel`, pass A:
-  acc_a and rowdot; `sym_grad_rawT_kernel`, pass B: acc_b). Which one is
-  fixed by shape (`_from_raw_merged`), by what the H100 runs faster.
+  RAW_QSCALE, either in two passes (`csrc/raw_grad.cu::
+  from_raw_grad_kernel`, wgmma with p formed from the int16 tile in the A
+  fragments' registers: pass A acc_a and rowdot, pass B acc_b) or in one pass
+  over q (`sym_grad_merged_kernel`, a cluster of 8 blocks sharing its p
+  tiles, then a fixed-order sum of the per-256-row partials of acc_b). Which
+  one is fixed by shape (`_from_raw_merged`), by what the H100 runs faster.
 
 The scalar tail
 
@@ -83,7 +84,7 @@ from clip_dplm_tpu_torch.ops.infonce import (
 )
 
 MAX_DIM = 512  # the grad kernels' accumulators: d f32 columns in registers
-_BM = 32  # rows per block of the symmetric backward kernels
+_BM = 32  # rows per block of the recompute and merged backward kernels
 _BN = 64  # columns per tile: the saved raw's row pitch is a multiple of it
 _WALK_ROWS = 128  # own rows a block of the lse walk (csrc/lse_walk.cu)
 _WALK_GROUP = 64  # own rows of one column partial of the walk: a warpgroup
@@ -162,13 +163,17 @@ def _plain_grad_from_raw(raw_q, x, y, scale, lse_row, lse_col):
 # ---------------------------------------------------------------------------
 
 
+def _aligned(t: torch.Tensor) -> torch.Tensor:
+    """t contiguous on a 16-byte boundary (the kernels' tensor maps)."""
+    t = t.contiguous()
+    return t if t.data_ptr() % 16 == 0 else t.clone()
+
+
 def _pad_dim(t: torch.Tensor) -> torch.Tensor:
     """Zero columns up to a multiple of 64 (no dot product changes)."""
     d = t.shape[1]
     dp = -(-d // 64) * 64
-    t = t if dp == d else torch.nn.functional.pad(t, (0, dp - d))
-    t = t.contiguous()
-    return t if t.data_ptr() % 16 == 0 else t.clone()
+    return _aligned(t if dp == d else torch.nn.functional.pad(t, (0, dp - d)))
 
 
 def _raw_pitch(n: int) -> int:
@@ -181,6 +186,18 @@ def _walk_splits(m: int, n: int, sms: int = H100_SMS) -> int:
     4 at 4096, 16 at 1000 on the H100's 132), at least one, at most one a
     64-column tile."""
     return max(1, min(-(-n // _BN), sms // -(-m // _WALK_ROWS)))
+
+
+def _from_raw_splits(n_own: int, n_walk: int, sms: int = H100_SMS) -> int:
+    """Ranges the from-raw passes split their walk into (`csrc/raw_grad.cu::
+    from_raw_splits`, which reads the card's SM count): one while the blocks of
+    64 own entries fill half the card (8192 rows), else as many as fill it
+    with one block an SM (2 at 4096, 8 at 1000), at most one a 64-entry
+    walked tile and the 8 blocks of one cluster."""
+    blocks, tiles = -(-n_own // 64), -(-n_walk // _BN)
+    if 2 * blocks > sms:
+        return 1
+    return max(1, min(8, sms // blocks, tiles))
 
 
 def _walk_groups(m: int) -> int:
@@ -281,33 +298,35 @@ def _raw_pitch_of(raw_q: torch.Tensor) -> int:
 
 def _from_raw_args(raw_q, x, y, scale, lse_row, lse_col):
     return (raw_q, _raw_pitch_of(raw_q), _pad_dim(x), _pad_dim(y), scale.data_ptr(),
-            lse_row.contiguous(), lse_col.contiguous())
+            _aligned(lse_row), _aligned(lse_col))
 
 
 def _kernel_grad_raw(raw_q, x, y, scale, lse_row, lse_col):
-    """Pass A from the saved raw: (P y, rowdot)."""
+    """Pass A from the saved raw: (P y, rowdot), `from_raw_grad_kernel<KB,
+    false>` (64 rows of raw a block, walking its columns)."""
     m, n, d = x.shape[0], y.shape[0], x.shape[1]
     q, ldq, _, yp, sp, lr, lc = _from_raw_args(raw_q, x, y, scale, lse_row, lse_col)
     dp = yp.shape[1]
-    acc_a = torch.empty((-(-m // _BM) * _BM, dp), dtype=torch.float32, device=x.device)
+    acc_a = torch.empty((m, dp), dtype=torch.float32, device=x.device)
     rowdot = torch.empty(m, dtype=torch.float32, device=x.device)
     _build.launch("sym_infonce_grad_raw", q.data_ptr(), ldq, yp.data_ptr(), sp, lr.data_ptr(),
                   lc.data_ptr(), acc_a.data_ptr(), rowdot.data_ptr(), m, n, dp,
                   _build.stream_of(x))
     _build.LAUNCHES.add("sym_infonce_grad_raw")
-    return acc_a[:m, :d], rowdot
+    return acc_a[:, :d], rowdot
 
 
 def _kernel_grad_rawT(raw_q, x, y, scale, lse_row, lse_col):
-    """Pass B from the saved raw: P^T x."""
+    """Pass B from the saved raw: P^T x, `from_raw_grad_kernel<KB, true>`
+    (64 columns of raw a block, walking its rows)."""
     m, n, d = x.shape[0], y.shape[0], x.shape[1]
     q, ldq, xp, _, sp, lr, lc = _from_raw_args(raw_q, x, y, scale, lse_row, lse_col)
     dp = xp.shape[1]
-    acc_b = torch.empty((-(-n // _BM) * _BM, dp), dtype=torch.float32, device=x.device)
+    acc_b = torch.empty((n, dp), dtype=torch.float32, device=x.device)
     _build.launch("sym_infonce_grad_rawT", q.data_ptr(), ldq, xp.data_ptr(), sp, lr.data_ptr(),
                   lc.data_ptr(), acc_b.data_ptr(), m, n, dp, _build.stream_of(x))
     _build.LAUNCHES.add("sym_infonce_grad_rawT")
-    return acc_b[:n, :d]
+    return acc_b[:, :d]
 
 
 def _kernel_grad_two_pass(raw_q, x, y, scale, lse_row, lse_col):
@@ -339,13 +358,17 @@ def _kernel_grad_merged(raw_q, x, y, scale, lse_row, lse_col):
 def _from_raw_merged(m: int) -> bool:
     """The port's choice of the from-raw schedule for m rows, fixed by shape,
     by what the H100 ran faster at d=512 in alternating rounds (chip_smoke.py
-    phase 11; PERF.md, section 6): the merged kernel while one cluster covers
-    the rows (m <= 256: its partial is acc_b, no sum; device time within
-    5 % of the two passes, and one launch where they make two, so less time
-    a call when the host issues the step), the two passes above (the merged
-    kernel's one block an SM and its partials cost it 5 % at B=512 and 1024,
-    1.7x at 4096, 2.3x at 8192)."""
-    return m <= _MERGED_ROWS
+    phase 11; PERF.md, section 6): the two passes of `from_raw_grad_kernel`
+    (wgmma, p in registers, the walk split over a cluster below 4224 rows) at
+    every batch of B = 128..8192 the rounds time. The merged kernel (WMMA, a
+    cluster of 8 blocks), which took m <= 256 while the passes were WMMA
+    too, ran 2.3-16x slower in device time from B = 200 to 8192 and 1.18x at
+    128 (its one launch, not two, made it faster host-and-device at 128-256:
+    0.053 against 0.076 ms a call at 256), so no train path takes it;
+    `_kernel_grad_merged` keeps it reachable, held to its plain version in
+    the smoke and the card tests."""
+    del m  # no batch takes the merged kernel
+    return False
 
 
 def _kernel_grad_from_raw(raw_q, x, y, scale, lse_row, lse_col):

@@ -1118,8 +1118,9 @@ def test_saved_raw_kernels_match_plain(cuda_device, np_rng, m, n, d):
     against the two passes; two launches of each kernel equal byte for
     byte (no atomics). The non-saving forward gives the same lse bits, and
     both went through the wgmma walk (its launcher's count) and one combine
-    launch each; m and n off the walk's 128-row blocks and 64-row tiles,
-    n < 64, m = 4096 (four column ranges on the H100)."""
+    launch each; each pass went through the wgmma kernel from_raw_grad_kernel
+    (its launcher's count by pass); m and n off the walk's 128-row blocks and
+    64-row tiles, n < 64, m = 4096 (four column ranges on the H100)."""
     x, y, s = _row_ce_inputs(np_rng, cuda_device, m, n, d)
     xb, yb, s32 = x.bfloat16(), y.bfloat16(), s.reshape(1)
     lib = _build.LIBRARY.get()
@@ -1132,12 +1133,14 @@ def test_saved_raw_kernels_match_plain(cuda_device, np_rng, m, n, d):
     assert _build.LAUNCHES.snapshot()["lse_combine"] == before["lse_combine"] + 2
     assert all(torch.equal(u, v) for u, v in zip(lse, plain_lse))
     *lse_ref, raw_ref = fi._plain_lse_save(xb, yb, s32)
+    calls = [lib.from_raw_grad_calls(i) for i in (0, 1)]
     two = fi._kernel_grad_two_pass(raw_q, xb, yb, s32, *lse_ref)
     merged = fi._kernel_grad_merged(raw_q, xb, yb, s32, *lse_ref)
     torch.cuda.synchronize()
     after = _build.LAUNCHES.snapshot()
     for name in SAVED_RAW_KERNELS:
         assert after[name] == before[name] + 1, name
+    assert [lib.from_raw_grad_calls(i) - calls[i] for i in (0, 1)] == [1, 1]
     torch.testing.assert_close(lse[0], lse_ref[0], **TOL)
     torch.testing.assert_close(lse[1], lse_ref[1], **TOL)
     assert raw_q.shape == (m, n) and raw_q.dtype == torch.int16
@@ -1177,6 +1180,32 @@ def test_lse_walk_at_the_clamp_scale(cuda_device, np_rng, m, n, d, aligned):
         for a, b in zip(got, fi._plain_lse(xb, yb, s32)):
             assert torch.isfinite(a).all()
             torch.testing.assert_close(a, b, **TOL)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("m,n,d", [(4096, 4096, 512), (1000, 1000, 512), (1000, 1777, 512),
+                                   (300, 700, 96), (129, 63, 512), (200, 40, 48)])
+def test_from_raw_passes_at_the_clamp_scale(cuda_device, np_rng, m, n, d):
+    """At scale 100 (the clamp of the logit scale), with aligned pairs (each
+    of their rows and columns peaks far above the rest, so p is near 1 or 2
+    on the diagonal and near 0 elsewhere): pass A and pass B on the raw and
+    lse the saving forward stores, each against its plain version on the
+    same residuals; one launch each through from_raw_grad_kernel (its
+    launcher's count by pass)."""
+    x, y, _ = _row_ce_inputs(np_rng, cuda_device, m, n, d)
+    k = min(m, n)
+    y[:k] = torch.nn.functional.normalize(x[:k] + 0.5 * y[:k], dim=-1)
+    xb, yb = x.bfloat16(), y.bfloat16()
+    s32 = torch.tensor([100.0], device=cuda_device)
+    *lse, raw_q = fi._kernel_lse_save(xb, yb, s32)
+    lib = _build.LIBRARY.get()
+    calls = [lib.from_raw_grad_calls(i) for i in (0, 1)]
+    got = fi._kernel_grad_two_pass(raw_q, xb, yb, s32, *lse)
+    torch.cuda.synchronize()
+    assert [lib.from_raw_grad_calls(i) - calls[i] for i in (0, 1)] == [1, 1]
+    assert all(torch.isfinite(t).all() for t in got)
+    _grads_close(got, fi._plain_grad_from_raw(raw_q, xb, yb, s32, *lse),
+                 ["acc_a", "rowdot", "acc_b"])
 
 
 # (m, n, n_valid, d): n_valid at 0 (every column masked), at a 64-column tile

@@ -673,10 +673,15 @@ FD_GEOMETRIES = [  # what, B, K, N, order, act, dropout, skip tail
     ("head fc1", 8192, 2048, 2048, "ln_act", "gelu", 0.1, False),
     ("head fc_out", 8192, 2048, 512, "ln_act", "none", 0.0, True),
     ("head fc0 ragged", 1000, 1024, 2048, "ln_act", "gelu", 0.1, False),
+    # the flagship's heads (d_model 512 -> 2048 -> 2048 -> 512) at its B=1024
+    ("flagship fc0", 1024, 512, 2048, "ln_act", "gelu", 0.1, False),
+    ("flagship fc1", 1024, 2048, 2048, "ln_act", "gelu", 0.1, False),
+    ("flagship fc_out", 1024, 2048, 512, "ln_act", "none", 0.0, True),
 ]
 
 
 def phase_train_kernels(torch, results):
+    from clip_dplm_tpu_torch.experiments import fused_dense_ab as fd_ab
     from clip_dplm_tpu_torch.ops import _build
     from clip_dplm_tpu_torch.ops import fused_dense as fd
     from clip_dplm_tpu_torch.ops import fused_infonce as fi
@@ -715,27 +720,62 @@ def phase_train_kernels(torch, results):
         dx_err = check_outputs(torch, f"fused_dense_gemm {shape} dx", bwd[0][:1], bwd[1][:1],
                                ["dx"])
         torch.cuda.synchronize()
-        # forward (GEMM + row epilogue) and backward (row pass + dx GEMM + dW)
+        # the row passes alone on the same inputs: the forward's epilogue over
+        # u (in place: act_ln's relu is idempotent, so repeated calls see the
+        # same u), the backward on the kernel forward's residuals; each held
+        # to its plain version and timed beside it, bound by its bytes
+        u = fd._gemm(x, wc, b.bfloat16(), N, b_row=False)
+        rows_k = fd._kernel_rows_fwd(spec, u.clone(), gm, bt, *sk)
+        rows_p = fd._plain_rows_fwd(spec, u, gm, bt, *sk)
+        if rate:
+            check(torch.equal(rows_k[0] == 0, rows_p[0] == 0),
+                  f"fused_dense_fwd_rows {shape}: dropout masks differ")
+        err = max(err, check_outputs(torch, f"fused_dense_fwd_rows {shape}", rows_k, rows_p,
+                                     ["y", "saved", "mean", "rstd"]))
+        s_buf = u.clone()
+        check(spec.ln_act or act in ("relu", "none"), f"{shape}: the in-place rows repeat")
+        ms, plain_ms = timed_pair(torch, lambda: fd._kernel_rows_fwd(spec, s_buf, gm, bt, *sk),
+                                  lambda: fd._plain_rows_fwd(spec, u, gm, bt, *sk))
+        record(results, "fused_dense_fwd_rows", shape + " forward rows", err, ms, plain_ms,
+               work=(fd_ab.work_fwd(B, N, spec, skip), 0.0))
+        res = fwd_k[1:]
+        rows_bwd = [fd._kernel_bwd(spec, dy, *res, gm, bt, None, sk[1]) for _ in range(2)]
+        torch.cuda.synchronize()
+        check(all(p is None and q is None or torch.equal(p, q) for p, q in zip(*rows_bwd)),
+              f"fused_dense_bwd_rows {shape}: two launches differ (du, dgamma, dbeta, db, dls)")
+        n_out = 5 if skip else 4  # du, dgamma, dbeta, db (, dls)
+        berr = max(berr, check_outputs(
+            torch, f"fused_dense_bwd_rows {shape}", rows_bwd[0][:n_out],
+            fd._plain_bwd(spec, dy, *res, gm, bt, None, sk[1])[:n_out],
+            ["du", "dgamma", "dbeta", "db", "dls"]))
+        ms, plain_ms = timed_pair(
+            torch, lambda: fd._kernel_bwd(spec, dy, *res, gm, bt, None, sk[1]),
+            lambda: fd._plain_bwd(spec, dy, *res, gm, bt, None, sk[1]))
+        record(results, "fused_dense_bwd_rows", shape + " backward rows", berr, ms, plain_ms,
+               work=(fd_ab.work_bwd(B, N, out_dtype.itemsize, skip, False), 0.0))
+        # the whole block beside them: forward (GEMM + row epilogue) and
+        # backward (row pass + dx GEMM + dW)
         fkw = dict(kw, skip=extra[0], layer_scale=extra[1]) if skip else kw
         with torch.no_grad():
-            ms, plain_ms = timed_pair(
+            f_ms, f_plain = timed_pair(
                 torch, lambda: fd.fused_dense_norm_act(x, w, b, gm, bt, **fkw),
                 lambda: fd.fused_dense_reference(x, w, b, gm, bt, **fkw))
-        # bytes: x, W (f32), bias/gamma/beta in, y out; ops: the product
-        work = (B * K * 2 + N * K * 4 + 3 * N * 4 + B * N * out_dtype.itemsize, 2 * B * N * K)
-        record(results, "fused_dense_fwd_rows", shape + " forward", err, ms, plain_ms, work=work)
         leaves = [t.clone().requires_grad_(True) for t in (x, w, b, gm, bt)]
         graphs = {k: fn(*leaves, **fkw) for k, fn in
                   (("kernel", fd.fused_dense_norm_act), ("plain", fd.fused_dense_reference))}
-        ms, plain_ms = timed_pair(
+        b_ms, b_plain = timed_pair(
             torch, lambda: graphs["kernel"].backward(dy, retain_graph=True),
             lambda: graphs["plain"].backward(dy, retain_graph=True))
-        # bytes: dy, x, W (bf16), the saved pre-LN rows and stats, gamma/beta in;
-        # dx, dW (f32), db/dgamma/dbeta out; ops: the dx and dW products
-        work = (B * N * out_dtype.itemsize + B * K * 2 + N * K * 2 + B * N * 2 + B * 8
-                + 2 * N * 4 + B * K * 2 + N * K * 4 + 3 * N * 4, 4 * B * N * K)
-        record(results, "fused_dense_bwd_rows", shape + " backward", berr, ms, plain_ms,
-               work=work)
+        # bytes: x, W (f32), bias/gamma/beta in, y out; ops: the product
+        f_bound = bound(B * K * 2 + N * K * 4 + 3 * N * 4 + B * N * out_dtype.itemsize,
+                        2 * B * N * K)[0]
+        # bytes: dy, x, W (bf16), the saved pre-LN rows and stats, gamma/beta
+        # in; dx, dW (f32), db/dgamma/dbeta out; ops: the dx and dW products
+        b_bound = bound(B * N * out_dtype.itemsize + B * K * 2 + N * K * 2 + B * N * 2 + B * 8
+                        + 2 * N * 4 + B * K * 2 + N * K * 4 + 3 * N * 4, 4 * B * N * K)[0]
+        print(f"block fused_dense {shape}: forward ms={f_ms:.4f} plain_ms={f_plain:.4f} "
+              f"bound_ms={f_bound:.4f}; backward ms={b_ms:.4f} plain_ms={b_plain:.4f} "
+              f"bound_ms={b_bound:.4f}")
         del graphs
         # the GEMM alone against cuBLAS (u = bf16(x W^T) + b)
         wb, bb = wc.contiguous(), b.bfloat16()

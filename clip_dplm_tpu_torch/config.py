@@ -71,7 +71,8 @@ class TowerConfig:
     architecture: str = "mlp"  # mlp | transformer | resnet
     activation: str = "relu"
     dropout: float = 0.1  # transformer only
-    # the final Dense+act+LayerNorm through the fused kernel (ops/fused_dense.py)
+    # the final Dense+act+LayerNorm through the fused kernel (ops/fused_dense.py;
+    # on the card hidden_size a multiple of 8 up to its MAX_N = 65536)
     fused_dense: bool = False
 
 
@@ -88,7 +89,8 @@ class ProjectionConfig:
     dropout: float = 0.1
     layer_scale_init: float = 1e-4
     # Dense+LN+GELU+dropout blocks through the fused kernel; act != "gelu"
-    # takes the unfused modules
+    # takes the unfused modules. On the card its widths (hidden_dim and dim)
+    # are multiples of 8 up to ops/fused_dense.MAX_N = 65536.
     fused_dense: bool = False
     l2_normalize_output: bool = False
 

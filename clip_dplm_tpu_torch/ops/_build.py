@@ -102,12 +102,14 @@ _SIGNATURES = {
     # saves_pre, seed, thresh, keep, l2, y_f32, stream
     "fused_dense_fwd_rows": [_P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I,
                              _I, _U, _U, _F, _I, _I, _P],
-    # dy, saved, mean, rstd, gamma, beta, skip, ls, row_stats, du, dskip,
-    # dg_part, dbeta_part, db_part, dls_part, B, N, ln_act, act, saves_pre,
-    # seed, thresh, keep, l2, dy_f32, stream
+    # dy, saved, mean, rstd, gamma, beta, skip, ls, du, dskip, dg, dbeta,
+    # db, dls, work, B, N, ln_act, act, saves_pre, seed, thresh, keep, l2,
+    # dy_f32, stream
     "fused_dense_bwd_rows": [_P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P,
                              _P, _P, _P, _I, _I, _I, _I, _I, _U, _U, _F, _I,
                              _I, _P],
+    # N -> bytes of the backward row pass's scratch (-1: a width it refuses)
+    "fused_dense_bwd_work": [_I],
     # x, y, scale, part, m, n, dp, nsplit, stream
     "sym_infonce_lse": [_P, _P, _P, _P, _I, _I, _I, _I, _P],
     # x, y, scale, lse_row, lse_col, acc, rowdot, m, n, dp, stream

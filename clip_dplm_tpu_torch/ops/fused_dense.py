@@ -29,6 +29,7 @@ only) and the plain version `fused_dense_reference` for CPU tensors.
 
 from __future__ import annotations
 
+import functools
 from typing import NamedTuple, Optional
 
 import numpy as np
@@ -39,6 +40,7 @@ from clip_dplm_tpu_torch.ops import _build
 LN_EPS = 1e-6  # flax nn.LayerNorm default
 ACTS = ("none", "relu", "gelu", "silu", "tanh")
 _ACT_CODE = {a: i for i, a in enumerate(ACTS)}
+MAX_N = 65536  # the widest row the CUDA row kernels take (a cluster of 8 blocks a row)
 _SQRT_2_OVER_PI = 0.7978845608028654
 _M32 = 0xFFFFFFFF
 
@@ -187,6 +189,13 @@ def _s_from_saved(spec: _Spec, saved: torch.Tensor) -> torch.Tensor:
 def _plain_fwd(spec, x, w, b, gamma, beta, skip, ls):
     cd = spec.compute_dtype
     u = (x.float() @ w.float().t()).to(cd) + b.to(cd)
+    return _plain_rows_fwd(spec, u, gamma, beta, skip, ls)
+
+
+def _plain_rows_fwd(spec, u, gamma, beta, skip, ls):
+    """The forward's row epilogue from u = bf16(x W^T) + b (compute dtype):
+    y, the saved rows, mean and rstd."""
+    cd = spec.compute_dtype
     pre = u
     if not spec.ln_act:
         u = act_fwd(spec.act, u.float()).to(cd)
@@ -288,10 +297,18 @@ def _kernel_fwd(spec, x, w, b, gamma, beta, skip, ls):
     xk = _aligned(_pad_cols(x, Kp))
     wk = _aligned(_pad_cols(w.to(torch.bfloat16), Kp))
     saved = _gemm(xk, wk, _aligned(b.to(torch.bfloat16)), N, b_row=False)
-    y = torch.empty((B, N), dtype=spec.out_dtype, device=x.device)
-    mean = torch.empty(B, dtype=torch.float32, device=x.device)
+    return _kernel_rows_fwd(spec, saved, gamma, beta, skip, ls)
+
+
+def _kernel_rows_fwd(spec, saved, gamma, beta, skip, ls):
+    """The forward's row epilogue in one launch over u = bf16(x W^T) + b
+    (`saved`, (B, N) bf16, rewritten in place where act_ln changes it): y,
+    saved, mean and rstd."""
+    B, N = saved.shape
+    y = torch.empty((B, N), dtype=spec.out_dtype, device=saved.device)
+    mean = torch.empty(B, dtype=torch.float32, device=saved.device)
     rstd = torch.empty_like(mean)
-    gamma, beta = gamma.float().contiguous(), beta.float().contiguous()
+    gamma, beta = _aligned(gamma.float()), _aligned(beta.float())
     skip_k = None if skip is None else _aligned(skip)
     ls_k = None if ls is None else ls.float().contiguous()
     _build.launch(
@@ -301,40 +318,48 @@ def _kernel_fwd(spec, x, w, b, gamma, beta, skip, ls):
         None if ls_k is None else ls_k.data_ptr(), B, N, int(spec.ln_act),
         _ACT_CODE[spec.act], int(spec.saves_pre), spec.seed & _M32,
         dropout_threshold(spec.rate) if spec.rate > 0.0 else 0, keep_prob(spec.rate),
-        int(spec.l2), int(spec.out_dtype == torch.float32), _build.stream_of(x))
+        int(spec.l2), int(spec.out_dtype == torch.float32), _build.stream_of(saved))
     _build.LAUNCHES.add("fused_dense_fwd_rows")
     return y, saved, mean, rstd
 
 
-_BWD_ROWS = 32  # rows per block of the backward row kernel
+@functools.lru_cache(maxsize=None)
+def _bwd_work(N: int) -> int:
+    """Bytes of the backward row kernel's scratch at width N."""
+    nwork = _build.LIBRARY.get().fused_dense_bwd_work(N)
+    if nwork < 0:
+        raise ValueError(f"the backward row kernel takes N <= {MAX_N}, got N={N}")
+    return nwork
 
 
 def _kernel_bwd(spec, dy, saved, mean, rstd, gamma, beta, skip, ls):
+    """The backward row pass in one launch: du, dskip (with an L2 output)
+    and the batch sums dgamma, dbeta, db and dls, all written by the
+    kernel."""
     B, N = saved.shape
     dev = saved.device
     dy = _aligned(dy)
-    nb = -(-B // _BWD_ROWS)
+    dy_f32 = int(dy.dtype == torch.float32)
     du = torch.empty((B, N), dtype=torch.bfloat16, device=dev)
     dskip = torch.empty((B, N), dtype=torch.bfloat16, device=dev) if spec.l2 else None
-    parts = torch.empty((3, nb, N), dtype=torch.float32, device=dev)
-    row_stats = torch.empty((B, 8), dtype=torch.float32, device=dev)
-    dls_part = torch.empty(nb, dtype=torch.float32, device=dev) if ls is not None else None
-    gamma, beta = gamma.float().contiguous(), beta.float().contiguous()
+    sums = torch.empty((3, N), dtype=torch.float32, device=dev)
+    dls = torch.empty(1, dtype=torch.float32, device=dev) if ls is not None else None
+    work = torch.empty(_bwd_work(N), dtype=torch.uint8, device=dev)
+    gamma, beta = _aligned(gamma.float()), _aligned(beta.float())
     skip_k = _aligned(skip) if spec.l2 else None
     ls_k = None if ls is None else ls.float().contiguous()
     ptr = lambda t: None if t is None else t.data_ptr()  # noqa: E731
     _build.launch(
         "fused_dense_bwd_rows", dy.data_ptr(), saved.data_ptr(), mean.data_ptr(),
         rstd.data_ptr(), gamma.data_ptr(), beta.data_ptr(), ptr(skip_k), ptr(ls_k),
-        row_stats.data_ptr(), du.data_ptr(), ptr(dskip), parts[0].data_ptr(), parts[1].data_ptr(),
-        parts[2].data_ptr(), ptr(dls_part), B, N, int(spec.ln_act),
-        _ACT_CODE[spec.act], int(spec.saves_pre), spec.seed & _M32,
+        du.data_ptr(), ptr(dskip), sums[0].data_ptr(), sums[1].data_ptr(), sums[2].data_ptr(),
+        ptr(dls), work.data_ptr(), B, N, int(spec.ln_act), _ACT_CODE[spec.act],
+        int(spec.saves_pre), spec.seed & _M32,
         dropout_threshold(spec.rate) if spec.rate > 0.0 else 0, keep_prob(spec.rate),
-        int(spec.l2), int(dy.dtype == torch.float32), _build.stream_of(dy))
+        int(spec.l2), dy_f32, _build.stream_of(dy))
     _build.LAUNCHES.add("fused_dense_bwd_rows")
-    dg, dbeta, db = parts.sum(dim=1)
-    dls = None if ls is None else dls_part.sum().reshape(ls.shape)
-    return du, dg, dbeta, db, dls, dskip
+    dg, dbeta, db = sums
+    return du, dg, dbeta, db, None if ls is None else dls.reshape(ls.shape), dskip
 
 
 # ---------------------------------------------------------------------------
@@ -453,7 +478,8 @@ def fused_dense_norm_act(
     x (B, K); kernel (N, K) (f32 params, cast to compute_dtype inside);
     bias / ln_scale / ln_bias (N,); skip (B, N) with layer_scale (1,).
     Returns (B, N) in out_dtype. CPU tensors take the plain version; CUDA
-    tensors take the kernels (bf16 compute, N a multiple of 8) or raise.
+    tensors take the kernels (bf16 compute, N a multiple of 8 up to MAX_N)
+    or raise.
     """
     if x.device.type == "cpu":
         return fused_dense_reference(
@@ -468,8 +494,9 @@ def fused_dense_norm_act(
         raise ValueError(f"the CUDA kernel computes in bf16, got compute_dtype={compute_dtype}")
     if out_dtype not in (torch.bfloat16, torch.float32):
         raise ValueError(f"the CUDA kernel writes bf16 or f32, got out_dtype={out_dtype}")
-    if kernel.shape[0] % 8:
-        raise ValueError(f"the CUDA kernel takes N a multiple of 8, got N={kernel.shape[0]}")
+    if kernel.shape[0] % 8 or kernel.shape[0] > MAX_N:
+        raise ValueError(f"the CUDA kernel takes N a multiple of 8 up to {MAX_N}, "
+                         f"got N={kernel.shape[0]}")
     params = (kernel, bias, ln_scale, ln_bias) + (() if skip is None else (skip, layer_scale))
     if any(p.device != x.device for p in params):
         raise ValueError("x and every parameter must be on the same CUDA device")

@@ -185,3 +185,144 @@ def test_rejects_bad_args():
         fd.fused_dense_norm_act(x, wt, b, g, bt, l2_normalize_out=True)
     with pytest.raises(ValueError, match="no kernel"):
         fd.fused_dense_norm_act(x.to("meta"), wt.to("meta"), b, g, bt)
+
+
+# ---------------------------------------------------------------------------
+# the one-launch backward row kernel's order of summation (csrc/fused_dense.cu
+# bwd_rows_kernel), modelled in plain torch and held against JAX
+# ---------------------------------------------------------------------------
+
+
+def _layout(N):
+    """(span, groups, cpt) of bwd_rows_kernel: a row group of `span`
+    threads, thread gl owning the 8-column chunks gl, gl + span, ..."""
+    nch = N // 8
+    span = 256 if nch >= 256 else -(-nch // 32) * 32
+    return span, 256 // span, -(-nch // span)
+
+
+def _row_sums(x, N):
+    """Row sums in the kernel's order: each thread its chunks in order (8
+    columns each), the warp's butterfly (xor 16, 8, 4, 2, 1), then the
+    group's warps in order."""
+    span, _, cpt = _layout(N)
+    B = x.shape[0]
+    chunks = torch.zeros(B, span * cpt, 8)
+    chunks[:, :N // 8] = x.reshape(B, N // 8, 8)
+    t = torch.zeros(B, span)
+    for k in range(cpt):
+        for e in range(8):
+            t = t + chunks[:, k * span:(k + 1) * span, e]
+    t = t.reshape(B, span // 32, 32)
+    lanes = torch.arange(32)
+    for o in (16, 8, 4, 2, 1):
+        t = t + t[:, :, lanes ^ o]
+    s = torch.zeros(B)
+    for w in range(span // 32):
+        s = s + t[:, w, 0]
+    return s
+
+
+def _column_sums(v, rows, grid, N):
+    """Column sums (and the batch sum of a per-row scalar, v of shape (B,))
+    in the kernel's order: a block's tiles b, b + grid, ... and in a tile
+    its row group's rows g, g + groups, ..., one running sum a thread; the
+    block's groups added in order; then column by column warp w adds blocks
+    w, w + 8, ... and the eight warps are added in order."""
+    _, groups, _ = _layout(N)
+    B = v.shape[0]
+    ntiles = -(-B // rows)
+    parts = []
+    for b in range(min(grid, ntiles)):
+        acc = [torch.zeros(v.shape[1:]) for _ in range(groups)]
+        for tile in range(b, ntiles, grid):
+            for g in range(groups):
+                for r in range(g, min(rows, B - tile * rows), groups):
+                    acc[g] = acc[g] + v[tile * rows + r]
+        for g in range(1, groups):
+            acc[0] = acc[0] + acc[g]
+        parts.append(acc[0])
+    total = torch.zeros(v.shape[1:])
+    for w in range(8):
+        t = torch.zeros(v.shape[1:])
+        for q in range(w, len(parts), 8):
+            t = t + parts[q]
+        total = total + t
+    return total
+
+
+def _kernel_order_bwd(spec, dy, saved, mean, rstd, gamma, beta, skip, ls, rows, grid):
+    """The plain backward (`fd._plain_bwd`, f32) with every sum over a row
+    and over the batch taken in bwd_rows_kernel's order: du, dgamma, dbeta,
+    db, dls."""
+    N = saved.shape[1]
+    dy = dy.float()
+    s = fd._s_from_saved(spec, saved).float()
+    z = (s - mean[:, None]) * rstd[:, None]
+    g, bt = gamma.float(), beta.float()
+    dyp, h = dy, torch.zeros_like(dy)
+    if ls is not None:
+        h = z * g + bt
+        if spec.ln_act and spec.act != "none":
+            h = fd.act_fwd(spec.act, h.to(spec.compute_dtype).float())
+        if spec.l2:
+            yv = skip.float() + ls * h
+            ny = torch.clamp(torch.sqrt(_row_sums(yv * yv, N)), min=1e-12)[:, None]
+            dot = _row_sums(dy * yv, N)[:, None] / ny
+            dyp = (dy - (yv / ny) * dot) / ny
+    d = dyp * ls if ls is not None else dyp
+    if spec.ln_act:
+        d = d * fd.act_grad(spec.act, (z * g + bt).to(spec.compute_dtype).float())
+    ga = d
+    m1 = _row_sums(ga * g, N)[:, None] / N
+    m2 = _row_sums(ga * g * z, N)[:, None] / N
+    du = rstd[:, None] * (ga * g - m1 - z * m2)
+    if not spec.ln_act and spec.act == "relu":
+        du = du * (s > 0.0).float()
+    sums = [_column_sums(x, rows, grid, N) for x in (ga * z, ga, du)]
+    dls = _column_sums(_row_sums(dyp * h, N)[:, None], rows, grid, N) if ls is not None else None
+    return du, *sums, dls
+
+
+@pytest.mark.parametrize("B,N,rows,grid,act,tail", [
+    (40, 128, 16, 2, "gelu", None),  # 8 row groups a block, a ragged last tile
+    (37, 384, 4, 3, "relu", None),  # 48 chunks: the row group padded to two warps
+    (8, 2560, 1, 3, "none", "skip"),  # 320 chunks: two a thread, one row a tile
+    (29, 128, 8, 5, "none", "l2"),  # the L2 output's two row sums first
+])
+def test_kernel_summation_order_matches_jax(B, N, rows, grid, act, tail):
+    """bwd_rows_kernel adds the row sums lane by lane, by a warp butterfly
+    and across warps, and the batch sums tile by tile, row group by row
+    group and block by block: a plain-torch model of that order, on the
+    port's plain forward residuals, against JAX's gradients (interpret
+    mode) at f32 (the JAX suite's rtol 2e-4; batch sums relative to their
+    largest entry)."""
+    x, w, b, g, bt = _inputs(B=B, K=24, N=N, seed=5)
+    rng = np.random.default_rng(6)
+    skip = rng.normal(size=(B, N)).astype(np.float32) if tail else None
+    ls = np.array([0.3], np.float32) if tail else None
+    kw = dict(order="ln_act" if act != "relu" else "act_ln", act=act,
+              l2_normalize_out=tail == "l2")
+
+    def jf(*a):
+        extra = dict(skip=a[5], layer_scale=a[6]) if tail else {}
+        y = jfd.fused_dense_norm_act(*a[:5], deterministic=True, interpret=True,
+                                     compute_dtype=jnp.float32, **extra, **kw)
+        return jnp.sum(jnp.sin(y)), y
+
+    arrs = (x, w, b, g, bt) + ((skip, ls) if tail else ())
+    (_, y_j), g_j = jax.value_and_grad(jf, argnums=tuple(range(len(arrs))), has_aux=True)(
+        *map(jnp.asarray, arrs))
+    spec = fd._Spec(kw["order"], act, 0.0, 0, torch.float32, torch.float32, tail == "l2")
+    t = lambda a: None if a is None else torch.from_numpy(a)  # noqa: E731
+    wt = t(w).t().contiguous()
+    y, saved, mean, rstd = fd._plain_fwd(spec, t(x), wt, t(b), t(g), t(bt), t(skip), t(ls))
+    np.testing.assert_allclose(y.numpy(), np.asarray(y_j), **F32)
+    du, dg, dbeta, db, dls = _kernel_order_bwd(spec, torch.cos(y), saved, mean, rstd, t(g),
+                                               t(bt), t(skip), t(ls), rows, grid)
+    got = [du @ wt, db, dg, dbeta] + ([dls.reshape(1)] if tail else [])
+    want = [g_j[0], g_j[2], g_j[3], g_j[4]] + ([g_j[6]] if tail else [])
+    for name, a, b_ in zip(["dx", "db", "dgamma", "dbeta", "dls"], got, want):
+        b_ = np.asarray(b_, np.float32).reshape(a.shape)
+        scale = max(1.0, float(np.abs(b_).max()))
+        np.testing.assert_allclose(a.numpy() / scale, b_ / scale, err_msg=name, **F32)

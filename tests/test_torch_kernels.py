@@ -13,6 +13,7 @@ needs an NVIDIA GPU and skips without one. The file imports no JAX, so on the ca
 import numpy as np
 import pytest
 import torch
+from torch.utils._python_dispatch import TorchDispatchMode
 
 from clip_dplm_tpu_torch.ops import _build
 from clip_dplm_tpu_torch.ops import flash_attention as fa
@@ -262,6 +263,19 @@ FD_CASES = [  # B, K, N, order, act, rate, skip, l2
     (40, 96, 128, "act_ln", "none", 0.0, False, False),
     (129, 256, 128, "ln_act", "none", 0.0, True, False),
     (129, 256, 128, "ln_act", "none", 0.0, True, True),
+    # the flagship's heads at its B=1024
+    (1024, 512, 2048, "ln_act", "gelu", 0.1, False, False),
+    (1024, 2048, 2048, "ln_act", "gelu", 0.1, False, False),
+    (1024, 2048, 512, "ln_act", "none", 0.0, True, False),
+    # B no multiple of the backward's row tile
+    (8191, 256, 1024, "ln_act", "gelu", 0.1, False, False),
+    (4243, 256, 512, "ln_act", "none", 0.0, True, True),
+    # rows past one block's 8192 columns, split over a cluster: of two; of
+    # four uneven slices (2049 chunks) with the skip tail and the L2 output;
+    # of eight at the widest row
+    (64, 256, 16384, "ln_act", "gelu", 0.1, False, False),
+    (37, 128, 16392, "ln_act", "none", 0.0, True, True),
+    (9, 64, 65536, "act_ln", "tanh", 0.0, False, False),
 ]
 
 
@@ -291,9 +305,141 @@ def test_fused_dense_matches_plain(cuda_device, np_rng, B, K, N, order, act, rat
     if rate > 0.0:
         assert torch.equal(y == 0, y_ref == 0)  # the same mask, bit for bit
         keep = fd.dropout_bits(12345, B, N, cuda_device) >= fd.dropout_threshold(rate)
-        assert torch.equal(y != 0, keep)
+        # kept where the mask keeps and the plain value is not itself 0 (at
+        # B=1024, N=2048 a kept gelu of a bf16 input may round to 0)
+        assert torch.equal(y != 0, keep & (y_ref != 0))
     torch.testing.assert_close(y.float(), y_ref.float(), **TOL)
     _grads_close(grads, grads_ref, ["dx", "dW", "db", "dgamma", "dbeta", "dskip", "dls"])
+
+
+class _AtenOps(TorchDispatchMode):
+    """The aten operators called under it, by name."""
+
+    def __init__(self):
+        super().__init__()
+        self.names = []
+
+    def __torch_dispatch__(self, func, types, args=(), kwargs=None):
+        self.names.append(str(func.overloadpacket))
+        return func(*args, **(kwargs or {}))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("B,N,order,act,rate,skip,l2", [
+    (8192, 2048, "ln_act", "gelu", 0.1, False, False),
+    (1024, 512, "ln_act", "none", 0.0, True, False),
+    (4243, 512, "ln_act", "none", 0.0, True, True),
+    (8191, 1024, "act_ln", "relu", 0.0, False, False),
+])
+def test_fused_dense_row_passes_one_launch_equal_twice(cuda_device, np_rng, B, N, order, act,
+                                                       rate, skip, l2):
+    """The backward row pass is one kernel launch that writes dgamma, dbeta,
+    db and dls itself (no torch reduction runs in the wrapper), and two
+    launches of either row pass give y, du and every sum byte for byte."""
+    f = lambda *s: torch.from_numpy(np_rng.normal(size=s).astype(np.float32)).to(cuda_device)  # noqa: E731
+    out = torch.float32 if (skip or order == "act_ln") else torch.bfloat16
+    spec = fd._Spec(order, act, rate, 99, torch.bfloat16, out, l2)
+    x, w = f(B, 256).bfloat16(), (f(N, 256) / 16).bfloat16()
+    b, bt, g = f(N) * 0.1, f(N) * 0.1, 1.0 + 0.1 * f(N)
+    sk, ls = (f(B, N).bfloat16(), torch.tensor([0.3], device=cuda_device)) if skip else (None,
+                                                                                          None)
+    fwd = [fd._kernel_fwd(spec, x, w, b, g, bt, sk, ls) for _ in range(2)]
+    assert all(torch.equal(p, q) for p, q in zip(*fwd))
+    dy = f(B, N).to(out)
+    calls = _build.LAUNCHES.snapshot()["fused_dense_bwd_rows"]
+    with _AtenOps() as ops:
+        bwd = [fd._kernel_bwd(spec, dy, *fwd[0][1:], g, bt, sk, ls) for _ in range(2)]
+    torch.cuda.synchronize()
+    assert _build.LAUNCHES.snapshot()["fused_dense_bwd_rows"] == calls + 2
+    assert not [n for n in ops.names if any(k in n for k in ("sum", "add", "reduce"))], ops.names
+    for p, q in zip(*bwd):
+        assert (p is None) == (q is None) and (p is None or torch.equal(p, q))
+    want = fd._plain_bwd(spec, dy, *fwd[0][1:], g, bt, sk, ls)
+    for i, (p, q) in enumerate(zip(bwd[0], want)):
+        if q is not None:
+            scale = 1.0 if i == 0 else max(q.abs().max().item(), 1e-30)
+            torch.testing.assert_close(p.float() / scale, q.float() / scale, **TOL)
+
+
+@pytest.mark.cuda
+def test_fused_dense_backward_shapes_sharing_a_kernel(cuda_device, np_rng):
+    """Two batches that share a backward kernel instance but not its shared
+    memory (the heads' B=8192 tiles of two rows, B=1024's of one), called
+    large, small, large: each launch runs and matches the plain version
+    (the instance's shared-memory limit does not shrink under a cached
+    shape)."""
+    f = lambda *s: torch.from_numpy(np_rng.normal(size=s).astype(np.float32)).to(cuda_device)  # noqa: E731
+    spec = fd._Spec("ln_act", "gelu", 0.1, 7, torch.bfloat16, torch.bfloat16, False)
+    g, bt = 1.0 + 0.1 * f(2048), 0.1 * f(2048)
+    for B in (8192, 1024, 8192):
+        fwd = fd._kernel_rows_fwd(spec, f(B, 2048).bfloat16(), g, bt, None, None)
+        dy = f(B, 2048).bfloat16()
+        got = fd._kernel_bwd(spec, dy, *fwd[1:], g, bt, None, None)
+        want = fd._plain_bwd(spec, dy, *fwd[1:], g, bt, None, None)
+        for i, (p, q) in enumerate(zip(got[:4], want[:4])):
+            scale = 1.0 if i == 0 else max(q.abs().max().item(), 1e-30)
+            torch.testing.assert_close(p.float() / scale, q.float() / scale, **TOL)
+
+
+# A process of its own (torch.profiler shows kernels only in a process's
+# first session) runs each row pass once at each shape under the profiler
+# and prints the CUDA kernels in the order they ran.
+_ROW_KERNELS = r"""
+import json, sys
+import torch
+from torch.profiler import ProfilerActivity, profile
+from clip_dplm_tpu_torch.ops import fused_dense as fd
+
+calls = []
+for B, N, order, act, rate, skip, l2 in json.loads(sys.argv[1]):
+    g = torch.Generator(device="cuda").manual_seed(B)
+    f = lambda *s: torch.randn(*s, generator=g, device="cuda")
+    out = torch.float32 if (skip or order == "act_ln") else torch.bfloat16
+    spec = fd._Spec(order, act, rate, 99, torch.bfloat16, out, l2)
+    u, gm, bt = f(B, N).bfloat16(), 1.0 + 0.1 * f(N), 0.1 * f(N)
+    sk, ls = (f(B, N).bfloat16(), torch.tensor([0.3], device="cuda")) if skip else (None, None)
+    dy = f(B, N).to(out)
+    _, saved, mean, rstd = fd._kernel_rows_fwd(spec, u.clone(), gm, bt, sk, ls)
+    fd._kernel_bwd(spec, dy, saved, mean, rstd, gm, bt, sk, ls)  # the library and its plans
+    calls.append((spec, u, gm, bt, sk, ls, dy))
+torch.cuda.synchronize()
+with profile(activities=[ProfilerActivity.CUDA]) as prof:
+    for spec, u, gm, bt, sk, ls, dy in calls:
+        _, saved, mean, rstd = fd._kernel_rows_fwd(spec, u, gm, bt, sk, ls)
+        fd._kernel_bwd(spec, dy, saved, mean, rstd, gm, bt, sk, ls)
+    torch.cuda.synchronize()
+ran = sorted((e for e in prof.events() if e.device_type == torch.autograd.DeviceType.CUDA),
+             key=lambda e: e.time_range.start)
+print(json.dumps([e.name for e in ran]))
+"""
+
+
+@pytest.mark.cuda
+def test_fused_dense_row_passes_are_one_kernel_each(cuda_device):
+    """Under torch.profiler each row pass is one kernel on the card: the
+    forward's fwd_rows_kernel, then the backward's bwd_rows_kernel, and
+    nothing else (no second launch, no torch sum), at the heads' shapes and
+    at a row split over a cluster."""
+    import json
+    import subprocess
+    import sys
+    from pathlib import Path
+
+    shapes = [(8192, 2048, "ln_act", "gelu", 0.1, False, False),
+              (1000, 512, "ln_act", "none", 0.0, True, False),
+              (4243, 512, "ln_act", "none", 0.0, True, True),
+              (8191, 1024, "act_ln", "relu", 0.0, False, False),
+              (64, 16384, "ln_act", "gelu", 0.1, False, False),
+              (37, 16392, "ln_act", "none", 0.0, True, True)]
+    root = Path(__file__).resolve().parents[1]
+    proc = subprocess.run([sys.executable, "-c", _ROW_KERNELS, json.dumps(shapes)], cwd=root,
+                          capture_output=True, text=True, timeout=600)
+    assert proc.returncode == 0, proc.stderr[-4000:]
+    names = json.loads(proc.stdout.strip().splitlines()[-1])
+    assert len(names) == 2 * len(shapes), names
+    for i in range(len(shapes)):
+        assert "fwd_rows_kernel" in names[2 * i], names
+        assert "bwd_rows_kernel" in names[2 * i + 1], names
 
 
 @pytest.mark.cuda
@@ -331,6 +477,10 @@ def test_train_kernel_wrappers_refuse_what_the_kernels_do_not_take(cuda_device):
         fd.fused_dense_norm_act(x, w, v, v, v, compute_dtype=torch.float32)
     with pytest.raises(ValueError, match="multiple of 8"):
         fd.fused_dense_norm_act(x, w[:100], v[:100], v[:100], v[:100])
+    wide = torch.zeros(fd.MAX_N + 8, 64, device=cuda_device)
+    vw = torch.zeros(fd.MAX_N + 8, device=cuda_device)
+    with pytest.raises(ValueError, match=f"up to {fd.MAX_N}"):
+        fd.fused_dense_norm_act(x, wide, vw, vw, vw)
     a = torch.zeros(16, 640, device=cuda_device)
     s = torch.tensor(1.0, device=cuda_device)
     with pytest.raises(ValueError, match="d <="):

@@ -267,6 +267,10 @@ TF_CLIP_KERNELS = {
     "flash_attention_bwd_dkv": ("clip_dplm_tpu_torch/csrc/flash_attention.cu",
                                 "clip_dplm_tpu/ops/flash_attention.py:251"),
 }
+# 9(a)'s tiny-S shapes: (B, S, D, H, masked): the perturbation tower, a
+# ragged S=33 (the TPU kernel's sp=48 geometry), the transformer tower's 8
+# tokens
+TINY_SHAPES = ((4096, 10, 512, 8, False), (1000, 33, 512, 8, True), (8192, 8, 512, 8, False))
 CACHE_KERNELS = {
     "row_ce_lse": ("clip_dplm_tpu_torch/csrc/lse_walk.cu",
                    "clip_dplm_tpu/ops/fused_infonce.py:102"),
@@ -354,11 +358,13 @@ def cuda_ms(torch, fn, iters: int = 20) -> float:
     return ms / iters
 
 
-def bound(nbytes: float, ops: float, kind: str = "bf16"):
+def bound(nbytes: float, ops, kind: str = "bf16"):
     """(bound_ms, bound_by): the least time for the work, the larger of the
     bytes over the memory rate and the operations over the peak of their
-    type."""
-    t_bytes, t_ops = nbytes / HBM_BYTES_PER_S * 1e3, ops / PEAK_OPS[kind] * 1e3
+    type (`ops` a count of `kind`, or counts by type, each at its rate)."""
+    ops = ops if isinstance(ops, dict) else {kind: ops}
+    t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+    t_ops = sum(n / PEAK_OPS[k] for k, n in ops.items()) * 1e3
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
 
 
@@ -1340,6 +1346,7 @@ def phase_tf_clip_kernels(torch, results):
     backward's two kernels against their plain versions, at the tf_clip
     step's shapes and beside SDPA; the backwards on the plain forward's
     residuals."""
+    from clip_dplm_tpu_torch.experiments.tiny_ab import work as tiny_work
     from clip_dplm_tpu_torch.ops import flash_attention as fa
     from clip_dplm_tpu_torch.ops import tiny_attention as ta
     from clip_dplm_tpu_torch.ops.attention import attention_reference
@@ -1348,41 +1355,67 @@ def phase_tf_clip_kernels(torch, results):
     g = torch.Generator(device=dev).manual_seed(11)
     rnd = lambda *s: torch.randn(*s, generator=g, device=dev).to(torch.bfloat16)  # noqa: E731
 
-    def ragged_mask(B, S):
+    def ragged_mask(B, S, masked_out=()):
         lens = torch.randint(S // 2, S + 1, (B,), generator=g, device=dev)
         lens[0] = S
+        for b in masked_out:  # samples whose keys are all masked
+            lens[b] = 0
         return torch.arange(S, device=dev)[None, :] < lens[:, None]
 
     def heads(t, H):
         return t.unflatten(-1, (H, -1)).transpose(1, 2)
 
-    # (B, S, D, H, masked): the perturbation tower, a ragged S=33 (the TPU
-    # kernel's sp=48 geometry), the transformer tower's 8 tokens
-    for B, S, D, H, masked in ((4096, 10, 512, 8, False), (1000, 33, 512, 8, True),
-                               (8192, 8, 512, 8, False)):
+    for B, S, D, H, masked in TINY_SHAPES:
         main = B == 4096
         qkv, dout = rnd(B, S, 3 * D), rnd(B, S, D)
-        mask = ragged_mask(B, S) if masked else None
-        mbytes = B * S if masked else 0
+        mask = ragged_mask(B, S, masked_out=(1,)) if masked else None
         o = ta.tiny_attention_reference(qkv, H, mask=mask)
         q, k, v = (heads(t, H) for t in qkv.split(D, dim=-1))
         sdpa_mask = mask if masked else torch.ones(B, S, dtype=torch.bool, device=dev)
-        shape = f"B={B} S={S} D={D} H={H}" + (" ragged" if masked else "")
+        shape = f"B={B} S={S} D={D} H={H}" + (" ragged, sample 1 all masked" if masked else "")
         with torch.no_grad():
-            # bytes: qkv, mask in, o out; f32 ops: the two (S, S, Dh) products a head
+            # bytes: qkv, mask in, o out; the two (S, S, Dh) products a head on bf16
             compare(torch, "tiny_attention_fwd", shape + " (SDPA: no out-projection)",
                     lambda: ta.tiny_attention(qkv, H, mask=mask),
                     lambda: ta.tiny_attention_reference(qkv, H, mask=mask), results,
-                    work=(B * S * 4 * D * 2 + mbytes, 4 * B * S * S * D, "f32"),
+                    work=tiny_work("tiny_attention_fwd", B, S, D, masked),
                     library_fn=sdpa_fn(torch, q, k, v, sdpa_mask) if main else None)
-        # bytes: qkv, o, dO, mask in, dqkv out; f32 ops: five (S, S, Dh) products a head
+        # bytes: qkv, o, dO, mask in, dqkv out; s, dp, dQ, dK on bf16, dV on f32
         compare(torch, "tiny_attention_bwd", shape + " (on the plain forward's residuals)",
                 lambda: ta.tiny_attention_bwd(dout, qkv, o, H, mask=mask),
                 lambda: ta.tiny_attention_bwd_reference(dout, qkv, o, H, mask=mask), results,
-                work=(B * S * 8 * D * 2 + mbytes, 10 * B * S * S * D, "f32"),
+                work=tiny_work("tiny_attention_bwd", B, S, D, masked),
                 library_fn=(sdpa_bwd_fn(torch, q, k, v, sdpa_mask, heads(dout, H))
                             if main else None),
                 normalize=True)
+        if main:
+            # a ragged mask with one fully masked sample at the main shape (its
+            # own generator: the later shapes' inputs stay as they were): both
+            # kernels against the plain versions, and two launches of each
+            # equal byte for byte (no float atomics)
+            lens = torch.randint(S // 2, S + 1, (B,), device=dev,
+                                 generator=torch.Generator(device=dev).manual_seed(12))
+            lens[1] = 0
+            mask = torch.arange(S, device=dev)[None, :] < lens[:, None]
+            o_ref = ta.tiny_attention_reference(qkv, H, mask=mask)
+            with torch.no_grad():
+                o1, o2 = (ta.tiny_attention(qkv, H, mask=mask) for _ in range(2))
+            g1, g2 = (ta.tiny_attention_bwd(dout, qkv, o_ref, H, mask=mask) for _ in range(2))
+            torch.cuda.synchronize()
+            what = f"B={B} S={S} D={D} H={H} ragged, sample 1 all masked"
+            errs = (check_outputs(torch, f"tiny_attention_fwd {what}", [o1], [o_ref], ["o"]),
+                    check_outputs(torch, f"tiny_attention_bwd {what}", [g1],
+                                  [ta.tiny_attention_bwd_reference(dout, qkv, o_ref, H,
+                                                                   mask=mask)],
+                                  ["dqkv"], raw_first=False))
+            for name, err in zip(("tiny_attention_fwd", "tiny_attention_bwd"), errs):
+                results[name]["max_abs_err"] = max(results[name]["max_abs_err"], err)
+                print(f"kernel {name} {what}: max_abs_err={err:.3e}")
+            check(torch.equal(o1.view(torch.int16), o2.view(torch.int16)),
+                  f"tiny_attention_fwd {what}: two launches differ")
+            check(torch.equal(g1.view(torch.int16), g2.view(torch.int16)),
+                  f"tiny_attention_bwd {what}: two launches differ")
+            print(f"tiny attention {what}: two launches of each kernel equal byte for byte")
     # (B, H, S): the cell tower (one sequence of 4096 cells, a degree-style
     # mask: ~5 % of the cells without neighbours), ESM-2 650M, a ragged tile
     for B, H, S, kind in ((1, 8, 4096, "degree"), (32, 20, 1024, "ragged"),
@@ -2301,7 +2334,9 @@ def main() -> int:
                          ("row-CE backward <dp / 64, dX>", "row_ce_grad_kernel"),
                          ("InfoNCE backward from the raw <dp / 64, pass B>",
                           "from_raw_grad_kernel"),
-                         ("InfoNCE lse walk <dp / 64, cols, save, mask>", "lse_walk_kernel")):
+                         ("InfoNCE lse walk <dp / 64, cols, save, mask>", "lse_walk_kernel"),
+                         ("tiny-S forward <S / 16>", "tiny_attn_fwd_kernel"),
+                         ("tiny-S backward <S / 16>", "tiny_attn_bwd_kernel")):
         for args, regs, spills in kernel_registers(_build.LIBRARY.build_log, kernel):
             print(f"{what} {kernel}{args}: {regs} registers, {spills}")
 

@@ -996,7 +996,13 @@ def _key_mask(rng, B, S):
 @pytest.mark.cuda
 @pytest.mark.parametrize("B,S,D,H,masked", [(64, 10, 512, 8, False), (19, 10, 64, 4, True),
                                             (7, 33, 512, 8, True), (9, 8, 256, 4, False),
-                                            (3, 63, 128, 2, True), (5, 2, 1024, 4, True)])
+                                            (3, 63, 128, 2, True), (5, 2, 1024, 4, True),
+                                            # one and two whole 16-row tiles and a row past
+                                            # one, three tiles, four; Dh = 24 (a k8 tail);
+                                            # S = 64 at Dh = 256 (one head a unit, one stage)
+                                            (6, 16, 256, 4, True), (5, 17, 128, 2, False),
+                                            (4, 48, 512, 8, True), (3, 64, 256, 2, True),
+                                            (7, 10, 96, 4, True), (2, 64, 1024, 4, True)])
 def test_tiny_attention_matches_plain(cuda_device, np_rng, B, S, D, H, masked):
     """Forward, then the backward kernel on the plain forward's residuals."""
     f = lambda *s: torch.from_numpy(np_rng.normal(size=s).astype(np.float32)).to(  # noqa: E731
@@ -1017,6 +1023,51 @@ def test_tiny_attention_matches_plain(cuda_device, np_rng, B, S, D, H, masked):
     assert torch.isfinite(got).all()
     _grads_close([got[..., i * D:(i + 1) * D] for i in range(3)],
                  [want[..., i * D:(i + 1) * D] for i in range(3)], ["dq", "dk", "dv"])
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("B,S,D,H", [(64, 10, 512, 8), (7, 33, 512, 8), (5, 17, 192, 8)])
+def test_tiny_attention_fully_masked_sample(cuda_device, np_rng, B, S, D, H):
+    """A sample whose keys are all masked weighs its S keys uniformly (m =
+    -1e30, p = 1 a key, l = S; padding past S takes nothing), in both kernels
+    as in the plain versions, beside ragged samples."""
+    f = lambda *s: torch.from_numpy(np_rng.normal(size=s).astype(np.float32)).to(  # noqa: E731
+        cuda_device, torch.bfloat16)
+    qkv, dout = f(B, S, 3 * D), f(B, S, D)
+    mask = _key_mask(np_rng, B, S)
+    mask[1] = False
+    mask = torch.from_numpy(mask).to(cuda_device)
+    with torch.no_grad():
+        o = ta.tiny_attention(qkv, H, mask=mask)
+    o_ref = ta.tiny_attention_reference(qkv, H, mask=mask)
+    torch.testing.assert_close(o.float(), o_ref.float(), **TOL)
+    uniform = qkv[1, :, 2 * D:].float().mean(dim=0, keepdim=True).expand(S, D)
+    torch.testing.assert_close(o[1].float(), uniform, **TOL)
+    got = ta.tiny_attention_bwd(dout, qkv, o_ref, H, mask=mask)
+    want = ta.tiny_attention_bwd_reference(dout, qkv, o_ref, H, mask=mask)
+    assert torch.isfinite(got).all()
+    _grads_close([got[..., i * D:(i + 1) * D] for i in range(3)],
+                 [want[..., i * D:(i + 1) * D] for i in range(3)], ["dq", "dk", "dv"])
+
+
+@pytest.mark.cuda
+def test_tiny_attention_launches_repeat_byte_for_byte(cuda_device):
+    """No float atomics: two launches of each kernel at the perturbation
+    tower's B=4096, S=10 (a ragged mask with one fully masked sample) give
+    the same bytes."""
+    B, S, D, H = 4096, 10, 512, 8
+    g = torch.Generator(device=cuda_device).manual_seed(3)
+    qkv = torch.randn(B, S, 3 * D, generator=g, device=cuda_device).bfloat16()
+    dout = torch.randn(B, S, D, generator=g, device=cuda_device).bfloat16()
+    lens = torch.randint(S // 2, S + 1, (B,), generator=g, device=cuda_device)
+    lens[1] = 0
+    mask = torch.arange(S, device=cuda_device)[None, :] < lens[:, None]
+    with torch.no_grad():
+        o1, o2 = (ta.tiny_attention(qkv, H, mask=mask) for _ in range(2))
+    g1, g2 = (ta.tiny_attention_bwd(dout, qkv, o1, H, mask=mask) for _ in range(2))
+    torch.cuda.synchronize()
+    assert torch.equal(o1.view(torch.int16), o2.view(torch.int16))
+    assert torch.equal(g1.view(torch.int16), g2.view(torch.int16))
 
 
 @pytest.mark.cuda

@@ -77,3 +77,76 @@ def test_tiny_backward_matches_autograd_of_plain_forward(rng, dtype):
     got = tiny_attention_bwd_reference(do, leaf.detach(), o.detach(), heads, mask=tmask)
     tol = dict(atol=1e-5, rtol=1e-5) if dtype == torch.float32 else dict(atol=3e-2, rtol=3e-2)
     torch.testing.assert_close(got.float(), leaf.grad.float(), **tol)
+
+
+def _split3(x: torch.Tensor):
+    """The backward kernel's exact split of an f32 probability into three
+    bf16 parts: hi = bf16(x), mid = bf16(x - hi), lo = bf16(x - hi - mid)."""
+    parts = []
+    for _ in range(3):
+        part = x.to(torch.bfloat16).float()
+        parts.append(part)
+        x = x - part
+    return parts
+
+
+def test_split_of_the_probabilities_is_exact():
+    """hi + mid + lo == p exactly (the remainder after the third part is 0)
+    for f32 probabilities from 1e-30 to 1: a log sweep, random draws, and
+    values one ulp either side of bf16 rounding ties."""
+    rng = np.random.default_rng(5)
+    sweep = np.concatenate([
+        np.logspace(-30, 0, 200001), rng.uniform(0, 1, 200000),
+        np.exp(-rng.uniform(0, 69, 200000))]).astype(np.float32)
+    ties = (sweep.view(np.uint32) & np.uint32(0xFFFF0000)) | np.uint32(0x8000)
+    x = np.concatenate([sweep, ties.view(np.float32),
+                        np.nextafter(ties.view(np.float32), np.float32(0)),
+                        np.nextafter(ties.view(np.float32), np.float32(2))])
+    x = torch.from_numpy(x[(x >= 1e-30) & (x <= 1)])
+    hi, mid, lo = _split3(x)
+    assert torch.equal(hi + mid + lo, x)
+    assert torch.equal(x - hi - mid - lo, torch.zeros_like(x))
+
+
+def _split_bwd(dout, qkv, o, num_heads, mask=None, scale=None):
+    """The plain backward with dV formed as the kernel forms it: the three
+    bf16 parts of prob^T, each times dO, summed in f32."""
+    import clip_dplm_tpu_torch.ops.tiny_attention as ta
+    from clip_dplm_tpu_torch.ops.attention import merge_heads, split_heads
+
+    dqkv = tiny_attention_bwd_reference(dout, qkv, o, num_heads, mask=mask, scale=scale)
+    _, _, _, p, l = ta._heads_and_probs(qkv, num_heads, mask, scale)
+    do = split_heads(dout.to(qkv.dtype), num_heads).float()
+    dv = sum(torch.einsum("bhqk,bhqd->bhkd", part, do) for part in _split3(p / l))
+    D = qkv.shape[-1] // 3
+    return torch.cat([dqkv[..., :2 * D], merge_heads(dv).to(qkv.dtype)], dim=-1)
+
+
+@pytest.mark.parametrize("B,S,D,heads,masked", [
+    (19, 10, 64, 4, True), (19, 10, 64, 4, False), (16, 33, 64, 4, True), (12, 8, 64, 8, False)])
+def test_split_dv_matches_jax_interpret(rng, monkeypatch, B, S, D, heads, masked):
+    """The whole fused projection's gradients with the backward's dV formed
+    from the three-part split, against JAX's `fused_tiny_attention_proj` in
+    interpret mode, at the JAX suite's bounds."""
+    import clip_dplm_tpu_torch.ops.tiny_attention as ta
+
+    monkeypatch.setattr(ta, "tiny_attention_bwd", _split_bwd)
+    qkv, wo, bo, mask = _inputs(rng, B, S, D, masked)
+    w = rng.normal(size=(B, S, D)).astype(np.float32)
+    valid = np.ones((B, S, 1), np.float32) if mask is None else mask[:, :, None].astype(np.float32)
+    jmask = None if mask is None else jnp.asarray(mask)
+
+    def jfused(q, o, b):
+        return jax_tiny(q, o, b, heads, mask=jmask, interpret=True)
+
+    args = (jnp.asarray(qkv), jnp.asarray(wo), jnp.asarray(bo))
+    with pltpu.force_tpu_interpret_mode():
+        jgrads = jax.grad(lambda *a: jnp.sum(jfused(*a) * w * valid), argnums=(0, 1, 2))(*args)
+    leaves = [torch.from_numpy(a).requires_grad_(True) for a in (qkv, wo.T.copy(), bo)]
+    tmask = None if mask is None else torch.from_numpy(mask)
+    got = fused_tiny_attention_proj(*leaves, heads, mask=tmask)
+    torch.sum(got * torch.from_numpy(w * valid)).backward()
+    gq, gwo, gbo = (t.grad.numpy() for t in leaves)
+    for g, jg, name in ((gq, jgrads[0], "dqkv"), (gwo.T, jgrads[1], "dwo"),
+                        (gbo, jgrads[2], "dbo")):
+        np.testing.assert_allclose(g, np.asarray(jg), atol=5e-5, rtol=2e-3, err_msg=name)

@@ -24,9 +24,14 @@ Phases, each fatal on failure (non-zero exit, no result line):
      masks equal bit for bit), the GEMM alone in both directions (x·W^T + b,
      B K-major, bias after a rounding; du·W, B MN-major, no bias) with two
      launches equal byte for byte, each beside cuBLAS at B=8192 1024->1024
-     and 2048 -> 1024 (du·W); symmetric InfoNCE at B=8192 and B=1000, d=512,
-     each forward through the wgmma lse walk (`lse_walk_kernel`, its
-     launcher's count `lse_walk_calls`) and one `lse_combine` launch;
+     and 2048 -> 1024 (du·W); symmetric InfoNCE with the recompute backward
+     at B=8192, 4096 and a ragged 1000, d=512 (loss, da, db, dscale), each
+     forward through the wgmma lse walk (`lse_walk_kernel`, its launcher's
+     count `lse_walk_calls`) and one `lse_combine` launch, each backward
+     through two launches of the recompute pass, `row_ce_grad_kernel` in its
+     symmetric mode (its launcher's count `row_ce_grad_calls(2)`); the pass
+     alone against its plain version on the plain lse, two launches equal
+     byte for byte, timed beside its bound, then the whole backward timed;
   7. the two-tower train path at the widths of the repository's bench.py:
      (a) one train step on the card (kernels) against the same step on the
      CPU (plain versions) from the same weights and batch, bf16 both,
@@ -40,7 +45,8 @@ Phases, each fatal on failure (non-zero exit, no result line):
      the InfoNCE's as the default `fused_materialize_raw="auto"` has it: the
      saving forward and the from-raw schedule the port's shape rule picks
      (the eval step's forward saves nothing), the recompute pass not at all;
-     then one CLI epoch with "never" must launch the recompute pass;
+     then one CLI epoch with "never" must launch the recompute pass, every
+     launch through row_ce_grad_kernel's symmetric mode;
   8. the flagship RNA<->RBP token transformer (experiments/bench.py --model
      rna_rbp widths: towers 120/1280 -> 512, 3 blocks of 8 heads, S = 128):
      (a) the short-S attention backward, the CLS-query attention forward
@@ -246,7 +252,7 @@ TRAIN_KERNELS = {
                              "clip_dplm_tpu/ops/fused_dense.py:517"),
     "sym_infonce_lse": ("clip_dplm_tpu_torch/csrc/lse_walk.cu",
                         "clip_dplm_tpu/ops/fused_infonce.py:1296"),
-    "sym_infonce_grad": ("clip_dplm_tpu_torch/csrc/fused_infonce.cu",
+    "sym_infonce_grad": ("clip_dplm_tpu_torch/csrc/row_ce.cu",
                          "clip_dplm_tpu/ops/fused_infonce.py:867"),
 }
 FLAGSHIP_KERNELS = {
@@ -271,6 +277,9 @@ TF_CLIP_KERNELS = {
 # ragged S=33 (the TPU kernel's sp=48 geometry), the transformer tower's 8
 # tokens
 TINY_SHAPES = ((4096, 10, 512, 8, False), (1000, 33, 512, 8, True), (8192, 8, 512, 8, False))
+# phase 6's symmetric InfoNCE batches at d = 512 (the recompute backward):
+# the two-tower step's, a tf_clip pair's, a ragged one
+SYM_GRAD_SHAPES = (("B=8192", 8192), ("B=4096", 4096), ("ragged", 1000))
 CACHE_KERNELS = {
     "row_ce_lse": ("clip_dplm_tpu_torch/csrc/lse_walk.cu",
                    "clip_dplm_tpu/ops/fused_infonce.py:102"),
@@ -688,6 +697,7 @@ FD_GEOMETRIES = [  # what, B, K, N, order, act, dropout, skip tail
 
 def phase_train_kernels(torch, results):
     from clip_dplm_tpu_torch.experiments import fused_dense_ab as fd_ab
+    from clip_dplm_tpu_torch.experiments import sym_ab
     from clip_dplm_tpu_torch.ops import _build
     from clip_dplm_tpu_torch.ops import fused_dense as fd
     from clip_dplm_tpu_torch.ops import fused_infonce as fi
@@ -812,11 +822,30 @@ def phase_train_kernels(torch, results):
                    derr, ms, plain_ms, work=(B * N * 2 + N * K * 2 + B * K * 2, 2 * B * N * K),
                    library_ms=library_time(torch, lambda: torch.mm(du, wb)))
     walks, launched = walk_calls(_build), _build.LAUNCHES.snapshot()
-    for B in (8192, 1000):
+    syms = sym_calls(_build)
+    for what, B in SYM_GRAD_SHAPES:
         d = 512
         a = torch.nn.functional.normalize(rnd(B, d), dim=-1)
         bb = torch.nn.functional.normalize(a + 0.5 * rnd(B, d), dim=-1)
         scale = torch.tensor(14.2857, device=dev)
+        shape = f"{what} d={d}"
+        # the recompute pass alone on the plain lse: against its plain
+        # version, two launches equal byte for byte, timed beside its bound
+        ab, bf, s32 = a.bfloat16(), bb.bfloat16(), scale.reshape(1)
+        lse = fi._plain_lse(ab, bf, s32)
+        got = [fi._kernel_grad(ab, bf, s32, *lse) for _ in range(2)]
+        torch.cuda.synchronize()
+        check(all(torch.equal(x, y) for x, y in zip(*got)),
+              f"sym_infonce_grad {shape}: two launches differ (acc, rowdot)")
+        perr = check_outputs(torch, f"sym_infonce_grad {shape} alone", got[0],
+                             fi._plain_grad(ab, bf, s32, *lse), ["acc", "rowdot"],
+                             raw_first=False)
+        ms, plain_ms = timed_pair(torch, lambda: fi._kernel_grad(ab, bf, s32, *lse),
+                                  lambda: fi._plain_grad(ab, bf, s32, *lse))
+        record(results, "sym_infonce_grad", shape + " one pass alone (on the plain lse)", perr,
+               ms, plain_ms, work=sym_ab.work(B, B, d))
+        del got, lse
+        # the whole loss, forward and backward, against its plain version
         outs, graphs = {}, {}
         for key, fn in (("kernel", fi.fused_symmetric_infonce),
                         ("plain", fi.fused_symmetric_infonce_reference)):
@@ -826,7 +855,6 @@ def phase_train_kernels(torch, results):
             outs[key] = [loss.detach()] + [t.grad for t in leaves]
             graphs[key] = loss
         torch.cuda.synchronize()
-        shape = f"B={B} d={d}"
         err = check_outputs(torch, f"sym_infonce {shape}", outs["kernel"], outs["plain"],
                             ["loss", "da", "db", "dscale"])
         with torch.no_grad():
@@ -843,6 +871,27 @@ def phase_train_kernels(torch, results):
         del graphs
     now = _build.LAUNCHES.snapshot()
     check_walk(_build, walks, {k: now[k] - launched[k] for k in now}, "phase 6 InfoNCE")
+    # every recompute launch above (the passes alone, the backwards and their
+    # timed repeats) went through the wgmma kernel's symmetric mode
+    check_sym(_build, syms, now["sym_infonce_grad"] - launched["sym_infonce_grad"],
+              "phase 6 InfoNCE")
+
+
+def sym_calls(build) -> int:
+    """The launcher's count of row_ce_grad_kernel calls in its symmetric mode
+    (`sym_infonce_grad`)."""
+    return build.LIBRARY.get().row_ce_grad_calls(2)
+
+
+def check_sym(build, before, launches, what):
+    """Every recompute-pass launch since `before` went through the wgmma
+    kernel row_ce_grad_kernel in its symmetric mode (its launcher's count
+    equals the wrapper's launches, and is not 0)."""
+    moved = sym_calls(build) - before
+    check(moved == launches > 0, f"{what}: row_ce_grad_kernel symmetric calls {moved}, "
+          f"sym_infonce_grad launches {launches}")
+    print(f"{what}: every recompute-pass launch through row_ce_grad_kernel's symmetric mode "
+          f"({moved} calls)")
 
 
 def loss_kernels(*batches):
@@ -1117,6 +1166,7 @@ def phase_train_path(torch, build):
     check_walk(build, walks, launches, "train path (CLI and bench)")
     # the recompute pass is what "never" runs: one CLI epoch with it
     build.LAUNCHES.reset()
+    syms = sym_calls(build)
     never = ["-o", "contrastive.fused_materialize_raw=never"]
     hist = train_cli.main(["--device", "cuda", "--epochs", "1", *never,
                            *[a for o in overrides for a in ("-o", o)]])
@@ -1127,6 +1177,7 @@ def phase_train_path(torch, build):
           f"train CLI with fused_materialize_raw=never: launches {counts}")
     print(f"train CLI with fused_materialize_raw=never (B=256, 1 epoch): train_loss "
           f"{hist['train_loss']}, sym_infonce_grad launched {counts['sym_infonce_grad']} times")
+    check_sym(build, syms, counts["sym_infonce_grad"], "train CLI with never")
     launches["sym_infonce_grad"] = counts["sym_infonce_grad"]
     return launches
 
@@ -2331,7 +2382,8 @@ def main() -> int:
                           "short_attn_bwd_block_kernel"),
                          ("flash backward dQ", "flash_bwd_dq_kernel"),
                          ("flash backward dK/dV", "flash_bwd_dkv_kernel"),
-                         ("row-CE backward <dp / 64, dX>", "row_ce_grad_kernel"),
+                         ("row-CE and recompute InfoNCE backward <dp / 64, mode: 0 dX, "
+                          "1 dY, 2 sym>", "row_ce_grad_kernel"),
                          ("InfoNCE backward from the raw <dp / 64, pass B>",
                           "from_raw_grad_kernel"),
                          ("InfoNCE lse walk <dp / 64, cols, save, mask>", "lse_walk_kernel"),

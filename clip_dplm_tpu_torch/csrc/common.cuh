@@ -7,6 +7,8 @@
 #include <mma.h>
 #include <stdint.h>
 
+#include <algorithm>
+
 namespace clip_dplm {
 
 typedef __nv_bfloat16 bf16;
@@ -152,6 +154,39 @@ __device__ inline void store8(bf16* p, const float* v) {
 #pragma unroll
   for (int e = 0; e < 4; ++e) h[e] = __floats2bfloat162_rn(v[2 * e], v[2 * e + 1]);
   *reinterpret_cast<uint4*>(p) = u;
+}
+
+// All threads of the cluster (barrier.cluster, release / acquire).
+__device__ __forceinline__ void cluster_sync() {
+  asm volatile("barrier.cluster.arrive.release.aligned;\n"
+               "barrier.cluster.wait.acquire.aligned;\n" ::: "memory");
+}
+
+// The card's SM count, read once.
+inline int sm_count() {
+  static const int n = [] {
+    int dev = 0, v = 0;
+    cudaGetDevice(&dev);
+    cudaDeviceGetAttribute(&v, cudaDevAttrMultiProcessorCount, dev);
+    return v;
+  }();
+  return n;
+}
+
+// The most blocks of one cluster (the portable limit): the ranges a walk
+// may be split into.
+constexpr int kMaxSplits = 8;
+
+// Ranges a walk of blocks of 64 own entries is split into, one block of a
+// cluster each, for n_own own entries and n_walk walked ones (raw_grad.cu's
+// passes from the raw, row_ce.cu's symmetric pass;
+// ops/fused_infonce.py::_from_raw_splits mirrors it): one while the blocks
+// fill half the card, else as many as fill it with one block an SM, at most
+// one a 64-entry walked tile and a cluster's kMaxSplits.
+inline int from_raw_splits(int n_own, int n_walk, int sms) {
+  const int blocks = (n_own + 63) / 64, tiles = (n_walk + 63) / 64;
+  if (2 * blocks > sms) return 1;
+  return std::max(1, std::min(std::min(kMaxSplits, sms / blocks), tiles));
 }
 
 }  // namespace clip_dplm

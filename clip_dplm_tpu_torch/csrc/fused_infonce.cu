@@ -1,19 +1,12 @@
-// Symmetric InfoNCE over scale·a·b^T, the backward's recompute pass and the
-// merged schedule from the saved raw, for Hopper (sm_90a). The forward (row
-// and column logsumexp, optionally saving the raw similarity as int16) is
-// lse_walk.cu's; the two passes from the saved raw (pass A, P·y and rowdot;
-// pass B, P^T·x) are raw_grad.cu's wgmma kernel.
+// The symmetric InfoNCE's merged backward from the saved raw, for Hopper
+// (sm_90a). The forward (row and column logsumexp, optionally saving the raw
+// similarity as int16) is lse_walk.cu's; the recompute pass is row_ce.cu's
+// wgmma kernel (`sym_infonce_grad`); the two passes from the saved raw (pass
+// A, P·y and rowdot; pass B, P^T·x) are raw_grad.cu's wgmma kernel.
 //
-// Replaces clip_dplm_tpu/ops/fused_infonce.py: `_sym_grad_kernel`
-// (pallas_call in `_sym_grad_pass`, the recompute schedule of the backward)
-// and `_sym_grad_merged_kernel` (pallas_call in `_sym_grad_merged`).
+// Replaces clip_dplm_tpu/ops/fused_infonce.py: `_sym_grad_merged_kernel`
+// (pallas_call in `_sym_grad_merged`).
 //
-//   sym_grad_kernel: one block per 32 rows of x, which stay in shared memory
-//     while the block walks the columns of y in 64-wide tiles (each raw tile
-//     x·y^T: bf16 operands, f32 accumulation, WMMA); it recomputes each raw
-//     tile, forms p = exp(s - lse_row) + exp(s - lse_col), rounds p to bf16
-//     and accumulates acc += p·y (f32) in registers, and rowdot += sum(p·raw).
-//     The caller runs it twice, (a, b) and (b, a), and does the scalar tail.
 //   sym_grad_merged_kernel: each tile of the saved int16 raw (m, ldq) is read
 //     once (cp.async, 16-byte chunks; s = q · (scale / RAW_QSCALE), rowdot =
 //     sum(p·q) / RAW_QSCALE) and contracted both ways. A cluster of 8 blocks
@@ -35,28 +28,65 @@
 // dot product); the accumulators cover 32 x d in registers (d <= 512: at
 // most 64 f32 per thread). The saved raw's columns past n are masked.
 //
-// Bounds on the H100: at B = 8192, d = 512 the recompute pass is 137 GFLOP
-// per call against 8 MB of operands, and the merged kernel 137 GFLOP against
-// the 128 MB int16 raw: both bound by operations. Both are WMMA designs
+// Bounds on the H100: at B = 8192, d = 512 the merged kernel is 137 GFLOP
+// against the 128 MB int16 raw: bound by operations. It is a WMMA design
 // (fragments loaded from shared memory for every product, so the
-// shared-memory bandwidth, not the tensor cores, sets the rate); their
-// wgmma redesign is later work (ROADMAP, Redesign B). The shape rule
-// `ops/fused_infonce.py::_from_raw_merged` decides between the merged kernel
-// and raw_grad.cu's two passes.
+// shared-memory bandwidth, not the tensor cores, sets the rate); its wgmma
+// redesign is later work (ROADMAP, Redesign B). The shape rule
+// `ops/fused_infonce.py::_from_raw_merged` decides between it and
+// raw_grad.cu's two passes (the passes at every batch).
 
 #include <cooperative_groups.h>
 
-#include "infonce_tiles.cuh"
+#include "common.cuh"
 
 namespace clip_dplm {
 namespace {
 
 namespace cg = cooperative_groups;
+using namespace nvcuda;
 
+constexpr int kThreads = 256;
+constexpr int kWarps = kThreads / kWarp;
+constexpr int kBM = 32;  // rows of x per block
+constexpr int kBN = 64;  // columns of y per tile
+constexpr int kLdP = kBN + 8;   // bf16 p tile
 constexpr int kLdQ = kBN + 8;   // int16 pitch of a 32 x 64 raw tile
 constexpr int kCluster = 8;     // blocks of the merged kernel's cluster
 constexpr int kCRows = kCluster * kBM;
 static_assert(kThreads == kBM * kBN / 8, "one 8-entry chunk of the raw tile a thread");
+
+// rows [r0, r0 + rows) of src (n_valid real rows, pitch dp) into dst with
+// pitch ld; rows past n_valid are zero
+__device__ inline void stage(bf16* dst, int ld, const bf16* src, int r0, int rows, int n_valid,
+                             int dp) {
+  const int cpr = dp / 8;
+  for (int c = threadIdx.x; c < rows * cpr; c += kThreads) {
+    const int r = c / cpr, k = (c % cpr) * 8;
+    const bool ok = r0 + r < n_valid;
+    cp_async16(dst + r * ld + k, ok ? src + size_t(r0 + r) * dp + k : src, ok);
+  }
+  cp_async_commit();
+}
+
+// acc[t] (fragments (rf, cf0 + 4t) of the 32 x dp accumulator) += bf16 p
+// tile (kBM x kBN) · y tile (kBN x dp)
+template <int NT>
+__device__ inline void accumulate_py(wmma::fragment<wmma::accumulator, 16, 16, 16, float>* acc,
+                                     const bf16* ps, const bf16* ys, int ld, int rf, int cf0) {
+#pragma unroll
+  for (int t = 0; t < NT; ++t) {
+    const int cf = cf0 + 4 * t;
+#pragma unroll
+    for (int kk = 0; kk < kBN; kk += 16) {
+      wmma::fragment<wmma::matrix_a, 16, 16, 16, bf16, wmma::row_major> a;
+      wmma::fragment<wmma::matrix_b, 16, 16, 16, bf16, wmma::row_major> b;
+      wmma::load_matrix_sync(a, ps + rf * 16 * kLdP + kk, kLdP);
+      wmma::load_matrix_sync(b, ys + kk * ld + cf * 16, ld);
+      wmma::mma_sync(acc[t], a, b, acc[t]);
+    }
+  }
+}
 
 // rows [r0, r0 + rows_tile) x columns [c0, c0 + cols_tile) of the saved raw
 // (pitch ldq) into dst (pitch ldd) with 16-byte cp.async; rows past n_rows
@@ -95,68 +125,6 @@ __device__ inline void p_from_raw(const int16_t* qs, bf16* ps, float* rd, float 
     dot = warp_sum(dot);
     if (lane == 0) rd[r] += dot;
   }
-}
-
-// NT: accumulator column fragments per warp; dp == 64 * NT
-template <int NT>
-__global__ void __launch_bounds__(kThreads, 2)
-sym_grad_kernel(const bf16* __restrict__ x, const bf16* __restrict__ y,
-                const float* __restrict__ scale_p, const float* __restrict__ lse_row,
-                const float* __restrict__ lse_col, float* __restrict__ acc_out,
-                float* __restrict__ rowdot, int m, int n, int dp) {
-  extern __shared__ __align__(128) unsigned char smem[];
-  const Smem lay(dp);
-  const int ld = lay.ld;
-  bf16* xs = reinterpret_cast<bf16*>(smem + lay.x);
-  bf16* ys = reinterpret_cast<bf16*>(smem + lay.y);
-  float* ss = reinterpret_cast<float*>(smem + lay.s);
-  bf16* ps = reinterpret_cast<bf16*>(smem + lay.p);
-  float* rd = reinterpret_cast<float*>(smem + lay.rowdot);
-  const int r0 = blockIdx.x * kBM, rows = min(kBM, m - r0);
-  const int warp = threadIdx.x / kWarp, lane = threadIdx.x % kWarp;
-  const int rf = warp & 1, cf0 = warp >> 1;  // acc fragments (rf, cf0 + 4t)
-  const float scale = *scale_p;
-  stage(xs, ld, x, r0, kBM, m, dp);
-  if (threadIdx.x < kBM) rd[threadIdx.x] = 0.f;
-
-  wmma::fragment<wmma::accumulator, 16, 16, 16, float> acc[NT];
-#pragma unroll
-  for (int t = 0; t < NT; ++t) wmma::fill_fragment(acc[t], 0.f);
-
-  for (int j0 = 0; j0 < n; j0 += kBN) {
-    stage(ys, ld, y, j0, kBN, n, dp);
-    cp_async_wait<0>();
-    __syncthreads();
-    raw_tile(xs, ys, ld, dp, ss);
-    __syncthreads();
-    // p = exp(s - lse_row) + exp(s - lse_col), 0 on padding; rowdot
-    for (int r = warp; r < kBM; r += kWarps) {
-      float dot = 0.f;
-#pragma unroll
-      for (int h = 0; h < 2; ++h) {
-        const int c = lane + 32 * h;
-        float p = 0.f;
-        if (r < rows && j0 + c < n) {
-          const float raw = ss[r * kLdS + c], s = raw * scale;
-          p = expf(s - lse_row[r0 + r]) + expf(s - lse_col[j0 + c]);
-          dot += p * raw;
-        }
-        ps[r * kLdP + c] = __float2bfloat16(p);
-      }
-      dot = warp_sum(dot);
-      if (lane == 0) rd[r] += dot;
-    }
-    __syncthreads();
-    // acc += bf16(p) · y_tile
-    accumulate_py<NT>(acc, ps, ys, ld, rf, cf0);
-    __syncthreads();
-  }
-  // acc_out is (round_up(m, 32), dp): whole fragments, padded rows included
-#pragma unroll
-  for (int t = 0; t < NT; ++t)
-    wmma::store_matrix_sync(acc_out + size_t(r0 + rf * 16) * dp + (cf0 + 4 * t) * 16, acc[t], dp,
-                            wmma::mem_row_major);
-  if (threadIdx.x < rows) rowdot[r0 + threadIdx.x] = rd[threadIdx.x];
 }
 
 // Shared memory of the merged kernel: the y tile, the int16 raw tile, the
@@ -289,20 +257,6 @@ cudaError_t prepare(Kernel kernel, size_t bytes) {
                               static_cast<int>(bytes));
 }
 
-template <int NT>
-cudaError_t launch_grad(const void* x, const void* y, const void* scale, const void* lse_row,
-                        const void* lse_col, void* acc, void* rowdot, int m, int n, int dp,
-                        cudaStream_t stream) {
-  const size_t bytes = Smem(dp).total;
-  cudaError_t err = prepare(sym_grad_kernel<NT>, bytes);
-  if (err != cudaSuccess) return err;
-  sym_grad_kernel<NT><<<(m + kBM - 1) / kBM, kThreads, bytes, stream>>>(
-      static_cast<const bf16*>(x), static_cast<const bf16*>(y), static_cast<const float*>(scale),
-      static_cast<const float*>(lse_row), static_cast<const float*>(lse_col),
-      static_cast<float*>(acc), static_cast<float*>(rowdot), m, n, dp);
-  return cudaGetLastError();
-}
-
 // The merged kernel's arguments, as its C entry takes them.
 struct FromRaw {
   const int16_t* raw_q;
@@ -352,27 +306,6 @@ int dispatch_merged(const FromRaw& a) {
 }  // namespace clip_dplm
 
 using namespace clip_dplm;
-
-// acc (round_up(m, 32), dp) f32 = (P_row + P_col^T)·y with bf16 p; rowdot
-// (m) f32 = rowsum(p·raw). lse_row (m), lse_col (n) f32.
-extern "C" int sym_infonce_grad(const void* x, const void* y, const void* scale,
-                                const void* lse_row, const void* lse_col, void* acc,
-                                void* rowdot, int m, int n, int dp, void* stream) {
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
-  cudaError_t err;
-  switch (dp) {
-    case 64: err = launch_grad<1>(x, y, scale, lse_row, lse_col, acc, rowdot, m, n, dp, s); break;
-    case 128: err = launch_grad<2>(x, y, scale, lse_row, lse_col, acc, rowdot, m, n, dp, s); break;
-    case 192: err = launch_grad<3>(x, y, scale, lse_row, lse_col, acc, rowdot, m, n, dp, s); break;
-    case 256: err = launch_grad<4>(x, y, scale, lse_row, lse_col, acc, rowdot, m, n, dp, s); break;
-    case 320: err = launch_grad<5>(x, y, scale, lse_row, lse_col, acc, rowdot, m, n, dp, s); break;
-    case 384: err = launch_grad<6>(x, y, scale, lse_row, lse_col, acc, rowdot, m, n, dp, s); break;
-    case 448: err = launch_grad<7>(x, y, scale, lse_row, lse_col, acc, rowdot, m, n, dp, s); break;
-    case 512: err = launch_grad<8>(x, y, scale, lse_row, lse_col, acc, rowdot, m, n, dp, s); break;
-    default: return static_cast<int>(cudaErrorInvalidValue);
-  }
-  return static_cast<int>(err);
-}
 
 // From the saved raw_q (m, ldq) int16, lse_row (m), lse_col (n) f32, with
 // p = exp(s - lse_row) + exp(s - lse_col), s = raw_q · scale / RAW_QSCALE,

@@ -86,8 +86,6 @@
 #include <cooperative_groups.h>
 #include <string.h>
 
-#include <algorithm>
-
 #include "common.cuh"
 #include "tma.cuh"
 #include "wgmma.cuh"
@@ -129,10 +127,6 @@ struct RawGradSmem {
   static_assert(kSumRowdot + kRawOwn * sizeof(float) <= kXchg, "the reduction's shared memory");
 };
 
-// The most blocks of one cluster (the portable limit): the ranges the walk
-// may be split into.
-constexpr int kMaxSplits = 8;
-
 struct RawGradArgs {
   const float* scale;     // one f32
   const float* lse_own;   // lse_row (pass A) or lse_col (pass B); the other by TMA
@@ -154,12 +148,6 @@ __device__ __forceinline__ float2 int16x2_to_float2(uint32_t v) {
 // warpgroup never arrives).
 __device__ __forceinline__ void consumers_sync() {
   asm volatile("bar.sync 5, 256;\n" ::: "memory");
-}
-
-// All threads of the cluster (barrier.cluster, release / acquire).
-__device__ __forceinline__ void cluster_sync() {
-  asm volatile("barrier.cluster.arrive.release.aligned;\n"
-               "barrier.cluster.wait.acquire.aligned;\n" ::: "memory");
 }
 
 template <int KB, bool kT>
@@ -502,27 +490,6 @@ struct FromRawCall {
   int ldq, m, n;
   cudaStream_t stream;
 };
-
-// The card's SM count, read once.
-int sm_count() {
-  static const int n = [] {
-    int dev = 0, v = 0;
-    cudaGetDevice(&dev);
-    cudaDeviceGetAttribute(&v, cudaDevAttrMultiProcessorCount, dev);
-    return v;
-  }();
-  return n;
-}
-
-// Ranges the walk is split into for n_own own entries and n_walk walked
-// ones (ops/fused_infonce.py::_from_raw_splits mirrors it): one while the
-// 64-entry blocks fill half the card, else as many as fill it with one
-// block an SM, at most one a walked tile and a cluster's kMaxSplits.
-int from_raw_splits(int n_own, int n_walk, int sms) {
-  const int blocks = (n_own + kRawOwn - 1) / kRawOwn, tiles = (n_walk + kRawTile - 1) / kRawTile;
-  if (2 * blocks > sms) return 1;
-  return std::max(1, std::min(std::min(kMaxSplits, sms / blocks), tiles));
-}
 
 template <int KB, bool kT>
 cudaError_t launch_from_raw(const FromRawCall& c) {

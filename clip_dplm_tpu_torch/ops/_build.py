@@ -137,8 +137,8 @@ _SIGNATURES = {
     "row_ce_dx": [_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _P],
     # x, y, scale, lse, ptx, m, n_rows, dp, stream
     "row_ce_dy": [_P, _P, _P, _P, _P, _I, _I, _I, _P],
-    # which (0: row_ce_dx, 1: row_ce_dy) -> calls that launched the wgmma
-    # kernel row_ce_grad_kernel
+    # which (0: row_ce_dx, 1: row_ce_dy, 2: sym_infonce_grad) -> calls that
+    # launched the wgmma kernel row_ce_grad_kernel
     "row_ce_grad_calls": [_I],
 }
 

@@ -20,7 +20,9 @@ reference's:
 - recompute (`materialize_raw=False`): the gradient pass runs twice, (a, b)
   and (b, a), each recomputing the raw tiles and forming
   acc = (P_row + P_col^T) y with p rounded to the dot dtype, and
-  rowdot = rowsum(p * raw) (`sym_grad_kernel`);
+  rowdot = rowsum(p * raw) (`sym_infonce_grad`: `csrc/row_ce.cu::
+  row_ce_grad_kernel` in its symmetric mode, the row CE's wgmma kernel with
+  the walked rows' lse read beside the own rows');
 - saved raw (`materialize_raw=True`): the forward also stores the raw
   similarity before the scale as int16, q = round(raw * RAW_QSCALE)
   (`sym_infonce_lse_save`; the lse, so the loss, are the same bit for
@@ -84,7 +86,7 @@ from clip_dplm_tpu_torch.ops.infonce import (
 )
 
 MAX_DIM = 512  # the grad kernels' accumulators: d f32 columns in registers
-_BM = 32  # rows per block of the recompute and merged backward kernels
+_BM = 32  # rows per block of the merged backward kernel
 _BN = 64  # columns per tile: the saved raw's row pitch is a multiple of it
 _WALK_ROWS = 128  # own rows a block of the lse walk (csrc/lse_walk.cu)
 _WALK_GROUP = 64  # own rows of one column partial of the walk: a warpgroup
@@ -189,11 +191,12 @@ def _walk_splits(m: int, n: int, sms: int = H100_SMS) -> int:
 
 
 def _from_raw_splits(n_own: int, n_walk: int, sms: int = H100_SMS) -> int:
-    """Ranges the from-raw passes split their walk into (`csrc/raw_grad.cu::
-    from_raw_splits`, which reads the card's SM count): one while the blocks of
-    64 own entries fill half the card (8192 rows), else as many as fill it
-    with one block an SM (2 at 4096, 8 at 1000), at most one a 64-entry
-    walked tile and the 8 blocks of one cluster."""
+    """Ranges the from-raw passes and the recompute pass split their walk into
+    (`csrc/common.cuh::from_raw_splits`, which the launchers give the card's
+    SM count): one while the blocks of 64 own entries fill half the card
+    (8192 rows), else as many as fill it with one block an SM (2 at 4096, 8
+    at 1000), at most one a 64-entry walked tile and the 8 blocks of one
+    cluster."""
     blocks, tiles = -(-n_own // 64), -(-n_walk // _BN)
     if 2 * blocks > sms:
         return 1
@@ -273,16 +276,20 @@ def _kernel_lse_save(x, y, scale):
 
 
 def _kernel_grad(x, y, scale, lse_row, lse_col):
+    """The recompute pass: ((P_row + P_col^T) y (m, d), rowdot (m)),
+    `row_ce_grad_kernel` in its symmetric mode (64 rows of x a cluster,
+    walking the rows of y split over `_from_raw_splits` blocks; the valid
+    rows only)."""
     m, n, d = x.shape[0], y.shape[0], x.shape[1]
     xp, yp = _pad_dim(x), _pad_dim(y)
     dp = xp.shape[1]
-    acc = torch.empty((-(-m // _BM) * _BM, dp), dtype=torch.float32, device=x.device)
+    acc = torch.empty((m, dp), dtype=torch.float32, device=x.device)
     rowdot = torch.empty(m, dtype=torch.float32, device=x.device)
     _build.launch("sym_infonce_grad", xp.data_ptr(), yp.data_ptr(), scale.data_ptr(),
                   lse_row.contiguous().data_ptr(), lse_col.contiguous().data_ptr(),
                   acc.data_ptr(), rowdot.data_ptr(), m, n, dp, _build.stream_of(x))
     _build.LAUNCHES.add("sym_infonce_grad")
-    return acc[:m, :d], rowdot
+    return acc[:, :d], rowdot
 
 
 def _raw_pitch_of(raw_q: torch.Tensor) -> int:

@@ -28,6 +28,7 @@ from clip_dplm_tpu_torch.ops.attention import (
 from clip_dplm_tpu_torch.ops import fused_dense as fd
 from clip_dplm_tpu_torch.ops import fused_infonce as fi
 from clip_dplm_tpu_torch.ops.flash_attention import flash_attention
+from clip_dplm_tpu_torch.ops.infonce import effective_scale
 from clip_dplm_tpu_torch.ops.short_attention import (
     fused_short_attention_qkv_proj,
     fused_short_attention_qkv_proj_reference,
@@ -443,8 +444,14 @@ def test_fused_dense_row_passes_are_one_kernel_each(cuda_device):
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("B,d", [(136, 48), (1000, 512), (64, 128), (33, 200)])
+@pytest.mark.parametrize("B,d", [(136, 48), (1000, 512), (64, 128), (33, 200), (4096, 512),
+                                 (65, 512)])
 def test_sym_infonce_matches_plain(cuda_device, np_rng, B, d):
+    """The symmetric loss with the recompute backward against its plain
+    version (loss, da, db, dscale); its two backward launches go through
+    row_ce_grad_kernel's symmetric mode (the launcher's count 2), and the
+    pass alone, on the plain lse, gives the same bytes in two launches and
+    agrees with its plain version."""
     a, b = (torch.from_numpy(np_rng.normal(size=(B, d)).astype(np.float32)).to(cuda_device)
             for _ in range(2))
     a, b = torch.nn.functional.normalize(a, dim=-1), torch.nn.functional.normalize(b, dim=-1)
@@ -456,16 +463,64 @@ def test_sym_infonce_matches_plain(cuda_device, np_rng, B, d):
         loss.backward()
         return loss.detach(), [ta.grad, tb.grad, ts.grad]
 
+    lib = _build.LIBRARY.get()
     before = _build.LAUNCHES.snapshot()
+    calls = lib.row_ce_grad_calls(2)
     loss, grads = run(fi.fused_symmetric_infonce)
     torch.cuda.synchronize()
     after = _build.LAUNCHES.snapshot()
     assert after["sym_infonce_lse"] == before["sym_infonce_lse"] + 1
     assert after["sym_infonce_grad"] == before["sym_infonce_grad"] + 2
+    assert lib.row_ce_grad_calls(2) - calls == 2
     loss_ref, grads_ref = run(fi.fused_symmetric_infonce_reference)
     assert torch.isfinite(loss)
     torch.testing.assert_close(loss, loss_ref, **TOL)
     _grads_close(grads, grads_ref, ["da", "db", "dscale"])
+    ab, bb, s32 = a.bfloat16(), b.bfloat16(), scale.reshape(1)
+    lse = fi._plain_lse(ab, bb, s32)
+    got = [fi._kernel_grad(ab, bb, s32, *lse) for _ in range(2)]
+    torch.cuda.synchronize()
+    assert [tuple(t.shape) for t in got[0]] == [(B, d), (B,)]
+    assert all(torch.equal(x, y) for x, y in zip(*got))
+    _grads_close(got[0], fi._plain_grad(ab, bb, s32, *lse), ["acc", "rowdot"])
+
+
+@pytest.mark.cuda
+def test_auto_takes_the_recompute_pass_past_the_raw_limit(cuda_device, np_rng):
+    """fused_clip_loss under "auto" at B = 18432 (B·B·2 bytes past
+    MATERIALIZE_BYTES_LIMIT): the non-saving forward and two recompute-pass
+    launches through row_ce_grad_kernel's symmetric mode, no saving forward
+    and no pass from the raw; the loss and the gradients of the embeddings
+    and the logit scale against the plain version."""
+    B, d = 18432, 64
+    assert not fi._resolve_materialize("auto", B, B)
+    a, b, _ = _row_ce_inputs(np_rng, cuda_device, B, B, d)
+    ls = torch.tensor(2.3, device=cuda_device)
+
+    def run(kernel):
+        ta, tb, tls = (t.clone().requires_grad_(True) for t in (a, b, ls))
+        if kernel:
+            loss, _ = fi.fused_clip_loss(ta, tb, tls, dot_dtype=torch.bfloat16,
+                                         assume_normalized=True)
+        else:
+            loss = fi.fused_symmetric_infonce_reference(ta, tb, effective_scale(tls),
+                                                        torch.bfloat16)
+        loss.backward()
+        return loss.detach(), [ta.grad, tb.grad, tls.grad]
+
+    lib = _build.LIBRARY.get()
+    before = _build.LAUNCHES.snapshot()
+    calls = lib.row_ce_grad_calls(2)
+    loss, grads = run(True)
+    torch.cuda.synchronize()
+    after = _build.LAUNCHES.snapshot()
+    moved = {k: after[k] - before[k] for k in after if after[k] != before[k]}
+    assert moved == {"sym_infonce_lse": 1, "lse_combine": 1, "sym_infonce_grad": 2}, moved
+    assert lib.row_ce_grad_calls(2) - calls == 2
+    loss_ref, grads_ref = run(False)
+    assert torch.isfinite(loss)
+    torch.testing.assert_close(loss, loss_ref, **TOL)
+    _grads_close(grads, grads_ref, ["da", "db", "dlogit_scale"])
 
 
 @pytest.mark.cuda

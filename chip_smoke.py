@@ -135,7 +135,8 @@ Phases, each fatal on failure (non-zero exit, no result line):
      of each kernel equal byte for byte; the non-saving forward's lse equal
      to the saving one's bit for bit; the combine of the walk's partials
      (`lse_combine`) against its plain version (torch.logsumexp), two
-     launches equal, and the walk timed alone; every forward through
+     launches equal, timed beside one torch.logsumexp over the stacked
+     partials (the library call), and the walk timed alone; every forward through
      lse_walk_kernel; the whole fused_symmetric_infonce
      with materialize_raw=True: its backward against the plain backward on
      the raw and lse its own forward saved (da, db, dscale) at B=8192 and
@@ -194,7 +195,36 @@ Phases, each fatal on failure (non-zero exit, no result line):
      same for one DPLM EsmBlock with RoPE at B=256, S=128: the packed RoPE
      kernel against rotary_embed, attention_dispatch and out (y, dh and
      every attention parameter's gradient). The kernels line takes the four
-     launch counts from (a).
+     launch counts from (a);
+ 15. the RNA <-> protein CLIP with an ESM-2 8M tower (experiment=esm_clip,
+     experiments/bench.py --model esm_clip widths) and CLIP-guided DPLM
+     generation: (a) the packed short-S attention at ESM-2 8M's Dh=16
+     (padded to 64 in the kernels; forward, saving forward, the backward
+     from the probabilities and the recompute backward, each naming its
+     design) and its out-projection at N=K=320, at the esm_clip step's
+     B=64 S=64 and the guided scorer's 8 x 32 = 256 rows at S=128, with
+     RoPE; the RNA tower's tiny-S pair and CLS pair at B=64 S=33; the heads'
+     fused Dense blocks at B=64 (fused_dense_geometry); each against its
+     plain version in bf16 (atol = rtol = 2e-2), timed beside SDPA or
+     cuBLAS and its bound at the true Dh; (b) one esm_clip step on the card
+     against the CPU, B=16, dropout on, as 7(a); (c) the train CLI with
+     experiment=esm_clip (B=64, 4 epochs), whose loss must fall and whose
+     validation R@1 (train/metrics.py::retrieval_metrics) must rise above
+     the untrained weights'; (d) experiments/bench.py --model esm_clip at
+     B=64; every kernel of the esm_clip path must launch in (c)+(d), the
+     packed attention in the rule's mode, and no fused loss kernel (the
+     config's use_fused_kernel is false); (e) the server with
+     --guided-random and --conditions-npz at full width (DPLM 640/12/10, 32
+     rows, L=126, 100 steps, 8 candidates; the ESM-2 8M embed tower as the
+     scorer): guided requests by condition_id and by condition, each score
+     the best of its candidates' (recomputed from the scorer's own
+     embeddings) and each sequence that candidate, a 400 for an unknown id
+     and for a condition of another width than the scorer's, unguided traffic beside guided, both lanes in /v1/stats; (f) soft
+     guidance with an ESMProteinCLIP's protein side as the scorer for 4
+     sampler steps of 256 rows (the packed attention's saving forward and
+     backward at the scorer's shape every step), then its bias on one
+     sampler state of 32 rows on the card against the CPU within
+     STEP_NOISE_FACTOR x its bf16-vs-f32 noise.
 Prints a JSON line of per-kernel results (each kernel's time at its main
 shape, its plain version's, the library call's where there is one, and the
 bound: the larger of the bytes it must move over 3.35 TB/s and its
@@ -211,6 +241,7 @@ import subprocess
 import sys
 import threading
 import time
+import urllib.error
 import urllib.request
 
 import numpy as np
@@ -695,132 +726,142 @@ FD_GEOMETRIES = [  # what, B, K, N, order, act, dropout, skip tail
 ]
 
 
-def phase_train_kernels(torch, results):
+def fused_dense_geometry(torch, results, rnd, what, B, K, N, order, act, rate, skip):
+    """One fused Dense geometry of phase 6 (`FD_GEOMETRIES`): the block's
+    forward and backward, the row passes alone, the GEMM alone (and at the
+    two-tower heads' fc0 the du·W direction), each against its plain
+    version and timed beside it."""
     from clip_dplm_tpu_torch.experiments import fused_dense_ab as fd_ab
+    from clip_dplm_tpu_torch.ops import fused_dense as fd
+
+    dev = torch.device("cuda")
+    x, w = rnd(B, K).bfloat16(), rnd(N, K) / K ** 0.5
+    b, gm, bt = rnd(N) * 0.1, 1.0 + 0.1 * rnd(N), rnd(N) * 0.1
+    extra = (rnd(B, N).bfloat16(), torch.tensor([0.3], device=dev)) if skip else ()
+    out_dtype = torch.float32 if (skip or order == "act_ln") else torch.bfloat16
+    dy = rnd(B, N).to(out_dtype)
+    kw = dict(order=order, act=act, dropout_rate=rate, dropout_seed=777,
+              deterministic=rate == 0.0, out_dtype=out_dtype)
+    shape = f"{what} B={B} K={K} N={N} {order} {act}" + (f" dropout {rate}" if rate else "")
+    # forward on the same inputs; then the whole backward (row kernels,
+    # dx GEMM, dW) on the same inputs (dy and the kernel forward's
+    # residuals): a relu whose input rounds to the other side of 0 in one
+    # of two forwards would flip a whole du entry, which is rounding, not
+    # a kernel fault
+    spec = fd._Spec(order, act, rate, 777, torch.bfloat16, out_dtype, False)
+    wc, sk = w.bfloat16(), extra if skip else (None, None)
+    fwd_k = fd._kernel_fwd(spec, x, wc, b, gm, bt, *sk)
+    fwd_p = fd._plain_fwd(spec, x, wc, b, gm, bt, *sk)
+    if rate:
+        check(torch.equal(fwd_k[0] == 0, fwd_p[0] == 0),
+              f"fused_dense {shape}: dropout masks differ")
+    err = check_outputs(torch, f"fused_dense {shape} forward", fwd_k[:2], fwd_p[:2],
+                        ["y", "saved"])
+    bwd = [fd._backward(spec, dy, x, wc, gm, bt, *fwd_k[1:], None, sk[1], use_kernel=k)
+           for k in (True, False)]
+    names = ["dx", "dW", "db", "dgamma", "dbeta"] + (["dls", "dskip"] if skip else [])
+    berr = check_outputs(torch, f"fused_dense {shape} backward", bwd[0][:len(names)],
+                         bwd[1][:len(names)], names)
+    dx_err = check_outputs(torch, f"fused_dense_gemm {shape} dx", bwd[0][:1], bwd[1][:1],
+                           ["dx"])
+    torch.cuda.synchronize()
+    # the row passes alone on the same inputs: the forward's epilogue over
+    # u (in place: act_ln's relu is idempotent, so repeated calls see the
+    # same u), the backward on the kernel forward's residuals; each held
+    # to its plain version and timed beside it, bound by its bytes
+    u = fd._gemm(x, wc, b.bfloat16(), N, b_row=False)
+    rows_k = fd._kernel_rows_fwd(spec, u.clone(), gm, bt, *sk)
+    rows_p = fd._plain_rows_fwd(spec, u, gm, bt, *sk)
+    if rate:
+        check(torch.equal(rows_k[0] == 0, rows_p[0] == 0),
+              f"fused_dense_fwd_rows {shape}: dropout masks differ")
+    err = max(err, check_outputs(torch, f"fused_dense_fwd_rows {shape}", rows_k, rows_p,
+                                 ["y", "saved", "mean", "rstd"]))
+    s_buf = u.clone()
+    check(spec.ln_act or act in ("relu", "none"), f"{shape}: the in-place rows repeat")
+    ms, plain_ms = timed_pair(torch, lambda: fd._kernel_rows_fwd(spec, s_buf, gm, bt, *sk),
+                              lambda: fd._plain_rows_fwd(spec, u, gm, bt, *sk))
+    record(results, "fused_dense_fwd_rows", shape + " forward rows", err, ms, plain_ms,
+           work=(fd_ab.work_fwd(B, N, spec, skip), 0.0))
+    res = fwd_k[1:]
+    rows_bwd = [fd._kernel_bwd(spec, dy, *res, gm, bt, None, sk[1]) for _ in range(2)]
+    torch.cuda.synchronize()
+    check(all(p is None and q is None or torch.equal(p, q) for p, q in zip(*rows_bwd)),
+          f"fused_dense_bwd_rows {shape}: two launches differ (du, dgamma, dbeta, db, dls)")
+    n_out = 5 if skip else 4  # du, dgamma, dbeta, db (, dls)
+    berr = max(berr, check_outputs(
+        torch, f"fused_dense_bwd_rows {shape}", rows_bwd[0][:n_out],
+        fd._plain_bwd(spec, dy, *res, gm, bt, None, sk[1])[:n_out],
+        ["du", "dgamma", "dbeta", "db", "dls"]))
+    ms, plain_ms = timed_pair(
+        torch, lambda: fd._kernel_bwd(spec, dy, *res, gm, bt, None, sk[1]),
+        lambda: fd._plain_bwd(spec, dy, *res, gm, bt, None, sk[1]))
+    record(results, "fused_dense_bwd_rows", shape + " backward rows", berr, ms, plain_ms,
+           work=(fd_ab.work_bwd(B, N, out_dtype.itemsize, skip, False), 0.0))
+    # the whole block beside them: forward (GEMM + row epilogue) and
+    # backward (row pass + dx GEMM + dW)
+    fkw = dict(kw, skip=extra[0], layer_scale=extra[1]) if skip else kw
+    with torch.no_grad():
+        f_ms, f_plain = timed_pair(
+            torch, lambda: fd.fused_dense_norm_act(x, w, b, gm, bt, **fkw),
+            lambda: fd.fused_dense_reference(x, w, b, gm, bt, **fkw))
+    leaves = [t.clone().requires_grad_(True) for t in (x, w, b, gm, bt)]
+    graphs = {k: fn(*leaves, **fkw) for k, fn in
+              (("kernel", fd.fused_dense_norm_act), ("plain", fd.fused_dense_reference))}
+    b_ms, b_plain = timed_pair(
+        torch, lambda: graphs["kernel"].backward(dy, retain_graph=True),
+        lambda: graphs["plain"].backward(dy, retain_graph=True))
+    # bytes: x, W (f32), bias/gamma/beta in, y out; ops: the product
+    f_bound = bound(B * K * 2 + N * K * 4 + 3 * N * 4 + B * N * out_dtype.itemsize,
+                    2 * B * N * K)[0]
+    # bytes: dy, x, W (bf16), the saved pre-LN rows and stats, gamma/beta
+    # in; dx, dW (f32), db/dgamma/dbeta out; ops: the dx and dW products
+    b_bound = bound(B * N * out_dtype.itemsize + B * K * 2 + N * K * 2 + B * N * 2 + B * 8
+                    + 2 * N * 4 + B * K * 2 + N * K * 4 + 3 * N * 4, 4 * B * N * K)[0]
+    print(f"block fused_dense {shape}: forward ms={f_ms:.4f} plain_ms={f_plain:.4f} "
+          f"bound_ms={f_bound:.4f}; backward ms={b_ms:.4f} plain_ms={b_plain:.4f} "
+          f"bound_ms={b_bound:.4f}")
+    del graphs
+    # the GEMM alone against cuBLAS (u = bf16(x W^T) + b)
+    wb, bb = wc.contiguous(), b.bfloat16()
+    got = fd._gemm(x, wb, bb, N, b_row=False)
+    want = (x.float() @ wb.float().t()).bfloat16() + bb
+    gerr = check_outputs(torch, f"fused_dense_gemm {shape}", [got], [want], ["u"])
+    check(torch.equal(got, fd._gemm(x, wb, bb, N, b_row=False)),
+          f"fused_dense_gemm {shape}: two launches differ")
+    ms, plain_ms = timed_pair(
+        torch, lambda: fd._gemm(x, wb, bb, N, b_row=False),
+        lambda: (x.float() @ wb.float().t()).bfloat16() + bb)
+    record(results, "fused_dense_gemm", f"M={B} N={N} K={K} (x W^T + b)",
+           max(gerr, dx_err), ms, plain_ms,
+           work=(B * K * 2 + N * K * 2 + N * 2 + B * N * 2, 2 * B * N * K),
+           library_ms=library_time(torch, lambda: torch.nn.functional.linear(x, wb, bb)))
+    # the other direction alone against cuBLAS: dx = du·W, B = W row-major
+    # (MN-major), no bias; at 1024 -> 2048 that is Kr = 2048 -> Nc = 1024
+    du = rnd(B, N).bfloat16()
+    got = fd._gemm(du, wb, None, K, b_row=True)
+    check(torch.equal(got, fd._gemm(du, wb, None, K, b_row=True)),
+          f"fused_dense_gemm {shape} du W: two launches differ")
+    if B == 8192 and (K, N) == (1024, 2048):
+        want = (du.float() @ wb.float()).bfloat16()
+        derr = check_outputs(torch, f"fused_dense_gemm {shape} du W", [got], [want], ["dx"])
+        ms, plain_ms = timed_pair(torch, lambda: fd._gemm(du, wb, None, K, b_row=True),
+                                  lambda: (du.float() @ wb.float()).bfloat16())
+        record(results, "fused_dense_gemm", f"M={B} Kr={N} Nc={K} (du W, B MN-major)",
+               derr, ms, plain_ms, work=(B * N * 2 + N * K * 2 + B * K * 2, 2 * B * N * K),
+               library_ms=library_time(torch, lambda: torch.mm(du, wb)))
+
+
+def phase_train_kernels(torch, results):
     from clip_dplm_tpu_torch.experiments import sym_ab
     from clip_dplm_tpu_torch.ops import _build
-    from clip_dplm_tpu_torch.ops import fused_dense as fd
     from clip_dplm_tpu_torch.ops import fused_infonce as fi
 
     dev = torch.device("cuda")
     g = torch.Generator(device=dev).manual_seed(3)
     rnd = lambda *s: torch.randn(*s, generator=g, device=dev)  # noqa: E731
-    for what, B, K, N, order, act, rate, skip in FD_GEOMETRIES:
-        x, w = rnd(B, K).bfloat16(), rnd(N, K) / K ** 0.5
-        b, gm, bt = rnd(N) * 0.1, 1.0 + 0.1 * rnd(N), rnd(N) * 0.1
-        extra = (rnd(B, N).bfloat16(), torch.tensor([0.3], device=dev)) if skip else ()
-        out_dtype = torch.float32 if (skip or order == "act_ln") else torch.bfloat16
-        dy = rnd(B, N).to(out_dtype)
-        kw = dict(order=order, act=act, dropout_rate=rate, dropout_seed=777,
-                  deterministic=rate == 0.0, out_dtype=out_dtype)
-        shape = f"{what} B={B} K={K} N={N} {order} {act}" + (f" dropout {rate}" if rate else "")
-        # forward on the same inputs; then the whole backward (row kernels,
-        # dx GEMM, dW) on the same inputs (dy and the kernel forward's
-        # residuals): a relu whose input rounds to the other side of 0 in one
-        # of two forwards would flip a whole du entry, which is rounding, not
-        # a kernel fault
-        spec = fd._Spec(order, act, rate, 777, torch.bfloat16, out_dtype, False)
-        wc, sk = w.bfloat16(), extra if skip else (None, None)
-        fwd_k = fd._kernel_fwd(spec, x, wc, b, gm, bt, *sk)
-        fwd_p = fd._plain_fwd(spec, x, wc, b, gm, bt, *sk)
-        if rate:
-            check(torch.equal(fwd_k[0] == 0, fwd_p[0] == 0),
-                  f"fused_dense {shape}: dropout masks differ")
-        err = check_outputs(torch, f"fused_dense {shape} forward", fwd_k[:2], fwd_p[:2],
-                            ["y", "saved"])
-        bwd = [fd._backward(spec, dy, x, wc, gm, bt, *fwd_k[1:], None, sk[1], use_kernel=k)
-               for k in (True, False)]
-        names = ["dx", "dW", "db", "dgamma", "dbeta"] + (["dls", "dskip"] if skip else [])
-        berr = check_outputs(torch, f"fused_dense {shape} backward", bwd[0][:len(names)],
-                             bwd[1][:len(names)], names)
-        dx_err = check_outputs(torch, f"fused_dense_gemm {shape} dx", bwd[0][:1], bwd[1][:1],
-                               ["dx"])
-        torch.cuda.synchronize()
-        # the row passes alone on the same inputs: the forward's epilogue over
-        # u (in place: act_ln's relu is idempotent, so repeated calls see the
-        # same u), the backward on the kernel forward's residuals; each held
-        # to its plain version and timed beside it, bound by its bytes
-        u = fd._gemm(x, wc, b.bfloat16(), N, b_row=False)
-        rows_k = fd._kernel_rows_fwd(spec, u.clone(), gm, bt, *sk)
-        rows_p = fd._plain_rows_fwd(spec, u, gm, bt, *sk)
-        if rate:
-            check(torch.equal(rows_k[0] == 0, rows_p[0] == 0),
-                  f"fused_dense_fwd_rows {shape}: dropout masks differ")
-        err = max(err, check_outputs(torch, f"fused_dense_fwd_rows {shape}", rows_k, rows_p,
-                                     ["y", "saved", "mean", "rstd"]))
-        s_buf = u.clone()
-        check(spec.ln_act or act in ("relu", "none"), f"{shape}: the in-place rows repeat")
-        ms, plain_ms = timed_pair(torch, lambda: fd._kernel_rows_fwd(spec, s_buf, gm, bt, *sk),
-                                  lambda: fd._plain_rows_fwd(spec, u, gm, bt, *sk))
-        record(results, "fused_dense_fwd_rows", shape + " forward rows", err, ms, plain_ms,
-               work=(fd_ab.work_fwd(B, N, spec, skip), 0.0))
-        res = fwd_k[1:]
-        rows_bwd = [fd._kernel_bwd(spec, dy, *res, gm, bt, None, sk[1]) for _ in range(2)]
-        torch.cuda.synchronize()
-        check(all(p is None and q is None or torch.equal(p, q) for p, q in zip(*rows_bwd)),
-              f"fused_dense_bwd_rows {shape}: two launches differ (du, dgamma, dbeta, db, dls)")
-        n_out = 5 if skip else 4  # du, dgamma, dbeta, db (, dls)
-        berr = max(berr, check_outputs(
-            torch, f"fused_dense_bwd_rows {shape}", rows_bwd[0][:n_out],
-            fd._plain_bwd(spec, dy, *res, gm, bt, None, sk[1])[:n_out],
-            ["du", "dgamma", "dbeta", "db", "dls"]))
-        ms, plain_ms = timed_pair(
-            torch, lambda: fd._kernel_bwd(spec, dy, *res, gm, bt, None, sk[1]),
-            lambda: fd._plain_bwd(spec, dy, *res, gm, bt, None, sk[1]))
-        record(results, "fused_dense_bwd_rows", shape + " backward rows", berr, ms, plain_ms,
-               work=(fd_ab.work_bwd(B, N, out_dtype.itemsize, skip, False), 0.0))
-        # the whole block beside them: forward (GEMM + row epilogue) and
-        # backward (row pass + dx GEMM + dW)
-        fkw = dict(kw, skip=extra[0], layer_scale=extra[1]) if skip else kw
-        with torch.no_grad():
-            f_ms, f_plain = timed_pair(
-                torch, lambda: fd.fused_dense_norm_act(x, w, b, gm, bt, **fkw),
-                lambda: fd.fused_dense_reference(x, w, b, gm, bt, **fkw))
-        leaves = [t.clone().requires_grad_(True) for t in (x, w, b, gm, bt)]
-        graphs = {k: fn(*leaves, **fkw) for k, fn in
-                  (("kernel", fd.fused_dense_norm_act), ("plain", fd.fused_dense_reference))}
-        b_ms, b_plain = timed_pair(
-            torch, lambda: graphs["kernel"].backward(dy, retain_graph=True),
-            lambda: graphs["plain"].backward(dy, retain_graph=True))
-        # bytes: x, W (f32), bias/gamma/beta in, y out; ops: the product
-        f_bound = bound(B * K * 2 + N * K * 4 + 3 * N * 4 + B * N * out_dtype.itemsize,
-                        2 * B * N * K)[0]
-        # bytes: dy, x, W (bf16), the saved pre-LN rows and stats, gamma/beta
-        # in; dx, dW (f32), db/dgamma/dbeta out; ops: the dx and dW products
-        b_bound = bound(B * N * out_dtype.itemsize + B * K * 2 + N * K * 2 + B * N * 2 + B * 8
-                        + 2 * N * 4 + B * K * 2 + N * K * 4 + 3 * N * 4, 4 * B * N * K)[0]
-        print(f"block fused_dense {shape}: forward ms={f_ms:.4f} plain_ms={f_plain:.4f} "
-              f"bound_ms={f_bound:.4f}; backward ms={b_ms:.4f} plain_ms={b_plain:.4f} "
-              f"bound_ms={b_bound:.4f}")
-        del graphs
-        # the GEMM alone against cuBLAS (u = bf16(x W^T) + b)
-        wb, bb = wc.contiguous(), b.bfloat16()
-        got = fd._gemm(x, wb, bb, N, b_row=False)
-        want = (x.float() @ wb.float().t()).bfloat16() + bb
-        gerr = check_outputs(torch, f"fused_dense_gemm {shape}", [got], [want], ["u"])
-        check(torch.equal(got, fd._gemm(x, wb, bb, N, b_row=False)),
-              f"fused_dense_gemm {shape}: two launches differ")
-        ms, plain_ms = timed_pair(
-            torch, lambda: fd._gemm(x, wb, bb, N, b_row=False),
-            lambda: (x.float() @ wb.float().t()).bfloat16() + bb)
-        record(results, "fused_dense_gemm", f"M={B} N={N} K={K} (x W^T + b)",
-               max(gerr, dx_err), ms, plain_ms,
-               work=(B * K * 2 + N * K * 2 + N * 2 + B * N * 2, 2 * B * N * K),
-               library_ms=library_time(torch, lambda: torch.nn.functional.linear(x, wb, bb)))
-        # the other direction alone against cuBLAS: dx = du·W, B = W row-major
-        # (MN-major), no bias; at 1024 -> 2048 that is Kr = 2048 -> Nc = 1024
-        du = rnd(B, N).bfloat16()
-        got = fd._gemm(du, wb, None, K, b_row=True)
-        check(torch.equal(got, fd._gemm(du, wb, None, K, b_row=True)),
-              f"fused_dense_gemm {shape} du W: two launches differ")
-        if B == 8192 and (K, N) == (1024, 2048):
-            want = (du.float() @ wb.float()).bfloat16()
-            derr = check_outputs(torch, f"fused_dense_gemm {shape} du W", [got], [want], ["dx"])
-            ms, plain_ms = timed_pair(torch, lambda: fd._gemm(du, wb, None, K, b_row=True),
-                                      lambda: (du.float() @ wb.float()).bfloat16())
-            record(results, "fused_dense_gemm", f"M={B} Kr={N} Nc={K} (du W, B MN-major)",
-                   derr, ms, plain_ms, work=(B * N * 2 + N * K * 2 + B * K * 2, 2 * B * N * K),
-                   library_ms=library_time(torch, lambda: torch.mm(du, wb)))
+    for geometry in FD_GEOMETRIES:
+        fused_dense_geometry(torch, results, rnd, *geometry)
     walks, launched = walk_calls(_build), _build.LAUNCHES.snapshot()
     syms = sym_calls(_build)
     for what, B in SYM_GRAD_SHAPES:
@@ -1732,10 +1773,21 @@ def phase_saved_raw_kernels(torch, results):
         part, nsplit, groups, _ = fi._walk_partials(xb, yb, scale, save=True)
         comb = lambda: torch.cat(fi._kernel_lse_combine(part, nsplit, B, groups, B))  # noqa: E731
         check(torch.equal(comb(), comb()), f"lse_combine {shape}: two launches differ")
+        # the library call: one torch.logsumexp over the partials as
+        # max + log(sum), the row and column ranges stacked (the shorter
+        # padded with -inf), formed before the timing
+        lv = [mx + torch.log(torch.clamp(sm, min=1e-30)) for mx, sm in (
+            part[:2 * nsplit * B].view(2, nsplit, B),
+            part[2 * nsplit * B:2 * (nsplit + groups) * B].view(2, groups, B))]
+        stacked = torch.full((max(nsplit, groups), 2 * B), -float("inf"), device=dev)
+        stacked[:nsplit, :B], stacked[:groups, B:] = lv
+        check(torch.allclose(torch.logsumexp(stacked, dim=0), comb(), rtol=1e-5, atol=1e-5),
+              f"lse_combine {shape}: torch.logsumexp of the stacked partials differs")
         compare(torch, "lse_combine", f"{shape}, {nsplit} row and {groups} column partials",
                 comb, lambda: torch.cat(fi._plain_lse_combine(part, nsplit, B, groups, B)),
                 results, work=(4 * (2 * nsplit * B + 2 * groups * B + 2 * B),
-                               4.0 * (nsplit * B + groups * B), "f32"))
+                               4.0 * (nsplit * B + groups * B), "f32"),
+                library_fn=lambda: torch.logsumexp(stacked, dim=0))
         walk_ms = cuda_ms(torch, lambda: fi._walk_partials(xb, yb, scale, save=True))
         print(f"sym_infonce_lse_save {shape}: the walk alone {walk_ms:.4f} ms")
         ms, plain_ms = timed_pair(torch, lambda: fi._kernel_lse_save(xb, yb, scale),
@@ -2339,6 +2391,386 @@ def _block_routes(torch, g):
           f"{err:.3e}")
 
 
+# 15's attention shapes, (what, B, S) at ESM-2 8M's D=320, H=20 (Dh=16) with
+# RoPE: the esm_clip train step and the guided scorer's K*B = 8 x 32 rows
+ESM_CLIP_ATTENTION = (("esm_clip step", 64, 64), ("guided scorer", 256, 128))
+# 15(a)'s fused Dense geometries: esm_clip's two optimized heads at B=64 (the
+# RNA side from d_model 512, the protein side from ESM-2 8M's 320)
+ESM_CLIP_FD = [
+    ("esm_clip rna_proj fc0", 64, 512, 2048, "ln_act", "gelu", 0.1, False),
+    ("esm_clip protein_proj fc0", 64, 320, 2048, "ln_act", "gelu", 0.1, False),
+    ("esm_clip fc1", 64, 2048, 2048, "ln_act", "gelu", 0.1, False),
+    ("esm_clip fc_out", 64, 2048, 512, "ln_act", "none", 0.0, True),
+]
+# the kernels the esm_clip train path (CLI and bench) launches: the ESM
+# tower's packed attention (the rule's saved mode at B=64, S=64; the eval's
+# forward) and out-projection, the RNA tower's tiny-S pair (blocks 0-1,
+# S = 33) and CLS pair (the last block), the heads' fused Dense blocks
+ESM_CLIP_KERNELS = ("short_attention", "short_attention_save", "short_attention_bwd_probs",
+                    "short_attention_out_proj", "tiny_attention_fwd", "tiny_attention_bwd",
+                    "cls_attention_fwd", "cls_attention_bwd", "fused_dense_gemm",
+                    "fused_dense_fwd_rows", "fused_dense_bwd_rows")
+LOSS_KERNELS = ("sym_infonce_lse", "sym_infonce_lse_save", "sym_infonce_grad",
+                "sym_infonce_grad_raw", "sym_infonce_grad_rawT", "sym_infonce_grad_merged",
+                "row_ce_lse", "row_ce_dx", "row_ce_dy", "lse_combine")
+
+
+def phase_esm_clip_kernels(torch, results):
+    """15(a): the packed short-S attention at ESM-2 8M's Dh=16 (forward,
+    saving forward, the backward from the probabilities, the recompute
+    backward) and its out-projection GEMM at N=K=320, at the esm_clip step's
+    and the guided scorer's shapes; the RNA tower's tiny-S and CLS pairs at
+    S = 33; the heads' fused Dense blocks at B=64. Each against its plain
+    version, timed beside the library call and its bound at the true Dh
+    (the kernels pad Dh to 64)."""
+    from clip_dplm_tpu_torch.experiments.tiny_ab import work as tiny_work
+    from clip_dplm_tpu_torch.ops import _build
+    from clip_dplm_tpu_torch.ops import short_attention as sa
+    from clip_dplm_tpu_torch.ops import tiny_attention as ta
+
+    dev = torch.device("cuda")
+    g = torch.Generator(device=dev).manual_seed(41)
+    rnd = lambda *s: torch.randn(*s, generator=g, device=dev).to(torch.bfloat16)  # noqa: E731
+
+    def ragged_mask(B, S):
+        lens = torch.randint(S // 2, S + 1, (B,), generator=g, device=dev)
+        lens[0] = S
+        return torch.arange(S, device=dev)[None, :] < lens[:, None]
+
+    def heads(t, H):
+        return t.unflatten(-1, (H, -1)).transpose(1, 2)
+
+    lib = _build.LIBRARY.get()
+    D, H = 320, 20
+    for what, B, S in ESM_CLIP_ATTENTION:
+        qkv, dout, mask = rnd(B, S, 3 * D), rnd(B, S, D), ragged_mask(B, S)
+        pos = torch.arange(S, device=dev)
+        kw = dict(mask=mask, rope_positions=pos)
+        o, probs = sa.short_attention_qkv_reference(qkv, H, return_probs=True, **kw)
+        q, k, v = (heads(t, H) for t in qkv.split(D, dim=-1))
+        shape = f"{what} B={B} S={S} D={D} H={H} Dh=16 rope"
+        sdpa, sdpa_bwd = sdpa_fn(torch, q, k, v, mask), sdpa_bwd_fn(torch, q, k, v, mask,
+                                                                     heads(dout, H))
+        with torch.no_grad():
+            compare(torch, "short_attention", shape,
+                    lambda: sa.short_attention_qkv(qkv, H, **kw),
+                    lambda: sa.short_attention_qkv_reference(qkv, H, **kw), results,
+                    work=(B * S * 4 * D * 2 + B * S + S * 8, 4 * B * S * S * D), library_fn=sdpa)
+            fwd = lambda: sa.short_attention_qkv_save(qkv, H, **kw)  # noqa: E731
+            err = check_outputs(torch, f"short_attention_save {shape}", fwd(), (o, probs),
+                                ["o", "probs"])
+            ms, plain_ms = timed_pair(torch, fwd, lambda: sa.short_attention_qkv_reference(
+                qkv, H, return_probs=True, **kw))
+            record(results, "short_attention_save", shape + " (o and bf16 probabilities)", err,
+                   ms, plain_ms, work=(B * S * 4 * D * 2 + B * H * S * S * 2 + B * S + S * 16 * 4,
+                                       4 * B * S * S * D), library_ms=library_time(torch, sdpa))
+        bwd = lambda: sa.short_attention_qkv_bwd_probs(dout, qkv, probs, H,  # noqa: E731
+                                                       rope_positions=pos)
+        design = bwd_design(lib, f"short_attention_bwd_probs {shape}", S, D // H, bwd)
+        compare(torch, "short_attention_bwd_probs", shape + f" (plain probabilities; {design})",
+                bwd, lambda: sa.short_attention_qkv_bwd_probs_reference(dout, qkv, probs, H,
+                                                                        rope_positions=pos),
+                results, work=(B * S * 7 * D * 2 + B * H * S * S * 2, 8 * B * S * S * D),
+                library_fn=sdpa_bwd, normalize=True)
+        rec = lambda: sa.short_attention_qkv_bwd(dout, qkv, o, H, **kw)  # noqa: E731
+        design = bwd_design(lib, f"short_attention_bwd {shape}", S, D // H, rec, saved=False)
+        compare(torch, "short_attention_bwd", shape + f" (plain forward's o; {design})", rec,
+                lambda: sa.short_attention_qkv_bwd_reference(dout, qkv, o, H, **kw), results,
+                work=(B * S * 8 * D * 2 + B * S, 10 * B * S * S * D), library_fn=sdpa_bwd,
+                normalize=True)
+        wo = torch.randn(D, D, generator=g, device=dev) / D ** 0.5
+        bo = torch.randn(D, generator=g, device=dev) * 0.1
+        M = B * S
+        compare(torch, "short_attention_out_proj", f"{what} M={M} N=K={D}",
+                lambda: sa.out_projection(o, wo, bo), lambda: sa.out_projection_reference(o, wo, bo),
+                results, work=(2 * M * D * 2 + D * D * 4 + D * 4, 2 * M * D * D),
+                library_fn=lambda: torch.nn.functional.linear(o, wo.bfloat16(), bo.bfloat16()))
+        del sdpa_bwd
+    print("short-S kernels at Dh=16: Dp=64, so 3/4 of each product's columns are padding "
+          "(the bounds above count the true Dh)")
+    # the RNA tower: 32 tokens + CLS at d_model 512, 8 heads, B=64
+    B, S, D, H = 64, 33, 512, 8
+    qkv, dout, mask = rnd(B, S, 3 * D), rnd(B, S, D), ragged_mask(B, S)
+    q, k, v = (heads(t, H) for t in qkv.split(D, dim=-1))
+    o = ta.tiny_attention_reference(qkv, H, mask=mask)
+    shape = f"esm_clip rna_tower B={B} S={S} D={D} H={H}"
+    with torch.no_grad():
+        compare(torch, "tiny_attention_fwd", shape, lambda: ta.tiny_attention(qkv, H, mask=mask),
+                lambda: ta.tiny_attention_reference(qkv, H, mask=mask), results,
+                work=tiny_work("tiny_attention_fwd", B, S, D, True),
+                library_fn=sdpa_fn(torch, q, k, v, mask))
+        compare(torch, "cls_attention_fwd", shape, lambda: sa.fused_cls_attention(qkv, H, mask=mask),
+                lambda: sa.fused_cls_attention_reference(qkv, H, mask=mask), results,
+                work=(B * D * 2 + 2 * B * S * D * 2 + B * S + B * D * 2, 4 * B * S * D, "f32"),
+                library_fn=sdpa_fn(torch, q[:, :, :1], k, v, mask))
+    compare(torch, "tiny_attention_bwd", shape + " (plain forward's residuals)",
+            lambda: ta.tiny_attention_bwd(dout, qkv, o, H, mask=mask),
+            lambda: ta.tiny_attention_bwd_reference(dout, qkv, o, H, mask=mask), results,
+            work=tiny_work("tiny_attention_bwd", B, S, D, True),
+            library_fn=sdpa_bwd_fn(torch, q, k, v, mask, heads(dout, H)), normalize=True)
+    do1 = rnd(B, 1, D)
+    cls_design = cls_bwd_design(lib, f"cls_attention_bwd {shape}", S, D, H,
+                                lambda: sa.fused_cls_attention_bwd(do1, qkv, H, mask=mask))
+    compare(torch, "cls_attention_bwd", shape + f" ({cls_design} design)",
+            lambda: sa.fused_cls_attention_bwd(do1, qkv, H, mask=mask),
+            lambda: sa.fused_cls_attention_bwd_reference(do1, qkv, H, mask=mask), results,
+            work=(2 * B * D * 2 + 2 * B * S * D * 2 + B * S + B * S * 3 * D * 2, 8 * B * S * D,
+                  "f32"),
+            library_fn=sdpa_bwd_fn(torch, q[:, :, :1], k, v, mask, heads(do1, H)),
+            normalize=True)
+    rnd32 = lambda *s: torch.randn(*s, generator=g, device=dev)  # noqa: E731
+    for geometry in ESM_CLIP_FD:
+        fused_dense_geometry(torch, results, rnd32, *geometry)
+
+
+def phase_esm_clip_step(torch):
+    """15(b): one esm_clip step at the config's widths (bench --model
+    esm_clip: ESM-2 8M trained, RNA tower 512/3/8, fused heads), B=16, card
+    vs CPU."""
+    from clip_dplm_tpu_torch.config import Config, apply_overrides
+    from clip_dplm_tpu_torch.experiments import bench
+
+    B = 16
+    cfg = apply_overrides(Config(), bench.ESM_CLIP_OVERRIDES + [
+        f"train.batch_size={B}", "train.optim.schedule=constant",
+        "train.optim.learning_rate=1e-3"])
+    batch = bench.esm_clip_batch(cfg, B, np.random.default_rng(5))
+    step_card_vs_cpu(torch, f"esm_clip train step B={B} (ESM-2 8M trained, dropout 0.1)", cfg,
+                     batch)
+
+
+def phase_esm_clip_path(torch, build):
+    """15(c) the train CLI with experiment=esm_clip and the retrieval
+    metrics of its validation split, untrained and trained; 15(d) the
+    benchmark at B=64. Returns the launch counts of both."""
+    from clip_dplm_tpu_torch.experiments import bench
+    from clip_dplm_tpu_torch.experiments import train as train_cli
+
+    build.LAUNCHES.reset()
+    overrides = bench.ESM_CLIP_OVERRIDES + ["train.batch_size=64", "train.optim.warmup_steps=5",
+                                            "train.optim.learning_rate=1e-3"]
+    t0 = time.perf_counter()
+    hist = train_cli.main(["--epochs", "4", "--retrieval",
+                           *[a for o in overrides for a in ("-o", o)]])
+    cli_s = time.perf_counter() - t0
+    losses, before, after = hist["train_loss"], hist["retrieval_untrained"], hist["retrieval"]
+    check(all(np.isfinite(losses)) and len(losses) == 4, f"esm_clip train CLI losses {losses}")
+    check(losses[-1] < losses[0], f"esm_clip train CLI: loss did not fall: {losses}")
+    print(f"esm_clip train CLI (B=64, 4 epochs of 13 steps): train_loss {losses}, val_loss "
+          f"{hist['val_loss']}, {cli_s:.1f} s; validation retrieval (128 pairs, 32 classes) "
+          f"untrained R@1 {before['R@1']:.4f} R@10 {before['R@10']:.4f} mean rank "
+          f"{before['mean_rank']:.2f}, trained R@1 {after['R@1']:.4f} R@10 {after['R@10']:.4f} "
+          f"mean rank {after['mean_rank']:.2f}")
+    check(after["R@1"] > before["R@1"],
+          f"esm_clip: R@1 {after['R@1']} not above the untrained weights' {before['R@1']}")
+    out = bench.main(["--model", "esm_clip"])
+    torch.cuda.synchronize()
+    launches = build.LAUNCHES.snapshot()
+    print(f"bench esm_clip B=64: step {out['step_ms']} ms, {out['value']} pairs/s, "
+          f"{out['model_tflops_per_s_per_chip']} model TFLOP/s, MFU {out['mfu']}")
+    print(f"launches during the esm_clip phase: {launches}")
+    for name in ESM_CLIP_KERNELS:
+        check(launches[name] > 0, f"kernel {name} was not launched by the esm_clip path")
+    check_attention_path(launches, "esm_clip", (64, 64, 20))
+    # configs/esm_clip.yaml's use_fused_kernel: false, as the reference's
+    # trainer reads it: the plain InfoNCE, no loss kernel
+    check(not any(launches[k] for k in LOSS_KERNELS),
+          f"esm_clip launched a fused loss kernel: {launches}")
+    return launches
+
+
+def phase_guided_server(torch, build):
+    """15(e): the server with --guided-random (the ESM-2 8M embed tower as
+    the scorer) and --conditions-npz at full width: DPLM 640/12/10, 32 rows,
+    L=126, 100 steps, 8 candidates. Guided requests by condition_id and by
+    condition, each returned score the best of its candidates' (recomputed
+    from the scorer's own embeddings); a 400 for an unknown id and for a
+    condition of another width than the scorer's; unguided traffic beside
+    guided; /v1/stats with both lanes."""
+    import tempfile
+
+    from clip_dplm_tpu_torch.data.protein import RESIDUES, detokenize
+    from clip_dplm_tpu_torch.experiments import serve
+    from clip_dplm_tpu_torch.serving import make_server
+
+    K, d = 8, 320
+    rng = np.random.default_rng(13)
+    conds = {"rbp_a": rng.normal(size=d).astype(np.float32),
+             "rbp_b": rng.normal(size=d).astype(np.float32)}
+    with tempfile.TemporaryDirectory() as tmp:
+        path = f"{tmp}/conditions.npz"
+        np.savez(path, **conds)
+        args = serve.parse_args([
+            "--device", "cuda", "--allow-random", "--esm", "esm2_t6_8M", "--max-batch", "32",
+            "--dplm-random", "--dplm-d-model", "640", "--dplm-layers", "12",
+            "--gen-max-len", "126", "--gen-steps", "100", "--gen-max-batch", "32",
+            "--guided-random", "--gen-candidates", str(K), "--conditions-npz", path,
+            "--port", "0"])
+        embed_svc, gen_svc = serve.build_services(args)
+    calls, lock = [], threading.Lock()
+    scorer = gen_svc.scorer
+
+    def recording(toks, mask):
+        emb = scorer(toks, mask)
+        with lock:
+            calls.append((toks.cpu(), emb.float().cpu()))
+        return emb
+
+    gen_svc.scorer = recording
+    server = make_server(embed=embed_svc, generate=gen_svc, port=0)
+    threading.Thread(target=server.serve_forever, daemon=True).start()
+    base = f"http://127.0.0.1:{server.server_port}"
+    residues = set(RESIDUES)
+
+    def guided(req, cond):
+        calls.clear()
+        t0 = time.perf_counter()
+        status, body = _post(f"{base}/v1/generate", req)
+        secs = time.perf_counter() - t0
+        want = req.get("lengths") or [req["length"]] * req["num"]
+        seqs, scores = body["sequences"], body["clip_scores"]
+        check(status == 200 and body["guided"] is True and [len(s) for s in seqs] == want,
+              f"guided {sorted(req)}: status {status}, lengths {[len(s) for s in seqs]}")
+        check(all(set(s) <= residues for s in seqs), f"guided {sorted(req)}: non-residue")
+        check(len(calls) == 1 and calls[0][0].shape == (K * 32, 128),
+              f"guided {sorted(req)}: scorer calls {[tuple(c[0].shape) for c in calls]}")
+        toks, emb = calls[0]
+        c = torch.from_numpy(cond) / float(np.linalg.norm(cond))
+        cos = (torch.nn.functional.normalize(emb, dim=-1) @ c).reshape(K, 32)
+        for i, score in enumerate(scores):
+            best = int(cos[:, i].argmax())
+            check(abs(score - float(cos[best, i])) <= 1e-4,
+                  f"guided row {i}: clip_score {score} is not the best of its candidates' "
+                  f"{cos[:, i].tolist()}")
+            check(detokenize(toks.reshape(K, 32, -1)[best, i].numpy()) == seqs[i],
+                  f"guided row {i}: the sequence is not the best-scoring candidate")
+        return scores, secs
+
+    try:
+        build.LAUNCHES.reset()
+        guided({"lengths": [60, 124, 126], "condition_id": "rbp_a"}, conds["rbp_a"])
+        cond = rng.normal(size=d).astype(np.float32)
+        guided({"num": 4, "length": 100, "condition": cond.tolist()}, cond)
+        scores32, secs = guided({"num": 32, "length": 126, "condition_id": "rbp_b"},
+                                conds["rbp_b"])
+        print(f"guided generate (8 candidates x 32 rows, L=126, 100 steps): {32 / secs:.2f} "
+              f"seqs/s; clip_scores of the 32 rows {min(scores32):.4f}..{max(scores32):.4f}")
+        for bad in ({"lengths": [50], "condition_id": "nope"},
+                    {"lengths": [50], "condition": [1.0] * (d - 1)}):
+            try:
+                _post(f"{base}/v1/generate", bad)
+                check(False, f"guided: {sorted(bad)} was answered")
+            except urllib.error.HTTPError as err:
+                check(err.code == 400, f"guided: {sorted(bad)} gave {err.code}, not 400")
+        # unguided traffic beside a guided request, concurrently
+        results = {}
+
+        def client(key, req):
+            results[key] = _post(f"{base}/v1/generate", req)
+
+        threads = [threading.Thread(target=client, args=a) for a in (
+            ("guided", {"lengths": [80], "condition_id": "rbp_a"}),
+            ("plain", {"lengths": [40, 90]}))]
+        for t in threads:
+            t.start()
+        for t in threads:
+            t.join(timeout=600)
+        check(results["guided"][0] == 200 and results["guided"][1]["guided"] is True,
+              f"guided beside unguided: {results.get('guided')}")
+        plain = results["plain"][1]
+        check(results["plain"][0] == 200 and "confidence" in plain
+              and [len(s) for s in plain["sequences"]] == [40, 90],
+              f"unguided beside guided: {results.get('plain')}")
+        with urllib.request.urlopen(f"{base}/v1/stats", timeout=30) as resp:
+            stats = json.loads(resp.read().decode())
+        check(stats["generate_guided"]["requests"] == 3 + 4 + 32 + 1
+              and stats["generate"]["requests"] == 2, f"/v1/stats {stats}")
+        torch.cuda.synchronize()
+        launches = build.LAUNCHES.snapshot()
+    finally:
+        server.shutdown()
+        server.server_close()
+        embed_svc.close()
+        gen_svc.close()
+    print(f"launches during the guided server phase: {launches}")
+    for name in ("short_attention", "short_attention_out_proj"):
+        check(launches[name] > 0, f"kernel {name} was not launched by the guided server")
+    return launches
+
+
+def phase_soft_guidance(torch, build):
+    """15(f): soft guidance with the protein side of an ESMProteinCLIP
+    (bench's esm_clip widths, random weights) as the scorer: a DPLM
+    640/12/10 sampler call of 8 candidates x 32 rows at L=126 for 4 steps,
+    each step's bias the gradient of the relaxed score through the packed
+    attention's backward at the scorer's shape; then on one sampler state of
+    32 rows the bias on the card against the CPU's, within STEP_NOISE_FACTOR
+    x its bf16-vs-f32 noise on the CPU."""
+    from clip_dplm_tpu_torch.config import Config, DPLMConfig, apply_overrides
+    from clip_dplm_tpu_torch.experiments import bench
+    from clip_dplm_tpu_torch.experiments.registry import build_model
+    from clip_dplm_tpu_torch.models import guided_generation as gg
+    from clip_dplm_tpu_torch.models.dplm import DPLM, MASK_IDX
+    from clip_dplm_tpu_torch.models.layers import init_params
+
+    cfg = apply_overrides(Config(), bench.ESM_CLIP_OVERRIDES)
+    clip = build_model(cfg, device="cuda")
+    init_params(clip, torch.Generator(device="cuda").manual_seed(3))
+    clip.eval()
+    dplm = DPLM(DPLMConfig(max_len=128), device="cuda")
+    init_params(dplm, torch.Generator(device="cuda").manual_seed(4))
+    dplm.eval()
+    cond = np.random.default_rng(21).normal(size=cfg.projection.dim).astype(np.float32)
+
+    def soft_encode(model):
+        return lambda p, t: model.encode_protein(t, t != 1, token_probs=p)
+
+    build.LAUNCHES.reset()
+    t0 = time.perf_counter()
+    toks, scores = gg.generate_proteins_for_condition(
+        dplm, lambda t, m: clip.encode_protein(t, m), cond,
+        torch.Generator(device="cuda").manual_seed(5), length=126, batch_size=32,
+        num_candidates=8, num_steps=4, soft_encode_fn=soft_encode(clip))
+    torch.cuda.synchronize()
+    secs = time.perf_counter() - t0
+    launches = build.LAUNCHES.snapshot()
+    inner = toks[:, 1:127]
+    check(toks.shape == (32, 128) and bool(((inner >= 4) & (inner <= 23)).all())
+          and bool(torch.isfinite(scores).all()), f"soft guidance: tokens {tuple(toks.shape)}")
+    print(f"soft guidance (8 x 32 rows, L=126, 4 steps): {secs:.2f} s, clip scores "
+          f"{scores.min().item():.4f}..{scores.max().item():.4f}; launches {launches}")
+    for name in ("short_attention", "short_attention_save", "short_attention_bwd_probs",
+                 "short_attention_out_proj", "fused_dense_gemm", "fused_dense_fwd_rows"):
+        check(launches[name] > 0, f"kernel {name} was not launched by soft guidance")
+    # one sampler state: 32 rows, about half the residues still masked
+    g = torch.Generator().manual_seed(6)
+    state = toks.cpu()
+    state = torch.where((state >= 4) & (torch.rand(state.shape, generator=g) < 0.5), MASK_IDX,
+                        state)
+    logits = torch.randn(32, 128, 33, generator=g)
+    logits[..., :4], logits[..., 24:] = -1e30, -1e30
+    sd = {k: v.detach().cpu() for k, v in clip.state_dict().items()}
+    biases = {}
+    for name, device, dtype in (("card", "cuda", torch.bfloat16), ("cpu", "cpu", torch.bfloat16),
+                                ("cpu_f32", "cpu", torch.float32)):
+        model = clip if name == "card" else build_model(cfg, device=device, dtype=dtype)
+        model.load_state_dict(sd)
+        model.eval()
+        fn = gg.make_soft_logit_bias_fn(gg.make_soft_clip_scorer(soft_encode(model), cond))
+        with torch.no_grad():
+            biases[name] = fn(state.to(device), logits.to(device)).cpu()
+    err, noise = _rel(biases["card"], biases["cpu"]), _rel(biases["cpu_f32"], biases["cpu"])
+    decided = state != MASK_IDX
+    print(f"soft guidance bias, 32 rows at S=128, card vs CPU: rel L2 {err:.3e} (bf16 noise "
+          f"{noise:.3e})")
+    check(bool(torch.isfinite(biases["card"]).all()) and biases["card"].abs().max() > 0,
+          "soft guidance bias: non-finite or zero")
+    check(bool((biases["card"][decided] == 0).all()), "soft guidance bias at decided positions")
+    check(err <= STEP_NOISE_FACTOR * noise,
+          f"soft guidance bias: rel L2 {err} > {STEP_NOISE_FACTOR} x noise {noise}")
+    return launches
+
+
 def kernel_registers(log: str, kernel: str):
     """(instance, registers, spill line) of each instance of `kernel` in
     ptxas's report: its template arguments, as <a, b, ...>."""
@@ -2427,6 +2859,11 @@ def main() -> int:
     phase_mode_steps(torch)
     phase_separate_kernels(torch, results)
     launches.update(phase_separate_path(torch, _build))
+    phase_esm_clip_kernels(torch, results)
+    phase_esm_clip_step(torch)
+    phase_esm_clip_path(torch, _build)
+    phase_guided_server(torch, _build)
+    phase_soft_guidance(torch, _build)
 
     keys = ("max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by", "library_ms")
     print(json.dumps({"kernels": [

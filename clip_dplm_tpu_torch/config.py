@@ -1,23 +1,28 @@
 """Configurations of the port: the serving path (`ESMConfig`, `DPLMConfig`)
 and the train paths (`Config` and its leaves): the two-tower model
 (`experiment="two_tower"`), the RNA<->RBP token transformer
-(`experiment="rna_rbp"`), the three-way cell <-> perturbation <-> protein
-CLIP (`experiment="tf_clip"`) and the DPLM diffusion denoiser
-(`experiment="dplm"`, `Config.dplm`).
+(`experiment="rna_rbp"`), the RNA<->protein CLIP with an ESM-2 tower
+(`experiment="esm_clip"`, `Config.esm`), the three-way cell <->
+perturbation <-> protein CLIP (`experiment="tf_clip"`) and the DPLM
+diffusion denoiser (`experiment="dplm"`, `Config.dplm`).
 
 The frozen dataclasses of `clip_dplm_tpu/config.py`, without the yaml loader
 (so the port imports no yaml) and with only the fields the port reads: the
-reference's LoRA, guidance, freezing and `scan_layers` fields, the
+reference's LoRA fields (but `esm.lora_rank`), `scan_layers` fields, the
 global-batch gather, the other loss kinds and `precision.remat` are left
 out until the port has what they switch on, so passing one raises instead
-of being ignored; so are DPLM's guidance, candidate count, LoRA and
-`scan_layers` fields. The fused loss's saved raw similarity
-(`contrastive.fused_materialize_raw`) is ported. The hard-negative
-cache (`contrastive.use_cache`, `cache_size`) is ported: with
+of being ignored. `esm.lora_rank` is kept so that an esm_clip config asking
+for LoRA raises where the model is built (models/lora.py is not ported).
+`esm.frozen` freezes the ESM tower of esm_clip. DPLM's `num_candidates` is
+`clip_guided_sample`'s default K; its `guidance` and `guidance_scale` are
+parsed so that a reference config loads, but no code of the port (nor of the
+reference) reads them: soft guidance is asked for by passing a soft encoder
+and its scale to models/guided_generation.py. The fused loss's saved raw similarity
+(`contrastive.fused_materialize_raw`) is ported. The hard-negative cache
+(`contrastive.use_cache`, `cache_size`) is ported: with
 `contrastive.use_fused_kernel` it is the reference's `two_tower_optimized`
-preset. The port's
-modules are always unrolled; utils/convert.py reads both flax param layouts.
-Defaults are the reference's.
+preset. The port's modules are always unrolled; utils/convert.py reads
+both flax param layouts. Defaults are the reference's.
 
 `apply_overrides(cfg, ["a.b=c", ...])` replaces dotted fields, parsing each
 value by the field's declared type.
@@ -44,12 +49,19 @@ class ESMConfig:
     max_len: int = 1024
     token_dropout: bool = True
     layer_norm_eps: float = 1e-5  # facebook/esm2 checkpoints use 1e-5
+    # esm_clip: the tower's output is detached and its subtree's update
+    # zeroed (train/state.py::freeze_subtrees)
+    frozen: bool = True
+    lora_rank: int = 0  # LoRA (models/lora.py) is not ported: > 0 raises
 
 
 @dataclass(frozen=True)
 class DPLMConfig:
     """Discrete-diffusion protein LM: the sampler's and the trainer's trunk
-    (training reads the widths, max_len and layer_norm_eps)."""
+    (training reads the widths, max_len and layer_norm_eps) and the best-of-K
+    of its guided sampler (`num_candidates`). `guidance` and
+    `guidance_scale` are parsed for parity with the reference and read by
+    nothing."""
 
     vocab_size: int = 33
     d_model: int = 640
@@ -58,6 +70,9 @@ class DPLMConfig:
     max_len: int = 512
     num_diffusion_steps: int = 100
     layer_norm_eps: float = 1e-5  # matches ESM-2 checkpoints for warm-start
+    guidance_scale: float = 1.0
+    guidance: str = "rerank"  # none | rerank | gradient
+    num_candidates: int = 8  # best-of-K for rerank guidance
 
 
 @dataclass(frozen=True)
@@ -180,17 +195,19 @@ class DataConfig:
 @dataclass(frozen=True)
 class Config:
     """The experiments' configuration: `two_tower` reads tower_a/tower_b,
-    `rna_rbp` the token towers rna_tower/rbp_tower, `tf_clip` encoders (its
-    three encoders' depth, heads and dropout are module defaults, as in the
-    reference), `dplm` the DPLM trunk."""
+    `rna_rbp` the token towers rna_tower/rbp_tower, `esm_clip` rna_tower
+    and esm, `tf_clip` encoders (its three encoders' depth, heads and
+    dropout are module defaults, as in the reference), `dplm` the DPLM
+    trunk."""
 
-    experiment: str = "two_tower"  # two_tower | rna_rbp | tf_clip | dplm
+    experiment: str = "two_tower"  # two_tower | rna_rbp | esm_clip | tf_clip | dplm
     tower_a: TowerConfig = field(default_factory=TowerConfig)
     tower_b: TowerConfig = field(default_factory=lambda: TowerConfig(input_dim=1280))
     projection: ProjectionConfig = field(default_factory=ProjectionConfig)
     rna_tower: TransformerTowerConfig = field(default_factory=TransformerTowerConfig)
     rbp_tower: TransformerTowerConfig = field(
         default_factory=lambda: TransformerTowerConfig(input_dim=1280))
+    esm: ESMConfig = field(default_factory=ESMConfig)
     encoders: EncoderConfig = field(default_factory=EncoderConfig)
     dplm: DPLMConfig = field(default_factory=DPLMConfig)
     contrastive: ContrastiveConfig = field(default_factory=ContrastiveConfig)

@@ -1,6 +1,6 @@
 """Timing of a train step on one CUDA device:
 `python -m clip_dplm_tpu_torch.experiments.bench [--model
-two_tower|two_tower_cached|rna_rbp|tf_clip|dplm] [--batch B] [--iters N]
+two_tower|two_tower_cached|rna_rbp|esm_clip|tf_clip|dplm] [--batch B] [--iters N]
 [-o a.b=c ...]`.
 
 Counterpart of the repository's `bench.py` legs:
@@ -21,6 +21,11 @@ Counterpart of the repository's `bench.py` legs:
   10 DEG tokens), its batch (kNN connectivity through the gram identity)
   and its overrides: the fused InfoNCE, f32 Adam moments. The metric is
   cells/s: one (cell, perturbation, protein) triple per batch row;
+- `esm_clip` (B=64): the RNA <-> protein CLIP with an ESM-2 8M tower
+  (configs/esm_clip.yaml: the tower trained, 320 wide, 6 layers of 20
+  heads) over 64 protein tokens, the RNA tower (512 wide, 3 blocks of 8
+  heads) over 32 tokens plus CLS, the heads' Dense blocks fused, the plain
+  InfoNCE (the config's `use_fused_kernel: false`). The metric is pairs/s;
 - `dplm` (B=256): DPLM 640/12/10 diffusion training at S = 128 (up to 126
   residues plus cls/eos, the serving path's length), a motif-tiled batch
   with ragged lengths in [64, 126) (`registry.motif_proteins`), f32 Adam
@@ -94,6 +99,13 @@ TF_CLIP_OVERRIDES = [
     "contrastive.use_fused_kernel=true",
 ]
 
+# configs/esm_clip.yaml's differences from the default config (the ESM tower
+# trained, B=64), with the heads' Dense blocks fused as the flagship's bench
+# has them
+ESM_CLIP_OVERRIDES = ["experiment=esm_clip", "esm.frozen=false", "train.optim.total_steps=1000",
+                      "projection.fused_dense=true"]
+ESM_CLIP_RNA, ESM_CLIP_PROTEIN = 32, 64  # tokens, as registry._esm_clip_data has them
+
 DPLM_SEQ = 128  # 126 residues + cls/eos
 DPLM_OVERRIDES = ["experiment=dplm", f"dplm.max_len={DPLM_SEQ}", "train.optim.total_steps=1000"]
 
@@ -164,6 +176,51 @@ def token_clip_step_flops(cfg, B: int, sa: int, sb: int) -> float:
     fwd += proj(cfg.rbp_tower.d_model, cfg.projection)
     fwd += 2.0 * B * B * cfg.projection.dim
     return 3.0 * fwd
+
+
+def esm_clip_step_flops(cfg, B: int) -> float:
+    """Analytic matmul FLOPs (fwd+bwd ~= 3x fwd) of one esm_clip step: the
+    RNA token tower over ESM_CLIP_RNA tokens plus CLS (input projection and
+    each layer's 24·T·d² and 4·B·S²·d), the ESM tower's layers over
+    ESM_CLIP_PROTEIN tokens, both optimized heads and the B x B
+    similarity."""
+    r, e, p = cfg.rna_tower, cfg.esm, cfg.projection
+    hidden = p.hidden_dim or 4 * p.dim
+
+    def layers(n, S, d):
+        return n * (24.0 * B * S * d * d + 4.0 * B * S * S * d)
+
+    def proj(in_dim):
+        return 2.0 * B * (p.dim * in_dim + hidden * in_dim + hidden * hidden + p.dim * hidden)
+
+    S = ESM_CLIP_RNA + 1
+    fwd = 2.0 * B * S * r.input_dim * r.d_model + layers(r.num_layers, S, r.d_model)
+    fwd += layers(e.num_layers, ESM_CLIP_PROTEIN, e.d_model)
+    fwd += proj(r.d_model) + proj(e.d_model) + 2.0 * B * B * p.dim
+    return 3.0 * fwd
+
+
+def esm_clip_batch(cfg, B: int, rng) -> Dict[str, np.ndarray]:
+    """B pairs of the esm_clip data's shapes: RNA token embeddings (B,
+    ESM_CLIP_RNA, input_dim), all valid; protein rows of ESM_CLIP_PROTEIN
+    tokens (<cls>, residues, <eos>, <pad>) with lengths in [S/2, S-2), drawn
+    lengths first."""
+    from clip_dplm_tpu_torch.models.dplm import CLS_IDX, EOS_IDX, PAD_IDX
+
+    S = ESM_CLIP_PROTEIN
+    lens = rng.integers(S // 2, S - 2, B)
+    tokens = np.full((B, S), PAD_IDX, np.int32)
+    tokens[:, 0] = CLS_IDX
+    tokens[:, 1:S - 1] = rng.integers(4, 24, (B, S - 2))
+    tokens[np.arange(B), 1 + lens] = EOS_IDX
+    tokens[np.arange(S)[None, :] > 1 + lens[:, None]] = PAD_IDX
+    return {
+        "rna_tokens": rng.normal(size=(B, ESM_CLIP_RNA, cfg.rna_tower.input_dim)).astype(
+            np.float32),
+        "rna_mask": np.ones((B, ESM_CLIP_RNA), bool),
+        "protein_tokens": tokens,
+        "protein_mask": tokens != PAD_IDX,
+    }
 
 
 def tf_clip_step_flops(cfg, B: int) -> float:
@@ -257,6 +314,8 @@ MODELS = {
                          "pairs/s/chip", _two_tower_batch, two_tower_cached_step_flops),
     "rna_rbp": (RNA_RBP_OVERRIDES, 1024, "rna_rbp_pairs_per_sec_per_chip", "pairs/s/chip",
                 rna_rbp_batch, lambda cfg, B: token_clip_step_flops(cfg, B, TOKENS, TOKENS)),
+    "esm_clip": (ESM_CLIP_OVERRIDES, 64, "esm_clip_pairs_per_sec_per_chip", "pairs/s/chip",
+                 esm_clip_batch, esm_clip_step_flops),
     "tf_clip": (TF_CLIP_OVERRIDES, 4096, "tf_clip_cells_per_sec_per_chip", "cells/s/chip",
                 tf_clip_batch, tf_clip_step_flops),
     "dplm": (DPLM_OVERRIDES, 256, "dplm_train_seqs_per_sec_per_chip", "seqs/s/chip",
@@ -269,8 +328,8 @@ def parse_args(argv: Optional[Sequence[str]] = None) -> argparse.Namespace:
                                 formatter_class=argparse.RawDescriptionHelpFormatter)
     p.add_argument("--model", choices=sorted(MODELS), default="two_tower")
     p.add_argument("--batch", type=int, default=None,
-                   help="default: 8192 for two_tower(_cached), 1024 for rna_rbp, 4096 for "
-                        "tf_clip, 256 for dplm")
+                   help="default: 8192 for two_tower(_cached), 1024 for rna_rbp, 64 for "
+                        "esm_clip, 4096 for tf_clip, 256 for dplm")
     p.add_argument("--iters", type=int, default=20)
     p.add_argument("--override", "-o", action="append", default=[])
     return p.parse_args(argv)

@@ -1,6 +1,6 @@
 """Where the time of one train step goes on the card:
 `python -m clip_dplm_tpu_torch.experiments.profile_step [--model
-two_tower|two_tower_cached|rna_rbp|tf_clip|dplm] [-o a.b=c ...]
+two_tower|two_tower_cached|rna_rbp|esm_clip|tf_clip|dplm] [-o a.b=c ...]
 [--kernels KEY,...]`.
 
 Builds the configuration, batch and warmed-up step of

@@ -1,8 +1,8 @@
 """Experiment registry: config.experiment -> (model, data source).
 
 Counterpart of `clip_dplm_tpu/experiments/registry.py` for the experiments
-the port has: `two_tower`, `rna_rbp`, `tf_clip` and `dplm`; every other name
-raises.
+the port has: `two_tower`, `rna_rbp`, `esm_clip`, `tf_clip` and `dplm`;
+every other name raises.
 """
 
 from __future__ import annotations
@@ -16,7 +16,7 @@ from clip_dplm_tpu_torch.config import Config
 from clip_dplm_tpu_torch.data.collate import TokenPairDataset
 from clip_dplm_tpu_torch.data.synthetic import PairedEmbeddingDataset
 
-EXPERIMENTS = ("two_tower", "rna_rbp", "tf_clip", "dplm")
+EXPERIMENTS = ("two_tower", "rna_rbp", "esm_clip", "tf_clip", "dplm")
 KNN_ROWS = 16  # rows of the (B, B) kNN distances computed at once
 
 
@@ -37,6 +37,10 @@ def build_model(cfg: Config, device=None, dtype: torch.dtype = torch.bfloat16):
         from clip_dplm_tpu_torch.models.token_towers import RNARBPCLIP
 
         return RNARBPCLIP(cfg, dtype=dtype, device=device)
+    if cfg.experiment == "esm_clip":
+        from clip_dplm_tpu_torch.models.protein_clip import ESMProteinCLIP
+
+        return ESMProteinCLIP(cfg, dtype=dtype, device=device)
     if cfg.experiment == "tf_clip":
         from clip_dplm_tpu_torch.models.tf_clip import TFContrastiveModel
 
@@ -52,10 +56,13 @@ def build_data(cfg: Config, split_seed: int = 0):
     2048-pair fixture of the reference, `dataset=embeddings` loads an .npz
     with `a` and `b` from data.path; 85/15 split. rna_rbp: {"rna_tokens",
     "rna_mask", "rbp_tokens", "rbp_mask"} from 1024 synthetic token-sequence
-    pairs, the first 85 % for training, padded to 64 / 128 tokens. tf_clip:
-    `_tf_clip_data`. dplm: `_dplm_data`. The ragged tail is dropped."""
+    pairs, the first 85 % for training, padded to 64 / 128 tokens. esm_clip:
+    `_esm_clip_data`. tf_clip: `_tf_clip_data`. dplm: `_dplm_data`. The
+    ragged tail is dropped."""
     _require_ported(cfg)
     B = cfg.train.batch_size
+    if cfg.experiment == "esm_clip":
+        return _esm_clip_data(cfg, split_seed)
     if cfg.experiment == "tf_clip":
         return _tf_clip_data(cfg, split_seed)
     if cfg.experiment == "dplm":
@@ -98,6 +105,45 @@ def _batch_iter(arrays: Dict[str, np.ndarray], batch_size: int, seed, shuffle=Tr
         yield {k: v[sel] for k, v in arrays.items()}
 
 
+def _split(arrays: Dict[str, np.ndarray], frac: float = 0.85):
+    cut = int(len(next(iter(arrays.values()))) * frac)
+    return ({k: v[:cut] for k, v in arrays.items()}, {k: v[cut:] for k, v in arrays.items()})
+
+
+def _esm_clip_data(cfg: Config, seed: int):
+    """The reference's synthetic RNA-token <-> protein-sequence pairs with
+    class structure: 32 classes, each with a fixed residue sequence of
+    S = min(64, esm.max_len) tokens (<cls>, residues, <eos>, <pad>) and an
+    RNA token prototype (32 tokens of rna_tower.input_dim); 1024 samples
+    drawn over the classes, RNA rows with 0.3 noise; the first 85 % for
+    training. numpy draws in the reference's order."""
+    from clip_dplm_tpu_torch.models.dplm import CLS_IDX, EOS_IDX, PAD_IDX
+
+    rng = np.random.default_rng(seed)
+    n, n_classes = 1024, 32
+    S_rna, S_prot = 32, min(64, cfg.esm.max_len)
+    rna_dim = cfg.rna_tower.input_dim
+    prot_class = np.full((n_classes, S_prot), PAD_IDX, np.int32)
+    lens = rng.integers(S_prot // 2, S_prot - 2, n_classes)
+    for c in range(n_classes):
+        prot_class[c, 0] = CLS_IDX
+        prot_class[c, 1:1 + lens[c]] = rng.integers(4, 24, lens[c])
+        prot_class[c, 1 + lens[c]] = EOS_IDX
+    rna_proto = rng.normal(size=(n_classes, S_rna, rna_dim)).astype(np.float32)
+    labels = rng.integers(0, n_classes, n)
+    arrays = {
+        "rna_tokens": (rna_proto[labels]
+                       + 0.3 * rng.normal(size=(n, S_rna, rna_dim))).astype(np.float32),
+        "rna_mask": np.ones((n, S_rna), bool),
+        "protein_tokens": prot_class[labels],
+    }
+    arrays["protein_mask"] = arrays["protein_tokens"] != PAD_IDX
+    train, val = _split(arrays)
+    B = cfg.train.batch_size
+    return (lambda seed=0: _batch_iter(train, B, seed),
+            lambda: _batch_iter(val, B, 0, shuffle=False))
+
+
 def knn_connectivity(x: np.ndarray, k: int = 8) -> np.ndarray:
     """Symmetric kNN graph of the rows of x, (B, B) f32 with a zero
     diagonal: j is a neighbour of i when |x_i - x_j|^2 is at most i's
@@ -138,9 +184,7 @@ def _tf_clip_data(cfg: Config, seed: int):
         "gene_values": rng.uniform(-1, 1, (n, T)).astype(np.float32),
         "protein_emb": z @ w_prot + noise(n, enc.esm_dim),
     }
-    cut = int(n * 0.85)
-    train = {key: v[:cut] for key, v in arrays.items()}
-    val = {key: v[cut:] for key, v in arrays.items()}
+    train, val = _split(arrays)
     B = cfg.train.batch_size
 
     def with_connectivity(it):
@@ -180,9 +224,7 @@ def _dplm_data(cfg: Config, seed: int):
 
     tokens = motif_proteins(np.random.default_rng(seed), 1024, min(64, cfg.dplm.max_len))
     arrays = {"tokens": tokens, "mask": tokens != PAD_IDX}
-    cut = int(len(tokens) * 0.85)
-    train = {k: v[:cut] for k, v in arrays.items()}
-    val = {k: v[cut:] for k, v in arrays.items()}
+    train, val = _split(arrays)
     B = cfg.train.batch_size
     return (lambda seed=0: _batch_iter(train, B, seed),
             lambda: _batch_iter(val, B, 0, shuffle=False))

@@ -11,6 +11,19 @@ Weights are random, drawn from a seeded generator on that device:
   curl -s -XPOST localhost:8000/v1/embed -d '{"sequences": ["MKTAYIAK"]}'
   curl -s -XPOST localhost:8000/v1/generate -d '{"lengths": [60, 124]}'
   curl -s localhost:8000/v1/stats
+
+CLIP-guided generation (best-of-K reranking against a condition embedding)
+with the embed tower itself as the scorer, random weights too, and named
+conditions from an .npz (each array a (d,) embedding, d the tower's width):
+
+  python -m clip_dplm_tpu_torch.experiments.serve --allow-random \
+      --dplm-random --guided-random --gen-candidates 8 \
+      --conditions-npz conditions.npz --port 8000
+  curl -s -XPOST localhost:8000/v1/generate \
+      -d '{"lengths": [60], "condition_id": "rbp_a"}'
+
+A scorer from a converted CLIP checkpoint (`--scorer-bundle`) waits for the
+pretrained-bundle converters (utils/pretrained.py) and raises.
 """
 
 from __future__ import annotations
@@ -19,6 +32,7 @@ import argparse
 import signal
 import threading
 
+import numpy as np
 import torch
 
 from clip_dplm_tpu_torch.config import DPLMConfig
@@ -53,6 +67,11 @@ def build_services(args):
             max_batch=args.max_batch, max_wait_ms=args.max_wait_ms)
 
     gen_svc = None
+    if args.scorer_bundle:
+        raise SystemExit(
+            "--scorer-bundle: loading a scorer from a pretrained bundle is not ported yet "
+            "(the utils/pretrained.py converters, ROADMAP queue 1 item 10); "
+            "--guided-random guides with the embed tower")
     if args.dplm_random:
         cfg = DPLMConfig(d_model=args.dplm_d_model,
                          num_layers=args.dplm_layers,
@@ -61,10 +80,24 @@ def build_services(args):
         model = DPLM(cfg, device=device)
         init_params(model, torch.Generator(device=device).manual_seed(1))
         print("WARNING: serving RANDOM DPLM weights")
+        scorer = None
+        if args.guided_random:
+            if embed_svc is None:
+                raise SystemExit("--guided-random reuses the embed tower as the scorer; "
+                                 "it cannot be combined with --no-embed")
+            tower = embed_svc.tower
+
+            def scorer(toks, mask):
+                return tower(toks, mask, pooling="mean_residues")
+        conditions = None
+        if args.conditions_npz:
+            data = np.load(args.conditions_npz)
+            conditions = {k: data[k] for k in data.files}
         gen_svc = GenerateService(
             model.eval(), max_len=args.gen_max_len, num_steps=args.gen_steps,
             temperature=args.gen_temperature, max_batch=args.gen_max_batch,
-            max_wait_ms=args.max_wait_ms)
+            max_wait_ms=args.max_wait_ms, scorer=scorer,
+            num_candidates=args.gen_candidates, conditions=conditions)
     return embed_svc, gen_svc
 
 
@@ -91,6 +124,16 @@ def parse_args(argv=None):
     parser.add_argument("--gen-steps", type=int, default=None)
     parser.add_argument("--gen-temperature", type=float, default=1.0)
     parser.add_argument("--gen-max-batch", type=int, default=32)
+    parser.add_argument("--scorer-bundle", default=None,
+                        help="pretrained CLIP bundle scoring guided generation "
+                             "(not ported yet: giving one raises)")
+    parser.add_argument("--guided-random", action="store_true",
+                        help="guide /v1/generate with the embed tower (smoke only)")
+    parser.add_argument("--gen-candidates", type=int, default=4,
+                        help="best-of-K candidates for guided sampling")
+    parser.add_argument("--conditions-npz", default=None,
+                        help=".npz of named conditioning embeddings, referenced "
+                             "by condition_id")
     return parser.parse_args(argv)
 
 

@@ -1,10 +1,12 @@
 """Training CLI: `python -m clip_dplm_tpu_torch.experiments.train`.
 
 Counterpart of `clip_dplm_tpu/experiments/train.py` for the experiments the
-port has (two_tower, rna_rbp, tf_clip, dplm): dotted `-o a.b=c` overrides on the default
-config (no yaml), then data -> model -> train state -> Trainer on one
-device, the card unless `--device cpu` is given. Prints one JSON line per
-epoch and a final summary line.
+port has (two_tower, rna_rbp, esm_clip, tf_clip, dplm): dotted `-o a.b=c`
+overrides on the default config (no yaml), then data -> model -> train
+state -> Trainer on one device, the card unless `--device cpu` is given.
+Prints one JSON line per epoch and a final summary line. `--retrieval`
+prints the retrieval metrics of the validation split (R@1/5/10 both ways,
+accuracy, mean rank; train/metrics.py) before training and after it.
 
   python -m clip_dplm_tpu_torch.experiments.train --epochs 3 \\
       -o tower_a.input_dim=256 -o tower_a.hidden_size=1024 \\
@@ -14,6 +16,8 @@ epoch and a final summary line.
   python -m clip_dplm_tpu_torch.experiments.train --epochs 3 \\
       -o experiment=tf_clip -o train.batch_size=256
   python -m clip_dplm_tpu_torch.experiments.train --epochs 3 -o experiment=dplm
+  python -m clip_dplm_tpu_torch.experiments.train --epochs 3 --retrieval \
+      -o experiment=esm_clip -o esm.frozen=false -o train.batch_size=64
 """
 
 from __future__ import annotations
@@ -33,6 +37,9 @@ def parse_args(argv: Optional[Sequence[str]] = None) -> argparse.Namespace:
                    help="dotted config override, e.g. -o train.batch_size=64")
     p.add_argument("--device", default="cuda", help="cuda[:i] (default) or cpu")
     p.add_argument("--epochs", type=int, default=None)
+    p.add_argument("--retrieval", action="store_true",
+                   help="retrieval metrics of the validation split before and after "
+                        "training (pair models)")
     p.add_argument("--checkpoint-dir", default=None,
                    help="not ported yet: giving one raises")
     return p.parse_args(argv)
@@ -43,7 +50,7 @@ def main(argv: Optional[Sequence[str]] = None) -> Dict[str, list]:
     from clip_dplm_tpu_torch.config import Config, apply_overrides
     from clip_dplm_tpu_torch.experiments.registry import build_data, build_model
     from clip_dplm_tpu_torch.train.state import create_train_state
-    from clip_dplm_tpu_torch.train.trainer import Trainer
+    from clip_dplm_tpu_torch.train.trainer import Trainer, evaluate_retrieval
 
     device = torch.device(args.device)
     if device.type == "cuda" and not torch.cuda.is_available():
@@ -60,8 +67,17 @@ def main(argv: Optional[Sequence[str]] = None) -> Dict[str, list]:
                       log_fn=lambda epoch, m: print(json.dumps({"epoch": epoch, **m}),
                                                     flush=True))
     rng = np.random.default_rng(cfg.train.seed)
+
+    def retrieval(when):
+        metrics = {k: float(v) for k, v in evaluate_retrieval(model, val_batches()).items()}
+        print(json.dumps({"retrieval": when, **metrics}), flush=True)
+        return metrics
+
+    before = retrieval("untrained") if args.retrieval else None
     history = trainer.train(lambda: train_batches(seed=int(rng.integers(1 << 31))),
                             val_batches, num_epochs=args.epochs)
+    if args.retrieval:
+        history["retrieval_untrained"], history["retrieval"] = before, retrieval("trained")
     print(json.dumps({"done": True, "train_loss": history["train_loss"],
                       "val_loss": history["val_loss"]}), flush=True)
     return history

@@ -1,5 +1,5 @@
 """DPLM discrete-diffusion protein LM: the trunk, its training loss, the
-warm start from ESM-2 and the unguided sampler.
+warm start from ESM-2, the sampler and best-of-K CLIP-guided sampling.
 
 Counterpart of `clip_dplm_tpu/models/dplm.py`: an ESM-2-style bidirectional
 trunk (EsmBlock) with an f32 final LayerNorm and LM head over the 33-token
@@ -8,7 +8,8 @@ fraction of each row's residues, t ~ U(0.05, 1); `diffusion_loss` is the
 1/t-weighted CE on the masked positions); `init_dplm_from_esm`; and the
 confidence-remasking sampler (start fully masked; each step Gumbel-samples
 residues at masked positions, then re-masks the lowest-confidence fraction
-given by a cosine schedule). The reference's `lax.scan` is a Python loop
+given by a cosine schedule; an optional logit bias steers each step), and
+`clip_guided_sample`. The reference's `lax.scan` is a Python loop
 here, and `jax.random` keys are a `torch.Generator` on the model's device;
 the loop never waits on the host. The corruption's t and u cannot be
 JAX's PRNG draws: they come from the dropout's counter hash
@@ -20,7 +21,7 @@ and the card, and made on the device.
 from __future__ import annotations
 
 import math
-from typing import Dict, Optional, Tuple
+from typing import Callable, Dict, Optional, Tuple
 
 import numpy as np
 import torch
@@ -165,15 +166,21 @@ def sample(
     length: int,
     num_steps: Optional[int] = None,
     temperature: float = 1.0,
+    logit_bias_fn: Optional[Callable[[torch.Tensor, torch.Tensor], torch.Tensor]] = None,
     lengths: Optional[torch.Tensor] = None,
 ) -> Tuple[torch.Tensor, torch.Tensor]:
     """Generate (B, length+2) token sequences ([cls] residues [eos]).
 
-    `lengths` (optional, (B,) int): per-row residue counts for mixed-length
-    batches, clamped to [1, length]; row i generates lengths[i] residues with
-    <eos> at lengths[i]+1 and <pad> beyond. `generator` lives on the model's
-    device. Returns (tokens, per-position logprob of the final choice; -inf
-    outside the generated region)."""
+    `logit_bias_fn(tokens, logits) -> bias` steers each step: the bias
+    (broadcastable to the (B, S, vocab) logits) is added after the residue
+    mask, before the proposal draw (soft CLIP guidance). The sampler runs
+    without a gradient; a bias that needs one enables it itself
+    (models/guided_generation.py). `lengths` (optional, (B,) int): per-row
+    residue counts for mixed-length batches, clamped to [1, length]; row i
+    generates lengths[i] residues with <eos> at lengths[i]+1 and <pad>
+    beyond. `generator` lives on the model's device. Returns (tokens,
+    per-position logprob of the final choice; -inf outside the generated
+    region)."""
     cfg = model.cfg
     dev = model.device
     num_steps = num_steps or cfg.num_diffusion_steps
@@ -204,6 +211,8 @@ def sample(
 
     for step in range(num_steps):
         logits = model(tokens, valid) + vocab_bias
+        if logit_bias_fn is not None:
+            logits = logits + logit_bias_fn(tokens, logits)
         logp = torch.log_softmax(logits / max(temperature, 1e-6), dim=-1)
         # exact Gumbel-max draw from softmax(logits / t)
         proposal = torch.argmax(
@@ -230,3 +239,54 @@ def sample(
         tokens = torch.where(remask, MASK_IDX, new_tokens)
         confidence = torch.where(remask, -math.inf, new_conf)
     return tokens, confidence
+
+
+def clip_guided_sample(
+    model: DPLM,
+    generator: torch.Generator,
+    score_fn: Callable[[torch.Tensor], torch.Tensor],
+    batch_size: int,
+    length: int,
+    num_candidates: Optional[int] = None,
+    num_steps: Optional[int] = None,
+    temperature: float = 1.0,
+    logit_bias_fn: Optional[Callable] = None,
+    lengths: Optional[torch.Tensor] = None,
+    flatten_chains: bool = True,
+) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Best-of-K CLIP-guided sampling: K independent denoising chains, and
+    per output row the candidate maximizing `score_fn`. Returns (tokens (B,
+    length+2), scores (B,)).
+
+    `score_fn` takes the (K, B, S) candidates and returns (K, B) scores, the
+    reference's score_fn vmapped over the candidates (models/
+    guided_generation.py's scorers take any leading axes, so per-row
+    conditioning (B, d) works unchanged). `flatten_chains=True` runs the K
+    chains as one chain of K*B rows (every random draw of `sample` is per
+    row, so the two forms agree in distribution, not bit for bit);
+    `logit_bias_fn` then sees the (K, B, S) and (K, B, S, vocab) views of
+    the flattened chain and its bias is broadcast back; otherwise the K
+    chains of B rows run one after another, each with the (B, ...)
+    contract."""
+    K = num_candidates or model.cfg.num_candidates
+    B = batch_size
+    if flatten_chains:
+        bias_f = None
+        if logit_bias_fn is not None:
+            def bias_f(tokens, logits):
+                S, V = logits.shape[-2:]
+                bias = logit_bias_fn(tokens.reshape(K, B, S), logits.reshape(K, B, S, V))
+                return torch.broadcast_to(bias, (K, B, S, V)).reshape(K * B, S, V)
+        lengths_f = None if lengths is None else torch.as_tensor(lengths).repeat(K)
+        toks, _ = sample(model, generator, K * B, length, num_steps=num_steps,
+                         temperature=temperature, logit_bias_fn=bias_f, lengths=lengths_f)
+        candidates = toks.reshape(K, B, -1)
+    else:
+        candidates = torch.stack([
+            sample(model, generator, B, length, num_steps=num_steps, temperature=temperature,
+                   logit_bias_fn=logit_bias_fn, lengths=lengths)[0] for _ in range(K)])
+    with torch.no_grad():
+        scores = score_fn(candidates)
+    best = scores.argmax(dim=0)
+    rows = torch.arange(B, device=best.device)
+    return candidates[best, rows], scores[best, rows]

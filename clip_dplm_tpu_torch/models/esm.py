@@ -1,8 +1,9 @@
 """ESM-2-style protein transformer in PyTorch.
 
-Counterpart of `clip_dplm_tpu/models/esm.py` on the serving path: pre-LN
-blocks with rotary q/k, exact-GELU FFN, a final LayerNorm, ESM's token-dropout
-rescaling and mean-residue / cls pooling. Parameters keep the flax names
+Counterpart of `clip_dplm_tpu/models/esm.py`: pre-LN blocks with rotary
+q/k, exact-GELU FFN, a final LayerNorm, ESM's token-dropout rescaling,
+mean-residue / cls pooling, and the soft token path (`token_probs`) that
+soft CLIP guidance differentiates through. Parameters keep the flax names
 (`embed_tokens`, `layer_<i>/{ln_attn,q,k,v,out,ln_ffn,ffn_in,ffn_out}`,
 `final_ln`), so `utils/convert.py` maps a flax tree onto the `state_dict`.
 The trunk is always unrolled; a stacked (`scan_layers`) flax tree is
@@ -167,19 +168,30 @@ class ESMTower(nn.Module):
     def device(self) -> torch.device:
         return self.embed_tokens.embedding.device
 
-    def embed(self, tokens: torch.Tensor, mask: Optional[torch.Tensor] = None):
-        """Token embedding, token-dropout rescaling and pad zeroing.
-        Returns (h, mask, positions)."""
+    def embed(self, tokens: torch.Tensor, mask: Optional[torch.Tensor] = None,
+              token_probs: Optional[torch.Tensor] = None):
+        """Token embedding (hard, or soft from `token_probs`), token-dropout
+        rescaling and pad zeroing. Returns (h, mask, positions)."""
         c = self.cfg
         B, S = tokens.shape
         if mask is None:
             mask = tokens != self.PAD_IDX
-        emb = self.embed_tokens(tokens).float()
+        table = self.embed_tokens.embedding
+        if token_probs is None:
+            emb = self.embed_tokens(tokens).float()
+        else:
+            emb = token_probs.float() @ table.float()
         if c.token_dropout:
-            is_masked = tokens == self.MASK_IDX
-            emb = torch.where(is_masked[..., None], 0.0, emb)
+            if token_probs is None:
+                p_mask = (tokens == self.MASK_IDX).float()
+                emb = torch.where((tokens == self.MASK_IDX)[..., None], 0.0, emb)
+            else:
+                # the expected <mask> row taken out: zeroing in the one-hot
+                # limit, smooth in between
+                p_mask = token_probs[..., self.MASK_IDX].float()
+                emb = emb - p_mask[..., None] * table[self.MASK_IDX].float()
             n_real = mask.sum(dim=-1, keepdim=True).clamp(min=1)
-            ratio = (is_masked & mask).sum(dim=-1, keepdim=True).float() / n_real
+            ratio = (p_mask * mask).sum(dim=-1, keepdim=True) / n_real
             scale = (1.0 - _MASK_RATIO_TRAIN) / (1.0 - ratio).clamp(min=1e-6)
             emb = emb * scale[..., None]
         emb = torch.where(mask[..., None], emb, 0.0)
@@ -204,8 +216,14 @@ class ESMTower(nn.Module):
         raise ValueError(f"unknown pooling {pooling!r}")
 
     def forward(self, tokens: torch.Tensor, mask: Optional[torch.Tensor] = None,
-                pooling: str = "tokens") -> torch.Tensor:
-        h, mask, positions = self.embed(tokens, mask)
+                pooling: str = "tokens",
+                token_probs: Optional[torch.Tensor] = None) -> torch.Tensor:
+        """`token_probs` (B, S, vocab): soft token distributions; the lookup
+        becomes probs @ table, differentiable in probs (the relaxation behind
+        soft CLIP guidance of the DPLM sampler), equal to the hard path at
+        one-hot(tokens). `tokens` still gives the special-token positions for
+        the mask and the pooling."""
+        h, mask, positions = self.embed(tokens, mask, token_probs)
         for block in self.blocks:
             h = block(h, mask, positions)
         return self.head(h, tokens, mask, pooling)

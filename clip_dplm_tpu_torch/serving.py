@@ -7,14 +7,15 @@ Counterpart of `clip_dplm_tpu/serving.py` with the same routes and JSON:
   POST /v1/embed    {"sequences": [...]}            -> {"embeddings", "dim"}
   POST /v1/generate {"lengths": [...]} or {"num": N, "length": L}
                                  -> {"sequences": [...], "confidence": [...]}
+                    with "condition": [...] or "condition_id": "name"
+                                 -> {"sequences", "clip_scores", "guided": true}
 
 Services pad every batch to a fixed row count and the token dimension to a
 small set of length buckets, so a batch's shape, and with it the attention
 kernel it takes, follows from the longest sequence in it. One worker thread
 per service coalesces concurrent requests (`MicroBatcher`) and runs one
-forward or one sampler call for the group. CLIP-guided generation is not
-ported yet: a request with a condition gets the reference's 400 for a
-service built without a scorer.
+forward or one sampler call for the group; CLIP-guided requests coalesce in
+a second batcher of the generate service (`generate_guided`).
 """
 
 from __future__ import annotations
@@ -31,7 +32,9 @@ import numpy as np
 import torch
 
 from clip_dplm_tpu_torch.data.protein import detokenize, tokenize_batch
-from clip_dplm_tpu_torch.models.dplm import sample
+from clip_dplm_tpu_torch.models.dplm import (
+    CLS_IDX, EOS_IDX, PAD_IDX, RESIDUE_LO, clip_guided_sample, sample)
+from clip_dplm_tpu_torch.models.guided_generation import make_clip_scorer
 
 
 # ---------------------------------------------------------------------------
@@ -176,7 +179,7 @@ class EmbedService:
         max_wait_ms: float = 5.0,
         buckets: Optional[Sequence[int]] = None,
     ):
-        self._tower = tower
+        self.tower = tower
         self._pooling = pooling
         self._device = tower.device
         self.max_len = max_len
@@ -205,7 +208,7 @@ class EmbedService:
             toks = np.pad(toks, ((0, 0), (0, pad)), constant_values=1)
             mask = np.pad(mask, ((0, 0), (0, pad)))
         with torch.inference_mode():
-            emb = self._tower(
+            emb = self.tower(
                 torch.from_numpy(toks).to(self._device),
                 torch.from_numpy(mask).to(self._device),
                 pooling=self._pooling)
@@ -226,7 +229,16 @@ class GenerateService:
 
     Every batch runs `sample(batch_size=max_batch, length=max_len,
     lengths=per-row)` with a `torch.Generator` seeded once on the model's
-    device. Returns (sequence, mean residue logprob) per request."""
+    device. Returns (sequence, mean residue logprob) per request.
+
+    Guided mode: with `scorer` (a `(tokens, mask) -> (rows, d)` protein
+    embedding function, e.g. the CLIP protein tower) a request may carry a
+    conditioning embedding, or the name of one registered in `conditions`
+    (name -> (d,) vector); such requests run `clip_guided_sample`,
+    best-of-`num_candidates` reranking against each row's condition, in a
+    second batcher (`generate_guided`) with a generator of its own, so
+    guided and unguided traffic never share a device batch. They return
+    (sequence, CLIP score)."""
 
     def __init__(
         self,
@@ -237,6 +249,9 @@ class GenerateService:
         max_batch: int = 32,
         max_wait_ms: float = 10.0,
         seed: int = 0,
+        scorer: Optional[Callable] = None,
+        num_candidates: int = 4,
+        conditions: Optional[Dict[str, Any]] = None,
     ):
         self._model = model
         self.max_len = max_len
@@ -247,38 +262,111 @@ class GenerateService:
         self.batcher = MicroBatcher(
             self._run_batch, max_batch=max_batch,
             max_wait_ms=max_wait_ms, name="generate")
+        self.conditions = {k: np.asarray(v, np.float32).reshape(-1)
+                           for k, v in (conditions or {}).items()}
+        self.scorer = scorer
+        self.num_candidates = num_candidates
+        self.guided_batcher: Optional[MicroBatcher] = None
+        self.condition_dim: Optional[int] = None
+        if scorer is not None:
+            self.condition_dim = self._scorer_width()
+            for name, c in self.conditions.items():
+                if c.shape[0] != self.condition_dim:
+                    raise ValueError(
+                        f"condition {name!r} has width {c.shape[0]}; the scorer "
+                        f"embeds to {self.condition_dim}")
+            self._guided_generator = torch.Generator(
+                device=model.device).manual_seed(seed + 1)
+            self.guided_batcher = MicroBatcher(
+                self._run_batch_guided, max_batch=max_batch,
+                max_wait_ms=max_wait_ms, name="generate_guided")
+
+    def _scorer_width(self) -> int:
+        """The scorer's embedding width, from one call at the shape of a
+        guided batch (K x max_batch rows of max_len residues)."""
+        rows, S = self.num_candidates * self.max_batch, self.max_len + 2
+        toks = torch.full((rows, S), RESIDUE_LO, dtype=torch.int64,
+                          device=self._model.device)
+        toks[:, 0], toks[:, -1] = CLS_IDX, EOS_IDX
+        with torch.no_grad():
+            return int(self.scorer(toks, toks != PAD_IDX).shape[-1])
+
+    def _resolve_condition(self, condition, condition_id) -> np.ndarray:
+        if condition is not None and condition_id is not None:
+            raise ValueError("pass either condition or condition_id, not both")
+        if condition_id is not None:
+            if condition_id not in self.conditions:
+                raise ValueError(
+                    f"unknown condition_id {condition_id!r}; registered: "
+                    f"{sorted(self.conditions)}")
+            return self.conditions[condition_id]
+        cond = np.asarray(condition, np.float32).reshape(-1)
+        if cond.size != self.condition_dim or not np.all(np.isfinite(cond)):
+            raise ValueError(
+                f"condition must be a finite vector of the scorer's width "
+                f"{self.condition_dim}; got {cond.size} values")
+        return cond
 
     def generate(self, lengths: Sequence[int],
                  timeout: Optional[float] = None,
                  condition=None, condition_id: Optional[str] = None):
-        """Blocking: one generated sequence per requested length; returns
-        (sequences, per-sequence mean residue logprob)."""
+        """Blocking: one generated sequence per requested length. Unguided:
+        (sequences, per-sequence mean residue logprob). With `condition` (a
+        (d,) embedding) or `condition_id`: best-of-K CLIP-guided sampling
+        toward it, (sequences, per-sequence CLIP scores)."""
         for L in lengths:
             if not 1 <= int(L) <= self.max_len:
                 raise ValueError(
                     f"length {L} outside [1, {self.max_len}] "
                     f"(service max_len)")
-        if condition is not None or condition_id is not None:
-            raise ValueError(
-                "guided generation not configured: construct "
-                "GenerateService with scorer=...")
-        out = self.batcher.map([int(L) for L in lengths], timeout=timeout)
+        lengths = [int(L) for L in lengths]
+        if condition is None and condition_id is None:
+            out = self.batcher.map(lengths, timeout=timeout)
+        else:
+            if self.guided_batcher is None:
+                raise ValueError(
+                    "guided generation not configured: construct "
+                    "GenerateService with scorer=...")
+            cond = self._resolve_condition(condition, condition_id)
+            out = self.guided_batcher.map([(L, cond) for L in lengths], timeout=timeout)
         return [s for s, _ in out], [c for _, c in out]
 
-    def _run_batch(self, lengths: List[int]):
+    def _row_lengths(self, lengths: List[int]) -> torch.Tensor:
         row_lengths = torch.ones((self.max_batch,), dtype=torch.int64)
         row_lengths[: len(lengths)] = torch.as_tensor(lengths)
+        return row_lengths
+
+    def _run_batch(self, lengths: List[int]):
         toks, conf = sample(
             self._model, self._generator, batch_size=self.max_batch,
             length=self.max_len, num_steps=self._num_steps,
-            temperature=self._temperature, lengths=row_lengths)
+            temperature=self._temperature, lengths=self._row_lengths(lengths))
         toks = toks.cpu().numpy()
         conf = conf.float().cpu().numpy()
         return [(detokenize(toks[i]), float(conf[i, 1: L + 1].mean()))
                 for i, L in enumerate(lengths)]
 
+    def _run_batch_guided(self, payloads: List[Any]):
+        # every condition has the scorer's width (_resolve_condition); zero
+        # rows (padding) normalize to zero and score 0 everywhere
+        cond = np.zeros((self.max_batch, self.condition_dim), np.float32)
+        for i, (_, c) in enumerate(payloads):
+            cond[i] = c
+        toks, scores = clip_guided_sample(
+            self._model, self._guided_generator,
+            make_clip_scorer(self.scorer, torch.from_numpy(cond)),
+            batch_size=self.max_batch, length=self.max_len,
+            num_candidates=self.num_candidates, num_steps=self._num_steps,
+            temperature=self._temperature,
+            lengths=self._row_lengths([L for L, _ in payloads]))
+        toks = toks.cpu().numpy()
+        scores = scores.float().cpu().numpy()
+        return [(detokenize(toks[i]), float(scores[i])) for i in range(len(payloads))]
+
     def close(self) -> None:
         self.batcher.close()
+        if self.guided_batcher is not None:
+            self.guided_batcher.close()
 
 
 # ---------------------------------------------------------------------------
@@ -322,10 +410,12 @@ def make_server(
             if self.path == "/healthz":
                 self._send(200, {"ok": True})
             elif self.path == "/v1/stats":
-                self._send(200, {
-                    name: svc.batcher.stats()
-                    for name, svc in services.items() if svc is not None
-                })
+                stats = {name: svc.batcher.stats()
+                         for name, svc in services.items() if svc is not None}
+                gen = services["generate"]
+                if gen is not None and gen.guided_batcher is not None:
+                    stats["generate_guided"] = gen.guided_batcher.stats()
+                self._send(200, stats)
             else:
                 self._send(404, {"error": f"unknown path {self.path}"})
 
@@ -375,11 +465,13 @@ def make_server(
                 if not 1 <= num <= 1024:
                     raise ValueError('"num" must be in [1, 1024]')
                 lengths = [int(req.get("length", svc.max_len))] * num
-            seqs, conf = svc.generate(
-                lengths, timeout=request_timeout,
-                condition=req.get("condition"),
-                condition_id=req.get("condition_id"))
-            self._send(200, {"sequences": seqs, "confidence": conf})
+            condition, condition_id = req.get("condition"), req.get("condition_id")
+            seqs, values = svc.generate(lengths, timeout=request_timeout,
+                                        condition=condition, condition_id=condition_id)
+            if condition is None and condition_id is None:
+                self._send(200, {"sequences": seqs, "confidence": values})
+            else:
+                self._send(200, {"sequences": seqs, "clip_scores": values, "guided": True})
 
     server = ThreadingHTTPServer((host, port), Handler)
     server.daemon_threads = True

@@ -193,13 +193,18 @@ def create_train_state(model: nn.Module, cfg: Config, tx: Optional[FusedAdamW] =
                        frozen_keys=(), init: bool = True) -> TrainState:
     """With `init`, random weights from a generator seeded by
     cfg.train.seed on the model's device; otherwise the model keeps its
-    weights (loaded from a flax tree, say)."""
+    weights (loaded from a flax tree, say). Without a `tx` of the caller's,
+    `esm.frozen` freezes an `esm_tower` subtree (esm_clip) when no
+    `frozen_keys` are given, as the reference's create_train_state does."""
     device = next(model.parameters()).device
     if init:
         init_params(model, torch.Generator(device=device).manual_seed(cfg.train.seed))
     params = dict(model.named_parameters())
     if tx is None:
         tx = build_optimizer(cfg.train.optim)
+        if not frozen_keys and cfg.esm.frozen and any(k.startswith("esm_tower.")
+                                                      for k in params):
+            frozen_keys = ("esm_tower",)
     if frozen_keys:
         tx = freeze_subtrees(tx, params, frozen_keys)
     key = (cfg.train.seed * 0x9E3779B97F4A7C15 + 1) & ((1 << 64) - 1)

@@ -1,6 +1,7 @@
 """Train and eval steps of the port's models, and the Trainer loop: the pair
-family (TwoTowerCLIP and RNARBPCLIP: any model whose forward returns emb_a,
-emb_b and logit_scale), the three-way tf_clip model (cell_embed,
+family (TwoTowerCLIP, RNARBPCLIP and ESMProteinCLIP: any model whose forward
+returns emb_a, emb_b and logit_scale; with the plain InfoNCE unless
+contrastive.use_fused_kernel, as the reference's trainer picks it), the three-way tf_clip model (cell_embed,
 pert_embed, protein_embed: the sum of the three pairs' losses) and DPLM (the
 absorbing-state diffusion loss over batch["tokens"] and batch["mask"]).
 
@@ -8,8 +9,8 @@ Counterpart of `clip_dplm_tpu/train/trainer.py` for those families with the
 `infonce` loss: `make_loss_fn` (the per-family loss), `make_train_step`
 (gradient accumulation over micro-batches, the fused AdamW, the optional
 gradient-norm metric, the hard-negative cache of the pair family),
-`make_eval_step` and a `Trainer` with the epoch loop, validation and early
-stopping. With `contrastive.use_cache` every micro-batch's a->b direction
+`make_eval_step`, `evaluate_retrieval` (the retrieval metrics of a split)
+and a `Trainer` with the epoch loop, validation and early stopping. With `contrastive.use_cache` every micro-batch's a->b direction
 reads the state's cache as extra negative columns (its unfilled tail
 masked), and after the optimizer the cache takes the step's normalized emb_b,
 every micro-batch's in order; tf_clip neither reads nor writes it. PyTorch
@@ -235,6 +236,23 @@ def make_eval_step(cfg: Config) -> Callable[[TrainState, Dict], Dict]:
         return metrics
 
     return step
+
+
+@torch.no_grad()
+def evaluate_retrieval(model, batches: Iterable[Dict]) -> Dict[str, torch.Tensor]:
+    """Retrieval metrics (train/metrics.py) of a pair model over a split:
+    the deterministic emb_a and emb_b of every batch, concatenated, row i
+    of one the positive of row i of the other."""
+    from clip_dplm_tpu_torch.train.metrics import retrieval_metrics
+
+    was_training = model.training
+    model.eval()
+    outs = [model(to_device(b, model.device), deterministic=True) for b in batches]
+    model.train(was_training)
+    if not outs:
+        raise ValueError("no batch to evaluate")
+    return retrieval_metrics(torch.cat([o["emb_a"] for o in outs]),
+                             torch.cat([o["emb_b"] for o in outs]))
 
 
 class EarlyStopping:

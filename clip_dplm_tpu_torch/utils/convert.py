@@ -3,15 +3,16 @@
 A flax param tree (nested mappings of arrays, as `model.init(...)["params"]`
 or a checkpoint gives it) becomes a `state_dict` of the port's `DPLM`,
 `ESMTower`, `TwoTowerCLIP` (any tower, the `transformer` one included),
-`RNARBPCLIP` or `TFContrastiveModel`: the scope path joins with dots
+`RNARBPCLIP`, `ESMProteinCLIP` (scopes `rna_tower`, `esm_tower`, `rna_proj`,
+`protein_proj`) or `TFContrastiveModel`: the scope path joins with dots
 (`layer_0/q/kernel` -> `layer_0.q.kernel`, `rna_tower/block_0/out_proj/kernel`
 -> `rna_tower.block_0.out_proj.kernel`, `cell_in/layers_3/kernel` ->
 `cell_in.layers_3.kernel`), Dense kernels (the packed attention's `out_proj`
 included) are transposed from flax's (in, out) to the port's (out, in), every
 other leaf keeps its shape (the 0-d `logit_scale`, the (1, max_len, d) or
 (1, 8, d) `pos_embed`, the (1, 1, d) `cls_token`), and a stacked
-`layers/block` tree (the `scan_layers` layout) is unstacked to `layer_<i>`
-first. `load_cache` carries a train state's hard-negative cache (`cache`,
+`layers/block` tree (the `scan_layers` layout), at the top or in the
+`esm_tower` scope, is unstacked to `layer_<i>` first. `load_cache` carries a train state's hard-negative cache (`cache`,
 `cache_ptr`, `cache_len`, as numpy) into the port's `TrainState`.
 """
 
@@ -36,16 +37,16 @@ def _to_dict(tree):
 def flax_to_state_dict(params: Mapping,
                        num_layers: Optional[int] = None) -> Dict[str, torch.Tensor]:
     """Flax params of DPLM / ESMTower / TwoTowerCLIP / RNARBPCLIP /
-    TFContrastiveModel -> the port's state_dict (f32, CPU). `num_layers`
-    unstacks a `layers/block` subtree (read from its leading dim when not
-    given); trees without one need nothing."""
+    ESMProteinCLIP / TFContrastiveModel -> the port's state_dict (f32, CPU).
+    `num_layers` unstacks a top-level `layers/block` subtree (read from its
+    leading dim when not given, as it always is for `esm_tower`'s); trees
+    without one need nothing."""
     params = _to_dict(params)
     if "params" in params and len(params) == 1:
         params = params["params"]
-    if "layers" in params and "layer_0" not in params:
-        if num_layers is None:
-            num_layers = next(iter(_leaves(params["layers"]))).shape[0]
-        params = unstack_esm_layers(params, num_layers)
+    params = _unstacked(params, num_layers)
+    if isinstance(params.get("esm_tower"), dict):
+        params["esm_tower"] = _unstacked(params["esm_tower"], None)
     sd: Dict[str, torch.Tensor] = {}
 
     def walk(tree, prefix):
@@ -60,6 +61,16 @@ def flax_to_state_dict(params: Mapping,
     return sd
 
 
+def _unstacked(params: Dict, num_layers: Optional[int]) -> Dict:
+    """A tree with a stacked `layers/block` subtree and no `layer_0` in the
+    unrolled layout; any other tree as it is."""
+    if "layers" not in params or "layer_0" in params:
+        return params
+    if num_layers is None:
+        num_layers = next(iter(_leaves(params["layers"]))).shape[0]
+    return unstack_esm_layers(params, num_layers)
+
+
 def _leaves(tree):
     for val in tree.values():
         if isinstance(val, dict):
@@ -70,7 +81,8 @@ def _leaves(tree):
 
 def load_flax_params(module: nn.Module, params: Mapping) -> nn.Module:
     """Load flax params into a port DPLM / ESMTower / TwoTowerCLIP /
-    RNARBPCLIP / TFContrastiveModel in place (strict: every key must match) and return it."""
+    RNARBPCLIP / ESMProteinCLIP / TFContrastiveModel in place (strict: every
+    key must match) and return it."""
     sd = flax_to_state_dict(params, getattr(module.cfg, "num_layers", None))
     module.load_state_dict(sd, strict=True)
     return module

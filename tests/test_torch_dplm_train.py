@@ -255,7 +255,9 @@ def test_bench_dplm_step():
 
 
 def test_config_keeps_unported_dplm_fields_out():
-    with pytest.raises(KeyError, match="guidance"):
-        pconfig.apply_overrides(pconfig.Config(), ["dplm.guidance=none"])
+    # guidance, guidance_scale and num_candidates are ported (guided sampling)
+    assert pconfig.apply_overrides(pconfig.Config(), ["dplm.guidance=none"]).dplm.guidance == "none"
+    with pytest.raises(KeyError, match="scan_layers"):
+        pconfig.apply_overrides(pconfig.Config(), ["dplm.scan_layers=true"])
     with pytest.raises(KeyError, match="lora_rank"):
         pconfig.apply_overrides(pconfig.Config(), ["dplm.lora_rank=4"])

@@ -28,6 +28,8 @@ def test_port_imports_no_jax():
     names, leaked = rest.rsplit("] ", 1)
     assert int(n) >= 28, out.stdout  # every module was found and imported
     for mod in ("models.token_towers", "models.tf_clip", "data.collate", "ops.short_attention",
-                "ops.tiny_attention", "experiments.bench", "experiments.registry"):
+                "ops.tiny_attention", "experiments.bench", "experiments.registry",
+                "train.metrics", "models.protein_clip", "models.guided_generation",
+                "experiments.generate"):
         assert f"'clip_dplm_tpu_torch.{mod}'" in names, mod
     assert leaked.strip() == "[]", out.stdout

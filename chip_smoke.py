@@ -72,7 +72,8 @@ Phases, each fatal on failure (non-zero exit, no result line):
      count: 604 MB a packed call), must launch the recompute backward (its
      one-block kernel at S=128, design 0 of the launcher's count, and no
      other design) and neither saved-mode kernel; then one flagship step
-     card vs CPU at B=16 as (b) with the rule pinned to recompute, whose
+     card vs CPU at B=16 as (b), two blocks a tower, with the rule pinned to
+     recompute, whose
      worst leaf is printed beside the saved mode's of (b); the kernels line
      takes the recompute backward's launches from (e);
   9. the tf_clip three-way step (experiments/bench.py --model tf_clip
@@ -162,9 +163,9 @@ Phases, each fatal on failure (non-zero exit, no result line):
      S <= 128, the dQ and dK/dV pair past it; the recompute backward's line
      names its design the same way (one block at S <= 128, the WMMA head
      kernel past it where it fits, else the pair); (b) one DPLM train
-     step on the card against the CPU
-     at full width, B=8, S=64, the same weights and the same hash-drawn
-     corruption, as 7(a); (c) one step at S=300 (the flash path: forward,
+     step on the card against the CPU at full width (6 of the 12 layers),
+     B=8, S=64, the same weights and the same hash-drawn corruption, as
+     7(a); (c) one step at S=300 (the flash path: forward,
      dQ and dK/dV) with a finite loss; (d) the train CLI with
      experiment=dplm (S=64, B=128) for 3 epochs, whose loss must fall; (e)
      experiments/bench.py --model dplm at B=256, S=128. The two new launch
@@ -224,7 +225,38 @@ Phases, each fatal on failure (non-zero exit, no result line):
      sampler steps of 256 rows (the packed attention's saving forward and
      backward at the scorer's shape every step), then its bias on one
      sampler state of 32 rows on the card against the CPU within
-     STEP_NOISE_FACTOR x its bf16-vs-f32 noise.
+     STEP_NOISE_FACTOR x its bf16-vs-f32 noise;
+ 16. LoRA fine-tuning, pretrained bundles, the embed CLI and the ProtT5 and
+     RNABERT towers: (a) an adapted EsmBlock (rank 8, all six targets,
+     nonzero adapters; then every target but `out`) at DPLM 640/12/10's
+     B=256 S=128 and ESM-2 650M's B=32 S=128, the packed kernels' route
+     against the plain version of the same attention on the same weights in
+     bf16 (the increment y - x, dx, every adapter's da and db; atol = rtol
+     = 2e-2 of the largest entry), in the rule's saved mode: one saving
+     forward, one backward from the probabilities, one out-projection and
+     one dO GEMM a call, no gradient on any frozen base site, and the projection's dW
+     formed only where the merged `out` adapter needs it; the adapted block's
+     forward and backward timed beside the fully trained block's; (b) one
+     DPLM LoRA step (640/6/10, B=8 S=64) and one esm_clip LoRA step (B=16, the ESM
+     tower frozen) card vs CPU as 7(a): every leaf with a gradient within
+     STEP_NOISE_FACTOR x its noise, every frozen leaf bit-identical after the
+     step and without moments; (c) the DPLM train CLI with dplm.lora_rank=8
+     and --save-adapters: the loss falls, the .npz holds only `*_lora`
+     leaves; the LoRA bench step beside the full one, in turns; (d)
+     random-weight bundles saved on the card (utils/pretrained.py: ESM-2
+     650M, ESM-2 150M, DPLM 640/12/10, an esm_clip scorer) and served
+     (`serve --bundle --dplm-bundle --scorer-bundle`): /v1/embed of 64
+     sequences of 50-1000 residues and a guided /v1/generate; the generate
+     CLI with --dplm-bundle --scorer-bundle --condition --candidates 8, and
+     with --esm-init, writes FASTA; (e) the embed CLI on the 650M bundle at
+     --max-len 1024 (the flash kernel) and 128 (the packed kernel), each
+     bit-equal to /v1/embed's embeddings of the same sequences (truncated as
+     the CLI truncates them), which /v1/embed pads to the same length,
+     seqs/s printed; (f)
+     ProtT5-XL at full width (24 layers) at B=8 S=512, timed, with its
+     peak memory; 2 of its layers and RNABERT at its published geometry
+     (B=64 S=440) on the card against the CPU within STEP_NOISE_FACTOR x
+     their bf16-vs-f32 noise.
 Prints a JSON line of per-kernel results (each kernel's time at its main
 shape, its plain version's, the library call's where there is one, and the
 bound: the larger of the bytes it must move over 3.35 TB/s and its
@@ -236,6 +268,7 @@ f32), then as the last line
 from __future__ import annotations
 
 import json
+import os
 import re
 import subprocess
 import sys
@@ -1047,7 +1080,7 @@ def leaf_noise_factor(errs, noises, floors):
     return err, noise, err / noise
 
 
-def step_card_vs_cpu(torch, what, cfg, batch, cache=None):
+def step_card_vs_cpu(torch, what, cfg, batch, cache=None, init_fn=None):
     """One train step on the card vs the same step on the CPU from the same
     weights and batch (bf16 both, the same dropout masks): the gradient of
     every leaf before the optimizer, then the loss and the update, each
@@ -1058,8 +1091,12 @@ def step_card_vs_cpu(torch, what, cfg, batch, cache=None):
     compared over LOSS_DRAWS seeds (the step's and the next ones, with the
     gradient enabled), error and noise as the RMS of the per-seed relative
     differences; each leaf's gradient over the first GRAD_DRAWS of them
-    (`leaf_noise_factor`). The optimizer step is taken once, on the step's
-    own seed."""
+    (`leaf_noise_factor`): every leaf that gets one (a frozen LoRA base
+    gets none, on either device). The optimizer step is taken once, on the
+    step's own seed; where the optimizer freezes leaves, they must end
+    bit-identical on every run, and where it masks their moments (LoRA),
+    no moment may exist for them. `init_fn(model)` edits the card's random
+    weights before they are copied (nonzero LoRA adapters, say)."""
     from clip_dplm_tpu_torch.experiments.registry import build_model
     from clip_dplm_tpu_torch.ops.fused_dense import DropoutSeeds
     from clip_dplm_tpu_torch.train.state import create_train_state
@@ -1069,6 +1106,8 @@ def step_card_vs_cpu(torch, what, cfg, batch, cache=None):
     t0 = time.perf_counter()
     gpu = build_model(cfg, device="cuda")
     create_train_state(gpu, cfg)  # random weights from the seed
+    if init_fn is not None:
+        init_fn(gpu)
     sd = {k: v.detach().cpu().clone() for k, v in gpu.state_dict().items()}
     runs, caches, draws, grads = {}, {}, {}, {}
     for name, device, dtype in (("card", "cuda", torch.bfloat16),
@@ -1093,11 +1132,18 @@ def step_card_vs_cpu(torch, what, cfg, batch, cache=None):
                     p.grad = None
                 loss.backward()
                 grads[name].append({k: p.grad.detach().cpu().float()
-                                    for k, p in model.named_parameters()})
+                                    for k, p in model.named_parameters() if p.grad is not None})
             draws[name].append(float(loss.detach()))
         for p in model.parameters():
             p.grad = None
         state, metrics = make_train_step(cfg)(state, dev_batch)
+        frozen = [k for k, _ in model.named_parameters() if state.tx.is_frozen(k)]
+        check(all(torch.equal(model.get_parameter(k).detach().cpu(), sd[k]) for k in frozen),
+              f"{what} ({name}): a frozen leaf moved")
+        masked = state.tx.mask_moments
+        if masked:
+            check(not set(frozen) & set(state.opt_state.mu),
+                  f"{what} ({name}): moments kept for frozen leaves")
         runs[name] = (float(metrics["loss"]), torch.cat([
             (p.detach().cpu().float() - sd[k]).flatten()
             for k, p in model.named_parameters()]))
@@ -1113,6 +1159,12 @@ def step_card_vs_cpu(torch, what, cfg, batch, cache=None):
     # beside it
     g_card, g_cpu, g_f32 = (grads[k] for k in ("card", "cpu", "cpu_f32"))
     leaves = list(g_cpu[0])
+    check(all(set(g) == set(leaves) for g in g_card + g_f32),
+          f"{what}: the card and the CPU give gradients to different leaves")
+    if frozen:
+        print(f"{what}: {len(frozen)} frozen leaves bit-identical after the step on every run"
+              + (", none with moments" if masked else "")
+              + f"; {len(leaves)} leaves with a gradient")
 
     def flat(g):
         return torch.cat([g[k].flatten() for k in leaves])
@@ -1410,23 +1462,25 @@ def flagship_past_the_rule(torch, build):
 
 def phase_flagship_recompute_step(torch):
     """8(e): one flagship step at full width, S=128, B=16, card vs CPU as
-    8(b), with the rule pinned to recompute: the one-block recompute
-    backward inside a train step, held to the step check's bound."""
+    8(b), two blocks a tower (block 0 packed, block 1 the CLS block; the
+    depth cut from 3 for the CPU's side), with the rule pinned to
+    recompute: the one-block recompute backward inside a train step, held
+    to the step check's bound."""
     from clip_dplm_tpu_torch.config import Config, apply_overrides
     from clip_dplm_tpu_torch.experiments import bench
     from clip_dplm_tpu_torch.ops import short_attention as sa
 
     B = 16
     cfg = apply_overrides(Config(), bench.RNA_RBP_OVERRIDES + [
-        f"train.batch_size={B}", "train.optim.schedule=constant",
-        "train.optim.learning_rate=1e-3"])
+        f"train.batch_size={B}", "rna_tower.num_layers=2", "rbp_tower.num_layers=2",
+        "train.optim.schedule=constant", "train.optim.learning_rate=1e-3"])
     batch = bench.rna_rbp_batch(cfg, B, np.random.default_rng(5))
     rule = sa.saves_probs
     sa.saves_probs = lambda *a: False
     try:
         worst, leaf = step_card_vs_cpu(
-            torch, f"flagship train step B={B} S=128 in recompute mode (full widths, dropout 0.1)",
-            cfg, batch)
+            torch, f"flagship train step B={B} S=128 in recompute mode (full widths, 2 blocks a "
+            "tower, dropout 0.1)", cfg, batch)
     finally:
         sa.saves_probs = rule
     print(f"8(e) worst leaf in recompute mode: {worst:.3f}x its noise ({leaf}); 8(b)'s in saved "
@@ -2038,16 +2092,23 @@ def _dplm_batch(B, S, seed):
     return {"tokens": tokens, "mask": tokens != 1}
 
 
+# the card-vs-CPU DPLM steps' depth: 6 of the 12 layers at full width (the
+# CPU's side of the check is most of its time)
+DPLM_STEP_LAYERS = 6
+
+
 def phase_dplm_step(torch):
-    """12(b): one DPLM step at full width (640/12/10), B=8, S=64, card vs
-    CPU; the corruption is the hash draw of the step's seeds on both."""
+    """12(b): one DPLM step at full width (640/6/10: DPLM_STEP_LAYERS of the
+    12 layers), B=8, S=64, card vs CPU; the corruption is the hash draw of
+    the step's seeds on both."""
     from clip_dplm_tpu_torch.config import Config, apply_overrides
 
     cfg = apply_overrides(Config(), ["experiment=dplm", "train.batch_size=8",
+                                     f"dplm.num_layers={DPLM_STEP_LAYERS}",
                                      "train.optim.schedule=constant",
                                      "train.optim.learning_rate=1e-3"])
-    step_card_vs_cpu(torch, "DPLM train step B=8 S=64 (640/12/10, hash-drawn corruption)", cfg,
-                     _dplm_batch(8, 64, 5))
+    step_card_vs_cpu(torch, f"DPLM train step B=8 S=64 (640/{DPLM_STEP_LAYERS}/10, hash-drawn "
+                     "corruption)", cfg, _dplm_batch(8, 64, 5))
 
 
 def phase_dplm_long(torch, build):
@@ -2771,6 +2832,406 @@ def phase_soft_guidance(torch, build):
     return launches
 
 
+# 16: LoRA through the packed kernels, bundles, the embed CLI, the new towers
+LORA_ALL = ("q", "k", "v", "out", "ffn_in", "ffn_out")
+LORA_BLOCKS = (("DPLM 640/12/10 block", 256, 128, 640, 10),
+               ("ESM-2 650M block", 32, 128, 1280, 20))
+LORA_DPLM = ["dplm.lora_rank=8", "dplm.lora_targets=" + json.dumps(list(LORA_ALL))]
+LORA_ESM = ["esm.frozen=true", "esm.lora_rank=8",
+            "esm.lora_targets=" + json.dumps(list(LORA_ALL))]
+# one adapted block's forward and backward in saved mode
+LORA_BLOCK_KERNELS = {"short_attention_save": 1, "short_attention_bwd_probs": 1,
+                      "short_attention_out_proj": 1, "fused_dense_gemm": 1}
+
+
+def nonzero_adapters(torch, model, seed=11):
+    """Every LoRA `b` (zero at init) drawn small and nonzero, so that both
+    factors of every adapter take a gradient."""
+    g = torch.Generator().manual_seed(seed)
+    with torch.no_grad():
+        for k, p in model.named_parameters():
+            if k.endswith("_lora.b"):
+                p.copy_(0.02 * torch.randn(p.shape, generator=g))
+    return model
+
+
+def phase_lora_kernels(torch, build):
+    """16(a): the adapted EsmBlock's packed route (q/k/v deltas in the
+    packed qkv, the `out` adapter merged into the kernel's weight operand)
+    against the plain version of the same attention, at DPLM's and ESM-2
+    650M's shapes, with every target and with all but `out`."""
+    import clip_dplm_tpu_torch.models.esm as esm_mod
+    from clip_dplm_tpu_torch.models.esm import EsmBlock
+    from clip_dplm_tpu_torch.models.layers import init_params
+    from clip_dplm_tpu_torch.models.lora import LoRASpec
+    from clip_dplm_tpu_torch.ops import short_attention as sa
+
+    dev = torch.device("cuda")
+    g = torch.Generator(device=dev).manual_seed(51)
+    kernel_route, real_dw = esm_mod.packed_qkv_attention_proj, sa._proj_param_grads
+    dw_calls = []
+
+    def plain_route(qkv, wo, bo, H, mask=None, rope_positions=None):
+        return sa.fused_short_attention_qkv_proj_reference(qkv, wo, bo, H, mask=mask,
+                                                           rope_positions=rope_positions)
+
+    def counted_dw(*a):
+        dw_calls.append(1)
+        return real_dw(*a)
+
+    for what, B, S, D, H in LORA_BLOCKS:
+        check(sa.saves_probs(B, S, H), f"{what}: the rule does not save at B={B} S={S}")
+        lens = torch.randint(S // 2, S + 1, (B,), generator=g, device=dev)
+        lens[0] = S
+        mask = torch.arange(S, device=dev)[None, :] < lens[:, None]
+        pos = torch.arange(S, device=dev)
+        x0 = torch.randn(B, S, D, generator=g, device=dev).to(torch.bfloat16)
+        dy = torch.randn(B, S, D, generator=g, device=dev).to(torch.bfloat16)
+        for targets in (LORA_ALL, tuple(t for t in LORA_ALL if t != "out")):
+            blk = EsmBlock(D, H, device=dev, lora=LoRASpec(rank=8, targets=targets))
+            init_params(blk, g)
+            nonzero_adapters(torch, blk)
+            pairs = [(n, m) for n, m in blk.named_children() if n.endswith("_lora")]
+            base = [n for n, _ in blk.named_parameters()
+                    if "_lora" not in n and n.split(".")[0] in LORA_ALL]
+            res = {}
+            for route, fn in (("kernels", kernel_route), ("plain", plain_route)):
+                esm_mod.packed_qkv_attention_proj, sa._proj_param_grads = fn, counted_dw
+                try:
+                    blk.zero_grad(set_to_none=True)
+                    x = x0.clone().requires_grad_(True)
+                    build.LAUNCHES.reset()
+                    dw_calls.clear()
+                    y = blk(x, mask, pos)
+                    y.backward(dy)
+                    torch.cuda.synchronize()
+                    launches = build.LAUNCHES.snapshot()
+                finally:
+                    esm_mod.packed_qkv_attention_proj, sa._proj_param_grads = kernel_route, real_dw
+                check(all(blk.get_parameter(n).grad is None for n in base),
+                      f"{what} {targets}: a frozen base site took a gradient ({route})")
+                if route == "kernels":
+                    moved = {k: v for k, v in launches.items() if v}
+                    check(moved == LORA_BLOCK_KERNELS,
+                          f"{what} {targets}: launches {moved}, not {LORA_BLOCK_KERNELS}")
+                    check(len(dw_calls) == int("out" in targets),
+                          f"{what} {targets}: the projection's dW formed {len(dw_calls)} times")
+                # the block's increment y - x (attention and FFN), not y,
+                # which is mostly the residual x
+                res[route] = [y.detach().float() - x0.float(), x.grad] + [
+                    t.grad for _, m in pairs for t in (m.a, m.b)]
+            names = ["y-x", "dx"] + [f"d{n}.{t}" for n, _ in pairs for t in "ab"]
+            # the increment too relative to its largest entry: the block's
+            # residual sums round at the stream's magnitude, so an entry
+            # near zero carries that bf16 ulp
+            err = check_outputs(torch, f"{what} LoRA {targets}", res["kernels"], res["plain"],
+                                names, raw_first=False)
+            print(f"{what} B={B} S={S} D={D} H={H} LoRA rank 8 on {'+'.join(targets)}: kernels' "
+                  f"route vs plain, max err {err:.3e} over y - x, dx and {2 * len(pairs)} adapter "
+                  f"gradients; launches {LORA_BLOCK_KERNELS}; the projection's dW formed "
+                  f"{int('out' in targets)} time(s), no frozen site's dW")
+        # the adapted block's step beside the fully trained block's
+        times = {}
+        for name, spec in (("LoRA (six targets)", LoRASpec(rank=8, targets=LORA_ALL)),
+                           ("full", None)):
+            blk = EsmBlock(D, H, device=dev, lora=spec)
+            init_params(blk, g)
+            x = x0.clone().requires_grad_(True)
+
+            def fwd_bwd():
+                blk(x, mask, pos).backward(dy)
+
+            times[name] = min(cuda_ms(torch, fwd_bwd, iters=5) for _ in range(2))
+        print(f"{what} forward + backward (saved mode): " + ", ".join(
+            f"{k} {v:.4f} ms" for k, v in times.items()))
+
+
+def phase_lora_steps(torch):
+    """16(b): one DPLM LoRA step and one esm_clip LoRA step, card vs CPU."""
+    from clip_dplm_tpu_torch.config import Config, apply_overrides
+    from clip_dplm_tpu_torch.experiments import bench
+
+    cfg = apply_overrides(Config(), ["experiment=dplm", "train.batch_size=8",
+                                     f"dplm.num_layers={DPLM_STEP_LAYERS}",
+                                     "train.optim.schedule=constant",
+                                     "train.optim.learning_rate=1e-3", *LORA_DPLM])
+    step_card_vs_cpu(torch, f"DPLM LoRA train step B=8 S=64 (640/{DPLM_STEP_LAYERS}/10, rank 8, "
+                     "six targets)", cfg, _dplm_batch(8, 64, 5),
+                     init_fn=lambda m: nonzero_adapters(torch, m))
+    B = 16
+    cfg = apply_overrides(Config(), bench.ESM_CLIP_OVERRIDES + [
+        f"train.batch_size={B}", "train.optim.schedule=constant",
+        "train.optim.learning_rate=1e-3", *LORA_ESM])
+    step_card_vs_cpu(torch, f"esm_clip LoRA train step B={B} (ESM-2 8M frozen, rank 8, six "
+                     "targets)", cfg, bench.esm_clip_batch(cfg, B, np.random.default_rng(5)),
+                     init_fn=lambda m: nonzero_adapters(torch, m))
+
+
+def phase_lora_path(torch, build):
+    """16(c): the DPLM train CLI with LoRA and --save-adapters; the LoRA
+    bench step beside the full one, in turns full, LoRA, LoRA, full."""
+    import tempfile
+
+    from clip_dplm_tpu_torch.experiments import bench
+    from clip_dplm_tpu_torch.experiments import train as train_cli
+
+    build.LAUNCHES.reset()
+    overrides = ["experiment=dplm", "train.optim.warmup_steps=5",
+                 "train.optim.learning_rate=1e-3", *LORA_DPLM]
+    with tempfile.TemporaryDirectory() as tmp:
+        path = f"{tmp}/adapters.npz"
+        t0 = time.perf_counter()
+        hist = train_cli.main(["--epochs", "3", "--save-adapters", path,
+                               *[a for o in overrides for a in ("-o", o)]])
+        cli_s = time.perf_counter() - t0
+        with np.load(path) as z:
+            keys = list(z.files)
+    losses = hist["train_loss"]
+    check(all(np.isfinite(losses)) and len(losses) == 3, f"DPLM LoRA train CLI losses {losses}")
+    check(losses[-1] < losses[0], f"DPLM LoRA train CLI: loss did not fall: {losses}")
+    check(len(keys) == 12 * 6 * 2 and all(k.split("/")[1].endswith("_lora") for k in keys),
+          f"--save-adapters wrote {len(keys)} leaves: {keys[:4]}")
+    print(f"DPLM LoRA train CLI (640/12/10, rank 8, six targets, B=128, S=64, 3 epochs of 6 "
+          f"steps): train_loss {losses}, {cli_s:.1f} s; --save-adapters wrote {len(keys)} "
+          f"leaves, all `*_lora`")
+    times = {"full": [], "LoRA": []}
+    for mode in ("full", "LoRA", "LoRA", "full"):
+        extra = [a for o in LORA_DPLM for a in ("-o", o)] if mode == "LoRA" else []
+        times[mode].append(bench.main(["--model", "dplm", *extra])["step_ms"])
+    torch.cuda.synchronize()
+    launches = build.LAUNCHES.snapshot()
+    print(f"bench dplm B=256 S=128 step ms in turns: full {times['full']}, LoRA rank 8 six "
+          f"targets {times['LoRA']}")
+    print(f"launches during the DPLM LoRA phase: {launches}")
+    for name in LORA_BLOCK_KERNELS:
+        check(launches[name] > 0, f"kernel {name} was not launched by the DPLM LoRA path")
+    check_attention_path(launches, "DPLM LoRA", (128, 64, 10), (256, 128, 10))
+
+
+def _rel_rows(a, b):
+    """The largest per-row relative L2 difference of two (rows, d) arrays."""
+    return float((np.linalg.norm(a - b, axis=1) / np.linalg.norm(b, axis=1)).max())
+
+
+def phase_bundles(torch, build):
+    """16(d) bundles saved on the card and served, the generate CLI from
+    them; 16(e) the embed CLI on the 650M bundle against /v1/embed."""
+    import dataclasses
+    import tempfile
+
+    from clip_dplm_tpu_torch.config import Config, apply_overrides
+    from clip_dplm_tpu_torch.data.protein import RESIDUES, random_protein
+    from clip_dplm_tpu_torch.experiments import bench, embed, generate, serve
+    from clip_dplm_tpu_torch.experiments.registry import build_model
+    from clip_dplm_tpu_torch.models.esm import ESMTower, esm_config_from_name
+    from clip_dplm_tpu_torch.models.layers import init_params
+    from clip_dplm_tpu_torch.serving import make_server
+    from clip_dplm_tpu_torch.utils.pretrained import save_pretrained
+
+    rng = np.random.default_rng(61)
+    residues = set(RESIDUES)
+    seqs = [random_protein(rng, int(n)) for n in rng.integers(50, 1001, 64)]
+    with tempfile.TemporaryDirectory() as tmp:
+        specs = {
+            "esm2_650m": (dataclasses.replace(Config(), esm=esm_config_from_name("esm2_t33_650M")),
+                          lambda c: ESMTower(c.esm, device="cuda")),
+            "esm2_150m": (dataclasses.replace(Config(), esm=esm_config_from_name("esm2_t30_150M")),
+                          lambda c: ESMTower(c.esm, device="cuda")),
+            "dplm": (apply_overrides(Config(), ["experiment=dplm"]),
+                     lambda c: build_model(c, device="cuda")),
+            "esm_clip": (apply_overrides(Config(), bench.ESM_CLIP_OVERRIDES),
+                         lambda c: build_model(c, device="cuda")),
+        }
+        for i, (name, (cfg, make)) in enumerate(specs.items()):
+            model = make(cfg)
+            init_params(model, torch.Generator(device="cuda").manual_seed(70 + i))
+            t0 = time.perf_counter()
+            save_pretrained(f"{tmp}/{name}", cfg, model)
+            mb = os.path.getsize(f"{tmp}/{name}/params.npz") / 2 ** 20
+            print(f"bundle {name}: {sum(p.numel() for p in model.parameters())} parameters, "
+                  f"params.npz {mb:.1f} MiB, saved in {time.perf_counter() - t0:.1f} s")
+            del model
+        d = specs["esm_clip"][0].projection.dim
+        cond = rng.normal(size=d).astype(np.float32)
+        np.savez(f"{tmp}/conditions.npz", rbp=cond)
+        # the generate CLI scores with the bare ESM tower, as JAX's does: a
+        # condition of the tower's width
+        np.savez(f"{tmp}/condition.npz", embedding=rng.normal(
+            size=specs["esm_clip"][0].esm.d_model).astype(np.float32))
+        build.LAUNCHES.reset()
+        t0 = time.perf_counter()
+        args = serve.parse_args([
+            "--device", "cuda", "--bundle", f"{tmp}/esm2_650m", "--dplm-bundle", f"{tmp}/dplm",
+            "--scorer-bundle", f"{tmp}/esm_clip", "--max-len", "1024", "--max-batch", "32",
+            "--gen-max-len", "126", "--gen-steps", "100", "--gen-max-batch", "32",
+            "--gen-candidates", "8", "--conditions-npz", f"{tmp}/conditions.npz", "--port", "0"])
+        embed_svc, gen_svc = serve.build_services(args)
+        load_s = time.perf_counter() - t0
+        buckets = list(embed_svc.buckets)
+        server = make_server(embed=embed_svc, generate=gen_svc, port=0)
+        threading.Thread(target=server.serve_forever, daemon=True).start()
+        base = f"http://127.0.0.1:{server.server_port}"
+        try:
+            served = {}
+            for key, batch in (("full", seqs), ("cut", [x[:126] for x in seqs])):
+                status, body = _post(f"{base}/v1/embed", {"sequences": batch})
+                served[key] = np.asarray(body["embeddings"], np.float32)
+                check(status == 200 and served[key].shape == (64, 1280)
+                      and bool(np.isfinite(served[key]).all()), f"/v1/embed {key}: {status}")
+            t0 = time.perf_counter()
+            status, body = _post(f"{base}/v1/generate",
+                                 {"lengths": [60, 100, 126], "condition_id": "rbp"})
+            gen_s = time.perf_counter() - t0
+            check(status == 200 and body["guided"] is True
+                  and [len(x) for x in body["sequences"]] == [60, 100, 126]
+                  and all(set(x) <= residues for x in body["sequences"])
+                  and all(-1.0 <= c <= 1.0 for c in body["clip_scores"]),
+                  f"guided /v1/generate from bundles: {status} {body}")
+        finally:
+            server.shutdown()
+            server.server_close()
+            embed_svc.close()
+            gen_svc.close()
+        print(f"serve --bundle (ESM-2 650M) --dplm-bundle --scorer-bundle (esm_clip): loaded in "
+              f"{load_s:.1f} s; /v1/embed of 64 sequences of 50-1000 residues; guided "
+              f"/v1/generate (3 rows, 8 candidates, 100 steps) in {gen_s:.2f} s, clip_scores "
+              f"{body['clip_scores']}")
+        out = f"{tmp}/guided.fasta"
+        generate.main(["--device", "cuda", "--output", out, "--dplm-bundle", f"{tmp}/dplm",
+                       "--scorer-bundle", f"{tmp}/esm_clip", "--condition",
+                       f"{tmp}/condition.npz", "--candidates", "8", "--num", "4", "--length",
+                       "80", "--steps", "100"])
+        lines = open(out).read().splitlines()
+        check(len(lines) == 8 and all(len(x) == 80 and set(x) <= residues for x in lines[1::2]),
+              f"generate --dplm-bundle --scorer-bundle: {lines[:2]}")
+        out = f"{tmp}/warm.fasta"
+        generate.main(["--device", "cuda", "--output", out, "--esm-init", f"{tmp}/esm2_150m",
+                       "--num", "2", "--length", "50", "--steps", "20"])
+        lines = open(out).read().splitlines()
+        check(len(lines) == 4 and all(len(x) == 50 for x in lines[1::2]),
+              f"generate --esm-init: {lines[:2]}")
+        print("generate --dplm-bundle --scorer-bundle --condition --candidates 8 (4 x 80) and "
+              "--esm-init (ESM-2 150M bundle, 2 x 50): FASTA written")
+        torch.cuda.synchronize()
+        launches = build.LAUNCHES.snapshot()
+        print(f"launches during the bundle phase (serve, generate): {launches}")
+        for name in ("short_attention", "short_attention_out_proj", "flash_attention"):
+            check(launches[name] > 0, f"kernel {name} was not launched from the bundles")
+        # 16(e): the embed CLI on the 650M bundle
+        fasta = f"{tmp}/seqs.fasta"
+        with open(fasta, "w") as f:
+            f.writelines(f">s{i}\n{x}\n" for i, x in enumerate(seqs))
+        for max_len, key, kernel in ((1024, "full", "flash_attention"),
+                                     (128, "cut", "short_attention")):
+            build.LAUNCHES.reset()
+            got = embed.main(["--device", "cuda", "--input", fasta, "--output",
+                              f"{tmp}/emb{max_len}.npz", "--bundle", f"{tmp}/esm2_650m",
+                              "--max-len", str(max_len), "--batch-size", "32"])
+            torch.cuda.synchronize()
+            counts = build.LAUNCHES.snapshot()
+            emb = got["embeddings"]
+            err = _rel_rows(emb, served[key])
+            # /v1/embed took the 64 sequences as two batches of 32, each
+            # padded to the smallest bucket that fits its longest row; at the
+            # CLI's padded length the two run the same kernels on the same
+            # operands
+            batch = seqs if key == "full" else [x[:126] for x in seqs]
+            pads = [next(b for b in buckets if b >= min(max(map(len, batch[i:i + 32])) + 2,
+                                                          1024)) for i in (0, 32)]
+            print(f"embed CLI ESM-2 650M --max-len {max_len}: {got['seqs_per_s']:.1f} seqs/s "
+                  f"(64 sequences, 2 batches of 32, the bundle's load excluded); against "
+                  f"/v1/embed: largest row rel L2 {err:.3e}, max abs "
+                  f"{np.abs(emb - served[key]).max():.3e}; {kernel} launched {counts[kernel]} "
+                  f"times")
+            check(emb.shape == (64, 1280) and bool(np.isfinite(emb).all()),
+                  f"embed --max-len {max_len}: {emb.shape}")
+            check(counts[kernel] > 0, f"embed --max-len {max_len}: {kernel} was not launched")
+            check(pads == [max_len, max_len],
+                  f"embed --max-len {max_len}: /v1/embed padded to {pads}, not {max_len}")
+            check(np.array_equal(emb, served[key]),
+                  f"embed --max-len {max_len}: not bit-equal to /v1/embed's at the same padded "
+                  f"length (row rel L2 {err})")
+
+
+def _towers_card_vs_cpu(torch, what, make, toks, mask, pooling):
+    """A tower's output on the card (bf16) against the CPU's (bf16), within
+    STEP_NOISE_FACTOR x the CPU's bf16-vs-f32 difference."""
+    from clip_dplm_tpu_torch.models.layers import init_params
+
+    gpu = make(torch.bfloat16, "cuda")
+    init_params(gpu, torch.Generator(device="cuda").manual_seed(81))
+    sd = {k: v.cpu() for k, v in gpu.state_dict().items()}
+    outs = {}
+    for name, dtype, device in (("card", torch.bfloat16, "cuda"), ("cpu", torch.bfloat16, "cpu"),
+                                ("cpu_f32", torch.float32, "cpu")):
+        model = gpu if name == "card" else make(dtype, device)
+        model.load_state_dict(sd)
+        with torch.no_grad():
+            outs[name] = model(toks.to(device), mask.to(device), pooling=pooling).float().cpu()
+    err, noise = _rel(outs["card"], outs["cpu"]), _rel(outs["cpu_f32"], outs["cpu"])
+    print(f"{what}, card vs CPU: rel L2 {err:.3e} (bf16 noise {noise:.3e})")
+    check(bool(torch.isfinite(outs["card"]).all()), f"{what}: non-finite")
+    check(err <= STEP_NOISE_FACTOR * noise, f"{what}: rel L2 {err} > {STEP_NOISE_FACTOR} x "
+                                            f"noise {noise}")
+
+
+def _prot_t5_batch(torch, g, B, S):
+    toks = torch.randint(3, 23, (B, S), generator=g)
+    lens = torch.randint(S // 2, S + 1, (B,), generator=g)
+    lens[0] = S
+    pos = torch.arange(S)[None, :]
+    toks = torch.where(pos == lens[:, None] - 1, 1, torch.where(pos < lens[:, None], toks, 0))
+    return toks, toks != 0
+
+
+def phase_new_towers(torch):
+    """16(f): ProtT5-XL at full width, timed with its peak memory; 2 of its
+    layers and RNABERT at its published geometry, card vs CPU."""
+    from clip_dplm_tpu_torch.config import RNABertConfig
+    from clip_dplm_tpu_torch.models.layers import init_params
+    from clip_dplm_tpu_torch.models.rnabert import RNABertTower
+    from clip_dplm_tpu_torch.models.t5 import ProtT5Tower, prot_t5_config_from_name
+
+    g = torch.Generator().manual_seed(91)
+    cfg = prot_t5_config_from_name("prot_t5_xl")
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    tower = ProtT5Tower(cfg, device="cuda").eval()
+    init_params(tower, torch.Generator(device="cuda").manual_seed(92))
+    B, S = 8, 512
+    toks, mask = (t.cuda() for t in _prot_t5_batch(torch, g, B, S))
+    with torch.no_grad():
+        out = tower(toks, mask, pooling="mean_residues")
+        ms = min(cuda_ms(torch, lambda: tower(toks, mask, pooling="mean_residues"), iters=3)
+                 for _ in range(2))
+        wall = wall_ms(torch, lambda: tower(toks, mask, pooling="mean_residues"), iters=3)
+    peak = torch.cuda.max_memory_allocated() / 2 ** 30
+    n = sum(p.numel() for p in tower.parameters())
+    check(out.shape == (B, cfg.d_model) and bool(torch.isfinite(out).all()),
+          f"ProtT5-XL: output {tuple(out.shape)}")
+    print(f"ProtT5-XL (24 layers, d_model 1024, d_ff 16384, 32 heads x 128; {n} parameters) "
+          f"B={B} S={S} bf16 forward: {ms:.2f} ms of device time (events behind a sleep), "
+          f"{wall:.2f} ms wall a synchronized call, {B / wall * 1e3:.1f} seqs/s, peak memory "
+          f"{peak:.2f} GiB (f32 weights {n * 4 / 2 ** 30:.2f} GiB)")
+    del tower, out
+    torch.cuda.empty_cache()
+    cfg2 = prot_t5_config_from_name("prot_t5_xl", num_layers=2)
+    _towers_card_vs_cpu(torch, "ProtT5-XL, 2 layers, B=4 S=128, mean over residues",
+                        lambda dt, dev: ProtT5Tower(cfg2, dtype=dt, device=dev).eval(),
+                        *_prot_t5_batch(torch, g, 4, 128), "mean_residues")
+    rcfg = RNABertConfig()
+    B, S = 64, 440
+    toks = torch.randint(4, 8, (B, S), generator=g)
+    lens = torch.randint(S // 4, S + 1, (B,), generator=g)
+    lens[0] = S
+    mask = torch.arange(S)[None, :] < lens[:, None]
+    toks = torch.where(mask, toks, 0)
+    _towers_card_vs_cpu(torch, f"RNABERT (6 layers, 120 wide, 12 heads) B={B} S={S}, mean",
+                        lambda dt, dev: RNABertTower(rcfg, dtype=dt, device=dev).eval(),
+                        toks, mask, "mean")
+
+
 def kernel_registers(log: str, kernel: str):
     """(instance, registers, spill line) of each instance of `kernel` in
     ptxas's report: its template arguments, as <a, b, ...>."""
@@ -2825,11 +3286,20 @@ def main() -> int:
             print(f"{what} {kernel}{args}: {regs} registers, {spills}")
 
     results = {}
-    phase_kernels(torch, results)
-    phase_model(torch)
-    launches = phase_server(torch, _build)
-    phase_train_kernels(torch, results)
-    phase_train_step(torch, _build)
+    times = {}
+
+    def run(label, fn, *args):
+        """fn(*args), its command time kept under `label`."""
+        t0 = time.perf_counter()
+        out = fn(*args)
+        times[label] = times.get(label, 0.0) + time.perf_counter() - t0
+        return out
+
+    run("3", phase_kernels, torch, results)
+    run("4", phase_model, torch)
+    launches = run("5", phase_server, torch, _build)
+    run("6", phase_train_kernels, torch, results)
+    run("7", phase_train_step, torch, _build)
     # the saved-raw kernels' launches and the combine's: their sums over the
     # train paths
     saved = dict.fromkeys([*SAVED_RAW_KERNELS, *LSE_KERNELS], 0)
@@ -2839,31 +3309,37 @@ def main() -> int:
         for k in saved:
             saved[k] += counts[k]
 
-    keep(phase_train_path(torch, _build), TRAIN_KERNELS)
-    phase_flagship_kernels(torch, results)
-    phase_flagship_step(torch)
-    keep(phase_flagship_path(torch, _build), FLAGSHIP_KERNELS)
-    phase_tf_clip_kernels(torch, results)
-    phase_tf_clip_step(torch)
-    keep(phase_tf_clip_path(torch, _build), TF_CLIP_KERNELS)
-    phase_cache_kernels(torch, results)
-    phase_cache_step(torch)
-    keep(phase_cache_path(torch, _build), CACHE_KERNELS)
-    phase_saved_raw_kernels(torch, results)
+    keep(run("7", phase_train_path, torch, _build), TRAIN_KERNELS)
+    run("8", phase_flagship_kernels, torch, results)
+    run("8", phase_flagship_step, torch)
+    keep(run("8", phase_flagship_path, torch, _build), FLAGSHIP_KERNELS)
+    run("9", phase_tf_clip_kernels, torch, results)
+    run("9", phase_tf_clip_step, torch)
+    keep(run("9", phase_tf_clip_path, torch, _build), TF_CLIP_KERNELS)
+    run("10", phase_cache_kernels, torch, results)
+    run("10", phase_cache_step, torch)
+    keep(run("10", phase_cache_path, torch, _build), CACHE_KERNELS)
+    run("11", phase_saved_raw_kernels, torch, results)
     launches.update(saved)
-    phase_dplm_kernels(torch, results)
-    phase_dplm_step(torch)
-    phase_dplm_long(torch, _build)
-    launches.update({k: v for k, v in phase_dplm_path(torch, _build).items()
+    run("12", phase_dplm_kernels, torch, results)
+    run("12", phase_dplm_step, torch)
+    run("12", phase_dplm_long, torch, _build)
+    launches.update({k: v for k, v in run("12", phase_dplm_path, torch, _build).items()
                      if k in DPLM_KERNELS})
-    phase_mode_steps(torch)
-    phase_separate_kernels(torch, results)
-    launches.update(phase_separate_path(torch, _build))
-    phase_esm_clip_kernels(torch, results)
-    phase_esm_clip_step(torch)
-    phase_esm_clip_path(torch, _build)
-    phase_guided_server(torch, _build)
-    phase_soft_guidance(torch, _build)
+    run("12", phase_mode_steps, torch)
+    run("13", phase_separate_kernels, torch, results)
+    launches.update(run("14", phase_separate_path, torch, _build))
+    run("15", phase_esm_clip_kernels, torch, results)
+    run("15", phase_esm_clip_step, torch)
+    run("15", phase_esm_clip_path, torch, _build)
+    run("15", phase_guided_server, torch, _build)
+    run("15", phase_soft_guidance, torch, _build)
+    run("16", phase_lora_kernels, torch, _build)
+    run("16", phase_lora_steps, torch)
+    run("16", phase_lora_path, torch, _build)
+    run("16", phase_bundles, torch, _build)
+    run("16", phase_new_towers, torch)
+    print("command time by phase (s): " + ", ".join(f"{k} {v:.1f}" for k, v in times.items()))
 
     keys = ("max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by", "library_ms")
     print(json.dumps({"kernels": [

@@ -5,12 +5,14 @@ Module paths mirror `clip_dplm_tpu/`, so each module names its reference:
   ops/         -- attention, fused Dense+LN, InfoNCE and their hand-written
                   Hopper kernels (csrc/*.cu), each with a plain PyTorch
                   version used for CPU tensors
-  models/      -- ESM-2 tower, DPLM trunk + sampler, two-tower CLIP (torch.nn)
-  data/        -- ESM alphabet tokenizer, synthetic paired embeddings (numpy)
+  models/      -- ESM-2 tower, DPLM trunk + sampler, the CLIP models, LoRA
+                  adapters, the ProtT5 and RNABERT encoders (torch.nn)
+  data/        -- ESM and ProtT5 tokenizers, synthetic data (numpy)
   train/       -- train state, fused AdamW, train/eval steps, Trainer
-  utils/       -- flax params -> state_dict conversion
+  utils/       -- flax params <-> state_dict conversion, pretrained bundles
   serving.py   -- micro-batched embed / generate services + HTTP server
-  experiments/ -- the serve, train and bench CLIs, the experiment registry
+  experiments/ -- the serve, train, embed, generate and bench CLIs, the
+                  experiment registry
 
 The package imports torch and numpy, never jax, flax or yaml.
 """

@@ -8,12 +8,13 @@ diffusion denoiser (`experiment="dplm"`, `Config.dplm`).
 
 The frozen dataclasses of `clip_dplm_tpu/config.py`, without the yaml loader
 (so the port imports no yaml) and with only the fields the port reads: the
-reference's LoRA fields (but `esm.lora_rank`), `scan_layers` fields, the
-global-batch gather, the other loss kinds and `precision.remat` are left
-out until the port has what they switch on, so passing one raises instead
-of being ignored. `esm.lora_rank` is kept so that an esm_clip config asking
-for LoRA raises where the model is built (models/lora.py is not ported).
-`esm.frozen` freezes the ESM tower of esm_clip. DPLM's `num_candidates` is
+reference's `scan_layers` fields, the global-batch gather, the other loss
+kinds and `precision.remat` are left out until the port has what they switch
+on, so passing one raises instead of being ignored (utils/pretrained.py reads
+a JAX-written config and holds each such field to its default). The LoRA
+fields of `esm` and `dplm` (`lora_rank`, `lora_alpha`, `lora_targets`,
+models/lora.py) are ported: rank 0 disables them. `esm.frozen` freezes the
+ESM tower of esm_clip. DPLM's `num_candidates` is
 `clip_guided_sample`'s default K; its `guidance` and `guidance_scale` are
 parsed so that a reference config loads, but no code of the port (nor of the
 reference) reads them: soft guidance is asked for by passing a soft encoder
@@ -22,18 +23,22 @@ and its scale to models/guided_generation.py. The fused loss's saved raw similar
 (`contrastive.use_cache`, `cache_size`) is ported: with
 `contrastive.use_fused_kernel` it is the reference's `two_tower_optimized`
 preset. The port's modules are always unrolled; utils/convert.py reads
-both flax param layouts. Defaults are the reference's.
+both flax param layouts. Defaults are the reference's. `ProtT5Config` and
+`RNABertConfig` configure the standalone ProtT5 and RNABERT encoders
+(models/t5.py, models/rnabert.py).
 
 `apply_overrides(cfg, ["a.b=c", ...])` replaces dotted fields, parsing each
-value by the field's declared type.
+value by the field's declared type (a tuple field from a JSON list, as the
+reference parses it: `-o dplm.lora_targets='["q","k","v"]'`).
 """
 
 from __future__ import annotations
 
 import dataclasses
+import json
 import typing
 from dataclasses import dataclass, field
-from typing import Optional, Sequence
+from typing import Optional, Sequence, Tuple
 
 
 @dataclass(frozen=True)
@@ -52,16 +57,22 @@ class ESMConfig:
     # esm_clip: the tower's output is detached and its subtree's update
     # zeroed (train/state.py::freeze_subtrees)
     frozen: bool = True
-    lora_rank: int = 0  # LoRA (models/lora.py) is not ported: > 0 raises
+    # LoRA fine-tuning (models/lora.py): rank 0 disables. With rank > 0 the
+    # base tower is frozen leaf by leaf (detached at use, no Adam moments)
+    # and only the `<site>_lora` adapters train; targets are a subset of
+    # {q, k, v, out, ffn_in, ffn_out}
+    lora_rank: int = 0
+    lora_alpha: float = 16.0
+    lora_targets: Tuple[str, ...] = ("q", "v")
 
 
 @dataclass(frozen=True)
 class DPLMConfig:
     """Discrete-diffusion protein LM: the sampler's and the trainer's trunk
-    (training reads the widths, max_len and layer_norm_eps) and the best-of-K
-    of its guided sampler (`num_candidates`). `guidance` and
-    `guidance_scale` are parsed for parity with the reference and read by
-    nothing."""
+    (training reads the widths, max_len, layer_norm_eps and the LoRA fields)
+    and the best-of-K of its guided sampler (`num_candidates`). `guidance`
+    and `guidance_scale` are parsed for parity with the reference and read
+    by nothing."""
 
     vocab_size: int = 33
     d_model: int = 640
@@ -73,6 +84,48 @@ class DPLMConfig:
     guidance_scale: float = 1.0
     guidance: str = "rerank"  # none | rerank | gradient
     num_candidates: int = 8  # best-of-K for rerank guidance
+    # LoRA fine-tuning of the trunk (models/lora.py): rank 0 disables; with
+    # rank > 0 the adapters, final_ln and lm_head train, the rest is frozen
+    lora_rank: int = 0
+    lora_alpha: float = 16.0
+    lora_targets: Tuple[str, ...] = ("q", "v")
+
+
+@dataclass(frozen=True)
+class ProtT5Config:
+    """ProtT5 encoder (the T5 v1.0 encoder stack of
+    Rostlab/prot_t5_xl_half_uniref50-enc). Defaults are the xl geometry;
+    models/t5.py::prot_t5_config_from_name has the published presets."""
+
+    name: str = "prot_t5_xl"
+    vocab_size: int = 128
+    d_model: int = 1024
+    d_ff: int = 16384
+    num_layers: int = 24
+    num_heads: int = 32
+    d_kv: int = 128
+    relative_attention_num_buckets: int = 32
+    relative_attention_max_distance: int = 128
+    layer_norm_eps: float = 1e-6
+    frozen: bool = True
+
+
+@dataclass(frozen=True)
+class RNABertConfig:
+    """RNABERT-compatible RNA base encoder (models/rnabert.py). Defaults are
+    the published RNABERT geometry: 120 wide, 6 post-LN layers of 12 heads,
+    up to 440 bases."""
+
+    name: str = "rnabert"
+    vocab_size: int = 9
+    d_model: int = 120
+    num_layers: int = 6
+    num_heads: int = 12
+    d_ff: int = 40
+    max_len: int = 440
+    type_vocab_size: int = 2
+    layer_norm_eps: float = 1e-12
+    frozen: bool = True
 
 
 @dataclass(frozen=True)
@@ -225,6 +278,12 @@ def _parse(value: str, typ):
         raise ValueError(f"not a bool: {value!r}")
     if typ in (int, float, str):
         return typ(value)
+    if typing.get_origin(typ) is tuple:  # Tuple[X, ...] from a JSON list
+        items = json.loads(value)
+        if not isinstance(items, list):
+            raise ValueError(f"not a JSON list: {value!r}")
+        (inner, _) = typing.get_args(typ)
+        return tuple(inner(v) for v in items)
     if typing.get_origin(typ) is typing.Union:  # Optional[X]
         if value.strip().lower() in ("none", "null", ""):
             return None

@@ -18,6 +18,15 @@ accuracy, mean rank; train/metrics.py) before training and after it.
   python -m clip_dplm_tpu_torch.experiments.train --epochs 3 -o experiment=dplm
   python -m clip_dplm_tpu_torch.experiments.train --epochs 3 --retrieval \
       -o experiment=esm_clip -o esm.frozen=false -o train.batch_size=64
+
+LoRA fine-tuning (models/lora.py): `-o esm.lora_rank=8` (esm_clip) or
+`-o dplm.lora_rank=8` (dplm) trains only the adapters (and DPLM's final_ln
+and lm_head); `--save-adapters PATH` writes the adapter leaves alone to an
+.npz after training, which the JAX package's `load_adapters_npz` reads:
+
+  python -m clip_dplm_tpu_torch.experiments.train --epochs 3 -o experiment=dplm \
+      -o dplm.lora_rank=8 -o 'dplm.lora_targets=["q","k","v","out"]' \
+      --save-adapters adapters.npz
 """
 
 from __future__ import annotations
@@ -42,6 +51,9 @@ def parse_args(argv: Optional[Sequence[str]] = None) -> argparse.Namespace:
                         "training (pair models)")
     p.add_argument("--checkpoint-dir", default=None,
                    help="not ported yet: giving one raises")
+    p.add_argument("--save-adapters", default=None, metavar="PATH",
+                   help="after training, save only the LoRA adapter leaves to an .npz "
+                        "(needs esm.lora_rank or dplm.lora_rank > 0)")
     return p.parse_args(argv)
 
 
@@ -58,6 +70,12 @@ def main(argv: Optional[Sequence[str]] = None) -> Dict[str, list]:
                          "(pass --device cpu to train on the CPU)")
     cfg = apply_overrides(Config(), args.override)
     model = build_model(cfg, device=device)
+    if args.save_adapters:
+        from clip_dplm_tpu_torch.models.lora import has_lora_params
+
+        if not has_lora_params(dict(model.named_parameters())):
+            raise SystemExit("--save-adapters: the model has no LoRA adapters "
+                             "(set esm.lora_rank or dplm.lora_rank)")
     state = create_train_state(model, cfg)
     n_params = sum(p.numel() for p in model.parameters())
     print(json.dumps({"experiment": cfg.experiment, "device": str(device),
@@ -78,6 +96,11 @@ def main(argv: Optional[Sequence[str]] = None) -> Dict[str, list]:
                             val_batches, num_epochs=args.epochs)
     if args.retrieval:
         history["retrieval_untrained"], history["retrieval"] = before, retrieval("trained")
+    if args.save_adapters:
+        from clip_dplm_tpu_torch.models.lora import save_adapters_npz
+
+        n = save_adapters_npz(args.save_adapters, dict(model.named_parameters()))
+        print(json.dumps({"adapters": args.save_adapters, "leaves": n}), flush=True)
     print(json.dumps({"done": True, "train_loss": history["train_loss"],
                       "val_loss": history["val_loss"]}), flush=True)
     return history

@@ -30,6 +30,7 @@ from torch import nn
 from clip_dplm_tpu_torch.config import DPLMConfig
 from clip_dplm_tpu_torch.models.esm import EsmBlock
 from clip_dplm_tpu_torch.models.layers import Dense, Embed, LayerNorm
+from clip_dplm_tpu_torch.models.lora import spec_from
 from clip_dplm_tpu_torch.ops.fused_dense import DropoutSeeds, dropout_bits
 
 MASK_IDX = 32
@@ -42,17 +43,19 @@ RESIDUE_LO, RESIDUE_HI = 4, 23
 
 class DPLM(nn.Module):
     """Bidirectional denoising trunk + LM head over token ids. `dtype` is
-    the trunk's compute dtype; the final LayerNorm and head run in f32."""
+    the trunk's compute dtype; the final LayerNorm and head run in f32. With
+    `cfg.lora_rank` the blocks carry LoRA adapters (models/lora.py)."""
 
     def __init__(self, cfg: DPLMConfig, dtype: torch.dtype = torch.bfloat16,
                  device=None):
         super().__init__()
         self.cfg, self.dtype = cfg, dtype
         self.embed_tokens = Embed(cfg.vocab_size, cfg.d_model, device=device)
+        lora = spec_from(cfg)
         for i in range(cfg.num_layers):
             self.add_module(f"layer_{i}", EsmBlock(
                 cfg.d_model, cfg.num_heads, ln_eps=cfg.layer_norm_eps,
-                device=device))
+                device=device, lora=lora))
         self.final_ln = LayerNorm(cfg.d_model, cfg.layer_norm_eps, device=device)
         self.lm_head = Dense(cfg.d_model, cfg.vocab_size, device=device)
 

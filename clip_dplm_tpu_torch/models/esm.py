@@ -7,7 +7,10 @@ soft CLIP guidance differentiates through. Parameters keep the flax names
 (`embed_tokens`, `layer_<i>/{ln_attn,q,k,v,out,ln_ffn,ffn_in,ffn_out}`,
 `final_ln`), so `utils/convert.py` maps a flax tree onto the `state_dict`.
 The trunk is always unrolled; a stacked (`scan_layers`) flax tree is
-unstacked on conversion.
+unstacked on conversion. With `cfg.lora_rank` the blocks carry LoRA adapters
+(models/lora.py) beside the unchanged base tree. `convert_esm_torch_params` /
+`export_esm_torch_params` map an HF `EsmModel` state_dict (ESM-2's
+published layout) onto the port's and back.
 
 Attention dispatch follows the reference by shape: the packed-qkv kernel with
 in-kernel RoPE for 64 <= S < 256, the flash kernel for S >= 256, plain
@@ -24,7 +27,8 @@ import torch.nn.functional as F
 from torch import nn
 
 from clip_dplm_tpu_torch.config import ESMConfig
-from clip_dplm_tpu_torch.models.layers import Dense, Embed, LayerNorm
+from clip_dplm_tpu_torch.models.layers import Dense, Embed, LayerNorm, numpy_f32
+from clip_dplm_tpu_torch.models.lora import LoRAPair, LoRASpec, is_lora_path, spec_from
 from clip_dplm_tpu_torch.ops.attention import (
     attention_dispatch,
     merge_heads,
@@ -67,12 +71,20 @@ def rotary_embed_bsd(x: torch.Tensor, positions: torch.Tensor,
 
 
 class EsmBlock(nn.Module):
-    """Pre-LN transformer block with rotary q/k (ESM-2 layer semantics)."""
+    """Pre-LN transformer block with rotary q/k (ESM-2 layer semantics).
+
+    `lora` (models/lora.py::LoRASpec, None disables) adds a `<site>_lora`
+    pair beside each target; the base parameter tree is unchanged. With
+    adapters the base weights are detached at use, the q, k
+    and v deltas are added into the packed qkv slices (the separate route:
+    to q, k and v), the `out` adapter is merged into the projection weight
+    in f32 on both routes (its gradient reaches a and b through the packed
+    kernel's dWo), and the FFN's deltas are added in activation space."""
 
     def __init__(self, d_model: int, num_heads: int, ffn_mult: int = 4,
-                 ln_eps: float = 1e-5, device=None):
+                 ln_eps: float = 1e-5, device=None, lora: Optional[LoRASpec] = None):
         super().__init__()
-        self.d_model, self.num_heads = d_model, num_heads
+        self.d_model, self.num_heads, self.lora = d_model, num_heads, lora
         D, F_ = d_model, ffn_mult * d_model
         self.ln_attn = LayerNorm(D, ln_eps, device=device)
         self.q = Dense(D, D, device=device)
@@ -82,6 +94,32 @@ class EsmBlock(nn.Module):
         self.ln_ffn = LayerNorm(D, ln_eps, device=device)
         self.ffn_in = Dense(D, F_, device=device)
         self.ffn_out = Dense(F_, D, device=device)
+        shapes = {"q": (D, D), "k": (D, D), "v": (D, D), "out": (D, D), "ffn_in": (D, F_),
+                  "ffn_out": (F_, D)}
+        for site in (lora.targets if lora is not None else ()):
+            self.add_module(f"{site}_lora", LoRAPair(*shapes[site], lora.rank, lora.alpha,
+                                                     device=device))
+
+    def _site(self, name: str):
+        """(kernel, bias) of a dense site, detached when the block carries
+        adapters (the base is frozen)."""
+        dense = getattr(self, name)
+        if self.lora is not None:
+            return dense.kernel.detach(), dense.bias.detach()
+        return dense.kernel, dense.bias
+
+    def _delta(self, site: str, x: torch.Tensor) -> Optional[torch.Tensor]:
+        """The site's adapter delta of x, or None without one."""
+        if self.lora is None or site not in self.lora.targets:
+            return None
+        return getattr(self, f"{site}_lora")(x)
+
+    def _linear(self, site: str, x: torch.Tensor) -> torch.Tensor:
+        """x through a dense site, in x's dtype, plus its adapter delta."""
+        w, b = self._site(site)
+        y = F.linear(x, w.to(x.dtype), b.to(x.dtype))
+        d = self._delta(site, x)
+        return y if d is None else y + d
 
     def forward(self, x: torch.Tensor, mask: torch.Tensor,
                 positions: torch.Tensor) -> torch.Tensor:
@@ -90,24 +128,29 @@ class EsmBlock(nn.Module):
         H, D = self.num_heads, self.d_model
         h = self.ln_attn(x).to(dtype)
         B, S, _ = h.shape
+        wo, bo = self._site("out")
+        if self.lora is not None and "out" in self.lora.targets:
+            wo = wo + self.out_lora.weight().t()
         if short_attn_packed_ok((B, S, 3 * D), H, mask):
-            # one qkv matmul; RoPE, attention and the out-projection in the
-            # packed kernel
-            w_qkv = torch.cat([self.q.kernel, self.k.kernel, self.v.kernel], 0)
-            b_qkv = torch.cat([self.q.bias, self.k.bias, self.v.bias])
-            qkv = F.linear(h, w_qkv.to(dtype), b_qkv.to(dtype))
-            attn = packed_qkv_attention_proj(
-                qkv, self.out.kernel, self.out.bias, H, mask=mask,
-                rope_positions=positions)
+            # one qkv matmul, the q/k/v deltas added into its slices; RoPE,
+            # attention and the out-projection in the packed kernel
+            (wq, bq), (wk, bk), (wv, bv) = (self._site(n) for n in ("q", "k", "v"))
+            qkv = F.linear(h, torch.cat([wq, wk, wv], 0).to(dtype),
+                           torch.cat([bq, bk, bv]).to(dtype))
+            deltas = [self._delta(t, h) for t in ("q", "k", "v")]
+            if any(d is not None for d in deltas):
+                parts = qkv.split(D, dim=-1)
+                qkv = torch.cat([p if d is None else p + d for p, d in zip(parts, deltas)], -1)
+            attn = packed_qkv_attention_proj(qkv, wo, bo, H, mask=mask, rope_positions=positions)
         else:
-            qh = rotary_embed(split_heads(self.q(h), H), positions)
-            kh = rotary_embed(split_heads(self.k(h), H), positions)
-            vh = split_heads(self.v(h), H)
-            attn = self.out(merge_heads(attention_dispatch(qh, kh, vh, mask=mask)))
+            qh = rotary_embed(split_heads(self._linear("q", h), H), positions)
+            kh = rotary_embed(split_heads(self._linear("k", h), H), positions)
+            vh = split_heads(self._linear("v", h), H)
+            attn = F.linear(merge_heads(attention_dispatch(qh, kh, vh, mask=mask)),
+                            wo.to(dtype), bo.to(dtype))
         x = x + attn
         h = self.ln_ffn(x).to(dtype)
-        h = self.ffn_out(F.gelu(self.ffn_in(h)))
-        return x + h
+        return x + self._linear("ffn_out", F.gelu(self._linear("ffn_in", h)))
 
 
 def stack_esm_layers(params: Dict, num_layers: int) -> Dict:
@@ -154,10 +197,11 @@ class ESMTower(nn.Module):
         super().__init__()
         self.cfg, self.dtype = cfg, dtype
         self.embed_tokens = Embed(cfg.vocab_size, cfg.d_model, device=device)
+        lora = spec_from(cfg)
         for i in range(cfg.num_layers):
             self.add_module(f"layer_{i}", EsmBlock(
                 cfg.d_model, cfg.num_heads, ln_eps=cfg.layer_norm_eps,
-                device=device))
+                device=device, lora=lora))
         self.final_ln = LayerNorm(cfg.d_model, cfg.layer_norm_eps, device=device)
 
     @property
@@ -232,3 +276,54 @@ class ESMTower(nn.Module):
 def esm_config_from_name(name: str, **overrides) -> ESMConfig:
     geom = ESM2_SIZES[name]
     return ESMConfig(name=name, **{**geom, **overrides})
+
+
+# ---------------------------------------------------------------------------
+# HF checkpoint conversion
+# ---------------------------------------------------------------------------
+
+# the port's per-block names -> HF `EsmModel` names under encoder.layer.<i>
+_HF_ESM_BLOCK = {
+    "ln_attn": "attention.LayerNorm", "q": "attention.self.query",
+    "k": "attention.self.key", "v": "attention.self.value",
+    "out": "attention.output.dense", "ln_ffn": "LayerNorm",
+    "ffn_in": "intermediate.dense", "ffn_out": "output.dense",
+}
+# leaf names: the port's Dense / LayerNorm -> torch Linear / LayerNorm
+_HF_LEAF = {"kernel": "weight", "scale": "weight", "bias": "bias"}
+
+
+
+def _esm_hf_names(cfg: ESMConfig) -> Dict[str, str]:
+    """The port's ESMTower state_dict names -> HF `EsmModel` names, in the
+    order the exporters write them."""
+    names = {"embed_tokens.embedding": "embeddings.word_embeddings.weight",
+             "final_ln.scale": "encoder.emb_layer_norm_after.weight",
+             "final_ln.bias": "encoder.emb_layer_norm_after.bias"}
+    for i in range(cfg.num_layers):
+        for site, hf in _HF_ESM_BLOCK.items():
+            for leaf in ("scale", "bias") if site.startswith("ln") else ("kernel", "bias"):
+                names[f"layer_{i}.{site}.{leaf}"] = f"encoder.layer.{i}.{hf}.{_HF_LEAF[leaf]}"
+    return names
+
+
+def convert_esm_torch_params(state_dict, cfg: ESMConfig) -> Dict[str, torch.Tensor]:
+    """An HF `EsmModel` state_dict (the rotary ESM-2 layout; torch tensors or
+    numpy arrays) -> the `state_dict` of the port's ESMTower, f32 on the
+    CPU. torch's Linear weight is (out, in), as the port's Dense kernel, so
+    nothing is transposed. A DPLM takes it through `init_dplm_from_esm`."""
+    return {k: torch.from_numpy(numpy_f32(state_dict[v])) for k, v in _esm_hf_names(cfg).items()}
+
+
+def export_esm_torch_params(params, cfg: ESMConfig) -> Dict[str, np.ndarray]:
+    """Inverse of `convert_esm_torch_params`: an ESMTower (or its
+    state_dict) -> an HF `EsmModel` state_dict, numpy f32 in HF's key
+    layout (load it with `strict=False`: HF also holds rotary buffers and a
+    contact head), equal to the JAX package's `export_esm_torch_params` of
+    the same weights. Unmerged LoRA adapters raise: fold them with
+    models/lora.py::merge_lora first."""
+    sd = params.state_dict() if isinstance(params, nn.Module) else params
+    if any(is_lora_path(k) for k in sd):
+        raise ValueError("param tree still carries LoRA adapters: fold them with "
+                         "models/lora.py::merge_lora before exporting")
+    return {hf: numpy_f32(sd[name]) for name, hf in _esm_hf_names(cfg).items()}

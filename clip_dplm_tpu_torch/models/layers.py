@@ -35,6 +35,7 @@ from __future__ import annotations
 import math
 from typing import Optional
 
+import numpy as np
 import torch
 import torch.nn.functional as F
 from torch import nn
@@ -51,18 +52,22 @@ FLAX_LN_EPS = 1e-6  # flax nn.LayerNorm's default, the towers' and heads' LNs
 
 class Dense(nn.Module):
     """`init` picks the kernel's initializer: "lecun" (flax nn.Dense's
-    default family) or "xavier" (xavier-uniform)."""
+    default family) or "xavier" (xavier-uniform). `use_bias=False` leaves
+    the bias out (flax's `use_bias=False`: T5's projections)."""
 
     def __init__(self, in_features: int, features: int, device=None,
-                 init: str = "lecun"):
+                 init: str = "lecun", use_bias: bool = True):
         super().__init__()
         if init not in ("lecun", "xavier"):
             raise ValueError(f"unknown init {init!r}")
         self.init = init
         self.kernel = nn.Parameter(
             torch.empty(features, in_features, dtype=torch.float32, device=device))
-        self.bias = nn.Parameter(
-            torch.zeros(features, dtype=torch.float32, device=device))
+        if use_bias:
+            self.bias = nn.Parameter(
+                torch.zeros(features, dtype=torch.float32, device=device))
+        else:
+            self.register_parameter("bias", None)
 
     def reset_parameters(self, generator: torch.Generator) -> None:
         """lecun-normal (std 1/sqrt(fan_in)) or xavier-uniform kernel, zero
@@ -74,10 +79,12 @@ class Dense(nn.Module):
                 self.kernel.uniform_(-a, a, generator=generator)
             else:
                 self.kernel.normal_(0.0, 1.0 / math.sqrt(fan_in), generator=generator)
-            self.bias.zero_()
+            if self.bias is not None:
+                self.bias.zero_()
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        return F.linear(x, self.kernel.to(x.dtype), self.bias.to(x.dtype))
+        bias = None if self.bias is None else self.bias.to(x.dtype)
+        return F.linear(x, self.kernel.to(x.dtype), bias)
 
 
 class LayerNorm(nn.Module):
@@ -113,6 +120,14 @@ class Embed(nn.Module):
 
     def forward(self, tokens: torch.Tensor) -> torch.Tensor:
         return F.embedding(tokens, self.embedding)
+
+
+def numpy_f32(t) -> np.ndarray:
+    """A torch tensor (any device or dtype) or array-like as numpy f32: the
+    HF converters' and the bundles' leaf format."""
+    if torch.is_tensor(t):
+        t = t.detach().cpu().float().numpy()
+    return np.asarray(t, dtype=np.float32)
 
 
 def init_params(module: nn.Module, generator: torch.Generator) -> None:

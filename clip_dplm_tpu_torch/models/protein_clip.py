@@ -9,8 +9,10 @@ a learned f32 logit scale. Parameter names are the flax module's
 (`rna_tower`, `esm_tower`, `rna_proj`, `protein_proj`, `logit_scale`), so
 `utils/convert.py` loads a flax tree key for key. With `esm.frozen` the
 protein tower runs without a gradient (the reference's stop_gradient: its
-output is detached) and train/state.py zeroes its subtree's update;
-`esm.lora_rank` > 0 raises (models/lora.py is not ported).
+output is detached) and train/state.py zeroes its subtree's update. With
+`esm.lora_rank` > 0 the tower carries LoRA adapters (models/lora.py) and
+runs with a gradient, which reaches only the adapters: the base weights are
+detached at use, and train/state.py freezes the rest of the subtree.
 """
 
 from __future__ import annotations
@@ -34,10 +36,6 @@ class ESMProteinCLIP(nn.Module):
 
     def __init__(self, cfg: Config, dtype: torch.dtype = torch.bfloat16, device=None):
         super().__init__()
-        if cfg.esm.lora_rank:
-            raise NotImplementedError(
-                f"esm.lora_rank={cfg.esm.lora_rank}: LoRA adapters (models/lora.py) are not "
-                "ported yet (ROADMAP queue 1 item 10)")
         self.cfg, self.dtype = cfg, dtype
         self.rna_tower = TokenTransformerTower(cfg.rna_tower, dtype, device)
         self.esm_tower = ESMTower(cfg.esm, dtype, device)
@@ -72,7 +70,11 @@ class ESMProteinCLIP(nn.Module):
         deterministic=False the dropout sites draw their seeds from `seeds`,
         in call order (the ESM tower has none)."""
         rna = self.rna_tower(batch["rna_tokens"], batch.get("rna_mask"), deterministic, seeds)
-        with torch.set_grad_enabled(torch.is_grad_enabled() and not self.cfg.esm.frozen):
+        # a frozen tower without adapters records nothing; with adapters the
+        # gradient must reach them
+        esm = self.cfg.esm
+        with torch.set_grad_enabled(torch.is_grad_enabled()
+                                    and (not esm.frozen or esm.lora_rank > 0)):
             prot = self.esm_tower(batch["protein_tokens"], batch.get("protein_mask"),
                                   pooling="mean_residues")
         za = self.rna_proj(rna, deterministic, seeds)

@@ -17,7 +17,9 @@ Counterpart of `clip_dplm_tpu/ops/short_attention.py`:
   512 MiB (`saves_probs`), fixed by shape on every device. dO is the shared
   bf16 GEMM (`ops/fused_dense.py::_gemm`); dWo = dy^T·o and dbo = Σ dy are
   plain f32-output matmuls, as the JAX package leaves them to XLA, so they
-  reach the f32 parameters unrounded.
+  reach the f32 parameters unrounded, and are skipped where neither wo nor
+  bo needs a gradient (a frozen LoRA base; a merged `wo + scale·(a@b)^T`
+  needs one, and carries it to the adapter).
 - `fused_short_attention` over separate (B, S, D) q, k, v and
   `fused_short_attention_heads` over (B, H, S, Dh) heads, the ops behind
   `multihead_attention` and `attention_dispatch` at 64 <= S < 256: an
@@ -733,8 +735,13 @@ class _ShortAttnProj(torch.autograd.Function):
         else:
             dqkv = short_attention_qkv_bwd(dout, qkv, o, ctx.num_heads, mask=mask,
                                            scale=ctx.scale, rope_positions=pos)
-        dwo, dbo = _proj_param_grads(dy, o)
-        return dqkv, dwo.to(wo.dtype), dbo.to(bo.dtype), None, None, None, None, None
+        dwo = dbo = None
+        if ctx.needs_input_grad[1] or ctx.needs_input_grad[2]:
+            # a frozen projection (a LoRA base detached at use) needs neither
+            dwo, dbo = _proj_param_grads(dy, o)
+            dwo = dwo.to(wo.dtype) if ctx.needs_input_grad[1] else None
+            dbo = dbo.to(bo.dtype) if ctx.needs_input_grad[2] else None
+        return dqkv, dwo, dbo, None, None, None, None, None
 
 
 def fused_short_attention_qkv_proj(

@@ -15,7 +15,11 @@ weight decay, moments optionally stored in bf16 (computed in f32), the
 learning rate read at the count before the increment, and a `stale` clip
 mode that clips with the previous step's norm. It updates the parameters in
 place (the reference's state is immutable; here that saves a copy of every
-parameter and moment) and never waits on the device.
+parameter and moment) and never waits on the device. `freeze_subtrees`
+zeroes the whole update of top-level subtrees; the `*_lora` adapter leaves
+inside them (models/lora.py) still train, and where adapters are present
+the frozen leaves get no Adam moments at all, and neither enter the global
+norm (the reference's `optax.masked` inner optimizer).
 """
 
 from __future__ import annotations
@@ -29,6 +33,7 @@ from torch import nn
 
 from clip_dplm_tpu_torch.config import Config, OptimConfig
 from clip_dplm_tpu_torch.models.layers import init_params
+from clip_dplm_tpu_torch.models.lora import has_lora_params, is_lora_path
 
 Schedule = Callable[[int], float]
 
@@ -92,14 +97,24 @@ class FusedAdamW:
     clip_norm: float = 0.0
     moment_dtype: Optional[torch.dtype] = None
     clip_mode: str = "exact"
-    # top-level parameter names (`tower_a`, ...) whose updates are zero
+    # top-level parameter names (`tower_a`, ...) whose updates are zero, but
+    # for their `*_lora` leaves
     frozen: Tuple[str, ...] = ()
+    # the frozen leaves get no moments and stay out of the global norm
+    mask_moments: bool = False
+
+    def is_frozen(self, name: str) -> bool:
+        return name.split(".", 1)[0] in self.frozen and not is_lora_path(name)
+
+    def _moment_names(self, params) -> list:
+        return [n for n in params if not (self.mask_moments and self.is_frozen(n))]
 
     def init(self, params: Dict[str, torch.Tensor]) -> AdamWState:
         zeros = lambda p: torch.zeros_like(p, dtype=self.moment_dtype or p.dtype)  # noqa: E731
         dev = next(iter(params.values())).device
-        return AdamWState(count=0, mu={k: zeros(p) for k, p in params.items()},
-                          nu={k: zeros(p) for k, p in params.items()},
+        names = self._moment_names(params)
+        return AdamWState(count=0, mu={k: zeros(params[k]) for k in names},
+                          nu={k: zeros(params[k]) for k in names},
                           prev_norm=torch.zeros((), dtype=torch.float32, device=dev))
 
     @torch.no_grad()
@@ -109,9 +124,10 @@ class FusedAdamW:
         if self.clip_mode not in ("exact", "stale"):
             raise ValueError(f"unknown clip_mode {self.clip_mode!r}")
         dev = state.prev_norm.device
+        names = self._moment_names(params)
         clipf = torch.ones((), dtype=torch.float32, device=dev)
         if self.clip_norm and self.clip_norm > 0:
-            gnorm = global_norm(grads.values())
+            gnorm = global_norm([grads[n] for n in names])
             if self.clip_mode == "stale":
                 prev = state.prev_norm
                 clipf = torch.where(prev > 0, torch.clamp(self.clip_norm / prev, max=1.0), clipf)
@@ -123,8 +139,7 @@ class FusedAdamW:
         b1c = 1.0 - float(torch.tensor(self.b1, dtype=torch.float32) ** count_inc)
         b2c = 1.0 - float(torch.tensor(self.b2, dtype=torch.float32) ** count_inc)
         lr = float(self.schedule(state.count))
-        names = list(params)
-        idx = [i for i, n in enumerate(names) if n.split(".", 1)[0] not in self.frozen]
+        idx = [i for i, n in enumerate(names) if not self.is_frozen(n)]
         # one multi-tensor op per line (torch._foreach_*), all in f32
         g = torch._foreach_mul([grads[n].float() for n in names], clipf)
         m = torch._foreach_mul([state.mu[n].float() for n in names], self.b1)
@@ -162,15 +177,20 @@ def build_optimizer(cfg: OptimConfig) -> FusedAdamW:
         clip_mode=cfg.clip_mode)
 
 
-def freeze_subtrees(tx: FusedAdamW, params: Dict[str, torch.Tensor], frozen_keys) -> FusedAdamW:
+def freeze_subtrees(tx: FusedAdamW, params: Dict[str, torch.Tensor],
+                    frozen_keys) -> FusedAdamW:
     """Zero the whole update (decay included) of the top-level subtrees in
     `frozen_keys`: a zero gradient alone would still let weight decay shrink
-    them. Their moments are still kept, as in the reference's chain."""
+    them; they stay bit-exact. `*_lora` leaves inside a frozen subtree
+    train. When adapters are present the frozen leaves get no moments and
+    stay out of the global norm; otherwise their moments are kept, as in
+    the reference's chain."""
     tops = {k.split(".", 1)[0] for k in params}
     unknown = set(frozen_keys) - tops
     if unknown:
         raise KeyError(f"no parameter subtree named {sorted(unknown)}")
-    return dataclasses.replace(tx, frozen=tuple(sorted(set(frozen_keys))))
+    return dataclasses.replace(tx, frozen=tuple(sorted(set(frozen_keys))),
+                               mask_moments=has_lora_params(params))
 
 
 @dataclasses.dataclass
@@ -193,9 +213,11 @@ def create_train_state(model: nn.Module, cfg: Config, tx: Optional[FusedAdamW] =
                        frozen_keys=(), init: bool = True) -> TrainState:
     """With `init`, random weights from a generator seeded by
     cfg.train.seed on the model's device; otherwise the model keeps its
-    weights (loaded from a flax tree, say). Without a `tx` of the caller's,
-    `esm.frozen` freezes an `esm_tower` subtree (esm_clip) when no
-    `frozen_keys` are given, as the reference's create_train_state does."""
+    weights (loaded from a flax tree, say). Without a `tx` of the caller's
+    and without `frozen_keys`, as the reference's create_train_state does:
+    `esm.frozen` freezes an `esm_tower` subtree (esm_clip), and a DPLM with
+    `dplm.lora_rank` freezes its `layer_*` blocks and `embed_tokens` (the
+    adapters, final_ln and lm_head train)."""
     device = next(model.parameters()).device
     if init:
         init_params(model, torch.Generator(device=device).manual_seed(cfg.train.seed))
@@ -205,6 +227,10 @@ def create_train_state(model: nn.Module, cfg: Config, tx: Optional[FusedAdamW] =
         if not frozen_keys and cfg.esm.frozen and any(k.startswith("esm_tower.")
                                                       for k in params):
             frozen_keys = ("esm_tower",)
+        if not frozen_keys and cfg.experiment == "dplm" and cfg.dplm.lora_rank:
+            tops = {k.split(".", 1)[0] for k in params}
+            frozen_keys = tuple(sorted(t for t in tops
+                                       if t.startswith("layer_") or t == "embed_tokens"))
     if frozen_keys:
         tx = freeze_subtrees(tx, params, frozen_keys)
     key = (cfg.train.seed * 0x9E3779B97F4A7C15 + 1) & ((1 << 64) - 1)

@@ -178,8 +178,12 @@ def make_train_step(cfg: Config) -> Callable[[TrainState, Dict], Tuple[TrainStat
             else:
                 loss_sum = loss_sum + loss
                 metrics_sum = {k: metrics_sum[k] + v for k, v in metrics.items()}
+        # a leaf the masked optimizer leaves out (a frozen LoRA base) and
+        # that took no gradient needs no zeros either
+        tx = state.tx
         grads = {k: p.grad if p.grad is not None else torch.zeros_like(p)
-                 for k, p in params.items()}
+                 for k, p in params.items()
+                 if p.grad is not None or not (tx.mask_moments and tx.is_frozen(k))}
         if accum > 1:
             inv = 1.0 / accum
             grads = {k: g * inv for k, g in grads.items()}

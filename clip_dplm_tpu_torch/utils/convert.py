@@ -12,7 +12,9 @@ included) are transposed from flax's (in, out) to the port's (out, in), every
 other leaf keeps its shape (the 0-d `logit_scale`, the (1, max_len, d) or
 (1, 8, d) `pos_embed`, the (1, 1, d) `cls_token`), and a stacked
 `layers/block` tree (the `scan_layers` layout), at the top or in the
-`esm_tower` scope, is unstacked to `layer_<i>` first. `load_cache` carries a train state's hard-negative cache (`cache`,
+`esm_tower` scope, is unstacked to `layer_<i>` first. `state_dict_to_flax`
+is the inverse (the unrolled layout): the flax tree of a port module's
+weights, as numpy f32 (utils/pretrained.py writes it). `load_cache` carries a train state's hard-negative cache (`cache`,
 `cache_ptr`, `cache_len`, as numpy) into the port's `TrainState`.
 """
 
@@ -26,6 +28,7 @@ import torch
 from torch import nn
 
 from clip_dplm_tpu_torch.models.esm import unstack_esm_layers
+from clip_dplm_tpu_torch.models.layers import numpy_f32
 
 
 def _to_dict(tree):
@@ -59,6 +62,23 @@ def flax_to_state_dict(params: Mapping,
 
     walk(params, "")
     return sd
+
+
+def state_dict_to_flax(sd: Mapping) -> Dict:
+    """A port state_dict (or a module) -> the flax param tree of the same
+    weights, nested dicts of numpy f32, Dense kernels back to (in, out): the
+    inverse of `flax_to_state_dict` in the unrolled layout."""
+    if isinstance(sd, nn.Module):
+        sd = sd.state_dict()
+    tree: Dict = {}
+    for name, val in sd.items():
+        *scopes, leaf = name.split(".")
+        node = tree
+        for scope in scopes:
+            node = node.setdefault(scope, {})
+        arr = numpy_f32(val)
+        node[leaf] = np.array(arr.T if leaf == "kernel" else arr, order="C")
+    return tree
 
 
 def _unstacked(params: Dict, num_layers: Optional[int]) -> Dict:

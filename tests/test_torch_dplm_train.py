@@ -259,5 +259,8 @@ def test_config_keeps_unported_dplm_fields_out():
     assert pconfig.apply_overrides(pconfig.Config(), ["dplm.guidance=none"]).dplm.guidance == "none"
     with pytest.raises(KeyError, match="scan_layers"):
         pconfig.apply_overrides(pconfig.Config(), ["dplm.scan_layers=true"])
-    with pytest.raises(KeyError, match="lora_rank"):
-        pconfig.apply_overrides(pconfig.Config(), ["dplm.lora_rank=4"])
+    # the LoRA fields are ported (models/lora.py)
+    lora_cfg = pconfig.apply_overrides(pconfig.Config(), [
+        "dplm.lora_rank=4", "dplm.lora_alpha=8", 'dplm.lora_targets=["q","out"]'])
+    assert (lora_cfg.dplm.lora_rank, lora_cfg.dplm.lora_alpha,
+            lora_cfg.dplm.lora_targets) == (4, 8.0, ("q", "out"))

@@ -135,9 +135,18 @@ def test_esm_clip_is_registered():
 
 
 def test_lora_rank_raises_naming_lora():
+    """Since models/lora.py is ported, esm.lora_rank no longer raises: the
+    ESM tower builds with `*_lora` adapters (the default targets q and v,
+    in every block) beside its unchanged base tree; an unknown target still
+    raises, naming the valid sites."""
     _, pcfg = _cfgs(["esm.lora_rank=4"])
-    with pytest.raises(NotImplementedError, match="models/lora.py"):
-        build_model(pcfg)
+    model = build_model(pcfg)
+    names = [k for k, _ in model.named_parameters() if "_lora." in k]
+    assert sorted(names) == sorted(f"esm_tower.layer_{i}.{s}_lora.{p}" for i in range(2)
+                                   for s in ("q", "v") for p in "ab")
+    _, bad = _cfgs(["esm.lora_rank=4", 'esm.lora_targets=["q","qkv"]'])
+    with pytest.raises(ValueError, match="LoRA targets"):
+        build_model(bad)
 
 
 # ---------------------------------------------------------------------------

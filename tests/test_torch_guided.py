@@ -384,7 +384,12 @@ def test_serve_cli_guided_random_with_conditions(tmp_path):
 
 
 def test_serve_cli_guided_flags_refused():
-    with pytest.raises(SystemExit, match="utils/pretrained.py"):
+    # a scorer bundle guides /v1/generate: without a DPLM it is refused; a
+    # bundle directory that is not there is read, and fails to be
+    with pytest.raises(SystemExit, match="--dplm-bundle"):
+        serve.build_services(serve.parse_args(["--device", "cpu", "--no-embed",
+                                               "--scorer-bundle", "bundle"]))
+    with pytest.raises(FileNotFoundError, match="bundle"):
         serve.build_services(_serve_args("--scorer-bundle", "bundle"))
     with pytest.raises(SystemExit, match="--no-embed"):
         serve.build_services(_serve_args("--guided-random", "--no-embed"))
@@ -403,10 +408,14 @@ def test_generate_cli_writes_fasta_on_cpu(tmp_path, capsys):
 def test_generate_cli_flags(tmp_path, monkeypatch):
     assert generate_cli.parse_args(["--output", "x"]).device == "cuda"
     out = str(tmp_path / "g.fasta")
+    assert generate_cli.parse_args(["--output", "x"]).candidates == 8
+    # the bundle flags read their bundles (tests/test_torch_pretrained.py
+    # drives them on real ones): a directory that is not there fails
     for flags in (["--dplm-bundle", "b"], ["--esm-init", "b"],
                   ["--condition", "c.npz", "--scorer-bundle", "b"]):
-        with pytest.raises(SystemExit, match="utils/pretrained.py"):
-            generate_cli.main(["--device", "cpu", "--output", out, *flags])
+        with pytest.raises(FileNotFoundError):
+            generate_cli.main(["--device", "cpu", "--output", out, "--steps", "1", "--length",
+                               "3", "--num", "1", *flags])
     with pytest.warns(UserWarning, match="UNGUIDED"):
         generate_cli.main(["--device", "cpu", "--output", out, "--length", "3", "--num", "1",
                            "--steps", "1", "--condition", "c.npz"])

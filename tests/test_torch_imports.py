@@ -30,6 +30,7 @@ def test_port_imports_no_jax():
     for mod in ("models.token_towers", "models.tf_clip", "data.collate", "ops.short_attention",
                 "ops.tiny_attention", "experiments.bench", "experiments.registry",
                 "train.metrics", "models.protein_clip", "models.guided_generation",
-                "experiments.generate"):
+                "experiments.generate", "models.lora", "models.t5", "models.rnabert",
+                "utils.pretrained", "experiments.embed"):
         assert f"'clip_dplm_tpu_torch.{mod}'" in names, mod
     assert leaked.strip() == "[]", out.stdout

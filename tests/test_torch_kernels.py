@@ -1791,3 +1791,100 @@ def test_attention_gates_take_the_sep_kernels(cuda_device, np_rng, monkeypatch, 
     wide = torch.zeros(2, 2, S, 192, device=cuda_device, dtype=torch.bfloat16)
     with pytest.raises(ValueError, match="up to 128, got 192"):
         attention_dispatch(wide, wide, wide)
+
+
+# ---------------------------------------------------------------------------
+# LoRA through the packed kernels (models/esm.py::EsmBlock with adapters)
+# ---------------------------------------------------------------------------
+
+LORA_SITES = ("q", "k", "v", "out", "ffn_in", "ffn_out")
+
+
+def _lora_block(D, H, targets, dev, seed=0):
+    from clip_dplm_tpu_torch.models.esm import EsmBlock
+    from clip_dplm_tpu_torch.models.layers import init_params
+    from clip_dplm_tpu_torch.models.lora import LoRASpec
+
+    blk = EsmBlock(D, H, device=dev, lora=LoRASpec(rank=8, targets=targets))
+    g = torch.Generator(device=dev).manual_seed(seed)
+    init_params(blk, g)
+    with torch.no_grad():
+        for name, p in blk.named_parameters():
+            if name.endswith("_lora.b"):
+                p.normal_(0.0, 0.02, generator=g)
+    return blk
+
+
+def _lora_block_run(blk, x0, mask, dy, monkeypatch=None, plain=False):
+    """y, dx and every adapter's (da, db) of one forward and backward."""
+    from clip_dplm_tpu_torch.models import esm as esm_mod
+
+    if plain:
+        monkeypatch.setattr(esm_mod, "packed_qkv_attention_proj",
+                            lambda qkv, wo, bo, H, mask=None, rope_positions=None:
+                            fused_short_attention_qkv_proj_reference(
+                                qkv, wo, bo, H, mask=mask, rope_positions=rope_positions))
+    blk.zero_grad(set_to_none=True)
+    x = x0.clone().requires_grad_(True)
+    y = blk(x, mask, torch.arange(x.shape[1], device=x.device))
+    y.backward(dy)
+    pairs = [m for n, m in blk.named_children() if n.endswith("_lora")]
+    # the block's increment y - x (attention and FFN), not y: y is mostly
+    # the residual x, which would hide a fault in the increment
+    return [y.detach().float() - x0.float(), x.grad] + [t.grad for m in pairs
+                                                        for t in (m.a, m.b)]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("B,S,D,H", [(256, 128, 640, 10), (32, 128, 1280, 20)])
+def test_lora_packed_route_matches_plain(cuda_device, np_rng, monkeypatch, B, S, D, H):
+    """DPLM's and ESM-2 650M's shapes, all six targets, nonzero adapters:
+    the packed kernels' route (q/k/v deltas in the packed qkv, the `out`
+    adapter merged into the kernel's weight, its gradient through dWo)
+    against the plain version of the same attention on the same weights; no
+    frozen base site takes a gradient."""
+    blk = _lora_block(D, H, LORA_SITES, cuda_device)
+    mask = torch.from_numpy(_ragged_mask(np_rng, B, S)).to(cuda_device)
+    mask[-1, 0] = True
+    x0 = torch.from_numpy(np_rng.normal(size=(B, S, D)).astype(np.float32)).to(
+        cuda_device, torch.bfloat16)
+    dy = torch.from_numpy(np_rng.normal(size=(B, S, D)).astype(np.float32)).to(
+        cuda_device, torch.bfloat16)
+    got = _lora_block_run(blk, x0, mask, dy)
+    base = [n for n, p in blk.named_parameters() if "_lora" not in n
+            and n.split(".")[0] in LORA_SITES]
+    assert all(blk.get_parameter(n).grad is None for n in base)
+    want = _lora_block_run(blk, x0, mask, dy, monkeypatch, plain=True)
+    # each relative to its largest entry, the increment y - x too: the
+    # block's residual sums round at the stream's magnitude, so an entry
+    # near zero carries that bf16 ulp
+    for i, (a, b) in enumerate(zip(got, want)):
+        a, b = a.float(), b.float()
+        scale = max(b.abs().max().item(), 1e-30)
+        assert torch.isfinite(a).all() and b.abs().max() > 0, i
+        torch.testing.assert_close(a / scale, b / scale, **TOL)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("out_site", [True, False])
+def test_lora_frozen_out_site_launches_no_dwo(cuda_device, np_rng, monkeypatch, out_site):
+    """A frozen `out` site (the base detached, no adapter) forms no dWo in
+    the packed backward; the merged adapter's weight forms one. Either way
+    the step is the saving forward, the backward from the probabilities, the
+    out-projection and the dO GEMM."""
+    calls = []
+    real = sa._proj_param_grads
+    monkeypatch.setattr(sa, "_proj_param_grads", lambda *a: calls.append(1) or real(*a))
+    targets = LORA_SITES if out_site else ("q", "k", "v", "ffn_in", "ffn_out")
+    B, S, D, H = 256, 128, 640, 10
+    blk = _lora_block(D, H, targets, cuda_device)
+    mask = torch.ones(B, S, dtype=torch.bool, device=cuda_device)
+    x0 = torch.randn(B, S, D, device=cuda_device, dtype=torch.bfloat16)
+    _build.LAUNCHES.reset()
+    _lora_block_run(blk, x0, mask, torch.randn_like(x0))
+    torch.cuda.synchronize()
+    moved = {k: v for k, v in _build.LAUNCHES.snapshot().items() if v}
+    assert moved == {"short_attention_save": 1, "short_attention_bwd_probs": 1,
+                     "short_attention_out_proj": 1, "fused_dense_gemm": 1}
+    assert len(calls) == int(out_site)
+    assert blk.out.kernel.grad is None and blk.out.bias.grad is None

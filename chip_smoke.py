@@ -256,7 +256,24 @@ Phases, each fatal on failure (non-zero exit, no result line):
      ProtT5-XL at full width (24 layers) at B=8 S=512, timed, with its
      peak memory; 2 of its layers and RNABERT at its published geometry
      (B=64 S=440) on the card against the CPU within STEP_NOISE_FACTOR x
-     their bf16-vs-f32 noise.
+     their bf16-vs-f32 noise;
+ 17. triple_flow (f32, as the JAX package runs it; no kernel of the port):
+     (a) one step at configs/triple_flow.yaml's widths, B=256 cells of the
+     host pipeline's subgraph, exact OT, dropout 0.1, on the card against
+     the CPU from the same weights and batch: every flow's pairing equal
+     (reported where not), then the loss and each leaf's gradient over
+     GRAD_DRAWS draws within STEP_NOISE_FACTOR x their f32-vs-f64 noise on
+     the CPU; (b) the sb path: the on-card Sinkhorn potentials (100
+     iterations) against the CPU's, then a step over two draws as (a); (c)
+     the train CLI on the card, 5 epochs of 6 steps at B=128: the loss
+     falls and eval runs; (d) `bench --model triple_flow` twice and
+     `profile_step --model triple_flow` in a process of its own (wall, busy
+     share, launches, the host's Hungarian time); (e) Heun and RK4
+     generation card vs CPU; (f) a TripleTransportMaps train step at B=1024,
+     D=512 card vs CPU (second-order gradients within STEP_NOISE_FACTOR x
+     their f32-vs-f64 noise), timed; the eval path without a graph; PSD
+     Hessians with use_layer_norm=false on the card; FlowEvaluator card vs
+     CPU; (g) every kernel launch counter unchanged across the phase.
 Prints a JSON line of per-kernel results (each kernel's time at its main
 shape, its plain version's, the library call's where there is one, and the
 bound: the larger of the bytes it must move over 3.35 TB/s and its
@@ -267,6 +284,7 @@ f32), then as the last line
 
 from __future__ import annotations
 
+import dataclasses
 import json
 import os
 import re
@@ -1250,7 +1268,7 @@ def phase_train_path(torch, build):
     launches = build.LAUNCHES.snapshot()
     print(f"bench B=8192: step {out['step_ms']} ms, {out['value']} pairs/s, "
           f"{out['model_tflops_per_s_per_chip']} model TFLOP/s, MFU {out['mfu']} of "
-          f"{out['peak_bf16_tflops']} TFLOP/s bf16 peak")
+          f"{out['peak_tflops']} TFLOP/s {out['peak_dtype']} peak")
     print(f"launches during the train phase: {launches}")
     for name in TRAIN_KERNELS:
         if name != "sym_infonce_grad":
@@ -1395,7 +1413,7 @@ def phase_flagship_path(torch, build):
     launches = build.LAUNCHES.snapshot()
     print(f"bench rna_rbp B=1024: step {out['step_ms']} ms, {out['value']} pairs/s, "
           f"{out['model_tflops_per_s_per_chip']} model TFLOP/s, MFU {out['mfu']} of "
-          f"{out['peak_bf16_tflops']} TFLOP/s bf16 peak")
+          f"{out['peak_tflops']} TFLOP/s {out['peak_dtype']} peak")
     print(f"launches during the flagship phase: {launches}")
     for name in ["cls_attention_fwd", "cls_attention_bwd", "short_attention_out_proj"]:
         check(launches[name] > 0, f"kernel {name} was not launched by the flagship path")
@@ -1647,7 +1665,7 @@ def phase_tf_clip_path(torch, build):
     launches = build.LAUNCHES.snapshot()
     print(f"bench tf_clip B=4096: step {out['step_ms']} ms, {out['value']} cells/s, "
           f"{out['model_tflops_per_s_per_chip']} model TFLOP/s, MFU {out['mfu']} of "
-          f"{out['peak_bf16_tflops']} TFLOP/s bf16 peak")
+          f"{out['peak_tflops']} TFLOP/s {out['peak_dtype']} peak")
     print(f"launches during the tf_clip phase: {launches}")
     for name in list(TF_CLIP_KERNELS) + ["flash_attention"]:
         check(launches[name] > 0, f"kernel {name} was not launched by the tf_clip path")
@@ -1778,7 +1796,7 @@ def phase_cache_path(torch, build):
     print(f"bench two_tower_cached: row_ce_grad_kernel calls dx {moved[0]}, dy {moved[1]}")
     print(f"bench two_tower_cached B=8192 (cache 8192, full): step {out['step_ms']} ms, "
           f"{out['value']} pairs/s, {out['model_tflops_per_s_per_chip']} model TFLOP/s, MFU "
-          f"{out['mfu']} of {out['peak_bf16_tflops']} TFLOP/s bf16 peak")
+          f"{out['mfu']} of {out['peak_tflops']} TFLOP/s {out['peak_dtype']} peak")
     print(f"launches during the cache phase: {launches}")
     for name in CACHE_KERNELS:
         check(launches[name] > 0, f"kernel {name} was not launched by the cached path")
@@ -2154,7 +2172,7 @@ def phase_dplm_path(torch, build):
     launches = build.LAUNCHES.snapshot()
     print(f"bench dplm B=256 S=128: step {out['step_ms']} ms, {out['value']} seqs/s, "
           f"{out['model_tflops_per_s_per_chip']} model TFLOP/s, MFU {out['mfu']} of "
-          f"{out['peak_bf16_tflops']} TFLOP/s bf16 peak")
+          f"{out['peak_tflops']} TFLOP/s {out['peak_dtype']} peak")
     print(f"launches during the DPLM phase: {launches}")
     for name in ("short_attention", "short_attention_out_proj", "fused_dense_gemm"):
         check(launches[name] > 0, f"kernel {name} was not launched by the DPLM path")
@@ -3232,6 +3250,395 @@ def phase_new_towers(torch):
                         toks, mask, "mean")
 
 
+# ---------------------------------------------------------------------------
+# phase 17: triple_flow (f32, no kernel of the port)
+# ---------------------------------------------------------------------------
+
+# an f32 step is held to STEP_NOISE_FACTOR x its f32-vs-f64 noise on the
+# CPU, the f32 family's counterpart of the bf16-vs-f32 rule of 7(a)
+FLOW_FLOWS = ("cell_to_pert", "cell_to_protein", "pert_to_protein", "cell_to_cell")
+GEN_STEPS = 20  # ODE steps of 17(e): the f64 reference on the CPU pays for each
+
+
+def _flow_cfg(extra=()):
+    from clip_dplm_tpu_torch.config import Config, apply_overrides
+    from clip_dplm_tpu_torch.experiments import bench
+
+    return apply_overrides(Config(), bench.TRIPLE_FLOW_OVERRIDES + ["train.batch_size=256"]
+                           + list(extra))
+
+
+def _flow_models(torch, cfg):
+    """The family's model on the card (random weights from the seed) and
+    f32 and f64 copies of it on the CPU."""
+    import copy
+
+    from clip_dplm_tpu_torch.experiments.registry import build_model
+    from clip_dplm_tpu_torch.train.state import create_train_state
+
+    card = build_model(cfg, device="cuda")
+    create_train_state(card, cfg)
+    cpu = build_model(cfg, device="cpu")
+    cpu.load_state_dict({k: v.detach().cpu() for k, v in card.state_dict().items()})
+    return {"card": card, "cpu": cpu, "cpu_f64": copy.deepcopy(cpu).double()}
+
+
+def _flow_batch(torch, batch, device, dtype):
+    """A numpy batch on `device`, its floating arrays in `dtype`."""
+    from clip_dplm_tpu_torch.train.trainer import to_device
+
+    return {k: v.to(dtype) if torch.is_tensor(v) and v.is_floating_point() else v
+            for k, v in to_device(batch, device).items()}
+
+
+def _flow_step_draws(torch, what, cfg, batch, draws):
+    """One triple_flow step's loss and every leaf's gradient over `draws`
+    draws (seeds step + i: dropout, pairing, t and eps), on the card, the
+    CPU in f32 and the CPU in f64. The pairings of every flow must be equal
+    card vs CPU; each leaf is held within STEP_NOISE_FACTOR x its f32-vs-f64
+    noise (`leaf_noise_factor`), the loss too. Returns the card model."""
+    from clip_dplm_tpu_torch.models.triple_flow_model import compute_all_losses
+    from clip_dplm_tpu_torch.ops.fused_dense import DropoutSeeds
+
+    t0 = time.perf_counter()
+    models = _flow_models(torch, cfg)
+    key = 1234
+    losses, grads, pairs = {}, {}, {}
+    for name, model in models.items():
+        dev = "cuda" if name == "card" else "cpu"
+        b = _flow_batch(torch, batch, dev,
+                        torch.float64 if name == "cpu_f64" else torch.float32)
+        losses[name], grads[name], pairs[name] = [], [], []
+        for i in range(draws):
+            model.zero_grad(set_to_none=True)
+            out = model(b, DropoutSeeds(key, i), deterministic=False)
+            loss, _ = compute_all_losses(out, cfg)
+            loss.backward()
+            losses[name].append(float(loss.detach()))
+            grads[name].append({k: p.grad.detach().cpu().double()
+                                for k, p in model.named_parameters() if p.grad is not None})
+            pairs[name].append({f: out["flows"][f]["idx"].cpu() for f in FLOW_FLOWS})
+        model.zero_grad(set_to_none=True)
+    differ = {(i, f): int((pairs["card"][i][f] != pairs["cpu"][i][f]).sum())
+              for i in range(draws) for f in FLOW_FLOWS}
+    bad = {k: v for k, v in differ.items() if v}
+    f64_bad = sum(int((pairs["cpu_f64"][i][f] != pairs["cpu"][i][f]).sum())
+                  for i in range(draws) for f in FLOW_FLOWS)
+    print(f"{what}: pairings card vs CPU over {draws} draws x {len(FLOW_FLOWS)} flows of "
+          f"{batch['gene_expr'].shape[0]} rows: {len(bad)} differ {bad}; f64 vs f32 on the CPU: "
+          f"{f64_bad} rows differ")
+    check(not bad, f"{what}: the card's OT pairings differ from the CPU's: {bad}")
+    leaves = list(grads["cpu"][0])
+    check(all(set(g) == set(leaves) for n in grads for g in grads[n]),
+          f"{what}: the card and the CPU give gradients to different leaves")
+
+    def flat(g):
+        return torch.cat([g[k].flatten() for k in leaves])
+
+    floors = [_rel(flat(a), flat(b)) for a, b in zip(grads["cpu_f64"], grads["cpu"])]
+    worst, worst_leaf, zero = 0.0, "", []
+    for k in leaves:
+        ref = [g[k] for g in grads["cpu"]]
+        if not any(bool(r.any()) for r in ref):  # an exact zero (one-key attention)
+            check(not any(bool(g[k].any()) for g in grads["card"]), f"{what} grad {k}: not 0")
+            zero.append(k)
+            continue
+        errs = [_rel(a[k], b[k]) for a, b in zip(grads["card"], grads["cpu"])]
+        noises = [_rel(a[k], b[k]) for a, b in zip(grads["cpu_f64"], grads["cpu"])]
+        check(all(bool(torch.isfinite(g[k]).all()) for g in grads["card"]),
+              f"{what} grad {k}: non-finite")
+        err, noise, factor = leaf_noise_factor(errs, noises, floors)
+        if factor > worst:
+            worst, worst_leaf = factor, k
+        check(factor <= STEP_NOISE_FACTOR,
+              f"{what} grad {k}: rel L2 {err} > {STEP_NOISE_FACTOR} x f64 noise {noise} "
+              f"(per draw: err {errs}, noise {noises})")
+    ref = np.array(losses["cpu"])
+    loss_err = rms((np.array(losses["card"]) - ref) / ref)
+    loss_noise = rms((np.array(losses["cpu_f64"]) - ref) / ref)
+    print(f"{what}: loss card {losses['card'][0]:.6f} cpu {losses['cpu'][0]:.6f} cpu_f64 "
+          f"{losses['cpu_f64'][0]:.6f}; loss rel err {loss_err:.3e} (f32 noise {loss_noise:.3e}, "
+          f"RMS over {draws} draws); gradient rel L2 "
+          f"{rms([_rel(flat(a), flat(b)) for a, b in zip(grads['card'], grads['cpu'])]):.3e} "
+          f"(f32 noise {rms(floors):.3e}); worst leaf {worst:.3f} x its noise ({worst_leaf}) "
+          f"over {len(leaves) - len(zero)} leaves ({len(zero)} exactly 0 on both); "
+          f"{time.perf_counter() - t0:.1f} s")
+    check(loss_err <= STEP_NOISE_FACTOR * loss_noise + 1e-6,
+          f"{what} loss: rel err {loss_err} > {STEP_NOISE_FACTOR} x noise {loss_noise}")
+    return models
+
+
+def phase_triple_flow_steps(torch):
+    """17(a) the exact-OT step at the yaml's widths, B=256, card vs CPU;
+    (b) the sb step (on-card Sinkhorn, 100 iterations) and the Sinkhorn
+    potentials of its first cost; (e) Heun and RK4 generation card vs CPU."""
+    from clip_dplm_tpu_torch.experiments import bench
+    from clip_dplm_tpu_torch.ops.sinkhorn import pairwise_sqdist, sinkhorn
+    from clip_dplm_tpu_torch.train.metrics import FlowEvaluator
+
+    cfg = _flow_cfg()
+    t0 = time.perf_counter()
+    batch = bench.triple_flow_batch(cfg, 256, np.random.default_rng(0))
+    print(f"triple_flow batch from the host pipeline (1024 cells x {cfg.encoders.gene_dim} "
+          f"genes -> kNN, DPT, leiden -> a {len(batch['gene_expr'])}-cell subgraph, "
+          f"{int(batch['edge_mask'].sum())} of {batch['edge_mask'].size} edges real): "
+          f"{time.perf_counter() - t0:.1f} s")
+    models = _flow_step_draws(torch, "17(a) triple_flow step (exact OT, B=256, dropout 0.1)",
+                              cfg, batch, GRAD_DRAWS)
+    # (e) generation from the same weights: the cell latents of the batch
+    with torch.no_grad():
+        lat = {n: m.encode(_flow_batch(torch, batch, "cuda" if n == "card" else "cpu",
+                                       torch.float64 if n == "cpu_f64" else torch.float32)
+                           )["cell_emb"] for n, m in models.items()}
+    gens = {}
+    for fn, method in (("generate_protein_from_cell", "heun"),
+                       ("generate_cell_trajectory", "rk4")):
+        outs = {}
+        for n, m in models.items():
+            args = (lat[n],) if fn == "generate_protein_from_cell" else (lat[n], lat[n])
+            t1 = time.perf_counter()
+            x, traj = getattr(m, fn)(*args, num_steps=GEN_STEPS, method=method)
+            if n == "card":
+                torch.cuda.synchronize()
+                ms = (time.perf_counter() - t1) * 1e3
+            outs[n] = (x.cpu().double(), traj.shape)
+        check(outs["card"][1] == (GEN_STEPS + 1,) + tuple(lat["cpu"].shape),
+              f"{fn}: trajectory shape")
+        err = _rel(outs["card"][0], outs["cpu"][0])
+        noise = _rel(outs["cpu_f64"][0], outs["cpu"][0])
+        print(f"17(e) {fn} ({method}, {GEN_STEPS} steps, 256 x {lat['cpu'].shape[1]}): card vs "
+              f"CPU rel L2 {err:.3e} (f32 noise {noise:.3e}); {ms:.1f} ms on the card")
+        check(bool(torch.isfinite(outs["card"][0]).all()) and
+              err <= STEP_NOISE_FACTOR * noise + 1e-6,
+              f"17(e) {fn}: rel L2 {err} > {STEP_NOISE_FACTOR} x noise {noise}")
+        gens[fn] = {n: o[0] for n, o in outs.items()}
+    # FlowEvaluator: the generated protein latents against the encoded ones
+    with torch.no_grad():
+        prot = {n: m.encode(_flow_batch(torch, batch, "cuda" if n == "card" else "cpu",
+                                        torch.float64 if n == "cpu_f64" else torch.float32)
+                            )["protein_emb"] for n, m in models.items()}
+    ev = {n: FlowEvaluator().compute_all_metrics(
+        gens["generate_protein_from_cell"][n].to(prot[n].device, prot[n].dtype), prot[n])
+        for n in models}
+    for k in ev["cpu"]:
+        err = abs(ev["card"][k] - ev["cpu"][k]) / abs(ev["cpu"][k])
+        noise = abs(ev["cpu_f64"][k] - ev["cpu"][k]) / abs(ev["cpu"][k])
+        print(f"17(f) FlowEvaluator {k}: card {ev['card'][k]:.6g} cpu {ev['cpu'][k]:.6g} "
+              f"cpu_f64 {ev['cpu_f64'][k]:.6g}")
+        check(np.isfinite(ev["card"][k]) and err <= STEP_NOISE_FACTOR * noise + 1e-4,
+              f"17(f) FlowEvaluator {k}: rel err {err} > {STEP_NOISE_FACTOR} x noise {noise}")
+    del models, lat, prot, gens
+    # (b) the sb path: its Sinkhorn potentials on the card against the CPU,
+    # then one step over two draws
+    sb = _flow_cfg(["flow.flow_type=sb"])
+    g = torch.Generator().manual_seed(3)
+    x0, x1 = torch.randn(256, 512, generator=g), torch.randn(256, 512, generator=g)
+    cost = pairwise_sqdist(x0, x1)
+    eps = 2 * sb.flow.sigma ** 2
+    ref = sinkhorn(cost, eps, sb.flow.sinkhorn_iters)
+    ref64 = sinkhorn(cost.double(), eps, sb.flow.sinkhorn_iters)
+    torch.cuda.synchronize()
+    t1 = time.perf_counter()
+    got = sinkhorn(cost.cuda(), eps, sb.flow.sinkhorn_iters)
+    torch.cuda.synchronize()
+    ms = (time.perf_counter() - t1) * 1e3
+    cmax = float(cost.max())
+    for name, a, b, c in zip(("f", "g"), got[1:], ref[1:], ref64[1:]):
+        err, noise = float((a.cpu() - b).abs().max()), float((c - b.double()).abs().max())
+        print(f"17(b) Sinkhorn {name} (256 x 256, eps {eps}, {sb.flow.sinkhorn_iters} "
+              f"iterations, max C {cmax:.1f}): card vs CPU max abs {err:.3e} (f32 noise "
+              f"{noise:.3e}, {err / cmax:.2e} x max C); {ms:.1f} ms on the card")
+        check(err <= max(STEP_NOISE_FACTOR * noise, 1e-5 * cmax),
+              f"17(b) Sinkhorn {name}: max abs {err} (noise {noise}, max C {cmax})")
+    _flow_step_draws(torch, "17(b) triple_flow step (sb: on-card Sinkhorn, B=256)", sb,
+                     batch, 2)
+
+
+def _transport_step(torch, maps, tx, opt_state, params, cell, pert, prot):
+    from clip_dplm_tpu_torch.models.icnn import total_transport_loss
+
+    for p in params.values():
+        p.grad = None
+    loss, _ = total_transport_loss(maps(cell, pert, prot, train=True),
+                                   maps.cfg.consistency_weight)
+    loss.backward()
+    grads = {k: p.grad if p.grad is not None else torch.zeros_like(p) for k, p in params.items()}
+    tx.update(grads, opt_state, params)
+    return loss.detach()
+
+
+def phase_transport_maps(torch):
+    """17(f) a TripleTransportMaps train step at the probe's shape (B=1024,
+    D=512, hidden (512, 256, 128)): the second-order gradients card vs CPU
+    within STEP_NOISE_FACTOR x their f32-vs-f64 noise, then the step timed;
+    a Hessian PSD check on the card with use_layer_norm=false."""
+    import copy
+
+    from clip_dplm_tpu_torch.config import ICNNConfig
+    from clip_dplm_tpu_torch.models.icnn import (
+        SingleCellICNN,
+        TripleTransportMaps,
+        icnn_hessian,
+        total_transport_loss,
+    )
+    from clip_dplm_tpu_torch.models.layers import init_params
+    from clip_dplm_tpu_torch.train.state import fused_adamw
+
+    B, D = 1024, 512
+    cfg = ICNNConfig()  # the probe's: hidden (512, 256, 128); the width is D
+    # the comparison takes no clip: the rows' clip at `gradient_clip` and the
+    # z clamp are kinks, and a row within rounding of one takes the other
+    # branch on the card, a finite gradient difference (the clipped path is
+    # held to JAX's on the CPU, tests/test_torch_icnn.py); the timed step
+    # below runs the probe's config, clip included
+    smooth = dataclasses.replace(cfg, gradient_clip=1e30)
+    t0 = time.perf_counter()
+    card = TripleTransportMaps(smooth, D, D, D, device="cuda")
+    init_params(card, torch.Generator(device="cuda").manual_seed(17))
+    # the z-path weights drawn too: at their zero init every column of a z
+    # contribution is the same, the LayerNorm cancels it, and the gradients
+    # of `pos_weights` and `scale` vanish in exact arithmetic (noise alone)
+    gz = torch.Generator(device="cuda").manual_seed(19)
+    with torch.no_grad():
+        for name, p in card.named_parameters():
+            if name.endswith("pos_weights"):
+                p.normal_(0.0, 0.5, generator=gz)
+    cpu = TripleTransportMaps(smooth, D, D, D)
+    cpu.load_state_dict({k: v.detach().cpu() for k, v in card.state_dict().items()})
+    runs = {"card": card, "cpu": cpu, "cpu_f64": copy.deepcopy(cpu).double()}
+    g = torch.Generator().manual_seed(1)
+    # GRAD_DRAWS batches: the loss's L1 sparsity and the rows' clip are not
+    # smooth, so one batch's error swings with the few entries whose sign or
+    # clip flips between two roundings (`leaf_noise_factor`)
+    batches = [[torch.randn(B, D, generator=g) for _ in range(3)] for _ in range(GRAD_DRAWS)]
+    grads = {n: [] for n in runs}
+    losses = {n: [] for n in runs}
+    for data in batches:
+        for n, m in runs.items():
+            dev, dt = ("cuda", torch.float32) if n == "card" else (
+                "cpu", torch.float64 if n == "cpu_f64" else torch.float32)
+            m.zero_grad(set_to_none=True)
+            loss, _ = total_transport_loss(m(*(x.to(dev, dt) for x in data), train=True),
+                                           smooth.consistency_weight)
+            loss.backward()
+            losses[n].append(float(loss.detach()))
+            grads[n].append({k: p.grad.detach().cpu().double() for k, p in m.named_parameters()
+                             if p.grad is not None})
+            m.zero_grad(set_to_none=True)
+    leaves = list(grads["cpu"][0])
+
+    def flat(gr):
+        return torch.cat([gr[k].flatten() for k in leaves])
+
+    floors = [_rel(flat(a), flat(b)) for a, b in zip(grads["cpu_f64"], grads["cpu"])]
+    worst, worst_leaf = 0.0, ""
+    for k in leaves:
+        errs = [_rel(a[k], b[k]) for a, b in zip(grads["card"], grads["cpu"])]
+        noises = [_rel(a[k], b[k]) for a, b in zip(grads["cpu_f64"], grads["cpu"])]
+        err, noise, factor = leaf_noise_factor(errs, noises, floors)
+        if factor > worst:
+            worst, worst_leaf = factor, k
+        check(factor <= STEP_NOISE_FACTOR,
+              f"17(f) transport grad {k}: rel L2 {err} > {STEP_NOISE_FACTOR} x noise {noise} "
+              f"(per batch: err {errs}, noise {noises})")
+    ref = np.array(losses["cpu"])
+    loss_err = rms((np.array(losses["card"]) - ref) / ref)
+    loss_noise = rms((np.array(losses["cpu_f64"]) - ref) / ref)
+    check(loss_err <= STEP_NOISE_FACTOR * loss_noise + 1e-6,
+          f"17(f) transport loss: rel err {loss_err} > {STEP_NOISE_FACTOR} x {loss_noise}")
+    compare_s = time.perf_counter() - t0
+    data = batches[0]
+    # the eval path builds no graph
+    with torch.no_grad():
+        out = card(*(x.cuda() for x in data), train=False)
+    check(not out["cell_to_pert"]["transported"].requires_grad, "17(f) eval path kept a graph")
+    # the step timed at the probe's config: forward, the second-order
+    # backward, the fused AdamW
+    for m in card.modules():
+        if hasattr(m, "cfg"):
+            m.cfg = cfg
+    params = dict(card.named_parameters())
+    tx = fused_adamw(lambda count: 1e-4, weight_decay=0.01)
+    opt_state = tx.init(params)
+    xs = [x.cuda() for x in data]
+    for _ in range(3):
+        _transport_step(torch, card, tx, opt_state, params, *xs)
+    torch.cuda.synchronize()
+    start, end = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+    iters = 10
+    start.record()
+    for _ in range(iters):
+        loss = _transport_step(torch, card, tx, opt_state, params, *xs)
+    end.record()
+    torch.cuda.synchronize()
+    step_ms = start.elapsed_time(end) / iters
+    n_params = sum(p.numel() for p in params.values())
+    print(f"17(f) TripleTransportMaps train step (B={B}, D={D}, hidden {cfg.hidden_dims}, "
+          f"{n_params} parameters, second order through T = grad Psi): loss card "
+          f"{losses['card'][0]:.6f} cpu {losses['cpu'][0]:.6f} (rel err {loss_err:.2e}, f32 "
+          f"noise {loss_noise:.2e}, RMS over {GRAD_DRAWS} batches); worst leaf {worst:.3f} x "
+          f"its noise ({worst_leaf}) over {len(leaves)} leaves; step {step_ms:.3f} ms on the "
+          f"card ({iters} steps, CUDA events), last loss {float(loss):.6f}; compare "
+          f"{compare_s:.1f} s, all {time.perf_counter() - t0:.1f} s")
+    check(np.isfinite(float(loss)), "17(f) transport step: non-finite loss")
+    # convexity: PSD Hessians of a potential without LayerNorm, on the card
+    pcfg = ICNNConfig(use_layer_norm=False)
+    psi = SingleCellICNN(pcfg, D, device="cuda")
+    init_params(psi, torch.Generator(device="cuda").manual_seed(18))
+    with torch.no_grad():
+        for name, p in psi.named_parameters():
+            if "pos_weights" in name:
+                p.normal_(0.0, 1.0)
+    x = torch.randn(8, D, generator=g).cuda()
+    hess = icnn_hessian(psi, x).detach()
+    eig = torch.linalg.eigvalsh(hess.double())
+    lo, hi = float(eig.min()), float(eig.max())
+    print(f"17(f) ICNN Hessian (use_layer_norm=false, 8 x {D} x {D} on the card): eigenvalues "
+          f"in [{lo:.3e}, {hi:.3e}]")
+    check(lo >= -1e-5 * max(hi, 1e-30), f"17(f) Hessian not PSD: min eigenvalue {lo}, max {hi}")
+
+
+def phase_triple_flow_path(torch):
+    """17(c) the train CLI on the card (loss falls, eval runs); (d) the
+    bench in turns and profile_step in a process of its own."""
+    from clip_dplm_tpu_torch.experiments import bench
+    from clip_dplm_tpu_torch.experiments import train as train_cli
+
+    overrides = bench.TRIPLE_FLOW_OVERRIDES + [
+        "train.batch_size=128", "train.optim.warmup_steps=5", "train.optim.learning_rate=1e-3"]
+    t0 = time.perf_counter()
+    hist = train_cli.main(["--device", "cuda", "--epochs", "5",
+                           *[a for o in overrides for a in ("-o", o)]])
+    losses, vals = hist["train_loss"], hist["val_loss"]
+    print(f"17(c) triple_flow train CLI (yaml widths, B=128, 5 epochs of 6 steps): train_loss "
+          f"{losses}, val_loss {vals}, {time.perf_counter() - t0:.1f} s")
+    check(len(losses) == 5 and all(np.isfinite(losses)), f"17(c) losses {losses}")
+    check(losses[-1] < losses[0], f"17(c) triple_flow train CLI: loss did not fall: {losses}")
+    check(len(vals) == 5 and all(np.isfinite(vals)), f"17(c) eval did not run: {vals}")
+    for turn in range(2):
+        t0 = time.perf_counter()
+        out = bench.main(["--model", "triple_flow"])
+        print(f"17(d) bench triple_flow B=256 (turn {turn}): step {out['step_ms']} ms, "
+              f"{out['value']} cells/s, {out['model_tflops_per_s_per_chip']} model TFLOP/s, "
+              f"MFU {out['mfu']} of {out['peak_tflops']} TFLOP/s {out['peak_dtype']} peak, "
+              f"loss {out['loss']}; {time.perf_counter() - t0:.1f} s")
+    t0 = time.perf_counter()
+    prof = subprocess.run(
+        [sys.executable, "-m", "clip_dplm_tpu_torch.experiments.profile_step", "--model",
+         "triple_flow"], capture_output=True, text=True, timeout=600,
+        cwd=os.path.dirname(os.path.abspath(__file__)))
+    check(prof.returncode == 0, f"17(d) profile_step: {prof.stderr[-2000:]}")
+    lines = [json.loads(line) for line in prof.stdout.splitlines() if line.startswith("{")]
+    summary = lines[-1]
+    for line in lines[:-1]:
+        if "range" in line or ("kernel" in line and line["device_ms_per_step"] > 0.5):
+            print(f"17(d) profile: {json.dumps(line)}")
+    print(f"17(d) profile_step triple_flow: {json.dumps(summary)}; "
+          f"{time.perf_counter() - t0:.1f} s")
+    check(summary["device_busy_share"] > 0 and summary["host_ranges_ms_per_step"].get(
+        "ot.hungarian_pairing", 0) > 0, f"17(d) profile summary {summary}")
+
+
 def kernel_registers(log: str, kernel: str):
     """(instance, registers, spill line) of each instance of `kernel` in
     ptxas's report: its template arguments, as <a, b, ...>."""
@@ -3339,6 +3746,14 @@ def main() -> int:
     run("16", phase_lora_path, torch, _build)
     run("16", phase_bundles, torch, _build)
     run("16", phase_new_towers, torch)
+    before = _build.LAUNCHES.snapshot()
+    run("17", phase_triple_flow_steps, torch)
+    run("17", phase_transport_maps, torch)
+    run("17", phase_triple_flow_path, torch)
+    torch.cuda.synchronize()
+    moved = {k: v - before[k] for k, v in _build.LAUNCHES.snapshot().items() if v != before[k]}
+    print(f"17(g) kernel launch counters across phase 17: {moved or 'none moved'}")
+    check(not moved, f"17(g) triple_flow launched kernels of the port: {moved}")
     print("command time by phase (s): " + ", ".join(f"{k} {v:.1f}" for k, v in times.items()))
 
     keys = ("max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by", "library_ms")

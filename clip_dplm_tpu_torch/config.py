@@ -3,8 +3,11 @@ and the train paths (`Config` and its leaves): the two-tower model
 (`experiment="two_tower"`), the RNA<->RBP token transformer
 (`experiment="rna_rbp"`), the RNA<->protein CLIP with an ESM-2 tower
 (`experiment="esm_clip"`, `Config.esm`), the three-way cell <->
-perturbation <-> protein CLIP (`experiment="tf_clip"`) and the DPLM
-diffusion denoiser (`experiment="dplm"`, `Config.dplm`).
+perturbation <-> protein CLIP (`experiment="tf_clip"`), the encoders with
+OT-CFM flows between their latents (`experiment="triple_flow"`,
+`Config.encoders`, `Config.flow`; `Config.icnn` configures the ICNN
+transport maps) and the DPLM diffusion denoiser (`experiment="dplm"`,
+`Config.dplm`).
 
 The frozen dataclasses of `clip_dplm_tpu/config.py`, without the yaml loader
 (so the port imports no yaml) and with only the fields the port reads: the
@@ -200,14 +203,83 @@ class TransformerTowerConfig:
 
 
 @dataclass(frozen=True)
-class EncoderConfig:
-    """The widths of tf_clip's inputs: the expression profile (gene_dim
-    genes, plus a pseudotime column), the ESM embedding of each of the
-    n_perturb_genes top-DEG genes and of the TF protein (esm_dim)."""
+class GNNConfig:
+    """The PiGNN over the cell kNN graph (models/gnn.py): depth, heads and
+    dropout (the layers are `encoders.latent_dim` wide, the edge state
+    too)."""
 
+    num_layers: int = 3
+    num_heads: int = 8
+    dropout: float = 0.1
+
+
+@dataclass(frozen=True)
+class EncoderConfig:
+    """The encoders' widths. tf_clip reads `gene_dim` (the expression
+    profile, plus a pseudotime column), `n_perturb_genes` (the top-DEG
+    genes, each with its ESM embedding) and `esm_dim`; triple_flow's three
+    encoders (models/tong_encoders.py) read every field."""
+
+    latent_dim: int = 512
     gene_dim: int = 2000
+    use_time_encoding: bool = True
+    time_embed_dim: int = 128
     n_perturb_genes: int = 10
     esm_dim: int = 1280
+    use_cross_attention: bool = True
+    protein_hidden_dims: Tuple[int, ...] = (1024, 768)
+    dropout: float = 0.1
+    gnn: GNNConfig = field(default_factory=GNNConfig)
+
+
+@dataclass(frozen=True)
+class FlowConfig:
+    """triple_flow's OT-CFM flows (models/flows.py): the pairing
+    (`flow_type` exact_ot | sb | independent), the path's sigma, the vector
+    field's widths and the regularizers (the `sb` pairing's entropic plan
+    takes 2 sigma^2, as in the reference)."""
+
+    flow_type: str = "exact_ot"  # exact_ot | sb | independent
+    sigma: float = 0.1
+    latent_dim: int = 512
+    hidden_dim: int = 1024
+    n_layers: int = 3
+    dropout: float = 0.1
+    use_time_embedding: bool = True
+    time_embed_dim: int = 128
+    use_path_length_reg: bool = True
+    use_jacobian_reg: bool = False
+    use_feature_mixing: bool = False
+    sinkhorn_iters: int = 100
+
+
+@dataclass(frozen=True)
+class ICNNConfig:
+    """Input-convex Brenier potentials and their transport maps
+    (models/icnn.py; the maps take their widths from their inputs,
+    `icnn_hessian` its `reg` from the caller)."""
+
+    hidden_dims: Tuple[int, ...] = (512, 256, 128)
+    activation: str = "softplus"  # softplus | celu
+    use_layer_norm: bool = True
+    # positive final weights and layer scales: Psi convex by construction
+    strict_convex: bool = True
+    init_scale: float = 0.1
+    eps: float = 1e-6
+    gradient_clip: float = 10.0
+    sparsity_weight: float = 0.01
+    consistency_weight: float = 0.1
+
+
+@dataclass(frozen=True)
+class LossWeights:
+    """triple_flow's loss weights (models/triple_flow_model.py::
+    compute_all_losses): the three-way InfoNCE, the flow-matching MSE and
+    the flows' regularizers."""
+
+    contrastive: float = 1.0
+    flow: float = 1.0
+    regularization: float = 0.1
 
 
 @dataclass(frozen=True)
@@ -236,13 +308,28 @@ class TrainConfig:
     early_stopping_patience: int = 10
     seed: int = 42
     log_grad_norm: bool = False
+    loss_weights: LossWeights = field(default_factory=LossWeights)
     optim: OptimConfig = field(default_factory=OptimConfig)
+
+
+@dataclass(frozen=True)
+class AugmentConfig:
+    """Batch augmentation: triple_flow's gene dropout, edge dropout and
+    perturbation-value noise (data/multimodal.py::DataAugmentation), and the
+    Gaussian noise of two_tower's training rows with dataset=embeddings."""
+
+    gene_dropout: float = 0.1
+    edge_dropout: float = 0.15
+    perturbation_noise: float = 0.05
+    gaussian_noise: float = 0.0
 
 
 @dataclass(frozen=True)
 class DataConfig:
     path: str = ""
     dataset: str = "synthetic"  # synthetic | embeddings (.npz with a, b)
+    n_top_genes: int = 2000  # parsed; the synthetic cells take encoders.gene_dim genes
+    augment: AugmentConfig = field(default_factory=AugmentConfig)
 
 
 @dataclass(frozen=True)
@@ -250,10 +337,11 @@ class Config:
     """The experiments' configuration: `two_tower` reads tower_a/tower_b,
     `rna_rbp` the token towers rna_tower/rbp_tower, `esm_clip` rna_tower
     and esm, `tf_clip` encoders (its three encoders' depth, heads and
-    dropout are module defaults, as in the reference), `dplm` the DPLM
-    trunk."""
+    dropout are module defaults, as in the reference), `triple_flow`
+    encoders, flow, train.loss_weights and data.augment (and `icnn` for
+    the transport maps of models/icnn.py), `dplm` the DPLM trunk."""
 
-    experiment: str = "two_tower"  # two_tower | rna_rbp | esm_clip | tf_clip | dplm
+    experiment: str = "two_tower"  # two_tower | rna_rbp | esm_clip | tf_clip | triple_flow | dplm
     tower_a: TowerConfig = field(default_factory=TowerConfig)
     tower_b: TowerConfig = field(default_factory=lambda: TowerConfig(input_dim=1280))
     projection: ProjectionConfig = field(default_factory=ProjectionConfig)
@@ -262,6 +350,8 @@ class Config:
         default_factory=lambda: TransformerTowerConfig(input_dim=1280))
     esm: ESMConfig = field(default_factory=ESMConfig)
     encoders: EncoderConfig = field(default_factory=EncoderConfig)
+    flow: FlowConfig = field(default_factory=FlowConfig)
+    icnn: ICNNConfig = field(default_factory=ICNNConfig)
     dplm: DPLMConfig = field(default_factory=DPLMConfig)
     contrastive: ContrastiveConfig = field(default_factory=ContrastiveConfig)
     train: TrainConfig = field(default_factory=TrainConfig)

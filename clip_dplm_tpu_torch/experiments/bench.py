@@ -1,7 +1,7 @@
 """Timing of a train step on one CUDA device:
 `python -m clip_dplm_tpu_torch.experiments.bench [--model
-two_tower|two_tower_cached|rna_rbp|esm_clip|tf_clip|dplm] [--batch B] [--iters N]
-[-o a.b=c ...]`.
+two_tower|two_tower_cached|rna_rbp|esm_clip|tf_clip|triple_flow|dplm] [--batch B]
+[--iters N] [-o a.b=c ...]`.
 
 Counterpart of the repository's `bench.py` legs:
 - `two_tower` (default, B=8192): towers 256/1280 -> 1024, 3 layers, relu;
@@ -31,19 +31,32 @@ Counterpart of the repository's `bench.py` legs:
   with ragged lengths in [64, 126) (`registry.motif_proteins`), f32 Adam
   moments. The packed attention takes the saved-probabilities mode there
   (JAX's padded count: 256·10·128²·2 = 84 MB a call). The metric is
-  sequences/s.
+  sequences/s;
+- `triple_flow` (B=256): the encoders with OT-CFM flows at the widths of
+  configs/triple_flow.yaml (latent 512, the PiGNN of 3 layers and 8 heads,
+  gene_dim 2000, esm_dim 1280, proteins 1280 -> 1024 -> 768 -> 512, flows
+  512 -> 1024 x 3, exact OT) and its overrides (a fixed temperature of 0.1,
+  lr 1e-4, weight decay 1e-5), in f32 as the reference runs it; the batch
+  is the first training batch of the host pipeline (`registry.
+  _triple_flow_data`: a kNN subgraph of 256 cells, edges padded to 16 a
+  node). Each step solves four 256 x 256 assignments on the host. The
+  metric is cells/s, and the MFU is taken against the card's f32 peak
+  (the step's matmuls are f32, outside the tensor cores).
 All with exact clip 1.0, warmup-cosine. A fixed random batch made with
 numpy from a seed, warm-up steps, then `--iters` chained train steps timed
 with CUDA events. The last line of output is one JSON object with
-bench.py's keys: rows (pairs or cells) per second, the model FLOP/s from an
-analytic count (matmuls only, backward = 2x forward) and the MFU against
-the card's dense bf16 peak, read from its name (H100 only: another card
-raises rather than guess). Needs CUDA.
+bench.py's keys, its `peak_bf16_tflops` as `peak_tflops` and `peak_dtype`:
+rows (pairs or cells) per second, the model FLOP/s from an analytic count
+(matmuls only, backward = 2x forward) and the MFU against the card's dense
+peak for the dtype of the step's matmuls (bf16, or float32 for
+triple_flow), read from its name (H100 only: another card raises rather
+than guess). Needs CUDA.
 """
 
 from __future__ import annotations
 
 import argparse
+import dataclasses
 import json
 from typing import Dict, Optional, Sequence
 
@@ -106,21 +119,34 @@ ESM_CLIP_OVERRIDES = ["experiment=esm_clip", "esm.frozen=false", "train.optim.to
                       "projection.fused_dense=true"]
 ESM_CLIP_RNA, ESM_CLIP_PROTEIN = 32, 64  # tokens, as registry._esm_clip_data has them
 
+# configs/triple_flow.yaml's differences from the port's defaults that the
+# family reads (its grad_accum_steps, schedule and widths are the defaults)
+TRIPLE_FLOW_OVERRIDES = [
+    "experiment=triple_flow",
+    "contrastive.learned_temperature=false", "contrastive.temperature=0.1",
+    "train.optim.learning_rate=1e-4", "train.optim.weight_decay=1e-5",
+    "train.optim.total_steps=1000",
+]
+
 DPLM_SEQ = 128  # 126 residues + cls/eos
 DPLM_OVERRIDES = ["experiment=dplm", f"dplm.max_len={DPLM_SEQ}", "train.optim.total_steps=1000"]
 
 # untimed steps before the timed ones: the first builds the kernels
 WARMUP_STEPS = 3
 
-# dense bf16 tensor-core peaks (NVIDIA data sheets), by device-name marker
-_H100_PEAKS = (("H100 PCIe", 756e12), ("H100 NVL", 835e12), ("H100", 989e12))
+# dense peaks (NVIDIA data sheets) by dtype and device-name marker: bf16 on
+# the tensor cores, float32 outside them
+_H100_PEAKS = {
+    "bfloat16": (("H100 PCIe", 756e12), ("H100 NVL", 835e12), ("H100", 989e12)),
+    "float32": (("H100 PCIe", 51e12), ("H100 NVL", 60e12), ("H100", 67e12)),
+}
 
 
-def peak_bf16_flops(device_name: str) -> float:
-    for marker, peak in _H100_PEAKS:
+def peak_flops(device_name: str, dtype: str) -> float:
+    for marker, peak in _H100_PEAKS[dtype]:
         if marker in device_name:
             return peak
-    raise ValueError(f"no bf16 peak known for {device_name!r} (H100 only)")
+    raise ValueError(f"no {dtype} peak known for {device_name!r} (H100 only)")
 
 
 def two_tower_step_flops(cfg, batch: int) -> float:
@@ -288,6 +314,22 @@ def dplm_batch(cfg, B: int, rng) -> Dict[str, np.ndarray]:
     return {"tokens": tokens, "mask": tokens != PAD_IDX}
 
 
+def triple_flow_batch(cfg, B: int, rng) -> Dict[str, np.ndarray]:
+    """The first training batch of the family's host pipeline at batch B,
+    shuffled by a seed from `rng`."""
+    from clip_dplm_tpu_torch.experiments.registry import build_data
+
+    train, _ = build_data(dataclasses.replace(
+        cfg, train=dataclasses.replace(cfg.train, batch_size=B)))
+    return next(iter(train(seed=int(rng.integers(1 << 31)))))
+
+
+def triple_flow_flops(cfg, B: int) -> float:
+    from clip_dplm_tpu_torch.models.triple_flow_model import triple_flow_step_flops
+
+    return triple_flow_step_flops(cfg, B, 16 * B)
+
+
 def _two_tower_batch(cfg, B: int, rng) -> Dict[str, np.ndarray]:
     return {"a": rng.normal(size=(B, cfg.tower_a.input_dim)).astype(np.float32),
             "b": rng.normal(size=(B, cfg.tower_b.input_dim)).astype(np.float32)}
@@ -306,20 +348,25 @@ def rna_rbp_batch(cfg, B: int, rng) -> Dict[str, np.ndarray]:
     }
 
 
-# --model -> (overrides, default batch, metric, unit, batch maker, step FLOPs)
+# --model -> (overrides, default batch, metric, unit, batch maker, step FLOPs,
+# the dtype of the step's matmuls, whose peak the MFU is taken against)
 MODELS = {
     "two_tower": (OVERRIDES, 8192, "contrastive_pairs_per_sec_per_chip", "pairs/s/chip",
-                  _two_tower_batch, two_tower_step_flops),
+                  _two_tower_batch, two_tower_step_flops, "bfloat16"),
     "two_tower_cached": (CACHED_OVERRIDES, 8192, "contrastive_cached_pairs_per_sec_per_chip",
-                         "pairs/s/chip", _two_tower_batch, two_tower_cached_step_flops),
+                         "pairs/s/chip", _two_tower_batch, two_tower_cached_step_flops,
+                         "bfloat16"),
     "rna_rbp": (RNA_RBP_OVERRIDES, 1024, "rna_rbp_pairs_per_sec_per_chip", "pairs/s/chip",
-                rna_rbp_batch, lambda cfg, B: token_clip_step_flops(cfg, B, TOKENS, TOKENS)),
+                rna_rbp_batch, lambda cfg, B: token_clip_step_flops(cfg, B, TOKENS, TOKENS),
+                "bfloat16"),
     "esm_clip": (ESM_CLIP_OVERRIDES, 64, "esm_clip_pairs_per_sec_per_chip", "pairs/s/chip",
-                 esm_clip_batch, esm_clip_step_flops),
+                 esm_clip_batch, esm_clip_step_flops, "bfloat16"),
     "tf_clip": (TF_CLIP_OVERRIDES, 4096, "tf_clip_cells_per_sec_per_chip", "cells/s/chip",
-                tf_clip_batch, tf_clip_step_flops),
+                tf_clip_batch, tf_clip_step_flops, "bfloat16"),
+    "triple_flow": (TRIPLE_FLOW_OVERRIDES, 256, "triple_flow_cells_per_sec_per_chip",
+                    "cells/s/chip", triple_flow_batch, triple_flow_flops, "float32"),
     "dplm": (DPLM_OVERRIDES, 256, "dplm_train_seqs_per_sec_per_chip", "seqs/s/chip",
-             dplm_batch, dplm_step_flops),
+             dplm_batch, dplm_step_flops, "bfloat16"),
 }
 
 
@@ -329,7 +376,7 @@ def parse_args(argv: Optional[Sequence[str]] = None) -> argparse.Namespace:
     p.add_argument("--model", choices=sorted(MODELS), default="two_tower")
     p.add_argument("--batch", type=int, default=None,
                    help="default: 8192 for two_tower(_cached), 1024 for rna_rbp, 64 for "
-                        "esm_clip, 4096 for tf_clip, 256 for dplm")
+                        "esm_clip, 4096 for tf_clip, 256 for triple_flow and dplm")
     p.add_argument("--iters", type=int, default=20)
     p.add_argument("--override", "-o", action="append", default=[])
     return p.parse_args(argv)
@@ -344,7 +391,7 @@ def build_step(model: str, B: int, overrides: Sequence[str], device: torch.devic
     from clip_dplm_tpu_torch.train.state import create_train_state
     from clip_dplm_tpu_torch.train.trainer import make_train_step, to_device
 
-    base, _, _, _, make_batch, _ = MODELS[model]
+    base, _, _, _, make_batch, _, _ = MODELS[model]
     cfg = apply_overrides(Config(), base + [f"train.batch_size={B}"] + list(overrides))
     state = create_train_state(build_model(cfg, device=device), cfg)
     batch = to_device(make_batch(cfg, B, np.random.default_rng(0)), device)
@@ -361,8 +408,8 @@ def main(argv: Optional[Sequence[str]] = None) -> Dict:
         raise SystemExit("the benchmark times the CUDA kernels: it needs a CUDA device")
     device = torch.device("cuda", torch.cuda.current_device())
     name = torch.cuda.get_device_name(device)
-    peak = peak_bf16_flops(name)
-    _, default_batch, metric, unit, _, step_flops = MODELS[args.model]
+    _, default_batch, metric, unit, _, step_flops, peak_dtype = MODELS[args.model]
+    peak = peak_flops(name, peak_dtype)
     B = args.batch or default_batch
     cfg, state, batch, step = build_step(args.model, B, args.override, device)
     start, end = (torch.cuda.Event(enable_timing=True) for _ in range(2))
@@ -383,7 +430,8 @@ def main(argv: Optional[Sequence[str]] = None) -> Dict:
         "vs_baseline": round(fps / (0.95 * peak), 4),
         "model_tflops_per_s_per_chip": round(fps / 1e12, 6),
         "mfu": round(fps / peak, 6),
-        "peak_bf16_tflops": round(peak / 1e12, 1),
+        "peak_tflops": round(peak / 1e12, 1),
+        "peak_dtype": peak_dtype,
         "step_ms": round(dt * 1e3, 4),
         "model": args.model,
         "batch": B,

@@ -1,7 +1,7 @@
 """Where the time of one train step goes on the card:
 `python -m clip_dplm_tpu_torch.experiments.profile_step [--model
-two_tower|two_tower_cached|rna_rbp|esm_clip|tf_clip|dplm] [-o a.b=c ...]
-[--kernels KEY,...]`.
+two_tower|two_tower_cached|rna_rbp|esm_clip|tf_clip|triple_flow|dplm]
+[-o a.b=c ...] [--kernels KEY,...]`.
 
 Builds the configuration, batch and warmed-up step of
 `experiments/bench.py` (`build_step`, at the model's default batch), then:
@@ -12,7 +12,15 @@ Builds the configuration, batch and warmed-up step of
   prints the device busy share (the kernels' summed device time over the
   profiled wall time) and the TOP operators and kernels that take the most
   device time, per step, and with `--kernels` every other kernel whose name
-  holds one of the keys.
+  holds one of the keys;
+- prints, for every range the port traces with
+  `torch.profiler.record_function`, its host time per step and the device
+  time and launches of the kernels enqueued inside it (today triple_flow's
+  exact-OT pairings: `ot.hungarian_pairing` from the copy of the cost,
+  which waits for the card, to the assignment's return, and the solve
+  alone, `ot.linear_sum_assignment`; and `gnn.edge_update`, the PiGNN's
+  edge-state update, whose output no loss reads); the ranges' device-side
+  annotations are left out of the kernels and the busy time.
 Prints JSON lines; the last is the summary. Needs CUDA.
 """
 
@@ -37,6 +45,15 @@ def _device_us(evt) -> float:
         if hasattr(evt, name):
             return float(getattr(evt, name))
     return 0.0
+
+
+def _launched(evt) -> list:
+    """The kernels launched by a host event and the host ops under it (the
+    profiler's `kernels` of each, durations in microseconds)."""
+    out = list(evt.kernels)
+    for child in evt.cpu_children:
+        out += _launched(child)
+    return out
 
 
 def parse_args(argv: Optional[Sequence[str]] = None) -> argparse.Namespace:
@@ -78,7 +95,19 @@ def main(argv: Optional[Sequence[str]] = None) -> Dict:
         torch.cuda.synchronize(device)
         prof_wall_ms = (time.perf_counter() - t0) * 1e3
     events = prof.key_averages()
-    kernels = [e for e in prof.events() if e.device_type == torch.autograd.DeviceType.CUDA]
+    # the port's host ranges (every `record_function`); their device-side
+    # annotations are no kernels
+    ranges: Dict[str, list] = {}
+    for e in prof.events():
+        if e.is_user_annotation and e.device_type == torch.autograd.DeviceType.CPU:
+            launched = _launched(e)
+            entry = ranges.setdefault(e.name, [0.0, 0, 0.0, 0])
+            entry[0] += e.time_range.elapsed_us()
+            entry[1] += 1
+            entry[2] += sum(k.duration for k in launched)
+            entry[3] += len(launched)
+    kernels = [e for e in prof.events() if e.device_type == torch.autograd.DeviceType.CUDA
+               and not e.is_user_annotation and e.name not in ranges]
     busy_ms = sum(e.time_range.elapsed_us() for e in kernels) / 1e3
     per_step = lambda us: round(us / 1e3 / STEPS, 4)  # noqa: E731
     ops = sorted((e for e in events if e.key.startswith("aten::") and _device_us(e) > 0),
@@ -97,6 +126,10 @@ def main(argv: Optional[Sequence[str]] = None) -> Dict:
             continue
         print(json.dumps({"kernel": name, "device_ms_per_step": per_step(us),
                           "launches_per_step": n / STEPS}))
+    for key, (us, n, dev_us, launches) in ranges.items():
+        print(json.dumps({"range": key, "host_ms_per_step": per_step(us),
+                          "calls_per_step": n / STEPS, "device_ms_per_step": per_step(dev_us),
+                          "launches_per_step": launches / STEPS}))
     out = {
         "model": args.model, "batch": B, "steps": STEPS,
         "step_ms_median": float(np.median(walls)), "step_ms": walls,
@@ -105,6 +138,7 @@ def main(argv: Optional[Sequence[str]] = None) -> Dict:
         "device_busy_ms_per_step": round(busy_ms / STEPS, 4),
         "device_busy_share": round(busy_ms / prof_wall_ms, 4),
         "kernel_launches_per_step": len(kernels) / STEPS,
+        "host_ranges_ms_per_step": {k: per_step(v[0]) for k, v in ranges.items()},
         "device": torch.cuda.get_device_name(device),
     }
     print(json.dumps(out), flush=True)

@@ -1,13 +1,14 @@
 """Experiment registry: config.experiment -> (model, data source).
 
-Counterpart of `clip_dplm_tpu/experiments/registry.py` for the experiments
-the port has: `two_tower`, `rna_rbp`, `esm_clip`, `tf_clip` and `dplm`;
-every other name raises.
+Counterpart of `clip_dplm_tpu/experiments/registry.py`: `two_tower`,
+`rna_rbp`, `esm_clip`, `tf_clip`, `triple_flow` and `dplm`; every other
+name raises.
 """
 
 from __future__ import annotations
 
-from typing import Dict
+import functools
+from typing import Dict, Optional
 
 import numpy as np
 import torch
@@ -16,7 +17,7 @@ from clip_dplm_tpu_torch.config import Config
 from clip_dplm_tpu_torch.data.collate import TokenPairDataset
 from clip_dplm_tpu_torch.data.synthetic import PairedEmbeddingDataset
 
-EXPERIMENTS = ("two_tower", "rna_rbp", "esm_clip", "tf_clip", "dplm")
+EXPERIMENTS = ("two_tower", "rna_rbp", "esm_clip", "tf_clip", "triple_flow", "dplm")
 KNN_ROWS = 16  # rows of the (B, B) kNN distances computed at once
 
 
@@ -26,9 +27,17 @@ def _require_ported(cfg: Config) -> None:
                          f"{', '.join(EXPERIMENTS)}")
 
 
-def build_model(cfg: Config, device=None, dtype: torch.dtype = torch.bfloat16):
-    """The experiment's model on `device` (the caller's choice)."""
+def build_model(cfg: Config, device=None, dtype: Optional[torch.dtype] = None):
+    """The experiment's model on `device` (the caller's choice). `dtype` is
+    the compute dtype (bf16 when None) of every family but triple_flow,
+    which is built in f32 whatever is asked, as the JAX package builds it
+    (its yaml's compute_dtype is applied by nothing there either)."""
     _require_ported(cfg)
+    if cfg.experiment == "triple_flow":
+        from clip_dplm_tpu_torch.models.triple_flow_model import TripleFlowModel
+
+        return TripleFlowModel(cfg, device=device)
+    dtype = torch.bfloat16 if dtype is None else dtype
     if cfg.experiment == "dplm":
         from clip_dplm_tpu_torch.models.dplm import DPLM
 
@@ -57,14 +66,16 @@ def build_data(cfg: Config, split_seed: int = 0):
     with `a` and `b` from data.path; 85/15 split. rna_rbp: {"rna_tokens",
     "rna_mask", "rbp_tokens", "rbp_mask"} from 1024 synthetic token-sequence
     pairs, the first 85 % for training, padded to 64 / 128 tokens. esm_clip:
-    `_esm_clip_data`. tf_clip: `_tf_clip_data`. dplm: `_dplm_data`. The
-    ragged tail is dropped."""
+    `_esm_clip_data`. tf_clip: `_tf_clip_data`. triple_flow:
+    `_triple_flow_data`. dplm: `_dplm_data`. The ragged tail is dropped."""
     _require_ported(cfg)
     B = cfg.train.batch_size
     if cfg.experiment == "esm_clip":
         return _esm_clip_data(cfg, split_seed)
     if cfg.experiment == "tf_clip":
         return _tf_clip_data(cfg, split_seed)
+    if cfg.experiment == "triple_flow":
+        return _triple_flow_data(cfg, split_seed)
     if cfg.experiment == "dplm":
         return _dplm_data(cfg, split_seed)
     if cfg.experiment == "rna_rbp":
@@ -82,7 +93,8 @@ def build_data(cfg: Config, split_seed: int = 0):
             raise ValueError("dataset=embeddings needs data.path")
         z = np.load(d.path)
         ds = PairedEmbeddingDataset(a=z["a"].astype(np.float32), b=z["b"].astype(np.float32),
-                                    labels=z["labels"] if "labels" in z else None)
+                                    labels=z["labels"] if "labels" in z else None,
+                                    gaussian_noise=d.augment.gaussian_noise)
     elif d.dataset == "synthetic":
         ds = PairedEmbeddingDataset.synthetic(
             2048, cfg.tower_a.input_dim, cfg.tower_b.input_dim, n_classes=8, seed=split_seed)
@@ -194,6 +206,49 @@ def _tf_clip_data(cfg: Config, seed: int):
 
     return (lambda seed=0: with_connectivity(_batch_iter(train, B, seed)),
             lambda: with_connectivity(_batch_iter(val, B, 0, shuffle=False)))
+
+
+def _triple_flow_data(cfg: Config, seed: int):
+    """The reference's synthetic cells through the host pipeline
+    (data/cells.py, data/multimodal.py): 1024 trajectory-structured cells of
+    encoders.gene_dim genes -> kNN graph, diffusion pseudotime and leiden
+    clusters -> TripleFlowDataset subgraph batches (the perturbation's
+    top-DEG ESM from a random gene -> esm_dim table, a random protein
+    embedding per cell), augmented in training; the first 85 % of the cells
+    for training. numpy draws in the reference's order."""
+    from clip_dplm_tpu_torch.data.multimodal import DataAugmentation, get_dataloader
+
+    enc = cfg.encoders
+    train_ds, val_ds = _triple_flow_sets(enc.gene_dim, enc.esm_dim, enc.n_perturb_genes, seed)
+    aug = DataAugmentation(cfg.data.augment, seed=seed)
+    B = cfg.train.batch_size
+    return (lambda seed=0: get_dataloader(train_ds, B, augment=aug, seed=seed),
+            lambda: get_dataloader(val_ds, B, shuffle=False))
+
+
+@functools.lru_cache(maxsize=2)
+def _triple_flow_sets(gene_dim: int, esm_dim: int, n_perturb_genes: int, seed: int):
+    """The (train, val) TripleFlowDatasets of `_triple_flow_data`: a function
+    of the widths and the seed only, which nothing mutates, so a process
+    builds them once (the graph statistics take seconds at 2000 genes)."""
+    from clip_dplm_tpu_torch.data.cells import CellData
+    from clip_dplm_tpu_torch.data.multimodal import TripleFlowDataset
+
+    rng = np.random.default_rng(seed)
+    n = 1024
+    cells = CellData.synthetic(n_cells=n, n_genes=gene_dim, seed=seed)
+    gene_to_esm = {g: rng.normal(size=esm_dim).astype(np.float32) for g in range(gene_dim)}
+    prot = rng.normal(size=(n, esm_dim)).astype(np.float32)
+    cut = int(n * 0.85)
+
+    def subset(ids):
+        return TripleFlowDataset(
+            CellData(X=cells.X[ids], obs={k: v[ids] for k, v in cells.obs.items()},
+                     layers={k: v[ids] for k, v in cells.layers.items()}),
+            gene_to_esm=gene_to_esm, protein_embeddings=prot[ids],
+            n_top_degs=n_perturb_genes)
+
+    return subset(np.arange(cut)), subset(np.arange(cut, n))
 
 
 def motif_proteins(rng, n: int, S: int) -> np.ndarray:

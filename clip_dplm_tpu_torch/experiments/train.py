@@ -1,7 +1,7 @@
 """Training CLI: `python -m clip_dplm_tpu_torch.experiments.train`.
 
 Counterpart of `clip_dplm_tpu/experiments/train.py` for the experiments the
-port has (two_tower, rna_rbp, esm_clip, tf_clip, dplm): dotted `-o a.b=c`
+port has (two_tower, rna_rbp, esm_clip, tf_clip, triple_flow, dplm): dotted `-o a.b=c`
 overrides on the default config (no yaml), then data -> model -> train
 state -> Trainer on one device, the card unless `--device cpu` is given.
 Prints one JSON line per epoch and a final summary line. `--retrieval`
@@ -16,6 +16,9 @@ accuracy, mean rank; train/metrics.py) before training and after it.
   python -m clip_dplm_tpu_torch.experiments.train --epochs 3 \\
       -o experiment=tf_clip -o train.batch_size=256
   python -m clip_dplm_tpu_torch.experiments.train --epochs 3 -o experiment=dplm
+  python -m clip_dplm_tpu_torch.experiments.train --epochs 3 \
+      -o experiment=triple_flow -o train.batch_size=256 \
+      -o contrastive.learned_temperature=false -o contrastive.temperature=0.1
   python -m clip_dplm_tpu_torch.experiments.train --epochs 3 --retrieval \
       -o experiment=esm_clip -o esm.frozen=false -o train.batch_size=64
 

@@ -45,7 +45,7 @@ from clip_dplm_tpu_torch.ops.fused_dense import (
     fused_dense_norm_act,
     hash_dropout,
 )
-from clip_dplm_tpu_torch.ops.infonce import l2_normalize
+from clip_dplm_tpu_torch.ops.infonce import at_least_f32, l2_normalize
 
 FLAX_LN_EPS = 1e-6  # flax nn.LayerNorm's default, the towers' and heads' LNs
 
@@ -102,7 +102,10 @@ class LayerNorm(nn.Module):
             self.bias.zero_()
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        return F.layer_norm(x.float(), (x.shape[-1],), self.scale, self.bias,
+        """In f32 (f64 for an f64 input, as the f64 reference runs of the
+        f32 families take it)."""
+        x = at_least_f32(x)
+        return F.layer_norm(x, (x.shape[-1],), self.scale.to(x.dtype), self.bias.to(x.dtype),
                             self.eps)
 
 

@@ -5,7 +5,8 @@ Counterpart of `clip_dplm_tpu/ops/infonce.py` (`l2_normalize`,
 `similarity_logits`, `effective_scale`, `_cross_entropy`, `clip_loss` with
 its hard-negative cache columns, `multiway_clip_loss`, `update_cache`)
 without the mesh gather, which the port does not have yet. Everything is
-f32.
+f32 (f64 for f64 inputs, as the f64 reference runs of the f32 families
+take it).
 """
 
 from __future__ import annotations
@@ -17,9 +18,16 @@ import torch
 NEG_INF = -1e30
 
 
+def at_least_f32(x: torch.Tensor) -> torch.Tensor:
+    """x in f32, or in its own dtype where that is wider (the f64 reference
+    runs of the f32 families): the compute dtype of every f32 op of the
+    port."""
+    return x.to(torch.promote_types(x.dtype, torch.float32))
+
+
 def l2_normalize(x: torch.Tensor, eps: float = 1e-12) -> torch.Tensor:
     """F.normalize semantics over the last dim, computed in f32."""
-    x = x.float()
+    x = at_least_f32(x)
     norm = torch.sqrt(torch.sum(x * x, dim=-1, keepdim=True))
     return x / torch.clamp(norm, min=eps)
 
@@ -27,14 +35,14 @@ def l2_normalize(x: torch.Tensor, eps: float = 1e-12) -> torch.Tensor:
 def similarity_logits(a: torch.Tensor, b: torch.Tensor,
                       scale: torch.Tensor) -> torch.Tensor:
     """scale * a @ b.T in f32 (the B x B matmul)."""
-    return scale * (a.float() @ b.float().t())
+    return scale * (at_least_f32(a) @ at_least_f32(b).t())
 
 
 def effective_scale(logit_scale: torch.Tensor,
                     max_scale: float = 100.0) -> torch.Tensor:
     """exp(logit_scale) clamped at max_scale; the gradient is zero above the
     clamp, as jnp.minimum's is."""
-    return torch.clamp(torch.exp(logit_scale.float()), max=max_scale)
+    return torch.clamp(torch.exp(at_least_f32(logit_scale)), max=max_scale)
 
 
 def _cross_entropy(logits: torch.Tensor, labels: torch.Tensor,
@@ -42,7 +50,7 @@ def _cross_entropy(logits: torch.Tensor, labels: torch.Tensor,
     """Per-row CE in f32. Label smoothing puts 1 - s on the target and
     s / (n - 1) on each other VALID column (columns at -1e30 are excluded
     from the count and the sum), which is not F.cross_entropy's smoothing."""
-    logits = logits.float()
+    logits = at_least_f32(logits)
     logz = torch.logsumexp(logits, dim=-1)
     label_logit = torch.gather(logits, 1, labels[:, None])[:, 0]
     if label_smoothing > 0.0:

@@ -1,18 +1,24 @@
-"""Evaluation metrics: bidirectional retrieval over a paired eval set.
+"""Evaluation metrics: bidirectional retrieval over a paired eval set and
+the distribution metrics of generated flows.
 
-Counterpart of the retrieval part of `clip_dplm_tpu/train/metrics.py`
-(`cosine_similarity_matrix`, `retrieval_metrics`), the BASELINE.json
-headline R@1 / R@10. Plain tensor ops on the embeddings' device; the flow
-and biological metrics of that module are not ported yet.
+Counterpart of `clip_dplm_tpu/train/metrics.py`: `cosine_similarity_matrix`
+and `retrieval_metrics` (the BASELINE.json headline R@1 / R@10), and the
+flow metrics `wasserstein2_gaussian` (the Gaussian W2^2, matrix square
+roots by `torch.linalg.eigh`), `frechet_distance`, `mmd_rbf`,
+`sliced_wasserstein` (random unit projections: the caller's (d, n_proj)
+matrix, or one drawn from a CPU generator, so the card and the CPU project
+alike) and `FlowEvaluator`. Plain tensor ops on the inputs' device, in f32
+(f64 for f64 inputs); the biological metrics of that module are not ported
+yet.
 """
 
 from __future__ import annotations
 
-from typing import Dict
+from typing import Dict, Optional, Sequence
 
 import torch
 
-from clip_dplm_tpu_torch.ops.infonce import l2_normalize
+from clip_dplm_tpu_torch.ops.infonce import at_least_f32, l2_normalize
 
 
 def cosine_similarity_matrix(emb_a: torch.Tensor, emb_b: torch.Tensor) -> torch.Tensor:
@@ -44,3 +50,91 @@ def retrieval_metrics(emb_a: torch.Tensor, emb_b: torch.Tensor) -> Dict[str, tor
                              + (sim.t().argmax(dim=-1) == labels).float().mean())
     out["mean_rank"] = 0.5 * (r_ab.float().mean() + r_ba.float().mean())
     return out
+
+
+# ---------------------------------------------------------------------------
+# distribution metrics of flows (wasserstein / mmd / fid)
+# ---------------------------------------------------------------------------
+
+
+def _sqrtm_psd(m: torch.Tensor) -> torch.Tensor:
+    w, v = torch.linalg.eigh(m)
+    w = torch.clamp(w, min=0.0)
+    return (v * torch.sqrt(w)[None, :]) @ v.t()
+
+
+def wasserstein2_gaussian(x: torch.Tensor, y: torch.Tensor) -> torch.Tensor:
+    """Gaussian (Bures) W2^2 between two sample sets: |mu_x - mu_y|^2 +
+    Tr(Cx + Cy - 2 (Cx^1/2 Cy Cx^1/2)^1/2), each covariance + 1e-6 I."""
+    x, y = at_least_f32(x), at_least_f32(y)
+    eye = torch.eye(x.shape[1], dtype=x.dtype, device=x.device)
+    cx = torch.cov(x.t()) + 1e-6 * eye
+    cy = torch.cov(y.t()) + 1e-6 * eye
+    sqrt_cx = _sqrtm_psd(cx)
+    cross = _sqrtm_psd(sqrt_cx @ cy @ sqrt_cx)
+    return torch.sum((x.mean(0) - y.mean(0)) ** 2) + torch.trace(cx + cy - 2.0 * cross)
+
+
+def frechet_distance(x: torch.Tensor, y: torch.Tensor) -> torch.Tensor:
+    """FID-style Frechet distance: the Gaussian W2^2 in embedding space."""
+    return wasserstein2_gaussian(x, y)
+
+
+def mmd_rbf(x: torch.Tensor, y: torch.Tensor,
+            bandwidths: Sequence[float] = (1.0, 2.0, 4.0, 8.0)) -> torch.Tensor:
+    """Multi-bandwidth RBF MMD^2 (the unbiased off-diagonal estimator),
+    averaged over the bandwidths."""
+    x, y = at_least_f32(x), at_least_f32(y)
+
+    def pdist2(u, v):
+        return torch.sum(u * u, 1)[:, None] + torch.sum(v * v, 1)[None, :] - 2.0 * (u @ v.t())
+
+    dxx, dyy, dxy = pdist2(x, x), pdist2(y, y), pdist2(x, y)
+    n, m = x.shape[0], y.shape[0]
+    total = x.new_zeros(())
+    for bw in bandwidths:
+        kxx, kyy, kxy = (torch.exp(-dd / (2 * bw * bw)) for dd in (dxx, dyy, dxy))
+        exx = (kxx.sum() - torch.trace(kxx)) / (n * (n - 1))
+        eyy = (kyy.sum() - torch.trace(kyy)) / (m * (m - 1))
+        total = total + exx + eyy - 2.0 * kxy.mean()
+    return total / len(bandwidths)
+
+
+def sliced_wasserstein(x: torch.Tensor, y: torch.Tensor, n_proj: int = 64,
+                       proj: Optional[torch.Tensor] = None,
+                       generator: Optional[torch.Generator] = None) -> torch.Tensor:
+    """Sliced W2: the mean squared difference of the sorted 1-D projections
+    onto unit columns. `proj` (d, n_proj) is taken as given (then
+    normalized); without it the columns are drawn on the CPU from
+    `generator` (a CPU generator, seeded 0 when none is given)."""
+    if proj is None:
+        gen = generator if generator is not None else torch.Generator().manual_seed(0)
+        proj = torch.randn(x.shape[1], n_proj, generator=gen)
+    proj = at_least_f32(proj)
+    proj = proj / torch.linalg.vector_norm(proj, dim=0, keepdim=True)
+    x, y = at_least_f32(x), at_least_f32(y)
+    proj = proj.to(device=x.device, dtype=x.dtype)
+    px = torch.sort(x @ proj, dim=0).values
+    py = torch.sort(y @ proj, dim=0).values
+    return torch.mean((px - py) ** 2)
+
+
+class FlowEvaluator:
+    """Flow-quality metrics over (generated, target) samples: `wasserstein`
+    (sliced, from `seed`'s projections), `mmd` and `fid`, as floats."""
+
+    def __init__(self, metrics: Sequence[str] = ("wasserstein", "mmd", "fid"), seed: int = 0):
+        self.metrics, self.seed = tuple(metrics), seed
+
+    @torch.no_grad()
+    def compute_all_metrics(self, generated: torch.Tensor,
+                            target: torch.Tensor) -> Dict[str, float]:
+        out: Dict[str, float] = {}
+        if "wasserstein" in self.metrics:
+            gen = torch.Generator().manual_seed(self.seed)
+            out["wasserstein"] = float(sliced_wasserstein(generated, target, generator=gen))
+        if "mmd" in self.metrics:
+            out["mmd"] = float(mmd_rbf(generated, target))
+        if "fid" in self.metrics:
+            out["fid"] = float(frechet_distance(generated, target))
+        return out

@@ -2,7 +2,9 @@
 family (TwoTowerCLIP, RNARBPCLIP and ESMProteinCLIP: any model whose forward
 returns emb_a, emb_b and logit_scale; with the plain InfoNCE unless
 contrastive.use_fused_kernel, as the reference's trainer picks it), the three-way tf_clip model (cell_embed,
-pert_embed, protein_embed: the sum of the three pairs' losses) and DPLM (the
+pert_embed, protein_embed: the sum of the three pairs' losses), triple_flow
+(models/triple_flow_model.py::compute_all_losses over the encoders' latents
+and the OT-CFM flows, whose draws take the step's seeds) and DPLM (the
 absorbing-state diffusion loss over batch["tokens"] and batch["mask"]).
 
 Counterpart of `clip_dplm_tpu/train/trainer.py` for those families with the
@@ -38,8 +40,10 @@ from clip_dplm_tpu_torch.train.state import TrainState, global_norm
 
 def to_device(batch: Dict, device) -> Dict[str, torch.Tensor]:
     """numpy (or torch) batch -> tensors on `device`, dtypes kept (bool
-    masks stay bool)."""
-    return {k: torch.as_tensor(v).to(device, non_blocking=True) for k, v in batch.items()}
+    masks stay bool); a plain int (a graph batch's `num_graphs`, a size)
+    stays an int."""
+    return {k: v if isinstance(v, int) else torch.as_tensor(v).to(device, non_blocking=True)
+            for k, v in batch.items()}
 
 
 def _check_loss(cfg: Config) -> None:
@@ -129,11 +133,27 @@ def _dplm_loss_fn(cfg: Config):
     return loss_fn
 
 
+def _triple_flow_loss_fn(cfg: Config):
+    """(model, batch, seeds, cache, cache_len) -> (loss, (metrics, None)) of
+    triple_flow: compute_all_losses over the model's training forward, whose
+    dropout and flow draws take the step's seeds. The cache is not read."""
+    from clip_dplm_tpu_torch.models.triple_flow_model import compute_all_losses
+
+    def loss_fn(model, batch, seeds: DropoutSeeds, cache=None, cache_len=None):
+        del cache, cache_len
+        loss, metrics = compute_all_losses(model(batch, seeds, deterministic=False), cfg)
+        return loss, (metrics, None)
+
+    return loss_fn
+
+
 def make_loss_fn(cfg: Config):
     """The experiment family's loss: (model, batch, seeds, cache=None,
     cache_len=None) -> (loss, (metrics, emb_b for the cache or None))."""
     if cfg.experiment == "tf_clip":
         return _multiway_loss_fn(cfg)
+    if cfg.experiment == "triple_flow":
+        return _triple_flow_loss_fn(cfg)
     if cfg.experiment == "dplm":
         return _dplm_loss_fn(cfg)
     return _pair_loss_fn(cfg)
@@ -148,6 +168,10 @@ def make_train_step(cfg: Config) -> Callable[[TrainState, Dict], Tuple[TrainStat
     in order, after the optimizer (ops/infonce.py::update_cache)."""
     loss_fn = make_loss_fn(cfg)
     accum = max(1, cfg.train.optim.grad_accum_steps)
+    if accum > 1 and cfg.experiment == "triple_flow":
+        raise ValueError("grad_accum_steps > 1 is not supported for triple_flow: its graph "
+                         "batch cannot be cut into micro-batches along the first axis "
+                         "(edge_index is (2, E) and indexes the whole batch's nodes)")
     log_grad_norm = cfg.train.log_grad_norm
     use_cache = cfg.contrastive.use_cache
 
@@ -210,8 +234,9 @@ def make_eval_step(cfg: Config) -> Callable[[TrainState, Dict], Dict]:
     the plain multiway loss, as the reference's eval does. The fused loss
     saves no raw similarity here, nor the packed attention its
     probabilities: no backward would read them. DPLM's eval draws its
-    corruption from the state's (key, step) without advancing the state, so
-    it is deterministic given the state."""
+    corruption, and triple_flow's its flows' pairings and (t, eps), from the
+    state's (key, step) without advancing the state, so both are
+    deterministic given the state."""
     _check_loss(cfg)
     cc = cfg.contrastive
 
@@ -220,6 +245,12 @@ def make_eval_step(cfg: Config) -> Callable[[TrainState, Dict], Dict]:
         if cfg.experiment == "dplm":
             loss, metrics = diffusion_loss(state.model, batch["tokens"],
                                            DropoutSeeds(state.key, state.step), batch.get("mask"))
+            return {**metrics, "loss": loss}
+        if cfg.experiment == "triple_flow":
+            from clip_dplm_tpu_torch.models.triple_flow_model import compute_all_losses
+
+            out = state.model(batch, DropoutSeeds(state.key, state.step), deterministic=True)
+            loss, metrics = compute_all_losses(out, cfg)
             return {**metrics, "loss": loss}
         out = state.model(batch, deterministic=True)
         ls = _logit_scale(cfg, out)

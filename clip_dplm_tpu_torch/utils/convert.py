@@ -14,8 +14,17 @@ other leaf keeps its shape (the 0-d `logit_scale`, the (1, max_len, d) or
 `layers/block` tree (the `scan_layers` layout), at the top or in the
 `esm_tower` scope, is unstacked to `layer_<i>` first. `state_dict_to_flax`
 is the inverse (the unrolled layout): the flax tree of a port module's
-weights, as numpy f32 (utils/pretrained.py writes it). `load_cache` carries a train state's hard-negative cache (`cache`,
-`cache_ptr`, `cache_len`, as numpy) into the port's `TrainState`.
+weights, as numpy f32 (utils/pretrained.py writes it). The triple_flow
+family's leaves (models/gnn.py, tong_encoders.py, flows.py,
+triple_flow_model.py, icnn.py, esm_projections.py) map the same way, with
+two layouts of their own: a flax `MultiHeadDotProductAttention` (scopes
+`query`, `key`, `value`, `out`) keeps its kernels as (d, H, dh) and (H, dh,
+d) and its q/k/v biases as (H, dh), which become the port's (H*dh, d) and
+(d, H*dh) kernels and (H*dh,) biases (and back, given the module, which
+knows H); the ICNN's raw `pos_weights` and `final_pos_weights` are (in,
+out) in both and keep their shape. `load_cache` carries a train state's
+hard-negative cache (`cache`, `cache_ptr`, `cache_len`, as numpy) into the
+port's `TrainState`.
 """
 
 from __future__ import annotations
@@ -40,7 +49,8 @@ def _to_dict(tree):
 def flax_to_state_dict(params: Mapping,
                        num_layers: Optional[int] = None) -> Dict[str, torch.Tensor]:
     """Flax params of DPLM / ESMTower / TwoTowerCLIP / RNARBPCLIP /
-    ESMProteinCLIP / TFContrastiveModel -> the port's state_dict (f32, CPU).
+    ESMProteinCLIP / TFContrastiveModel / TripleFlowModel (and the other
+    triple_flow modules) -> the port's state_dict (f32, CPU).
     `num_layers` unstacks a top-level `layers/block` subtree (read from its
     leading dim when not given, as it always is for `esm_tower`'s); trees
     without one need nothing."""
@@ -57,7 +67,14 @@ def flax_to_state_dict(params: Mapping,
             if isinstance(val, dict):
                 walk(val, f"{prefix}{key}.")
             else:
-                arr = val.T if key == "kernel" else val
+                arr = val
+                if key == "kernel" and val.ndim == 3:  # attention's DenseGeneral
+                    scope = prefix.rstrip(".").rsplit(".", 1)[-1]
+                    arr = (val.reshape(-1, val.shape[-1]) if scope == "out"
+                           else val.reshape(val.shape[0], -1))
+                elif key == "bias" and val.ndim == 2:
+                    arr = val.reshape(-1)
+                arr = arr.T if key == "kernel" else arr
                 sd[f"{prefix}{key}"] = torch.from_numpy(np.array(arr, order="C"))
 
     walk(params, "")
@@ -67,8 +84,15 @@ def flax_to_state_dict(params: Mapping,
 def state_dict_to_flax(sd: Mapping) -> Dict:
     """A port state_dict (or a module) -> the flax param tree of the same
     weights, nested dicts of numpy f32, Dense kernels back to (in, out): the
-    inverse of `flax_to_state_dict` in the unrolled layout."""
+    inverse of `flax_to_state_dict` in the unrolled layout. Given the
+    module, its attention layers' leaves go back to flax's head layout;
+    given a bare state_dict they stay 2-D."""
+    heads = {}
     if isinstance(sd, nn.Module):
+        from clip_dplm_tpu_torch.models.tong_encoders import MultiHeadAttention
+
+        heads = {f"{name}.": m.h for name, m in sd.named_modules()
+                 if isinstance(m, MultiHeadAttention)}
         sd = sd.state_dict()
     tree: Dict = {}
     for name, val in sd.items():
@@ -77,7 +101,17 @@ def state_dict_to_flax(sd: Mapping) -> Dict:
         for scope in scopes:
             node = node.setdefault(scope, {})
         arr = numpy_f32(val)
-        node[leaf] = np.array(arr.T if leaf == "kernel" else arr, order="C")
+        arr = arr.T if leaf == "kernel" else arr
+        mha = [(p, h) for p, h in heads.items() if name.startswith(p)
+               and name[len(p):].count(".") == 1]
+        if mha:
+            H = mha[0][1]
+            if leaf == "kernel":
+                arr = (arr.reshape(H, -1, arr.shape[-1]) if scopes[-1] == "out"
+                       else arr.reshape(arr.shape[0], H, -1))
+            elif scopes[-1] != "out":
+                arr = arr.reshape(H, -1)
+        node[leaf] = np.array(arr, order="C")
     return tree
 
 
@@ -101,8 +135,8 @@ def _leaves(tree):
 
 def load_flax_params(module: nn.Module, params: Mapping) -> nn.Module:
     """Load flax params into a port DPLM / ESMTower / TwoTowerCLIP /
-    RNARBPCLIP / ESMProteinCLIP / TFContrastiveModel in place (strict: every
-    key must match) and return it."""
+    RNARBPCLIP / ESMProteinCLIP / TFContrastiveModel / TripleFlowModel in
+    place (strict: every key must match) and return it."""
     sd = flax_to_state_dict(params, getattr(module.cfg, "num_layers", None))
     module.load_state_dict(sd, strict=True)
     return module

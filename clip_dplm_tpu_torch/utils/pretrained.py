@@ -48,38 +48,18 @@ _SEP = "::"
 # (clip_dplm_tpu/config.py): a bundle's value must equal them
 _UNPORTED: Dict[str, Any] = {
     "contrastive": {"gather_global_batch": True},
-    "encoders": {
-        "latent_dim": 512, "use_time_encoding": True, "time_embed_dim": 128,
-        "use_cross_attention": True, "protein_hidden_dims": [1024, 768], "dropout": 0.1,
-        "gnn": {"hidden_dim": 512, "num_layers": 3, "num_heads": 8, "edge_dim": 16,
-                "dropout": 0.1, "n_neighbors": 32},
-    },
-    "flow": {
-        "flow_type": "exact_ot", "sigma": 0.1, "latent_dim": 512, "hidden_dim": 1024,
-        "n_layers": 3, "dropout": 0.1, "use_time_embedding": True, "time_embed_dim": 128,
-        "use_path_length_reg": True, "use_jacobian_reg": False, "use_feature_mixing": False,
-        "sinkhorn_iters": 100, "sinkhorn_epsilon": 0.02,
-    },
-    "icnn": {
-        "input_dim": 512, "hidden_dims": [512, 256, 128], "activation": "softplus",
-        "use_layer_norm": True, "strict_convex": True, "init_scale": 0.1, "eps": 1e-06,
-        "gradient_clip": 10.0, "hessian_reg": 0.0001, "w2_weight": 1.0,
-        "sparsity_weight": 0.01, "consistency_weight": 0.1,
-    },
+    "encoders": {"gnn": {"hidden_dim": 512, "edge_dim": 16, "n_neighbors": 32}},
+    "flow": {"sinkhorn_epsilon": 0.02},
+    "icnn": {"input_dim": 512, "hessian_reg": 0.0001, "w2_weight": 1.0},
     "train": {
         "eval_every_steps": 100, "log_every_steps": 10, "checkpoint_every_steps": 1000,
         "keep_checkpoints": 3, "async_checkpoint": True, "preemption_checkpoint": True,
         "preemption_poll_batches": 8, "steps_per_call": 1, "rng_impl": "threefry2x32",
-        "loss_weights": {"contrastive": 1.0, "flow": 1.0, "regularization": 0.1},
         "optim": {"fused_update": True},
     },
     "precision": {"compute_dtype": "bfloat16", "param_dtype": "float32", "remat": False},
     "mesh": {"data_axis": "data", "model_axis": "model", "model_parallel": 1},
-    "data": {
-        "num_workers": 0, "n_top_genes": 2000, "max_seq_len": 1024,
-        "augment": {"gene_dropout": 0.1, "edge_dropout": 0.15, "perturbation_noise": 0.05,
-                    "gaussian_noise": 0.0},
-    },
+    "data": {"num_workers": 0, "max_seq_len": 1024},
     "logging": {"log_dir": "runs", "use_wandb": False, "csv_metrics": True, "profile": False,
                 "profile_dir": "runs/profile"},
 }

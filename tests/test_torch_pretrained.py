@@ -206,7 +206,7 @@ def test_jax_config_holds_unported_fields_to_defaults(tmp_path, monkeypatch):
                 assert v == ref[k], path + k
 
     walk(pretrained._UNPORTED, jd)
-    for section, field, value in (("flow", "sigma", 0.2), ("precision", "remat", True),
+    for section, field, value in (("flow", "sinkhorn_epsilon", 0.5), ("precision", "remat", True),
                                   ("train", "steps_per_call", 4)):
         path = _jax_yaml(tmp_path, **{section: lambda c: dataclasses.replace(
             c, **{field: value})})

@@ -237,7 +237,7 @@ def test_config_rejects_unported_fields():
     with pytest.raises(KeyError):
         pconfig.apply_overrides(pconfig.Config(), ["contrastive.gather_global_batch=true"])
     with pytest.raises(ValueError):
-        build_model(dataclasses.replace(pconfig.Config(), experiment="triple_flow"))
+        build_model(dataclasses.replace(pconfig.Config(), experiment="no_such_experiment"))
     with pytest.raises(ValueError, match="unknown tower architecture"):
         build_model(pconfig.apply_overrides(pconfig.Config(), ["tower_a.architecture=conv"]))
 

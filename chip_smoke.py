@@ -273,7 +273,23 @@ Phases, each fatal on failure (non-zero exit, no result line):
      D=512 card vs CPU (second-order gradients within STEP_NOISE_FACTOR x
      their f32-vs-f64 noise), timed; the eval path without a graph; PSD
      Hessians with use_layer_norm=false on the card; FlowEvaluator card vs
-     CPU; (g) every kernel launch counter unchanged across the phase.
+     CPU; (g) every kernel launch counter unchanged across the phase;
+ 18. checkpoints, preemption and evaluation, on the hard-negative cache
+     (8192 rows) and fused loss at the bench's cached widths with fused
+     Dense blocks (`bench.CACHED_OVERRIDES`), B=128: (a) 3 steps, an async
+     save, 3 more; the step-3 checkpoint restored into a state built from
+     another seed and the same 3 steps: every parameter, moment, count,
+     prev_norm, step, key, cache leaf and loss equal bit for bit, the
+     checkpoint loaded on the CPU equal to the card's step-3 state, the
+     fused-Dense rows and row_ce_grad_kernel launched by the resumed steps;
+     save(), wait() and restore timed, the file's size; (b) the train CLI in
+     a process of its own, SIGTERM after its first epoch line: exit 0 and a
+     checkpoint at the step where it stopped; `--resume` starts there, in a
+     second process that (d) traces steps 11-15 with `logging.profile`
+     (a trace naming the port's kernels); (c) the evaluate CLI on that
+     checkpoint: its full_* equal `evaluate_retrieval` of the restored model,
+     the fused-Dense forward launched. Every train CLI call of the smoke
+     writes its log dir and checkpoints into a temporary directory.
 Prints a JSON line of per-kernel results (each kernel's time at its main
 shape, its plain version's, the library call's where there is one, and the
 bound: the larger of the bytes it must move over 3.35 TB/s and its
@@ -288,8 +304,10 @@ import dataclasses
 import json
 import os
 import re
+import signal
 import subprocess
 import sys
+import tempfile
 import threading
 import time
 import urllib.error
@@ -424,6 +442,16 @@ class SmokeFailure(RuntimeError):
 def check(cond: bool, what: str) -> None:
     if not cond:
         raise SmokeFailure(what)
+
+
+def train_cli_run(argv):
+    """experiments/train.py's main(argv) with its log dir (metrics.csv,
+    train.log, config.yaml and the checkpoints of ckpt/) in a temporary
+    directory of its own, removed after the run."""
+    from clip_dplm_tpu_torch.experiments import train as train_cli
+
+    with tempfile.TemporaryDirectory(prefix="smoke_train_") as d:
+        return train_cli.main([*argv, "-o", f"logging.log_dir={d}"])
 
 
 def cuda_ms(torch, fn, iters: int = 20) -> float:
@@ -1248,14 +1276,13 @@ def step_card_vs_cpu(torch, what, cfg, batch, cache=None, init_fn=None):
 def phase_train_path(torch, build):
     """7(b) the train CLI, 7(c) the benchmark; the launch counts of both."""
     from clip_dplm_tpu_torch.experiments import bench
-    from clip_dplm_tpu_torch.experiments import train as train_cli
 
     build.LAUNCHES.reset()
     walks, raws = walk_calls(build), from_raw_calls(build)
     overrides = bench.OVERRIDES + ["train.batch_size=256", "train.optim.warmup_steps=5",
                                    "train.optim.learning_rate=1e-3"]
     t0 = time.perf_counter()
-    hist = train_cli.main(["--device", "cuda", "--epochs", "3",
+    hist = train_cli_run(["--device", "cuda", "--epochs", "3",
                            *[a for o in overrides for a in ("-o", o)]])
     cli_s = time.perf_counter() - t0
     losses = hist["train_loss"]
@@ -1279,7 +1306,7 @@ def phase_train_path(torch, build):
     build.LAUNCHES.reset()
     syms = sym_calls(build)
     never = ["-o", "contrastive.fused_materialize_raw=never"]
-    hist = train_cli.main(["--device", "cuda", "--epochs", "1", *never,
+    hist = train_cli_run(["--device", "cuda", "--epochs", "1", *never,
                            *[a for o in overrides for a in ("-o", o)]])
     torch.cuda.synchronize()
     counts = build.LAUNCHES.snapshot()
@@ -1394,14 +1421,13 @@ def phase_flagship_path(torch, build):
     """8(c) the rna_rbp train CLI, 8(d) the flagship benchmark; the launch
     counts of both."""
     from clip_dplm_tpu_torch.experiments import bench
-    from clip_dplm_tpu_torch.experiments import train as train_cli
 
     build.LAUNCHES.reset()
     raws = from_raw_calls(build)
     overrides = bench.RNA_RBP_OVERRIDES + ["train.batch_size=256", "train.optim.warmup_steps=5",
                                            "train.optim.learning_rate=1e-3"]
     t0 = time.perf_counter()
-    hist = train_cli.main(["--epochs", "3", *[a for o in overrides for a in ("-o", o)]])
+    hist = train_cli_run(["--epochs", "3", *[a for o in overrides for a in ("-o", o)]])
     cli_s = time.perf_counter() - t0
     losses = hist["train_loss"]
     check(all(np.isfinite(losses)) and len(losses) == 3, f"flagship train CLI losses {losses}")
@@ -1646,14 +1672,13 @@ def phase_tf_clip_path(torch, build):
     """9(c) the tf_clip train CLI, 9(d) its benchmark; the launch counts of
     both."""
     from clip_dplm_tpu_torch.experiments import bench
-    from clip_dplm_tpu_torch.experiments import train as train_cli
 
     build.LAUNCHES.reset()
     walks, raws = walk_calls(build), from_raw_calls(build)
     overrides = bench.TF_CLIP_OVERRIDES + ["train.batch_size=256", "train.optim.warmup_steps=5",
                                            "train.optim.learning_rate=1e-3"]
     t0 = time.perf_counter()
-    hist = train_cli.main(["--epochs", "3", *[a for o in overrides for a in ("-o", o)]])
+    hist = train_cli_run(["--epochs", "3", *[a for o in overrides for a in ("-o", o)]])
     cli_s = time.perf_counter() - t0
     losses = hist["train_loss"]
     check(all(np.isfinite(losses)) and len(losses) == 3, f"tf_clip train CLI losses {losses}")
@@ -1772,14 +1797,13 @@ def phase_cache_path(torch, build):
     """10(c) the preset's train CLI, 10(d) the cached benchmark; the launch
     counts of both."""
     from clip_dplm_tpu_torch.experiments import bench
-    from clip_dplm_tpu_torch.experiments import train as train_cli
 
     build.LAUNCHES.reset()
     walks = walk_calls(build)
     overrides = bench.PRESET_OVERRIDES + ["train.batch_size=128", "train.optim.warmup_steps=5",
                                           "train.optim.learning_rate=1e-3"]
     t0 = time.perf_counter()
-    hist = train_cli.main(["--epochs", "3", *[a for o in overrides for a in ("-o", o)]])
+    hist = train_cli_run(["--epochs", "3", *[a for o in overrides for a in ("-o", o)]])
     cli_s = time.perf_counter() - t0
     losses = hist["train_loss"]
     check(all(np.isfinite(losses)) and len(losses) == 3, f"preset train CLI losses {losses}")
@@ -2155,12 +2179,11 @@ def phase_dplm_path(torch, build):
     both. The CLI shortens the warmup (5 steps, lr 1e-3): at the default
     1000 its 18 steps would keep the learning rate under 2e-5."""
     from clip_dplm_tpu_torch.experiments import bench
-    from clip_dplm_tpu_torch.experiments import train as train_cli
 
     build.LAUNCHES.reset()
     overrides = ["experiment=dplm", "train.optim.warmup_steps=5", "train.optim.learning_rate=1e-3"]
     t0 = time.perf_counter()
-    hist = train_cli.main(["--epochs", "3", *[a for o in overrides for a in ("-o", o)]])
+    hist = train_cli_run(["--epochs", "3", *[a for o in overrides for a in ("-o", o)]])
     cli_s = time.perf_counter() - t0
     losses = hist["train_loss"]
     check(all(np.isfinite(losses)) and len(losses) == 3, f"DPLM train CLI losses {losses}")
@@ -2623,13 +2646,12 @@ def phase_esm_clip_path(torch, build):
     metrics of its validation split, untrained and trained; 15(d) the
     benchmark at B=64. Returns the launch counts of both."""
     from clip_dplm_tpu_torch.experiments import bench
-    from clip_dplm_tpu_torch.experiments import train as train_cli
 
     build.LAUNCHES.reset()
     overrides = bench.ESM_CLIP_OVERRIDES + ["train.batch_size=64", "train.optim.warmup_steps=5",
                                             "train.optim.learning_rate=1e-3"]
     t0 = time.perf_counter()
-    hist = train_cli.main(["--epochs", "4", "--retrieval",
+    hist = train_cli_run(["--epochs", "4", "--retrieval",
                            *[a for o in overrides for a in ("-o", o)]])
     cli_s = time.perf_counter() - t0
     losses, before, after = hist["train_loss"], hist["retrieval_untrained"], hist["retrieval"]
@@ -2991,7 +3013,6 @@ def phase_lora_path(torch, build):
     import tempfile
 
     from clip_dplm_tpu_torch.experiments import bench
-    from clip_dplm_tpu_torch.experiments import train as train_cli
 
     build.LAUNCHES.reset()
     overrides = ["experiment=dplm", "train.optim.warmup_steps=5",
@@ -2999,7 +3020,7 @@ def phase_lora_path(torch, build):
     with tempfile.TemporaryDirectory() as tmp:
         path = f"{tmp}/adapters.npz"
         t0 = time.perf_counter()
-        hist = train_cli.main(["--epochs", "3", "--save-adapters", path,
+        hist = train_cli_run(["--epochs", "3", "--save-adapters", path,
                                *[a for o in overrides for a in ("-o", o)]])
         cli_s = time.perf_counter() - t0
         with np.load(path) as z:
@@ -3602,12 +3623,11 @@ def phase_triple_flow_path(torch):
     """17(c) the train CLI on the card (loss falls, eval runs); (d) the
     bench in turns and profile_step in a process of its own."""
     from clip_dplm_tpu_torch.experiments import bench
-    from clip_dplm_tpu_torch.experiments import train as train_cli
 
     overrides = bench.TRIPLE_FLOW_OVERRIDES + [
         "train.batch_size=128", "train.optim.warmup_steps=5", "train.optim.learning_rate=1e-3"]
     t0 = time.perf_counter()
-    hist = train_cli.main(["--device", "cuda", "--epochs", "5",
+    hist = train_cli_run(["--device", "cuda", "--epochs", "5",
                            *[a for o in overrides for a in ("-o", o)]])
     losses, vals = hist["train_loss"], hist["val_loss"]
     print(f"17(c) triple_flow train CLI (yaml widths, B=128, 5 epochs of 6 steps): train_loss "
@@ -3637,6 +3657,214 @@ def phase_triple_flow_path(torch):
           f"{time.perf_counter() - t0:.1f} s")
     check(summary["device_busy_share"] > 0 and summary["host_ranges_ms_per_step"].get(
         "ot.hungarian_pairing", 0) > 0, f"17(d) profile summary {summary}")
+
+
+def resume_overrides():
+    """Phase 18's runs: the preset's hard-negative cache (8192 rows) and
+    fused loss at the bench's cached widths, whose Dense blocks are fused
+    (`bench.CACHED_OVERRIDES`: bf16 moments too), at B=128."""
+    from clip_dplm_tpu_torch.experiments import bench
+
+    return bench.CACHED_OVERRIDES + ["train.batch_size=128", "train.optim.warmup_steps=5",
+                                     "train.optim.learning_rate=1e-3"]
+
+
+# the kernels 18(a)'s resumed steps must launch: the fused Dense forward and
+# backward rows and row_ce_grad_kernel's dX and dY modes
+RESUME_KERNELS = ("fused_dense_fwd_rows", "fused_dense_bwd_rows", "row_ce_dx", "row_ce_dy")
+
+
+def _leaves(tree, path=""):
+    """Every leaf of a checkpoint's nested dict as (dotted name, value), in
+    order."""
+    out = []
+    for k, v in tree.items():
+        out += _leaves(v, f"{path}{k}.") if isinstance(v, dict) else [(f"{path}{k}", v)]
+    return out
+
+
+def _differing(torch, a, b):
+    """Names of the leaves of two leaf lists that differ by a bit, a dtype
+    or a shape (tensors moved to the CPU to compare)."""
+    bad = []
+    for (k, x), (k2, y) in zip(a, b):
+        if k != k2:
+            bad.append(f"{k}/{k2}")
+        elif isinstance(x, torch.Tensor):
+            if not (isinstance(y, torch.Tensor) and x.dtype == y.dtype
+                    and torch.equal(x.cpu(), y.cpu())):
+                bad.append(k)
+        elif x != y:
+            bad.append(k)
+    return bad + (["(leaf count)"] if len(a) != len(b) else [])
+
+
+def phase_resume(torch, build, card):
+    """18(a): exact resume on the card."""
+    from clip_dplm_tpu_torch.config import Config, apply_overrides
+    from clip_dplm_tpu_torch.experiments.registry import build_data, build_model
+    from clip_dplm_tpu_torch.train.checkpoint import CheckpointManager, arrays_only
+    from clip_dplm_tpu_torch.train.state import create_train_state
+    from clip_dplm_tpu_torch.train.trainer import make_train_step, to_device
+
+    cfg = apply_overrides(Config(), resume_overrides())
+    train, _ = build_data(cfg)
+    it = train(seed=3)
+    batches = [to_device(next(it), "cuda") for _ in range(6)]
+    step = make_train_step(cfg)
+    state = create_train_state(build_model(cfg, device="cuda"), cfg)
+    with tempfile.TemporaryDirectory(prefix="smoke_ckpt_") as d:
+        mgr = CheckpointManager(d, async_save=True)
+        losses = []
+        for i, b in enumerate(batches):
+            state, metrics = step(state, b)
+            losses.append(metrics["loss"])
+            if i == 2:
+                at3 = [(k, v.clone() if isinstance(v, torch.Tensor) else v)
+                       for k, v in _leaves(arrays_only(state))]
+                t0 = time.perf_counter()
+                mgr.save(state, state.step)
+                save_ms = (time.perf_counter() - t0) * 1e3
+        # steps 4-6 were queued while the write was in flight
+        t1 = time.perf_counter()
+        mgr.wait()
+        wait_ms = (time.perf_counter() - t1) * 1e3
+        durable_ms = (time.perf_counter() - t0) * 1e3
+        torch.cuda.synchronize()
+        path = os.path.join(d, "ckpt_3.pt")
+        mib = os.path.getsize(path) / 2 ** 20
+        on_cpu = torch.load(path, map_location="cpu", weights_only=True)
+        bad = _differing(torch, at3, _leaves(on_cpu))
+        check(not bad, f"18(a) the checkpoint loaded on the CPU differs from the card's "
+                       f"step-3 state at {bad[:8]}")
+        resumed = create_train_state(build_model(cfg, device="cuda"),
+                                     apply_overrides(cfg, ["train.seed=11"]))
+        check(resumed.key != state.key, "18(a) the fresh state has the same key")
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        mgr.restore(resumed)
+        torch.cuda.synchronize()
+        restore_ms = (time.perf_counter() - t0) * 1e3
+    before = build.LAUNCHES.snapshot()
+    for i, b in enumerate(batches[3:]):
+        resumed, metrics = step(resumed, b)
+        check(torch.equal(metrics["loss"], losses[3 + i]),
+              f"18(a) resumed step {4 + i}: loss {float(metrics['loss'])} against "
+              f"{float(losses[3 + i])} without a break")
+    torch.cuda.synchronize()
+    moved = {k: v - before[k] for k, v in build.LAUNCHES.snapshot().items() if v != before[k]}
+    bad = _differing(torch, _leaves(arrays_only(state)), _leaves(arrays_only(resumed)))
+    check(not bad, f"18(a) the resumed state differs from the unbroken one at {bad[:8]}")
+    for name in RESUME_KERNELS:
+        check(moved.get(name, 0) > 0, f"18(a) the resumed steps did not launch {name}: {moved}")
+    n_leaves = len(at3)
+    print(f"18(a) exact resume (the cached two-tower at the bench's widths, B=128, cache 8192, "
+          f"cache_len {int(state.cache_len)}): steps 4-6 after a restore of step 3 into a state "
+          f"built from another seed equal the unbroken run bit for bit ({n_leaves} leaves: "
+          f"params, mu, nu, count, prev_norm, step, key, cache, cache_ptr, cache_len; and the "
+          f"losses); the checkpoint loaded on the CPU equals the card's step-3 state; launches "
+          f"of the resumed steps {moved}")
+    print(f"18(a) checkpoint {mib:.1f} MiB; save() returned in {save_ms:.2f} ms (async), "
+          f"wait() after 3 more steps blocked {wait_ms:.2f} ms, on disk {durable_ms:.2f} ms "
+          f"after the call; restore {restore_ms:.2f} ms; {card}")
+    return moved
+
+
+def _cli_lines(text):
+    return [json.loads(line) for line in text.splitlines() if line.startswith("{")]
+
+
+def phase_preemption(torch, run_dir):
+    """18(b) the train CLI preempted by SIGTERM and resumed, in processes of
+    their own; 18(d) the resumed run profiles steps 11-15 (the profiler's
+    first session in its process)."""
+    over = [a for o in resume_overrides() + [f"logging.log_dir={run_dir}"] for a in ("-o", o)]
+    cmd = [sys.executable, "-m", "clip_dplm_tpu_torch.experiments.train", *over]
+    root = os.path.dirname(os.path.abspath(__file__))
+    proc = subprocess.Popen([*cmd, "--epochs", "50"], stdout=subprocess.PIPE,
+                            stderr=subprocess.STDOUT, text=True, cwd=root)
+    lines = []
+    try:
+        for line in proc.stdout:
+            lines.append(line)
+            if line.startswith('{"epoch": 0'):
+                proc.send_signal(signal.SIGTERM)
+                break
+        rest, _ = proc.communicate(timeout=300)
+    finally:
+        if proc.poll() is None:
+            proc.kill()
+            proc.wait()
+    out = "".join(lines) + rest
+    check(proc.returncode == 0, f"18(b) the preempted train CLI exited {proc.returncode}: "
+                                f"{out[-3000:]}")
+    done = _cli_lines(out)[-1]
+    stopped = done.get("preempted_at_step", [None])[0]
+    from clip_dplm_tpu_torch.train.checkpoint import CheckpointManager
+
+    ckpt = os.path.join(run_dir, "ckpt")
+    steps = CheckpointManager(ckpt).all_steps()
+    check(stopped is not None and stopped > 13 and done["step"] == stopped
+          and steps[-1] == stopped, f"18(b) SIGTERM after epoch 0: {done}, checkpoints {steps}")
+    print(f"18(b) train CLI sent SIGTERM after its first epoch line: exit 0, stopped at step "
+          f"{stopped}, checkpoints at steps {steps}")
+    profile_dir = os.path.join(run_dir, "profile")
+    res = subprocess.run([*cmd, "--epochs", "2", "--resume", "-o", "logging.profile=true",
+                          "-o", f"logging.profile_dir={profile_dir}"],
+                         capture_output=True, text=True, timeout=300, cwd=root)
+    check(res.returncode == 0, f"18(b) the resumed train CLI: {res.stderr[-3000:]}")
+    lines = _cli_lines(res.stdout)
+    resumed = [x for x in lines if "resumed_from_step" in x]
+    check(resumed and resumed[0]["resumed_from_step"] == stopped
+          and lines[-1]["step"] == stopped + 26,
+          f"18(b) --resume: {resumed}, done {lines[-1]}")
+    print(f"18(b) --resume started from step {resumed[0]['resumed_from_step']} (restore "
+          f"{resumed[0]['restore_s'] * 1e3:.1f} ms in the CLI) and ended at step "
+          f"{lines[-1]['step']} after 2 epochs of 13 steps")
+    traces = [os.path.join(profile_dir, f) for f in os.listdir(profile_dir)]
+    check(len(traces) == 1, f"18(d) traces in {profile_dir}: {traces}")
+    with open(traces[0]) as f:
+        text = f.read()
+    names = sorted({k for k in ("fwd_rows_kernel", "bwd_rows_kernel", "dense_gemm_kernel",
+                                "row_ce_grad_kernel", "lse_walk_kernel") if k in text})
+    check(names, f"18(d) the trace {traces[0]} names none of the port's kernels")
+    print(f"18(d) logging.profile=true in the resumed run: {os.path.basename(traces[0])} "
+          f"({len(text) / 2 ** 20:.1f} MiB) names {names}")
+
+
+def phase_evaluate(torch, build, run_dir):
+    """18(c) the evaluate CLI on 18(b)'s checkpoint against evaluate_retrieval
+    of the restored model."""
+    from clip_dplm_tpu_torch.experiments import evaluate as evaluate_cli
+    from clip_dplm_tpu_torch.experiments.registry import build_data, build_model
+    from clip_dplm_tpu_torch.train.checkpoint import CheckpointManager
+    from clip_dplm_tpu_torch.train.state import create_train_state
+    from clip_dplm_tpu_torch.train.trainer import evaluate_retrieval
+    from clip_dplm_tpu_torch.utils.pretrained import read_config
+
+    config, ckpt = os.path.join(run_dir, "config.yaml"), os.path.join(run_dir, "ckpt")
+    before = build.LAUNCHES.snapshot()
+    t0 = time.perf_counter()
+    summary = evaluate_cli.main(["--config", config, "--checkpoint", ckpt,
+                                 "--output", os.path.join(run_dir, "eval_metrics.csv"),
+                                 "--save-embeddings", os.path.join(run_dir, "emb.npz")])
+    torch.cuda.synchronize()
+    eval_s = time.perf_counter() - t0
+    moved = {k: v - before[k] for k, v in build.LAUNCHES.snapshot().items() if v != before[k]}
+    check(moved.get("fused_dense_fwd_rows", 0) > 0, f"18(c) evaluate launched {moved}")
+    cfg = read_config(config)
+    model = build_model(cfg, device="cuda")
+    CheckpointManager(ckpt).restore(create_train_state(model, cfg, init=False))
+    ref = {k: float(v) for k, v in evaluate_retrieval(model, build_data(cfg)[1]()).items()}
+    bad = {k: (summary[f"full_{k}"], v) for k, v in ref.items() if summary[f"full_{k}"] != v}
+    check(not bad, f"18(c) evaluate's full_* against evaluate_retrieval: {bad}")
+    with np.load(os.path.join(run_dir, "emb.npz")) as z:
+        shapes = {k: z[k].shape for k in z.files}
+    print(f"18(c) evaluate CLI on step {CheckpointManager(ckpt).latest_step()}: "
+          f"{ {k: round(summary[f'full_{k}'], 4) for k in ('R@1', 'R@10', 'mean_rank')} } "
+          f"equal to evaluate_retrieval of the restored model ({len(ref)} metrics), "
+          f"embeddings {shapes}, {eval_s:.1f} s; launches {moved}")
+    return moved
 
 
 def kernel_registers(log: str, kernel: str):
@@ -3754,6 +3982,13 @@ def main() -> int:
     moved = {k: v - before[k] for k, v in _build.LAUNCHES.snapshot().items() if v != before[k]}
     print(f"17(g) kernel launch counters across phase 17: {moved or 'none moved'}")
     check(not moved, f"17(g) triple_flow launched kernels of the port: {moved}")
+    card = smi.stdout.strip().splitlines()[0]
+    with tempfile.TemporaryDirectory(prefix="smoke_resume_") as run_dir:
+        resume_launches = run("18", phase_resume, torch, _build, card)
+        run("18", phase_preemption, torch, run_dir)
+        eval_launches = run("18", phase_evaluate, torch, _build, run_dir)
+    print(f"18 launches in this process (resumed steps, evaluate): {resume_launches}, "
+          f"{eval_launches}")
     print("command time by phase (s): " + ", ".join(f"{k} {v:.1f}" for k, v in times.items()))
 
     keys = ("max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by", "library_ms")

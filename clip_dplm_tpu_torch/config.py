@@ -28,7 +28,11 @@ and its scale to models/guided_generation.py. The fused loss's saved raw similar
 preset. The port's modules are always unrolled; utils/convert.py reads
 both flax param layouts. Defaults are the reference's. `ProtT5Config` and
 `RNABertConfig` configure the standalone ProtT5 and RNABERT encoders
-(models/t5.py, models/rnabert.py).
+(models/t5.py, models/rnabert.py). Checkpointing (`train.keep_checkpoints`,
+`async_checkpoint`, `preemption_checkpoint`) and the `logging` section are
+ported; the reference's step-interval fields (`eval_every_steps`,
+`log_every_steps`, `checkpoint_every_steps`), which nothing of it reads, are
+not.
 
 `apply_overrides(cfg, ["a.b=c", ...])` replaces dotted fields, parsing each
 value by the field's declared type (a tuple field from a JSON list, as the
@@ -305,6 +309,14 @@ class OptimConfig:
 class TrainConfig:
     batch_size: int = 128
     num_epochs: int = 100
+    # checkpoints kept in the checkpoint dir (the newest steps)
+    keep_checkpoints: int = 3
+    # copy the state to host memory and write it on a thread while training
+    # goes on (train/checkpoint.py)
+    async_checkpoint: bool = True
+    # SIGTERM saves the live state at the step and ends training
+    # (train/preemption.py)
+    preemption_checkpoint: bool = True
     early_stopping_patience: int = 10
     seed: int = 42
     log_grad_norm: bool = False
@@ -333,6 +345,18 @@ class DataConfig:
 
 
 @dataclass(frozen=True)
+class LoggingConfig:
+    """Where the train CLI writes metrics.csv, train.log, config.yaml and
+    (by default) ckpt/; wandb where it is installed; a torch.profiler trace
+    of steps 11-15 into profile_dir (utils/logging.py)."""
+
+    log_dir: str = "runs"
+    use_wandb: bool = False
+    profile: bool = False
+    profile_dir: str = "runs/profile"
+
+
+@dataclass(frozen=True)
 class Config:
     """The experiments' configuration: `two_tower` reads tower_a/tower_b,
     `rna_rbp` the token towers rna_tower/rbp_tower, `esm_clip` rna_tower
@@ -356,6 +380,7 @@ class Config:
     contrastive: ContrastiveConfig = field(default_factory=ContrastiveConfig)
     train: TrainConfig = field(default_factory=TrainConfig)
     data: DataConfig = field(default_factory=DataConfig)
+    logging: LoggingConfig = field(default_factory=LoggingConfig)
 
 
 def _parse(value: str, typ):

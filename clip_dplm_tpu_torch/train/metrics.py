@@ -8,8 +8,8 @@ roots by `torch.linalg.eigh`), `frechet_distance`, `mmd_rbf`,
 `sliced_wasserstein` (random unit projections: the caller's (d, n_proj)
 matrix, or one drawn from a CPU generator, so the card and the CPU project
 alike) and `FlowEvaluator`. Plain tensor ops on the inputs' device, in f32
-(f64 for f64 inputs); the biological metrics of that module are not ported
-yet.
+(f64 for f64 inputs); and the evaluate CLI's `BiologicalMetrics`,
+`embedding_collapse` and `confusion_matrix`.
 """
 
 from __future__ import annotations
@@ -138,3 +138,44 @@ class FlowEvaluator:
         if "fid" in self.metrics:
             out["fid"] = float(frechet_distance(generated, target))
         return out
+
+
+# ---------------------------------------------------------------------------
+# embedding-space metrics of the evaluate CLI
+# ---------------------------------------------------------------------------
+
+
+class BiologicalMetrics:
+    """Embedding-space metrics of a paired eval set: the retrieval metrics
+    of the whole set and, given class labels, the collapse of each side."""
+
+    @torch.no_grad()
+    def compute_all_metrics(self, emb_a, emb_b, labels=None) -> Dict[str, float]:
+        """emb_a, emb_b (N, d) and labels (N,): tensors (computed on their
+        device) or arrays (on the CPU); floats out."""
+        emb_a, emb_b = torch.as_tensor(emb_a), torch.as_tensor(emb_b)
+        out = {k: float(v) for k, v in retrieval_metrics(emb_a, emb_b).items()}
+        if labels is not None:
+            labels = torch.as_tensor(labels)
+            out["embedding_collapse_a"] = float(embedding_collapse(emb_a, labels.to(emb_a.device)))
+            out["embedding_collapse_b"] = float(embedding_collapse(emb_b, labels.to(emb_b.device)))
+        return out
+
+
+def embedding_collapse(emb: torch.Tensor, labels: torch.Tensor) -> torch.Tensor:
+    """Mean cosine similarity over the pairs of distinct rows that share a
+    label (higher is more collapsed); 0 when no two rows share one."""
+    z = l2_normalize(emb)
+    sim = z @ z.t()
+    n = sim.shape[0]
+    mask = (labels[:, None] == labels[None, :]) & ~torch.eye(n, dtype=torch.bool,
+                                                              device=sim.device)
+    return torch.sum(sim * mask) / torch.clamp(torch.sum(mask), min=1)
+
+
+def confusion_matrix(pred: torch.Tensor, true: torch.Tensor, n_classes: int) -> torch.Tensor:
+    """(n_classes, n_classes) int32 counts, rows the true class: one
+    bincount over true * n_classes + pred."""
+    idx = true.long() * n_classes + pred.long()
+    flat = torch.bincount(idx, minlength=n_classes * n_classes)
+    return flat[:n_classes * n_classes].to(torch.int32).reshape(n_classes, n_classes)

@@ -12,14 +12,16 @@ Counterpart of `clip_dplm_tpu/train/trainer.py` for those families with the
 (gradient accumulation over micro-batches, the fused AdamW, the optional
 gradient-norm metric, the hard-negative cache of the pair family),
 `make_eval_step`, `evaluate_retrieval` (the retrieval metrics of a split)
-and a `Trainer` with the epoch loop, validation and early stopping. With `contrastive.use_cache` every micro-batch's a->b direction
-reads the state's cache as extra negative columns (its unfilled tail
+and a `Trainer` with the epoch loop, validation, early stopping,
+checkpoints of each new best (train/checkpoint.py), the SIGTERM preemption
+save (train/preemption.py) and the profiler hook (utils/logging.py). With
+`contrastive.use_cache` every micro-batch's a->b direction reads the
+state's cache as extra negative columns (its unfilled tail
 masked), and after the optimizer the cache takes the step's normalized emb_b,
 every micro-batch's in order; tf_clip neither reads nor writes it. PyTorch
 runs eagerly, so there is no jit and no mesh; a step returns its metrics as
 device tensors and never waits on the device (the cache's pointer and fill
-level stay on the device too). Checkpointing and preemption are not ported
-yet.
+level stay on the device too).
 """
 
 from __future__ import annotations
@@ -313,24 +315,62 @@ class EarlyStopping:
 class Trainer:
     """Epoch loop: train steps over fresh batch iterators, the mean train
     loss (one host read per epoch), validation, early stopping and a log
-    callback (epoch, {train_loss, val_loss, epoch_seconds})."""
+    callback (epoch, {train_loss, val_loss, epoch_seconds}), as the JAX
+    package's Trainer. With a `checkpoint_dir` it saves the state at every
+    new best of the monitored loss (validation, else train), keeping
+    `train.keep_checkpoints` steps, written on a thread under
+    `train.async_checkpoint`; with `train.preemption_checkpoint` too, SIGTERM
+    saves the live state at the step and ends training. `logging.profile`
+    traces steps 11-15 (utils/logging.py::ProfilerHook)."""
 
     def __init__(self, cfg: Config, state: TrainState,
                  checkpoint_dir: Optional[str] = None,
                  log_fn: Optional[Callable[[int, Dict[str, float]], None]] = None):
-        if checkpoint_dir:
-            raise ValueError("checkpointing is not ported yet (ROADMAP queue 1 item 12)")
         self.cfg, self.state, self.log_fn = cfg, state, log_fn
         self.device = state.model.device
         self.train_step = make_train_step(cfg)
         self.eval_step = make_eval_step(cfg)
         self.history: Dict[str, list] = {"train_loss": [], "val_loss": []}
+        self._ckpt = None
+        if checkpoint_dir:
+            from clip_dplm_tpu_torch.train.checkpoint import CheckpointManager
+
+            self._ckpt = CheckpointManager(checkpoint_dir, keep=cfg.train.keep_checkpoints,
+                                           async_save=cfg.train.async_checkpoint)
+        self._profiler = None
+        if cfg.logging.profile:
+            from clip_dplm_tpu_torch.utils.logging import ProfilerHook
+
+            self._profiler = ProfilerHook(cfg.logging.profile_dir)
+        self._global_step = 0
 
     def train(self, train_batches: Callable[[], Iterable],
               val_batches: Optional[Callable[[], Iterable]] = None,
-              num_epochs: Optional[int] = None) -> Dict[str, list]:
+              num_epochs: Optional[int] = None, preemption_guard=None) -> Dict[str, list]:
+        """Run the epoch loop. With a checkpoint dir and
+        `train.preemption_checkpoint`, SIGTERM makes one save of the live
+        state at its step, appends the Trainer's step count to
+        history["preempted_at_step"] and returns; `preemption_guard` (a
+        PreemptionGuard of the caller's) replaces the installed one."""
         num_epochs = num_epochs or self.cfg.train.num_epochs
         stopper = EarlyStopping(self.cfg.train.early_stopping_patience)
+        guard, installed = preemption_guard, False
+        if guard is None and self._ckpt is not None and self.cfg.train.preemption_checkpoint:
+            from clip_dplm_tpu_torch.train.preemption import PreemptionGuard
+
+            guard, installed = PreemptionGuard().install(), True
+        try:
+            self._train_epochs(train_batches, val_batches, num_epochs, stopper, guard)
+        finally:
+            if installed:
+                guard.uninstall()
+            if self._profiler is not None:
+                self._profiler.close()
+            if self._ckpt is not None:
+                self._ckpt.wait()  # an async save is on disk before training returns
+        return self.history
+
+    def _train_epochs(self, train_batches, val_batches, num_epochs, stopper, guard) -> None:
         for epoch in range(num_epochs):
             t0 = time.time()
             losses = []
@@ -338,6 +378,14 @@ class Trainer:
             for batch in train_batches():
                 self.state, metrics = self.train_step(self.state, to_device(batch, self.device))
                 losses.append(metrics["loss"])
+                self._global_step += 1
+                if self._profiler is not None:
+                    self._profiler.step(self._global_step)
+                if guard is not None and guard.requested_globally():
+                    if self._ckpt is not None:
+                        self._ckpt.save(self.state, self.state.step)
+                    self.history.setdefault("preempted_at_step", []).append(self._global_step)
+                    return
             if not losses:
                 raise ValueError("the training set gave no batch (batch_size larger than "
                                  "the set?)")
@@ -356,7 +404,8 @@ class Trainer:
                     "train_loss": train_loss,
                     "val_loss": val_loss if val_loss is not None else float("nan"),
                     "epoch_seconds": time.time() - t0})
-            stopper.update(val_loss if val_loss is not None else train_loss)
+            is_best = stopper.update(val_loss if val_loss is not None else train_loss)
+            if self._ckpt is not None and is_best:
+                self._ckpt.save(self.state, self.state.step)
             if stopper.should_stop:
                 break
-        return self.history

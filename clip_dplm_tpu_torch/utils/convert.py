@@ -24,7 +24,8 @@ d) and its q/k/v biases as (H, dh), which become the port's (H*dh, d) and
 knows H); the ICNN's raw `pos_weights` and `final_pos_weights` are (in,
 out) in both and keep their shape. `load_cache` carries a train state's
 hard-negative cache (`cache`, `cache_ptr`, `cache_len`, as numpy) into the
-port's `TrainState`.
+port's `TrainState`, and `load_flax_train_state` a whole JAX train state
+(params, the fused AdamW's moments, the step, the cache).
 """
 
 from __future__ import annotations
@@ -157,4 +158,73 @@ def load_cache(state, cache, cache_ptr, cache_len):
     state.cache.copy_(torch.from_numpy(cache))
     state.cache_ptr.fill_(int(np.asarray(cache_ptr)))
     state.cache_len.fill_(int(np.asarray(cache_len)))
+    return state
+
+
+def _field(tree, name: str):
+    return tree[name] if isinstance(tree, Mapping) else getattr(tree, name)
+
+
+def _adamw_state(opt_state):
+    """The fused AdamW's (count, mu, nu, prev_norm) inside a JAX optimizer
+    state: the FusedAdamWState itself, the first element of the chain that
+    `freeze_subtrees` builds, or the inner state of its `optax.masked`."""
+    if all(hasattr(opt_state, f) for f in ("count", "mu", "nu", "prev_norm")):
+        return opt_state
+    if isinstance(opt_state, Mapping) and {"count", "mu", "nu", "prev_norm"} <= set(opt_state):
+        return opt_state
+    if hasattr(opt_state, "inner_state"):  # optax.masked's MaskedState
+        return _adamw_state(opt_state.inner_state)
+    if isinstance(opt_state, (tuple, list)) and opt_state:
+        return _adamw_state(opt_state[0])
+    raise ValueError(f"no fused AdamW state (count, mu, nu, prev_norm) in a "
+                     f"{type(opt_state).__name__}: the port carries only the fused update "
+                     "(train.optim.fused_update=true), alone or under freeze_subtrees")
+
+
+def _drop_masked(tree):
+    """A moment tree without the leaves `optax.masked` leaves out (its
+    `MaskedNode`, an empty tuple subclass), and without subtrees left empty."""
+    if isinstance(tree, Mapping):
+        kept = {k: _drop_masked(v) for k, v in tree.items()}
+        return {k: v for k, v in kept.items() if v is not None}
+    if isinstance(tree, tuple) and not tree:
+        return None
+    return tree
+
+
+def _moments(state, tree) -> Dict[str, torch.Tensor]:
+    module = state.model
+    sd = flax_to_state_dict(_drop_masked(tree), getattr(module.cfg, "num_layers", None))
+    names = set(state.opt_state.mu)
+    if set(sd) != names:
+        raise KeyError(f"the JAX moments do not match the port's: missing "
+                       f"{sorted(names - set(sd))}, extra {sorted(set(sd) - names)}")
+    return sd
+
+
+def load_flax_train_state(state, jax_state):
+    """Carry a JAX TrainState (its fields as arrays, or a dict of them as
+    `train/checkpoint.py::_arrays_only` gives) into the port's TrainState in
+    place, onto its device, and return it: the params (`load_flax_params`),
+    the fused AdamW's count, mu, nu (Dense kernels' moments transposed to
+    (out, in) as the kernels are; stored in the port's moment dtype) and
+    prev_norm, found in the plain fused state, in `freeze_subtrees`' chain
+    or under its `optax.masked` (LoRA: the frozen leaves have no moments on
+    either side), the step, and the hard-negative cache (`load_cache`) when
+    the state has one. The dropout key stays the port's: JAX's PRNG key
+    cannot be carried into the port's hash (a step's dropout differs)."""
+    load_flax_params(state.model, _field(jax_state, "params"))
+    adam = _adamw_state(_field(jax_state, "opt_state"))
+    opt = state.opt_state
+    with torch.no_grad():
+        for attr in ("mu", "nu"):
+            have = getattr(opt, attr)
+            for k, v in _moments(state, _field(adam, attr)).items():
+                have[k].copy_(v)
+        opt.prev_norm.fill_(float(np.asarray(_field(adam, "prev_norm"))))
+    opt.count = int(np.asarray(_field(adam, "count")))
+    state.step = int(np.asarray(_field(jax_state, "step")))
+    if state.cache is not None:
+        load_cache(state, *(_field(jax_state, k) for k in ("cache", "cache_ptr", "cache_len")))
     return state

@@ -53,15 +53,13 @@ _UNPORTED: Dict[str, Any] = {
     "icnn": {"input_dim": 512, "hessian_reg": 0.0001, "w2_weight": 1.0},
     "train": {
         "eval_every_steps": 100, "log_every_steps": 10, "checkpoint_every_steps": 1000,
-        "keep_checkpoints": 3, "async_checkpoint": True, "preemption_checkpoint": True,
         "preemption_poll_batches": 8, "steps_per_call": 1, "rng_impl": "threefry2x32",
         "optim": {"fused_update": True},
     },
     "precision": {"compute_dtype": "bfloat16", "param_dtype": "float32", "remat": False},
     "mesh": {"data_axis": "data", "model_axis": "model", "model_parallel": 1},
     "data": {"num_workers": 0, "max_seq_len": 1024},
-    "logging": {"log_dir": "runs", "use_wandb": False, "csv_metrics": True, "profile": False,
-                "profile_dir": "runs/profile"},
+    "logging": {"csv_metrics": True},
 }
 # fields that only lay the params out (stacked or unrolled): any value passes
 _LAYOUT_ONLY = {"esm.scan_layers", "dplm.scan_layers"}

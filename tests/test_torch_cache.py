@@ -189,10 +189,10 @@ def test_cache_exists_only_with_use_cache():
         load_cache(st, np.zeros((4, 128)), 0, 0)
 
 
-def test_train_cli_one_epoch_two_tower_optimized_preset(capsys):
+def test_train_cli_one_epoch_two_tower_optimized_preset(capsys, tmp_path):
     hist = train_cli.main(["--device", "cpu", "--epochs", "1",
                            *sum((["-o", o] for o in SMALL + PRESET), []),
-                           "-o", "train.batch_size=128"])
+                           "-o", "train.batch_size=128", "-o", f"logging.log_dir={tmp_path}"])
     assert len(hist["train_loss"]) == 1 and np.isfinite(hist["train_loss"][0])
     assert np.isfinite(hist["val_loss"][0])
     assert '"done": true' in capsys.readouterr().out

@@ -227,10 +227,11 @@ def test_init_dplm_from_esm_matches_jax(rng, tie):
         assert torch.equal(port.lm_head.kernel, port.embed_tokens.embedding)
 
 
-def test_train_cli_one_epoch_dplm(capsys):
+def test_train_cli_one_epoch_dplm(capsys, tmp_path):
     over = [a for o in SMALL[1:4] + ["train.batch_size=64", "train.optim.warmup_steps=2"]
             for a in ("-o", o)]
-    hist = train_cli.main(["--device", "cpu", "--epochs", "1", "-o", "experiment=dplm", *over])
+    hist = train_cli.main(["--device", "cpu", "--epochs", "1", "-o", "experiment=dplm", *over,
+                           "-o", f"logging.log_dir={tmp_path}"])
     lines = [json.loads(line) for line in capsys.readouterr().out.strip().splitlines()]
     assert lines[0]["experiment"] == "dplm" and lines[0]["device"] == "cpu"
     assert lines[1]["epoch"] == 0 and np.isfinite(lines[1]["train_loss"])

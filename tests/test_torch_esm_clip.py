@@ -347,9 +347,10 @@ def test_bench_batch_has_the_data_shapes():
     assert bench.esm_clip_step_flops(pcfg, 16) > 0
 
 
-def test_train_cli_one_epoch_esm_clip_with_retrieval(capsys):
+def test_train_cli_one_epoch_esm_clip_with_retrieval(capsys, tmp_path):
     hist = train_cli.main(["--device", "cpu", "--epochs", "1", "--retrieval",
-                           *sum((["-o", o] for o in SMALL), []), "-o", "train.batch_size=64"])
+                           *sum((["-o", o] for o in SMALL), []), "-o", "train.batch_size=64",
+                           "-o", f"logging.log_dir={tmp_path}"])
     assert len(hist["train_loss"]) == 1 and np.isfinite(hist["train_loss"][0])
     for when in ("retrieval_untrained", "retrieval"):
         m = hist[when]

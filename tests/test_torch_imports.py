@@ -1,9 +1,10 @@
 """The port imports no JAX: every module of clip_dplm_tpu_torch, and
 chip_smoke.py, imports in a fresh interpreter without pulling jax, flax,
-optax, yaml or the JAX package into sys.modules, and no import statement of
-theirs (at the top or inside a function) names jax, flax, optax or the JAX
-package (utils/pretrained.py reads a JAX-written block-YAML config through
-PyYAML where it is installed, inside the function that needs it)."""
+optax, orbax, yaml or the JAX package into sys.modules, and no import
+statement of theirs (at the top or inside a function) names jax, flax,
+optax, orbax or the JAX package (utils/pretrained.py reads a JAX-written
+block-YAML config through PyYAML where it is installed, inside the function
+that needs it)."""
 
 import glob
 import os
@@ -20,7 +21,7 @@ names = [m.name for m in pkgutil.walk_packages(pkg.__path__, pkg.__name__ + ".")
 for name in names:
     importlib.import_module(name)
 import chip_smoke
-leaked = sorted(m for m in ("jax", "flax", "optax", "yaml", "clip_dplm_tpu")
+leaked = sorted(m for m in ("jax", "flax", "optax", "orbax", "yaml", "clip_dplm_tpu")
                 if m in sys.modules)
 print(len(names), names, leaked)
 """
@@ -41,13 +42,15 @@ def test_port_imports_no_jax():
                 "utils.pretrained", "experiments.embed", "ops.segment", "models.gnn",
                 "models.tong_encoders", "ops.sinkhorn", "models.flows", "ops.integrate",
                 "models.triple_flow_model", "data.cells", "data.multimodal", "models.icnn",
-                "models.esm_projections", "data.gene_embeddings"):
+                "models.esm_projections", "data.gene_embeddings", "train.checkpoint",
+                "train.preemption", "utils.logging", "experiments.evaluate"):
         assert f"'clip_dplm_tpu_torch.{mod}'" in names, mod
     assert leaked.strip() == "[]", out.stdout
 
 
 def test_no_import_statement_names_jax():
-    banned = re.compile(r"^\s*(import|from)\s+(jax|flax|optax|clip_dplm_tpu)(\.|\s|$)", re.M)
+    banned = re.compile(r"^\s*(import|from)\s+(jax|flax|optax|orbax|clip_dplm_tpu)(\.|\s|$)",
+                        re.M)
     files = glob.glob(os.path.join(REPO, "clip_dplm_tpu_torch", "**", "*.py"), recursive=True)
     files.append(os.path.join(REPO, "chip_smoke.py"))
     assert len(files) >= 40

@@ -461,7 +461,7 @@ def test_train_cli_saves_adapters(tmp_path, capsys):
     over = ["experiment=dplm", "dplm.d_model=64", "dplm.num_layers=2", "dplm.num_heads=2",
             "dplm.lora_rank=2", "train.batch_size=64", "train.optim.warmup_steps=2"]
     train_cli.main(["--device", "cpu", "--epochs", "1", "--save-adapters", path,
-                    *[a for o in over for a in ("-o", o)]])
+                    *[a for o in over for a in ("-o", o)], "-o", f"logging.log_dir={tmp_path}"])
     lines = [json.loads(line) for line in capsys.readouterr().out.strip().splitlines()]
     assert {"adapters": path, "leaves": 2 * 2 * 2} in lines
     with np.load(path) as z:
@@ -471,4 +471,5 @@ def test_train_cli_saves_adapters(tmp_path, capsys):
     assert ada["layer_0"]["q_lora"]["a"].shape == (64, 2)
     with pytest.raises(SystemExit, match="no LoRA adapters"):
         train_cli.main(["--device", "cpu", "--epochs", "1", "--save-adapters", path,
-                        *[a for o in over[:-3] for a in ("-o", o)]])
+                        *[a for o in over[:-3] for a in ("-o", o)],
+                        "-o", f"logging.log_dir={tmp_path}"])

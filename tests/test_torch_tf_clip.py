@@ -248,9 +248,10 @@ def test_full_width_parameter_count():
     assert sum(p.numel() for p in model.parameters()) == 50_679_812
 
 
-def test_train_cli_one_epoch_tf_clip(capsys):
+def test_train_cli_one_epoch_tf_clip(capsys, tmp_path):
     hist = train_cli.main(["--device", "cpu", "--epochs", "1",
-                           *sum((["-o", o] for o in SMALL), []), "-o", "train.batch_size=128"])
+                           *sum((["-o", o] for o in SMALL), []), "-o", "train.batch_size=128",
+                           "-o", f"logging.log_dir={tmp_path}"])
     assert len(hist["train_loss"]) == 1 and np.isfinite(hist["train_loss"][0])
     assert np.isfinite(hist["val_loss"][0])
     out = capsys.readouterr().out

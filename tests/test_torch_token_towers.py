@@ -266,16 +266,18 @@ def test_registry_data_matches_jax():
                 np.testing.assert_array_equal(g[k], w[k])
 
 
-def test_train_cli_defaults_to_the_card(monkeypatch):
+def test_train_cli_defaults_to_the_card(monkeypatch, tmp_path):
     assert train_cli.parse_args([]).device == "cuda"
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     with pytest.raises(SystemExit, match="--device cpu"):
-        train_cli.main(["--epochs", "1", "-o", "experiment=rna_rbp"])
+        train_cli.main(["--epochs", "1", "-o", "experiment=rna_rbp",
+                        "-o", f"logging.log_dir={tmp_path}"])
 
 
-def test_train_cli_one_epoch_rna_rbp(capsys):
+def test_train_cli_one_epoch_rna_rbp(capsys, tmp_path):
     hist = train_cli.main(["--device", "cpu", "--epochs", "1",
-                           *sum((["-o", o] for o in SMALL), []), "-o", "train.batch_size=128"])
+                           *sum((["-o", o] for o in SMALL), []), "-o", "train.batch_size=128",
+                           "-o", f"logging.log_dir={tmp_path}"])
     assert len(hist["train_loss"]) == 1 and np.isfinite(hist["train_loss"][0])
     assert np.isfinite(hist["val_loss"][0])
     out = capsys.readouterr().out

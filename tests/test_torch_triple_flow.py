@@ -206,10 +206,11 @@ def test_eval_is_deterministic_given_the_state(batches):
     assert st.step == 0 and all(torch.equal(first[k], again[k]) for k in first)
 
 
-def test_train_cli_two_steps():
+def test_train_cli_two_steps(tmp_path):
     hist = train_cli.main(["--device", "cpu", "--epochs", "1",
                            *sum((["-o", o] for o in SMALL), []),
-                           "-o", "train.batch_size=400", "-o", "encoders.dropout=0.1"])
+                           "-o", "train.batch_size=400", "-o", "encoders.dropout=0.1",
+                           "-o", f"logging.log_dir={tmp_path}"])
     assert len(hist["train_loss"]) == 1 and np.isfinite(hist["train_loss"][0])
 
 

@@ -242,10 +242,10 @@ def test_config_rejects_unported_fields():
         build_model(pconfig.apply_overrides(pconfig.Config(), ["tower_a.architecture=conv"]))
 
 
-def test_train_cli_one_epoch(capsys):
+def test_train_cli_one_epoch(capsys, tmp_path):
     hist = train_cli.main(["--device", "cpu", "--epochs", "1",
                            *sum((["-o", o] for o in SMALL + FUSED), []),
-                           "-o", "train.batch_size=128"])
+                           "-o", "train.batch_size=128", "-o", f"logging.log_dir={tmp_path}"])
     assert len(hist["train_loss"]) == 1 and np.isfinite(hist["train_loss"][0])
     assert np.isfinite(hist["val_loss"][0])
     assert '"done": true' in capsys.readouterr().out

@@ -290,6 +290,25 @@ Phases, each fatal on failure (non-zero exit, no result line):
      checkpoint: its full_* equal `evaluate_retrieval` of the restored model,
      the fused-Dense forward launched. Every train CLI call of the smoke
      writes its log dir and checkpoints into a temporary directory.
+ 19. loss variants, probes, analysis and sweeps: (a) the tiny-S pair's f32
+     instances (true f32 on the FMA units) and the f32 GEMM of their
+     out-projection and dO against their plain f32 versions, each output
+     within 2e-5 of its largest entry, at the probe's B=64 S=8 D=128 H=4,
+     at B=4096 and ragged at S=33, beside f32 SDPA plus cuBLAS; (b) a
+     two-tower trained one epoch at the bench's widths, then the four
+     probes (200 steps) on its frozen validation embeddings (1024 wide, 8
+     classes): only the f32 tiny counters move, no bf16 one; train_probe
+     card vs CPU from the same init; (c) one step each of flatnce, siglip and
+     supcon at the bench's widths, B=512, card vs CPU as 7(a); the train CLI
+     3 epochs under siglip (the loss falls) and flatnce (its validation
+     InfoNCE falls); (d) the analyze CLI on 18(b)'s checkpoint: every key,
+     cache_stats included, retrieval equal to evaluate_retrieval, the same
+     k-means classes on the card and the CPU, the fused-Dense forward
+     launched; (e) the sweep CLI's architecture_search, one epoch at the
+     bench's widths: four finite rows, the bf16 tiny pair launched by the
+     transformer towers; (f) matplotlib and scikit-learn: visualize writes
+     its figures where both import, else exits naming what is missing; the
+     memory status of the card.
 Prints a JSON line of per-kernel results (each kernel's time at its main
 shape, its plain version's, the library call's where there is one, and the
 bound: the larger of the bytes it must move over 3.35 TB/s and its
@@ -428,9 +447,25 @@ SEPARATE_KERNELS = {
     "short_attention_sep_bwd_probs": ("clip_dplm_tpu_torch/csrc/short_attention.cu",
                                       "clip_dplm_tpu/ops/short_attention.py:443"),
 }
+# the tiny-S pair's f32 instances and the f32 GEMM of their out-projection
+# (y = o·Wo^T + bo) and dO = dy·Wo: the transformer probe's path
+TINY_F32_KERNELS = {
+    "tiny_attention_fwd_f32": ("clip_dplm_tpu_torch/csrc/tiny_attention_f32.cu",
+                               "clip_dplm_tpu/ops/short_attention.py:1272"),
+    "tiny_attention_bwd_f32": ("clip_dplm_tpu_torch/csrc/tiny_attention_f32.cu",
+                               "clip_dplm_tpu/ops/short_attention.py:1300"),
+    "out_proj_f32": ("clip_dplm_tpu_torch/csrc/tiny_attention_f32.cu",
+                     "clip_dplm_tpu/ops/short_attention.py:1272"),
+    "dout_f32": ("clip_dplm_tpu_torch/csrc/tiny_attention_f32.cu",
+                 "clip_dplm_tpu/ops/short_attention.py:1300"),
+}
+# 19(a)'s shapes: (B, S, D, H, masked): the transformer probe's, its batch
+# at 4096, a ragged S=33
+TINY_F32_SHAPES = ((64, 8, 128, 4, False), (4096, 8, 128, 4, False), (1000, 33, 128, 4, True))
+F32_TOL = dict(atol=2e-5, rtol=0.0)  # of each output's largest entry
 KERNELS = {**SERVE_KERNELS, **TRAIN_KERNELS, **FLAGSHIP_KERNELS, **TF_CLIP_KERNELS,
            **CACHE_KERNELS, **SAVED_RAW_KERNELS, **LSE_KERNELS, **DPLM_KERNELS,
-           **SEPARATE_KERNELS}
+           **SEPARATE_KERNELS, **TINY_F32_KERNELS}
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM HBM3 bandwidth
 PEAK_OPS = {"bf16": 989e12, "f32": 67e12}  # dense tensor-core bf16; f32 off the tensor cores
 
@@ -488,20 +523,21 @@ def bound(nbytes: float, ops, kind: str = "bf16"):
 
 
 def compare(torch, name, shape, kernel_fn, plain_fn, results, work=None, library_fn=None,
-            normalize=False, library_ms=None):
+            normalize=False, library_ms=None, tol=TOL):
     """Kernel vs plain on the same inputs: error and both device times
     (timed in turns plain, kernel, kernel, plain; the lower of each pair is
     kept), returned as (ms, plain_ms). A time covers all device work of the
     call, the wrapper's small set-up kernels included. With normalize, the
     error is relative to the plain output's largest entry (gradients). The
-    library call is timed from `library_fn`, or given as `library_ms`."""
+    library call is timed from `library_fn`, or given as `library_ms`. The
+    bound is `tol` (the bf16 one unless given)."""
     got, want = kernel_fn().float(), plain_fn().float()
     torch.cuda.synchronize()
     scale = max(want.abs().max().item(), 1e-30) if normalize else 1.0
     err = (got - want).abs().max().item() / scale
     check(bool(torch.isfinite(got).all()), f"{name} {shape}: non-finite output")
-    check(torch.allclose(got / scale, want / scale, **TOL),
-          f"{name} {shape}: max abs err {err} outside atol=rtol=2e-2")
+    check(torch.allclose(got / scale, want / scale, **tol),
+          f"{name} {shape}: max abs err {err} outside {tol}")
     times = timed_pair(torch, kernel_fn, plain_fn)
     if library_fn is not None:
         library_ms = library_time(torch, library_fn)
@@ -592,10 +628,11 @@ def cls_bwd_design(lib, what, S, D, H, fn):
     return want
 
 
-def check_outputs(torch, what, got, want, names, raw_first=True):
-    """Max abs error over outputs; the first is held to TOL as it is (unless
-    raw_first is false), the rest (gradients, several summed over the batch,
-    some of order 1/B) divided by their largest entry first."""
+def check_outputs(torch, what, got, want, names, raw_first=True, tol=TOL):
+    """Max abs error over outputs; the first is held to `tol` (the bf16
+    bound unless given) as it is (unless raw_first is false), the rest
+    (gradients, several summed over the batch, some of order 1/B) divided
+    by their largest entry first."""
     worst = 0.0
     for i, (name, a, b) in enumerate(zip(names, got, want)):
         a, b = a.float(), b.float()
@@ -603,8 +640,8 @@ def check_outputs(torch, what, got, want, names, raw_first=True):
         check(bool(torch.isfinite(a).all()), f"{what} {name}: non-finite")
         scale = 1.0 if i == 0 and raw_first else max(b.abs().max().item(), 1e-30)
         err = ((a - b).abs().max().item()) / scale
-        check(torch.allclose(a / scale, b / scale, **TOL),
-              f"{what} {name}: max abs err {err} outside atol=rtol=2e-2")
+        check(torch.allclose(a / scale, b / scale, **tol),
+              f"{what} {name}: max abs err {err} outside {tol}")
         worst = max(worst, err)
     return worst
 
@@ -3867,6 +3904,304 @@ def phase_evaluate(torch, build, run_dir):
     return moved
 
 
+# ---------------------------------------------------------------------------
+# phase 19: loss variants, probes, analysis, sweeps
+# ---------------------------------------------------------------------------
+
+
+def tiny_f32_work(entry, B, S, D, masked):
+    """(bytes, f32 operations) an f32 tiny-S call must move and do: forward,
+    qkv and the mask in, o out, s = q·k^T and p·V (2·S²·Dh a head each);
+    backward, qkv, o, dO and the mask in, dqkv out, s, dp, dQ, dK and dV."""
+    mask = B * S if masked else 0
+    pair = 2 * B * S * S * D
+    if entry == "fwd":
+        return B * S * 3 * D * 4 + mask + B * S * D * 4, {"f32": 2 * pair}
+    return 2 * B * S * 3 * D * 4 + 2 * B * S * D * 4 + mask, {"f32": 5 * pair}
+
+
+def phase_tiny_f32_kernels(torch, results, card):
+    """19(a): the f32 tiny-S pair and the f32 GEMM against their plain f32
+    versions (cuBLAS f32 for the products, TF32 off), each output within
+    2e-5 of its largest entry, beside f32 SDPA and cuBLAS; the autograd
+    Function's dqkv, dWo and dbo against autograd of the plain version."""
+    from clip_dplm_tpu_torch.ops import short_attention as sa
+    from clip_dplm_tpu_torch.ops import tiny_attention as ta
+
+    F = torch.nn.functional
+    dev = torch.device("cuda")
+    g = torch.Generator(device=dev).manual_seed(19)
+    rnd = lambda *s: torch.randn(*s, generator=g, device=dev)  # noqa: E731
+    for B, S, D, H, masked in TINY_F32_SHAPES:
+        main = B == 64  # the transformer probe's shape
+        qkv, dout, dy = rnd(B, S, 3 * D), rnd(B, S, D), rnd(B, S, D)
+        wo, bo = rnd(D, D) / D ** 0.5, 0.1 * rnd(D)
+        mask = None
+        if masked:
+            lens = torch.randint(S // 2, S + 1, (B,), generator=g, device=dev)
+            lens[1] = 0
+            mask = torch.arange(S, device=dev)[None, :] < lens[:, None]
+        o = ta.tiny_attention_reference(qkv, H, mask=mask)
+        q, k, v = (t.unflatten(-1, (H, -1)).transpose(1, 2) for t in qkv.split(D, dim=-1))
+        sdpa_mask = mask if masked else torch.ones(B, S, dtype=torch.bool, device=dev)
+        shape = f"B={B} S={S} D={D} H={H} f32" + (" ragged, sample 1 all masked" if masked
+                                                  else "")
+        with torch.no_grad():
+            fwd = compare(torch, "tiny_attention_fwd_f32", shape + " (library: f32 SDPA)",
+                          lambda: ta.tiny_attention(qkv, H, mask=mask),
+                          lambda: ta.tiny_attention_reference(qkv, H, mask=mask), results,
+                          work=tiny_f32_work("fwd", B, S, D, masked),
+                          library_fn=sdpa_fn(torch, q, k, v, sdpa_mask), normalize=True,
+                          tol=F32_TOL)
+        bwd = compare(torch, "tiny_attention_bwd_f32", shape + " (on the plain forward's o; "
+                      "library: f32 SDPA's backward)",
+                      lambda: ta.tiny_attention_bwd(dout, qkv, o, H, mask=mask),
+                      lambda: ta.tiny_attention_bwd_reference(dout, qkv, o, H, mask=mask),
+                      results, work=tiny_f32_work("bwd", B, S, D, masked),
+                      library_fn=sdpa_bwd_fn(torch, q, k, v, sdpa_mask,
+                                             dout.unflatten(-1, (H, -1)).transpose(1, 2)),
+                      normalize=True, tol=F32_TOL)
+        M = B * S
+        o2, dy2 = o.reshape(M, D), dy.reshape(M, D)
+        with torch.no_grad():
+            proj = compare(torch, "out_proj_f32", f"M={M} N=K={D} f32 (library: cuBLAS f32)",
+                           lambda: sa.out_projection(o2, wo, bo),
+                           lambda: sa.out_projection_reference(o2, wo, bo), results,
+                           work=(2 * M * D * 4 + D * D * 4 + D * 4, {"f32": 2 * M * D * D}),
+                           library_fn=lambda: F.linear(o2, wo, bo), normalize=True, tol=F32_TOL)
+            dO = compare(torch, "dout_f32", f"M={M} N=K={D} f32 (library: cuBLAS f32)",
+                         lambda: sa._dout(dy2, wo), lambda: dy2 @ wo, results,
+                         work=(2 * M * D * 4 + D * D * 4, {"f32": 2 * M * D * D}),
+                         library_fn=lambda: torch.mm(dy2, wo), normalize=True, tol=F32_TOL)
+        print(f"19(a) tiny-S f32 {shape}: forward + projection {fwd[0] + proj[0]:.4f} ms, "
+              f"backward + dO {bwd[0] + dO[0]:.4f} ms (kernels); plain {fwd[1] + proj[1]:.4f} "
+              f"/ {bwd[1] + dO[1]:.4f} ms; {card}")
+        # the autograd Function against autograd of the plain version: y,
+        # dqkv, dWo, dbo
+        runs = []
+        for fn in (ta.fused_tiny_attention_proj, ta.fused_tiny_attention_proj_reference):
+            leaves = [t.clone().requires_grad_(True) for t in (qkv, wo, bo)]
+            y = fn(*leaves, H, mask=mask)
+            y.backward(dy)
+            runs.append([y.detach()] + [t.grad for t in leaves])
+        names = ("y", "dqkv", "dWo", "dbo")
+        errs = [check_outputs(torch, f"19(a) fused_tiny_attention_proj {shape}", [a], [b],
+                              [name], raw_first=False, tol=F32_TOL)
+                for name, a, b in zip(names, *runs)]
+        print(f"19(a) fused_tiny_attention_proj {shape}: y, dqkv, dWo, dbo max err of the "
+              f"largest entry {', '.join(f'{e:.2e}' for e in errs)}")
+        if main:
+            with torch.no_grad():
+                o1, o_2 = (ta.tiny_attention(qkv, H, mask=mask) for _ in range(2))
+            g1, g2 = (ta.tiny_attention_bwd(dout, qkv, o, H, mask=mask) for _ in range(2))
+            check(torch.equal(o1, o_2) and torch.equal(g1, g2),
+                  f"19(a) tiny-S f32 {shape}: two launches differ")
+
+
+def _probe_data(torch, cfg, model):
+    """The two-tower's frozen validation embeddings cat([emb_a, emb_b]) with
+    their class labels (the registry's split of the synthetic pairs, which
+    its batches drop), the first 75 % for training."""
+    from clip_dplm_tpu_torch.data.synthetic import PairedEmbeddingDataset
+
+    ds = PairedEmbeddingDataset.synthetic(2048, cfg.tower_a.input_dim, cfg.tower_b.input_dim,
+                                          n_classes=8, seed=0)
+    _, val = ds.split(0.85, seed=0)
+    model.eval()
+    with torch.no_grad():
+        out = model({"a": torch.from_numpy(val.a).cuda(), "b": torch.from_numpy(val.b).cuda()},
+                    deterministic=True)
+    feats = torch.cat([out["emb_a"], out["emb_b"]], dim=1).float().cpu().numpy()
+    n = int(0.75 * len(feats))
+    return {"train_x": feats[:n], "train_y": val.labels[:n], "test_x": feats[n:],
+            "test_y": val.labels[n:]}
+
+
+PROBE_CARD_CPU_REL = 1e-3  # 19(b): 20 Adam steps on the card vs the CPU
+
+
+def phase_probes(torch, build, card):
+    """19(b): the probes on a trained two-tower's frozen embeddings."""
+    from clip_dplm_tpu_torch.config import Config, apply_overrides
+    from clip_dplm_tpu_torch.experiments import bench
+    from clip_dplm_tpu_torch.experiments.registry import build_data, build_model
+    from clip_dplm_tpu_torch.models import classifiers as pcls
+    from clip_dplm_tpu_torch.train.state import create_train_state
+    from clip_dplm_tpu_torch.train.trainer import Trainer
+
+    cfg = apply_overrides(Config(), bench.OVERRIDES + [
+        "train.batch_size=256", "train.optim.warmup_steps=5", "train.optim.learning_rate=1e-3"])
+    model = build_model(cfg, device="cuda")
+    train, val = build_data(cfg)
+    t0 = time.perf_counter()
+    hist = Trainer(cfg, create_train_state(model, cfg)).train(lambda: train(seed=0), val,
+                                                               num_epochs=1)
+    data = _probe_data(torch, cfg, model)
+    train_s = time.perf_counter() - t0
+    build.LAUNCHES.reset()
+    t0 = time.perf_counter()
+    grid = pcls.ablation_study({"two_tower": lambda: data}, num_classes=8, num_steps=200)
+    torch.cuda.synchronize()
+    probe_s = time.perf_counter() - t0
+    launches = {k: v for k, v in build.LAUNCHES.snapshot().items() if v}
+    print(f"19(b) two-tower at the bench's widths, one epoch (train_loss "
+          f"{hist['train_loss'][0]:.4f}, val_loss {hist['val_loss'][0]:.4f}, {train_s:.1f} s); "
+          f"probes on its validation embeddings {data['train_x'].shape} train / "
+          f"{data['test_x'].shape[0]} test, 8 classes, 200 steps: accuracy {grid['two_tower']} "
+          f"({probe_s:.1f} s); launches of ablation_study {launches}; {card}")
+    check(all(np.isfinite(list(grid["two_tower"].values()))), f"19(b) accuracies {grid}")
+    check(set(launches) == set(TINY_F32_KERNELS),
+          f"19(b) the probes launched {launches}: not the f32 tiny-S kernels alone")
+    # 200 train steps and one evaluation of two blocks: two launches a step
+    print(f"19(b) tiny-S f32 launches per transformer-probe step: "
+          f"{ {k: v / 201 for k, v in launches.items()} } (201 forwards, 200 backwards)")
+    probes = {}
+    for device in ("cuda", "cpu"):
+        probes[device] = pcls.train_probe(pcls.TransformerProbe(8, data["train_x"].shape[1]),
+                                          data["train_x"], data["train_y"], num_steps=20,
+                                          device=device)
+    a, b = (torch.cat([p.detach().float().cpu().flatten() for p in probes[d].parameters()])
+            for d in ("cuda", "cpu"))
+    rel = ((a - b).norm() / b.norm()).item()
+    with torch.no_grad():
+        la, lb = (probes[d](torch.from_numpy(data["test_x"]).to(d)).float().cpu()
+                  for d in ("cuda", "cpu"))
+    lrel = ((la - lb).abs().max() / lb.abs().max()).item()
+    print(f"19(b) train_probe(transformer) 20 steps card vs CPU from the same init: params rel "
+          f"L2 {rel:.3e}, test logits max err of the largest {lrel:.3e} (bound "
+          f"{PROBE_CARD_CPU_REL})")
+    check(rel <= PROBE_CARD_CPU_REL and lrel <= PROBE_CARD_CPU_REL,
+          f"19(b) train_probe card vs CPU: params {rel}, logits {lrel}")
+    return launches
+
+
+def phase_loss_variants(torch, build):
+    """19(c): one step of each variant card vs CPU, then the train CLI. The
+    batch is 512: the CPU's side of the step check is most of its time
+    (18.7-28.1 s a variant at B=1024 in a chip run of this phase)."""
+    from clip_dplm_tpu_torch.config import Config, apply_overrides
+    from clip_dplm_tpu_torch.experiments import bench
+
+    B = 512
+    cfg = apply_overrides(Config(), bench.OVERRIDES + [
+        f"train.batch_size={B}", "train.optim.schedule=constant",
+        "train.optim.learning_rate=1e-3"])
+    rng = np.random.default_rng(19)
+    batch = bench._two_tower_batch(cfg, B, rng)
+    batch["labels"] = rng.integers(0, 8, B).astype(np.int32)
+    for kind in ("flatnce", "siglip", "supcon"):
+        step_card_vs_cpu(torch, f"19(c) {kind} train step B={B} (bench widths, labels in the "
+                                "batch)", apply_overrides(cfg, [f"contrastive.loss_kind={kind}"]),
+                         batch)
+    # FlatNCE's loss is 1 by construction; its eval step's loss is InfoNCE
+    for kind, key in (("siglip", "train_loss"), ("flatnce", "val_loss")):
+        overrides = bench.OVERRIDES + [f"contrastive.loss_kind={kind}", "train.batch_size=256",
+                                       "train.optim.warmup_steps=5",
+                                       "train.optim.learning_rate=1e-3"]
+        t0 = time.perf_counter()
+        hist = train_cli_run(["--epochs", "3", *[a for o in overrides for a in ("-o", o)]])
+        vals = hist[key]
+        print(f"19(c) train CLI loss_kind={kind} (bench widths, B=256, 3 epochs): train_loss "
+              f"{hist['train_loss']}, val_loss {hist['val_loss']}; "
+              f"{time.perf_counter() - t0:.1f} s")
+        check(len(vals) == 3 and all(np.isfinite(vals)) and vals[-1] < vals[0],
+              f"19(c) {kind}: {key} did not fall: {vals}")
+
+
+ANALYSIS_KEYS = ["retrieval", "cache_stats", "distributions", "failure_cases", "marker_space",
+                 "class_confusion", "embedding_collapse"]
+
+
+def phase_analyze(torch, build, run_dir):
+    """19(d): the analyze CLI on 18(b)'s checkpoint, on the card and on the
+    CPU."""
+    from clip_dplm_tpu_torch.experiments import analyze as analyze_cli
+    from clip_dplm_tpu_torch.experiments.registry import build_data, build_model
+    from clip_dplm_tpu_torch.train.checkpoint import CheckpointManager
+    from clip_dplm_tpu_torch.train.state import create_train_state
+    from clip_dplm_tpu_torch.train.trainer import evaluate_retrieval
+    from clip_dplm_tpu_torch.utils.pretrained import read_config
+
+    config, ckpt = os.path.join(run_dir, "config.yaml"), os.path.join(run_dir, "ckpt")
+    before = build.LAUNCHES.snapshot()
+    t0 = time.perf_counter()
+    report = analyze_cli.main(["--config", config, "--checkpoint", ckpt,
+                               "--out", os.path.join(run_dir, "analysis.json")])
+    torch.cuda.synchronize()
+    card_s = time.perf_counter() - t0
+    moved = {k: v - before[k] for k, v in build.LAUNCHES.snapshot().items() if v != before[k]}
+    check(list(report) == ANALYSIS_KEYS, f"19(d) analyze report keys {list(report)}")
+    check(moved.get("fused_dense_fwd_rows", 0) > 0, f"19(d) analyze launched {moved}")
+    cfg = read_config(config)
+    model = build_model(cfg, device="cuda")
+    CheckpointManager(ckpt).restore(create_train_state(model, cfg, init=False))
+    ref = {k: float(v) for k, v in evaluate_retrieval(model, build_data(cfg)[1]()).items()}
+    check(report["retrieval"] == ref, f"19(d) retrieval {report['retrieval']} against "
+                                      f"evaluate_retrieval {ref}")
+    cpu = analyze_cli.main(["--config", config, "--checkpoint", ckpt, "--device", "cpu",
+                            "--out", os.path.join(run_dir, "analysis_cpu.json")])
+    counts = [np.asarray(r["class_confusion"]["matrix"]).sum(axis=1).tolist()
+              for r in (report, cpu)]
+    check(counts[0] == counts[1], f"19(d) k-means classes card {counts[0]} cpu {counts[1]}")
+    print(f"19(d) analyze CLI on step {CheckpointManager(ckpt).latest_step()} ({card_s:.1f} s): "
+          f"keys {list(report)}; R@1 {report['retrieval']['R@1']:.4f} equal to "
+          f"evaluate_retrieval; cache_stats {report['cache_stats']}; k-means class sizes "
+          f"{counts[0]} on the card and the CPU; launches {moved}")
+
+
+def phase_sweep(torch, build):
+    """19(e): the architecture sweep at the bench's widths, one epoch."""
+    from clip_dplm_tpu_torch.experiments import bench
+    from clip_dplm_tpu_torch.experiments import sweep as sweep_cli
+
+    before = build.LAUNCHES.snapshot()
+    t0 = time.perf_counter()
+    with tempfile.TemporaryDirectory(prefix="smoke_sweep_") as d:
+        over = bench.OVERRIDES + ["train.batch_size=256", f"logging.log_dir={d}"]
+        rows = sweep_cli.main(["--sweep", "architecture_search", "--epochs", "1",
+                               *[a for o in over for a in ("-o", o)]])
+        check(os.path.exists(os.path.join(d, "sweep_architecture_search.csv")),
+              "19(e) no sweep CSV")
+    torch.cuda.synchronize()
+    moved = {k: v - before[k] for k, v in build.LAUNCHES.snapshot().items() if v != before[k]}
+    print(f"19(e) sweep architecture_search (bench widths, B=256, 1 epoch, "
+          f"{time.perf_counter() - t0:.1f} s): {rows}; launches {moved}")
+    check(list(rows) == ["arch_mlp_3", "arch_transformer_3", "arch_transformer_6",
+                         "arch_resnet_3"] and all(np.isfinite(v) for r in rows.values()
+                                                  for v in r.values()),
+          f"19(e) sweep rows {rows}")
+    for name in ("tiny_attention_fwd", "tiny_attention_bwd"):
+        check(moved.get(name, 0) > 0, f"19(e) the transformer towers did not launch {name}")
+
+
+def phase_machine(torch, run_dir):
+    """19(f): the plotting packages, the visualize CLI, the memory status."""
+    from clip_dplm_tpu_torch.experiments import visualize as visualize_cli
+    from clip_dplm_tpu_torch.utils import system, visualization
+
+    gone = visualization.missing("matplotlib", "sklearn")
+    print(f"19(f) matplotlib {'missing' if 'matplotlib' in gone else 'imports'}, scikit-learn "
+          f"{'missing' if 'scikit-learn' in gone else 'imports'}")
+    argv = ["--config", os.path.join(run_dir, "config.yaml"), "--checkpoint",
+            os.path.join(run_dir, "ckpt"), "--out-dir", os.path.join(run_dir, "figs")]
+    if not gone:
+        figures = visualize_cli.main(argv)
+        check([os.path.basename(f) for f in figures] == ["embeddings.png", "similarity.png",
+                                                          "training.png"]
+              and all(os.path.getsize(f) > 0 for f in figures), f"19(f) figures {figures}")
+        print(f"19(f) visualize wrote {figures}")
+    else:
+        said = None
+        try:
+            visualize_cli.main(argv)
+        except SystemExit as e:
+            said = str(e)
+        check(said is not None and all(p in said for p in gone),
+              f"19(f) visualize without {gone}: {said!r}")
+        print(f"19(f) visualize without {gone} exits: {said!r}")
+    print(f"19(f) get_memory_status(): {json.dumps(system.get_memory_status())}")
+
+
 def kernel_registers(log: str, kernel: str):
     """(instance, registers, spill line) of each instance of `kernel` in
     ptxas's report: its template arguments, as <a, b, ...>."""
@@ -3916,7 +4251,9 @@ def main() -> int:
                           "from_raw_grad_kernel"),
                          ("InfoNCE lse walk <dp / 64, cols, save, mask>", "lse_walk_kernel"),
                          ("tiny-S forward <S / 16>", "tiny_attn_fwd_kernel"),
-                         ("tiny-S backward <S / 16>", "tiny_attn_bwd_kernel")):
+                         ("tiny-S backward <S / 16>", "tiny_attn_bwd_kernel"),
+                         ("tiny-S f32 <backward>", "tiny_attn_f32_kernel"),
+                         ("f32 GEMM", "f32_gemm_kernel")):
         for args, regs, spills in kernel_registers(_build.LIBRARY.build_log, kernel):
             print(f"{what} {kernel}{args}: {regs} registers, {spills}")
 
@@ -3987,8 +4324,14 @@ def main() -> int:
         resume_launches = run("18", phase_resume, torch, _build, card)
         run("18", phase_preemption, torch, run_dir)
         eval_launches = run("18", phase_evaluate, torch, _build, run_dir)
-    print(f"18 launches in this process (resumed steps, evaluate): {resume_launches}, "
-          f"{eval_launches}")
+        print(f"18 launches in this process (resumed steps, evaluate): {resume_launches}, "
+              f"{eval_launches}")
+        run("19", phase_analyze, torch, _build, run_dir)
+        run("19", phase_machine, torch, run_dir)
+    run("19", phase_tiny_f32_kernels, torch, results, card)
+    launches.update(run("19", phase_probes, torch, _build, card))
+    run("19", phase_loss_variants, torch, _build)
+    run("19", phase_sweep, torch, _build)
     print("command time by phase (s): " + ", ".join(f"{k} {v:.1f}" for k, v in times.items()))
 
     keys = ("max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by", "library_ms")

@@ -45,7 +45,7 @@ import dataclasses
 import json
 import typing
 from dataclasses import dataclass, field
-from typing import Optional, Sequence, Tuple
+from typing import List, Optional, Sequence, Tuple
 
 
 @dataclass(frozen=True)
@@ -174,7 +174,9 @@ class ProjectionConfig:
 class ContrastiveConfig:
     """Symmetric InfoNCE with a learned (clamped) logit scale."""
 
-    loss_kind: str = "infonce"  # the only kind the port has
+    # infonce | flatnce | siglip | supcon (needs batch["labels"]); any other
+    # value trains infonce, as in the JAX package
+    loss_kind: str = "infonce"
     logit_scale_init: float = 2.6592  # == log(1/0.07)
     logit_scale_max: float = 100.0
     learned_temperature: bool = True
@@ -431,3 +433,38 @@ def apply_overrides(cfg, overrides: Sequence[str]):
             raise ValueError(f"override {item!r} is not of the form key=value")
         cfg = replace_path(cfg, key.strip(), value.strip())
     return cfg
+
+
+def create_experiment_configs(base: Config, sweep: str) -> List[Tuple[str, Config]]:
+    """(name, config) of each variant of a named sweep, as the JAX package
+    spawns them: embedding_sweep (projection.dim 32-512),
+    architecture_search (both towers' architecture and depth: mlp 3,
+    transformer 3, transformer 6, resnet 3), training_sweep (batch 32-256,
+    then learning rate 1e-4, 3e-4, 1e-3) and temperature_sweep (a fixed
+    temperature of 0.05, 0.07, 0.1, 0.2). An unknown sweep raises."""
+    def put(cfg, dotted, value):
+        return replace_path(cfg, dotted, str(value))
+
+    out: List[Tuple[str, Config]] = []
+    if sweep == "embedding_sweep":
+        for dim in (32, 64, 128, 256, 512):
+            out.append((f"proj_dim_{dim}", put(base, "projection.dim", dim)))
+    elif sweep == "architecture_search":
+        for arch, layers in (("mlp", 3), ("transformer", 3), ("transformer", 6), ("resnet", 3)):
+            cfg = base
+            for tower in ("tower_a", "tower_b"):
+                cfg = put(cfg, f"{tower}.architecture", arch)
+                cfg = put(cfg, f"{tower}.num_hidden_layers", layers)
+            out.append((f"arch_{arch}_{layers}", cfg))
+    elif sweep == "training_sweep":
+        for bs in (32, 64, 128, 256):
+            out.append((f"batch_{bs}", put(base, "train.batch_size", bs)))
+        for lr in (1e-4, 3e-4, 1e-3):
+            out.append((f"lr_{lr}", put(base, "train.optim.learning_rate", lr)))
+    elif sweep == "temperature_sweep":
+        for t in (0.05, 0.07, 0.1, 0.2):
+            cfg = put(base, "contrastive.temperature", t)
+            out.append((f"temp_{t}", put(cfg, "contrastive.learned_temperature", False)))
+    else:
+        raise ValueError(f"unknown sweep {sweep!r}")
+    return out

@@ -96,6 +96,11 @@ _SIGNATURES = {
     "tiny_attention_fwd": [_P, _P, _P, _I, _I, _I, _I, _F, _P],
     # qkv, mask, o, dout, dqkv, B, S, H, Dh, scale, stream
     "tiny_attention_bwd": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _F, _P],
+    # the f32 instances (csrc/tiny_attention_f32.cu), arguments as above
+    "tiny_attention_fwd_f32": [_P, _P, _P, _I, _I, _I, _I, _F, _P],
+    "tiny_attention_bwd_f32": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _F, _P],
+    # A, B, bias, C, M, N, K, b_trans, stream (f32)
+    "f32_gemm": [_P, _P, _P, _P, _I, _I, _I, _I, _P],
     # A, B, bias, C, M, Nc, Kr, b_row, stream
     "fused_dense_gemm": [_P, _P, _P, _P, _I, _I, _I, _I, _P],
     # s_buf, y, mean, rstd, gamma, beta, skip, ls, B, N, ln_act, act,
@@ -174,7 +179,8 @@ LAUNCHES = LaunchCounter(
      "sym_infonce_lse_save", "sym_infonce_grad_raw", "sym_infonce_grad_rawT",
      "sym_infonce_grad_merged", "short_attention_save", "short_attention_bwd_probs",
      "short_attention_sep", "short_attention_sep_save", "short_attention_sep_bwd",
-     "short_attention_sep_bwd_probs", "lse_combine"])
+     "short_attention_sep_bwd_probs", "lse_combine", "tiny_attention_fwd_f32",
+     "tiny_attention_bwd_f32", "out_proj_f32", "dout_f32"])
 
 
 class _Library:

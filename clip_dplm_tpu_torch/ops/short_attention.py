@@ -646,9 +646,15 @@ def out_projection(o: torch.Tensor, wo: torch.Tensor,
                    bo: torch.Tensor) -> torch.Tensor:
     """y = o @ wo^T + bo over the last dim; `wo` is (out, in) as in the
     port's Dense. CPU tensors take the plain version; CUDA tensors take the
-    GEMM kernel (bf16, D a multiple of 8, no gradient recorded) or raise."""
+    GEMM kernel (bf16, D a multiple of 8; f32, the tiny-S pair's f32
+    instance, through `f32_gemm`; no gradient recorded) or raise."""
     if o.device.type == "cpu":
         return out_projection_reference(o, wo, bo)
+    if o.device.type == "cuda" and o.dtype == torch.float32:
+        require_no_grad("out_projection", _NO_GRAD_WHY, o, wo, bo)
+        _check_proj(o, wo, bo)
+        D = o.shape[-1]
+        return f32_gemm("out_proj_f32", o.reshape(-1, D), wo, bo, b_trans=True).reshape(o.shape)
     _require_cuda(o)
     require_no_grad("out_projection", _NO_GRAD_WHY, o, wo, bo)
     _check_proj(o, wo, bo)
@@ -668,6 +674,30 @@ def out_projection(o: torch.Tensor, wo: torch.Tensor,
     return y
 
 
+def f32_gemm(counter: str, a: torch.Tensor, b: torch.Tensor, bias: Optional[torch.Tensor],
+             b_trans: bool) -> torch.Tensor:
+    """a (M, K) @ op(b) [+ bias] in f32 on the FMA units (csrc/
+    tiny_attention_f32.cu::f32_gemm_kernel, a sequential sum over k, the
+    bias after it): op(b) = b^T for a (N, K) b (b_trans), else b (K, N).
+    CUDA f32 tensors only; `counter` names the launch (`out_proj_f32`,
+    `dout_f32`)."""
+    if a.device.type != "cuda" or a.dtype != torch.float32:
+        raise ValueError(f"f32_gemm takes f32 CUDA tensors, got {a.dtype} on {a.device}")
+    M, K = a.shape
+    N = b.shape[0] if b_trans else b.shape[1]
+    if (b.shape[1] if b_trans else b.shape[0]) != K:
+        raise ValueError(f"f32_gemm: a is {tuple(a.shape)}, b {tuple(b.shape)}")
+    a = a.contiguous()
+    b = b.to(device=a.device, dtype=torch.float32).contiguous()
+    if bias is not None:
+        bias = bias.to(device=a.device, dtype=torch.float32).contiguous()
+    c = torch.empty((M, N), dtype=torch.float32, device=a.device)
+    _build.launch("f32_gemm", a.data_ptr(), b.data_ptr(), _ptr(bias), c.data_ptr(), M, N, K,
+                  int(b_trans), _build.stream_of(a))
+    _build.LAUNCHES.add(counter)
+    return c
+
+
 # ---------------------------------------------------------------------------
 # the fused entry point the model calls, with its backward
 # ---------------------------------------------------------------------------
@@ -685,9 +715,12 @@ def fused_short_attention_qkv_proj_reference(
 
 def _dout(dy: torch.Tensor, wo: torch.Tensor) -> torch.Tensor:
     """dO = dy @ wo in dy's dtype with f32 accumulation (wo is (out, in)):
-    the shared GEMM on the card, plain on the CPU."""
+    the shared GEMM on the card (f32 dy: `f32_gemm`), plain on the CPU."""
     if dy.device.type == "cpu":
         return (dy.float() @ wo.float()).to(dy.dtype)
+    if dy.dtype == torch.float32:
+        return f32_gemm("dout_f32", dy.reshape(-1, wo.shape[0]), wo, None,
+                        b_trans=False).reshape(*dy.shape[:-1], wo.shape[1])
     from clip_dplm_tpu_torch.ops.fused_dense import _gemm
 
     D = wo.shape[1]
@@ -697,8 +730,9 @@ def _dout(dy: torch.Tensor, wo: torch.Tensor) -> torch.Tensor:
 
 def _mm_f32(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
     """a @ b with an f32 result: bf16 operands on the tensor cores on the
-    card, f32 on the CPU."""
-    if a.device.type == "cpu":
+    card, f32 on the CPU and for f32 operands (no TF32: the package turns
+    it off)."""
+    if a.device.type == "cpu" or a.dtype == torch.float32:
         return a.float() @ b.float()
     return torch.mm(a, b, out_dtype=torch.float32)
 

@@ -9,7 +9,11 @@ forward kernel of `csrc/tiny_attention.cu`), `out_projection` (o @ Wo^T +
 bo, the package's GEMM) and, backward, `tiny_attention_bwd` (dqkv from dO =
 dy·Wo through the same GEMM, the saved o, qkv and the mask). dWo = dy^T·o and
 dbo = Σ dy are plain f32-output matmuls, as the JAX package leaves them to
-XLA.
+XLA. bf16 qkv takes the tensor-core kernels; f32 qkv (the transformer probe
+of models/classifiers.py) takes their f32 instances in
+`csrc/tiny_attention_f32.cu`, which compute in f32 on the FMA units, with
+the projection and dO through its f32 GEMM (`short_attention.f32_gemm`), as
+the TPU kernel computes in qkv's dtype, its out-projection included.
 
 The plain versions (`*_reference`) keep the TPU kernel's rounding points,
 which differ from `attention_reference`'s: l sums the f32 p, p is rounded to
@@ -40,7 +44,6 @@ from clip_dplm_tpu_torch.ops.short_attention import (
     _dout,
     _proj_param_grads,
     _ptr,
-    _require_cuda,
     _scale,
     out_projection,
     out_projection_reference,
@@ -99,9 +102,20 @@ def tiny_attention_bwd_reference(
     return torch.cat([merge_heads(t) for t in (dq, dk, dv)], dim=-1).to(dt)
 
 
+KERNEL_DTYPES = (torch.bfloat16, torch.float32)
+
+
+def _entry(name: str, dtype: torch.dtype) -> str:
+    """The C entry (and launch counter) of `name` for qkv's dtype."""
+    return name if dtype == torch.bfloat16 else f"{name}_f32"
+
+
 def _kernel_inputs(qkv, num_heads, mask):
     """The tiny kernels' checks; the mask on the device or None."""
-    _require_cuda(qkv)
+    if qkv.device.type != "cuda":
+        raise ValueError(f"no kernel for device {qkv.device}")
+    if qkv.dtype not in KERNEL_DTYPES:
+        raise ValueError(f"the tiny-S kernels take bf16 or f32, got {qkv.dtype}")
     B, S, D, Dh = _check_qkv(qkv, num_heads, None)
     if not qkv.is_contiguous():
         raise ValueError("qkv must be contiguous")
@@ -118,18 +132,19 @@ def tiny_attention(
     scale: Optional[float] = None,
 ) -> torch.Tensor:
     """Multi-head self-attention from packed (B, S, 3D) qkv, (B, S, D) out.
-    CPU tensors take the plain version; CUDA tensors take the kernel (bf16,
-    S <= 64, Dh a multiple of 8, no gradient recorded) or raise."""
+    CPU tensors take the plain version; CUDA tensors take the kernel (bf16 or
+    f32, S <= 64, Dh a multiple of 8, no gradient recorded) or raise."""
     if qkv.device.type == "cpu":
         return tiny_attention_reference(qkv, num_heads, mask=mask, scale=scale)
     require_no_grad("tiny_attention", "fused_tiny_attention_proj is the entry point with a "
                     "backward", qkv)
     mask = _kernel_inputs(qkv, num_heads, mask)
     B, S, D, Dh = _check_qkv(qkv, num_heads, None)
-    o = torch.empty((B, S, D), dtype=torch.bfloat16, device=qkv.device)
-    _build.launch("tiny_attention_fwd", qkv.data_ptr(), _ptr(mask), o.data_ptr(), B, S,
+    o = torch.empty((B, S, D), dtype=qkv.dtype, device=qkv.device)
+    entry = _entry("tiny_attention_fwd", qkv.dtype)
+    _build.launch(entry, qkv.data_ptr(), _ptr(mask), o.data_ptr(), B, S,
                   num_heads, Dh, _scale(scale, Dh), _build.stream_of(qkv))
-    _build.LAUNCHES.add("tiny_attention_fwd")
+    _build.LAUNCHES.add(entry)
     return o
 
 
@@ -148,14 +163,15 @@ def tiny_attention_bwd(
     mask = _kernel_inputs(qkv, num_heads, mask)
     B, S, D, Dh = _check_qkv(qkv, num_heads, None)
     for name, t in (("dout", dout), ("o", o)):
-        if tuple(t.shape) != (B, S, D) or t.dtype != torch.bfloat16 or t.device != qkv.device:
-            raise ValueError(f"{name} must be ({B}, {S}, {D}) bf16 on {qkv.device}")
+        if tuple(t.shape) != (B, S, D) or t.dtype != qkv.dtype or t.device != qkv.device:
+            raise ValueError(f"{name} must be ({B}, {S}, {D}) {qkv.dtype} on {qkv.device}")
     dout, o = dout.contiguous(), o.contiguous()
     dqkv = torch.empty_like(qkv)
-    _build.launch("tiny_attention_bwd", qkv.data_ptr(), _ptr(mask), o.data_ptr(),
+    entry = _entry("tiny_attention_bwd", qkv.dtype)
+    _build.launch(entry, qkv.data_ptr(), _ptr(mask), o.data_ptr(),
                   dout.data_ptr(), dqkv.data_ptr(), B, S, num_heads, Dh, _scale(scale, Dh),
                   _build.stream_of(qkv))
-    _build.LAUNCHES.add("tiny_attention_bwd")
+    _build.LAUNCHES.add(entry)
     return dqkv
 
 
@@ -195,8 +211,8 @@ def fused_tiny_attention_proj(
     """y = attention(qkv) @ wo^T + bo, (B, S, D) out, for 2 <= S < 64 and Dh
     a multiple of 8; `wo` is (out, in). Differentiable in qkv, wo and bo: the
     kernels on CUDA tensors (forward: attention, then the projection GEMM;
-    backward: the dO GEMM, then the attention backward), the plain versions
-    on CPU tensors."""
+    backward: the dO GEMM, then the attention backward), bf16 or f32 by
+    qkv's dtype, the plain versions on CPU tensors."""
     _, _, D, _ = _check_qkv(qkv, num_heads, None)
     _check_proj(qkv[..., :D], wo, bo)
     return _TinyAttnProj.apply(qkv, wo, bo, mask, num_heads, scale)

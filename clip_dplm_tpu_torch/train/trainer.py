@@ -7,8 +7,8 @@ pert_embed, protein_embed: the sum of the three pairs' losses), triple_flow
 and the OT-CFM flows, whose draws take the step's seeds) and DPLM (the
 absorbing-state diffusion loss over batch["tokens"] and batch["mask"]).
 
-Counterpart of `clip_dplm_tpu/train/trainer.py` for those families with the
-`infonce` loss: `make_loss_fn` (the per-family loss), `make_train_step`
+Counterpart of `clip_dplm_tpu/train/trainer.py` for those families:
+`make_loss_fn` (the per-family loss), `make_train_step`
 (gradient accumulation over micro-batches, the fused AdamW, the optional
 gradient-norm metric, the hard-negative cache of the pair family),
 `make_eval_step`, `evaluate_retrieval` (the retrieval metrics of a split)
@@ -34,7 +34,7 @@ import torch
 
 from clip_dplm_tpu_torch.config import Config
 from clip_dplm_tpu_torch.models.dplm import diffusion_loss
-from clip_dplm_tpu_torch.ops import infonce
+from clip_dplm_tpu_torch.ops import infonce, loss_variants
 from clip_dplm_tpu_torch.ops.fused_dense import DropoutSeeds
 from clip_dplm_tpu_torch.ops.fused_infonce import fused_clip_loss, fused_multiway_clip_loss
 from clip_dplm_tpu_torch.train.state import TrainState, global_norm
@@ -48,12 +48,6 @@ def to_device(batch: Dict, device) -> Dict[str, torch.Tensor]:
             for k, v in batch.items()}
 
 
-def _check_loss(cfg: Config) -> None:
-    if cfg.contrastive.loss_kind != "infonce":
-        raise ValueError(f"loss_kind {cfg.contrastive.loss_kind!r} is not ported; "
-                         "the port trains with infonce only")
-
-
 def _logit_scale(cfg: Config, out) -> torch.Tensor:
     cc = cfg.contrastive
     if cc.learned_temperature:
@@ -63,11 +57,14 @@ def _logit_scale(cfg: Config, out) -> torch.Tensor:
 
 def _pair_loss_fn(cfg: Config):
     """(model, batch, seeds, cache, cache_len) -> (loss, (metrics, emb_b))
-    of the two-tower families: the fused loss (bf16 similarity operands) or
-    the plain one, with the hard-negative cache's columns when
-    contrastive.use_cache is set. emb_b is the batch's L2-normalized b
-    embedding, detached, for the cache (None without one)."""
-    _check_loss(cfg)
+    of the two-tower families, by contrastive.loss_kind: "flatnce",
+    "siglip" (ops/loss_variants.py, no logit bias), "supcon" (the
+    cross-modal supervised loss over batch["labels"]), and any other value
+    InfoNCE, as the JAX package's chain of ifs trains it: the fused loss
+    (bf16 similarity operands) or the plain one, with the hard-negative
+    cache's columns when contrastive.use_cache is set. The variants read no
+    cache. emb_b is the batch's L2-normalized b embedding, detached, for the
+    cache (None without one), whatever the kind."""
     cc = cfg.contrastive
 
     def loss_fn(model, batch, seeds: DropoutSeeds, cache=None, cache_len=None):
@@ -75,7 +72,18 @@ def _pair_loss_fn(cfg: Config):
             cache = cache_len = None
         out = model(batch, deterministic=False, seeds=seeds)
         ls = _logit_scale(cfg, out)
-        if cc.use_fused_kernel:
+        if cc.loss_kind == "supcon":
+            if "labels" not in batch:
+                raise ValueError("supcon loss requires `labels` in the batch")
+            loss, metrics = loss_variants.supcon_pair_loss(
+                out["emb_a"], out["emb_b"], batch["labels"], ls, max_scale=cc.logit_scale_max)
+        elif cc.loss_kind == "flatnce":
+            loss, metrics = loss_variants.flatnce_loss(out["emb_a"], out["emb_b"], ls,
+                                                       max_scale=cc.logit_scale_max)
+        elif cc.loss_kind == "siglip":
+            loss, metrics = loss_variants.siglip_loss(out["emb_a"], out["emb_b"], ls,
+                                                      max_scale=cc.logit_scale_max)
+        elif cc.use_fused_kernel:
             loss, metrics = fused_clip_loss(
                 out["emb_a"], out["emb_b"], ls, max_scale=cc.logit_scale_max,
                 dot_dtype=torch.bfloat16, label_smoothing=cc.label_smoothing,
@@ -100,9 +108,9 @@ def _embeddings(out) -> Dict[str, torch.Tensor]:
 def _multiway_loss_fn(cfg: Config):
     """(model, batch, seeds, cache, cache_len) -> (loss, (metrics, None)) of
     tf_clip: the sum of the pairwise symmetric losses over cell / pert /
-    protein, fused (bf16 similarity operands) or plain. The cache is not
+    protein, fused (bf16 similarity operands) or plain, whatever
+    contrastive.loss_kind says (as in the JAX package). The cache is not
     read, and nothing is given back for it."""
-    _check_loss(cfg)
     cc = cfg.contrastive
 
     def loss_fn(model, batch, seeds: DropoutSeeds, cache=None, cache_len=None):
@@ -232,14 +240,14 @@ def make_train_step(cfg: Config) -> Callable[[TrainState, Dict], Tuple[TrainStat
 
 
 def make_eval_step(cfg: Config) -> Callable[[TrainState, Dict], Dict]:
-    """Deterministic forward and the loss (no label smoothing); tf_clip takes
-    the plain multiway loss, as the reference's eval does. The fused loss
+    """Deterministic forward and the loss (no label smoothing): InfoNCE
+    whatever contrastive.loss_kind is, as the JAX package's eval computes
+    it; tf_clip takes the plain multiway loss, as the reference's eval does. The fused loss
     saves no raw similarity here, nor the packed attention its
     probabilities: no backward would read them. DPLM's eval draws its
     corruption, and triple_flow's its flows' pairings and (t, eps), from the
     state's (key, step) without advancing the state, so both are
     deterministic given the state."""
-    _check_loss(cfg)
     cc = cfg.contrastive
 
     @torch.no_grad()

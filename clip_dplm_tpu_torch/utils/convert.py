@@ -137,8 +137,10 @@ def _leaves(tree):
 def load_flax_params(module: nn.Module, params: Mapping) -> nn.Module:
     """Load flax params into a port DPLM / ESMTower / TwoTowerCLIP /
     RNARBPCLIP / ESMProteinCLIP / TFContrastiveModel / TripleFlowModel in
-    place (strict: every key must match) and return it."""
-    sd = flax_to_state_dict(params, getattr(module.cfg, "num_layers", None))
+    place (strict: every key must match) and return it; a module with no
+    `cfg` (the probe classifiers of models/classifiers.py) has no stacked
+    layers to unstack."""
+    sd = flax_to_state_dict(params, getattr(getattr(module, "cfg", None), "num_layers", None))
     module.load_state_dict(sd, strict=True)
     return module
 

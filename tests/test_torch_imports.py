@@ -1,6 +1,7 @@
 """The port imports no JAX: every module of clip_dplm_tpu_torch, and
 chip_smoke.py, imports in a fresh interpreter without pulling jax, flax,
-optax, orbax, yaml or the JAX package into sys.modules, and no import
+optax, orbax, yaml, the JAX package, scikit-learn or matplotlib into
+sys.modules (the card's machine has neither of the last two), and no import
 statement of theirs (at the top or inside a function) names jax, flax,
 optax, orbax or the JAX package (utils/pretrained.py reads a JAX-written
 block-YAML config through PyYAML where it is installed, inside the function
@@ -21,8 +22,8 @@ names = [m.name for m in pkgutil.walk_packages(pkg.__path__, pkg.__name__ + ".")
 for name in names:
     importlib.import_module(name)
 import chip_smoke
-leaked = sorted(m for m in ("jax", "flax", "optax", "orbax", "yaml", "clip_dplm_tpu")
-                if m in sys.modules)
+leaked = sorted(m for m in ("jax", "flax", "optax", "orbax", "yaml", "clip_dplm_tpu",
+                           "sklearn", "matplotlib") if m in sys.modules)
 print(len(names), names, leaked)
 """
 
@@ -43,7 +44,10 @@ def test_port_imports_no_jax():
                 "models.tong_encoders", "ops.sinkhorn", "models.flows", "ops.integrate",
                 "models.triple_flow_model", "data.cells", "data.multimodal", "models.icnn",
                 "models.esm_projections", "data.gene_embeddings", "train.checkpoint",
-                "train.preemption", "utils.logging", "experiments.evaluate"):
+                "train.preemption", "utils.logging", "experiments.evaluate",
+                "ops.loss_variants", "models.classifiers", "train.analysis",
+                "experiments.analyze", "experiments.visualize", "experiments.sweep",
+                "utils.visualization", "utils.system", "types"):
         assert f"'clip_dplm_tpu_torch.{mod}'" in names, mod
     assert leaked.strip() == "[]", out.stdout
 

@@ -4,7 +4,9 @@ divided by their largest entry first), with ragged and fully masked rows,
 ragged batches and odd widths, and the dropout mask bit for bit; the
 backward kernels on the plain forward's residuals and the autograd
 Functions against autograd of the plain formulation; and the forward-only
-kernels' refusal to run where autograd would record them. Every test here
+kernels' refusal to run where autograd would record them; the tiny-S
+pair's f32 instances and their f32 GEMM against the plain f32 versions,
+within 2e-5 of each output's largest entry. Every test here
 needs an NVIDIA GPU and skips without one. The file imports no JAX, so on the card, which has none, it runs as
 
     python -m pytest --noconftest -p no:cacheprovider tests/test_torch_kernels.py
@@ -1153,6 +1155,120 @@ def test_fused_tiny_attention_proj_grads_match_plain(cuda_device, np_rng, B, S, 
     assert grads[1].dtype == grads[2].dtype == torch.float32
     torch.testing.assert_close(y.float(), y_ref.float(), **TOL)
     _grads_close(grads, grads_ref, ["dqkv", "dwo", "dbo"])
+
+
+# the f32 tiny-S pair: true f32 on the FMA units against the plain f32
+# version, each output within F32_REL of its largest entry
+F32_REL = 2e-5
+
+
+def _f32_close(got, want, name, scale=None):
+    scale = max(want.abs().max().item() if scale is None else scale, 1e-30)
+    err = (got - want).abs().max().item() / scale
+    assert got.dtype == torch.float32 and err <= F32_REL, (name, err)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("B,S,D,H,masked", [
+    # the probe's shape, its batch at 4096, a ragged S=33; Dh = 8, 32, 128; S = 1,
+    # 64 at Dh = 256
+    (64, 8, 128, 4, False), (64, 8, 128, 4, True), (4096, 8, 128, 4, False),
+    (100, 33, 128, 4, True), (7, 10, 64, 8, True), (9, 17, 256, 2, False),
+    (5, 1, 96, 4, False), (3, 64, 512, 2, True), (6, 20, 40, 1, True)])
+def test_tiny_attention_f32_matches_plain(cuda_device, np_rng, B, S, D, H, masked):
+    """Forward, then the backward kernel on the plain forward's residuals,
+    in f32: the f32 instances launch, not the bf16 ones."""
+    f = lambda *s: torch.from_numpy(np_rng.normal(size=s).astype(np.float32)).to(  # noqa: E731
+        cuda_device)
+    qkv, dout = f(B, S, 3 * D), f(B, S, D)
+    mask = None
+    if masked:
+        mask = _key_mask(np_rng, B, S)
+        mask[-1] = False  # one sample with no real key: uniform weights
+        mask = torch.from_numpy(mask).to(cuda_device)
+    before = _build.LAUNCHES.snapshot()
+    with torch.no_grad():
+        o = ta.tiny_attention(qkv, H, mask=mask)
+    o_ref = ta.tiny_attention_reference(qkv, H, mask=mask)
+    got = ta.tiny_attention_bwd(dout, qkv, o_ref, H, mask=mask)
+    torch.cuda.synchronize()
+    moved = {k: v - before[k] for k, v in _build.LAUNCHES.snapshot().items() if v != before[k]}
+    assert moved == {"tiny_attention_fwd_f32": 1, "tiny_attention_bwd_f32": 1}, moved
+    _f32_close(o, o_ref, "o")
+    want = ta.tiny_attention_bwd_reference(dout, qkv, o_ref, H, mask=mask)
+    for i, name in enumerate(("dq", "dk", "dv")):
+        # at S = 1, dq and dk are 0 but for rounding (prob = 1, dp = delta):
+        # held to the largest entry of dqkv
+        _f32_close(got[..., i * D:(i + 1) * D], want[..., i * D:(i + 1) * D], name,
+                   scale=want.abs().max().item() if S == 1 and i < 2 else None)
+
+
+@pytest.mark.cuda
+def test_tiny_attention_f32_launches_repeat_byte_for_byte(cuda_device):
+    B, S, D, H = 4096, 8, 128, 4
+    g = torch.Generator(device=cuda_device).manual_seed(3)
+    qkv = torch.randn(B, S, 3 * D, generator=g, device=cuda_device)
+    dout = torch.randn(B, S, D, generator=g, device=cuda_device)
+    with torch.no_grad():
+        o1, o2 = (ta.tiny_attention(qkv, H) for _ in range(2))
+    g1, g2 = (ta.tiny_attention_bwd(dout, qkv, o1, H) for _ in range(2))
+    torch.cuda.synchronize()
+    assert torch.equal(o1.view(torch.int32), o2.view(torch.int32))
+    assert torch.equal(g1.view(torch.int32), g2.view(torch.int32))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("M,N,K,b_trans", [(512, 128, 128, True), (512, 128, 128, False),
+                                           (32768, 128, 128, True), (100, 72, 40, False),
+                                           (1, 8, 1000, True), (130, 1000, 24, False)])
+def test_f32_gemm_matches_plain(cuda_device, np_rng, M, N, K, b_trans):
+    """The f32 GEMM alone, both B layouts, ragged tiles, with and without
+    the bias."""
+    a = torch.from_numpy(np_rng.normal(size=(M, K)).astype(np.float32)).to(cuda_device)
+    b = torch.from_numpy(np_rng.normal(size=(N, K) if b_trans else (K, N)).astype(
+        np.float32)).to(cuda_device)
+    bias = torch.from_numpy(np_rng.normal(size=(N,)).astype(np.float32)).to(cuda_device)
+    got = sa.f32_gemm("out_proj_f32", a, b, bias if b_trans else None, b_trans)
+    want = a @ (b.t() if b_trans else b) + (bias if b_trans else 0.0)
+    _f32_close(got, want, "c")
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("B,S,D,H,masked", [(64, 8, 128, 4, False), (6, 33, 64, 8, True)])
+def test_fused_tiny_attention_proj_f32_grads_match_plain(cuda_device, np_rng, B, S, D, H,
+                                                         masked):
+    """The autograd Function in f32: the f32 attention pair and the f32 GEMM
+    for the projection and dO, nothing in bf16; dWo and dbo in f32."""
+    qkv = torch.from_numpy(np_rng.normal(size=(B, S, 3 * D)).astype(np.float32)).to(cuda_device)
+    wo = torch.from_numpy((np_rng.normal(size=(D, D)) / np.sqrt(D)).astype(np.float32))
+    bo = torch.from_numpy((np_rng.normal(size=(D,)) * 0.1).astype(np.float32))
+    wo, bo = wo.to(cuda_device), bo.to(cuda_device)
+    mask = torch.from_numpy(_key_mask(np_rng, B, S)).to(cuda_device) if masked else None
+    dy = torch.from_numpy(np_rng.normal(size=(B, S, D)).astype(np.float32)).to(cuda_device)
+
+    def run(fn):
+        leaves = [t.clone().requires_grad_(True) for t in (qkv, wo, bo)]
+        y = fn(*leaves, H, mask=mask)
+        y.backward(dy)
+        return y.detach(), [t.grad for t in leaves]
+
+    before = _build.LAUNCHES.snapshot()
+    y, grads = run(ta.fused_tiny_attention_proj)
+    torch.cuda.synchronize()
+    moved = {k: v - before[k] for k, v in _build.LAUNCHES.snapshot().items() if v != before[k]}
+    assert moved == {"tiny_attention_fwd_f32": 1, "out_proj_f32": 1, "dout_f32": 1,
+                     "tiny_attention_bwd_f32": 1}, moved
+    y_ref, grads_ref = run(ta.fused_tiny_attention_proj_reference)
+    _f32_close(y, y_ref, "y")
+    for g, w, name in zip(grads, grads_ref, ("dqkv", "dwo", "dbo")):
+        _f32_close(g, w, name)
+
+
+@pytest.mark.cuda
+def test_tiny_attention_takes_only_bf16_and_f32(cuda_device):
+    qkv = torch.zeros(2, 8, 3 * 64, dtype=torch.float16, device=cuda_device)
+    with torch.no_grad(), pytest.raises(ValueError, match="bf16 or f32"):
+        ta.tiny_attention(qkv, 4)
 
 
 @pytest.mark.cuda

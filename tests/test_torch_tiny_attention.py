@@ -150,3 +150,35 @@ def test_split_dv_matches_jax_interpret(rng, monkeypatch, B, S, D, heads, masked
     for g, jg, name in ((gq, jgrads[0], "dqkv"), (gwo.T, jgrads[1], "dwo"),
                         (gbo, jgrads[2], "dbo")):
         np.testing.assert_allclose(g, np.asarray(jg), atol=5e-5, rtol=2e-3, err_msg=name)
+
+
+@pytest.mark.parametrize("masked", [False, True])
+def test_tiny_attention_f32_at_the_probe_shape_matches_jax_interpret(rng, masked):
+    """The transformer probe's attention (B=64, S=8, D=128, 4 heads, f32;
+    models/classifiers.py): the plain f32 versions the card's f32 kernels
+    are held to, against JAX's kernel in interpret mode, forward and
+    dqkv, dWo, dbo at rtol 1e-5 (and atol 1e-5 of the output's largest
+    entry, for entries near 0: dWo sums 512 rows and is 2e-5 off on entries
+    of 15)."""
+    B, S, D, heads = 64, 8, 128, 4
+    qkv, wo, bo, mask = _inputs(rng, B, S, D, masked)
+    w = rng.normal(size=(B, S, D)).astype(np.float32)
+    jmask = None if mask is None else jnp.asarray(mask)
+
+    def jfused(q, o, b):
+        return jax_tiny(q, o, b, heads, mask=jmask, interpret=True)
+
+    args = (jnp.asarray(qkv), jnp.asarray(wo), jnp.asarray(bo))
+    with pltpu.force_tpu_interpret_mode():
+        want = jfused(*args)
+        jgrads = jax.grad(lambda *a: jnp.sum(jfused(*a) * w), argnums=(0, 1, 2))(*args)
+    leaves = [torch.from_numpy(a).requires_grad_(True) for a in (qkv, wo.T.copy(), bo)]
+    got = fused_tiny_attention_proj(*leaves, heads,
+                                    mask=None if mask is None else torch.from_numpy(mask))
+    assert got.dtype == torch.float32
+    torch.sum(got * torch.from_numpy(w)).backward()
+    gq, gwo, gbo = (t.grad.numpy() for t in leaves)
+    for g, jg, name in ((got.detach().numpy(), want, "y"), (gq, jgrads[0], "dqkv"),
+                        (gwo.T, jgrads[1], "dwo"), (gbo, jgrads[2], "dbo")):
+        jg = np.asarray(jg)
+        np.testing.assert_allclose(g, jg, rtol=1e-5, atol=1e-5 * np.abs(jg).max(), err_msg=name)

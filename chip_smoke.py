@@ -248,12 +248,13 @@ Phases, each fatal on failure (non-zero exit, no result line):
      (`serve --bundle --dplm-bundle --scorer-bundle`): /v1/embed of 64
      sequences of 50-1000 residues and a guided /v1/generate; the generate
      CLI with --dplm-bundle --scorer-bundle --condition --candidates 8, and
-     with --esm-init, writes FASTA; (e) the embed CLI on the 650M bundle at
+     with --esm-init, writes FASTA (the 650M bundle at 12 of its 33 layers);
+     (e) the embed CLI on the 650M bundle at
      --max-len 1024 (the flash kernel) and 128 (the packed kernel), each
      bit-equal to /v1/embed's embeddings of the same sequences (truncated as
      the CLI truncates them), which /v1/embed pads to the same length,
      seqs/s printed; (f)
-     ProtT5-XL at full width (24 layers) at B=8 S=512, timed, with its
+     ProtT5-XL at full width (12 of its 24 layers) at B=8 S=512, timed, with its
      peak memory; 2 of its layers and RNABERT at its published geometry
      (B=64 S=440) on the card against the CPU within STEP_NOISE_FACTOR x
      their bf16-vs-f32 noise;
@@ -265,7 +266,8 @@ Phases, each fatal on failure (non-zero exit, no result line):
      GRAD_DRAWS draws within STEP_NOISE_FACTOR x their f32-vs-f64 noise on
      the CPU; (b) the sb path: the on-card Sinkhorn potentials (100
      iterations) against the CPU's, then a step over two draws as (a); (c)
-     the train CLI on the card, 5 epochs of 6 steps at B=128: the loss
+     the train CLI on the card (the PiGNN and the vector fields 2 layers
+     deep, not 3, in (c) and (d)), 5 epochs of 6 steps at B=128: the loss
      falls and eval runs; (d) `bench --model triple_flow` twice and
      `profile_step --model triple_flow` in a process of its own (wall, busy
      share, launches, the host's Hungarian time); (e) Heun and RK4
@@ -308,7 +310,26 @@ Phases, each fatal on failure (non-zero exit, no result line):
      bench's widths: four finite rows, the bf16 tiny pair launched by the
      transformer towers; (f) matplotlib and scikit-learn: visualize writes
      its figures where both import, else exits naming what is missing; the
-     memory status of the card.
+     memory status of the card;
+ 20. the host data path and the rest of the train loop: (a) 8 flagship
+     steps at full width (B=256, S=128) through the Trainer, whose batches
+     come through data/prefetch.py (pinned copies on a stream of its own,
+     an event wait, record_stream), and the same 8 batches through
+     train_step fed by the serial to_device: every parameter and moment
+     equal bit for bit, the median synchronized step wall both ways and the
+     time __next__ waited; (b) one step's loss and gradients with
+     precision.remat off and on from the same weights and batch, the
+     flagship at B=256 S=128 and esm_clip at B=64: equal bit for bit, the
+     peak memory lower with remat, the launch counters up by exactly the
+     towers' forwards (measured alone); (c) the two-tower train CLI at the
+     bench's widths, one epoch of 6 batches with train.steps_per_call 2
+     and 1: checkpoints equal bit for bit, the epoch loss the mean of each
+     call's last step; 3 batches at 2 a call run 2 steps; (d) one tf_clip
+     step with unequal pair weights card vs CPU as 9(b) at B=128, the from-raw
+     passes 3 a backward; (e) the native tokenizer built with the
+     machine's g++, equal to the Python tokenizer on 16(e)'s inputs; (f)
+     the slice's main path, the flagship train CLI with precision.remat and
+     train.steps_per_call=2, every kernel of the flagship path launched.
 Prints a JSON line of per-kernel results (each kernel's time at its main
 shape, its plain version's, the library call's where there is one, and the
 bound: the larger of the bytes it must move over 3.35 TB/s and its
@@ -3089,6 +3110,11 @@ def _rel_rows(a, b):
     return float((np.linalg.norm(a - b, axis=1) / np.linalg.norm(b, axis=1)).max())
 
 
+# the 650M bundle of 16(d)-(e) at ESM-2 650M's width, its depth cut from 33
+# for the smoke's time (the embed CLI and /v1/embed read the same bundle)
+ESM650_BUNDLE_LAYERS = 12
+
+
 def phase_bundles(torch, build):
     """16(d) bundles saved on the card and served, the generate CLI from
     them; 16(e) the embed CLI on the 650M bundle against /v1/embed."""
@@ -3109,7 +3135,8 @@ def phase_bundles(torch, build):
     seqs = [random_protein(rng, int(n)) for n in rng.integers(50, 1001, 64)]
     with tempfile.TemporaryDirectory() as tmp:
         specs = {
-            "esm2_650m": (dataclasses.replace(Config(), esm=esm_config_from_name("esm2_t33_650M")),
+            "esm2_650m": (dataclasses.replace(Config(), esm=esm_config_from_name(
+                "esm2_t33_650M", num_layers=ESM650_BUNDLE_LAYERS)),
                           lambda c: ESMTower(c.esm, device="cuda")),
             "esm2_150m": (dataclasses.replace(Config(), esm=esm_config_from_name("esm2_t30_150M")),
                           lambda c: ESMTower(c.esm, device="cuda")),
@@ -3168,7 +3195,8 @@ def phase_bundles(torch, build):
             server.server_close()
             embed_svc.close()
             gen_svc.close()
-        print(f"serve --bundle (ESM-2 650M) --dplm-bundle --scorer-bundle (esm_clip): loaded in "
+        print(f"serve --bundle (ESM-2 650M, {ESM650_BUNDLE_LAYERS} of its 33 layers) "
+              f"--dplm-bundle --scorer-bundle (esm_clip): loaded in "
               f"{load_s:.1f} s; /v1/embed of 64 sequences of 50-1000 residues; guided "
               f"/v1/generate (3 rows, 8 candidates, 100 steps) in {gen_s:.2f} s, clip_scores "
               f"{body['clip_scores']}")
@@ -3214,7 +3242,8 @@ def phase_bundles(torch, build):
             batch = seqs if key == "full" else [x[:126] for x in seqs]
             pads = [next(b for b in buckets if b >= min(max(map(len, batch[i:i + 32])) + 2,
                                                           1024)) for i in (0, 32)]
-            print(f"embed CLI ESM-2 650M --max-len {max_len}: {got['seqs_per_s']:.1f} seqs/s "
+            print(f"embed CLI ESM-2 650M ({ESM650_BUNDLE_LAYERS} layers) --max-len {max_len}: "
+                  f"{got['seqs_per_s']:.1f} seqs/s "
                   f"(64 sequences, 2 batches of 32, the bundle's load excluded); against "
                   f"/v1/embed: largest row rel L2 {err:.3e}, max abs "
                   f"{np.abs(emb - served[key]).max():.3e}; {kernel} launched {counts[kernel]} "
@@ -3269,7 +3298,7 @@ def phase_new_towers(torch):
     from clip_dplm_tpu_torch.models.t5 import ProtT5Tower, prot_t5_config_from_name
 
     g = torch.Generator().manual_seed(91)
-    cfg = prot_t5_config_from_name("prot_t5_xl")
+    cfg = prot_t5_config_from_name("prot_t5_xl", num_layers=12)  # of 24: the smoke's time
     torch.cuda.synchronize()
     torch.cuda.empty_cache()
     torch.cuda.reset_peak_memory_stats()
@@ -3286,7 +3315,8 @@ def phase_new_towers(torch):
     n = sum(p.numel() for p in tower.parameters())
     check(out.shape == (B, cfg.d_model) and bool(torch.isfinite(out).all()),
           f"ProtT5-XL: output {tuple(out.shape)}")
-    print(f"ProtT5-XL (24 layers, d_model 1024, d_ff 16384, 32 heads x 128; {n} parameters) "
+    print(f"ProtT5-XL ({cfg.num_layers} of its 24 layers, d_model 1024, d_ff 16384, 32 heads x "
+          f"128; {n} parameters) "
           f"B={B} S={S} bf16 forward: {ms:.2f} ms of device time (events behind a sleep), "
           f"{wall:.2f} ms wall a synchronized call, {B / wall * 1e3:.1f} seqs/s, peak memory "
           f"{peak:.2f} GiB (f32 weights {n * 4 / 2 ** 30:.2f} GiB)")
@@ -3316,6 +3346,13 @@ def phase_new_towers(torch):
 # CPU, the f32 family's counterpart of the bf16-vs-f32 rule of 7(a)
 FLOW_FLOWS = ("cell_to_pert", "cell_to_protein", "pert_to_protein", "cell_to_cell")
 GEN_STEPS = 20  # ODE steps of 17(e): the f64 reference on the CPU pays for each
+
+
+# triple_flow's depth in 17(c)-(d): the PiGNN's and the vector fields' layers
+# cut from the yaml's 3 to 2 for the smoke's time (the widths stay the yaml's);
+# 17(a), (b) and (e), whose exact pairings must agree card vs CPU, keep the
+# yaml's depth, where no assignment is near a tie
+FLOW_DEPTH = ["encoders.gnn.num_layers=2", "flow.n_layers=2"]
 
 
 def _flow_cfg(extra=()):
@@ -3661,7 +3698,7 @@ def phase_triple_flow_path(torch):
     bench in turns and profile_step in a process of its own."""
     from clip_dplm_tpu_torch.experiments import bench
 
-    overrides = bench.TRIPLE_FLOW_OVERRIDES + [
+    overrides = bench.TRIPLE_FLOW_OVERRIDES + FLOW_DEPTH + [
         "train.batch_size=128", "train.optim.warmup_steps=5", "train.optim.learning_rate=1e-3"]
     t0 = time.perf_counter()
     hist = train_cli_run(["--device", "cuda", "--epochs", "5",
@@ -3674,7 +3711,8 @@ def phase_triple_flow_path(torch):
     check(len(vals) == 5 and all(np.isfinite(vals)), f"17(c) eval did not run: {vals}")
     for turn in range(2):
         t0 = time.perf_counter()
-        out = bench.main(["--model", "triple_flow"])
+        out = bench.main(["--model", "triple_flow",
+                          *[a for o in FLOW_DEPTH for a in ("-o", o)]])
         print(f"17(d) bench triple_flow B=256 (turn {turn}): step {out['step_ms']} ms, "
               f"{out['value']} cells/s, {out['model_tflops_per_s_per_chip']} model TFLOP/s, "
               f"MFU {out['mfu']} of {out['peak_tflops']} TFLOP/s {out['peak_dtype']} peak, "
@@ -3682,7 +3720,8 @@ def phase_triple_flow_path(torch):
     t0 = time.perf_counter()
     prof = subprocess.run(
         [sys.executable, "-m", "clip_dplm_tpu_torch.experiments.profile_step", "--model",
-         "triple_flow"], capture_output=True, text=True, timeout=600,
+         "triple_flow", *[a for o in FLOW_DEPTH for a in ("-o", o)]], capture_output=True,
+        text=True, timeout=600,
         cwd=os.path.dirname(os.path.abspath(__file__)))
     check(prof.returncode == 0, f"17(d) profile_step: {prof.stderr[-2000:]}")
     lines = [json.loads(line) for line in prof.stdout.splitlines() if line.startswith("{")]
@@ -4174,6 +4213,378 @@ def phase_sweep(torch, build):
         check(moved.get(name, 0) > 0, f"19(e) the transformer towers did not launch {name}")
 
 
+# ---------------------------------------------------------------------------
+# phase 20: the host data path and the rest of the train loop
+# ---------------------------------------------------------------------------
+
+# the flagship train path's kernels (20(f)): the saved-probs short-S pair
+# and the out-projection GEMM, the CLS pair, the fused-Dense pair and its
+# GEMM, the saving lse walk and its combine, the two passes from the raw
+FLAGSHIP_PATH = ("short_attention_save", "short_attention_bwd_probs", "short_attention_out_proj",
+                 "cls_attention_fwd", "cls_attention_bwd", "fused_dense_fwd_rows",
+                 "fused_dense_bwd_rows", "fused_dense_gemm", "sym_infonce_lse_save",
+                 "lse_combine", "sym_infonce_grad_raw", "sym_infonce_grad_rawT")
+
+
+def _flagship_cfg(extra=()):
+    from clip_dplm_tpu_torch.config import Config, apply_overrides
+    from clip_dplm_tpu_torch.experiments import bench
+
+    return apply_overrides(Config(), bench.RNA_RBP_OVERRIDES + [
+        "train.batch_size=256", "train.optim.schedule=constant",
+        "train.optim.learning_rate=1e-3"] + list(extra))
+
+
+def _flagship_batches(cfg, n, B, seed):
+    """n distinct flagship batches at S=127 tokens a side (bench.py's
+    shapes): one draw of the token embeddings, its rows permuted for each
+    batch, and fresh lengths (host time stays small at 180 MB a batch)."""
+    from clip_dplm_tpu_torch.experiments import bench
+
+    rng = np.random.default_rng(seed)
+    T = bench.TOKENS
+    a = rng.standard_normal((B, T, cfg.rna_tower.input_dim), dtype=np.float32)
+    b = rng.standard_normal((B, T, cfg.rbp_tower.input_dim), dtype=np.float32)
+    out = []
+    for _ in range(n):
+        perm = rng.permutation(B)
+        la, lb = rng.integers(T // 2, T, B), rng.integers(T // 2, T, B)
+        out.append({"rna_tokens": a[perm], "rna_mask": np.arange(T)[None, :] < la[:, None],
+                    "rbp_tokens": b[perm], "rbp_mask": np.arange(T)[None, :] < lb[:, None]})
+    return out
+
+
+def _state_leaves(state):
+    """(name, tensor) of every parameter and moment, and the counts."""
+    opt = state.opt_state
+    return ([(f"params.{k}", p.detach()) for k, p in state.model.named_parameters()]
+            + [(f"mu.{k}", v) for k, v in opt.mu.items()]
+            + [(f"nu.{k}", v) for k, v in opt.nu.items()]
+            + [("count", opt.count), ("step", state.step)])
+
+
+def phase_prefetch(torch, card):
+    """20(a): 8 flagship steps at full width (B=256, S=128) through the
+    Trainer (the prefetcher: pinned copies on its own stream, an event wait,
+    record_stream) and the same 8 batches through train_step fed by the
+    serial to_device; every parameter and moment equal bit for bit."""
+    from clip_dplm_tpu_torch.experiments.registry import build_model
+    from clip_dplm_tpu_torch.train.state import create_train_state
+    from clip_dplm_tpu_torch.train.trainer import Trainer, make_train_step, to_device
+
+    cfg = _flagship_cfg()
+    batches = _flagship_batches(cfg, 8, 256, seed=20)
+    mib = sum(v.nbytes for v in batches[0].values()) / 2 ** 20
+    trainer = Trainer(cfg, create_train_state(build_model(cfg, device="cuda"), cfg))
+    walls, ends = {"prefetch": [], "serial": []}, []
+    inner = trainer.train_step
+
+    def timed(state, batch):
+        check(all(v.is_cuda for v in batch.values()), "20(a) a train batch not on the card")
+        out = inner(state, batch)
+        torch.cuda.synchronize()
+        ends.append(time.perf_counter())
+        return out
+
+    trainer.train_step = timed
+    torch.cuda.synchronize()
+    hist = trainer.train(lambda: iter(batches), num_epochs=1)
+    walls["prefetch"] = np.diff(ends) * 1e3
+    state = create_train_state(build_model(cfg, device="cuda"), cfg)
+    step = make_train_step(cfg)
+    losses, last = [], None
+    torch.cuda.synchronize()
+    for b in batches:
+        state, metrics = step(state, to_device(b, "cuda"))
+        losses.append(metrics["loss"])
+        torch.cuda.synchronize()
+        now = time.perf_counter()
+        if last is not None:
+            walls["serial"].append((now - last) * 1e3)
+        last = now
+    bad = _differing(torch, _state_leaves(trainer.state), _state_leaves(state))
+    check(not bad, f"20(a) the prefetched Trainer's state differs from the serial one at "
+                   f"{bad[:8]}")
+    serial_loss = float(torch.stack(losses).mean())
+    check(hist["train_loss"] == [serial_loss],
+          f"20(a) epoch loss {hist['train_loss']} against the serial steps' {serial_loss}")
+    wait = trainer.prefetch_wait_seconds / len(batches) * 1e3
+    med = {k: float(np.median(v)) for k, v in walls.items()}
+    print(f"20(a) 8 flagship steps (full widths, B=256, S=128, {mib:.1f} MiB a host batch): the "
+          f"Trainer's prefetched state equals the serial to_device run bit for bit "
+          f"({len(_state_leaves(state))} leaves: params, mu, nu, count, step; epoch loss "
+          f"{serial_loss:.6f} on both); median step wall (synchronized) prefetch "
+          f"{med['prefetch']:.2f} ms, serial {med['serial']:.2f} ms (steps 2-8: prefetch "
+          f"{' '.join(f'{x:.1f}' for x in walls['prefetch'])}; serial "
+          f"{' '.join(f'{x:.1f}' for x in walls['serial'])}); __next__ waited {wait:.2f} ms a "
+          f"step on average; {card}")
+
+
+def _tower_forwards(model, batch):
+    """The forward of the model's two towers alone, with the gradient
+    recorded: the work a remat'd step recomputes."""
+    if hasattr(model, "rbp_tower"):
+        model.rna_tower(batch["rna_tokens"], batch["rna_mask"])
+        model.rbp_tower(batch["rbp_tokens"], batch["rbp_mask"])
+    else:
+        model.rna_tower(batch["rna_tokens"], batch["rna_mask"])
+        model.esm_tower(batch["protein_tokens"], batch["protein_mask"], pooling="mean_residues")
+
+
+def _remat_pair(torch, build, what, cfg, batch, card):
+    """One step's loss and gradients without precision.remat, with it, and
+    without it again, from the same weights and batch, all three equal bit
+    for bit; the peak memory lower with remat; the launch counters up by
+    exactly the towers' forwards. The steps run under
+    `torch.use_deterministic_algorithms(True, warn_only=True)`: ESM-2's
+    `F.embedding` backward on CUDA sums its rows in no fixed order by
+    default, so the embedding table's gradient differs between two runs
+    without remat by a few ulps (the gradient flowing into it repeats bit
+    for bit); its deterministic algorithm repeats. The port's kernels
+    are deterministic either way (uninitialized memory is not filled)."""
+    import torch.utils.deterministic as det
+
+    from clip_dplm_tpu_torch.experiments.registry import build_model
+    from clip_dplm_tpu_torch.train.state import create_train_state
+    from clip_dplm_tpu_torch.train.trainer import to_device
+
+    base = build_model(cfg, device="cuda")
+    key = create_train_state(base, cfg).key
+    sd = {k: v.detach().clone() for k, v in base.state_dict().items()}
+    del base
+    dev_batch = to_device(batch, "cuda")
+    out = []
+    was = (torch.are_deterministic_algorithms_enabled(),
+           torch.is_deterministic_algorithms_warn_only_enabled(), det.fill_uninitialized_memory)
+    torch.use_deterministic_algorithms(True, warn_only=True)
+    det.fill_uninitialized_memory = False
+    try:
+        for i, remat in enumerate((False, True, False)):
+            out.append(_remat_run(torch, build, cfg, remat, sd, key, dev_batch, i == 0))
+    finally:
+        torch.use_deterministic_algorithms(was[0], warn_only=was[1])
+        det.fill_uninitialized_memory = was[2]
+    towers = out[0][5]
+    (l0, g0, p0, a0, m0, _), (l1, g1, p1, a1, m1, _), (l2, g2, _, _, _, _) = out
+    check(torch.equal(l0, l1) and torch.equal(l0, l2),
+          f"20(b) {what}: loss {float(l0)} without remat, {float(l1)} with, {float(l2)} again")
+    check(g0.keys() == g1.keys() == g2.keys(), f"20(b) {what}: other leaves got gradients")
+    bad = [k for k in g0 if not (torch.equal(g0[k], g1[k]) and torch.equal(g0[k], g2[k]))]
+    check(not bad, f"20(b) {what}: gradients differ at {bad[:8]} (with remat: "
+                   f"{[k for k in bad if not torch.equal(g0[k], g1[k])][:8]})")
+    extra = {k: m1[k] - m0[k] for k in m0 if m1[k] != m0[k]}
+    gib = 2 ** 30
+    print(f"20(b) {what}: loss and {len(g0)} gradients equal bit for bit with and without "
+          f"remat, and without it again (deterministic torch algorithms); peak memory "
+          f"{p0 / gib:.3f} GiB without, {p1 / gib:.3f} GiB with (above the resident weights and "
+          f"batch: {a0 / gib:.3f} and {a1 / gib:.3f} GiB); launches a step without remat "
+          f"{dict((k, v) for k, v in m0.items() if v)}; with remat the counters rose by {extra} "
+          f"more, the towers' forwards alone launch {towers}; {card}")
+    check(p1 < p0, f"20(b) {what}: peak memory {p1} with remat, not below {p0} without")
+    check(extra == towers and towers, f"20(b) {what}: remat launched {extra} more, the towers' "
+                                      f"forwards are {towers}")
+
+
+def _remat_run(torch, build, cfg, remat, sd, key, dev_batch, count_towers):
+    """(loss, grads on the host, peak memory, peak above the resident,
+    launches, the towers' forwards' launches or None) of one step's loss
+    and backward; with `count_towers`, the towers' forwards alone are then
+    counted."""
+    from clip_dplm_tpu_torch.config import apply_overrides
+    from clip_dplm_tpu_torch.experiments.registry import build_model
+    from clip_dplm_tpu_torch.ops.fused_dense import DropoutSeeds
+    from clip_dplm_tpu_torch.train.trainer import make_loss_fn
+
+    c = apply_overrides(cfg, [f"precision.remat={'true' if remat else 'false'}"])
+    model = build_model(c, device="cuda")
+    model.load_state_dict(sd)
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    resident = torch.cuda.memory_allocated()
+    before = build.LAUNCHES.snapshot()
+    loss, _ = make_loss_fn(c)(model, dev_batch, DropoutSeeds(key, 0))
+    loss.backward()
+    torch.cuda.synchronize()
+    peak = torch.cuda.max_memory_allocated()
+    moved = {k: v - before[k] for k, v in build.LAUNCHES.snapshot().items()}
+    grads = {k: p.grad.detach().cpu() for k, p in model.named_parameters()
+             if p.grad is not None}
+    towers = None
+    if count_towers:
+        before = build.LAUNCHES.snapshot()
+        with torch.enable_grad():
+            _tower_forwards(model, dev_batch)
+        torch.cuda.synchronize()
+        towers = {k: v - before[k] for k, v in build.LAUNCHES.snapshot().items()
+                  if v != before[k]}
+    return loss.detach().cpu(), grads, peak, peak - resident, moved, towers
+
+
+def phase_remat(torch, build, card):
+    """20(b): the flagship at B=256, S=128, full width, and esm_clip at
+    its B=64 (ESM-2 8M, Dh=16 on the short-S kernels), remat off and on."""
+    from clip_dplm_tpu_torch.config import Config, apply_overrides
+    from clip_dplm_tpu_torch.experiments import bench
+
+    cfg = _flagship_cfg()
+    _remat_pair(torch, build, "flagship B=256 S=128", cfg,
+                _flagship_batches(cfg, 1, 256, seed=21)[0], card)
+    ecfg = apply_overrides(Config(), bench.ESM_CLIP_OVERRIDES + ["train.batch_size=64"])
+    batch = bench.esm_clip_batch(ecfg, 64, np.random.default_rng(22))
+    _remat_pair(torch, build, "esm_clip B=64", ecfg, batch, card)
+
+
+def phase_steps_per_call(torch):
+    """20(c): the two-tower train CLI at the bench's widths for one epoch
+    with train.steps_per_call 2 and 1 over 6 batches (B=256): the saved
+    states equal bit for bit, and the epoch loss the mean of each call's
+    last-step loss; at B=512 (3 batches) with 2 a call, the third dropped."""
+    from clip_dplm_tpu_torch.experiments import bench
+    from clip_dplm_tpu_torch.experiments import train as train_cli
+    from clip_dplm_tpu_torch.train import trainer as ptrainer
+
+    real = ptrainer.make_train_step
+    losses = []
+
+    def recording(cfg):
+        step = real(cfg)
+
+        def run(state, batch):
+            state, metrics = step(state, batch)
+            losses.append(metrics["loss"])
+            return state, metrics
+        return run
+
+    def cli(d, B, spc):
+        over = bench.OVERRIDES + [f"train.batch_size={B}", "train.optim.warmup_steps=5",
+                                  "train.optim.learning_rate=1e-3",
+                                  f"train.steps_per_call={spc}", f"logging.log_dir={d}"]
+        hist = train_cli.main(["--epochs", "1", "--checkpoint-dir", f"{d}/ckpt",
+                               *[a for o in over for a in ("-o", o)]])
+        steps = sorted(int(n[5:-3]) for n in os.listdir(f"{d}/ckpt") if n.endswith(".pt"))
+        return hist, steps[-1], torch.load(f"{d}/ckpt/ckpt_{steps[-1]}.pt", map_location="cpu",
+                                           weights_only=True)
+
+    ptrainer.make_train_step = recording
+    try:
+        with tempfile.TemporaryDirectory(prefix="smoke_spc_") as d:
+            t0 = time.perf_counter()
+            h1, s1, c1 = cli(f"{d}/one", 256, 1)
+            single = list(losses)
+            h2, s2, c2 = cli(f"{d}/two", 256, 2)
+            h3, s3, _ = cli(f"{d}/odd", 512, 2)
+            cli_s = time.perf_counter() - t0
+    finally:
+        ptrainer.make_train_step = real
+    check(s1 == s2 == 6 and c1["step"] == c2["step"] == 6,
+          f"20(c) steps {s1}, {s2} (checkpoints), not 6 and 6")
+    bad = _differing(torch, _leaves(c1), _leaves(c2))
+    check(not bad, f"20(c) steps_per_call=2 differs from single steps at {bad[:8]}")
+    want = float(torch.stack(single[1::2]).mean())
+    check(h2["train_loss"] == [want], f"20(c) epoch loss {h2['train_loss']} with 2 steps a "
+                                      f"call, the mean of each call's last step is {want}")
+    check(s3 == 2, f"20(c) B=512: 3 batches at 2 steps a call ran {s3} steps, not 2")
+    print(f"20(c) two-tower train CLI (bench widths, 1 epoch): 6 batches at B=256 with "
+          f"steps_per_call 2 and 1 give checkpoints equal bit for bit ({len(_leaves(c1))} "
+          f"leaves); epoch loss {h2['train_loss'][0]:.6f} = the mean of steps 2, 4 and 6 "
+          f"(single-step epoch loss {h1['train_loss'][0]:.6f}); B=512, 3 batches: {s3} steps, "
+          f"the third batch dropped; 3 CLI runs in {cli_s:.1f} s")
+
+
+def phase_multiway_weights(torch, build):
+    """20(d): one tf_clip step with unequal pair weights, card vs CPU as
+    9(b) (at B=128, for the smoke's time); the from-raw passes launched for
+    each pair."""
+    import functools
+
+    from clip_dplm_tpu_torch.config import Config, apply_overrides
+    from clip_dplm_tpu_torch.experiments import bench
+    from clip_dplm_tpu_torch.ops import fused_infonce as fi
+    from clip_dplm_tpu_torch.train import trainer as ptrainer
+
+    B = 128
+    weights = {("cell", "pert"): 0.25, ("cell", "protein"): 2.0, ("pert", "protein"): 0.75}
+    cfg = apply_overrides(Config(), bench.TF_CLIP_OVERRIDES + [
+        f"train.batch_size={B}", "train.optim.schedule=constant",
+        "train.optim.learning_rate=1e-3"])
+    batch = bench.tf_clip_batch(cfg, B, np.random.default_rng(23))
+    real = ptrainer.fused_multiway_clip_loss
+    ptrainer.fused_multiway_clip_loss = functools.partial(fi.fused_multiway_clip_loss,
+                                                          weights=weights)
+    build.LAUNCHES.reset()
+    raws = from_raw_calls(build)
+    try:
+        step_card_vs_cpu(torch, f"20(d) tf_clip train step B={B}, pair weights {weights}",
+                         cfg, batch)
+    finally:
+        ptrainer.fused_multiway_clip_loss = real
+    torch.cuda.synchronize()
+    launches = build.LAUNCHES.snapshot()
+    moved = check_from_raw(build, raws, launches, "20(d)")
+    backwards = GRAD_DRAWS + 1  # the drawn gradients and the optimizer step
+    check(moved == [3 * backwards] * 2,
+          f"20(d) from-raw passes (A, B) {moved}, not 3 pairs x {backwards} backwards")
+    print(f"20(d) from_raw_grad_kernel calls (A, B) {moved}: 3 pairs x {backwards} backwards, "
+          f"each pair's weight its incoming gradient's scale")
+
+
+def phase_native_tokenizer(torch):
+    """20(e): the native tokenizer built with this machine's g++, its ids
+    and masks equal to the Python tokenizer's on the embed CLI's inputs of
+    16(e) (64 sequences of 50-1000 residues in batches of 32, padded with
+    "L" rows, at --max-len 1024 and 128)."""
+    from clip_dplm_tpu_torch.data.protein import random_protein, tokenize_batch
+    from clip_dplm_tpu_torch.native import bindings
+
+    gxx = subprocess.run(["g++", "--version"], capture_output=True, text=True).stdout
+    path = bindings.library_path()
+    built_before = path.exists()
+    t0 = time.perf_counter()
+    bindings.build()
+    build_s = time.perf_counter() - t0
+    rng = np.random.default_rng(61)
+    seqs = [random_protein(rng, int(n)) for n in rng.integers(50, 1001, 64)]
+    for S in (1024, 128):
+        for i in (0, 32):
+            chunk = seqs[i:i + 32]
+            got = bindings.tokenize_batch_native(chunk, max_len=S)
+            want = tokenize_batch(chunk, max_len=S)
+            check(all(np.array_equal(g, w) and g.dtype == w.dtype for g, w in zip(got, want)),
+                  f"20(e) native tokenizer differs from the Python one at --max-len {S}")
+    print(f"20(e) native tokenizer ({gxx.splitlines()[0] if gxx else 'g++'}): {path.name} "
+          f"{'built by 16(e)' if built_before else f'built in {build_s:.2f} s'}; ids and masks "
+          f"of the embed CLI's 64 sequences equal the Python tokenizer's at --max-len 1024 and "
+          f"128; 16(e)'s embed CLI tokenized through it, bit-equal to /v1/embed")
+
+
+def phase_flagship_main_path(torch, build):
+    """20(f): the slice's main path, the flagship train CLI at full width
+    (B=256) with precision.remat=true and train.steps_per_call=2, 2 epochs
+    (3 batches an epoch: one call of 2 steps, the third batch dropped),
+    every counter set to 0 just before and read just after."""
+    from clip_dplm_tpu_torch.experiments import bench
+
+    over = bench.RNA_RBP_OVERRIDES + ["train.batch_size=256", "train.optim.warmup_steps=5",
+                                      "train.optim.learning_rate=1e-3", "precision.remat=true",
+                                      "train.steps_per_call=2"]
+    build.LAUNCHES.reset()
+    raws = from_raw_calls(build)
+    t0 = time.perf_counter()
+    hist = train_cli_run(["--epochs", "2", *[a for o in over for a in ("-o", o)]])
+    cli_s = time.perf_counter() - t0
+    torch.cuda.synchronize()
+    launches = build.LAUNCHES.snapshot()
+    losses = hist["train_loss"]
+    check(len(losses) == 2 and all(np.isfinite(losses)), f"20(f) flagship CLI losses {losses}")
+    for name in FLAGSHIP_PATH:
+        check(launches[name] > 0, f"20(f) kernel {name} was not launched by the main path")
+    check_from_raw(build, raws, launches, "20(f)")
+    print(f"20(f) the slice's main path: the flagship train CLI (full widths, B=256, "
+          f"precision.remat=true, train.steps_per_call=2, 2 epochs of one 2-step call): "
+          f"train_loss {losses}, {cli_s:.1f} s; launches {launches}")
+
+
 def phase_machine(torch, run_dir):
     """19(f): the plotting packages, the visualize CLI, the memory status."""
     from clip_dplm_tpu_torch.experiments import visualize as visualize_cli
@@ -4332,6 +4743,12 @@ def main() -> int:
     launches.update(run("19", phase_probes, torch, _build, card))
     run("19", phase_loss_variants, torch, _build)
     run("19", phase_sweep, torch, _build)
+    run("20", phase_prefetch, torch, card)
+    run("20", phase_remat, torch, _build, card)
+    run("20", phase_steps_per_call, torch)
+    run("20", phase_multiway_weights, torch, _build)
+    run("20", phase_native_tokenizer, torch)
+    run("20", phase_flagship_main_path, torch, _build)
     print("command time by phase (s): " + ", ".join(f"{k} {v:.1f}" for k, v in times.items()))
 
     keys = ("max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by", "library_ms")

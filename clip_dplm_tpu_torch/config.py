@@ -11,10 +11,16 @@ transport maps) and the DPLM diffusion denoiser (`experiment="dplm"`,
 
 The frozen dataclasses of `clip_dplm_tpu/config.py`, without the yaml loader
 (so the port imports no yaml) and with only the fields the port reads: the
-reference's `scan_layers` fields, the global-batch gather, the other loss
-kinds and `precision.remat` are left out until the port has what they switch
-on, so passing one raises instead of being ignored (utils/pretrained.py reads
-a JAX-written config and holds each such field to its default). The LoRA
+reference's `scan_layers` fields, the global-batch gather and the mesh are
+left out until the port has what they switch on, and `precision.compute_dtype`,
+`precision.param_dtype` and `data.num_workers` because nothing of the JAX
+package reads them, so passing one raises instead of being ignored
+(utils/pretrained.py reads a JAX-written config and holds each such field to
+its default). `precision.remat` recomputes each tower block's forward in the
+backward (`torch.utils.checkpoint`), as JAX's `nn.remat` does;
+`train.steps_per_call` runs that many steps a call over stacked batches (the
+ragged tail dropped) and `train.optim.fused_update=false` takes the unfused
+optax chain (train/state.py::AdamWChain). The LoRA
 fields of `esm` and `dplm` (`lora_rank`, `lora_alpha`, `lora_targets`,
 models/lora.py) are ported: rank 0 disables them. `esm.frozen` freezes the
 ESM tower of esm_clip. DPLM's `num_candidates` is
@@ -305,6 +311,9 @@ class OptimConfig:
     grad_accum_steps: int = 1
     moment_dtype: str = "float32"  # float32 | bfloat16
     clip_mode: str = "exact"  # exact | stale
+    # the fused AdamW (default) or the optax chain clip -> adamw, kept for
+    # equivalence (train/state.py::AdamWChain)
+    fused_update: bool = True
 
 
 @dataclass(frozen=True)
@@ -322,8 +331,23 @@ class TrainConfig:
     early_stopping_patience: int = 10
     seed: int = 42
     log_grad_norm: bool = False
+    # train steps a call over a stacked group of batches; the ragged tail
+    # group of an epoch is dropped (train/trainer.py)
+    steps_per_call: int = 1
     loss_weights: LossWeights = field(default_factory=LossWeights)
     optim: OptimConfig = field(default_factory=OptimConfig)
+
+
+@dataclass(frozen=True)
+class PrecisionConfig:
+    """`remat`: every tower block's forward is recomputed in the backward
+    (`torch.utils.checkpoint`, non-reentrant), as JAX's `nn.remat` on the
+    token towers' and ESM-2's blocks. The reference's `compute_dtype` and
+    `param_dtype` are read by nothing there (its modules take their dtype
+    from their own attribute), so the port holds them to their defaults
+    (utils/pretrained.py::_UNPORTED)."""
+
+    remat: bool = False
 
 
 @dataclass(frozen=True)
@@ -381,6 +405,7 @@ class Config:
     dplm: DPLMConfig = field(default_factory=DPLMConfig)
     contrastive: ContrastiveConfig = field(default_factory=ContrastiveConfig)
     train: TrainConfig = field(default_factory=TrainConfig)
+    precision: PrecisionConfig = field(default_factory=PrecisionConfig)
     data: DataConfig = field(default_factory=DataConfig)
     logging: LoggingConfig = field(default_factory=LoggingConfig)
 

@@ -1,9 +1,13 @@
 """Host-side collation of variable-length token sequences: static-shaped
 padded batches with explicit boolean masks (True = real token).
 
-`pad_token_batch`, `_pad_seq_dim` and `TokenPairDataset` (its `batches` and
-`synthetic`) of `clip_dplm_tpu/data/collate.py`, which are numpy only and
-copied as they are, so one seed gives the same batches in both packages.
+`pad_token_batch`, `nan_padded_to_masked`, `_pad_seq_dim` and
+`TokenPairDataset` (its `batches` and `synthetic`) of
+`clip_dplm_tpu/data/collate.py`, which are numpy only and copied as they are,
+so one seed gives the same batches in both packages. `cluster_split` runs its
+k-means on `train/analysis.py::kmeans`, which gives scikit-learn 1.9.0's
+`KMeans(n_init=4, random_state=seed)` labels without scikit-learn (the
+card's machine has none).
 """
 
 from __future__ import annotations
@@ -33,6 +37,13 @@ def pad_token_batch(
         out[i, :n] = s[:n]
         mask[i, :n] = True
     return out, mask
+
+
+def nan_padded_to_masked(x: np.ndarray) -> Tuple[np.ndarray, np.ndarray]:
+    """Convert a NaN-padded batch (the reference's device-side convention,
+    rna nb cell 24) into (zero-filled batch, bool mask) at the host boundary."""
+    mask = ~np.isnan(x).any(axis=-1)
+    return np.nan_to_num(x, nan=0.0), mask
 
 
 @dataclasses.dataclass
@@ -106,3 +117,37 @@ def _pad_seq_dim(x: np.ndarray, mask: np.ndarray, S: int):
         np.pad(x, ((0, 0), (0, pad), (0, 0))),
         np.pad(mask, ((0, 0), (0, pad))),
     )
+
+
+def cluster_split(
+    seqs_a: Sequence[np.ndarray],
+    seqs_b: Sequence[np.ndarray],
+    val_fraction: float = 0.15,
+    n_clusters: int = 20,
+    seed: int = 0,
+) -> Tuple["TokenPairDataset", "TokenPairDataset"]:
+    """Cluster-based train/val split (rna nb cell 29 semantics: whole motif
+    clusters go to one side, so near-duplicate sequences never straddle the
+    split). Clusters are k-means over the mean-pooled token embeddings of
+    side a; clusters join the validation side in a seeded random order until
+    it holds `val_fraction` of the rows."""
+    from clip_dplm_tpu_torch.train.analysis import kmeans
+
+    pooled = np.stack([s.mean(axis=0) for s in seqs_a])
+    k = min(n_clusters, len(seqs_a))
+    labels = kmeans(pooled, n_clusters=k, n_init=4, random_state=seed)[0]
+    rng = np.random.default_rng(seed)
+    order = rng.permutation(k)
+    target_val = int(len(seqs_a) * val_fraction)
+    val_clusters = set()
+    count = 0
+    for c in order:
+        if count >= target_val:
+            break
+        val_clusters.add(int(c))
+        count += int((labels == c).sum())
+    val_idx = [i for i, l in enumerate(labels) if l in val_clusters]
+    train_idx = [i for i, l in enumerate(labels) if l not in val_clusters]
+    mk = lambda idx: TokenPairDataset(  # noqa: E731
+        [seqs_a[i] for i in idx], [seqs_b[i] for i in idx])
+    return mk(train_idx), mk(val_idx)

@@ -82,7 +82,7 @@ OVERRIDES = [
 ]
 
 # bench.py's flagship overrides (`run_flagship`), without train.rng_impl and
-# train.optim.fused_update (the port's AdamW is always the fused update)
+# train.optim.fused_update=true (the port's default too)
 TOKENS = 127  # per tower; the CLS token makes S = 128
 RNA_RBP_OVERRIDES = [
     "experiment=rna_rbp",
@@ -105,7 +105,8 @@ PRESET_OVERRIDES = ["contrastive.use_cache=true", "contrastive.use_fused_kernel=
 CACHED_OVERRIDES = OVERRIDES + PRESET_OVERRIDES + ["contrastive.cache_size=8192"]
 
 # the tf_clip probe's overrides (scripts/tpu_config_probes.py::tf_clip_fixture)
-# without its JAX-only ones (train.optim.fused_update, train.rng_impl)
+# without train.rng_impl (no torch meaning) and train.optim.fused_update=true
+# (the port's default too)
 TF_CLIP_OVERRIDES = [
     "experiment=tf_clip",
     "train.optim.total_steps=1000",

@@ -12,9 +12,11 @@ without one, from random weights of the `--esm` family:
   python -m clip_dplm_tpu_torch.experiments.embed --input seqs.fasta \\
       --output emb.npz --bundle runs/esm2_650m --max-len 1024
 
-Tokenization is `data/protein.py::tokenize_batch` (the host C++ tokenizer is
-ROADMAP queue 1 item 12); `--pipeline-stages` > 1 (the trunk pipelined over
-several devices) is queue 1 item 13 and raises.
+Tokenization is the host C++ tokenizer (`native/bindings.py::
+tokenize_batch_native`, built with g++ on first use; the same ids and masks
+as `data/protein.py::tokenize_batch`), as the JAX package's CLI tokenizes;
+`--pipeline-stages` > 1 (the trunk pipelined over several devices) is queue 1
+item 13 and raises.
 """
 
 from __future__ import annotations
@@ -73,7 +75,8 @@ def parse_args(argv: Optional[Sequence[str]] = None) -> argparse.Namespace:
 
 def main(argv: Optional[Sequence[str]] = None) -> Dict[str, np.ndarray]:
     args = parse_args(argv)
-    from clip_dplm_tpu_torch.data.protein import PAD_IDX, tokenize_batch
+    from clip_dplm_tpu_torch.data.protein import PAD_IDX
+    from clip_dplm_tpu_torch.native import tokenize_batch_native
     from clip_dplm_tpu_torch.models.esm import ESMTower, esm_config_from_name
     from clip_dplm_tpu_torch.models.layers import init_params
     from clip_dplm_tpu_torch.utils.pretrained import esm_tower_of, load_pretrained
@@ -103,7 +106,7 @@ def main(argv: Optional[Sequence[str]] = None) -> Dict[str, np.ndarray]:
     with torch.no_grad():
         for start in range(0, len(seqs), B):
             chunk = seqs[start:start + B]
-            toks, mask = tokenize_batch(chunk + ["L"] * (B - len(chunk)), max_len=S)
+            toks, mask = tokenize_batch_native(chunk + ["L"] * (B - len(chunk)), max_len=S)
             if toks.shape[1] < S:  # one padded length for the whole stream
                 toks = np.pad(toks, ((0, 0), (0, S - toks.shape[1])), constant_values=PAD_IDX)
                 mask = np.pad(mask, ((0, 0), (0, S - mask.shape[1])))

@@ -29,7 +29,7 @@ from torch import nn
 
 from clip_dplm_tpu_torch.config import DPLMConfig
 from clip_dplm_tpu_torch.models.esm import EsmBlock
-from clip_dplm_tpu_torch.models.layers import Dense, Embed, LayerNorm
+from clip_dplm_tpu_torch.models.layers import Dense, Embed, LayerNorm, remat_call
 from clip_dplm_tpu_torch.models.lora import spec_from
 from clip_dplm_tpu_torch.ops.fused_dense import DropoutSeeds, dropout_bits
 
@@ -47,9 +47,9 @@ class DPLM(nn.Module):
     `cfg.lora_rank` the blocks carry LoRA adapters (models/lora.py)."""
 
     def __init__(self, cfg: DPLMConfig, dtype: torch.dtype = torch.bfloat16,
-                 device=None):
+                 device=None, remat: bool = False):
         super().__init__()
-        self.cfg, self.dtype = cfg, dtype
+        self.cfg, self.dtype, self.remat = cfg, dtype, remat
         self.embed_tokens = Embed(cfg.vocab_size, cfg.d_model, device=device)
         lora = spec_from(cfg)
         for i in range(cfg.num_layers):
@@ -72,7 +72,11 @@ class DPLM(nn.Module):
         h = torch.where(mask[..., None], h, 0.0).to(self.dtype)
         positions = torch.arange(tokens.shape[1], device=tokens.device)
         for i in range(self.cfg.num_layers):
-            h = getattr(self, f"layer_{i}")(h, mask, positions)
+            block = getattr(self, f"layer_{i}")
+            if self.remat and torch.is_grad_enabled():
+                h = remat_call(block, h, mask, positions)
+            else:
+                h = block(h, mask, positions)
         return self.lm_head(self.final_ln(h))
 
 

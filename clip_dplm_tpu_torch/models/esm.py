@@ -8,9 +8,10 @@ soft CLIP guidance differentiates through. Parameters keep the flax names
 `final_ln`), so `utils/convert.py` maps a flax tree onto the `state_dict`.
 The trunk is always unrolled; a stacked (`scan_layers`) flax tree is
 unstacked on conversion. With `cfg.lora_rank` the blocks carry LoRA adapters
-(models/lora.py) beside the unchanged base tree. `convert_esm_torch_params` /
-`export_esm_torch_params` map an HF `EsmModel` state_dict (ESM-2's
-published layout) onto the port's and back.
+(models/lora.py) beside the unchanged base tree. With `remat` each block
+recomputes its forward in the backward (`layers.remat_call`), as JAX's
+`nn.remat`. `convert_esm_torch_params` / `export_esm_torch_params` map an HF
+`EsmModel` state_dict (ESM-2's published layout) onto the port's and back.
 
 Attention dispatch follows the reference by shape: the packed-qkv kernel with
 in-kernel RoPE for 64 <= S < 256, the flash kernel for S >= 256, plain
@@ -27,7 +28,7 @@ import torch.nn.functional as F
 from torch import nn
 
 from clip_dplm_tpu_torch.config import ESMConfig
-from clip_dplm_tpu_torch.models.layers import Dense, Embed, LayerNorm, numpy_f32
+from clip_dplm_tpu_torch.models.layers import Dense, Embed, LayerNorm, numpy_f32, remat_call
 from clip_dplm_tpu_torch.models.lora import LoRAPair, LoRASpec, is_lora_path, spec_from
 from clip_dplm_tpu_torch.ops.attention import (
     attention_dispatch,
@@ -193,9 +194,9 @@ class ESMTower(nn.Module):
     PAD_IDX = 1
 
     def __init__(self, cfg: ESMConfig, dtype: torch.dtype = torch.bfloat16,
-                 device=None):
+                 device=None, remat: bool = False):
         super().__init__()
-        self.cfg, self.dtype = cfg, dtype
+        self.cfg, self.dtype, self.remat = cfg, dtype, remat
         self.embed_tokens = Embed(cfg.vocab_size, cfg.d_model, device=device)
         lora = spec_from(cfg)
         for i in range(cfg.num_layers):
@@ -269,7 +270,10 @@ class ESMTower(nn.Module):
         the mask and the pooling."""
         h, mask, positions = self.embed(tokens, mask, token_probs)
         for block in self.blocks:
-            h = block(h, mask, positions)
+            if self.remat and torch.is_grad_enabled():
+                h = remat_call(block, h, mask, positions)
+            else:
+                h = block(h, mask, positions)
         return self.head(h, tokens, mask, pooling)
 
 

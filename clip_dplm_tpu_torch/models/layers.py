@@ -38,6 +38,7 @@ from typing import Optional
 import numpy as np
 import torch
 import torch.nn.functional as F
+import torch.utils.checkpoint
 from torch import nn
 
 from clip_dplm_tpu_torch.ops.fused_dense import (
@@ -171,6 +172,33 @@ def _dropout(h: torch.Tensor, rate: float, deterministic: bool,
     if deterministic or rate <= 0.0:
         return h
     return hash_dropout(h.reshape(-1, h.shape[-1]), _seed(seeds), rate).reshape(h.shape)
+
+
+def remat_call(fn, *args):
+    """fn(*args) with its activations recomputed in the backward
+    (`torch.utils.checkpoint`, non-reentrant): JAX's `nn.remat` on a block.
+    A `DropoutSeeds` among the args draws its seeds in call order on the
+    host, so the first forward and the recompute each run on a copy of it
+    at the count the block starts from (the same masks both times), and
+    the caller's seeds then stand where the block left them. Nothing in a
+    block draws from torch's generators, so their states are not saved."""
+    starts = [(i, a.count) for i, a in enumerate(args) if isinstance(a, DropoutSeeds)]
+    ends = {}
+
+    def run(*a):
+        a = list(a)
+        for i, count in starts:
+            a[i] = DropoutSeeds(a[i].key, a[i].step)
+            a[i].count = count
+        out = fn(*a)
+        ends.update((i, a[i].count) for i, _ in starts)
+        return out
+
+    out = torch.utils.checkpoint.checkpoint(run, *args, use_reentrant=False,
+                                            preserve_rng_state=False)
+    for i, _ in starts:
+        args[i].count = ends[i]
+    return out
 
 
 def _seed(seeds: Optional[DropoutSeeds]) -> int:

@@ -37,8 +37,9 @@ class ESMProteinCLIP(nn.Module):
     def __init__(self, cfg: Config, dtype: torch.dtype = torch.bfloat16, device=None):
         super().__init__()
         self.cfg, self.dtype = cfg, dtype
-        self.rna_tower = TokenTransformerTower(cfg.rna_tower, dtype, device)
-        self.esm_tower = ESMTower(cfg.esm, dtype, device)
+        remat = cfg.precision.remat
+        self.rna_tower = TokenTransformerTower(cfg.rna_tower, dtype, device, remat)
+        self.esm_tower = ESMTower(cfg.esm, dtype, device, remat)
         self.rna_proj = OptimizedProjectionHead(cfg.projection, cfg.rna_tower.d_model, dtype,
                                                 device)
         self.protein_proj = OptimizedProjectionHead(cfg.projection, cfg.esm.d_model, dtype,

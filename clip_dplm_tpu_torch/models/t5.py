@@ -31,7 +31,7 @@ import torch.nn.functional as F
 from torch import nn
 
 from clip_dplm_tpu_torch.config import ProtT5Config
-from clip_dplm_tpu_torch.models.layers import Dense, Embed, numpy_f32
+from clip_dplm_tpu_torch.models.layers import Dense, Embed, numpy_f32, remat_call
 
 NEG_INF = -1e9
 
@@ -124,9 +124,10 @@ class ProtT5Tower(nn.Module):
     PAD_IDX = 0
     EOS_IDX = 1
 
-    def __init__(self, cfg: ProtT5Config, dtype: torch.dtype = torch.bfloat16, device=None):
+    def __init__(self, cfg: ProtT5Config, dtype: torch.dtype = torch.bfloat16, device=None,
+                 remat: bool = False):
         super().__init__()
-        self.cfg, self.dtype = cfg, dtype
+        self.cfg, self.dtype, self.remat = cfg, dtype, remat
         self.embed_tokens = Embed(cfg.vocab_size, cfg.d_model, device=device)
         self.relative_attention_bias = nn.Parameter(torch.empty(
             cfg.relative_attention_num_buckets, cfg.num_heads, dtype=torch.float32,
@@ -165,7 +166,11 @@ class ProtT5Tower(nn.Module):
         bias = self.position_bias(tokens.shape[1]) + torch.where(
             mask[:, None, None, :], 0.0, NEG_INF)
         for i in range(self.cfg.num_layers):
-            h = getattr(self, f"layer_{i}")(h, bias)
+            block = getattr(self, f"layer_{i}")
+            if self.remat and torch.is_grad_enabled():
+                h = remat_call(block, h, bias)
+            else:
+                h = block(h, bias)
         h = self.final_ln(h)
         if pooling == "tokens":
             return h

@@ -7,7 +7,9 @@ CLS or masked-mean pooling, an `OptimizedProjectionHead` on each side into
 the shared space, and a learned f32 logit scale. Under cls/first pooling the
 last block keeps only row 0 after its attention core (`TransformerBlock.
 out_rows`), which is exact: the FFN half and the final LayerNorm are
-row-local. Parameter names follow the flax modules, so `utils/convert.py`
+row-local. With `remat` (`precision.remat`) each block, the truncated last
+one too, recomputes its forward in the backward (`layers.remat_call`), as
+JAX's `nn.remat` on the block class. Parameter names follow the flax modules, so `utils/convert.py`
 loads a flax tree key for key; `pos_embed` (1, max_len, d) and `cls_token`
 (1, 1, d) copy as they are.
 """
@@ -26,6 +28,7 @@ from clip_dplm_tpu_torch.models.layers import (
     LayerNorm,
     OptimizedProjectionHead,
     TransformerBlock,
+    remat_call,
 )
 from clip_dplm_tpu_torch.ops.fused_dense import DropoutSeeds
 
@@ -36,8 +39,10 @@ class TokenTransformerTower(nn.Module):
     """(B, S, input_dim) token embeddings and a (B, S) validity mask ->
     pooled (B, d_model) f32."""
 
-    def __init__(self, cfg: TransformerTowerConfig, dtype=torch.bfloat16, device=None):
+    def __init__(self, cfg: TransformerTowerConfig, dtype=torch.bfloat16, device=None,
+                 remat: bool = False):
         super().__init__()
+        self.remat = remat
         if cfg.pooling not in ("cls", "first", "mean"):
             raise ValueError(f"unknown pooling {cfg.pooling!r}")
         if cfg.ln_dtype not in _LN_DTYPES:
@@ -81,7 +86,11 @@ class TokenTransformerTower(nn.Module):
             mask = torch.cat([torch.ones((B, 1), dtype=torch.bool, device=mask.device), mask],
                              dim=1)
         for i in range(c.num_layers):
-            h = getattr(self, f"block_{i}")(h, mask, deterministic, seeds)
+            block = getattr(self, f"block_{i}")
+            if self.remat and torch.is_grad_enabled():
+                h = remat_call(block, h, mask, deterministic, seeds)
+            else:
+                h = block(h, mask, deterministic, seeds)
         h = self.final_ln(h)
         if c.pooling in ("cls", "first"):
             return h[:, 0]
@@ -98,8 +107,9 @@ class RNARBPCLIP(nn.Module):
     def __init__(self, cfg: Config, dtype: torch.dtype = torch.bfloat16, device=None):
         super().__init__()
         self.cfg, self.dtype = cfg, dtype
-        self.rna_tower = TokenTransformerTower(cfg.rna_tower, dtype, device)
-        self.rbp_tower = TokenTransformerTower(cfg.rbp_tower, dtype, device)
+        remat = cfg.precision.remat
+        self.rna_tower = TokenTransformerTower(cfg.rna_tower, dtype, device, remat)
+        self.rbp_tower = TokenTransformerTower(cfg.rbp_tower, dtype, device, remat)
         self.rna_proj = OptimizedProjectionHead(cfg.projection, cfg.rna_tower.d_model, dtype,
                                                 device)
         self.rbp_proj = OptimizedProjectionHead(cfg.projection, cfg.rbp_tower.d_model, dtype,

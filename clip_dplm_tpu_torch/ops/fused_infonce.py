@@ -699,24 +699,31 @@ def fused_clip_loss(
 def fused_multiway_clip_loss(
     embeddings: Dict[str, torch.Tensor],
     logit_scale: torch.Tensor,
+    pairs=None,
     max_scale: float = 100.0,
-    dot_dtype: Optional[torch.dtype] = None,
     label_smoothing: float = 0.0,
+    weights=None,
+    dot_dtype: Optional[torch.dtype] = None,
     materialize_raw="auto",
 ) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
     """Drop-in for infonce.multiway_clip_loss through `fused_clip_loss`, one
     pair at a time (no f32 B x B similarity is materialized; each pair saves
-    its int16 raw as `materialize_raw` says); the total is the sum. Metrics:
-    each pair's loss and the effective logit scale (no accuracy, as the
-    reference's fused path)."""
+    its int16 raw as `materialize_raw` says); the same `pairs` (missing
+    modalities skipped) and `weights` (`weights.get((a, b), 1.0)` scales a
+    pair's loss in the total; autograd hands that weight to the pair's
+    backward as the scale of its incoming gradient, so on the card it
+    reaches the from-raw passes). Metrics: each pair's loss and the
+    effective logit scale (no accuracy, as the reference's fused path)."""
     total = torch.zeros((), device=logit_scale.device)
     metrics: Dict[str, torch.Tensor] = {}
-    for a, b in modality_pairs(embeddings):
+    for a, b in modality_pairs(embeddings) if pairs is None else pairs:
+        if a not in embeddings or b not in embeddings:
+            continue
         loss, _ = fused_clip_loss(embeddings[a], embeddings[b], logit_scale,
                                   max_scale=max_scale, dot_dtype=dot_dtype,
                                   label_smoothing=label_smoothing,
                                   materialize_raw=materialize_raw)
-        total = total + loss
+        total = total + (1.0 if weights is None else weights.get((a, b), 1.0)) * loss
         metrics[f"loss_{a}_{b}"] = loss
     metrics["logit_scale"] = effective_scale(logit_scale, max_scale)
     return total, metrics

@@ -11,7 +11,7 @@ take it).
 
 from __future__ import annotations
 
-from typing import Dict, Optional, Tuple
+from typing import Dict, Optional, Sequence, Tuple
 
 import torch
 
@@ -104,17 +104,24 @@ def modality_pairs(names):
 
 
 def multiway_clip_loss(embeddings: Dict[str, torch.Tensor], logit_scale: torch.Tensor,
+                       pairs: Optional[Sequence[Tuple[str, str]]] = None,
                        max_scale: float = 100.0, label_smoothing: float = 0.0,
+                       weights: Optional[Dict[Tuple[str, str], float]] = None,
                        ) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
-    """Sum of the symmetric InfoNCE of every pair of modalities (the 3-way
-    TF loss: cell<->pert + cell<->protein + pert<->protein). Metrics: each
-    pair's loss and accuracy."""
+    """Weighted sum of the symmetric InfoNCE of modality pairs (the 3-way
+    TF loss: cell<->pert + cell<->protein + pert<->protein). `pairs`
+    defaults to every unordered pair of the embeddings, in order; a pair
+    naming a modality that is missing is skipped, as the reference skips
+    it; `weights.get((a, b), 1.0)` scales pair (a, b) in the total. Metrics:
+    each pair's (unweighted) loss and accuracy."""
     total = torch.zeros((), device=logit_scale.device)
     metrics: Dict[str, torch.Tensor] = {}
-    for a, b in modality_pairs(embeddings):
+    for a, b in modality_pairs(embeddings) if pairs is None else pairs:
+        if a not in embeddings or b not in embeddings:
+            continue
         loss, m = clip_loss(embeddings[a], embeddings[b], logit_scale,
                             label_smoothing=label_smoothing, max_scale=max_scale)
-        total = total + loss
+        total = total + (1.0 if weights is None else weights.get((a, b), 1.0)) * loss
         metrics[f"loss_{a}_{b}"] = loss
         metrics[f"accuracy_{a}_{b}"] = m["accuracy"]
     return total, metrics

@@ -3,10 +3,12 @@
 Counterpart of `clip_dplm_tpu/train/checkpoint.py` (Orbax there, `torch.save`
 here). A checkpoint holds what the JAX package's holds, in the port's form
 (`arrays_only`): the parameters by their flax scope paths joined with dots
-(`tower_a.layers_0.kernel`; Dense kernels (out, in)), the fused AdamW's
-`count`, `mu`, `nu` (in their stored dtype: bf16 under
-`optim.moment_dtype=bfloat16`; only the trained leaves where LoRA masks the
-frozen ones) and `prev_norm`, the `step`, the integer dropout `key`, and
+(`tower_a.layers_0.kernel`; Dense kernels (out, in)), the optimizer's
+state: the fused AdamW's `count`, `mu`, `nu` (in their stored dtype: bf16
+under `optim.moment_dtype=bfloat16`; only the trained leaves where LoRA masks
+the frozen ones) and `prev_norm`, or under `optim.fused_update=false` the
+optax chain's `count`, `mu` and `nu` (train/state.py::AdamWChain), the
+`step`, the integer dropout `key`, and
 with `contrastive.use_cache` the hard-negative `cache`, `cache_ptr` and
 `cache_len`. Restoring it and taking the next steps gives the same bytes as
 never stopping: a step's dropout seeds are hashed from (key, step).
@@ -37,6 +39,7 @@ holds the state of the step that was saved, not a torn mix. `wait`,
 
 from __future__ import annotations
 
+import dataclasses
 import os
 import re
 import threading
@@ -53,8 +56,7 @@ def arrays_only(state) -> Dict[str, Any]:
     opt = state.opt_state
     tree = {"step": state.step, "key": state.key,
             "params": dict(state.model.named_parameters()),
-            "opt_state": {"count": opt.count, "mu": opt.mu, "nu": opt.nu,
-                          "prev_norm": opt.prev_norm}}
+            "opt_state": {f.name: getattr(opt, f.name) for f in dataclasses.fields(opt)}}
     if state.cache is not None:
         tree.update(cache=state.cache, cache_ptr=state.cache_ptr, cache_len=state.cache_len)
     return tree
@@ -154,7 +156,7 @@ class CheckpointManager:
         tree = arrays_only(state)
         snapshot = self._snapshot(tree)
         event = None
-        if state.opt_state.prev_norm.is_cuda:
+        if next(state.model.parameters()).is_cuda:
             event = torch.cuda.Event()
             event.record()
         if self.async_save:
@@ -189,7 +191,7 @@ class CheckpointManager:
         if step is None:
             raise FileNotFoundError(f"no checkpoints under {self.directory}")
         self.wait()
-        device = state.opt_state.prev_norm.device
+        device = next(state.model.parameters()).device
         saved = torch.load(self._path(step), map_location=device, weights_only=True)
         live = arrays_only(state)
         _check(saved, live, "")

@@ -20,13 +20,24 @@ zeroes the whole update of top-level subtrees; the `*_lora` adapter leaves
 inside them (models/lora.py) still train, and where adapters are present
 the frozen leaves get no Adam moments at all, and neither enter the global
 norm (the reference's `optax.masked` inner optimizer).
+
+`AdamWChain` (`optim.fused_update=false`) is the reference's unfused
+optax chain, kept beside the fused update as JAX keeps it:
+`clip_by_global_norm` (the clipped gradient is g, or (g / norm) · clip when
+the norm reaches the clip), then `optax.adamw` with the schedule, `mu` in
+`moment_dtype` and `nu` in f32, each step as optax orders its arithmetic
+(the moments' decay products in the moment's dtype, the bias corrections
+as divisions, the decay added before the learning rate). Its state has
+`count`, `mu` and `nu`, and no `prev_norm`. It is written with the same
+`torch._foreach_*` ops, not `torch.optim`, and takes `freeze_subtrees` as
+the fused update does.
 """
 
 from __future__ import annotations
 
 import dataclasses
 import math
-from typing import Callable, Dict, Optional, Tuple
+from typing import Callable, Dict, Optional, Tuple, Union
 
 import torch
 from torch import nn
@@ -159,6 +170,75 @@ class FusedAdamW:
         state.count = count_inc
 
 
+@dataclasses.dataclass
+class ChainState:
+    count: int
+    mu: Dict[str, torch.Tensor]
+    nu: Dict[str, torch.Tensor]
+
+
+@dataclasses.dataclass(frozen=True)
+class AdamWChain:
+    """optax.chain(clip_by_global_norm(clip_norm), adamw(schedule, mu_dtype=
+    moment_dtype)), applied to the parameters in place."""
+
+    schedule: Schedule
+    b1: float = 0.9
+    b2: float = 0.999
+    eps: float = 1e-8
+    weight_decay: float = 0.01
+    clip_norm: float = 0.0
+    moment_dtype: Optional[torch.dtype] = None
+    frozen: Tuple[str, ...] = ()
+    mask_moments: bool = False
+
+    is_frozen = FusedAdamW.is_frozen
+    _moment_names = FusedAdamW._moment_names
+
+    def init(self, params: Dict[str, torch.Tensor]) -> ChainState:
+        names = self._moment_names(params)
+        return ChainState(
+            count=0,
+            mu={k: torch.zeros_like(params[k], dtype=self.moment_dtype or params[k].dtype)
+                for k in names},
+            nu={k: torch.zeros_like(params[k]) for k in names})
+
+    @torch.no_grad()
+    def update(self, grads: Dict[str, torch.Tensor], state: ChainState,
+               params: Dict[str, torch.Tensor]) -> None:
+        """One step: the moments in `state` and the parameters in place."""
+        names = self._moment_names(params)
+        g = [grads[n].float() for n in names]
+        if self.clip_norm and self.clip_norm > 0:
+            gnorm = global_norm(g)
+            keep = gnorm < self.clip_norm
+            scaled = torch._foreach_mul(torch._foreach_div(g, gnorm), self.clip_norm)
+            g = [torch.where(keep, a, b) for a, b in zip(g, scaled)]
+        mu = [state.mu[n] for n in names]
+        # b1 · mu in mu's dtype (optax's weakly typed scalar takes it)
+        b1 = float(torch.tensor(self.b1, dtype=mu[0].dtype)) if mu else self.b1
+        m = torch._foreach_add([t.float() for t in torch._foreach_mul(mu, b1)],
+                               torch._foreach_mul(g, 1.0 - self.b1))
+        v = torch._foreach_add(torch._foreach_mul([state.nu[n] for n in names], self.b2),
+                               torch._foreach_mul(torch._foreach_mul(g, g), 1.0 - self.b2))
+        count_inc = state.count + 1
+        b1c = 1.0 - float(torch.tensor(self.b1, dtype=torch.float32) ** count_inc)
+        b2c = 1.0 - float(torch.tensor(self.b2, dtype=torch.float32) ** count_inc)
+        lr = float(torch.tensor(-float(self.schedule(state.count)), dtype=torch.float32))
+        idx = [i for i, n in enumerate(names) if not self.is_frozen(n)]
+        if idx:
+            den = torch._foreach_add(torch._foreach_sqrt(
+                torch._foreach_div([v[i] for i in idx], b2c)), self.eps)
+            u = torch._foreach_div(torch._foreach_div([m[i] for i in idx], b1c), den)
+            live = [params[names[i]] for i in idx]
+            torch._foreach_add_(u, torch._foreach_mul([p.float() for p in live],
+                                                      self.weight_decay))
+            torch._foreach_add_(live, torch._foreach_mul(u, lr))
+        torch._foreach_copy_(mu, m)
+        torch._foreach_copy_([state.nu[n] for n in names], v)
+        state.count = count_inc
+
+
 def fused_adamw(schedule: Schedule, b1: float = 0.9, b2: float = 0.999, eps: float = 1e-8,
                 weight_decay: float = 0.01, clip_norm: float = 0.0,
                 moment_dtype: Optional[torch.dtype] = None,
@@ -166,10 +246,16 @@ def fused_adamw(schedule: Schedule, b1: float = 0.9, b2: float = 0.999, eps: flo
     return FusedAdamW(schedule, b1, b2, eps, weight_decay, clip_norm, moment_dtype, clip_mode)
 
 
-def build_optimizer(cfg: OptimConfig) -> FusedAdamW:
-    """AdamW + global-norm clip + schedule, always the fused update."""
+def build_optimizer(cfg: OptimConfig):
+    """AdamW + global-norm clip + schedule: the fused update, or the optax
+    chain under `fused_update=false`."""
     if cfg.moment_dtype not in ("float32", "bfloat16"):
         raise ValueError(f"unknown moment_dtype {cfg.moment_dtype!r}")
+    if not cfg.fused_update:
+        return AdamWChain(
+            build_schedule(cfg), b1=cfg.beta1, b2=cfg.beta2, eps=cfg.eps,
+            weight_decay=cfg.weight_decay, clip_norm=cfg.grad_clip_norm or 0.0,
+            moment_dtype=torch.bfloat16 if cfg.moment_dtype == "bfloat16" else None)
     return fused_adamw(
         build_schedule(cfg), b1=cfg.beta1, b2=cfg.beta2, eps=cfg.eps,
         weight_decay=cfg.weight_decay, clip_norm=cfg.grad_clip_norm or 0.0,
@@ -177,8 +263,7 @@ def build_optimizer(cfg: OptimConfig) -> FusedAdamW:
         clip_mode=cfg.clip_mode)
 
 
-def freeze_subtrees(tx: FusedAdamW, params: Dict[str, torch.Tensor],
-                    frozen_keys) -> FusedAdamW:
+def freeze_subtrees(tx, params: Dict[str, torch.Tensor], frozen_keys):
     """Zero the whole update (decay included) of the top-level subtrees in
     `frozen_keys`: a zero gradient alone would still let weight decay shrink
     them; they stay bit-exact. `*_lora` leaves inside a frozen subtree
@@ -196,8 +281,8 @@ def freeze_subtrees(tx: FusedAdamW, params: Dict[str, torch.Tensor],
 @dataclasses.dataclass
 class TrainState:
     model: nn.Module
-    tx: FusedAdamW
-    opt_state: AdamWState
+    tx: Union[FusedAdamW, AdamWChain]
+    opt_state: Union[AdamWState, ChainState]
     step: int
     key: int  # integer dropout key
     # the hard-negative ring (contrastive.use_cache), else None
@@ -209,7 +294,7 @@ class TrainState:
         return dict(self.model.named_parameters())
 
 
-def create_train_state(model: nn.Module, cfg: Config, tx: Optional[FusedAdamW] = None,
+def create_train_state(model: nn.Module, cfg: Config, tx=None,
                        frozen_keys=(), init: bool = True) -> TrainState:
     """With `init`, random weights from a generator seeded by
     cfg.train.seed on the model's device; otherwise the model keeps its

@@ -11,7 +11,9 @@ Counterpart of `clip_dplm_tpu/train/trainer.py` for those families:
 `make_loss_fn` (the per-family loss), `make_train_step`
 (gradient accumulation over micro-batches, the fused AdamW, the optional
 gradient-norm metric, the hard-negative cache of the pair family),
-`make_eval_step`, `evaluate_retrieval` (the retrieval metrics of a split)
+`make_multi_train_step` (`train.steps_per_call` steps a call over a
+stacked group), `make_eval_step`, `evaluate_retrieval` (the retrieval
+metrics of a split)
 and a `Trainer` with the epoch loop, validation, early stopping,
 checkpoints of each new best (train/checkpoint.py), the SIGTERM preemption
 save (train/preemption.py) and the profiler hook (utils/logging.py). With
@@ -30,9 +32,11 @@ import math
 import time
 from typing import Callable, Dict, Iterable, Optional, Tuple
 
+import numpy as np
 import torch
 
 from clip_dplm_tpu_torch.config import Config
+from clip_dplm_tpu_torch.data.prefetch import DevicePrefetcher
 from clip_dplm_tpu_torch.models.dplm import diffusion_loss
 from clip_dplm_tpu_torch.ops import infonce, loss_variants
 from clip_dplm_tpu_torch.ops.fused_dense import DropoutSeeds
@@ -43,9 +47,27 @@ from clip_dplm_tpu_torch.train.state import TrainState, global_norm
 def to_device(batch: Dict, device) -> Dict[str, torch.Tensor]:
     """numpy (or torch) batch -> tensors on `device`, dtypes kept (bool
     masks stay bool); a plain int (a graph batch's `num_graphs`, a size)
-    stays an int."""
-    return {k: v if isinstance(v, int) else torch.as_tensor(v).to(device, non_blocking=True)
+    stays an int. The copy is from pageable host memory, so it is
+    synchronous: only data/prefetch.py's copies, from pinned memory on a
+    stream of their own, overlap a step. The eval loop and
+    `evaluate_retrieval` feed through it; the Trainer's train steps never
+    do."""
+    return {k: v if isinstance(v, int) else torch.as_tensor(v).to(device)
             for k, v in batch.items()}
+
+
+def stack_batches(batches):
+    """Stack same-shaped host batches along a new leading axis (a plain int
+    stays one int, which must agree across the group)."""
+    out = {}
+    for k, v in batches[0].items():
+        if isinstance(v, int):
+            if any(b[k] != v for b in batches):
+                raise ValueError(f"{k}: the group's ints differ, so they cannot be stacked")
+            out[k] = v
+        else:
+            out[k] = np.stack([np.asarray(b[k]) for b in batches])
+    return out
 
 
 def _logit_scale(cfg: Config, out) -> torch.Tensor:
@@ -239,6 +261,23 @@ def make_train_step(cfg: Config) -> Callable[[TrainState, Dict], Tuple[TrainStat
     return step
 
 
+def make_multi_train_step(cfg: Config, steps_per_call: int
+                          ) -> Callable[[TrainState, Dict], Tuple[TrainState, Dict]]:
+    """multi(state, stacked) -> (state, metrics of the last step): the
+    `steps_per_call` steps of a stacked group (`stack_batches`, leading
+    axis = step) in turn, as the JAX package's `lax.scan` runs them."""
+    step = make_train_step(cfg)
+
+    def multi(state: TrainState, batches: Dict) -> Tuple[TrainState, Dict]:
+        metrics = None
+        for i in range(steps_per_call):
+            state, metrics = step(state, {k: v if isinstance(v, int) else v[i]
+                                          for k, v in batches.items()})
+        return state, metrics
+
+    return multi
+
+
 def make_eval_step(cfg: Config) -> Callable[[TrainState, Dict], Dict]:
     """Deterministic forward and the loss (no label smoothing): InfoNCE
     whatever contrastive.loss_kind is, as the JAX package's eval computes
@@ -329,14 +368,27 @@ class Trainer:
     `train.keep_checkpoints` steps, written on a thread under
     `train.async_checkpoint`; with `train.preemption_checkpoint` too, SIGTERM
     saves the live state at the step and ends training. `logging.profile`
-    traces steps 11-15 (utils/logging.py::ProfilerHook)."""
+    traces steps 11-15 (utils/logging.py::ProfilerHook).
+
+    Train batches always come through a `data/prefetch.py::DevicePrefetcher`
+    (made each epoch, closed in a `finally`): the next batch is collated and
+    copied on a background thread while the current step runs. With
+    `train.steps_per_call` > 1 the batches are stacked in groups of that
+    many (the ragged tail group dropped), each group is one call of
+    `make_multi_train_step`, the epoch's train loss is the mean of each
+    call's last-step loss and the Trainer's step count rises by the group's
+    size. `prefetch_wait_seconds` sums the time the steps waited for a
+    batch. Validation batches are copied serially (`to_device`), as the JAX
+    package puts them."""
 
     def __init__(self, cfg: Config, state: TrainState,
                  checkpoint_dir: Optional[str] = None,
                  log_fn: Optional[Callable[[int, Dict[str, float]], None]] = None):
         self.cfg, self.state, self.log_fn = cfg, state, log_fn
         self.device = state.model.device
-        self.train_step = make_train_step(cfg)
+        self.steps_per_call = max(1, cfg.train.steps_per_call)
+        self.train_step = (make_multi_train_step(cfg, self.steps_per_call)
+                           if self.steps_per_call > 1 else make_train_step(cfg))
         self.eval_step = make_eval_step(cfg)
         self.history: Dict[str, list] = {"train_loss": [], "val_loss": []}
         self._ckpt = None
@@ -351,6 +403,20 @@ class Trainer:
 
             self._profiler = ProfilerHook(cfg.logging.profile_dir)
         self._global_step = 0
+        self.prefetch_wait_seconds = 0.0
+
+    def _grouped(self, batches: Iterable):
+        """Stacked groups of `steps_per_call` batches (the ragged tail group
+        is dropped); the batches themselves when it is 1."""
+        if self.steps_per_call <= 1:
+            yield from batches
+            return
+        group = []
+        for b in batches:
+            group.append(b)
+            if len(group) == self.steps_per_call:
+                yield stack_batches(group)
+                group = []
 
     def train(self, train_batches: Callable[[], Iterable],
               val_batches: Optional[Callable[[], Iterable]] = None,
@@ -383,20 +449,28 @@ class Trainer:
             t0 = time.time()
             losses = []
             self.state.model.train()
-            for batch in train_batches():
-                self.state, metrics = self.train_step(self.state, to_device(batch, self.device))
-                losses.append(metrics["loss"])
-                self._global_step += 1
-                if self._profiler is not None:
-                    self._profiler.step(self._global_step)
-                if guard is not None and guard.requested_globally():
-                    if self._ckpt is not None:
-                        self._ckpt.save(self.state, self.state.step)
-                    self.history.setdefault("preempted_at_step", []).append(self._global_step)
-                    return
+            prefetcher = DevicePrefetcher(self._grouped(train_batches()), self.device, depth=2)
+            try:
+                for batch in prefetcher:
+                    self.state, metrics = self.train_step(self.state, batch)
+                    losses.append(metrics["loss"])
+                    self._global_step += self.steps_per_call
+                    if self._profiler is not None:
+                        self._profiler.step(self._global_step)
+                    if guard is not None and guard.requested_globally():
+                        if self._ckpt is not None:
+                            self._ckpt.save(self.state, self.state.step)
+                        self.history.setdefault("preempted_at_step", []).append(
+                            self._global_step)
+                        return
+            finally:
+                # also on an exception out of a step: the worker would
+                # otherwise hold `depth` device batches until it is reaped
+                prefetcher.close()
+                self.prefetch_wait_seconds += prefetcher.wait_seconds
             if not losses:
-                raise ValueError("the training set gave no batch (batch_size larger than "
-                                 "the set?)")
+                raise ValueError("the training set gave no batch, or fewer than "
+                                 "train.steps_per_call (batch_size larger than the set?)")
             train_loss = float(torch.stack(losses).mean())
             self.history["train_loss"].append(train_loss)
             val_loss = None

@@ -167,21 +167,40 @@ def _field(tree, name: str):
     return tree[name] if isinstance(tree, Mapping) else getattr(tree, name)
 
 
-def _adamw_state(opt_state):
-    """The fused AdamW's (count, mu, nu, prev_norm) inside a JAX optimizer
-    state: the FusedAdamWState itself, the first element of the chain that
-    `freeze_subtrees` builds, or the inner state of its `optax.masked`."""
-    if all(hasattr(opt_state, f) for f in ("count", "mu", "nu", "prev_norm")):
-        return opt_state
-    if isinstance(opt_state, Mapping) and {"count", "mu", "nu", "prev_norm"} <= set(opt_state):
+def _find_adam(opt_state):
+    """The first node holding (count, mu, nu) in a JAX optimizer state,
+    depth first: the FusedAdamWState, the optax chain's ScaleByAdamState,
+    either inside `freeze_subtrees`' chain or its `optax.masked`; None when
+    there is none."""
+    fields = ("count", "mu", "nu")
+    if all(hasattr(opt_state, f) for f in fields) or (
+            isinstance(opt_state, Mapping) and set(fields) <= set(opt_state)):
         return opt_state
     if hasattr(opt_state, "inner_state"):  # optax.masked's MaskedState
-        return _adamw_state(opt_state.inner_state)
-    if isinstance(opt_state, (tuple, list)) and opt_state:
-        return _adamw_state(opt_state[0])
-    raise ValueError(f"no fused AdamW state (count, mu, nu, prev_norm) in a "
-                     f"{type(opt_state).__name__}: the port carries only the fused update "
-                     "(train.optim.fused_update=true), alone or under freeze_subtrees")
+        return _find_adam(opt_state.inner_state)
+    if isinstance(opt_state, (tuple, list)):
+        for node in opt_state:
+            found = _find_adam(node)
+            if found is not None:
+                return found
+    return None
+
+
+def _has_prev_norm(node) -> bool:
+    return hasattr(node, "prev_norm") or (isinstance(node, Mapping) and "prev_norm" in node)
+
+
+def _adamw_state(opt_state, fused: bool):
+    """The Adam state inside a JAX optimizer state that matches the port's
+    optimizer: the fused AdamW's (count, mu, nu, prev_norm) when `fused`,
+    else the optax chain's (count, mu, nu)."""
+    node = _find_adam(opt_state)
+    if node is None or _has_prev_norm(node) != fused:
+        want = ("the fused AdamW's (count, mu, nu, prev_norm)" if fused
+                else "the optax chain's (count, mu, nu) and no prev_norm")
+        raise ValueError(f"no state of {want} in a {type(opt_state).__name__}: the JAX state "
+                         "and the port's train.optim.fused_update must agree")
+    return node
 
 
 def _drop_masked(tree):
@@ -211,20 +230,23 @@ def load_flax_train_state(state, jax_state):
     place, onto its device, and return it: the params (`load_flax_params`),
     the fused AdamW's count, mu, nu (Dense kernels' moments transposed to
     (out, in) as the kernels are; stored in the port's moment dtype) and
-    prev_norm, found in the plain fused state, in `freeze_subtrees`' chain
-    or under its `optax.masked` (LoRA: the frozen leaves have no moments on
-    either side), the step, and the hard-negative cache (`load_cache`) when
+    prev_norm, or the optax chain's count, mu and nu where the port's
+    optimizer is the chain (`optim.fused_update=false`), found in the plain
+    state, in `freeze_subtrees`' chain or under its `optax.masked` (LoRA:
+    the frozen leaves have no moments on either side), the step, and the hard-negative cache (`load_cache`) when
     the state has one. The dropout key stays the port's: JAX's PRNG key
     cannot be carried into the port's hash (a step's dropout differs)."""
     load_flax_params(state.model, _field(jax_state, "params"))
-    adam = _adamw_state(_field(jax_state, "opt_state"))
     opt = state.opt_state
+    fused = hasattr(opt, "prev_norm")
+    adam = _adamw_state(_field(jax_state, "opt_state"), fused)
     with torch.no_grad():
         for attr in ("mu", "nu"):
             have = getattr(opt, attr)
             for k, v in _moments(state, _field(adam, attr)).items():
                 have[k].copy_(v)
-        opt.prev_norm.fill_(float(np.asarray(_field(adam, "prev_norm"))))
+        if fused:
+            opt.prev_norm.fill_(float(np.asarray(_field(adam, "prev_norm"))))
     opt.count = int(np.asarray(_field(adam, "count")))
     state.step = int(np.asarray(_field(jax_state, "step")))
     if state.cache is not None:

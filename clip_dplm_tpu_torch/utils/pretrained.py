@@ -14,8 +14,10 @@ bundle written by either package loads in the other:
 
 Reading a config holds every field the port has not ported to the JAX
 package's default (`_UNPORTED`): one that differs raises and names the field,
-so nothing is silently ignored; `precision.compute_dtype` other than
-bfloat16 raises (every CUDA kernel takes bf16 only). `esm.scan_layers` and
+so nothing is silently ignored; `precision.compute_dtype` and
+`precision.param_dtype` other than their defaults raise naming why (the JAX
+package reads neither: its modules take their dtype from their own
+attribute). `esm.scan_layers` and
 `dplm.scan_layers` only set the layout of the params, which the converter
 reads either way (the port's modules are unrolled), so they pass.
 
@@ -53,10 +55,9 @@ _UNPORTED: Dict[str, Any] = {
     "icnn": {"input_dim": 512, "hessian_reg": 0.0001, "w2_weight": 1.0},
     "train": {
         "eval_every_steps": 100, "log_every_steps": 10, "checkpoint_every_steps": 1000,
-        "preemption_poll_batches": 8, "steps_per_call": 1, "rng_impl": "threefry2x32",
-        "optim": {"fused_update": True},
+        "preemption_poll_batches": 8, "rng_impl": "threefry2x32",
     },
-    "precision": {"compute_dtype": "bfloat16", "param_dtype": "float32", "remat": False},
+    "precision": {"compute_dtype": "bfloat16", "param_dtype": "float32"},
     "mesh": {"data_axis": "data", "model_axis": "model", "model_parallel": 1},
     "data": {"num_workers": 0, "max_seq_len": 1024},
     "logging": {"csv_metrics": True},
@@ -97,9 +98,10 @@ def _same(a, b) -> bool:
 def _check_unported(path: str, value, default) -> None:
     if path in _LAYOUT_ONLY:
         return
-    if path == "precision.compute_dtype" and value != default:
-        raise ValueError(f"precision.compute_dtype={value!r}: the port computes in bfloat16 "
-                         "only (every CUDA kernel takes bf16; ROADMAP queue 3 item 2)")
+    if path in ("precision.compute_dtype", "precision.param_dtype") and value != default:
+        raise ValueError(f"{path}={value!r} is not ported: nothing of the JAX package reads it "
+                         "(its modules take their dtype from their own attribute: bf16 "
+                         f"compute, f32 params), so the port holds it to {default!r}")
     if isinstance(default, dict) and isinstance(value, dict):
         for k, v in value.items():
             if k not in default:

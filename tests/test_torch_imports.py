@@ -47,7 +47,8 @@ def test_port_imports_no_jax():
                 "train.preemption", "utils.logging", "experiments.evaluate",
                 "ops.loss_variants", "models.classifiers", "train.analysis",
                 "experiments.analyze", "experiments.visualize", "experiments.sweep",
-                "utils.visualization", "utils.system", "types"):
+                "utils.visualization", "utils.system", "types", "data.prefetch",
+                "native.bindings", "utils.precision"):
         assert f"'clip_dplm_tpu_torch.{mod}'" in names, mod
     assert leaked.strip() == "[]", out.stdout
 

@@ -206,16 +206,22 @@ def test_jax_config_holds_unported_fields_to_defaults(tmp_path, monkeypatch):
                 assert v == ref[k], path + k
 
     walk(pretrained._UNPORTED, jd)
-    for section, field, value in (("flow", "sinkhorn_epsilon", 0.5), ("precision", "remat", True),
-                                  ("train", "steps_per_call", 4)):
+    for section, field, value in (("flow", "sinkhorn_epsilon", 0.5),
+                                  ("precision", "param_dtype", "bfloat16"),
+                                  ("train", "preemption_poll_batches", 4)):
         path = _jax_yaml(tmp_path, **{section: lambda c: dataclasses.replace(
             c, **{field: value})})
         with pytest.raises(ValueError, match=f"{section}.{field}"):
             pretrained.read_config(path)
     path = _jax_yaml(tmp_path, precision=lambda c: dataclasses.replace(
         c, compute_dtype="float32"))
-    with pytest.raises(ValueError, match="bfloat16 only"):
+    with pytest.raises(ValueError, match="nothing of the JAX package reads it"):
         pretrained.read_config(path)
+    # fields ported since: read as they are
+    path = _jax_yaml(tmp_path, precision=lambda c: dataclasses.replace(c, remat=True),
+                     train=lambda c: dataclasses.replace(c, steps_per_call=4))
+    cfg = pretrained.read_config(path)
+    assert cfg.precision.remat is True and cfg.train.steps_per_call == 4
     # the stacked layout is read either way
     path = _jax_yaml(tmp_path, dplm=lambda c: dataclasses.replace(c, scan_layers=True))
     assert pretrained.read_config(path).dplm.d_model == 64
